@@ -2,9 +2,10 @@
 """Configuration tree of the PyTorch port.
 
 An own copy of the JAX package's `config.py` (CLIP_ARCHS, ClusterConfig,
-BlockClusterSpec, build_cluster_plan, ModelConfig, make_run_config), so the
-port imports nothing of that package.  The fields are the same, so configs
-built from the same keywords compare field by field.  Fields that only
+BlockClusterSpec, build_cluster_plan, ModelConfig, make_run_config, the
+per-dataset `preset`s), so the port imports nothing of that package.  The
+fields are the same, so configs built from the same keywords compare field
+by field.  Fields that only
 steer TPU code (`fused_attention`, `remat`, `sequence_parallel`,
 `pipeline_parallel`) are accepted; the port's model builders ignore
 `fused_attention` (CUDA tensors always take the port's kernels) and raise on
@@ -343,3 +344,26 @@ def flagship_config(compute_dtype: str = "bfloat16") -> ModelConfig:
         compute_dtype=compute_dtype, inter=True, algo="kmediods++",
         cluster_num_blocks=(49,) * 12,
         target_frames_blocks=(12,) * 6 + (6,) * 6).model
+
+
+# ---------------------------------------------------------------------------
+# Canonical per-dataset presets (reference: scripts/*.sh case blocks)
+# ---------------------------------------------------------------------------
+def preset(name: str, **overrides) -> RunConfig:
+    """Named experiment presets matching the reference's script configs.
+    Only the presets whose algorithms and widths the port runs are here."""
+    presets = {
+        # scripts/msrvtt.sh:78-93 (eclip_msrvtt_62): ViT-B/32 kmediods++ 12->6
+        "msrvtt_vitb32_k6": dict(
+            datatype="msrvtt", clip_name="ViT-B/32", sim_header="meanP",
+            max_words=32, max_frames=12, expand_msrvtt_sentences=True,
+            inter=True, algo="kmediods++",
+            cluster_num_blocks=(49,) * 12,
+            target_frames_blocks=(12,) * 6 + (6,) * 6,
+            optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
+    }
+    if name not in presets:
+        raise KeyError(f"unknown preset {name}; available: {sorted(presets)}")
+    cfg = dict(presets[name])
+    cfg.update(overrides)
+    return make_run_config(**cfg)

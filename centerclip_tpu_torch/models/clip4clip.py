@@ -4,13 +4,16 @@ JAX package's `models/clip4clip.py`, reference: modules/clip4clip.py).
 
 `get_sequence_output` and `get_visual_output` encode the two modalities to
 fp32; `loose_similarity` is the meanP similarity (masked mean of the
-normalised frame features, 1e-12 norm eps, scaled by exp(logit_scale)).
-The seqTransf, seqLSTM and tightTransf headers and training are not ported
-yet; a config that asks for them raises.
+normalised frame features, 1e-12 norm eps, scaled by exp(logit_scale));
+`forward(..., training=True)` adds the symmetric InfoNCE loss.  Every path
+is differentiable: callers that only encode (the serving engine, the
+evaluator) run it under `torch.inference_mode()`.  The seqTransf, seqLSTM
+and tightTransf headers are not ported yet; a config that asks for them
+raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -19,6 +22,7 @@ from .. import resolve_device
 from ..config import ModelConfig
 from ..ops.cluster_layer import video_mask_after_cluster
 from .clip import CLIP
+from .losses import cross_entropy
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -51,12 +55,10 @@ class CLIP4Clip(nn.Module):
     def device(self) -> torch.device:
         return self.clip.logit_scale.device
 
-    @torch.no_grad()
     def get_sequence_output(self, input_ids: torch.Tensor) -> torch.Tensor:
         """[B, L] ids -> [B, 1, D] fp32 (clip4clip.py:265-272)."""
         return self.clip.encode_text(input_ids).float()[:, None, :]
 
-    @torch.no_grad()
     def get_visual_output(self, video: torch.Tensor,
                           video_mask: torch.Tensor) -> torch.Tensor:
         """[B, 1, T, C, H, W] or [B*T, C, H, W] uint8 / float frames ->
@@ -94,7 +96,6 @@ class CLIP4Clip(nn.Module):
             _normalize(visual_output.float()), video_mask)
         return _normalize(pooled)
 
-    @torch.no_grad()
     def loose_similarity(self, sequence_output: torch.Tensor,
                          visual_output: torch.Tensor,
                          video_mask: torch.Tensor,
@@ -111,3 +112,34 @@ class CLIP4Clip(nn.Module):
         if logit_scale is None:
             logit_scale = self.clip.logit_scale.exp()
         return logit_scale * seq @ visual.t()
+
+    def forward(self, input_ids: Optional[torch.Tensor] = None,
+                attention_mask: Optional[torch.Tensor] = None,
+                video: Optional[torch.Tensor] = None,
+                video_mask: Optional[torch.Tensor] = None,
+                training: bool = False) -> Dict[str, torch.Tensor]:
+        """Joint forward (JAX package `models/clip4clip.py:232-272`).
+
+        Returns sequence_output / visual_output and, with `training`, the
+        loss terms: sim_loss = 0.5 (CE(sim) + CE(sim^T)) over the meanP
+        logits with the post-cluster video mask, cluster_loss = 0
+        (kmediods++ has no learned clustering loss), loss = their sum.
+        `attention_mask` is accepted for the reference's signature; meanP
+        does not read it."""
+        del attention_mask
+        out: Dict[str, torch.Tensor] = {}
+        if input_ids is not None:
+            out["sequence_output"] = self.get_sequence_output(
+                input_ids.reshape(-1, input_ids.shape[-1]))
+        if video is not None:
+            video_mask = self.video_mask_after_cluster(
+                video_mask.reshape(-1, video_mask.shape[-1]))
+            out["visual_output"] = self.get_visual_output(video, video_mask)
+        if training:
+            sim = self.loose_similarity(out["sequence_output"],
+                                        out["visual_output"], video_mask)
+            sim_loss = 0.5 * (cross_entropy(sim) + cross_entropy(sim.t()))
+            cluster_loss = torch.zeros((), device=sim.device)
+            out.update(sim_loss=sim_loss, cluster_loss=cluster_loss,
+                       loss=sim_loss + cluster_loss)
+        return out

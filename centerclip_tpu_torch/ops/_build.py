@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNEL_SOURCES = ("attention", "kmedoids")
+KERNEL_SOURCES = ("attention", "attention_bwd", "kmedoids")
 # opt-in shared memory one Hopper CTA may use (227 KB)
 MAX_SMEM_BYTES = 232_448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -6,9 +6,13 @@ modules/cluster/cluster.py:66-352):
 
   input  [B*T, 1+P, D]   T frames, P patch tokens per frame, CLS first
   group the T frames into S segments of `dur` frames; per segment cluster
-  the dur*P patch tokens into K medoids (k-medoids in fp32, no autograd);
-  the new CLS is the mean of the segment's frame CLS tokens
-  output [B*S, 1+K, D]   fp32, as in the JAX package
+  the dur*P patch tokens into K medoids (k-medoids on a detached fp32 copy,
+  no autograd); the new CLS is the mean of the segment's frame CLS tokens
+  output [B*S, 1+K, D]   in x's dtype, as in the JAX package
+
+Gradient flows, as in the JAX package (whose `stop_gradient` sits inside
+`_cluster` only), through the gathered medoid tokens (or the cluster means)
+and the CLS means back to the tokens of the blocks before.
 
 k-medoids goes through `ops/kmedoids_cuda.kmedoids`: the CUDA kernel for a
 CUDA tensor, the plain version for a CPU tensor.  The pooling,
@@ -98,7 +102,7 @@ class TokenClusterInter(nn.Module):
         cls_seg = cls_seg.reshape(B * S, 1, width)
 
         res_x = x[:, 1:, :].reshape(B, T, num_tokens - 1, width)
-        res_tmp = segment_major(res_x, S, dur).detach().float()
+        res_tmp = segment_major(res_x, S, dur)               # [S*B, N, D]
         assign, medoid_ids = self._cluster(res_tmp)
         if self.cfg.aggregation in (None, "None"):
             idx = medoid_ids.long()[..., None].expand(-1, -1, width)

@@ -8,9 +8,10 @@ weights), warms up, then runs one gallery batch of `--batch` seeded uint8
 clips and one search of `--queries` texts under `torch.profiler`.  For each
 it prints the wall time (host clock, ending in a device sync), the device
 time summed over kernels and copies, the device's busy share of the wall
-time, and the device time by group (the port's three kernels, cuBLAS
-matmuls, copies, the rest) and by kernel name.  Exits non-zero without a
-CUDA device, or if the profiler records no device time.
+time, and the device time by group (the port's kernels, cuBLAS matmuls,
+copies, the rest) and by kernel name.  Exits non-zero without a CUDA
+device, or if the profiler records no device time.  `profile` is shared
+with `profile_train.py`.
 """
 from __future__ import annotations
 
@@ -27,9 +28,12 @@ from .models.clip4clip import CLIP4Clip
 from .serve import RetrievalEngine
 
 GROUPS = (("attention kernel", ("attention_fwd_kernel",)),
+          ("attention bwd kernel", ("attention_bwd_kernel",)),
           ("layernorm kernel", ("_ln_fwd",)),
+          ("layernorm bwd kernel", ("_ln_bwd",)),
           ("kmedoids kernel", ("kmedoids_kernel",)),
           ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90")),
+          ("optimizer (foreach)", ("multi_tensor_apply",)),
           ("copies", ("memcpy", "memset")))
 QUERIES = ["a man is cooking pasta in a kitchen",
            "two dogs are playing in the snow",

@@ -7,7 +7,9 @@ model's meanP similarity logits: the gallery stores the pooled, normalised
 video vectors, the query gets the same normalisation, and the scores are
 scaled by exp(logit_scale).  PyTorch runs eagerly, so there is no compiled
 program cache: each call runs the towers and reads its result back to the
-host once.  IVF indexes, meshes and warm-up are not ported yet.
+host once.  Encoding and search run under `torch.inference_mode()`: the
+model itself is differentiable (it also trains), the engine never needs a
+gradient.  IVF indexes, meshes and warm-up are not ported yet.
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ class RetrievalEngine:
                                    max_words=self.max_words)
         return self.encode_token_ids(ids)
 
+    @torch.inference_mode()
     def encode_token_ids(self, input_ids: np.ndarray) -> np.ndarray:
         return self._embed_text(input_ids).cpu().numpy()
 
@@ -95,6 +98,7 @@ class RetrievalEngine:
                  for s, i in zip(scores[q], idx[q])]
                 for q in range(len(texts))]
 
+    @torch.inference_mode()
     def search_token_ids(self, input_ids: np.ndarray, k: int = 5
                          ) -> Tuple[np.ndarray, np.ndarray]:
         """Tokenised queries -> (scores [Q, k] incl. exp(logit_scale),
@@ -117,6 +121,7 @@ class RetrievalEngine:
         vm = m.video_mask_after_cluster(video_mask)
         return m.pooled_video(m.get_visual_output(video, vm), vm)
 
+    @torch.inference_mode()
     def embed_video_batches(
             self, batches: Iterable[Dict[str, np.ndarray]]) -> np.ndarray:
         """Encode video batches to pooled gallery vectors.

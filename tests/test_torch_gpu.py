@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from centerclip_tpu_torch import config as port_config
+from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
 from centerclip_tpu_torch.ops import attention_cuda, kmedoids_cuda
 from centerclip_tpu_torch.ops import layernorm_triton
 from centerclip_tpu_torch.ops.distances import pairwise_distance
@@ -25,6 +27,10 @@ pytestmark = pytest.mark.gpu
 # bf16 keeps 8 significant bits: kernel and plain version round the same
 # fp32 values, so they differ by at most about one bf16 ulp
 BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+# fp32 backward outputs that are sums over a sequence or over rows, taken in
+# another order than the plain version's: within 1e-5 of the sum of the
+# terms' magnitudes (the worst case of ~150 sequential fp32 adds)
+SUM_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -150,3 +156,171 @@ def test_distances_symmetric_on_card(cuda):
     X = _randn((8, 98, 768), torch.float32, cuda)
     D = pairwise_distance(X, X, all_negative=True, self_nearest=True)
     assert torch.equal(D, D.transpose(-1, -2))
+
+
+def _assert_sum_close(out, ref, abs_terms):
+    """|out - ref| <= SUM_RTOL * sum |terms| + 1e-6, elementwise."""
+    err = (out.float() - ref.float()).abs()
+    bound = SUM_RTOL * abs_terms + 1e-6
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def _abs_ds_sum(qkv, dout, H, mask):
+    """sum over samples and heads of |dS| (the terms of the mask gradient)."""
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    hd = D // H
+
+    def heads(x):
+        return x.reshape(B, L, H, hd).transpose(1, 2).float()
+    q, k, v = qkv.split(D, dim=-1)
+    p = torch.softmax(heads(q * hd ** -0.5) @ heads(k).transpose(-1, -2)
+                      + mask, dim=-1)
+    dp = heads(dout) @ heads(v).transpose(-1, -2)
+    return (p * (dp - (dp * p).sum(-1, keepdim=True))).abs().sum((0, 1))
+
+
+@pytest.mark.parametrize("B,L,H,hd,dtype,causal,mask_grad", [
+    (16, 50, 12, 64, torch.bfloat16, False, False),    # vision blocks
+    (8, 32, 8, 64, torch.bfloat16, True, False),       # text tower
+    (8, 32, 8, 64, torch.bfloat16, True, True),        # dmask atomics
+    (4, 50, 12, 64, torch.float32, False, False),
+    (3, 77, 8, 64, torch.float16, True, True),
+])
+def test_attention_bwd_kernel_matches_plain(cuda, B, L, H, hd, dtype, causal,
+                                            mask_grad):
+    qkv = _randn((B, L, 3 * H * hd), dtype, cuda, seed=L + H)
+    dout = _randn((B, L, H * hd), dtype, cuda, seed=L + H + 1)
+    mask = _causal(L, cuda) if causal else None
+    before = attention_cuda.attention_backward.launches
+    dqkv, dmask = attention_cuda.attention_backward(qkv, dout, H, mask,
+                                                    mask_grad=mask_grad)
+    torch.cuda.synchronize()
+    assert attention_cuda.attention_backward.launches == before + 1
+    ref, ref_mask = attention_cuda.attention_bwd_plain(qkv, dout, H, mask,
+                                                       mask_grad=mask_grad)
+    assert dqkv.dtype == dtype and dqkv.shape == qkv.shape
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(dqkv.float(), ref.float(), **tol)
+    if mask_grad:
+        assert bool(torch.isfinite(dmask).all())
+        assert bool((dmask.triu(1) == 0).all())    # -inf entries: dS = 0
+        # dS summed over samples and heads by atomics in any order
+        _assert_sum_close(dmask, ref_mask, _abs_ds_sum(qkv, dout, H, mask))
+    else:
+        assert dmask is None
+
+
+def test_attention_function_backward_is_the_kernel(cuda):
+    B, L, H = 6, 50, 12
+    qkv = _randn((B, L, 3 * H * 64), torch.bfloat16, cuda, seed=3)
+    dout = _randn((B, L, H * 64), torch.bfloat16, cuda, seed=4)
+    x = qkv.clone().requires_grad_(True)
+    a0 = attention_cuda.fused_attention.launches
+    b0 = attention_cuda.attention_backward.launches
+    out = attention_cuda.fused_attention(x, H)
+    out.backward(dout)
+    assert attention_cuda.fused_attention.launches == a0 + 1
+    assert attention_cuda.attention_backward.launches == b0 + 1
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H)
+    assert torch.equal(x.grad, dqkv)
+
+
+def test_attention_bwd_rejects_what_it_cannot_take(cuda):
+    qkv = _randn((2, 197, 3 * 768), torch.bfloat16, cuda)
+    dout = _randn((2, 197, 768), torch.bfloat16, cuda)
+    with pytest.raises(ValueError):                     # shared memory
+        attention_cuda.attention_backward(qkv, dout, 12)
+    small = _randn((2, 50, 3 * 768), torch.bfloat16, cuda)
+    with pytest.raises(ValueError):                     # dout shape
+        attention_cuda.attention_backward(small, dout, 12)
+    with pytest.raises(ValueError):                     # dmask, no mask
+        attention_cuda.attention_backward(
+            small, _randn((2, 50, 768), torch.bfloat16, cuda), 12,
+            mask_grad=True)
+
+
+@pytest.mark.parametrize("R,D,dtype", [
+    (1536 * 50, 768, torch.bfloat16), (768 * 50, 768, torch.bfloat16),
+    (768, 768, torch.bfloat16), (128 * 32, 512, torch.bfloat16),
+    (1000, 768, torch.float32), (33, 100, torch.float16)])
+def test_layernorm_bwd_kernel_matches_plain(cuda, R, D, dtype):
+    x = _randn((R, D), dtype, cuda, seed=R, scale=3.0) + 1.5
+    w = _randn((D,), torch.float32, cuda, seed=1, scale=0.1) + 1.0
+    dy = _randn((R, D), dtype, cuda, seed=2)
+    before = layernorm_triton.layer_norm_backward.launches
+    dx, dw, db = layernorm_triton.layer_norm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert layernorm_triton.layer_norm_backward.launches == before + 1
+    rx, rw, rb = layernorm_triton.layer_norm_bwd_plain(x, w, dy)
+    assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(dx.float(), rx.float(), **tol)
+    xf = x.float()
+    xhat = (xf - xf.mean(-1, keepdim=True)) / xf.std(-1, correction=0,
+                                                      keepdim=True)
+    _assert_sum_close(dw, rw, (dy.float() * xhat).abs().sum(0))
+    _assert_sum_close(db, rb, dy.float().abs().sum(0))
+
+
+def test_layernorm_function_backward_is_the_kernel(cuda):
+    x = _randn((2, 50, 768), torch.bfloat16, cuda, seed=5)
+    w = _randn((768,), torch.float32, cuda, seed=6) * 0.1 + 1.0
+    b = _randn((768,), torch.float32, cuda, seed=7)
+    dy = _randn((2, 50, 768), torch.bfloat16, cuda, seed=8)
+    xs, ws, bs = (a.clone().requires_grad_(True) for a in (x, w, b))
+    c0 = layernorm_triton.layer_norm.launches
+    d0 = layernorm_triton.layer_norm_backward.launches
+    layernorm_triton.layer_norm(xs, ws, bs).backward(dy)
+    assert layernorm_triton.layer_norm.launches == c0 + 1
+    assert layernorm_triton.layer_norm_backward.launches == d0 + 1
+    dx, dw, db = layernorm_triton.layer_norm_backward(x, w, dy)
+    assert torch.equal(xs.grad, dx) and torch.equal(ws.grad, dw) \
+        and torch.equal(bs.grad, db)
+
+
+def test_one_training_step_of_a_tiny_model_on_the_card(cuda):
+    """A 2 + 2 block clustered model takes one Trainer step on the card
+    through all five kernels; loss and every gradient are finite."""
+    from centerclip_tpu_torch.train import Trainer
+    port_config.CLIP_ARCHS["tiny-gpu-train"] = dict(
+        embed_dim=32, image_resolution=64, vision_layers=2, vision_width=128,
+        vision_patch_size=16, vision_heads=2, context_length=16,
+        vocab_size=100, transformer_width=128, transformer_heads=2,
+        transformer_layers=2)
+    run = port_config.make_run_config(
+        clip_name="tiny-gpu-train", max_frames=4, max_words=16,
+        inter=True, algo="kmediods++", cluster_num_blocks=(8, 8),
+        target_frames_blocks=(4, 2), optim="AdamW", lr=1e-3,
+        freeze_layer_num=0)
+    model = CLIP4Clip(run.model, device=cuda, seed=0)
+    g = np.random.default_rng(0)
+    ids = g.integers(1, 98, (4, 16))
+    ids[:, -1] = 99
+    batch = {"input_ids": ids, "attention_mask": np.ones((4, 16), np.int32),
+             "video": g.integers(0, 256, (4, 1, 4, 3, 64, 64),
+                                 dtype=np.uint8),
+             "video_mask": np.ones((4, 4), np.int32)}
+    counters = (attention_cuda.fused_attention,
+                attention_cuda.attention_backward, layernorm_triton.layer_norm,
+                layernorm_triton.layer_norm_backward,
+                kmedoids_cuda.kmedoids_from_distances)
+    before = [fn.launches for fn in counters]
+    trainer = Trainer(run, model, total_steps=10)
+    # the gradients are read between the backward and the update, which
+    # would fill a missing one with zeros
+    update, seen = trainer.optimizer.step, {}
+
+    def checked_update():
+        seen.update({n: None if p.grad is None else p.grad.clone()
+                     for n, p in model.named_parameters() if p.requires_grad})
+        update()
+    trainer.optimizer.step = checked_update
+    loss, gstep = trainer.train_epoch(0, [batch], n_display=1)
+    torch.cuda.synchronize()
+    assert gstep == 1 and np.isfinite(loss)
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+    assert seen
+    for name, grad in seen.items():
+        assert grad is not None and bool(torch.isfinite(grad).all()) \
+            and bool(grad.abs().max() > 0), name

@@ -95,7 +95,7 @@ def test_text_features_match_jax(pair):
     ref = np.asarray(_jax(jmodel, params,
                           JaxCLIP4Clip.get_sequence_output, jnp.asarray(ids)))
     out = model.get_sequence_output(t(ids).long())
-    np.testing.assert_allclose(out.numpy(), ref, **FP32)
+    np.testing.assert_allclose(out.detach().numpy(), ref, **FP32)
 
 
 @pytest.mark.parametrize("pixels", ["uint8", "float32"])
@@ -112,7 +112,7 @@ def test_visual_output_matches_jax(pair, pixels):
                   jnp.asarray(video), jnp.asarray(np.asarray(vm)))
     out = model.get_visual_output(t(video), vm)
     assert tuple(out.shape) == (3, T // 2, 32)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **FP32)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **FP32)
 
 
 def test_similarity_matches_jax(pair):
@@ -132,7 +132,7 @@ def test_similarity_matches_jax(pair):
     sim = model.loose_similarity(model.get_sequence_output(t(ids).long()),
                                  model.get_visual_output(t(video), vm_t),
                                  vm_t)
-    np.testing.assert_allclose(sim.numpy(), np.asarray(ref), **FP32)
+    np.testing.assert_allclose(sim.detach().numpy(), np.asarray(ref), **FP32)
 
 
 def test_bf16_model_tracks_fp32(pair):

@@ -150,7 +150,7 @@ def test_engine_gallery_matches_model_similarity():
         vm = m.video_mask_after_cluster(torch.from_numpy(b["video_mask"]))
         vis = m.get_visual_output(torch.from_numpy(b["video"]), vm)
         np.testing.assert_allclose(gallery[lo:lo + len(vm)],
-                                   m.pooled_video(vis, vm).numpy(),
+                                   m.pooled_video(vis, vm).detach().numpy(),
                                    rtol=1e-5, atol=1e-6)
 
 
