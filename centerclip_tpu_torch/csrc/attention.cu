@@ -11,84 +11,84 @@
 //   out    = probs.to(T) . v            fp32 accumulation, stored as T
 //
 // which is the arithmetic of the plain version in ops/attention_cuda.py
-// (q is scaled and rounded to T first, as `q * scale` does on a T tensor).
+// (q is scaled and rounded to T first, as `q * scale` does on a T tensor;
+// P is normalised in fp32, then rounded to T).
 //
-// Bound on this card: at CLIP's short sequences (L = 50 vision, 32 text)
-// the work is ~4*L*hd flops per loaded element, far below the ~295
-// flop/byte ridge of an H100, so the kernel is bound by moving q, k, v and
-// out through device memory.  Design: one CTA per (sample, head) stages its
-// q, k^T and v tiles in shared memory once, keeps the fp32 [L, L] scores and
-// probabilities in shared memory (never in device memory), and writes the
-// [L, hd] output into the [B, L, D] result without any head transpose.  The
-// TPU kernel's block-diagonal multi-sample batching was a device of the
-// TPU's matrix unit and is not carried over; tensor-core (mma/wgmma) tiles
-// are left to a later change.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+// Two variants, chosen by the wrapper from dtype and head_dim:
+//
+// * attention_fwd_mma_kernel (bf16 / fp16, hd % 16 == 0): tensor cores.
+//   A persistent grid (as many CTAs of 4 warps as fit on the card) walks
+//   the (sample, head) items.  An item's q, k, v rows (hd contiguous
+//   elements at a 16-byte aligned offset) come in by 16-byte cp.async into
+//   shared tiles of row stride hd + 8 (ldmatrix without bank conflicts),
+//   the sequence padded to a multiple of 16 with zero rows; where two
+//   stages fit, the next item's rows load while this one computes.  Each
+//   warp owns 16 query rows: S = qs.K^T by mma.m16n8k16 (ldmatrix-fed, q
+//   scaled and rounded to T in its fragments, fp32 accumulation) stays in
+//   registers, 64 keys at a time; the row max and sum are reduced over the
+//   quad that holds a row.  P = exp(S - m) / l is rounded to T straight into
+//   the A fragments of O = P.V (V through ldmatrix.trans), so P never
+//   touches shared memory.  For L > 64 a first pass over the 64-key tiles
+//   finds m and l and a second recomputes S and runs P.V: P is rounded after
+//   normalisation, as the plain version does (one-pass online softmax would
+//   round before).  O is written as T with 16-byte stores through a
+//   per-warp staging tile.
+//   Bound on this card: at CLIP's short sequences (L = 50, 32) the work is
+//   ~4*L*hd flops per element moved, far below the ~295 flop/byte ridge of
+//   an H100, so the kernel is bound by moving q, k, v and out; the design
+//   keeps everything else on chip, and the two-stage pipeline keeps the
+//   loads in flight while the CTA computes (one CTA per item that loads,
+//   then computes, ran 1.6x slower at [384, 50, 2304]).
+// * attention_fwd_kernel (fp32): CUDA cores, the products as fmaf loops from
+//   shared memory (tensor cores have no exact fp32 product, and TF32 is off
+//   in the port), the fp32 [L, L] scores in shared memory.
+//
+// The TPU kernel's block-diagonal multi-sample batching was a device of the
+// TPU's matrix unit and is not carried over.
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using cc::kPad;
+using cc::pad16;
+using cc::set_smem;
+using cc::warp_max;
+using cc::warp_sum;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half x) {
-  return __half2float(x);
-}
+// ------------------------------------------------------------ fp32 (SIMT)
+constexpr int kSimtThreads = 256;
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
+// shared memory: q [L, hd], k^T [hd, L], v [L, hd], then the fp32 scores
+// [L, L] at a 16-byte aligned offset
+__host__ __device__ inline size_t simt_scores_offset(int L, int hd) {
+  return (3 * (size_t)L * hd * sizeof(float) + 15) / 16 * 16;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+__host__ __device__ inline size_t simt_smem(int L, int hd) {
+  return simt_scores_offset(L, hd) + (size_t)L * L * sizeof(float);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// shared memory: q [L, hd], k^T [hd, L], v [L, hd] in T, then the fp32
-// scores [L, L] at a 16-byte aligned offset
-__host__ __device__ inline size_t scores_offset(int L, int hd, size_t elem) {
-  return (3 * (size_t)L * hd * elem + 15) / 16 * 16;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                     T* __restrict__ out, int L, int H, int hd, float scale) {
+__global__ void __launch_bounds__(kSimtThreads)
+attention_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                     float* __restrict__ out, int L, int H, int hd, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sq = reinterpret_cast<T*>(smem);
-  T* skt = sq + L * hd;
-  T* sv = skt + L * hd;
-  float* sp = reinterpret_cast<float*>(smem + scores_offset(L, hd, sizeof(T)));
+  float* sq = reinterpret_cast<float*>(smem);
+  float* skt = sq + L * hd;
+  float* sv = skt + L * hd;
+  float* sp = reinterpret_cast<float*>(smem + simt_scores_offset(L, hd));
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int D = H * hd;
   const size_t row = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * L * row + (size_t)h * hd;
+  const float* base = qkv + (size_t)b * L * row + (size_t)h * hd;
 
   for (int e = threadIdx.x; e < L * hd; e += blockDim.x) {
     const int i = e / hd, d = e % hd;
-    const T* r = base + i * row + d;
-    sq[e] = from_f<T>(to_f<T>(r[0]) * scale);
+    const float* r = base + i * row + d;
+    sq[e] = r[0] * scale;
     skt[d * L + i] = r[D];
     sv[e] = r[2 * D];
   }
@@ -96,10 +96,9 @@ attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
 
   for (int e = threadIdx.x; e < L * L; e += blockDim.x) {
     const int i = e / L, j = e % L;
-    const T* qi = sq + i * hd;
+    const float* qi = sq + i * hd;
     float acc = 0.f;
-    for (int d = 0; d < hd; ++d)
-      acc = fmaf(to_f<T>(qi[d]), to_f<T>(skt[d * L + j]), acc);
+    for (int d = 0; d < hd; ++d) acc = fmaf(qi[d], skt[d * L + j], acc);
     if (mask != nullptr) acc += mask[e];
     sp[e] = acc;
   }
@@ -119,34 +118,259 @@ attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
       s += ex;
     }
     s = warp_sum(s);
-    // probabilities are rounded to T before P.V, as the plain version does
-    for (int j = lane; j < L; j += 32) pr[j] = to_f<T>(from_f<T>(pr[j] / s));
+    for (int j = lane; j < L; j += 32) pr[j] = pr[j] / s;
   }
   __syncthreads();
 
-  T* ob = out + (size_t)b * L * D + (size_t)h * hd;
+  float* ob = out + (size_t)b * L * D + (size_t)h * hd;
   for (int e = threadIdx.x; e < L * hd; e += blockDim.x) {
     const int i = e / hd, d = e % hd;
     const float* pr = sp + i * L;
     float acc = 0.f;
-    for (int j = 0; j < L; ++j) acc = fmaf(pr[j], to_f<T>(sv[j * hd + d]), acc);
-    ob[(size_t)i * D + d] = from_f<T>(acc);
+    for (int j = 0; j < L; ++j) acc = fmaf(pr[j], sv[j * hd + d], acc);
+    ob[(size_t)i * D + d] = acc;
+  }
+}
+
+// ----------------------------------------------------- bf16 / fp16 (mma)
+constexpr int kWarps = 4;
+constexpr int kKeys = 64;          // keys per register tile of S
+constexpr int kCols = 64;          // head channels per register tile of O
+constexpr int kStage = 16 * (kCols + kPad);
+
+// shared memory: one [16][72] staging tile per warp, then one or two
+// stages of q, k, v [Lp][hd + 8] in T (two where they fit: the next head
+// loads while this one computes)
+__host__ __device__ inline size_t mma_stage_bytes(int L, int hd, size_t elem) {
+  return 3 * (size_t)pad16(L) * (hd + kPad) * elem;
+}
+__host__ __device__ inline int mma_stages(int L, int hd, size_t elem) {
+  return cc::n_stages(kWarps * kStage * elem, mma_stage_bytes(L, hd, elem));
+}
+__host__ __device__ inline size_t mma_smem(int L, int hd, size_t elem) {
+  return kWarps * kStage * elem + mma_stages(L, hd, elem) * mma_stage_bytes(L, hd, elem);
+}
+
+// S = qs[q0:q0+16] . K[k0:k0+64]^T for one warp, q scaled and rounded to T
+// in its fragments; masked: columns >= L (and beyond the tile) are -inf,
+// rows >= L get no mask
+template <typename T>
+__device__ __forceinline__ void scores(float (&s)[kKeys / 8][4], const T* sq, const T* sk,
+                                       int ld, int hd, int q0, int k0, int L, int Lp,
+                                       float scale, const float* __restrict__ mask,
+                                       int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kKeys / 8; ++nt)
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  for (int ks = 0; ks < hd; ks += 16) {
+    uint32_t a[4];
+    cc::ldmatrix_x4(a, cc::a_frag(sq, ld, q0, ks, lane));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float lo, hi;
+      cc::unpack2<T>(a[r], lo, hi);
+      a[r] = cc::pack2<T>(lo * scale, hi * scale);
+    }
+#pragma unroll
+    for (int np = 0; np < kKeys / 16; ++np) {
+      if (k0 + np * 16 < Lp) {
+        uint32_t b[4];
+        cc::ldmatrix_x4(b, cc::b_pair(sk, ld, k0 + np * 16, ks, lane));
+        cc::mma16816<T>(s[2 * np], a, b[0], b[1]);
+        cc::mma16816<T>(s[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kKeys / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = q0 + g + (e >> 1) * 8;
+      const int j = k0 + nt * 8 + 2 * t + (e & 1);
+      if (j >= L)
+        s[nt][e] = -INFINITY;
+      else if (mask != nullptr && i < L)
+        s[nt][e] += mask[(size_t)i * L + j];
+    }
+  }
+}
+
+// s = exp(s - ref) in place for the thread's two rows; returns the
+// thread's part of each row sum
+__device__ __forceinline__ void exp_rows(float (&s)[kKeys / 8][4], const float (&ref)[2],
+                                         float (&sum)[2]) {
+  sum[0] = sum[1] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kKeys / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = expf(s[nt][e] - ref[e >> 1]);
+      sum[e >> 1] += s[nt][e];
+    }
+}
+
+// P = e / l rounded to T, as the A fragments of P.V (one per 16 keys)
+template <typename T>
+__device__ __forceinline__ void probs(uint32_t (&pa)[kKeys / 16][4],
+                                      const float (&e)[kKeys / 8][4], const float (&inv)[2]) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int nt = 2 * kk + half;
+      pa[kk][2 * half] = cc::pack2<T>(e[nt][0] * inv[0], e[nt][1] * inv[0]);
+      pa[kk][2 * half + 1] = cc::pack2<T>(e[nt][2] * inv[1], e[nt][3] * inv[1]);
+    }
+}
+
+// the row max of a row that is all -inf so far counts as 0, so its
+// exponentials are 0 (and a fully masked row's P is 0 / 0, as in the plain
+// version)
+__device__ __forceinline__ float finite_ref(float m) { return m == -INFINITY ? 0.f : m; }
+
+// one (sample, head): out rows of 16 per warp from the staged q, k, v
+template <typename T>
+__device__ __forceinline__ void attend(const T* sq, const T* sk, const T* sv, T* stage,
+                                       T* ob, int L, int Lp, int ld, int hd, int D,
+                                       float scale, const float* __restrict__ mask,
+                                       int warp, int lane) {
+  const int n_key_tiles = (Lp + kKeys - 1) / kKeys;
+  for (int q0 = warp * 16; q0 < Lp; q0 += kWarps * 16) {
+    // pass 1: row max and sum over all key tiles (quad-local partial sums)
+    float s[kKeys / 8][4];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int kt = 0; kt < n_key_tiles; ++kt) {
+      scores<T>(s, sq, sk, ld, hd, q0, kt * kKeys, L, Lp, scale, mask, lane);
+      float mn[2], ref[2], sum[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < kKeys / 8; ++nt)
+          cm = fmaxf(cm, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+        mn[r] = fmaxf(m[r], cc::quad_max(cm));
+        ref[r] = finite_ref(mn[r]);
+      }
+      exp_rows(s, ref, sum);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * expf(m[r] - ref[r]) + sum[r];
+        m[r] = mn[r];
+      }
+    }
+    const float inv[2] = {1.f / cc::quad_sum(l[0]), 1.f / cc::quad_sum(l[1])};
+    const float ref[2] = {finite_ref(m[0]), finite_ref(m[1])};
+
+    // pass 2: O = P.V, 64 head channels at a time; with one key tile the
+    // exponentials are still in registers
+    uint32_t pa[kKeys / 16][4];
+    if (n_key_tiles == 1) probs<T>(pa, s, inv);
+    for (int c0 = 0; c0 < hd; c0 += kCols) {
+      const int n_tiles = min(kCols, hd - c0) / 8;
+      float acc[kCols / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kCols / 8; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      for (int kt = 0; kt < n_key_tiles; ++kt) {
+        const int k0 = kt * kKeys;
+        if (n_key_tiles > 1) {
+          float sum[2];
+          scores<T>(s, sq, sk, ld, hd, q0, k0, L, Lp, scale, mask, lane);
+          exp_rows(s, ref, sum);
+          probs<T>(pa, s, inv);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          if (k0 + kk * 16 < Lp) {
+#pragma unroll
+            for (int np = 0; np < kCols / 16; ++np) {
+              if (2 * np < n_tiles) {
+                uint32_t bv[4];
+                cc::ldmatrix_x4_trans(bv, cc::trans_b_pair(sv, ld, k0 + kk * 16,
+                                                           c0 + np * 16, lane));
+                cc::mma16816<T>(acc[2 * np], pa[kk], bv[0], bv[1]);
+                cc::mma16816<T>(acc[2 * np + 1], pa[kk], bv[2], bv[3]);
+              }
+            }
+          }
+        }
+      }
+      cc::store_tile<T, kCols / 8>(acc, stage, ob, (size_t)D, q0, L, c0, n_tiles,
+                                   1.f, lane);
+    }
+  }
+}
+
+// q, k, v of one (sample, head) into a stage, by cp.async (not waited for)
+template <typename T>
+__device__ __forceinline__ void load_head(T* dst, const T* __restrict__ qkv, int item,
+                                          int L, int Lp, int ld, int H, int hd) {
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const T* base = qkv + (size_t)(item / H) * L * row + (size_t)(item % H) * hd;
+  const int tile = Lp * ld;
+  cc::load_rows(dst, ld, base, row, L, Lp, hd);
+  cc::load_rows(dst + tile, ld, base + D, row, L, Lp, hd);
+  cc::load_rows(dst + 2 * tile, ld, base + 2 * D, row, L, Lp, hd);
+}
+
+// Persistent: a grid of as many CTAs as fit on the card at once walks the
+// B*H (sample, head) items; with two stages it loads the next item's q, k,
+// v while it computes this one's.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_fwd_mma_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                         T* __restrict__ out, int n_items, int L, int H, int hd,
+                         float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Lp = pad16(L), ld = hd + kPad, stage_elems = 3 * Lp * ld;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* stage = reinterpret_cast<T*>(smem) + warp * kStage;
+  T* buf = reinterpret_cast<T*>(smem) + kWarps * kStage;
+  const bool two = mma_stages(L, hd, sizeof(T)) == 2;
+  const int D = H * hd;
+
+  int item = blockIdx.x;
+  if (item < n_items) load_head(buf, qkv, item, L, Lp, ld, H, hd);
+  cc::cp_async_commit();
+  for (int it = 0; item < n_items; ++it, item += gridDim.x) {
+    const int next = item + gridDim.x;
+    const T* cur = buf + (two ? (it & 1) * stage_elems : 0);
+    if (two && next < n_items)
+      load_head(buf + ((it + 1) & 1) * stage_elems, qkv, next, L, Lp, ld, H, hd);
+    cc::cp_async_commit();
+    cc::cp_async_wait<1>();     // this item's loads, not the next one's
+    __syncthreads();
+    T* ob = out + (size_t)(item / H) * L * D + (size_t)(item % H) * hd;
+    attend<T>(cur, cur + Lp * ld, cur + 2 * Lp * ld, stage, ob, L, Lp, ld, hd, D, scale,
+              mask, warp, lane);
+    __syncthreads();            // before the stage is loaded again
+    if (!two && next < n_items) load_head(buf, qkv, next, L, Lp, ld, H, hd);
+    cc::cp_async_commit();
   }
 }
 
 template <typename T>
-int launch(const void* qkv, const void* mask, void* out, int B, int L, int H,
-           int hd, float scale, cudaStream_t stream) {
-  const size_t smem = scores_offset(L, hd, sizeof(T)) + (size_t)L * L * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  attention_fwd_kernel<T><<<B * H, kThreads, smem, stream>>>(
+int launch_mma(const void* qkv, const void* mask, void* out, int B, int L, int H,
+               int hd, float scale, cudaStream_t stream) {
+  if (hd % 16 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = mma_smem(L, hd, sizeof(T));
+  const void* kernel = (const void*)attention_fwd_mma_kernel<T>;
+  int err = set_smem(kernel, smem);
+  if (err) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)))
+    return err;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                kWarps * 32, smem)))
+    return err;
+  const int n_items = B * H;
+  const int grid = min(n_items, max(1, sms * per_sm));
+  attention_fwd_mma_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(mask),
-      static_cast<T*>(out), L, H, hd, scale);
+      static_cast<T*>(out), n_items, L, H, hd, scale);
   return (int)cudaGetLastError();
 }
 
@@ -154,22 +378,36 @@ int launch(const void* qkv, const void* mask, void* out, int B, int L, int H,
 
 extern "C" {
 
-// Shared-memory bytes one CTA needs (the wrapper checks it against the
-// card's opt-in limit before launching).
-size_t cc_attention_smem_bytes(int L, int hd, int elem_bytes) {
-  return scores_offset(L, hd, (size_t)elem_bytes) + (size_t)L * L * sizeof(float);
+// Shared-memory bytes one CTA of each variant needs (the wrapper checks
+// them against the card's opt-in limit before launching).
+size_t cc_attention_mma_smem_bytes(int L, int hd, int elem_bytes) {
+  return mma_smem(L, hd, (size_t)elem_bytes);
 }
 
-// dtype: 0 float32, 1 bfloat16, 2 float16.  mask may be null.
-int cc_attention_fwd(const void* qkv, const void* mask, void* out, int B, int L,
-                     int H, int hd, int dtype, float scale, void* stream) {
+size_t cc_attention_simt_smem_bytes(int L, int hd) { return simt_smem(L, hd); }
+
+// Tensor-core variant.  dtype: 1 bfloat16, 2 float16; hd % 16 == 0; qkv and
+// out 16-byte aligned.  mask may be null.
+int cc_attention_fwd_mma(const void* qkv, const void* mask, void* out, int B, int L,
+                         int H, int hd, int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(qkv, mask, out, B, L, H, hd, scale, s);
-    case 1: return launch<__nv_bfloat16>(qkv, mask, out, B, L, H, hd, scale, s);
-    case 2: return launch<__half>(qkv, mask, out, B, L, H, hd, scale, s);
+    case 1: return launch_mma<__nv_bfloat16>(qkv, mask, out, B, L, H, hd, scale, s);
+    case 2: return launch_mma<__half>(qkv, mask, out, B, L, H, hd, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// CUDA-core variant, float32.  mask may be null.
+int cc_attention_fwd_simt(const void* qkv, const void* mask, void* out, int B, int L,
+                          int H, int hd, float scale, void* stream) {
+  const size_t smem = simt_smem(L, hd);
+  const int err = set_smem((const void*)attention_fwd_kernel, smem);
+  if (err) return err;
+  attention_fwd_kernel<<<B * H, kSimtThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(mask),
+      static_cast<float*>(out), L, H, hd, scale);
+  return (int)cudaGetLastError();
 }
 
 const char* cc_error_string(int err) {

@@ -18,97 +18,85 @@
 //
 // which is the arithmetic of attention_bwd_plain in ops/attention_cuda.py.
 //
-// Bound on this card: at CLIP's short sequences (L = 50 vision, 32 text)
-// the five [L, L, hd] products are ~10*L*hd flops per loaded element, far
-// below the ~295 flop/byte ridge of an H100, so the kernel is bound by
-// reading q, k, v, dO and writing dq, dk, dv once.  Design: one CTA per
-// (sample, head) stages q (scaled), k (both layouts), v^T and dO in shared
-// memory once, keeps the fp32 [L, L] probabilities and dS in shared memory
-// (nothing [L, L]-sized is read from or written to device memory except the
-// optional mask gradient), and writes dq | dk | dv straight into the packed
-// [B, L, 3*D] gradient, so the QKV projection's backward stays one matmul.
-// The products run on CUDA cores from shared memory, like the forward;
-// tensor-core tiles are left to a later change.  The TPU kernel's
-// sequential-grid accumulation of dmask has no counterpart here: CTAs add
-// their dS into the fp32 [L, L] buffer with atomicAdd.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+// Two variants, chosen by the wrapper from dtype, head_dim and L:
+//
+// * attention_bwd_mma_kernel (bf16 / fp16, hd % 16 == 0, L <= 128): tensor
+//   cores, one CTA of 4 warps per (sample, head).  qs, k, v and dO rows come
+//   in by 16-byte cp.async into shared tiles of row stride hd + 8, the
+//   sequence padded to a multiple of 16 with zero rows.
+//   Query rows: each warp owns 16 of them and computes S = qs.K^T and
+//   dP = dO.V^T by mma.m16n8k16 over the whole (padded) key range, in
+//   registers; the softmax, delta = rowsum(dP * P) and dS = P (dP - delta)
+//   in fp32 registers (quad shuffles per row); and dQ = hd^-0.5 dS.K in the
+//   same warp, dS going from C registers to A fragments.  dS is an mma
+//   operand as the pair dS_hi = T(dS), dS_lo = T(dS - dS_hi) with two mmas
+//   per product, which keeps the plain version's fp32 dS to about 2^-16
+//   (one T(dS) would round it to 2^-8).  The warp writes P (as T) and
+//   dS_hi, dS_lo to shared memory.
+//   Key rows, after one barrier: each warp owns 16 key rows and computes
+//   dV = P_T^T . dO and dK = dS^T . qs, the transposed operands through
+//   ldmatrix.trans.  Every sum runs in a fixed order and dq, dk, dv take no
+//   atomics, so the kernel is deterministic (training resumes bit for bit).
+//   Outputs go out as T through a per-warp staging tile, 16 bytes a store.
+//   Bound on this card: the five [L, L, hd] products are ~10*L*hd flops per
+//   element moved, far below the ~295 flop/byte ridge of an H100, so the
+//   kernel is bound by reading q, k, v, dO and writing dq, dk, dv once; the
+//   design keeps every [L, L] intermediate on chip.  S and dP of a warp's
+//   rows are held whole in registers, which caps L at 128 (two register
+//   widths, 64 and 128 keys, are compiled).
+// * attention_bwd_kernel (fp32): CUDA cores, the products as fmaf loops from
+//   shared memory (no exact fp32 tensor-core product; TF32 is off), P and dS
+//   as fp32 [L, L] tiles in shared memory.
+//
+// The TPU kernel's sequential-grid accumulation of dmask has no counterpart
+// here: CTAs add their dS into the fp32 [L, L] buffer with atomicAdd.
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using cc::kPad;
+using cc::pad16;
+using cc::set_smem;
+using cc::warp_max;
+using cc::warp_sum;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half x) {
-  return __half2float(x);
-}
+// ------------------------------------------------------------ fp32 (SIMT)
+constexpr int kSimtThreads = 256;
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
+// shared memory: qs [L, hd], k^T [hd, L], k [L, hd], v^T [hd, L], dO [L, hd],
+// then P and dP/dS, each [L, L], all fp32
+__host__ __device__ inline size_t simt_smem(int L, int hd) {
+  return (5 * (size_t)L * hd + 2 * (size_t)L * L) * sizeof(float);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// shared memory: qs [L, hd], k^T [hd, L], k [L, hd], v^T [hd, L], dO [L, hd]
-// in T, then P and dP/dS, each fp32 [L, L], at a 16-byte aligned offset
-__host__ __device__ inline size_t probs_offset(int L, int hd, size_t elem) {
-  return (5 * (size_t)L * hd * elem + 15) / 16 * 16;
-}
-
-__host__ __device__ inline size_t smem_size(int L, int hd, size_t elem) {
-  return probs_offset(L, hd, elem) + 2 * (size_t)L * L * sizeof(float);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                     const T* __restrict__ dout, T* __restrict__ dqkv,
-                     float* __restrict__ dmask, int L, int H, int hd,
-                     float scale) {
+__global__ void __launch_bounds__(kSimtThreads)
+attention_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                     const float* __restrict__ dout, float* __restrict__ dqkv,
+                     float* __restrict__ dmask, int L, int H, int hd, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = L * hd;
-  T* sq = reinterpret_cast<T*>(smem);
-  T* skt = sq + n;
-  T* sk = skt + n;
-  T* svt = sk + n;
-  T* sdo = svt + n;
-  float* sp = reinterpret_cast<float*>(smem + probs_offset(L, hd, sizeof(T)));
+  float* sq = reinterpret_cast<float*>(smem);
+  float* skt = sq + n;
+  float* sk = skt + n;
+  float* svt = sk + n;
+  float* sdo = svt + n;
+  float* sp = sdo + n;
   float* sds = sp + L * L;
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int D = H * hd;
   const size_t row = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * L * row + (size_t)h * hd;
-  const T* dob = dout + (size_t)b * L * D + (size_t)h * hd;
+  const float* base = qkv + (size_t)b * L * row + (size_t)h * hd;
+  const float* dob = dout + (size_t)b * L * D + (size_t)h * hd;
 
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int i = e / hd, d = e % hd;
-    const T* r = base + i * row + d;
-    sq[e] = from_f<T>(to_f<T>(r[0]) * scale);
-    const T kk = r[D];
+    const float* r = base + i * row + d;
+    sq[e] = r[0] * scale;
+    const float kk = r[D];
     skt[d * L + i] = kk;
     sk[e] = kk;
     svt[d * L + i] = r[2 * D];
@@ -119,12 +107,12 @@ attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   // logits and dP = dO . V^T
   for (int e = threadIdx.x; e < L * L; e += blockDim.x) {
     const int i = e / L, j = e % L;
-    const T* qi = sq + i * hd;
-    const T* gi = sdo + i * hd;
+    const float* qi = sq + i * hd;
+    const float* gi = sdo + i * hd;
     float s = 0.f, dp = 0.f;
     for (int d = 0; d < hd; ++d) {
-      s = fmaf(to_f<T>(qi[d]), to_f<T>(skt[d * L + j]), s);
-      dp = fmaf(to_f<T>(gi[d]), to_f<T>(svt[d * L + j]), dp);
+      s = fmaf(qi[d], skt[d * L + j], s);
+      dp = fmaf(gi[d], svt[d * L + j], dp);
     }
     if (mask != nullptr) s += mask[e];
     sp[e] = s;
@@ -167,63 +155,314 @@ attention_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
 
   // e = (token t, channel d): dV[t] and dK[t] sum over query rows i, dQ[t]
   // over key rows j
-  T* gb = dqkv + (size_t)b * L * row + (size_t)h * hd;
+  float* gb = dqkv + (size_t)b * L * row + (size_t)h * hd;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int t = e / hd, d = e % hd;
     float dv = 0.f, dk = 0.f, dq = 0.f;
     for (int i = 0; i < L; ++i) {
-      const float pb = to_f<T>(from_f<T>(sp[i * L + t]));
-      dv = fmaf(pb, to_f<T>(sdo[i * hd + d]), dv);
-      dk = fmaf(sds[i * L + t], to_f<T>(sq[i * hd + d]), dk);
-      dq = fmaf(sds[t * L + i], to_f<T>(sk[i * hd + d]), dq);
+      dv = fmaf(sp[i * L + t], sdo[i * hd + d], dv);
+      dk = fmaf(sds[i * L + t], sq[i * hd + d], dk);
+      dq = fmaf(sds[t * L + i], sk[i * hd + d], dq);
     }
-    T* g = gb + t * row + d;
-    g[0] = from_f<T>(dq * scale);
-    g[D] = from_f<T>(dk);
-    g[2 * D] = from_f<T>(dv);
+    float* g = gb + t * row + d;
+    g[0] = dq * scale;
+    g[D] = dk;
+    g[2 * D] = dv;
   }
 }
 
+// ----------------------------------------------------- bf16 / fp16 (mma)
+constexpr int kWarps = 4;
+constexpr int kCols = 64;          // head channels per register tile
+constexpr int kStage = 16 * (kCols + kPad);
+constexpr int kMaxL = 128;
+
+// shared memory (T): qs, k, v, dO [Lp][hd + 8]; P, dS_hi, dS_lo
+// [Lp][Lp + 8]; one [16][72] staging tile per warp
+__host__ __device__ inline size_t mma_smem(int L, int hd, size_t elem) {
+  const size_t Lp = pad16(L);
+  return (4 * Lp * (hd + kPad) + 3 * Lp * (Lp + kPad) + kWarps * kStage) * elem;
+}
+
+// x as T(x) (hi) and T(x - hi) (lo), two values packed per register
 template <typename T>
-int launch(const void* qkv, const void* mask, const void* dout, void* dqkv,
-           void* dmask, int B, int L, int H, int hd, float scale,
-           cudaStream_t stream) {
-  const size_t smem = smem_size(L, hd, sizeof(T));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = cc::pack2<T>(x0, x1);
+  lo = cc::pack2<T>(x0 - cc::to_f<T>(cc::from_f<T>(x0)),
+                    x1 - cc::to_f<T>(cc::from_f<T>(x1)));
+}
+
+template <typename T, int LPT>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_bwd_mma_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                         const T* __restrict__ dout, T* __restrict__ dqkv,
+                         float* __restrict__ dmask, int L, int H, int hd, float scale) {
+  constexpr int NT = LPT / 8;      // key n-tiles held in registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Lp = pad16(L), ld = hd + kPad, lds = Lp + kPad;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sk = sq + Lp * ld;
+  T* sv = sk + Lp * ld;
+  T* sdo = sv + Lp * ld;
+  T* sp = sdo + Lp * ld;
+  T* sdh = sp + Lp * lds;
+  T* sdl = sdh + Lp * lds;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  T* stage = sdl + Lp * lds + warp * kStage;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const T* base = qkv + (size_t)b * L * row + (size_t)h * hd;
+  cc::load_rows(sq, ld, base, row, L, Lp, hd);
+  cc::load_rows(sk, ld, base + D, row, L, Lp, hd);
+  cc::load_rows(sv, ld, base + 2 * D, row, L, Lp, hd);
+  cc::load_rows(sdo, ld, dout + (size_t)b * L * D + (size_t)h * hd, (size_t)D, L, Lp, hd);
+  cc::cp_async_wait_all();
+  __syncthreads();
+  for (int e = threadIdx.x; e < L * hd; e += blockDim.x) {
+    T* p = sq + (e / hd) * ld + e % hd;
+    *p = cc::from_f<T>(cc::to_f<T>(*p) * scale);
   }
-  attention_bwd_kernel<T><<<B * H, kThreads, smem, stream>>>(
+  __syncthreads();
+
+  T* gb = dqkv + (size_t)b * L * row + (size_t)h * hd;
+
+  // ------------------------------------------------ query rows, per warp
+  for (int q0 = warp * 16; q0 < Lp; q0 += kWarps * 16) {
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int ks = 0; ks < hd; ks += 16) {
+      uint32_t aq[4], ag[4];
+      cc::ldmatrix_x4(aq, cc::a_frag(sq, ld, q0, ks, lane));
+      cc::ldmatrix_x4(ag, cc::a_frag(sdo, ld, q0, ks, lane));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        if (np * 16 < Lp) {
+          uint32_t bk[4], bv[4];
+          cc::ldmatrix_x4(bk, cc::b_pair(sk, ld, np * 16, ks, lane));
+          cc::mma16816<T>(s[2 * np], aq, bk[0], bk[1]);
+          cc::mma16816<T>(s[2 * np + 1], aq, bk[2], bk[3]);
+          cc::ldmatrix_x4(bv, cc::b_pair(sv, ld, np * 16, ks, lane));
+          cc::mma16816<T>(dp[2 * np], ag, bv[0], bv[1]);
+          cc::mma16816<T>(dp[2 * np + 1], ag, bv[2], bv[3]);
+        }
+      }
+    }
+
+    // mask, softmax and its VJP for the two rows this thread holds; rows
+    // >= L (padding) get P = dS = 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + g + 8 * r;
+      float m = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = nt * 8 + 2 * t + c;
+          float& x = s[nt][2 * r + c];
+          if (j >= L)
+            x = -INFINITY;
+          else if (mask != nullptr && i < L)
+            x += mask[(size_t)i * L + j];
+          m = fmaxf(m, x);
+        }
+      }
+      m = cc::quad_max(m);
+      const float ref = m == -INFINITY ? 0.f : m;
+      float l = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[nt][2 * r + c];
+          x = expf(x - ref);
+          l += x;
+        }
+      l = cc::quad_sum(l);
+      float dot = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[nt][2 * r + c];
+          x = i < L ? x / l : 0.f;
+          dot += dp[nt][2 * r + c] * x;
+        }
+      dot = cc::quad_sum(dot);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          dp[nt][2 * r + c] = s[nt][2 * r + c] * (dp[nt][2 * r + c] - dot);
+    }
+
+    // P as T and dS as (hi, lo) for the key-row products; dmask
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt * 8 < Lp) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int off = (q0 + g + 8 * r) * lds + nt * 8 + 2 * t;
+          uint32_t hi, lo;
+          split2<T>(dp[nt][2 * r], dp[nt][2 * r + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(sp + off) =
+              cc::pack2<T>(s[nt][2 * r], s[nt][2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(sdh + off) = hi;
+          *reinterpret_cast<uint32_t*>(sdl + off) = lo;
+        }
+      }
+    }
+    if (dmask != nullptr) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = q0 + g + (e >> 1) * 8, j = nt * 8 + 2 * t + (e & 1);
+          if (i < L && j < L) atomicAdd(dmask + (size_t)i * L + j, dp[nt][e]);
+        }
+    }
+
+    // dQ = hd^-0.5 * dS . K, 64 channels at a time
+    for (int c0 = 0; c0 < hd; c0 += kCols) {
+      const int n_tiles = min(kCols, hd - c0) / 8;
+      float acc[kCols / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kCols / 8; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        if (kk * 16 < Lp) {
+          uint32_t ah[4], al[4];
+          split2<T>(dp[2 * kk][0], dp[2 * kk][1], ah[0], al[0]);
+          split2<T>(dp[2 * kk][2], dp[2 * kk][3], ah[1], al[1]);
+          split2<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1], ah[2], al[2]);
+          split2<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+          for (int np = 0; np < kCols / 16; ++np) {
+            if (2 * np < n_tiles) {
+              uint32_t bk[4];
+              cc::ldmatrix_x4_trans(bk, cc::trans_b_pair(sk, ld, kk * 16, c0 + np * 16,
+                                                         lane));
+              cc::mma16816<T>(acc[2 * np], ah, bk[0], bk[1]);
+              cc::mma16816<T>(acc[2 * np], al, bk[0], bk[1]);
+              cc::mma16816<T>(acc[2 * np + 1], ah, bk[2], bk[3]);
+              cc::mma16816<T>(acc[2 * np + 1], al, bk[2], bk[3]);
+            }
+          }
+        }
+      }
+      cc::store_tile<T, kCols / 8>(acc, stage, gb, row, q0, L, c0, n_tiles, scale, lane);
+    }
+  }
+  __syncthreads();
+
+  // -------------------------------------------------- key rows, per warp
+  for (int k0 = warp * 16; k0 < Lp; k0 += kWarps * 16) {
+    for (int c0 = 0; c0 < hd; c0 += kCols) {
+      const int n_tiles = min(kCols, hd - c0) / 8;
+      float av[kCols / 8][4], ak[kCols / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kCols / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+      for (int i0 = 0; i0 < Lp; i0 += 16) {
+        uint32_t ap[4], ah[4], al[4];
+        cc::ldmatrix_x4_trans(ap, cc::trans_a(sp, lds, i0, k0, lane));
+        cc::ldmatrix_x4_trans(ah, cc::trans_a(sdh, lds, i0, k0, lane));
+        cc::ldmatrix_x4_trans(al, cc::trans_a(sdl, lds, i0, k0, lane));
+#pragma unroll
+        for (int np = 0; np < kCols / 16; ++np) {
+          if (2 * np < n_tiles) {
+            uint32_t bo[4], bq[4];
+            cc::ldmatrix_x4_trans(bo, cc::trans_b_pair(sdo, ld, i0, c0 + np * 16, lane));
+            cc::mma16816<T>(av[2 * np], ap, bo[0], bo[1]);
+            cc::mma16816<T>(av[2 * np + 1], ap, bo[2], bo[3]);
+            cc::ldmatrix_x4_trans(bq, cc::trans_b_pair(sq, ld, i0, c0 + np * 16, lane));
+            cc::mma16816<T>(ak[2 * np], ah, bq[0], bq[1]);
+            cc::mma16816<T>(ak[2 * np], al, bq[0], bq[1]);
+            cc::mma16816<T>(ak[2 * np + 1], ah, bq[2], bq[3]);
+            cc::mma16816<T>(ak[2 * np + 1], al, bq[2], bq[3]);
+          }
+        }
+      }
+      cc::store_tile<T, kCols / 8>(ak, stage, gb + D, row, k0, L, c0, n_tiles, 1.f, lane);
+      cc::store_tile<T, kCols / 8>(av, stage, gb + 2 * D, row, k0, L, c0, n_tiles, 1.f,
+                                   lane);
+    }
+  }
+}
+
+template <typename T, int LPT>
+int launch_mma(const void* qkv, const void* mask, const void* dout, void* dqkv,
+               void* dmask, int B, int L, int H, int hd, float scale,
+               cudaStream_t stream) {
+  const size_t smem = mma_smem(L, hd, sizeof(T));
+  const int err = set_smem((const void*)attention_bwd_mma_kernel<T, LPT>, smem);
+  if (err) return err;
+  attention_bwd_mma_kernel<T, LPT><<<B * H, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(mask),
       static_cast<const T*>(dout), static_cast<T*>(dqkv),
       static_cast<float*>(dmask), L, H, hd, scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_mma(const void* qkv, const void* mask, const void* dout, void* dqkv,
+               void* dmask, int B, int L, int H, int hd, float scale,
+               cudaStream_t stream) {
+  if (hd % 16 != 0 || L < 1 || L > kMaxL) return (int)cudaErrorInvalidValue;
+  if (L <= 64)
+    return launch_mma<T, 64>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, stream);
+  return launch_mma<T, 128>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one CTA needs (the wrapper checks it against the
-// card's opt-in limit before launching).
-size_t cc_attention_bwd_smem_bytes(int L, int hd, int elem_bytes) {
-  return smem_size(L, hd, (size_t)elem_bytes);
+// Shared-memory bytes one CTA of each variant needs (the wrapper checks
+// them against the card's opt-in limit before launching).
+size_t cc_attention_bwd_mma_smem_bytes(int L, int hd, int elem_bytes) {
+  return mma_smem(L, hd, (size_t)elem_bytes);
 }
 
-// dtype: 0 float32, 1 bfloat16, 2 float16.  mask and dmask may be null;
-// a non-null dmask must hold zeros (or a sum to add to) on entry.
-int cc_attention_bwd(const void* qkv, const void* mask, const void* dout,
-                     void* dqkv, void* dmask, int B, int L, int H, int hd,
-                     int dtype, float scale, void* stream) {
+size_t cc_attention_bwd_simt_smem_bytes(int L, int hd) { return simt_smem(L, hd); }
+
+// Tensor-core variant.  dtype: 1 bfloat16, 2 float16; hd % 16 == 0,
+// 1 <= L <= 128; qkv, dout and dqkv 16-byte aligned.  mask and dmask may be
+// null; a non-null dmask must hold zeros (or a sum to add to) on entry.
+int cc_attention_bwd_mma(const void* qkv, const void* mask, const void* dout,
+                         void* dqkv, void* dmask, int B, int L, int H, int hd,
+                         int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, s);
-    case 1: return launch<__nv_bfloat16>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, s);
-    case 2: return launch<__half>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, s);
+    case 1:
+      return launch_mma<__nv_bfloat16>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, s);
+    case 2:
+      return launch_mma<__half>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// CUDA-core variant, float32.  mask and dmask as above.
+int cc_attention_bwd_simt(const void* qkv, const void* mask, const void* dout,
+                          void* dqkv, void* dmask, int B, int L, int H, int hd,
+                          float scale, void* stream) {
+  const size_t smem = simt_smem(L, hd);
+  const int err = set_smem((const void*)attention_bwd_kernel, smem);
+  if (err) return err;
+  attention_bwd_kernel<<<B * H, kSimtThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(mask),
+      static_cast<const float*>(dout), static_cast<float*>(dqkv),
+      static_cast<float*>(dmask), L, H, hd, scale);
+  return (int)cudaGetLastError();
 }
 
 const char* cc_error_string(int err) {

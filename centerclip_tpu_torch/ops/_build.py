@@ -3,7 +3,8 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into
 `build/lib<name>.so` inside the package (a directory git ignores) at first
-use, and loaded with `ctypes`.  The sources have a plain C interface (no
+use, and loaded with `ctypes`; it is compiled again when the source or a
+`csrc/*.cuh` header it includes is newer than the library.  The sources have a plain C interface (no
 PyTorch headers), so a build takes seconds.  Every exported function takes
 its pointers and the CUDA stream as `void*` and returns the `cudaError_t`
 of its launch; the Python wrappers raise on a non-zero code.
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +47,29 @@ def _paths(name: str):
             os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def dependencies(src: str) -> list:
+    """`src` and every file it includes with `#include "..."`, transitively
+    (paths relative to the including file, as nvcc resolves them)."""
+    seen, todo = [], [src]
+    while todo:
+        path = os.path.normpath(todo.pop())
+        if path in seen or not os.path.isfile(path):
+            continue
+        seen.append(path)
+        with open(path, encoding="utf-8") as f:
+            names = _INCLUDE.findall(f.read())
+        todo += [os.path.join(os.path.dirname(path), n) for n in names]
+    return seen
+
+
 def _is_fresh(src: str, lib: str) -> bool:
-    return os.path.isfile(lib) and os.path.getmtime(lib) >= os.path.getmtime(src)
+    """A library is fresh when it is newer than its source and every header
+    the source includes."""
+    return os.path.isfile(lib) and all(
+        os.path.getmtime(lib) >= os.path.getmtime(p) for p in dependencies(src))
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -5,21 +5,27 @@ backward, their plain versions, and the autograd Function that joins them.
 Replaces the TPU kernels of `centerclip_tpu/ops/attention_pallas.py`: the
 forward `_mha_kernel` / `_mha_fwd_call` (entry `fused_mha`) with
 `csrc/attention.cu`, and the backward `_mha_bwd_kernel` / `_mha_bwd_call`
-(its custom VJP) with `csrc/attention_bwd.cu`.  One CTA per (sample, head)
-reads q, k and v straight from the packed `[B, L, 3*D]` output of the QKV
-projection and keeps the fp32 scores and softmax in shared memory; the
-forward writes `[B, L, D]`, the backward recomputes the probabilities
-(nothing `[L, L]`-sized is saved) and writes the gradient packed as
-`[B, L, 3*D]`, so the projection's backward stays one matmul.  At CLIP's
-sequence lengths (50 vision tokens, 32 text tokens) both are bound by the
-bytes of their inputs and outputs, not by flops; the design keeps every
-intermediate out of device memory and needs no head transposes.
+(its custom VJP) with `csrc/attention_bwd.cu`.  A CTA takes one (sample,
+head) at a time, reads its q, k and v straight from the packed
+`[B, L, 3*D]` output of the QKV projection and keeps the scores and
+probabilities on chip; the forward
+writes `[B, L, D]`, the backward recomputes the probabilities (nothing
+`[L, L]`-sized is saved) and writes the gradient packed as `[B, L, 3*D]`,
+so the projection's backward stays one matmul.  At CLIP's sequence lengths
+(50 vision tokens, 32 text tokens) both are bound by the bytes of their
+inputs and outputs, not by flops.
+
+Each source has two variants, picked by `choose_variant` from dtype,
+head_dim and L before the launch: "tensor_core" (bf16 / fp16 with
+head_dim % 16 == 0: mma.sync from ldmatrix, cp.async loads; the backward up
+to L = 128) and "cuda_core" (fp32: fmaf loops, since tensor cores have no
+exact fp32 product and TF32 is off).  What neither takes raises.
 
 `fused_attention` is differentiable through `_FusedAttention`: kernel A
 forward, kernel B backward.  For CPU tensors both sides take their plain
 versions; a CUDA tensor launches the kernels or raises.
 `fused_attention.launches` and `attention_backward.launches` count kernel
-launches.
+launches, and their `variant_launches` split the count by variant.
 """
 from __future__ import annotations
 
@@ -30,7 +36,10 @@ import torch
 
 from . import _build
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+# the tensor-core backward holds a warp's S and dP rows whole in registers
+TENSOR_CORE_BWD_MAX_L = 128
 
 
 def attention_plain(qkv: torch.Tensor, heads: int,
@@ -95,31 +104,79 @@ def attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     return dqkv, (ds.sum(dim=(0, 1)) if mask_grad else None)
 
 
+def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
+                   backward: bool = False) -> str:
+    """The kernel variant a CUDA tensor takes, from its dtype, head_dim and
+    sequence length alone: TENSOR_CORE for bf16 / fp16 with head_dim a
+    multiple of 16 (the backward also L <= TENSOR_CORE_BWD_MAX_L), CUDA_CORE
+    for fp32.  Raises ValueError for what no variant takes; whether the
+    tiles fit in shared memory is checked at launch from the sources' own
+    sizes."""
+    if L < 1 or head_dim < 1:
+        raise ValueError(f"need L >= 1 and head_dim >= 1; got L={L}, "
+                         f"head_dim={head_dim}")
+    if dtype == torch.float32:
+        return CUDA_CORE
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {dtype}")
+    if head_dim % 16:
+        raise ValueError(f"the {dtype} kernels need head_dim % 16 == 0; got "
+                         f"{head_dim}")
+    if backward and L > TENSOR_CORE_BWD_MAX_L:
+        raise ValueError(f"the {dtype} backward kernel takes L <= "
+                         f"{TENSOR_CORE_BWD_MAX_L}; got {L}")
+    return TENSOR_CORE
+
+
 def _check_cuda_inputs(qkv: torch.Tensor, heads: int,
-                       attn_mask: Optional[torch.Tensor], lib_name: str,
-                       smem_fn: str) -> int:
+                       attn_mask: Optional[torch.Tensor],
+                       backward: bool) -> Tuple[int, str]:
+    """(head_dim, variant) for a CUDA qkv, or ValueError."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % heads:
         raise ValueError(f"qkv must be [B, L, 3*D] with D divisible by "
                          f"heads={heads}; got {tuple(qkv.shape)}")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise ValueError(f"unsupported dtype {qkv.dtype}")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
     B, L, _ = qkv.shape
+    hd = qkv.shape[-1] // 3 // heads
+    variant = choose_variant(qkv.dtype, hd, L, backward)
     if attn_mask is not None:
         if attn_mask.device != qkv.device or attn_mask.dtype != torch.float32:
             raise ValueError("attn_mask must be fp32 on the device of qkv")
         if tuple(attn_mask.shape) != (L, L) or not attn_mask.is_contiguous():
             raise ValueError(f"attn_mask must be a contiguous [{L}, {L}] "
                              f"tensor; got {tuple(attn_mask.shape)}")
-    hd = qkv.shape[-1] // 3 // heads
-    smem = _build.smem_bytes(_build.load(lib_name), smem_fn, L, hd,
-                             qkv.element_size())
+    if variant == TENSOR_CORE and qkv.data_ptr() % 16:
+        raise ValueError("qkv must start at a 16-byte aligned address")
+    lib_name = "attention_bwd" if backward else "attention"
+    lib = _build.load(lib_name)
+    if variant == TENSOR_CORE:
+        smem = _build.smem_bytes(lib, f"cc_{lib_name}_mma_smem_bytes", L, hd,
+                                 qkv.element_size())
+    else:
+        smem = _build.smem_bytes(lib, f"cc_{lib_name}_simt_smem_bytes", L, hd)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"L={L}, head_dim={hd} needs {smem} bytes of shared "
                          f"memory per CTA; the kernel takes at most "
                          f"{_build.MAX_SMEM_BYTES}")
-    return hd
+    return hd, variant
+
+
+def _entry(lib: ctypes.CDLL, name: str, n_ptrs: int, n_ints: int,
+           dtype_code: bool):
+    """The exported `int name(ptrs..., ints... [, dtype], float scale,
+    void* stream)` with its ctypes signature set."""
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                   + [ctypes.c_int] * (n_ints + int(dtype_code))
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _count(fn, variant: str) -> None:
+    fn.launches += 1
+    fn.variant_launches[variant] += 1
 
 
 def _forward(qkv: torch.Tensor, heads: int,
@@ -129,26 +186,25 @@ def _forward(qkv: torch.Tensor, heads: int,
         return attention_plain(qkv, heads, attn_mask)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    hd = _check_cuda_inputs(qkv, heads, attn_mask, "attention",
-                            "cc_attention_smem_bytes")
+    hd, variant = _check_cuda_inputs(qkv, heads, attn_mask, backward=False)
     B, L, D3 = qkv.shape
     out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
         return out
     lib = _build.load("attention")
-    fn = lib.cc_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    mask_ptr = attn_mask.data_ptr() if attn_mask is not None else None
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(),
-                 attn_mask.data_ptr() if attn_mask is not None else None,
-                 out.data_ptr(), B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
-                 float(hd ** -0.5), stream)
-    _build.check(lib, err, "attention kernel")
-    fused_attention.launches += 1
+        if variant == TENSOR_CORE:
+            err = _entry(lib, "cc_attention_fwd_mma", 3, 4, True)(
+                qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, heads, hd,
+                _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
+        else:
+            err = _entry(lib, "cc_attention_fwd_simt", 3, 4, False)(
+                qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, heads, hd,
+                float(hd ** -0.5), stream)
+    _build.check(lib, err, f"attention kernel ({variant})")
+    _count(fused_attention, variant)
     return out
 
 
@@ -163,14 +219,15 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         return attention_bwd_plain(qkv, dout, heads, attn_mask, mask_grad)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    hd = _check_cuda_inputs(qkv, heads, attn_mask, "attention_bwd",
-                            "cc_attention_bwd_smem_bytes")
+    hd, variant = _check_cuda_inputs(qkv, heads, attn_mask, backward=True)
     B, L, D3 = qkv.shape
     if tuple(dout.shape) != (B, L, D3 // 3) or dout.dtype != qkv.dtype \
             or dout.device != qkv.device or not dout.is_contiguous():
         raise ValueError(f"dout must be a contiguous {qkv.dtype} "
                          f"[{B}, {L}, {D3 // 3}] tensor on {qkv.device}; got "
                          f"{dout.dtype} {tuple(dout.shape)}")
+    if variant == TENSOR_CORE and dout.data_ptr() % 16:
+        raise ValueError("dout must start at a 16-byte aligned address")
     if mask_grad and attn_mask is None:
         raise ValueError("mask_grad needs an attn_mask")
     dqkv = torch.empty_like(qkv)
@@ -179,22 +236,21 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     if B == 0:
         return dqkv, dmask
     lib = _build.load("attention_bwd")
-    fn = lib.cc_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
+    ptrs = (qkv.data_ptr(),
+            attn_mask.data_ptr() if attn_mask is not None else None,
+            dout.data_ptr(), dqkv.data_ptr(),
+            dmask.data_ptr() if dmask is not None else None)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qkv.data_ptr(),
-                 attn_mask.data_ptr() if attn_mask is not None else None,
-                 dout.data_ptr(), dqkv.data_ptr(),
-                 dmask.data_ptr() if dmask is not None else None,
-                 B, L, heads, hd, _DTYPE_CODES[qkv.dtype], float(hd ** -0.5),
-                 stream)
-    _build.check(lib, err, "attention backward kernel")
-    attention_backward.launches += 1
+        if variant == TENSOR_CORE:
+            err = _entry(lib, "cc_attention_bwd_mma", 5, 4, True)(
+                *ptrs, B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
+                float(hd ** -0.5), stream)
+        else:
+            err = _entry(lib, "cc_attention_bwd_simt", 5, 4, False)(
+                *ptrs, B, L, heads, hd, float(hd ** -0.5), stream)
+    _build.check(lib, err, f"attention backward kernel ({variant})")
+    _count(attention_backward, variant)
     return dqkv, dmask
 
 
@@ -233,5 +289,11 @@ def fused_attention(qkv: torch.Tensor, heads: int,
     return _FusedAttention.apply(qkv, attn_mask, heads)
 
 
-fused_attention.launches = 0
-attention_backward.launches = 0
+def reset_counts() -> None:
+    """Zero both wrappers' launch counts, the totals and by variant."""
+    for fn in (fused_attention, attention_backward):
+        fn.launches = 0
+        fn.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+
+
+reset_counts()

@@ -27,8 +27,10 @@ from .config import flagship_config
 from .models.clip4clip import CLIP4Clip
 from .serve import RetrievalEngine
 
-GROUPS = (("attention kernel", ("attention_fwd_kernel",)),
-          ("attention bwd kernel", ("attention_bwd_kernel",)),
+GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
+                                 "attention_fwd_kernel")),
+          ("attention bwd kernel", ("attention_bwd_mma_kernel",
+                                    "attention_bwd_kernel")),
           ("layernorm kernel", ("_ln_fwd",)),
           ("layernorm bwd kernel", ("_ln_bwd",)),
           ("kmedoids kernel", ("kmedoids_kernel",)),

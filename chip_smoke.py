@@ -12,14 +12,18 @@
    bf16 towers) on seeded random weights; `RetrievalEngine.build_index` over
    64 seeded uint8 clips [12, 3, 224, 224] in batches of 32 (int8 index),
    then `search` with 4 text queries (k = 5).  Every kernel's launch count
-   is zeroed just before this phase and must have moved just after it.
+   is zeroed just before this phase and must have moved just after it; the
+   attention forward must have run its tensor-core variant only (its fp32
+   CUDA-core variant's count must not move).
 3. Training phase, the second main path: the JAX package's preset
    `msrvtt_vitb32_k6` (the same model; AdamW lr 2e-3, coef_lr 1e-3, wd 0.2,
    warmup 0.1, freeze_layer_num 0) at its batch of 128 seeded clips with
    128 seeded token rows of 32; 2 untimed and 5 timed steps through
    `Trainer.train_epoch` (forward, symmetric InfoNCE, backward through the
    five kernels, clip, update, logit-scale clamp).  The counts of all five
-   kernels are zeroed just before the steps and must have moved after them.
+   kernels are zeroed just before the steps and must have moved after them,
+   the attention forward and backward through their tensor-core variants
+   only.
    Then a checkpoint is saved and resumed into a fresh model and optimizer,
    one more step from each must give equal parameters, and
    `Evaluator.evaluate` runs on 64 of the clips with their texts.
@@ -29,10 +33,11 @@
    at the serving and the training shapes; the backward kernels at the
    training batch's shapes, where the autograd Function must return the
    kernel's gradient bit for bit), with errors, CUDA-event times, the time
-   of one PyTorch
-   library call for the same function where there is one, and the least
-   time the card could take (bytes over the memory rate, or operations
-   over the peak rate, whichever is larger).
+   of one PyTorch library call for the same function where there is one
+   (SDPA; its backward by `torch.autograd.grad`, so nothing accumulates
+   into `.grad` between timed calls), the kernel's time over it, and the
+   least time the card could take (bytes over the memory rate, or
+   operations over the peak rate, whichever is larger).
 5. CPU checks: 2 clips and the 4 queries again through the port on the CPU
    (plain versions, same weights and dtype), held to the card's embeddings
    by cosine; and one training step on 2 clips on the card and on the CPU
@@ -62,8 +67,9 @@ CARD_PEAKS = {
 }
 
 # tolerances, stated before any run:
-# bf16 kernel vs plain version: both round the same fp32 values to bf16, so
-# they differ by at most about one bf16 ulp (2^-7 relative at 1)
+# bf16 kernel vs plain version: both round fp32 values to bf16, summed in
+# another order (mma's, not the plain version's matmul), so they differ by
+# at most about one bf16 ulp (2^-7 relative at 1)
 BF16_ATOL, BF16_RTOL = 1.6e-2, 1.6e-2
 FP32_ATOL, FP32_RTOL = 1e-5, 1e-5
 # k-medoids: ids equal, or, where a fp32 summation-order tie picked another
@@ -132,6 +138,31 @@ def time_ms(torch, fn, flush, iters=10, warmup=3):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def zero_counts(counters):
+    """Zero every kernel's launch count, and attention's by variant."""
+    from centerclip_tpu_torch.ops import attention_cuda
+    for fn in counters:
+        fn.launches = 0
+    attention_cuda.reset_counts()
+
+
+def attention_variant_counts(path, backward):
+    """The attention wrappers' launches by variant since the counts were
+    zeroed; fails unless the tensor-core variants ran (the backward only on
+    the training path) and the CUDA-core (fp32) variants did not."""
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    counts = {fn.__name__: dict(fn.variant_launches)
+              for fn in (ac.fused_attention, ac.attention_backward)}
+    print(f"attention launches by variant during the {path} path: {counts}")
+    for name, by in counts.items():
+        if by[ac.CUDA_CORE]:
+            fail(f"{name} launched its CUDA-core variant on the {path} path")
+        if (backward or name == "fused_attention") and not by[ac.TENSOR_CORE]:
+            fail(f"{name} never launched its tensor-core variant on the "
+                 f"{path} path")
+    return counts
 
 
 def build_model(cfg, device, seed=0):
@@ -205,8 +236,7 @@ def training_phase(torch, np, dev, counters):
         captured["x"] = args[0].detach().clone()
     hook = cluster_mod.register_forward_pre_hook(capture)
 
-    for fn in counters:
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_s, losses = [], []
@@ -222,6 +252,7 @@ def training_phase(torch, np, dev, counters):
     if "step" in vars(trainer.optimizer):
         fail("the first training step did not reach the optimizer")
     launches = {fn.__name__: fn.launches for fn in counters}
+    variants = attention_variant_counts("training", backward=True)
     peak = torch.cuda.max_memory_allocated()
     timed = sorted(step_s[TRAIN_WARMUP_STEPS:])
     med = timed[len(timed) // 2]
@@ -277,7 +308,8 @@ def training_phase(torch, np, dev, counters):
         fail("evaluation gave a bad similarity matrix or metrics")
     result = dict(batch=B, step_ms=med * 1e3, clips_per_s=B / med,
                   step_ms_all=[x * 1e3 for x in step_s], losses=losses,
-                  peak_memory_bytes=peak, R1=res["R1"], launches=launches)
+                  peak_memory_bytes=peak, R1=res["R1"], launches=launches,
+                  variants=variants)
     return result, batch, captured["x"]
 
 
@@ -456,8 +488,7 @@ def main() -> int:
                 kmedoids_cuda.kmedoids_from_distances)
     serving_kernels = ("fused_attention", "layer_norm",
                        "kmedoids_from_distances")
-    for fn in counters:
-        fn.launches = 0
+    zero_counts(counters)
     torch.cuda.synchronize()
     t0 = time.time()
     index = engine.build_index(batches(), video_ids, quantize="int8")
@@ -467,6 +498,7 @@ def main() -> int:
     hits = engine.search(QUERIES, k=5)
     t_search = time.time() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    serving_variants = attention_variant_counts("serving", backward=False)
     hook.remove()
     print(f"gallery encode: {N_CLIPS} clips in {t_build:.3f} s = "
           f"{N_CLIPS / t_build:.2f} clips/s (batches of {BATCH}, host "
@@ -504,7 +536,13 @@ def main() -> int:
     def path_launches(fn_name):
         by_path = {"serving": launches[fn_name],
                    "training": train["launches"][fn_name]}
-        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+        out = dict(launches=sum(by_path.values()), launches_by_path=by_path)
+        if fn_name in serving_variants:
+            out["launches_by_variant"] = {
+                path: by[fn_name] for path, by in
+                (("serving", serving_variants),
+                 ("training", train["variants"]))}
+        return out
 
     # ----------------------------------------------------------- kernels
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -539,26 +577,29 @@ def main() -> int:
         b_ms, b_by = bound(qkv.numel() * 2 + B * L * D * 2
                            + (L * L * 4 if mask is not None else 0),
                            4.0 * B * H * L * L * 64, bf16_peak, mem_rate)
-        print(f"attention [{label}] qkv {tuple(qkv.shape)} bf16 H={H}: "
-              f"max_abs_err {err.max().item():.3e} (tol {BF16_ATOL} + "
-              f"{BF16_RTOL}*|ref|) ms {ms:.4f} plain {plain_ms:.4f} "
-              f"sdpa {lib_ms:.4f} bound {b_ms:.4f} ({b_by})")
+        variant = attention_cuda.choose_variant(qkv.dtype, 64, L)
+        print(f"attention [{label}] qkv {tuple(qkv.shape)} bf16 H={H}, "
+              f"{variant} variant: max_abs_err {err.max().item():.3e} (tol "
+              f"{BF16_ATOL} + {BF16_RTOL}*|ref|) ms {ms:.4f} plain "
+              f"{plain_ms:.4f} sdpa {lib_ms:.4f} bound {b_ms:.4f} ({b_by}); "
+              f"ms / sdpa {ms / lib_ms:.3f}, ms / bound {ms / b_ms:.2f}")
         if not ok:
             fail(f"attention [{label}] disagrees with its plain version")
-        attn_rows.append(dict(shape=list(qkv.shape), max_abs_err=err.max()
-                              .item(), ms=ms, plain_ms=plain_ms,
-                              library_ms=lib_ms, bound_ms=b_ms,
+        attn_rows.append(dict(shape=list(qkv.shape), variant=variant,
+                              max_abs_err=err.max().item(), ms=ms,
+                              plain_ms=plain_ms, library_ms=lib_ms,
+                              vs_library=ms / lib_ms, bound_ms=b_ms,
                               bound_by=b_by))
     a = attn_rows[0]
     results.append(dict(
         name="attention_fwd", route="cuda",
         source="centerclip_tpu_torch/csrc/attention.cu",
         replaces="centerclip_tpu/ops/attention_pallas.py:204",
-        **path_launches("fused_attention"),
+        variant=a["variant"], **path_launches("fused_attention"),
         max_abs_err=max(r["max_abs_err"] for r in attn_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=a["library_ms"],
-        shapes=attn_rows))
+        vs_library=a["vs_library"], shapes=attn_rows))
 
     # LayerNorm: the main path's row counts and dtypes
     ln_cases = [("vision ln_pre/ln_1/ln_2, blocks 1-6", 384 * 50, 768,
@@ -725,6 +766,7 @@ def main() -> int:
         del out, fwd_ref, fwd_err
         err = (dqkv.float() - ref.float()).abs()
         ok = bool((err <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
+        differing = (dqkv != ref).float().mean().item()
         passes = torch.equal(xg.grad, dqkv)
         del xg, ref
         ms = time_ms(torch, lambda: attention_cuda.attention_backward(
@@ -736,25 +778,34 @@ def main() -> int:
         o = torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=mask is not None)
         do_h = dout.reshape(B, L, H, 64).transpose(1, 2)
-        lib_ms = time_ms(torch, lambda: o.backward(do_h, retain_graph=True),
-                         flush=flush)
+        # autograd.grad returns fresh gradients: nothing accumulates into
+        # q.grad, k.grad, v.grad from one timed call to the next
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o, (q, k, v), do_h, retain_graph=True), flush=flush)
         del q, k, v, o
         b_ms, b_by = bound(2 * qkv.numel() * 2 + dout.numel() * 2
                            + (L * L * 4 if mask is not None else 0),
                            5 * 2.0 * B * H * L * L * 64, bf16_peak, mem_rate)
-        print(f"attention bwd [{label}] qkv {tuple(qkv.shape)} bf16 H={H}: "
-              f"max_abs_err {err.max().item():.3e} (tol {BF16_ATOL} + "
-              f"{BF16_RTOL}*|ref|), Function passes the kernel's gradient "
-              f"through: {passes}; ms {ms:.4f} plain {plain_ms:.4f} sdpa bwd "
-              f"{lib_ms:.4f} bound {b_ms:.4f} ({b_by})")
+        variant = attention_cuda.choose_variant(qkv.dtype, 64, L,
+                                                backward=True)
+        print(f"attention bwd [{label}] qkv {tuple(qkv.shape)} bf16 H={H}, "
+              f"{variant} variant: max_abs_err {err.max().item():.3e} (tol "
+              f"{BF16_ATOL} + {BF16_RTOL}*|ref|), values differing from the "
+              f"plain version {differing:.4%}, Function passes the kernel's "
+              f"gradient through: {passes}; ms {ms:.4f} plain {plain_ms:.4f} "
+              f"sdpa bwd {lib_ms:.4f} bound {b_ms:.4f} ({b_by}); ms / sdpa "
+              f"bwd {ms / lib_ms:.3f}, ms / bound {ms / b_ms:.2f}")
         if not ok:
             fail(f"attention bwd [{label}] disagrees with its plain version")
         if not passes:
             fail(f"attention bwd [{label}]: the autograd Function's gradient "
                  f"is not the kernel's")
-        bwd_rows.append(dict(shape=list(qkv.shape), max_abs_err=err.max()
-                             .item(), ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        bwd_rows.append(dict(shape=list(qkv.shape), variant=variant,
+                             max_abs_err=err.max().item(),
+                             share_differing=differing, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             vs_library=ms / lib_ms, bound_ms=b_ms,
+                             bound_by=b_by))
         del qkv, dout, dqkv
     extend_forward_row("attention_fwd", attn_train_rows)
     a = bwd_rows[0]
@@ -762,11 +813,11 @@ def main() -> int:
         name="attention_bwd", route="cuda",
         source="centerclip_tpu_torch/csrc/attention_bwd.cu",
         replaces="centerclip_tpu/ops/attention_pallas.py:325",
-        **path_launches("attention_backward"),
+        variant=a["variant"], **path_launches("attention_backward"),
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=a["library_ms"],
-        shapes=bwd_rows))
+        vs_library=a["vs_library"], shapes=bwd_rows))
 
     # LayerNorm backward at the training batch's row counts (bf16 towers;
     # ln_pre has no backward at freeze_layer_num 0)
@@ -883,7 +934,7 @@ def main() -> int:
 
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {**{k: v for k, v in train.items()
-                                       if k != "launches"},
+                                       if k not in ("launches", "variants")},
                                    "cpu_check": train_check}}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

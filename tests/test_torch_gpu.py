@@ -81,6 +81,71 @@ def test_attention_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         attention_cuda.fused_attention(
             _randn((1, 400, 3 * 768), torch.float32, cuda), 12)  # smem
+    with pytest.raises(ValueError):                              # hd % 16
+        attention_cuda.fused_attention(
+            _randn((2, 50, 3 * 240), torch.bfloat16, cuda), 6)
+    with pytest.raises(ValueError):                              # float64
+        attention_cuda.fused_attention(qkv.double(), 12)
+
+
+def _variant_counts(fn):
+    return dict(fn.variant_launches)
+
+
+# the tensor-core kernels at the edges of their 16-row tiles and 64-key /
+# 64-channel register tiles: odd B, causal (with the mask gradient) at odd L
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("L", [1, 16, 17, 49, 63, 64, 65, 128])
+def test_attention_tensor_core_lengths(cuda, L, dtype):
+    B, H, hd = 3, 4, 64
+    causal = L % 2 == 1
+    qkv = _randn((B, L, 3 * H * hd), dtype, cuda, seed=L)
+    dout = _randn((B, L, H * hd), dtype, cuda, seed=L + 1)
+    mask = _causal(L, cuda) if causal else None
+    fwd0 = _variant_counts(attention_cuda.fused_attention)
+    bwd0 = _variant_counts(attention_cuda.attention_backward)
+    out = attention_cuda.fused_attention(qkv, H, mask)
+    dqkv, dmask = attention_cuda.attention_backward(qkv, dout, H, mask,
+                                                    mask_grad=causal)
+    torch.cuda.synchronize()
+    for fn, before in ((attention_cuda.fused_attention, fwd0),
+                       (attention_cuda.attention_backward, bwd0)):
+        assert fn.variant_launches["tensor_core"] == \
+            before["tensor_core"] + 1
+        assert fn.variant_launches["cuda_core"] == before["cuda_core"]
+    torch.testing.assert_close(
+        out.float(), attention_cuda.attention_plain(qkv, H, mask).float(),
+        **BF16_TOL)
+    ref, ref_mask = attention_cuda.attention_bwd_plain(qkv, dout, H, mask,
+                                                       mask_grad=causal)
+    torch.testing.assert_close(dqkv.float(), ref.float(), **BF16_TOL)
+    if causal:
+        assert bool((dmask.triu(1) == 0).all())
+        _assert_sum_close(dmask, ref_mask, _abs_ds_sum(qkv, dout, H, mask))
+
+
+# head_dim below, at and above one 64-channel register tile
+@pytest.mark.parametrize("hd", [16, 48, 128])
+def test_attention_tensor_core_head_dims(cuda, hd):
+    B, L, H = 5, 50, 2
+    qkv = _randn((B, L, 3 * H * hd), torch.bfloat16, cuda, seed=hd)
+    dout = _randn((B, L, H * hd), torch.bfloat16, cuda, seed=hd + 1)
+    out = attention_cuda.fused_attention(qkv, H)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H)
+    torch.testing.assert_close(
+        out.float(), attention_cuda.attention_plain(qkv, H).float(),
+        **BF16_TOL)
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H)
+    torch.testing.assert_close(dqkv.float(), ref.float(), **BF16_TOL)
+
+
+def test_attention_bwd_kernel_is_deterministic(cuda):
+    B, L, H = 7, 50, 12
+    qkv = _randn((B, L, 3 * H * 64), torch.bfloat16, cuda, seed=11)
+    dout = _randn((B, L, H * 64), torch.bfloat16, cuda, seed=12)
+    a, _ = attention_cuda.attention_backward(qkv, dout, H)
+    b, _ = attention_cuda.attention_backward(qkv, dout, H)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("R,D,dtype", [
@@ -229,8 +294,20 @@ def test_attention_function_backward_is_the_kernel(cuda):
 def test_attention_bwd_rejects_what_it_cannot_take(cuda):
     qkv = _randn((2, 197, 3 * 768), torch.bfloat16, cuda)
     dout = _randn((2, 197, 768), torch.bfloat16, cuda)
-    with pytest.raises(ValueError):                     # shared memory
+    with pytest.raises(ValueError):                     # L > 128
         attention_cuda.attention_backward(qkv, dout, 12)
+    with pytest.raises(ValueError):                     # L = 129
+        attention_cuda.attention_backward(
+            _randn((1, 129, 3 * 128), torch.float16, cuda),
+            _randn((1, 129, 128), torch.float16, cuda), 2)
+    with pytest.raises(ValueError):                     # hd % 16
+        attention_cuda.attention_backward(
+            _randn((1, 50, 3 * 80), torch.bfloat16, cuda),
+            _randn((1, 50, 80), torch.bfloat16, cuda), 2)
+    with pytest.raises(ValueError):                     # fp32 shared memory
+        attention_cuda.attention_backward(
+            _randn((1, 197, 3 * 768), torch.float32, cuda),
+            _randn((1, 197, 768), torch.float32, cuda), 12)
     small = _randn((2, 50, 3 * 768), torch.bfloat16, cuda)
     with pytest.raises(ValueError):                     # dout shape
         attention_cuda.attention_backward(small, dout, 12)

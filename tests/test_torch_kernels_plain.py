@@ -38,7 +38,7 @@ def causal_np(L):
 
 
 # ---------------------------------------------------------------- attention
-@pytest.mark.parametrize("L", [32, 50])
+@pytest.mark.parametrize("L", [32, 50, 77])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_plain_matches_fused_mha(L, causal):
     B, H, hd = 3, 2, 16

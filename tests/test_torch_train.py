@@ -138,7 +138,8 @@ def assert_params_match(model, jparams, cfg, **tol):
 
 
 # ------------------------------------------------------------- kernel B / D
-@pytest.mark.parametrize("L,causal", [(32, True), (50, False), (50, True)])
+@pytest.mark.parametrize("L,causal", [(32, True), (50, False), (50, True),
+                                      (77, False), (77, True)])
 def test_attention_bwd_plain_matches_pallas_bwd(L, causal):
     B, H, hd = 3, 2, 16
     D = H * hd
