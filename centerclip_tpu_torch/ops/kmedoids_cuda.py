@@ -8,10 +8,13 @@ Replaces the TPU kernel `centerclip_tpu/ops/kmedoids_pallas.py`
 CTA per segment with the segment's `[N, N]` distance matrix held in shared
 memory for KKZ seeding, every Lloyd step, the id sort and the last
 assignment.  It is latency-bound: the matrix is read from device memory
-once and the steps are a chain of small dependent reductions.  The TPU
-kernel's one-hot matmul is replaced by each candidate's sum over its own
-cluster (O(N^2) adds per step instead of O(N^2 K)).  The distance matrix is
-computed outside the kernel by `ops/distances.py`, a plain fp32 matmul.
+once (one bulk asynchronous copy when N is even) and the steps are a chain
+of small dependent reductions, which the design keeps short: KKZ in one
+warp with no block barrier, and Lloyd steps of three barriers on member
+lists built without atomics.  The TPU kernel's one-hot matmul is replaced
+by each candidate's sum over its own cluster's members.  The distance
+matrix is computed outside the kernel by `ops/distances.py`, a plain fp32
+matmul.
 
 `kmedoids` takes the plain version for CPU tensors only.  A CUDA tensor
 launches the kernel or raises; an N whose distance matrix does not fit in

@@ -10,12 +10,24 @@ output in the input's dtype.
 
 * Forward: one Triton program normalises one row, with `BLOCK_D` the next
   power of two above D (1024 for 768, 512 for 512).
-* Backward: each program takes a block of rows, recomputes mean and rstd in
-  fp32, writes dx in x's dtype and its fp32 partial sums of dy * x_hat and
-  dy to a `[n_blocks, D]` scratch buffer; a second small program reduces
-  the partials over the blocks into dgamma and dbeta.  Deterministic, no
-  atomics: the TPU kernel's accumulator across a sequential grid has no
-  counterpart on a card whose blocks run in parallel.
+* Backward, one launch: a persistent grid of `bwd_launch_plan(...)`
+  programs, as many per SM as fit, each walking a contiguous range of rows
+  in `[ROWS, BLOCK_D]` tiles, software-pipelined so that the next tiles'
+  loads are in flight while this one is reduced.  Per row it recomputes
+  mean and rstd in fp32 and writes dx in x's dtype; the fp32 sums of
+  dy * x_hat and dy stay in registers across its rows and are written
+  once, as one partial row per program.  The partials are reduced inside
+  the same launch by tickets: the last program of each group of
+  `_BWD_GROUP` to finish (an int32 `atomic_add`, acq_rel) sums its group's
+  partial rows in program order, and the last group to finish sums the
+  group rows into dgamma and dbeta, again in order.  No float atomics and
+  no autotuning: the plan is a fixed function of (R, D, dtype) and the
+  card's SM count, so two calls on the same inputs return the same bits.
+  The ticket counters live in one int32 buffer per device, zero between
+  calls (the last taker of each resets it), which assumes that calls on
+  one device run on one stream at a time.  The TPU kernel's
+  accumulator across a sequential grid has no counterpart on a card whose
+  programs run in parallel; the tickets are its replacement.
 
 Both are a few flops per element, so they are bound by reading x (and dy)
 and writing y (or dx) once; each makes a single pass over device memory.
@@ -29,14 +41,63 @@ kernel is first launched, never at import.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 EPS = 1e-5
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-# backward: about this many row blocks, each written as one partial row
-_BWD_PROGRAMS = 1024
+# backward plan: a warp spans 32 16-byte loads along a row, a program has
+# at most _BWD_MAX_WARPS warps and a [ROWS, BLOCK_D] tile of about
+# _BWD_THREAD_ELEMS elements per thread (ROWS at most _BWD_MAX_ROWS), an SM
+# runs as many programs as about _BWD_SM_WARPS resident warps make, the
+# loop over tiles keeps _BWD_STAGES tiles' loads in flight, and one ticket
+# group sums the partial rows of _BWD_GROUP programs
+_BWD_THREAD_ELEMS = 32
+_BWD_MAX_ROWS = 16
+_BWD_MAX_WARPS = 8
+_BWD_SM_WARPS = 12
+_BWD_STAGES = 3
+_BWD_GROUP = 16
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel cuts R rows of width D: `programs` programs,
+    program p taking rows [p * rows_per_program, (p + 1) * rows_per_program)
+    (the last one fewer) in tiles of `rows`; ticket groups of `group`
+    programs, `groups` of them; tile width `block_d` and `num_warps`."""
+    programs: int
+    rows: int
+    rows_per_program: int
+    group: int
+    groups: int
+    block_d: int
+    num_warps: int
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def bwd_launch_plan(R: int, D: int, n_sm: int, elem_bytes: int = 2
+                    ) -> BwdPlan:
+    """The backward kernel's grid for R >= 1 rows of width D, `elem_bytes`
+    bytes an element, on a card of `n_sm` SMs: a fixed function of these,
+    so the order of every sum is too.  The programs are at most
+    `n_sm * (_BWD_SM_WARPS // num_warps)`, each with the same whole number
+    of tiles (the last possibly fewer rows), none idle."""
+    block_d = _next_pow2(D)
+    num_warps = max(1, min(_BWD_MAX_WARPS, block_d * elem_bytes // 512))
+    rows = max(1, min(_BWD_MAX_ROWS,
+                      _BWD_THREAD_ELEMS * 32 * num_warps // block_d))
+    tiles = -(-R // rows)
+    cap = n_sm * max(1, _BWD_SM_WARPS // num_warps)
+    tiles_per_program = -(-tiles // min(tiles, cap))
+    programs = -(-tiles // tiles_per_program)
+    return BwdPlan(programs=programs, rows=rows,
+                   rows_per_program=tiles_per_program * rows,
+                   group=_BWD_GROUP, groups=-(-programs // _BWD_GROUP),
+                   block_d=block_d, num_warps=num_warps)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -95,52 +156,87 @@ def _kernels():
         tl.store(Y + row * D + cols, y.to(Y.dtype.element_ty), mask=valid)
 
     @triton.jit
-    def _ln_bwd(X, W, DY, DX, PW, PB, R, D, rows_per_block, eps,
-                BLOCK_D: tl.constexpr):
-        blk = tl.program_id(0).to(tl.int64)
+    def _add2(a0, a1, b0, b1):
+        return a0 + b0, a1 + b1
+
+    @triton.jit
+    def _sum_rows(SRC, first, count, half, D, cols, valid,
+                  BLOCK_P: tl.constexpr, BLOCK_D: tl.constexpr):
+        """Rows first .. first + count - 1 of the two row-major fp32
+        [half, D] arrays at SRC and SRC + half * D, each summed in a fixed
+        order (BLOCK_P rows of each loaded at once).  `.cg` reads from L2:
+        the rows were written by other programs of this launch."""
+        acc_w = tl.zeros([BLOCK_D], dtype=tl.float32)
+        acc_b = tl.zeros([BLOCK_D], dtype=tl.float32)
+        for i in range(0, count, BLOCK_P):
+            k = i + tl.arange(0, BLOCK_P)
+            ok = (k < count)[:, None] & valid[None, :]
+            offs = (first + k).to(tl.int64)[:, None] * D + cols[None, :]
+            acc_w += tl.sum(tl.load(SRC + offs, mask=ok, other=0.0,
+                                    cache_modifier=".cg"), axis=0)
+            acc_b += tl.sum(tl.load(SRC + half * D + offs, mask=ok,
+                                    other=0.0, cache_modifier=".cg"), axis=0)
+        return acc_w, acc_b
+
+    @triton.jit
+    def _ln_bwd(X, W, DY, DX, PART, GPART, DWB, TICKETS, R, D,
+                rows_per_program, P, groups, eps, ROWS: tl.constexpr,
+                BLOCK_D: tl.constexpr, GROUP: tl.constexpr,
+                STAGES: tl.constexpr, SUM_ROWS: tl.constexpr):
+        pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK_D)
         valid = cols < D
         w = tl.load(W + cols, mask=valid, other=0.0)
+        first = pid.to(tl.int64) * rows_per_program
+        end = tl.minimum(first + rows_per_program, R)
         acc_w = tl.zeros([BLOCK_D], dtype=tl.float32)
         acc_b = tl.zeros([BLOCK_D], dtype=tl.float32)
-        for r in range(0, rows_per_block):
-            row = blk * rows_per_block + r
-            ok = valid & (row < R)
-            # rows past R load zeros: dy = 0 adds nothing to the sums
-            x = tl.load(X + row * D + cols, mask=ok, other=0.0).to(tl.float32)
-            dy = tl.load(DY + row * D + cols, mask=ok, other=0.0).to(tl.float32)
-            mean = tl.sum(x, axis=0) / D
-            xc = tl.where(valid, x - mean, 0.0)
-            var = tl.sum(xc * xc, axis=0) / D
-            rstd = 1.0 / tl.sqrt(var + eps)
-            xhat = xc * rstd
-            dyg = dy * w
-            m1 = tl.sum(dyg, axis=0) / D
-            m2 = tl.sum(dyg * xhat, axis=0) / D
-            dx = rstd * (dyg - m1 - xhat * m2)
-            tl.store(DX + row * D + cols, dx.to(DX.dtype.element_ty), mask=ok)
-            acc_w += dy * xhat
-            acc_b += dy
-        tl.store(PW + blk * D + cols, acc_w, mask=valid)
-        tl.store(PB + blk * D + cols, acc_b, mask=valid)
-
-    @triton.jit
-    def _ln_bwd_reduce(PW, PB, DW, DB, NB, D, BLOCK_N: tl.constexpr,
-                       BLOCK_C: tl.constexpr):
-        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cvalid = cols < D
-        acc_w = tl.zeros([BLOCK_N, BLOCK_C], dtype=tl.float32)
-        acc_b = tl.zeros([BLOCK_N, BLOCK_C], dtype=tl.float32)
-        for n0 in range(0, NB, BLOCK_N):
-            rows = n0 + tl.arange(0, BLOCK_N)
-            ok = (rows[:, None] < NB) & cvalid[None, :]
+        for r0 in tl.range(0, rows_per_program, ROWS, num_stages=STAGES):
+            rows = first + r0 + tl.arange(0, ROWS)
+            ok = (rows < end)[:, None] & valid[None, :]
             offs = rows[:, None] * D + cols[None, :]
-            acc_w += tl.load(PW + offs, mask=ok, other=0.0)
-            acc_b += tl.load(PB + offs, mask=ok, other=0.0)
-        tl.store(DW + cols, tl.sum(acc_w, axis=0), mask=cvalid)
-        tl.store(DB + cols, tl.sum(acc_b, axis=0), mask=cvalid)
+            # rows past the range load zeros: dy = 0 adds nothing to the sums
+            x = tl.load(X + offs, mask=ok, other=0.0).to(tl.float32)
+            dy = tl.load(DY + offs, mask=ok, other=0.0).to(tl.float32)
+            mean = tl.sum(x, axis=1) / D
+            xc = tl.where(valid[None, :], x - mean[:, None], 0.0)
+            var = tl.sum(xc * xc, axis=1) / D
+            rstd = 1.0 / tl.sqrt(var + eps)
+            xhat = xc * rstd[:, None]
+            dyg = dy * w[None, :]
+            # both row sums of the gradient in one reduction
+            s1, s2 = tl.reduce((dyg, dyg * xhat), 1, _add2)
+            m1 = s1 / D
+            m2 = s2 / D
+            dx = rstd[:, None] * (dyg - m1[:, None] - xhat * m2[:, None])
+            tl.store(DX + offs, dx.to(DX.dtype.element_ty), mask=ok)
+            acc_w += tl.sum(dy * xhat, axis=0)
+            acc_b += tl.sum(dy, axis=0)
+        tl.store(PART + pid * D + cols, acc_w, mask=valid)
+        tl.store(PART + (P + pid) * D + cols, acc_b, mask=valid)
+        # every thread's partial stores before the ticket's release
+        tl.debug_barrier()
+        grp = pid // GROUP
+        g0 = grp * GROUP
+        gsize = tl.minimum(P - g0, GROUP)
+        ticket = tl.atomic_add(TICKETS + grp, 1, sem="acq_rel")
+        if ticket == gsize - 1:
+            # the group's last program: every partial row of it is written
+            tl.store(TICKETS + grp, 0)
+            gw, gb = _sum_rows(PART, g0, gsize, P, D, cols, valid, SUM_ROWS,
+                               BLOCK_D)
+            tl.store(GPART + grp * D + cols, gw, mask=valid)
+            tl.store(GPART + (groups + grp) * D + cols, gb, mask=valid)
+            tl.debug_barrier()
+            last = tl.atomic_add(TICKETS + groups, 1, sem="acq_rel")
+            if last == groups - 1:
+                tl.store(TICKETS + groups, 0)
+                dw, db = _sum_rows(GPART, 0, groups, groups, D, cols, valid,
+                                   SUM_ROWS, BLOCK_D)
+                tl.store(DWB + cols, dw, mask=valid)
+                tl.store(DWB + D + cols, db, mask=valid)
 
-    return triton, _ln_fwd, _ln_bwd, _ln_bwd_reduce
+    return triton, _ln_fwd, _ln_bwd
 
 
 def _check_cuda(x: torch.Tensor, params) -> int:
@@ -169,7 +265,7 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     R = x.numel() // D if D else 0
     if R == 0:
         return y
-    triton, kernel, _, _ = _kernels()
+    triton, kernel, _ = _kernels()
     block = triton.next_power_of_2(D)
     with torch.cuda.device(x.device):
         kernel[(R,)](x, weight, bias, y, D, eps, BLOCK_D=block,
@@ -196,23 +292,40 @@ def layer_norm_backward(x: torch.Tensor, weight: torch.Tensor,
     if R == 0:
         zeros = torch.zeros(D, dtype=torch.float32, device=x.device)
         return dx, zeros, zeros.clone()
-    rows_per_block = -(-R // _BWD_PROGRAMS)
-    n_blocks = -(-R // rows_per_block)
-    partial = torch.empty((2, n_blocks, D), dtype=torch.float32,
+    plan = bwd_launch_plan(R, D, _sm_count(x.device), x.element_size())
+    partial = torch.empty((2, plan.programs, D), dtype=torch.float32,
                           device=x.device)
+    group_partial = torch.empty((2, plan.groups, D), dtype=torch.float32,
+                                device=x.device)
     dwb = torch.empty((2, D), dtype=torch.float32, device=x.device)
-    triton, _, bwd, reduce = _kernels()
-    block = triton.next_power_of_2(D)
-    block_c = 64
+    _, _, bwd = _kernels()
     with torch.cuda.device(x.device):
-        bwd[(n_blocks,)](x, weight, dy, dx, partial[0], partial[1], R, D,
-                         rows_per_block, eps, BLOCK_D=block,
-                         num_warps=4 if block <= 1024 else 8)
-        reduce[(triton.cdiv(D, block_c),)](partial[0], partial[1], dwb[0],
-                                           dwb[1], n_blocks, D, BLOCK_N=32,
-                                           BLOCK_C=block_c, num_warps=4)
+        bwd[(plan.programs,)](
+            x, weight, dy, dx, partial, group_partial, dwb,
+            _tickets(x.device, plan.groups + 1), R, D, plan.rows_per_program,
+            plan.programs, plan.groups, eps, ROWS=plan.rows,
+            BLOCK_D=plan.block_d, GROUP=plan.group, STAGES=_BWD_STAGES,
+            SUM_ROWS=2 * plan.rows, num_warps=plan.num_warps)
     layer_norm_backward.launches += 1
     return dx, dwb[0], dwb[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_ticket_buffers: Dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The backward's int32 ticket counters on `device`, all zero between
+    calls; made (zeroed) at first use, larger when a plan needs more."""
+    buf = _ticket_buffers.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _ticket_buffers[device] = buf
+    return buf
 
 
 class _LayerNorm(torch.autograd.Function):

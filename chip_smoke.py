@@ -32,7 +32,9 @@
    serving phase and the first training step clustered; the forward kernels
    at the serving and the training shapes; the backward kernels at the
    training batch's shapes, where the autograd Function must return the
-   kernel's gradient bit for bit), with errors, CUDA-event times, the time
+   kernel's gradient bit for bit, and the LayerNorm backward must return
+   the same bits from a second call; its device launches per call are
+   counted by torch.profiler), with errors, CUDA-event times, the time
    of one PyTorch library call for the same function where there is one
    (SDPA; its backward by `torch.autograd.grad`, so nothing accumulates
    into `.grad` between timed calls), the kernel's time over it, and the
@@ -138,6 +140,22 @@ def time_ms(torch, fn, flush, iters=10, warmup=3):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def device_launches(torch, fn):
+    """Device activities (kernels, copies, memsets) of one call of `fn`, as
+    torch.profiler records them; fails if it records none."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        fail("the profiler recorded no device activity")
+    return names
 
 
 def zero_counts(counters):
@@ -720,8 +738,9 @@ def main() -> int:
         lloyd_steps_mean=a["lloyd_steps_mean"], shapes=km_rows))
 
     def extend_forward_row(kernel, rows):
-        """Add a forward kernel's errors at the training shapes to its row
-        (its times stay those of the first serving shape)."""
+        """Add a forward kernel's errors (and, for LayerNorm, times) at the
+        training shapes to its row (its top-level times stay those of the
+        first serving shape)."""
         row = next(r for r in results if r["name"] == kernel)
         row["training_shapes"] = rows
         row["max_abs_err"] = max([row["max_abs_err"]]
@@ -846,15 +865,28 @@ def main() -> int:
                      + BF16_RTOL * fwd_ref.float().abs()).all()):
             fail(f"layernorm [{label}, training] disagrees with its plain "
                  f"version")
-        ln_train_rows.append(dict(shape=[R, D], dtype="bfloat16",
-                                  max_abs_err=fwd_err.max().item()))
-        print(f"layernorm [{label}, training] x ({R}, {D}) bf16: "
-              f"max_abs_err {fwd_err.max().item():.3e} (tol {BF16_ATOL} + "
-              f"{BF16_RTOL}*|ref|)")
         passes = (torch.equal(xs.grad, dx) and torch.equal(ws.grad, dw)
                   and torch.equal(bs.grad, db))
-        del xs, ws, bs, out, fwd_ref, fwd_err
+        del xs, ws, bs, out, fwd_ref
         xf, dyf = x.float(), dy.float()
+        f_ms = time_ms(torch, lambda: layernorm_triton.layer_norm(x, w, b),
+                       flush=flush)
+        f_plain_ms = time_ms(torch, lambda: layernorm_triton.layer_norm_plain(
+            x, w, b), flush=flush)
+        f_lib_ms = time_ms(torch, lambda: torch.nn.functional.layer_norm(
+            xf, (D,), w, b, 1e-5), flush=flush)
+        f_b_ms, f_b_by = bound(2 * x.numel() * x.element_size() + 2 * D * 4,
+                               8.0 * R * D, fp32_peak, mem_rate)
+        ln_train_rows.append(dict(shape=[R, D], dtype="bfloat16",
+                                  max_abs_err=fwd_err.max().item(), ms=f_ms,
+                                  plain_ms=f_plain_ms, library_ms=f_lib_ms,
+                                  bound_ms=f_b_ms, bound_by=f_b_by))
+        print(f"layernorm [{label}, training] x ({R}, {D}) bf16: "
+              f"max_abs_err {fwd_err.max().item():.3e} (tol {BF16_ATOL} + "
+              f"{BF16_RTOL}*|ref|) ms {f_ms:.4f} plain {f_plain_ms:.4f} "
+              f"F.layer_norm(fp32) {f_lib_ms:.4f} bound {f_b_ms:.4f} "
+              f"({f_b_by})")
+        del fwd_err
         xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
             xf.var(-1, correction=0, keepdim=True) + 1e-5)
         err_x = (dx.float() - rx.float()).abs()
@@ -877,13 +909,23 @@ def main() -> int:
                              [True, True, True]), flush=flush)
         b_ms, b_by = bound(3 * x.numel() * 2 + 3 * D * 4, 16.0 * R * D,
                            fp32_peak, mem_rate)
+        again = layernorm_triton.layer_norm_backward(x, w, dy)
+        bitwise = all(torch.equal(u, v) for u, v in zip(again, (dx, dw, db)))
+        del again
+        dev_names = device_launches(torch, lambda: layernorm_triton
+                                    .layer_norm_backward(x, w, dy))
         print(f"layernorm bwd [{label}] x ({R}, {D}) bf16: dx max_abs_err "
               f"{err_x.max().item():.3e} (tol {BF16_ATOL} + {BF16_RTOL}*|ref|)"
               f", dgamma/dbeta max_abs_err {err_wb:.3e} (tol {SUM_RTOL}*sum"
               f"|terms| + 1e-6), Function passes the kernel's gradients "
-              f"through: {passes}; ms {ms:.4f} plain {plain_ms:.4f} "
+              f"through: {passes}, a second call equal to the bit: "
+              f"{bitwise}; device launches per call {len(dev_names)} "
+              f"{sorted(set(dev_names))}; ms {ms:.4f} plain {plain_ms:.4f} "
               f"native_layer_norm_backward(fp32) {lib_ms:.4f} bound "
               f"{b_ms:.4f} ({b_by})")
+        if not bitwise:
+            fail(f"layernorm bwd [{label}]: two calls on the same inputs "
+                 f"differ")
         if not ok:
             fail(f"layernorm bwd [{label}] disagrees with its plain version")
         if not passes:
@@ -892,7 +934,8 @@ def main() -> int:
         lnb_rows.append(dict(shape=[R, D], dtype="bfloat16",
                              max_abs_err=max(err_x.max().item(), err_wb),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by))
+                             bound_ms=b_ms, bound_by=b_by,
+                             device_launches_per_call=len(dev_names)))
         del x, dy, xf, dyf, dx, mean, rstd
     extend_forward_row("layernorm_fwd", ln_train_rows)
     a = lnb_rows[0]
@@ -903,7 +946,9 @@ def main() -> int:
         **path_launches("layer_norm_backward"),
         max_abs_err=max(r["max_abs_err"] for r in lnb_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-        bound_by=a["bound_by"], library_ms=a["library_ms"], shapes=lnb_rows))
+        bound_by=a["bound_by"], library_ms=a["library_ms"],
+        device_launches_per_call=max(r["device_launches_per_call"]
+                                     for r in lnb_rows), shapes=lnb_rows))
     del flush
     torch.cuda.empty_cache()
 

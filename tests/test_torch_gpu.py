@@ -317,6 +317,22 @@ def test_attention_bwd_rejects_what_it_cannot_take(cuda):
             mask_grad=True)
 
 
+def _check_ln_bwd(x, w, dy, out):
+    """The kernel's (dx, dgamma, dbeta) against the plain version: dx within
+    one ulp of its dtype, the sums within SUM_RTOL of their terms."""
+    dx, dw, db = out
+    rx, rw, rb = layernorm_triton.layer_norm_bwd_plain(x, w, dy)
+    tol = dict(rtol=1e-5, atol=1e-5) if x.dtype == torch.float32 \
+        else BF16_TOL
+    torch.testing.assert_close(dx.float(), rx.float(), **tol)
+    xf = x.float().reshape(-1, x.shape[-1])
+    xhat = (xf - xf.mean(-1, keepdim=True)) / xf.std(-1, correction=0,
+                                                      keepdim=True)
+    dyf = dy.float().reshape(xf.shape)
+    _assert_sum_close(dw, rw, (dyf * xhat).abs().sum(0))
+    _assert_sum_close(db, rb, dyf.abs().sum(0))
+
+
 @pytest.mark.parametrize("R,D,dtype", [
     (1536 * 50, 768, torch.bfloat16), (768 * 50, 768, torch.bfloat16),
     (768, 768, torch.bfloat16), (128 * 32, 512, torch.bfloat16),
@@ -326,25 +342,21 @@ def test_layernorm_bwd_kernel_matches_plain(cuda, R, D, dtype):
     w = _randn((D,), torch.float32, cuda, seed=1, scale=0.1) + 1.0
     dy = _randn((R, D), dtype, cuda, seed=2)
     before = layernorm_triton.layer_norm_backward.launches
-    dx, dw, db = layernorm_triton.layer_norm_backward(x, w, dy)
+    out = layernorm_triton.layer_norm_backward(x, w, dy)
     torch.cuda.synchronize()
     assert layernorm_triton.layer_norm_backward.launches == before + 1
-    rx, rw, rb = layernorm_triton.layer_norm_bwd_plain(x, w, dy)
-    assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
-    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else BF16_TOL
-    torch.testing.assert_close(dx.float(), rx.float(), **tol)
-    xf = x.float()
-    xhat = (xf - xf.mean(-1, keepdim=True)) / xf.std(-1, correction=0,
-                                                      keepdim=True)
-    _assert_sum_close(dw, rw, (dy.float() * xhat).abs().sum(0))
-    _assert_sum_close(db, rb, dy.float().abs().sum(0))
+    assert out[0].dtype == dtype and out[1].dtype == out[2].dtype \
+        == torch.float32
+    _check_ln_bwd(x, w, dy, out)
 
 
-def test_layernorm_function_backward_is_the_kernel(cuda):
-    x = _randn((2, 50, 768), torch.bfloat16, cuda, seed=5)
+# the rows at the plan's edges: one row, one partial tile, many programs
+@pytest.mark.parametrize("lead", [(2, 50), (1,), (3, 1), (128, 6, 50)])
+def test_layernorm_function_backward_is_the_kernel(cuda, lead):
+    x = _randn((*lead, 768), torch.bfloat16, cuda, seed=5)
     w = _randn((768,), torch.float32, cuda, seed=6) * 0.1 + 1.0
     b = _randn((768,), torch.float32, cuda, seed=7)
-    dy = _randn((2, 50, 768), torch.bfloat16, cuda, seed=8)
+    dy = _randn((*lead, 768), torch.bfloat16, cuda, seed=8)
     xs, ws, bs = (a.clone().requires_grad_(True) for a in (x, w, b))
     c0 = layernorm_triton.layer_norm.launches
     d0 = layernorm_triton.layer_norm_backward.launches
@@ -401,3 +413,88 @@ def test_one_training_step_of_a_tiny_model_on_the_card(cuda):
     for name, grad in seen.items():
         assert grad is not None and bool(torch.isfinite(grad).all()) \
             and bool(grad.abs().max() > 0), name
+
+
+# ------------------------------------------------ LayerNorm backward design
+# row counts at the plan's edges (one program, one partial tile, one tile
+# per program, many tiles per program) at a width that is no power of two
+@pytest.mark.parametrize("R", [1, 3, 768, 4096, 38400])
+def test_layernorm_bwd_rows_and_repeatable(cuda, R):
+    D = 640
+    x = _randn((R, D), torch.bfloat16, cuda, seed=R, scale=3.0) + 1.5
+    w = _randn((D,), torch.float32, cuda, seed=1, scale=0.1) + 1.0
+    dy = _randn((R, D), torch.bfloat16, cuda, seed=2)
+    first = layernorm_triton.layer_norm_backward(x, w, dy)
+    again = layernorm_triton.layer_norm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    _check_ln_bwd(x, w, dy, first)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_layernorm_bwd_many_calls_in_a_row(cuda):
+    """50 calls at alternating shapes, each right: the ticket counters are
+    back at zero after every call, whatever the plan's group count."""
+    shapes = [(1, 768), (76800 // 8, 768), (4096, 512), (33, 100),
+              (768, 768)]
+    inputs = []
+    for i, (R, D) in enumerate(shapes):
+        inputs.append((
+            _randn((R, D), torch.bfloat16, cuda, seed=10 + i, scale=2.0),
+            _randn((D,), torch.float32, cuda, seed=20 + i, scale=0.1) + 1.0,
+            _randn((R, D), torch.bfloat16, cuda, seed=30 + i)))
+    outs = [layernorm_triton.layer_norm_backward(*inputs[i % len(shapes)])
+            for i in range(50)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        _check_ln_bwd(*inputs[i % len(shapes)], out)
+        if i >= len(shapes):
+            assert all(torch.equal(a, b)
+                       for a, b in zip(out, outs[i - len(shapes)]))
+
+
+# ----------------------------------------------------------- k-medoids design
+def _check_kmedoids_on_distances(X, K, iter_limit=100, id_sort=True):
+    """The kernel against `kmedoids_on_distances` on the same distances:
+    ids equal on >= 95 % of the segments, and where a fp32 summation-order
+    tie picked another medoid, the costs equal to 1e-6; assignments equal
+    wherever the medoids are."""
+    from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
+    Xf, D, l2 = kmedoids_inputs(X)
+    before = kmedoids_cuda.kmedoids_from_distances.launches
+    a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(
+        D, l2, K, iter_limit=iter_limit, id_sort=id_sort)
+    torch.cuda.synchronize()
+    assert kmedoids_cuda.kmedoids_from_distances.launches == before + 1
+    assert bool((steps >= 1).all()) and bool((steps <= iter_limit).all())
+    a2, m2 = kmedoids_on_distances(Xf, D, l2, K, iter_limit=iter_limit,
+                                   id_sort=id_sort)
+    same = (m1 == m2).all(dim=1)
+    if not bool(same.all()):
+        diff = ~same
+        torch.testing.assert_close(_cost(D, m1, a1)[diff],
+                                   _cost(D, m2, a2)[diff], rtol=1e-6, atol=0)
+    assert bool(same.float().mean() >= 0.95)
+    torch.testing.assert_close(a1[same], a2[same], rtol=0, atol=0)
+    return steps
+
+
+@pytest.mark.parametrize("B,N,K", [
+    (64, 97, 49),       # odd N: D loads by 4-byte cp.async
+    (64, 21, 5),
+    (32, 98, 1),        # one cluster
+    (32, 40, 40),       # every point its own medoid
+    (8, 234, 49),       # near the shared-memory limit, bulk copy
+    (8, 235, 60),       # at the limit, odd
+])
+def test_kmedoids_kernel_shapes(cuda, B, N, K):
+    X = _blobs(B, N, 32, 8, seed=N * 7 + K, device=cuda)
+    _check_kmedoids_on_distances(X, K)
+
+
+def test_kmedoids_kernel_one_step_and_no_sort(cuda):
+    X = _blobs(96, 98, 64, 8, seed=3, device=cuda)
+    steps = _check_kmedoids_on_distances(X, 49, iter_limit=1)
+    assert bool((steps == 1).all())
+    # id_sort=False: the plain version's assignment is that of the medoids
+    # before its last update, equal at the fixed point the kernel stops at
+    _check_kmedoids_on_distances(X, 49, id_sort=False)
