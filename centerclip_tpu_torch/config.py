@@ -3,10 +3,9 @@
 
 An own copy of the JAX package's `config.py` (CLIP_ARCHS, ClusterConfig,
 BlockClusterSpec, build_cluster_plan, ModelConfig, make_run_config, the
-per-dataset `preset`s), so the port imports nothing of that package.  The
-fields are the same, so configs built from the same keywords compare field
-by field.  Fields that only
-steer TPU code (`fused_attention`, `remat`, `sequence_parallel`,
+per-dataset `preset`s, `to_dict` and `save_hparams`), so the port imports
+nothing of that package.  The fields are the same, so configs built from
+the same keywords compare field by field.  Fields that only steer TPU code (`fused_attention`, `remat`, `sequence_parallel`,
 `pipeline_parallel`) are accepted; the port's model builders ignore
 `fused_attention` (CUDA tensors always take the port's kernels) and raise on
 the others.
@@ -14,6 +13,7 @@ the others.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
@@ -288,6 +288,20 @@ class RunConfig:
     @property
     def new_added_modules(self) -> Tuple[str, ...]:
         return ("time_embedding", "frame_embedding", "deepcluster")
+
+
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def save_hparams(directory: str, cfg: RunConfig) -> str:
+    """JSON snapshot `<directory>/hparams_train.json` with the JAX package's
+    keys and layout (reference: params.py:329-335)."""
+    os.makedirs(directory, exist_ok=True)
+    filename = os.path.join(directory, "hparams_train.json")
+    with open(filename, "w") as f:
+        json.dump(to_dict(cfg), f, indent=4, sort_keys=True, default=str)
+    return filename
 
 
 def make_run_config(**kw) -> RunConfig:

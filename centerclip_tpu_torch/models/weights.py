@@ -5,8 +5,9 @@ The port's `nn.Module`s use the reference's key names as their own
 `state_dict` names (`clip.visual.transformer.resblocks.{i}.attn.in_proj_weight`,
 ...; JAX package `models/weights.py:74-170`), so a reference checkpoint
 loads with `load_state_dict(strict=True)`.  This module converts the JAX
-package's parameter tree (as numpy arrays) to that schema and reads
-checkpoint files.
+package's parameter tree (as numpy arrays) to that schema, reads checkpoint
+files, and applies the reference's from_pretrained weight-seeding tricks
+(`apply_pretrain_tricks`, JAX package `models/weights.py:187-234`).
 """
 from __future__ import annotations
 
@@ -129,3 +130,53 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
               if k not in ("input_resolution", "context_length", "vocab_size")}
     return {re.sub(r"\bbeta\b", "bias", re.sub(r"\bgamma\b", "weight", k)): v
             for k, v in sd.items()}
+
+
+_TEXT_BLOCK = re.compile(r"clip\.transformer\.resblocks\.(\d+)\.(.*)")
+
+
+def apply_pretrain_tricks(sd: Mapping[str, torch.Tensor], cfg: ModelConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """The reference's from_pretrained weight-seeding tricks
+    (clip4clip.py:46-114, clip.py:617-630), on every branch of the JAX
+    package's version: keys the state dict lacks are seeded, keys it has are
+    kept.  Returns a new dict; seeded values are copies."""
+    sd = dict(sd)
+    pos = sd.get("clip.positional_embedding")
+
+    def seed_from_text_blocks(prefix: str) -> None:
+        for k in list(sd):
+            m = _TEXT_BLOCK.fullmatch(k)
+            if m and int(m.group(1)) < cfg.cross_num_hidden_layers:
+                sd.setdefault(f"{prefix}.{m.group(1)}.{m.group(2)}",
+                              sd[k].clone())
+    # seqTransf / seqLSTM seeding (clip4clip.py:97-113)
+    if cfg.sim_header in ("seqLSTM", "seqTransf") and pos is not None:
+        sd.setdefault("frame_position_embeddings.weight", pos.clone())
+    if cfg.sim_header == "seqTransf":
+        seed_from_text_blocks("transformerClip.resblocks")
+    # tightTransf cross seeding (clip4clip.py:78-96)
+    if not cfg.loose_type:
+        if pos is not None:
+            sd.setdefault("cross.embeddings.position_embeddings.weight",
+                          pos.clone())
+        seed_from_text_blocks("cross.transformer.resblocks")
+    # conv2 3D inflation (clip4clip.py:47-76): conv1 in the middle temporal
+    # slice of a 3-deep kernel, zeros elsewhere
+    w = sd.get("clip.visual.conv1.weight")
+    if cfg.linear_patch == "3d" and w is not None:
+        conv2 = w.new_zeros((w.shape[0], w.shape[1], 3, w.shape[2],
+                             w.shape[3]))
+        conv2[:, :, 1] = w
+        sd.setdefault("clip.visual.conv2.weight", conv2)
+    # cluster_embed from the visual positional embedding rows 1..K
+    # (clip.py:617-630)
+    vpos = sd.get("clip.visual.positional_embedding")
+    if cfg.cluster.cluster_embedding and cfg.cluster.cluster_embed_from_clip \
+            and vpos is not None:
+        for i, spec in enumerate(cfg.cluster_plan()):
+            if spec is not None:
+                sd.setdefault(f"clip.visual.transformer.resblocks.{i}"
+                              ".tokencluster_inter.cluster_embed",
+                              vpos[1:spec.cluster_num + 1].clone())
+    return sd

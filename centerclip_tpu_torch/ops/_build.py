@@ -1,13 +1,15 @@
 # coding=utf-8
-"""Build and load the port's CUDA C++ kernels.
+"""Build and load the port's native libraries.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into
-`build/lib<name>.so` inside the package (a directory git ignores) at first
-use, and loaded with `ctypes`; it is compiled again when the source or a
-`csrc/*.cuh` header it includes is newer than the library.  The sources have a plain C interface (no
-PyTorch headers), so a build takes seconds.  Every exported function takes
-its pointers and the CUDA stream as `void*` and returns the `cudaError_t`
-of its launch; the Python wrappers raise on a non-zero code.
+Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`), and each
+`csrc/<name>.cpp` (host code: the FrameStore batch reader) by the host's
+C++ compiler, into `build/lib<name>.so` inside the package (a directory git
+ignores) at first use, and loaded with `ctypes`; a library is compiled again
+when its source or a `csrc/*.cuh` header it includes is newer.  The sources
+have a plain C interface (no PyTorch headers), so a build takes seconds.
+Every exported CUDA function takes its pointers and the CUDA stream as
+`void*` and returns the `cudaError_t` of its launch; the Python wrappers
+raise on a non-zero code.  A failed build raises with the compiler's output.
 
 Nothing is compiled when this module is imported.
 """
@@ -25,10 +27,13 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 KERNEL_SOURCES = ("attention", "attention_bwd", "kmedoids")
+HOST_SOURCES = ("framestore_reader",)
 # opt-in shared memory one Hopper CTA may use (227 KB)
 MAX_SMEM_BYTES = 232_448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+# portable: no -march=native, so a library built on one host runs on another
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -42,8 +47,17 @@ def _nvcc() -> str:
     return path
 
 
+def _cxx() -> str:
+    path = shutil.which("c++") or shutil.which("g++")
+    if path is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) found: it is "
+                           "needed to build the FrameStore reader")
+    return path
+
+
 def _paths(name: str):
-    return (os.path.join(CSRC_DIR, f"{name}.cu"),
+    ext = ".cpp" if name in HOST_SOURCES else ".cu"
+    return (os.path.join(CSRC_DIR, name + ext),
             os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
@@ -73,11 +87,15 @@ def _is_fresh(src: str, lib: str) -> bool:
 
 
 def _start(name: str) -> subprocess.Popen:
-    """Start one nvcc that writes to a private name; `_finish` renames it."""
+    """Start one compiler that writes to a private name; `_finish` renames
+    it."""
     src, lib = _paths(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
+    if name in HOST_SOURCES:
+        cmd = [_cxx(), *CXX_FLAGS, "-o", tmp, src]
+    else:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -87,16 +105,20 @@ def _finish(name: str, proc: subprocess.Popen) -> str:
     _, lib = _paths(name)
     tmp = f"{lib}.{os.getpid()}.tmp"
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise RuntimeError(f"{proc.args[0]} failed for "
+                           f"{os.path.basename(_paths(name)[0])}:\n{out}")
     os.replace(tmp, lib)          # atomic: a concurrent loader sees old or new
     return out
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False
           ) -> Dict[str, str]:
-    """Compile the named sources, one nvcc each, all started together.
-    Returns {name: nvcc output (register and shared-memory report)} for the
-    sources it compiled; fresh libraries are left as they are."""
+    """Compile the named sources, one compiler each, all started together.
+    Returns {name: compiler output (nvcc's register and shared-memory
+    report)} for the sources it compiled; fresh libraries are left as they
+    are."""
     with _lock:
         procs = {}
         for name in names:
@@ -115,7 +137,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu` / `.cpp`, built first if
+    needed."""
     lib = _libs.get(name)
     if lib is None:
         build([name])

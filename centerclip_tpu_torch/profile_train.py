@@ -6,7 +6,8 @@
 Builds the JAX package's preset `msrvtt_vitb32_k6` (ViT-B/32, kmediods++
 12 -> 6 frames, meanP, bf16 towers, AdamW) on seeded random weights and a
 `Trainer` over it, takes two warm-up steps on one batch of `--batch` seeded
-uint8 clips with seeded token rows, then profiles `--steps` more under
+uint8 clips with seeded token rows (tensors in pinned memory, as the data
+loader hands them out on the card), then profiles `--steps` more under
 `torch.profiler`: the wall time (host clock, ending in a device sync), the
 device time summed over kernels and copies, the device's busy share, and
 the device time by group (the port's five kernels, cuBLAS matmuls, the
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .config import preset
+from .data.loader import pin_batch
 from .models.clip4clip import CLIP4Clip
 from .profile_serve import profile
 from .train import Trainer
@@ -44,13 +46,14 @@ def main(argv=None) -> int:
     g = np.random.default_rng(0)
     ids = g.integers(1, 49406, (args.batch, cfg.max_words))
     ids[:, 0], ids[:, -1] = 49406, 49407
-    batch = {"input_ids": ids,
-             "attention_mask": np.ones(ids.shape, np.int32),
-             "video": g.integers(0, 256, (args.batch, 1, cfg.max_frames, 3,
-                                          224, 224), dtype=np.uint8),
-             "video_mask": np.ones((args.batch, cfg.max_frames), np.int32)}
+    batch = pin_batch({
+        "input_ids": ids, "attention_mask": np.ones(ids.shape, np.int32),
+        "video": g.integers(0, 256, (args.batch, 1, cfg.max_frames, 3,
+                                     224, 224), dtype=np.uint8),
+        "video_mask": np.ones((args.batch, cfg.max_frames), np.int32)})
     trainer.train_epoch(0, [batch, batch], n_display=10 ** 9)   # warm-up
-    profile(f"{args.steps} training step(s) of {args.batch} clips",
+    profile(f"{args.steps} training step(s) of {args.batch} clips (pinned "
+            f"host batch)",
             lambda: trainer.train_epoch(1, [batch] * args.steps,
                                         n_display=10 ** 9), args.top)
     return 0

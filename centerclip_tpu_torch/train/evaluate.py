@@ -42,18 +42,21 @@ class Evaluator:
                        cut_off_points: Optional[List[int]] = None
                        ) -> Dict[str, Any]:
         """Phase 1 (main.py:416-452).  `batches` yield dicts with
-        input_ids / video / video_mask (attention_mask is not read)."""
+        input_ids / video / video_mask (numpy arrays or tensors;
+        attention_mask is not read)."""
         m = self.model
         seq_list, vis_list, vmask_list = [], [], []
         total_video_num = 0
         cut0 = [c - 1 for c in (cut_off_points or [])]          # main.py:399
         t0 = time.time()
         for batch in batches:
-            ids = np.asarray(batch["input_ids"])
+            # numpy arrays or pinned tensors; a pinned tensor (or a view of
+            # it) is copied to the card without blocking the host
+            ids = torch.as_tensor(batch["input_ids"])
             seq_list.append(m.get_sequence_output(
                 self._tensor(ids.reshape(-1, ids.shape[-1])).long()))
-            video = np.asarray(batch["video"])
-            vmask = np.asarray(batch["video_mask"])
+            video = torch.as_tensor(batch["video"])
+            vmask = torch.as_tensor(batch["video_mask"])
             if multi_sentence:
                 # encode only the unique videos at caption cut-offs
                 s_, e_ = total_video_num, total_video_num + ids.shape[0]

@@ -9,11 +9,14 @@ global-norm clip, the optimizer update and the logit-scale clamp to
 parameters and moments in place.  Gradient accumulation sums the
 micro-batches' gradients in `.grad` and divides by however many there
 were, so an epoch's tail steps on the mean of what is left.  Losses stay
-on the device until they are logged.
+on the device until they are logged.  Host batches may be numpy arrays or
+tensors in pinned memory (the data loader's `pin_memory`), whose copy to
+the card is then asynchronous.
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, Dict, Iterable, List, Mapping, Tuple, Union
 
@@ -41,13 +44,13 @@ def clamp_logit_scale(model: CLIP4Clip) -> None:
 def batch_to_device(batch: Batch, device: torch.device
                     ) -> Dict[str, torch.Tensor]:
     """Host batch {input_ids, attention_mask, video, video_mask} (numpy or
-    tensors) -> tensors on `device`; token ids become int64."""
+    tensors) -> tensors on `device`; token ids become int64 there.  A
+    pinned tensor is copied as it is, so the copy does not block the
+    host."""
     out = {}
     for key in ("input_ids", "attention_mask", "video", "video_mask"):
-        t = torch.as_tensor(batch[key])
-        if key == "input_ids":
-            t = t.long()
-        out[key] = t.to(device, non_blocking=True)
+        t = torch.as_tensor(batch[key]).to(device, non_blocking=True)
+        out[key] = t.long() if key == "input_ids" else t
     return out
 
 
@@ -92,7 +95,9 @@ def make_train_step(model: CLIP4Clip, optimizer: GroupedAdam,
 class Trainer:
     """Epoch loop (reference: main_worker + train_epoch,
     main.py:72-378).  Builds the configured optimizer over `model` (whose
-    frozen parameters it marks `requires_grad=False`)."""
+    frozen parameters it marks `requires_grad=False`).  Set
+    `metric_writer` (a `utils.logging.MetricWriter`) to record the scalars
+    of every displayed step."""
 
     def __init__(self, cfg: RunConfig, model: CLIP4Clip, total_steps: int):
         self.cfg = cfg
@@ -104,24 +109,57 @@ class Trainer:
         self.total_steps = total_steps
         self.accum = cfg.optim.gradient_accumulation_steps
         self._step_fn = make_train_step(model, self.optimizer, self.accum)
+        self.metric_writer = None
 
-    def _log(self, epoch: int, gstep: int, logs: Dict[str, torch.Tensor],
-             data_time: float, batch_time: float) -> None:
+    def _log(self, epoch: int, gstep: int, scalars: Dict[str, float]
+             ) -> None:
         logger.info(
             "Epoch: %d step %d\tSimLoss: %.4f CLoss %.4f\tData (t) %.3f\t"
             "Batch (t) %.3f\tLR: %.1e\tlogit_scale %.3f", epoch, gstep,
-            float(logs["sim_loss"]), float(logs["cluster_loss"]), data_time,
-            batch_time, current_lr(self.cfg.optim, gstep, self.total_steps),
-            float(self.model.clip.logit_scale.detach()))
+            scalars["train/sim_loss"], scalars["train/cluster_loss"],
+            scalars["train/data_time"], scalars["train/batch_time"],
+            scalars["train/lr"], scalars["train/scale"])
+        if self.metric_writer is not None:
+            self.metric_writer.log(scalars, step=gstep)
+
+    def _start_profiler(self):
+        """torch.profiler over epoch 0's first `profile_steps` batches
+        (the JAX package's `jax.profiler` trace, train/loop.py:161-169)."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.model.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profiler(self, prof) -> None:
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        logger.info("profiler trace of %d steps written to %s",
+                    self.cfg.profile_steps, path)
 
     def train_epoch(self, epoch: int, batches: Iterable[Batch],
                     n_display: int = 100) -> Tuple[float, int]:
-        """One pass over host batches of numpy arrays.  Returns (mean loss
-        over the optimizer steps, global_step)."""
+        """One pass over host batches (numpy arrays or pinned tensors).
+        Returns (mean loss over the optimizer steps, global_step).
+
+        A displayed step (every `n_display`-th) reads its losses back
+        before its clock stops, so its `Batch (t)` is the whole step on the
+        card, waiting for the batch included, and its `Data (t)` only the
+        wait for the batch."""
         loss_log: List[torch.Tensor] = []
         micro: List[Batch] = []
+        prof = (self._start_profiler()
+                if epoch == 0 and self.cfg.profile_dir else None)
         end = time.time()
-        for batch in batches:
+        for step, batch in enumerate(batches):
+            if prof is not None and step == self.cfg.profile_steps:
+                self._stop_profiler(prof)
+                prof = None
             data_time = time.time() - end
             if self.accum > 1:
                 micro.append(batch)
@@ -132,12 +170,24 @@ class Trainer:
             else:
                 logs = self._step_fn(batch)
             self.state.global_step += 1
+            gstep = self.state.global_step
             loss_log.append(logs["loss"])
+            display = gstep % n_display == 0
+            if display:
+                scalars = {
+                    "train/sim_loss": float(logs["sim_loss"]),
+                    "train/cluster_loss": float(logs["cluster_loss"]),
+                    "train/scale": float(self.model.clip.logit_scale.detach()),
+                    "train/lr": current_lr(self.cfg.optim, gstep,
+                                           self.total_steps)}
             batch_time = time.time() - end
             end = time.time()
-            if self.state.global_step % n_display == 0:
-                self._log(epoch, self.state.global_step, logs, data_time,
-                          batch_time)
+            if display:
+                self._log(epoch, gstep, {**scalars,
+                                         "train/data_time": data_time,
+                                         "train/batch_time": batch_time})
+        if prof is not None:
+            self._stop_profiler(prof)
         if micro:
             # epoch tail: step on the mean over the micro-batches left
             # (JAX package train/loop.py:210-224)

@@ -7,19 +7,23 @@ state (moments by parameter name and its step) and `{epoch, global_step,
 best_r1}`, written with `torch.save` as `<dir>/ckpt_<epoch>`, with
 `ckpt_latest` a symlink to the newest and `ckpt_best` a copy of the best.
 `export_torch_checkpoint` writes the reference's own `ckpt.pth.tar` schema,
-which `models.weights.load_torch_checkpoint` (and the JAX package's
-`import_torch_checkpoint`) read back.
+which `import_torch_checkpoint` (and the JAX package's) read back;
+`init_from_pretrained_clip` starts a model from OpenAI's CLIP weights.
+Both load with `strict=False` and report the missing and unexpected keys.
 """
 from __future__ import annotations
 
 import os
 import shutil
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..config import ModelConfig
+from ..models.weights import (apply_pretrain_tricks, clip4clip_entries,
+                              load_torch_checkpoint)
 from .optim import GroupedAdam
 
 
@@ -93,3 +97,40 @@ def export_torch_checkpoint(model: nn.Module, path: str, epoch: int = 0,
                        for k, v in model.state_dict().items()},
         "best_acc1": best_r1,
     }, path)
+
+
+def import_torch_checkpoint(path: str, cfg: ModelConfig,
+                            model: Optional[nn.Module] = None
+                            ) -> Tuple[Dict[str, torch.Tensor],
+                                       Dict[str, List[str]]]:
+    """Read a reference torch checkpoint (or raw CLIP weights) for the model
+    of `cfg`, with the pretrain tricks applied (JAX package
+    `train/state.py:139-144`).  Returns (state dict of the model's keys
+    found, {missing, unexpected}); loads it into `model` with
+    `strict=False` when one is given."""
+    sd = apply_pretrain_tricks(load_torch_checkpoint(path), cfg)
+    keys = [key for _, key, _ in clip4clip_entries(cfg)]
+    known = set(keys)
+    report = {"missing": [k for k in keys if k not in sd],
+              "unexpected": [k for k in sd if k not in known]}
+    sd = {k: sd[k] for k in keys if k in sd}
+    if model is not None:
+        model.load_state_dict(sd, strict=False)
+    return sd, report
+
+
+def init_from_pretrained_clip(pretrained_path: str, cfg: ModelConfig,
+                              model: Optional[nn.Module] = None,
+                              temperature_new: float = 1.0
+                              ) -> Tuple[Dict[str, torch.Tensor],
+                                         Dict[str, List[str]]]:
+    """CLIP4Clip.from_pretrained analogue (clip4clip.py:28-124): OpenAI's CLIP
+    weights with the seeding tricks; `temperature_new > 1` overrides the
+    logit scale with that value (JAX package `train/state.py:147-159`)."""
+    sd, report = import_torch_checkpoint(pretrained_path, cfg)
+    if temperature_new > 1.0:
+        sd["clip.logit_scale"] = torch.tensor(temperature_new,
+                                              dtype=torch.float32)
+    if model is not None:
+        model.load_state_dict(sd, strict=False)
+    return sd, report

@@ -5,8 +5,9 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), checks that TF32 is
-   off, and builds the CUDA C++ kernels from `centerclip_tpu_torch/csrc`
-   (one nvcc per source, all started together).
+   off, and builds the CUDA C++ kernels and the FrameStore reader from
+   `centerclip_tpu_torch/csrc` (one nvcc per kernel source and the host
+   compiler for the reader, all started together).
 2. Serving phase, the first main path: a full-width ViT-B/32 CLIP4Clip
    (meanP, kmediods++ clustering 12 -> 6 frames before block 7, K = 49,
    bf16 towers) on seeded random weights; `RetrievalEngine.build_index` over
@@ -45,10 +46,32 @@
    by cosine; and one training step on 2 clips on the card and on the CPU
    from the same weights, held by loss and by the cosine of every large
    gradient.
+6. Main phase, the third main path: `python -m centerclip_tpu_torch.main`'s
+   `main(argv)` with scripts/msrvtt.sh's `common` flags and experiment 62
+   (batch 128, ViT-B/32 kmediods++ 49 x 12, 12 -> 6 frames, bf16), changed
+   only in `--features_path` (a .fstore), `--epochs 1`, `--n_display 1`,
+   and the output and pretrained directories (a temporary directory in the
+   checkout, so the run reads nothing outside it; no ViT-B-32.pt there, so
+   seeded weights).  The data is a synthetic MSR-VTT shaped like
+   preprocess/compress_video.py's output: 48 videos of 36 seeded uint8
+   frames of 224 x 298 (12 s at 3 fps), as .npy files and one .fstore,
+   train.csv / test.csv and 8 captions per video.  Run 1 trains 3 steps of
+   128 through the pinned loader and all five kernels (counts zeroed just
+   before, read just after; attention on its tensor-core variants only)
+   and evaluates the 48 clips in one ragged batch; run 2 reloads its
+   ckpt.pth.tar with `--do_train 0 --do_eval 1 --init_model` and must give
+   the same metrics and similarity matrix to the bit.  The first input of
+   each shape that the attention forward, the LayerNorm forward and
+   k-medoids took in the evaluation (its ragged batch of 48 clips and 48
+   texts) is recorded at the model's call sites and each kernel is held
+   against its plain version on it, with the kernel phase's tolerances.
+   The first eval batch of the .npy loader must equal the .fstore loader's
+   byte for byte.
 
-Prints a JSON line of per-kernel results and, last, one JSON line
-{"ok": true, "device": {...}}.  Any failed check exits non-zero before it.
-Without a CUDA device it exits non-zero at once.
+Prints a `{"training": ...}`, a `{"main": ...}` and a `{"kernels": [...]}`
+JSON line and, last, one JSON line {"ok": true, "device": {...}}.  Any
+failed check exits non-zero before it.  Without a CUDA device it exits
+non-zero at once.
 """
 from __future__ import annotations
 
@@ -95,6 +118,22 @@ N_CLIPS, BATCH, FRAMES, RES = 64, 32, 12, 224
 SEARCH_REPEATS = 20
 TRAIN_PRESET, TRAIN_WARMUP_STEPS, TRAIN_TIMED_STEPS = "msrvtt_vitb32_k6", 2, 5
 N_EVAL_CLIPS = 64
+# the main phase's synthetic MSR-VTT (preprocess/compress_video.py: 3 fps,
+# short side 224) and scripts/msrvtt.sh's `common` + experiment 62 flags
+MAIN_VIDEOS, MAIN_FRAMES, MAIN_HW, MAIN_CAPTIONS = 48, 36, (224, 298), 8
+MAIN_BATCH = 128              # 48 x 8 pairs: 3 steps, then 48 clips of eval
+EXP62_FLAGS = [
+    "--do_train", "1", "--do_eval", "1", "--datatype", "msrvtt",
+    "--max_words", "32", "--max_frames", "12", "--feature_framerate", "3",
+    "--batch_size", str(MAIN_BATCH), "--batch_size_val", str(MAIN_BATCH),
+    "--epochs", "5",
+    "--optim", "AdamW", "--lr", "2e-3", "--coef_lr", "1e-3", "--wd", "0.2",
+    "--warmup_proportion", "0.1", "--loose_type", "--sim_header", "meanP",
+    "--slice_framepos", "2", "--expand_msrvtt_sentences",
+    "--precision", "amp", "--pretrained_clip_name", "ViT-B/32",
+    "--num_thread_reader", "8", "--cluster_inter", "1",
+    "--cluster_algo", "kmediods++", "--cluster_num_blocks", *["49"] * 12,
+    "--target_frames_blocks", *["12"] * 6, *["6"] * 6]
 SLEEP_CYCLES = 4_000_000          # ~2 ms at the H100's ~1.98 GHz boost clock
 QUERIES = ["a man is cooking pasta in a kitchen",
            "two dogs are playing in the snow",
@@ -430,6 +469,329 @@ def training_cpu_check(torch, np, dev, batch):
                 cpu_bf16_vs_fp32_grad_min_cos=cos_32[0][1])
 
 
+def hold_close(torch, label, out, ref, atol, rtol):
+    """Max |out - ref|; fails unless every element is within atol + rtol *
+    |ref|."""
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    if not bool((err <= atol + rtol * ref.float().abs()).all()):
+        fail(f"{label} disagrees with its plain version")
+    return err.max().item()
+
+
+def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
+                  distance="euclidean", norm_p=2.0, pre_norm=False, **_):
+    """The k-medoids kernel against its plain version on [B, N, Dim]
+    points (the keywords of `ops.kmedoids_cuda.kmedoids`; the plain
+    version's `threshold` is not read by the kernel): ids equal on at least
+    KMEDOIDS_MIN_SAME of the segments, where they differ a clustering no
+    costlier than the plain one's (KMEDOIDS_COST_RTOL), and equal
+    assignments where the ids agree.  Returns the row and (X, D, l2,
+    steps) for timing."""
+    from centerclip_tpu_torch.ops import kmedoids_cuda
+    from centerclip_tpu_torch.ops.kmedoids import (kmedoids_inputs,
+                                                   kmedoids_on_distances)
+    X, D, l2 = kmedoids_inputs(points, distance, norm_p, pre_norm)
+    a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(
+        D, l2, K, iter_limit, id_sort)
+    a2, m2 = kmedoids_on_distances(X, D, l2, K, iter_limit=iter_limit,
+                                   id_sort=id_sort)
+    torch.cuda.synchronize()
+    same = (m1 == m2).all(dim=1)
+    n_diff, Bs = int((~same).sum()), X.shape[0]
+
+    def cost(meds, assign):
+        med_of = torch.gather(meds.long(), 1, assign.long())
+        return torch.gather(D.double(), 1, med_of[:, None, :])[:, 0].sum(-1)
+    c1, c2 = cost(m1, a1), cost(m2, a2)
+    cost_rel = ((c1 - c2).abs() / c2.abs()).max().item()
+    st = steps.long()
+    print(f"kmedoids [{label}] X {tuple(X.shape)} K={K}: segments with "
+          f"other ids {n_diff}/{Bs}, max relative cost gap {cost_rel:.3e} "
+          f"(tol {KMEDOIDS_COST_RTOL}), Lloyd steps min/mean/max "
+          f"{int(st.min())}/{st.float().mean().item():.2f}/{int(st.max())}")
+    if n_diff and cost_rel > KMEDOIDS_COST_RTOL:
+        fail(f"k-medoids kernel [{label}] found a costlier clustering than "
+             f"its plain version")
+    if same.float().mean().item() < KMEDOIDS_MIN_SAME:
+        fail(f"k-medoids [{label}] ids differ on {n_diff}/{Bs} segments")
+    if not torch.equal(a1[same], a2[same]):
+        fail(f"k-medoids [{label}] assignments differ where the medoids "
+             f"agree")
+    row = dict(shape=list(X.shape), max_abs_err=float((m1 != m2).sum()),
+               segments_differing=n_diff, max_rel_cost_gap=cost_rel,
+               lloyd_steps_mean=st.float().mean().item())
+    return row, (X, D, l2, steps)
+
+
+def write_msrvtt_fixture(np, root):
+    """The synthetic MSR-VTT: videos/<id>.npy, videos.fstore (the port's
+    FrameStoreWriter), train.csv, test.csv (the csv module) and
+    MSRVTT_data.json.  Returns the .fstore's path."""
+    import csv
+    from centerclip_tpu_torch.data.framestore import FrameStoreWriter
+    g = np.random.default_rng(5)
+    vids = [f"video{i}" for i in range(MAIN_VIDEOS)]
+    things = ["a dog", "two cooks", "a red car", "children", "a singer",
+              "a cat", "players", "a boat"]
+    acts = ["runs on a beach", "cooks pasta, then eats it", "drives at night",
+            "play football", "sings on a stage", "sleeps on a sofa",
+            "dance in a hall", "sails past a \"lighthouse\""]
+    os.makedirs(os.path.join(root, "videos"))
+    store = os.path.join(root, "videos.fstore")
+    with FrameStoreWriter(store) as w:
+        for v in vids:
+            frames = g.integers(0, 256, (MAIN_FRAMES, *MAIN_HW, 3),
+                                dtype=np.uint8)
+            np.save(os.path.join(root, "videos", f"{v}.npy"), frames)
+            w.add(v, frames)
+    captions = {v: [f"{things[(i + j) % 8]} {acts[(3 * i + j) % 8]}, clip "
+                    f"{i} take {j}" for j in range(MAIN_CAPTIONS)]
+                for i, v in enumerate(vids)}
+    with open(os.path.join(root, "train.csv"), "w", newline="") as f:
+        csv.writer(f).writerows([["video_id"]] + [[v] for v in vids])
+    with open(os.path.join(root, "test.csv"), "w", newline="") as f:
+        csv.writer(f).writerows([["video_id", "sentence"]]
+                                + [[v, captions[v][0]] for v in vids])
+    with open(os.path.join(root, "MSRVTT_data.json"), "w") as f:
+        json.dump({"sentences": [{"video_id": v, "caption": c}
+                                 for v in vids for c in captions[v]],
+                   "videos": [{"video_id": v} for v in vids]}, f)
+    return store
+
+
+def copy_ms(torch, host, dev):
+    """CUDA-event time of one host-to-device copy of `host` (mean of 3)."""
+    host.to(dev, non_blocking=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        host.to(dev, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 3
+
+
+def main_phase(torch, np, dev, counters):
+    """The third main path: `centerclip_tpu_torch.main.main` on the
+    synthetic MSR-VTT (run 1: train + evaluate; run 2: eval-only reload),
+    and the host-side check of the two loaders."""
+    import tempfile
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.main import main as run_main
+    from centerclip_tpu_torch.models import layers
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    from centerclip_tpu_torch.ops import (_build, attention_cuda,
+                                          cluster_layer, layernorm_triton)
+    from centerclip_tpu_torch.train import evaluate, loop
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        t0 = time.time()
+        store = write_msrvtt_fixture(np, root)
+        t_fixture = time.time() - t0
+        paths = ["--train_csv", os.path.join(root, "train.csv"),
+                 "--val_csv", os.path.join(root, "test.csv"),
+                 "--data_path", os.path.join(root, "MSRVTT_data.json"),
+                 "--pretrained_dir", os.path.join(root, "pretrained")]
+        argv = EXP62_FLAGS + paths + [
+            "--features_path", store, "--output_dir",
+            os.path.join(root, "out"), "--epochs", "1", "--n_display", "1"]
+
+        # what the run hands the model and the evaluator, recorded
+        evals, pinned = [], []
+        evaluate_fn, to_device = evaluate.Evaluator.evaluate, \
+            loop.batch_to_device
+
+        def recording_evaluate(self, *a, **k):
+            t = time.time()
+            in_eval[0] = True
+            try:
+                res = evaluate_fn(self, *a, **k)
+            finally:
+                in_eval[0] = False
+            evals.append((res, time.time() - t))
+            return res
+
+        def recording_to_device(batch, device):
+            pinned.append(all(torch.as_tensor(v).is_pinned()
+                              for v in batch.values()))
+            return to_device(batch, device)
+
+        # the first input of each shape that kernels A, C and E take in an
+        # evaluation (the model's call sites; the ragged batch's shapes are
+        # not the kernel phase's), held against the plain versions after the
+        # runs.  The training steps' shapes are the training phase's, held
+        # there; recording them too would add the copies to the peak memory.
+        seen, in_eval = {}, [False]
+        kernel_calls = ((layers, "fused_attention", "attention_fwd",
+                         lambda qkv, heads, mask=None: (tuple(qkv.shape),
+                                                        mask is None)),
+                        (layers, "layer_norm", "layernorm_fwd",
+                         lambda x, *_: (tuple(x.shape), x.dtype)),
+                        (cluster_layer, "kmedoids", "kmedoids",
+                         lambda x, *_: tuple(x.shape)))
+
+        def recording(fn, kernel, key_of):
+            def record(*args, **kw):
+                key = (kernel, key_of(*args))
+                if in_eval[0] and key not in seen:
+                    seen[key] = ([a.detach().clone() if torch.is_tensor(a)
+                                  else a for a in args], kw)
+                return fn(*args, **kw)
+            return record
+        originals = [(mod, attr, getattr(mod, attr))
+                     for mod, attr, _, _ in kernel_calls]
+        for mod, attr, kernel, key_of in kernel_calls:
+            setattr(mod, attr, recording(getattr(mod, attr), kernel, key_of))
+        evaluate.Evaluator.evaluate = recording_evaluate
+        loop.batch_to_device = recording_to_device
+        try:
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            best_r1 = run_main(argv)
+            torch.cuda.synchronize()
+            t_run1 = time.time() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+            variants = attention_variant_counts("main", backward=True)
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.time()
+            res2 = run_main(argv + [
+                "--do_train", "0", "--output_dir", os.path.join(root, "eval"),
+                "--init_model", os.path.join(root, "out", "ckpt.pth.tar")])
+            t_run2 = time.time() - t0
+        finally:
+            evaluate.Evaluator.evaluate = evaluate_fn
+            loop.batch_to_device = to_device
+            for mod, attr, fn in originals:
+                setattr(mod, attr, fn)
+        with open(os.path.join(root, "out", "tensorboard",
+                               "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        out_files = sorted(os.listdir(os.path.join(root, "out")))
+
+        # kernels A, C and E against their plain versions on the inputs the
+        # evaluation gave them (these launches come after the counts were
+        # read)
+        held = {"attention_fwd": [], "layernorm_fwd": [], "kmedoids": []}
+        for (kernel, key), (args, kw) in seen.items():
+            label = f"main evaluation {tuple(args[0].shape)}"
+            if kernel == "attention_fwd":
+                qkv, H, mask = (list(args) + [None])[:3]
+                err = hold_close(torch, f"attention [{label}]",
+                                 attention_cuda.fused_attention(qkv, H, mask),
+                                 attention_cuda.attention_plain(qkv, H, mask),
+                                 BF16_ATOL, BF16_RTOL)
+                row = dict(shape=list(qkv.shape), max_abs_err=err)
+            elif kernel == "layernorm_fwd":
+                x = args[0]
+                atol, rtol = ((BF16_ATOL, BF16_RTOL)
+                              if x.dtype == torch.bfloat16
+                              else (FP32_ATOL, FP32_RTOL))
+                err = hold_close(torch, f"layernorm [{label}]",
+                                 layernorm_triton.layer_norm(*args),
+                                 layernorm_triton.layer_norm_plain(*args),
+                                 atol, rtol)
+                row = dict(shape=list(x.shape), dtype=str(x.dtype)
+                           .split(".")[-1], max_abs_err=err)
+            else:
+                row, _ = hold_kmedoids(torch, label, *args, **kw)
+            if kernel != "kmedoids":
+                print(f"{kernel} [{label}]: max_abs_err "
+                      f"{row['max_abs_err']:.3e}")
+            held[kernel].append(row)
+        del seen
+        for kernel, rows in held.items():
+            if not rows:
+                fail(f"the main run's evaluation gave {kernel} no input")
+
+        # host side: the first eval batch of the .npy and the .fstore loader
+        tok = SimpleTokenizer()
+        first, t_first = {}, {}
+        for kind, extra in (("npy", ["--features_path",
+                                     os.path.join(root, "videos"),
+                                     "--video_suffix", ".npy"]),
+                            ("fstore", ["--features_path", store])):
+            cfg = cli.parse_args(EXP62_FLAGS + paths + extra + [
+                "--output_dir", os.path.join(root, "unused")])
+            t0 = time.time()
+            loader, _ = DATALOADER_DICT["msrvtt"]["val"](cfg, tok,
+                                                         device=dev)
+            first[kind] = next(iter(loader))
+            t_first[kind] = time.time() - t0
+        same_first = sorted(first["npy"]) == sorted(first["fstore"]) and all(
+            torch.equal(torch.as_tensor(first["npy"][k]),
+                        torch.as_tensor(first["fstore"][k]))
+            for k in first["npy"])
+        video = torch.as_tensor(first["fstore"]["video"])
+        train_video = torch.empty((MAIN_BATCH, *video.shape[1:]),
+                                  dtype=video.dtype, pin_memory=True)
+        pageable = torch.empty(train_video.shape, dtype=video.dtype)
+        video_shape = video.shape[2:]
+        if not train_video.is_pinned() or pageable.is_pinned():
+            fail("the copy buffers are not pinned and pageable")
+        h2d_pinned = copy_ms(torch, train_video, dev)
+        h2d_pageable = copy_ms(torch, pageable, dev)
+        del first, video, train_video, pageable
+
+    res1, t_eval = evals[0]
+    steps = [r["train/batch_time"] for r in scalars]
+    losses = [r["train/sim_loss"] for r in scalars]
+    med = sorted(steps)[len(steps) // 2]
+    data_mean = sum(r["train/data_time"] for r in scalars) / len(scalars)
+    print(f"main phase: fixture {t_fixture:.2f} s; run 1 (train + eval) "
+          f"{t_run1:.2f} s, {len(steps)} steps, losses {losses}, step times "
+          f"{[round(x * 1e3, 3) for x in steps]} ms (Batch (t), ends in a "
+          f"read back), Data (t) "
+          f"{[round(r['train/data_time'] * 1e3, 3) for r in scalars]} ms; "
+          f"batches pinned {pinned}; evaluation of {MAIN_VIDEOS} clips "
+          f"{t_eval:.3f} s, R@1 {res1['R1']}; peak memory "
+          f"{peak / 2**30:.3f} GiB; run 2 (eval-only reload) {t_run2:.2f} s, "
+          f"R@1 {res2['R1']}; files {out_files}")
+    print(f"launches during main run 1: {launches}")
+    print(f"first eval batch: .npy loader {t_first['npy']:.3f} s, .fstore "
+          f"loader {t_first['fstore']:.3f} s, equal to the byte: "
+          f"{same_first}; host-to-device copy of one training batch's "
+          f"frames ({MAIN_BATCH} x {tuple(video_shape)} uint8): pinned "
+          f"{h2d_pinned:.3f} ms, pageable {h2d_pageable:.3f} ms")
+    for fn_name, n in launches.items():
+        if n == 0:
+            fail(f"{fn_name} was never launched on the main path")
+    n_steps = MAIN_VIDEOS * MAIN_CAPTIONS // MAIN_BATCH
+    if len(steps) != n_steps or not np.isfinite(losses).all():
+        fail(f"main run 1 took {len(steps)} steps with losses {losses}")
+    if not all(pinned) or len(pinned) != n_steps:
+        fail(f"the training batches did not all arrive pinned: {pinned}")
+    if best_r1 != res1["R1"] or res1["sim_matrix"].shape != (
+            MAIN_VIDEOS, MAIN_VIDEOS) or not np.isfinite(
+            res1["sim_matrix"]).all():
+        fail("main run 1's evaluation is malformed")
+    if not {"ckpt.pth.tar", "ckpt_0", "ckpt_best", "hparams_train.json",
+            "log.txt", "tensorboard"} <= set(out_files):
+        fail(f"main run 1 wrote {out_files}")
+    if not (np.array_equal(res2["sim_matrix"], res1["sim_matrix"])
+            and res2["t2v"] == res1["t2v"] and res2["v2t"] == res1["v2t"]):
+        fail("the eval-only reload differs from run 1's evaluation")
+    if not same_first:
+        fail("the .npy and .fstore loaders' first eval batches differ")
+    return dict(
+        steps=len(steps), batch=MAIN_BATCH, step_ms_median=med * 1e3,
+        step_ms_all=[x * 1e3 for x in steps], clips_per_s=MAIN_BATCH / med,
+        data_ms_mean=data_mean * 1e3,
+        data_ms_all=[r["train/data_time"] * 1e3 for r in scalars],
+        losses=losses, batches_pinned=all(pinned), eval_s=t_eval,
+        eval_clips=MAIN_VIDEOS, R1=res1["R1"], reload_equal=True,
+        peak_memory_bytes=peak, run1_s=t_run1, run2_s=t_run2,
+        fixture_s=t_fixture, first_eval_batch_s=t_first,
+        npy_equals_fstore=same_first, h2d_ms_pinned=h2d_pinned,
+        h2d_ms_pageable=h2d_pageable,
+        h2d_pinned_share_of_step=h2d_pinned / (med * 1e3),
+        launches=launches, variants=variants, held=held)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -438,8 +800,7 @@ def main() -> int:
         return 2
     from centerclip_tpu_torch.ops import (_build, attention_cuda,
                                           kmedoids_cuda, layernorm_triton)
-    from centerclip_tpu_torch.ops.kmedoids import (kmedoids_inputs,
-                                                   kmedoids_on_distances)
+    from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
     from centerclip_tpu_torch.config import flagship_config
     from centerclip_tpu_torch.serve import RetrievalEngine
 
@@ -459,7 +820,8 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.time()
-    report = _build.build(force=True)
+    report = _build.build(_build.KERNEL_SOURCES + _build.HOST_SOURCES,
+                          force=True)
     print(f"built {sorted(report)} in {time.time() - t0:.2f} s")
     for src, out in sorted(report.items()):
         for line in out.splitlines():
@@ -551,15 +913,17 @@ def main() -> int:
                                                          counters)
     torch.cuda.empty_cache()
 
+    # each main path's launch counts and attention variants, by kernel;
+    # the main phase adds its own after it runs
+    path_counts = {"serving": (launches, serving_variants),
+                   "training": (train["launches"], train["variants"])}
+
     def path_launches(fn_name):
-        by_path = {"serving": launches[fn_name],
-                   "training": train["launches"][fn_name]}
+        by_path = {p: c[fn_name] for p, (c, _) in path_counts.items()}
         out = dict(launches=sum(by_path.values()), launches_by_path=by_path)
         if fn_name in serving_variants:
-            out["launches_by_variant"] = {
-                path: by[fn_name] for path, by in
-                (("serving", serving_variants),
-                 ("training", train["variants"]))}
+            out["launches_by_variant"] = {p: v[fn_name] for p, (_, v)
+                                          in path_counts.items()}
         return out
 
     # ----------------------------------------------------------- kernels
@@ -613,7 +977,7 @@ def main() -> int:
         name="attention_fwd", route="cuda",
         source="centerclip_tpu_torch/csrc/attention.cu",
         replaces="centerclip_tpu/ops/attention_pallas.py:204",
-        variant=a["variant"], **path_launches("fused_attention"),
+        variant=a["variant"], counter="fused_attention",
         max_abs_err=max(r["max_abs_err"] for r in attn_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=a["library_ms"],
@@ -664,7 +1028,7 @@ def main() -> int:
         name="layernorm_fwd", route="triton",
         source="centerclip_tpu_torch/ops/layernorm_triton.py",
         replaces="centerclip_tpu/ops/layernorm_pallas.py:83",
-        **path_launches("layer_norm"),
+        counter="layer_norm",
         max_abs_err=max(r["max_abs_err"] for r in ln_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=a["library_ms"], shapes=ln_rows))
@@ -677,21 +1041,9 @@ def main() -> int:
 
     def kmedoids_case(label, x):
         Bc = x.shape[0] // spec.before_frames
-        X, D, l2 = kmedoids_inputs(segment_major(
+        row, (X, D, l2, steps) = hold_kmedoids(torch, label, segment_major(
             x[:, 1:, :].reshape(Bc, spec.before_frames, -1, x.shape[-1]),
-            spec.after_frames, spec.frame_duration))
-        a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(D, l2, K, iters)
-        a2, m2 = kmedoids_on_distances(X, D, l2, K, iter_limit=iters)
-        torch.cuda.synchronize()
-        same = (m1 == m2).all(dim=1)
-        n_diff = int((~same).sum())
-
-        def cost(meds, assign):
-            med_of = torch.gather(meds.long(), 1, assign.long())
-            return torch.gather(D.double(), 1,
-                                med_of[:, None, :])[:, 0].sum(-1)
-        c1, c2 = cost(m1, a1), cost(m2, a2)
-        cost_rel = ((c1 - c2).abs() / c2.abs()).max().item()
+            spec.after_frames, spec.frame_duration), K, iters)
         Bs, N = X.shape[0], X.shape[1]
         ms = time_ms(torch, lambda: kmedoids_cuda.kmedoids_from_distances(
             D, l2, K, iters), flush=flush)
@@ -700,27 +1052,14 @@ def main() -> int:
         st = steps.long()
         ops = float(Bs * 2 * K * N + (st * (2 * N * K + 2 * N * N)).sum()
                     + Bs * N * K)
-        b_ms, b_by = bound(D.numel() * 4 + l2.numel() * 4 + a1.numel() * 4
-                           + m1.numel() * 4 + steps.numel() * 4, ops,
+        # outputs: assign [B, N], meds [B, K], steps [B], all int32
+        b_ms, b_by = bound(D.numel() * 4 + l2.numel() * 4 + Bs * N * 4
+                           + Bs * K * 4 + steps.numel() * 4, ops,
                            fp32_peak, mem_rate)
-        print(f"kmedoids [{label}] X {tuple(X.shape)} K={K}: segments with "
-              f"other ids {n_diff}/{Bs}, max relative cost gap "
-              f"{cost_rel:.3e} (tol {KMEDOIDS_COST_RTOL}), Lloyd steps "
-              f"min/mean/max {int(st.min())}/{st.float().mean().item():.2f}/"
-              f"{int(st.max())} ms {ms:.4f} plain {plain_ms:.4f} bound "
+        print(f"kmedoids [{label}] ms {ms:.4f} plain {plain_ms:.4f} bound "
               f"{b_ms:.5f} ({b_by})")
-        if n_diff and cost_rel > KMEDOIDS_COST_RTOL:
-            fail(f"k-medoids kernel [{label}] found a costlier clustering "
-                 f"than its plain version")
-        if same.float().mean().item() < KMEDOIDS_MIN_SAME:
-            fail(f"k-medoids [{label}] ids differ on {n_diff}/{Bs} segments")
-        if not torch.equal(a1[same], a2[same]):
-            fail(f"k-medoids [{label}] assignments differ where the medoids "
-                 f"agree")
-        return dict(shape=list(X.shape), max_abs_err=float((m1 != m2).sum()),
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    segments_differing=n_diff, max_rel_cost_gap=cost_rel,
-                    lloyd_steps_mean=st.float().mean().item())
+        return dict(row, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by)
     km_rows = [kmedoids_case("serving", captured["x"]),
                kmedoids_case("training", train_cluster_x)]
     del train_cluster_x
@@ -729,7 +1068,7 @@ def main() -> int:
         name="kmedoids", route="cuda",
         source="centerclip_tpu_torch/csrc/kmedoids.cu",
         replaces="centerclip_tpu/ops/kmedoids_pallas.py:220",
-        **path_launches("kmedoids_from_distances"),
+        counter="kmedoids_from_distances",
         max_abs_err=max(r["max_abs_err"] for r in km_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=None,
@@ -737,12 +1076,12 @@ def main() -> int:
         max_rel_cost_gap=a["max_rel_cost_gap"],
         lloyd_steps_mean=a["lloyd_steps_mean"], shapes=km_rows))
 
-    def extend_forward_row(kernel, rows):
-        """Add a forward kernel's errors (and, for LayerNorm, times) at the
-        training shapes to its row (its top-level times stay those of the
-        first serving shape)."""
+    def extend_forward_row(kernel, rows, key="training_shapes"):
+        """Add a kernel's errors (and, for LayerNorm at the training shapes,
+        times) at another path's shapes to its row (its top-level times stay
+        those of the first serving shape)."""
         row = next(r for r in results if r["name"] == kernel)
-        row["training_shapes"] = rows
+        row[key] = rows
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [r["max_abs_err"] for r in rows])
 
@@ -832,7 +1171,7 @@ def main() -> int:
         name="attention_bwd", route="cuda",
         source="centerclip_tpu_torch/csrc/attention_bwd.cu",
         replaces="centerclip_tpu/ops/attention_pallas.py:325",
-        variant=a["variant"], **path_launches("attention_backward"),
+        variant=a["variant"], counter="attention_backward",
         max_abs_err=max(r["max_abs_err"] for r in bwd_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=a["library_ms"],
@@ -943,7 +1282,7 @@ def main() -> int:
         name="layernorm_bwd", route="triton",
         source="centerclip_tpu_torch/ops/layernorm_triton.py",
         replaces="centerclip_tpu/ops/layernorm_pallas.py:103",
-        **path_launches("layer_norm_backward"),
+        counter="layer_norm_backward",
         max_abs_err=max(r["max_abs_err"] for r in lnb_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
         bound_by=a["bound_by"], library_ms=a["library_ms"],
@@ -976,11 +1315,26 @@ def main() -> int:
     if cos_v.min() < VIDEO_MIN_COS or cos_t.min() < TEXT_MIN_COS:
         fail("card and CPU embeddings disagree")
     train_check = training_cpu_check(torch, np, dev, train_batch)
+    # the main phase builds its own model: free the card of the others
+    del model, engine, index, gallery, cluster_mod, captured, cpu_model, \
+        cpu_engine, train_batch
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------- main (third path) + report
+    main_res = main_phase(torch, np, dev, counters)
+    path_counts["main"] = (main_res["launches"], main_res["variants"])
+    for kernel, rows in main_res["held"].items():
+        extend_forward_row(kernel, rows, key="main_shapes")
+    for row in results:
+        row.update(path_launches(row.pop("counter")))
 
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {**{k: v for k, v in train.items()
                                        if k not in ("launches", "variants")},
                                    "cpu_check": train_check}}))
+    print(json.dumps({"main": {k: v for k, v in main_res.items()
+                               if k not in ("launches", "variants",
+                                            "held")}}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -368,15 +368,15 @@ def test_layernorm_function_backward_is_the_kernel(cuda, lead):
         and torch.equal(bs.grad, db)
 
 
-def test_one_training_step_of_a_tiny_model_on_the_card(cuda):
+def test_one_training_step_of_a_tiny_model_on_the_card(cuda, monkeypatch):
     """A 2 + 2 block clustered model takes one Trainer step on the card
     through all five kernels; loss and every gradient are finite."""
     from centerclip_tpu_torch.train import Trainer
-    port_config.CLIP_ARCHS["tiny-gpu-train"] = dict(
+    monkeypatch.setitem(port_config.CLIP_ARCHS, "tiny-gpu-train", dict(
         embed_dim=32, image_resolution=64, vision_layers=2, vision_width=128,
         vision_patch_size=16, vision_heads=2, context_length=16,
         vocab_size=100, transformer_width=128, transformer_heads=2,
-        transformer_layers=2)
+        transformer_layers=2))
     run = port_config.make_run_config(
         clip_name="tiny-gpu-train", max_frames=4, max_words=16,
         inter=True, algo="kmediods++", cluster_num_blocks=(8, 8),
@@ -498,3 +498,116 @@ def test_kmedoids_kernel_one_step_and_no_sort(cuda):
     # id_sort=False: the plain version's assignment is that of the medoids
     # before its last update, equal at the fixed point the kernel stops at
     _check_kmedoids_on_distances(X, 49, id_sort=False)
+
+
+# ------------------------------------------------------------ data and main
+def _tiny_fstore(root, n=8, T=10, H=64, W=80):
+    from centerclip_tpu_torch.data.framestore import build_framestore
+    g = np.random.default_rng(0)
+    vids = {f"video{i}": g.integers(0, 256, (T, H, W, 3), dtype=np.uint8)
+            for i in range(n)}
+    return build_framestore(vids, str(root / "videos.fstore")), vids
+
+
+def test_reader_gathers_into_pinned_memory(cuda, tmp_path):
+    """The C++ reader's `out=` into a pinned buffer, and the loader's pinned
+    batches, equal the pageable ones and copy to the card unchanged."""
+    from centerclip_tpu_torch.data.fast_dataset import FrameStoreClipDataset
+    from centerclip_tpu_torch.data.loader import BatchLoader
+    from centerclip_tpu_torch.data.native import NativeFrameStore
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    from centerclip_tpu_torch.train.loop import batch_to_device
+    path, vids = _tiny_fstore(tmp_path)
+    ns = NativeFrameStore(path, num_threads=4)
+    idx = np.tile(np.arange(6), (3, 1))
+    want = ns.gather_batch_u8([0, 1, 2], idx, size=64)
+    buf = torch.empty((3, 6, 3, 64, 64), dtype=torch.uint8, pin_memory=True)
+    assert buf.is_pinned()
+    ns.gather_batch_u8([0, 1, 2], idx, size=64, out=buf.numpy())
+    np.testing.assert_array_equal(buf.numpy(), want)
+    assert torch.equal(buf.to(cuda, non_blocking=True).cpu(),
+                       torch.from_numpy(want))
+    ds = FrameStoreClipDataset(path, [(k, f"caption {k}") for k in vids],
+                               SimpleTokenizer(), max_words=16, max_frames=6,
+                               image_resolution=64, is_train=True,
+                               device_normalize=True)
+    plain = list(BatchLoader(ds, 3, shuffle=True, seed=1))
+    pinned = list(BatchLoader(ds, 3, shuffle=True, seed=1, pin_memory=True))
+    assert len(plain) == len(pinned) == 3
+    for a, b in zip(plain, pinned):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert isinstance(b[k], torch.Tensor) and b[k].is_pinned(), k
+            np.testing.assert_array_equal(b[k].numpy(), a[k])
+        on_card = batch_to_device(b, cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(on_card["video"].cpu(), torch.from_numpy(
+            a["video"]))
+        assert on_card["input_ids"].dtype == torch.int64
+
+
+def test_main_trains_and_reloads_on_the_card(cuda, tmp_path, monkeypatch):
+    """`main` at a tiny size on the card (bf16, a .fstore): every kernel
+    launches, and an eval-only reload of its checkpoint gives the same
+    similarity matrix to the bit."""
+    import csv
+    import dataclasses
+    import json
+    from centerclip_tpu_torch import cli, main as port_main
+    from centerclip_tpu_torch.train import evaluate
+    monkeypatch.setitem(port_config.CLIP_ARCHS, "tiny-gpu-main", dict(
+        embed_dim=32, image_resolution=64, vision_layers=2, vision_width=128,
+        vision_patch_size=16, vision_heads=2, context_length=16,
+        vocab_size=49408, transformer_width=128, transformer_heads=2,
+        transformer_layers=2))
+    path, vids = _tiny_fstore(tmp_path)
+    with open(tmp_path / "train.csv", "w", newline="") as f:
+        csv.writer(f).writerows([["video_id"]] + [[v] for v in vids])
+    with open(tmp_path / "test.csv", "w", newline="") as f:
+        csv.writer(f).writerows([["video_id", "sentence"]] + [
+            [v, f"a clip, number {i}"] for i, v in enumerate(vids)])
+    with open(tmp_path / "data.json", "w") as f:
+        json.dump({"sentences": [{"video_id": v, "caption": f"{v} {j}"}
+                                 for v in vids for j in range(2)]}, f)
+    argv = ["--do_train", "1", "--do_eval", "1",
+            "--train_csv", str(tmp_path / "train.csv"),
+            "--val_csv", str(tmp_path / "test.csv"),
+            "--data_path", str(tmp_path / "data.json"),
+            "--features_path", path, "--output_dir", str(tmp_path / "out"),
+            "--pretrained_dir", str(tmp_path / "none"),
+            "--pretrained_clip_name", "tiny-gpu-main", "--max_words", "16",
+            "--max_frames", "4", "--batch_size", "8", "--batch_size_val",
+            "8", "--epochs", "1", "--optim", "AdamW", "--lr", "1e-3",
+            "--loose_type", "--expand_msrvtt_sentences", "--cluster_inter",
+            "1", "--cluster_num_blocks", "8", "8", "--target_frames_blocks",
+            "4", "2", "--precision", "amp", "--n_display", "1",
+            "--num_thread_reader", "4"]
+    orig = cli.args_to_run_config
+    monkeypatch.setattr(cli, "args_to_run_config", lambda a: dataclasses
+                        .replace(orig(a), data=dataclasses.replace(
+                            orig(a).data, image_resolution=64)))
+    evals = []
+    orig_evaluate = evaluate.Evaluator.evaluate
+
+    def recording(self, *a, **k):
+        evals.append(orig_evaluate(self, *a, **k))
+        return evals[-1]
+    monkeypatch.setattr(evaluate.Evaluator, "evaluate", recording)
+    counters = (attention_cuda.fused_attention,
+                attention_cuda.attention_backward, layernorm_triton.layer_norm,
+                layernorm_triton.layer_norm_backward,
+                kmedoids_cuda.kmedoids_from_distances)
+    before = [fn.launches for fn in counters]
+    best = port_main.main(argv)
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+    assert 0.0 <= best <= 100.0
+    with open(tmp_path / "out" / "tensorboard" / "scalars.jsonl") as f:
+        losses = [json.loads(line)["train/sim_loss"] for line in f]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    argv[1] = "0"
+    argv[argv.index("--output_dir") + 1] = str(tmp_path / "eval")
+    res = port_main.main(argv + ["--init_model",
+                                 str(tmp_path / "out" / "ckpt.pth.tar")])
+    assert res is evals[-1] and len(evals) == 2
+    np.testing.assert_array_equal(res["sim_matrix"], evals[0]["sim_matrix"])
+    assert res["t2v"] == evals[0]["t2v"]

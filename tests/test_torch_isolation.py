@@ -34,7 +34,7 @@ def test_importing_every_port_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'centerclip_tpu', 'triton'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 41, names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -44,13 +44,16 @@ def test_importing_every_port_module_loads_no_jax():
 
 def test_port_sources_name_no_jax():
     pattern = re.compile(r"import jax|from jax|flax|\bcenterclip_tpu\.")
-    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) \
+    files = [f for ext in ("py", "cu", "cuh", "cpp")
+             for f in sorted(PORT.rglob(f"*.{ext}"))
+             if "build" not in f.relative_to(PORT).parts] \
         + [ROOT / "chip_smoke.py"]
     hits = [f"{f.relative_to(ROOT)}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pattern.search(line)]
     assert not hits, hits
-    assert len(files) > 15
+    assert len(files) > 40
+    assert {f.suffix for f in files} == {".py", ".cu", ".cuh", ".cpp"}
 
 
 def test_port_tokenizer_matches_jax_tokenizer():
