@@ -5,7 +5,9 @@ An own copy of the JAX package's `config.py` (CLIP_ARCHS, ClusterConfig,
 BlockClusterSpec, build_cluster_plan, ModelConfig, make_run_config, the
 per-dataset `preset`s, `to_dict` and `save_hparams`), so the port imports
 nothing of that package.  The fields are the same, so configs built from
-the same keywords compare field by field.  Fields that only steer TPU code (`fused_attention`, `remat`, `sequence_parallel`,
+the same keywords compare field by field.  `remat` recomputes each
+transformer block in the backward (`torch.utils.checkpoint`).  Fields that
+only steer TPU code (`fused_attention`, `sequence_parallel`,
 `pipeline_parallel`) are accepted; the port's model builders ignore
 `fused_attention` (CUDA tensors always take the port's kernels) and raise on
 the others.
@@ -177,8 +179,10 @@ class ModelConfig:
     # tower activations; LayerNorm, softmax, clustering and similarity are
     # fp32 whatever this says
     compute_dtype: str = "bfloat16"
-    # TPU-only switches, accepted so configs compare with the JAX package's
+    # recompute each transformer block in the backward instead of keeping
+    # its activations (torch.utils.checkpoint)
     remat: bool = False
+    # TPU-only switches, accepted so configs compare with the JAX package's
     fused_attention: bool = True
     sequence_parallel: bool = False
     pipeline_parallel: int = 1
@@ -373,6 +377,39 @@ def preset(name: str, **overrides) -> RunConfig:
             max_words=32, max_frames=12, expand_msrvtt_sentences=True,
             inter=True, algo="kmediods++",
             cluster_num_blocks=(49,) * 12,
+            target_frames_blocks=(12,) * 6 + (6,) * 6,
+            optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
+        # scripts/msrvtt.sh:94-108 (eclip_msrvtt_63): 12->4
+        "msrvtt_vitb32_k4": dict(
+            datatype="msrvtt", clip_name="ViT-B/32", sim_header="meanP",
+            max_words=32, max_frames=12, expand_msrvtt_sentences=True,
+            inter=True, algo="kmediods++",
+            cluster_num_blocks=(49,) * 12,
+            target_frames_blocks=(12,) * 6 + (4,) * 6,
+            optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
+        # scripts/lsmdc.sh:90-103 (lsmdc_04): ViT-B/32 kmediods++ 12->6
+        "lsmdc_vitb32_k6": dict(
+            datatype="lsmdc", clip_name="ViT-B/32", sim_header="meanP",
+            max_words=32, max_frames=12,
+            inter=True, algo="kmediods++",
+            cluster_num_blocks=(49,) * 12,
+            target_frames_blocks=(12,) * 6 + (6,) * 6,
+            optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
+        # scripts/msvd.sh:72-83 (msvd_22): kmediods++ 12->4
+        "msvd_vitb32_k4": dict(
+            datatype="msvd", clip_name="ViT-B/32", sim_header="meanP",
+            max_words=32, max_frames=12,
+            inter=True, algo="kmediods++",
+            cluster_num_blocks=(49,) * 12,
+            target_frames_blocks=(12,) * 6 + (4,) * 6,
+            optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
+        # scripts/msrvtt.sh:46-51 (b16): ViT-B/16 kmediods++ 12->6 frames
+        # before block 7, 2 x 196 patch tokens -> 160 medoids per segment
+        "msrvtt_vitb16_k6": dict(
+            datatype="msrvtt", clip_name="ViT-B/16", sim_header="meanP",
+            max_words=32, max_frames=12, expand_msrvtt_sentences=True,
+            inter=True, algo="kmediods++",
+            cluster_num_blocks=(196,) * 6 + (160,) * 6,
             target_frames_blocks=(12,) * 6 + (6,) * 6,
             optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
     }

@@ -18,7 +18,7 @@
 //
 // which is the arithmetic of attention_bwd_plain in ops/attention_cuda.py.
 //
-// Two variants, chosen by the wrapper from dtype, head_dim and L:
+// Three variants, chosen by the wrapper from dtype, head_dim and L:
 //
 // * attention_bwd_mma_kernel (bf16 / fp16, hd % 16 == 0, L <= 128): tensor
 //   cores, one CTA of 4 warps per (sample, head).  qs, k, v and dO rows come
@@ -44,6 +44,28 @@
 //   design keeps every [L, L] intermediate on chip.  S and dP of a warp's
 //   rows are held whole in registers, which caps L at 128 (two register
 //   widths, 64 and 128 keys, are compiled).
+// * attention_bwd_tiled_kernel (bf16 / fp16, hd % 16 == 0, 128 < L <= 256):
+//   the same arithmetic with no [L, L] row held whole anywhere; one CTA of
+//   8 warps per (sample, head), qs, k, v and dO in shared memory as above.
+//   Query rows: each warp owns 16 of them and sweeps the keys twice in
+//   tiles of 32.  The first sweep computes S and dP per tile and keeps, per
+//   row, the running max m, l = sum exp(s - m) and a = sum exp(s - m) dP
+//   (both rescaled when m grows), which give the softmax's max and sum and
+//   delta = rowsum(dP * P) = a / l; the three go to shared memory.  The
+//   second sweep recomputes S and dP per tile, forms P = exp(s - m) / l and
+//   dS = P (dP - delta) in fp32 and accumulates dQ = hd^-0.5 dS.K (dS as
+//   the hi/lo pair) in registers.  Key rows, after one barrier: each warp
+//   owns 16 key rows and loops over query tiles of 16: S^T = K.qs^T and
+//   dP^T = V.dO^T, then P^T and dS^T from the rows' m, l and delta, then
+//   dV += T(P)^T.dO and dK += dS^T.qs, the C tiles becoming A fragments in
+//   registers.  delta is not taken from the rounded forward output
+//   (rowsum(dO * O) would move dS by about 2^-8).  S and dP are computed
+//   three times instead of once: at L = 197, hd = 64 that is ~11 products
+//   of 2 Lp^2 hd flops per head, ~1.1 Tflop for ViT-B/16's 1536 x 12
+//   heads, ~1.1 ms at the H100's dense bf16 peak, above the 0.97 ms its
+//   bytes take.  One CTA (~140 KB of shared memory at L = 197) fills an SM.
+//   Sums run in a fixed order and nothing is atomic: deterministic.  No
+//   mask gradient (only the text tower has a mask, at L <= 77).
 // * attention_bwd_kernel (fp32): CUDA cores, the products as fmaf loops from
 //   shared memory (no exact fp32 tensor-core product; TF32 is off), P and dS
 //   as fp32 [L, L] tiles in shared memory.
@@ -423,6 +445,277 @@ int launch_mma(const void* qkv, const void* mask, const void* dout, void* dqkv,
   return launch_mma<T, 128>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, stream);
 }
 
+// ----------------------------------- bf16 / fp16, 128 < L <= 256 (key tiles)
+constexpr int kTiledWarps = 8;
+constexpr int kKeyTile = 32;       // keys per register tile of the query sweeps
+constexpr int kKT = kKeyTile / 8;  // its n-tiles
+constexpr int kTiledMaxL = 256;
+
+// shared memory: qs, k, v, dO [Lp][hd + 8] (T); the rows' max, sum and
+// delta [Lp] each (fp32); one [16][72] staging tile (T) per warp
+__host__ __device__ inline size_t tiled_smem(int L, int hd, size_t elem) {
+  const size_t Lp = pad16(L);
+  return 4 * Lp * (hd + kPad) * elem + 3 * Lp * sizeof(float)
+         + kTiledWarps * kStage * elem;
+}
+
+// S = qs.K^T and dP = dO.V^T for query rows q0..q0+15 and keys
+// j0..j0+kKeyTile-1, then the keys past L set to -inf and the mask added on
+// real query rows.  Key n-tiles past the padded length are not computed.
+template <typename T>
+__device__ __forceinline__ void score_tile(float (&s)[kKT][4], float (&dp)[kKT][4],
+                                           const T* sq, const T* sk, const T* sv,
+                                           const T* sdo, const float* mask, int ld,
+                                           int q0, int j0, int L, int Lp, int hd,
+                                           int lane) {
+#pragma unroll
+  for (int nt = 0; nt < kKT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+  for (int ks = 0; ks < hd; ks += 16) {
+    uint32_t aq[4], ag[4];
+    cc::ldmatrix_x4(aq, cc::a_frag(sq, ld, q0, ks, lane));
+    cc::ldmatrix_x4(ag, cc::a_frag(sdo, ld, q0, ks, lane));
+#pragma unroll
+    for (int np = 0; np < kKT / 2; ++np) {
+      if (j0 + np * 16 < Lp) {
+        uint32_t bk[4], bv[4];
+        cc::ldmatrix_x4(bk, cc::b_pair(sk, ld, j0 + np * 16, ks, lane));
+        cc::mma16816<T>(s[2 * np], aq, bk[0], bk[1]);
+        cc::mma16816<T>(s[2 * np + 1], aq, bk[2], bk[3]);
+        cc::ldmatrix_x4(bv, cc::b_pair(sv, ld, j0 + np * 16, ks, lane));
+        cc::mma16816<T>(dp[2 * np], ag, bv[0], bv[1]);
+        cc::mma16816<T>(dp[2 * np + 1], ag, bv[2], bv[3]);
+      }
+    }
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kKT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = q0 + g + (e >> 1) * 8, j = j0 + nt * 8 + 2 * t + (e & 1);
+      if (j >= L)
+        s[nt][e] = -INFINITY;
+      else if (mask != nullptr && i < L)
+        s[nt][e] += mask[(size_t)i * L + j];
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTiledWarps * 32)
+attention_bwd_tiled_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                           const T* __restrict__ dout, T* __restrict__ dqkv, int L,
+                           int H, int hd, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Lp = pad16(L), ld = hd + kPad;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sk = sq + Lp * ld;
+  T* sv = sk + Lp * ld;
+  T* sdo = sv + Lp * ld;
+  float* rmax = reinterpret_cast<float*>(sdo + Lp * ld);
+  float* rsum = rmax + Lp;
+  float* rdelta = rsum + Lp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  T* stage = reinterpret_cast<T*>(rdelta + Lp) + warp * kStage;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const T* base = qkv + (size_t)b * L * row + (size_t)h * hd;
+  cc::load_rows(sq, ld, base, row, L, Lp, hd);
+  cc::load_rows(sk, ld, base + D, row, L, Lp, hd);
+  cc::load_rows(sv, ld, base + 2 * D, row, L, Lp, hd);
+  cc::load_rows(sdo, ld, dout + (size_t)b * L * D + (size_t)h * hd, (size_t)D, L, Lp, hd);
+  cc::cp_async_wait_all();
+  __syncthreads();
+  for (int e = threadIdx.x; e < L * hd; e += blockDim.x) {
+    T* p = sq + (e / hd) * ld + e % hd;
+    *p = cc::from_f<T>(cc::to_f<T>(*p) * scale);
+  }
+  __syncthreads();
+
+  T* gb = dqkv + (size_t)b * L * row + (size_t)h * hd;
+
+  // ------------------------------------------------ query rows, per warp
+  for (int q0 = warp * 16; q0 < Lp; q0 += kTiledWarps * 16) {
+    // sweep 1: per row (two per thread: g and g + 8) the running max m,
+    // l = sum exp(s - m) and a = sum exp(s - m) dP
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+    for (int j0 = 0; j0 < Lp; j0 += kKeyTile) {
+      float s[kKT][4], dp[kKT][4];
+      score_tile<T>(s, dp, sq, sk, sv, sdo, mask, ld, q0, j0, L, Lp, hd, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < kKT; ++nt)
+          tmax = fmaxf(tmax, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+        const float mn = fmaxf(m[r], cc::quad_max(tmax));
+        const float ref = mn == -INFINITY ? 0.f : mn;
+        float ls = 0.f, as = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < kKT; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float x = expf(s[nt][2 * r + c] - ref);
+            ls += x;
+            as += x * dp[nt][2 * r + c];
+          }
+        const float shrink = expf(m[r] - ref);      // 0 while m is -inf
+        l[r] = l[r] * shrink + cc::quad_sum(ls);
+        a[r] = a[r] * shrink + cc::quad_sum(as);
+        m[r] = mn;
+      }
+    }
+    float ref[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ref[r] = m[r] == -INFINITY ? 0.f : m[r];
+      delta[r] = a[r] / l[r];
+      if (t == 0) {
+        const int i = q0 + g + 8 * r;
+        rmax[i] = ref[r];
+        rsum[i] = l[r];
+        rdelta[i] = delta[r];
+      }
+    }
+
+    // sweep 2: P and dS per key tile, dQ = hd^-0.5 * dS . K, 64 channels
+    // at a time; rows >= L (padding) get P = dS = 0
+    for (int c0 = 0; c0 < hd; c0 += kCols) {
+      const int n_tiles = min(kCols, hd - c0) / 8;
+      float acc[kCols / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kCols / 8; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      for (int j0 = 0; j0 < Lp; j0 += kKeyTile) {
+        float s[kKT][4], dp[kKT][4];
+        score_tile<T>(s, dp, sq, sk, sv, sdo, mask, ld, q0, j0, L, Lp, hd, lane);
+#pragma unroll
+        for (int nt = 0; nt < kKT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = q0 + g + 8 * r < L ? expf(s[nt][e] - ref[r]) / l[r] : 0.f;
+            dp[nt][e] = p * (dp[nt][e] - delta[r]);
+          }
+#pragma unroll
+        for (int kk = 0; kk < kKT / 2; ++kk) {
+          if (j0 + kk * 16 < Lp) {
+            uint32_t ah[4], al[4];
+            split2<T>(dp[2 * kk][0], dp[2 * kk][1], ah[0], al[0]);
+            split2<T>(dp[2 * kk][2], dp[2 * kk][3], ah[1], al[1]);
+            split2<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1], ah[2], al[2]);
+            split2<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+            for (int np = 0; np < kCols / 16; ++np) {
+              if (2 * np < n_tiles) {
+                uint32_t bk[4];
+                cc::ldmatrix_x4_trans(bk, cc::trans_b_pair(sk, ld, j0 + kk * 16,
+                                                           c0 + np * 16, lane));
+                cc::mma16816<T>(acc[2 * np], ah, bk[0], bk[1]);
+                cc::mma16816<T>(acc[2 * np], al, bk[0], bk[1]);
+                cc::mma16816<T>(acc[2 * np + 1], ah, bk[2], bk[3]);
+                cc::mma16816<T>(acc[2 * np + 1], al, bk[2], bk[3]);
+              }
+            }
+          }
+        }
+      }
+      cc::store_tile<T, kCols / 8>(acc, stage, gb, row, q0, L, c0, n_tiles, scale, lane);
+    }
+  }
+  __syncthreads();
+
+  // -------------------------------------------------- key rows, per warp
+  for (int k0 = warp * 16; k0 < Lp; k0 += kTiledWarps * 16) {
+    for (int c0 = 0; c0 < hd; c0 += kCols) {
+      const int n_tiles = min(kCols, hd - c0) / 8;
+      float av[kCols / 8][4], ak[kCols / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kCols / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+      for (int i0 = 0; i0 < Lp; i0 += 16) {
+        // S^T and dP^T of keys k0..k0+15 (rows) and queries i0..i0+15
+        float st[2][4], dpt[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+        for (int ks = 0; ks < hd; ks += 16) {
+          uint32_t ak_[4], av_[4], bq[4], bo[4];
+          cc::ldmatrix_x4(ak_, cc::a_frag(sk, ld, k0, ks, lane));
+          cc::ldmatrix_x4(bq, cc::b_pair(sq, ld, i0, ks, lane));
+          cc::mma16816<T>(st[0], ak_, bq[0], bq[1]);
+          cc::mma16816<T>(st[1], ak_, bq[2], bq[3]);
+          cc::ldmatrix_x4(av_, cc::a_frag(sv, ld, k0, ks, lane));
+          cc::ldmatrix_x4(bo, cc::b_pair(sdo, ld, i0, ks, lane));
+          cc::mma16816<T>(dpt[0], av_, bo[0], bo[1]);
+          cc::mma16816<T>(dpt[1], av_, bo[2], bo[3]);
+        }
+        // element (key j = k0 + g + 8 (e / 2), query i = i0 + 8 nt + 2 t + e % 2)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = k0 + g + (e >> 1) * 8, i = i0 + nt * 8 + 2 * t + (e & 1);
+            float p = 0.f;
+            if (i < L && j < L) {
+              float x = st[nt][e];
+              if (mask != nullptr) x += mask[(size_t)i * L + j];
+              p = expf(x - rmax[i]) / rsum[i];
+            }
+            st[nt][e] = p;
+            dpt[nt][e] = p * (dpt[nt][e] - rdelta[i]);
+          }
+        const uint32_t ap[4] = {cc::pack2<T>(st[0][0], st[0][1]),
+                                cc::pack2<T>(st[0][2], st[0][3]),
+                                cc::pack2<T>(st[1][0], st[1][1]),
+                                cc::pack2<T>(st[1][2], st[1][3])};
+        uint32_t ah[4], al[4];
+        split2<T>(dpt[0][0], dpt[0][1], ah[0], al[0]);
+        split2<T>(dpt[0][2], dpt[0][3], ah[1], al[1]);
+        split2<T>(dpt[1][0], dpt[1][1], ah[2], al[2]);
+        split2<T>(dpt[1][2], dpt[1][3], ah[3], al[3]);
+#pragma unroll
+        for (int np = 0; np < kCols / 16; ++np) {
+          if (2 * np < n_tiles) {
+            uint32_t bo[4], bq[4];
+            cc::ldmatrix_x4_trans(bo, cc::trans_b_pair(sdo, ld, i0, c0 + np * 16, lane));
+            cc::mma16816<T>(av[2 * np], ap, bo[0], bo[1]);
+            cc::mma16816<T>(av[2 * np + 1], ap, bo[2], bo[3]);
+            cc::ldmatrix_x4_trans(bq, cc::trans_b_pair(sq, ld, i0, c0 + np * 16, lane));
+            cc::mma16816<T>(ak[2 * np], ah, bq[0], bq[1]);
+            cc::mma16816<T>(ak[2 * np], al, bq[0], bq[1]);
+            cc::mma16816<T>(ak[2 * np + 1], ah, bq[2], bq[3]);
+            cc::mma16816<T>(ak[2 * np + 1], al, bq[2], bq[3]);
+          }
+        }
+      }
+      cc::store_tile<T, kCols / 8>(ak, stage, gb + D, row, k0, L, c0, n_tiles, 1.f, lane);
+      cc::store_tile<T, kCols / 8>(av, stage, gb + 2 * D, row, k0, L, c0, n_tiles, 1.f,
+                                   lane);
+    }
+  }
+}
+
+template <typename T>
+int launch_tiled(const void* qkv, const void* mask, const void* dout, void* dqkv, int B,
+                 int L, int H, int hd, float scale, cudaStream_t stream) {
+  if (hd % 16 != 0 || L <= kMaxL || L > kTiledMaxL) return (int)cudaErrorInvalidValue;
+  const size_t smem = tiled_smem(L, hd, sizeof(T));
+  const int err = set_smem((const void*)attention_bwd_tiled_kernel<T>, smem);
+  if (err) return err;
+  attention_bwd_tiled_kernel<T><<<B * H, kTiledWarps * 32, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(mask),
+      static_cast<const T*>(dout), static_cast<T*>(dqkv), L, H, hd, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -434,6 +727,10 @@ size_t cc_attention_bwd_mma_smem_bytes(int L, int hd, int elem_bytes) {
 }
 
 size_t cc_attention_bwd_simt_smem_bytes(int L, int hd) { return simt_smem(L, hd); }
+
+size_t cc_attention_bwd_tiled_smem_bytes(int L, int hd, int elem_bytes) {
+  return tiled_smem(L, hd, (size_t)elem_bytes);
+}
 
 // Tensor-core variant.  dtype: 1 bfloat16, 2 float16; hd % 16 == 0,
 // 1 <= L <= 128; qkv, dout and dqkv 16-byte aligned.  mask and dmask may be
@@ -447,6 +744,21 @@ int cc_attention_bwd_mma(const void* qkv, const void* mask, const void* dout,
       return launch_mma<__nv_bfloat16>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, s);
     case 2:
       return launch_mma<__half>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Key-tiled tensor-core variant.  dtype as above; hd % 16 == 0,
+// 128 < L <= 256; qkv, dout and dqkv 16-byte aligned; mask may be null.
+int cc_attention_bwd_tiled(const void* qkv, const void* mask, const void* dout,
+                           void* dqkv, int B, int L, int H, int hd, int dtype,
+                           float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1:
+      return launch_tiled<__nv_bfloat16>(qkv, mask, dout, dqkv, B, L, H, hd, scale, s);
+    case 2:
+      return launch_tiled<__half>(qkv, mask, dout, dqkv, B, L, H, hd, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -44,8 +44,24 @@
 // The sums run in ascending member order, as before this design, so the
 // output is the same to the bit.  The TPU kernel's one-hot matmul
 // D @ onehot(assign) (O(N^2 K) flops per step) was a device of the TPU's
-// matrix unit.  N is limited by shared memory (N <= ~235); the wrapper
-// raises above it.
+// matrix unit.
+//
+// Two variants of the one algorithm, chosen by the wrapper from N alone:
+//
+// * shared (N <= 235, where D fits in a CTA's shared memory whatever K):
+//   as above, 128 threads.
+// * global (N <= 512; ViT-B/16 clusters N = 2 x 196 = 392 tokens with
+//   K = 160): D stays in device memory and every read of it goes through
+//   L2; the block's shared memory holds only the sums, assignment, medoids
+//   and member masks (13 KB at N = 392, K = 160), so 8 CTAs of 256 threads
+//   share an SM and all segments of a training step (768) are resident at
+//   once.  The steps, their order and every sum are those of the shared
+//   variant, so the two give the same bits on the same D.  Chosen over a
+//   cluster of CTAs holding D in distributed shared memory: at N = 392 a
+//   segment's D is 614 KB, so all the SMs' shared memory holds fewer than
+//   50 segments at a time and 768 would run in ~20 waves of the same
+//   latency-bound chain, while here every segment's chain runs at once and
+//   the cost is the reads of medoid rows from L2 / device memory.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <limits.h>
@@ -53,8 +69,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxChunks = 8;      // 32-point chunks: N <= 256
+constexpr int kThreads = 128;          // shared variant
+constexpr int kGlobalThreads = 256;    // global variant
+constexpr int kMaxChunks = 8;          // 32-point chunks, shared: N <= 256
+constexpr int kGlobalMaxChunks = 16;   // global: N <= 512
 
 // (v, i) beats (bv, bi): strictly better value, or equal value and lower index
 __device__ __forceinline__ bool beats(float v, int i, float bv, int bi, bool is_max) {
@@ -99,20 +117,26 @@ __host__ __device__ inline size_t smem_bytes(int N, int K) {
           + (size_t)K * n_chunks(N) + 16) * 4;
 }
 
+// the global variant's: the same without D
+__host__ __device__ inline size_t global_smem_bytes(int N, int K) {
+  return smem_bytes(N, K) - (size_t)N * N * 4;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// C = ceil(N / 32) chunks of 32 points, a compile-time count
-template <int C>
-__global__ void __launch_bounds__(kThreads)
+// C = ceil(N / 32) chunks of 32 points, a compile-time count; kShared: D
+// copied into shared memory (else read from device memory)
+template <int C, bool kShared>
+__global__ void __launch_bounds__(kShared ? kThreads : kGlobalThreads)
 kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
                 int* __restrict__ meds_out, int* __restrict__ assign_out,
                 int* __restrict__ steps_out, int N, int K, int iter_limit,
                 int id_sort) {
   extern __shared__ __align__(128) float smem[];
-  float* sD = smem;                                   // [N, N]
-  float* s = sD + (size_t)N * N;                      // [N] candidate sums
+  float* sD = smem;                                   // [N, N], shared only
+  float* s = kShared ? sD + (size_t)N * N : smem;     // [N] candidate sums
   int* assign = reinterpret_cast<int*>(s + N);        // [N]
   int* meds = assign + N;                             // [K]
   int* new_meds = meds + K;                           // [K]
@@ -124,32 +148,35 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
   const int warp = tid >> 5, lane = tid & 31, n_warps = nt >> 5;
   const int b = blockIdx.x;
   const float* Db = D + (size_t)b * N * N;
+  const float* Dm = kShared ? sD : Db;                // where D's rows are read
   const uint32_t bytes = (uint32_t)N * N * 4;
   const bool bulk = bytes % 16 == 0 && (reinterpret_cast<uintptr_t>(Db) & 15) == 0;
 
-  // ---- D into shared memory
-  if (bulk) {
-    if (tid == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(smem_addr(&loaded)) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // ---- D into shared memory (shared variant)
+  if constexpr (kShared) {
+    if (bulk) {
+      if (tid == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     :: "r"(smem_addr(&loaded)) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+      __syncthreads();
+      if (tid == 0) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     :: "r"(smem_addr(&loaded)), "r"(bytes) : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];\n"
+            :: "r"(smem_addr(sD)), "l"(Db), "r"(bytes), "r"(smem_addr(&loaded))
+            : "memory");
+      }
+    } else {
+      for (int e = tid; e < N * N; e += nt)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     :: "r"(smem_addr(sD + e)), "l"(Db + e) : "memory");
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    __syncthreads();
-    if (tid == 0) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   :: "r"(smem_addr(&loaded)), "r"(bytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];\n"
-          :: "r"(smem_addr(sD)), "l"(Db), "r"(bytes), "r"(smem_addr(&loaded))
-          : "memory");
-    }
-  } else {
-    for (int e = tid; e < N * N; e += nt)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                   :: "r"(smem_addr(sD + e)), "l"(Db + e) : "memory");
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
 
   // ---- KKZ's first medoid while D lands: argmax of the norms (warp 0)
@@ -163,22 +190,24 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
     }
     idx = warp_argmax(v, i);
   }
-  if (bulk) {
-    uint32_t done = 0;
-    while (!done)
-      asm volatile("{\n .reg .pred p;\n"
-                   " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-                   " selp.u32 %0, 1, 0, p;\n}\n"
-                   : "=r"(done) : "r"(smem_addr(&loaded)) : "memory");
-  } else {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
+  if constexpr (kShared) {
+    if (bulk) {
+      uint32_t done = 0;
+      while (!done)
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(smem_addr(&loaded)) : "memory");
+    } else {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+    }
   }
 
   // ---- KKZ seeding in warp 0: mindist of points lane + 32 j in registers
   if (warp == 0) {
     int md[C];                 // ordered(mindist), INT_MIN past N
-    const float* row = sD + (size_t)idx * N;
+    const float* row = Dm + (size_t)idx * N;
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const int n = lane + 32 * j;
@@ -196,7 +225,7 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
         if (md[j] == best) i = lane + 32 * j;
       idx = __reduce_min_sync(0xffffffffu, i);
       if (lane == 0) meds[k] = idx;
-      row = sD + (size_t)idx * N;
+      row = Dm + (size_t)idx * N;
 #pragma unroll
       for (int j = 0; j < C; ++j) {
         const int n = lane + 32 * j;
@@ -218,7 +247,7 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
       const int n = 32 * c + lane;
       int a = -1;
       if (n < N) {
-        a = nearest_medoid(sD, meds, N, K, n);
+        a = nearest_medoid(Dm, meds, N, K, n);
         assign[n] = a;
       }
       const unsigned peers = __match_any_sync(0xffffffffu, a);
@@ -228,7 +257,7 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
     // each candidate's sum over its own cluster's members, ascending
     for (int n = tid; n < N; n += nt) {
       const unsigned* mine = members + assign[n] * C;
-      const float* row = sD + (size_t)n * N;
+      const float* row = Dm + (size_t)n * N;
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c)
@@ -271,9 +300,28 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
     __syncthreads();
   }
   for (int n = tid; n < N; n += nt)
-    assign_out[(size_t)b * N + n] = nearest_medoid(sD, meds, N, K, n);
+    assign_out[(size_t)b * N + n] = nearest_medoid(Dm, meds, N, K, n);
   for (int k = tid; k < K; k += nt) meds_out[(size_t)b * K + k] = meds[k];
   if (tid == 0) steps_out[b] = steps;
+}
+
+using Kernel = void (*)(const float*, const float*, int*, int*, int*, int, int,
+                       int, int);
+
+int launch(Kernel kernel, int threads, size_t smem, const void* D, const void* l2,
+           void* meds, void* assign, void* steps, int B, int N, int K,
+           int iter_limit, int id_sort, void* stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(D), static_cast<const float*>(l2),
+      static_cast<int*>(meds), static_cast<int*>(assign),
+      static_cast<int*>(steps), N, K, iter_limit, id_sort);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -282,29 +330,37 @@ extern "C" {
 
 size_t cc_kmedoids_smem_bytes(int N, int K) { return smem_bytes(N, K); }
 
+size_t cc_kmedoids_global_smem_bytes(int N, int K) { return global_smem_bytes(N, K); }
+
+// Shared variant: 1 <= N <= 256 and smem_bytes(N, K) within the opt-in limit.
 int cc_kmedoids(const void* D, const void* l2, void* meds, void* assign,
                 void* steps, int B, int N, int K, int iter_limit, int id_sort,
                 void* stream) {
-  using Kernel = void (*)(const float*, const float*, int*, int*, int*, int,
-                          int, int, int);
   static const Kernel kernels[kMaxChunks] = {
-      kmedoids_kernel<1>, kmedoids_kernel<2>, kmedoids_kernel<3>,
-      kmedoids_kernel<4>, kmedoids_kernel<5>, kmedoids_kernel<6>,
-      kmedoids_kernel<7>, kmedoids_kernel<8>};
+      kmedoids_kernel<1, true>, kmedoids_kernel<2, true>, kmedoids_kernel<3, true>,
+      kmedoids_kernel<4, true>, kmedoids_kernel<5, true>, kmedoids_kernel<6, true>,
+      kmedoids_kernel<7, true>, kmedoids_kernel<8, true>};
   if (N < 1 || N > 32 * kMaxChunks) return (int)cudaErrorInvalidValue;
-  const Kernel kernel = kernels[n_chunks(N) - 1];
-  const size_t smem = smem_bytes(N, K);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(D), static_cast<const float*>(l2),
-      static_cast<int*>(meds), static_cast<int*>(assign),
-      static_cast<int*>(steps), N, K, iter_limit, id_sort);
-  return (int)cudaGetLastError();
+  return launch(kernels[n_chunks(N) - 1], kThreads, smem_bytes(N, K), D, l2, meds,
+                assign, steps, B, N, K, iter_limit, id_sort, stream);
+}
+
+// Global variant: 1 <= N <= 512; D read from device memory.
+int cc_kmedoids_global(const void* D, const void* l2, void* meds, void* assign,
+                       void* steps, int B, int N, int K, int iter_limit,
+                       int id_sort, void* stream) {
+  static const Kernel kernels[kGlobalMaxChunks] = {
+      kmedoids_kernel<1, false>,  kmedoids_kernel<2, false>,
+      kmedoids_kernel<3, false>,  kmedoids_kernel<4, false>,
+      kmedoids_kernel<5, false>,  kmedoids_kernel<6, false>,
+      kmedoids_kernel<7, false>,  kmedoids_kernel<8, false>,
+      kmedoids_kernel<9, false>,  kmedoids_kernel<10, false>,
+      kmedoids_kernel<11, false>, kmedoids_kernel<12, false>,
+      kmedoids_kernel<13, false>, kmedoids_kernel<14, false>,
+      kmedoids_kernel<15, false>, kmedoids_kernel<16, false>};
+  if (N < 1 || N > 32 * kGlobalMaxChunks) return (int)cudaErrorInvalidValue;
+  return launch(kernels[n_chunks(N) - 1], kGlobalThreads, global_smem_bytes(N, K), D,
+                l2, meds, assign, steps, B, N, K, iter_limit, id_sort, stream);
 }
 
 const char* cc_error_string(int err) {

@@ -127,7 +127,7 @@ def main(argv=None, device=None):
         _, start_epoch, best_r1 = state_mod.resume(
             cfg.resume, trainer.state,
             load_weights_only=cfg.load_from_pretrained)
-        logger.info("resumed from %s at epoch %d (best R@1 %.2f)",
+        logger.info("resumed from %s, starting at epoch %d (best R@1 %.2f)",
                     cfg.resume, start_epoch, best_r1)
 
     try:

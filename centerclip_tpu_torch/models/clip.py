@@ -9,9 +9,14 @@ the JAX package's `models/clip.py`, reference: modules/clip.py:272-512).
 * Cluster modules run before the blocks the cluster plan names.
 * ln_post and the projection run on the CLS token only.
 * Text features are pooled at the EOT token (the largest id).
+* With `cfg.remat` every residual block of both towers runs under
+  `torch.utils.checkpoint` (its activations are recomputed in the backward,
+  as the JAX package's `nn.remat(ResidualAttentionBlock)`); the cluster
+  modules run outside the recomputed blocks, so k-medoids runs once per
+  forward.
 
-The 3-D patchify, the ResNet towers, rematerialisation and sequence or
-pipeline parallelism are not ported; a config that asks for them raises.
+The 3-D patchify, the ResNet towers and sequence or pipeline parallelism
+are not ported; a config that asks for them raises.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.cluster_layer import TokenClusterInter
@@ -35,9 +41,9 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("ResNet vision towers are not ported yet")
     if cfg.linear_patch != "2d":
         raise NotImplementedError("the 3-D patchify is not ported yet")
-    if cfg.remat or cfg.sequence_parallel or cfg.pipeline_parallel > 1:
+    if cfg.sequence_parallel or cfg.pipeline_parallel > 1:
         raise NotImplementedError(
-            "remat, sequence and pipeline parallelism are not ported")
+            "sequence and pipeline parallelism are not ported")
     if cfg.cluster.deep_cluster:
         raise NotImplementedError("deep_cluster is not ported yet")
 
@@ -46,10 +52,19 @@ class Transformer(nn.Module):
     """A stack of residual blocks (`transformer.resblocks.{i}`)."""
 
     def __init__(self, width: int, layers: int, heads: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, remat: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, dtype) for _ in range(layers))
+        self.remat = remat
+
+    def run_block(self, block: ResidualAttentionBlock, x: torch.Tensor,
+                  attn_mask=None) -> torch.Tensor:
+        """One block, recomputed in the backward when `remat` is on and
+        gradients are being recorded."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, attn_mask, use_reentrant=False)
+        return block(x, attn_mask)
 
 
 class VisionTransformer(nn.Module):
@@ -68,7 +83,7 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNormF32(width)
         self.transformer = Transformer(
             width, arch["vision_layers"],
-            arch.get("vision_heads", width // 64), dtype)
+            arch.get("vision_heads", width // 64), dtype, cfg.remat)
         for block, spec in zip(self.transformer.resblocks, cfg.cluster_plan()):
             if spec is not None:
                 block.tokencluster_inter = TokenClusterInter(
@@ -106,7 +121,7 @@ class VisionTransformer(nn.Module):
         for block in self.transformer.resblocks:
             if block.tokencluster_inter is not None:
                 x = block.tokencluster_inter(x)
-            x = block(x)
+            x = self.transformer.run_block(block, x)
         x = self.ln_post(x[:, 0, :].contiguous()).float()
         return x @ self.proj
 
@@ -127,7 +142,8 @@ class CLIP(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty(arch["context_length"], width))
         self.transformer = Transformer(width, arch["transformer_layers"],
-                                       arch["transformer_heads"], dtype)
+                                       arch["transformer_heads"], dtype,
+                                       cfg.remat)
         self.ln_final = LayerNormF32(width)
         self.text_projection = nn.Parameter(
             torch.empty(width, arch["embed_dim"]))
@@ -160,7 +176,7 @@ class CLIP(nn.Module):
         x = x + self.positional_embedding[:L].to(dt)
         mask = causal_mask(L, device=x.device)
         for block in self.transformer.resblocks:
-            x = block(x, mask)
+            x = self.transformer.run_block(block, x, mask)
         x = self.ln_final(x).float()
         eot = text.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -15,11 +15,14 @@ so the projection's backward stays one matmul.  At CLIP's sequence lengths
 (50 vision tokens, 32 text tokens) both are bound by the bytes of their
 inputs and outputs, not by flops.
 
-Each source has two variants, picked by `choose_variant` from dtype,
-head_dim and L before the launch: "tensor_core" (bf16 / fp16 with
-head_dim % 16 == 0: mma.sync from ldmatrix, cp.async loads; the backward up
-to L = 128) and "cuda_core" (fp32: fmaf loops, since tensor cores have no
-exact fp32 product and TF32 is off).  What neither takes raises.
+Each source has a "tensor_core" variant (bf16 / fp16 with head_dim % 16 ==
+0: mma.sync from ldmatrix, cp.async loads; the backward up to L = 128, where
+a warp holds its rows of S and dP whole in registers) and a "cuda_core"
+variant (fp32: fmaf loops, since tensor cores have no exact fp32 product and
+TF32 is off).  The backward has a third, "tensor_core_tiled" (bf16 / fp16,
+128 < L <= 256: the same arithmetic over key tiles, for ViT-B/16's 197 and
+161 tokens).  `choose_variant` picks one from dtype, head_dim and L before
+the launch; what none takes raises.
 
 `fused_attention` is differentiable through `_FusedAttention`: kernel A
 forward, kernel B backward.  For CPU tensors both sides take their plain
@@ -38,8 +41,16 @@ from . import _build
 
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
-# the tensor-core backward holds a warp's S and dP rows whole in registers
+TENSOR_CORE_TILED = "tensor_core_tiled"
+# the tensor-core backward holds a warp's S and dP rows whole in registers;
+# the key-tiled one takes the lengths above, up to its own limit
 TENSOR_CORE_BWD_MAX_L = 128
+TILED_BWD_MAX_L = 256
+_SMEM_FNS = {(False, TENSOR_CORE): "cc_attention_mma_smem_bytes",
+             (False, CUDA_CORE): "cc_attention_simt_smem_bytes",
+             (True, TENSOR_CORE): "cc_attention_bwd_mma_smem_bytes",
+             (True, TENSOR_CORE_TILED): "cc_attention_bwd_tiled_smem_bytes",
+             (True, CUDA_CORE): "cc_attention_bwd_simt_smem_bytes"}
 
 
 def attention_plain(qkv: torch.Tensor, heads: int,
@@ -107,11 +118,11 @@ def attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
 def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
                    backward: bool = False) -> str:
     """The kernel variant a CUDA tensor takes, from its dtype, head_dim and
-    sequence length alone: TENSOR_CORE for bf16 / fp16 with head_dim a
-    multiple of 16 (the backward also L <= TENSOR_CORE_BWD_MAX_L), CUDA_CORE
-    for fp32.  Raises ValueError for what no variant takes; whether the
-    tiles fit in shared memory is checked at launch from the sources' own
-    sizes."""
+    sequence length alone: for bf16 / fp16 with head_dim a multiple of 16
+    TENSOR_CORE (the backward only up to L = TENSOR_CORE_BWD_MAX_L, then
+    TENSOR_CORE_TILED up to TILED_BWD_MAX_L), CUDA_CORE for fp32.  Raises
+    ValueError for what no variant takes; whether the tiles fit in shared
+    memory is checked at launch from the sources' own sizes."""
     if L < 1 or head_dim < 1:
         raise ValueError(f"need L >= 1 and head_dim >= 1; got L={L}, "
                          f"head_dim={head_dim}")
@@ -122,9 +133,11 @@ def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
     if head_dim % 16:
         raise ValueError(f"the {dtype} kernels need head_dim % 16 == 0; got "
                          f"{head_dim}")
+    if backward and L > TILED_BWD_MAX_L:
+        raise ValueError(f"the {dtype} backward kernels take L <= "
+                         f"{TILED_BWD_MAX_L}; got {L}")
     if backward and L > TENSOR_CORE_BWD_MAX_L:
-        raise ValueError(f"the {dtype} backward kernel takes L <= "
-                         f"{TENSOR_CORE_BWD_MAX_L}; got {L}")
+        return TENSOR_CORE_TILED
     return TENSOR_CORE
 
 
@@ -146,15 +159,11 @@ def _check_cuda_inputs(qkv: torch.Tensor, heads: int,
         if tuple(attn_mask.shape) != (L, L) or not attn_mask.is_contiguous():
             raise ValueError(f"attn_mask must be a contiguous [{L}, {L}] "
                              f"tensor; got {tuple(attn_mask.shape)}")
-    if variant == TENSOR_CORE and qkv.data_ptr() % 16:
+    if variant != CUDA_CORE and qkv.data_ptr() % 16:
         raise ValueError("qkv must start at a 16-byte aligned address")
-    lib_name = "attention_bwd" if backward else "attention"
-    lib = _build.load(lib_name)
-    if variant == TENSOR_CORE:
-        smem = _build.smem_bytes(lib, f"cc_{lib_name}_mma_smem_bytes", L, hd,
-                                 qkv.element_size())
-    else:
-        smem = _build.smem_bytes(lib, f"cc_{lib_name}_simt_smem_bytes", L, hd)
+    lib = _build.load("attention_bwd" if backward else "attention")
+    sizes = (L, hd) if variant == CUDA_CORE else (L, hd, qkv.element_size())
+    smem = _build.smem_bytes(lib, _SMEM_FNS[(backward, variant)], *sizes)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"L={L}, head_dim={hd} needs {smem} bytes of shared "
                          f"memory per CTA; the kernel takes at most "
@@ -226,10 +235,13 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         raise ValueError(f"dout must be a contiguous {qkv.dtype} "
                          f"[{B}, {L}, {D3 // 3}] tensor on {qkv.device}; got "
                          f"{dout.dtype} {tuple(dout.shape)}")
-    if variant == TENSOR_CORE and dout.data_ptr() % 16:
+    if variant != CUDA_CORE and dout.data_ptr() % 16:
         raise ValueError("dout must start at a 16-byte aligned address")
     if mask_grad and attn_mask is None:
         raise ValueError("mask_grad needs an attn_mask")
+    if mask_grad and variant == TENSOR_CORE_TILED:
+        raise ValueError(f"the key-tiled backward (L > "
+                         f"{TENSOR_CORE_BWD_MAX_L}) has no mask gradient")
     dqkv = torch.empty_like(qkv)
     dmask = (torch.zeros((L, L), dtype=torch.float32, device=qkv.device)
              if mask_grad else None)
@@ -245,6 +257,10 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         if variant == TENSOR_CORE:
             err = _entry(lib, "cc_attention_bwd_mma", 5, 4, True)(
                 *ptrs, B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
+                float(hd ** -0.5), stream)
+        elif variant == TENSOR_CORE_TILED:
+            err = _entry(lib, "cc_attention_bwd_tiled", 4, 4, True)(
+                *ptrs[:4], B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
                 float(hd ** -0.5), stream)
         else:
             err = _entry(lib, "cc_attention_bwd_simt", 5, 4, False)(
@@ -294,6 +310,7 @@ def reset_counts() -> None:
     for fn in (fused_attention, attention_backward):
         fn.launches = 0
         fn.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+    attention_backward.variant_launches[TENSOR_CORE_TILED] = 0
 
 
 reset_counts()

@@ -5,41 +5,65 @@ version.
 Replaces the TPU kernel `centerclip_tpu/ops/kmedoids_pallas.py`
 (`_kmedoids_kernel` / `kmedoids_from_distances`, entry
 `batch_fast_kmedoids_pallas`).  The kernel, `csrc/kmedoids.cu`, runs one
-CTA per segment with the segment's `[N, N]` distance matrix held in shared
-memory for KKZ seeding, every Lloyd step, the id sort and the last
-assignment.  It is latency-bound: the matrix is read from device memory
-once (one bulk asynchronous copy when N is even) and the steps are a chain
-of small dependent reductions, which the design keeps short: KKZ in one
-warp with no block barrier, and Lloyd steps of three barriers on member
-lists built without atomics.  The TPU kernel's one-hot matmul is replaced
-by each candidate's sum over its own cluster's members.  The distance
-matrix is computed outside the kernel by `ops/distances.py`, a plain fp32
-matmul.
+CTA per segment for KKZ seeding, every Lloyd step, the id sort and the last
+assignment.  It is latency-bound: the steps are a chain of small dependent
+reductions, which the design keeps short: KKZ in one warp with no block
+barrier, and Lloyd steps of three barriers on member lists built without
+atomics.  The TPU kernel's one-hot matmul is replaced by each candidate's
+sum over its own cluster's members.  The distance matrix is computed
+outside the kernel by `ops/distances.py`, a plain fp32 matmul.
+
+Two variants of that one algorithm, picked by `choose_variant` from N:
+SHARED (N <= SHARED_MAX_N) copies the segment's `[N, N]` matrix into shared
+memory once (one bulk asynchronous copy when N is even); GLOBAL (N <=
+GLOBAL_MAX_N, e.g. ViT-B/16's N = 392) reads it from device memory through
+L2, with many small CTAs per SM.  Both give the same bits on the same
+distances.
 
 `kmedoids` takes the plain version for CPU tensors only.  A CUDA tensor
-launches the kernel or raises; an N whose distance matrix does not fit in
-shared memory raises.  `kmedoids_from_distances.launches` counts launches.
+launches the kernel or raises; N above GLOBAL_MAX_N raises.
+`kmedoids_from_distances.launches` counts launches, and `.variant_launches`
+counts them by variant.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 from .kmedoids import batch_fast_kmedoids, kmedoids_inputs
 
+SHARED, GLOBAL = "shared", "global"
+# the largest N whose [N, N] fp32 matrix, sums, assignment, medoids and
+# member masks fit in one CTA's 227 KB of shared memory at any K <= N
+SHARED_MAX_N = 235
+GLOBAL_MAX_N = 512             # 16 chunks of 32 points
+_ENTRIES = {SHARED: ("cc_kmedoids", "cc_kmedoids_smem_bytes"),
+            GLOBAL: ("cc_kmedoids_global", "cc_kmedoids_global_smem_bytes")}
+
+
+def choose_variant(N: int) -> str:
+    """The kernel variant for N points per segment: SHARED up to
+    SHARED_MAX_N, GLOBAL up to GLOBAL_MAX_N; ValueError past it."""
+    if N < 1 or N > GLOBAL_MAX_N:
+        raise ValueError(f"the k-medoids kernel takes 1 <= N <= "
+                         f"{GLOBAL_MAX_N}; got N={N}")
+    return SHARED if N <= SHARED_MAX_N else GLOBAL
+
 
 def kmedoids_from_distances(D: torch.Tensor, l2: torch.Tensor, K: int,
-                            iter_limit: int = 100, id_sort: bool = True
+                            iter_limit: int = 100, id_sort: bool = True,
+                            variant: Optional[str] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """Kernel entry on precomputed distances (both tricks applied).
 
     D: [B, N, N] fp32 contiguous CUDA tensor; l2: [B, N] fp32 norms.
-    Returns (assign [B, N] int32, meds [B, K] int32, steps [B] int32 — the
-    Lloyd steps each segment ran)."""
+    `variant` (SHARED or GLOBAL) overrides `choose_variant(N)`, to hold the
+    two against each other.  Returns (assign [B, N] int32, meds [B, K]
+    int32, steps [B] int32 — the Lloyd steps each segment ran)."""
     if D.device.type != "cuda":
         raise ValueError("kmedoids_from_distances runs on CUDA tensors only; "
                          "the plain version is ops.kmedoids.batch_fast_kmedoids")
@@ -55,18 +79,23 @@ def kmedoids_from_distances(D: torch.Tensor, l2: torch.Tensor, K: int,
                              f"{D.device}")
     if not 1 <= K <= N:
         raise ValueError(f"need 1 <= K <= N; got K={K}, N={N}")
+    if variant is None:
+        variant = choose_variant(N)
+    elif variant not in _ENTRIES or N > GLOBAL_MAX_N:
+        raise ValueError(f"no k-medoids variant {variant!r} for N={N}")
+    entry, smem_fn = _ENTRIES[variant]
     lib = _build.load("kmedoids")
-    smem = _build.smem_bytes(lib, "cc_kmedoids_smem_bytes", N, K)
+    smem = _build.smem_bytes(lib, smem_fn, N, K)
     if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"N={N} needs {smem} bytes of shared memory; the "
-                         f"kernel holds at most {_build.MAX_SMEM_BYTES} "
-                         f"(N <= ~235)")
+        raise ValueError(f"N={N}, K={K} needs {smem} bytes of shared memory "
+                         f"in the {variant} variant; a CTA holds at most "
+                         f"{_build.MAX_SMEM_BYTES}")
     assign = torch.empty((B, N), dtype=torch.int32, device=D.device)
     meds = torch.empty((B, K), dtype=torch.int32, device=D.device)
     steps = torch.empty((B,), dtype=torch.int32, device=D.device)
     if B == 0:
         return assign, meds, steps
-    fn = lib.cc_kmedoids
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
@@ -75,12 +104,19 @@ def kmedoids_from_distances(D: torch.Tensor, l2: torch.Tensor, K: int,
         err = fn(D.data_ptr(), l2.data_ptr(), meds.data_ptr(),
                  assign.data_ptr(), steps.data_ptr(), B, N, K,
                  int(iter_limit), int(bool(id_sort)), stream)
-    _build.check(lib, err, "k-medoids kernel")
+    _build.check(lib, err, f"k-medoids kernel ({variant})")
     kmedoids_from_distances.launches += 1
+    kmedoids_from_distances.variant_launches[variant] += 1
     return assign, meds, steps
 
 
-kmedoids_from_distances.launches = 0
+def reset_counts() -> None:
+    """Zero the kernel's launch count, the total and by variant."""
+    kmedoids_from_distances.launches = 0
+    kmedoids_from_distances.variant_launches = {SHARED: 0, GLOBAL: 0}
+
+
+reset_counts()
 
 
 @torch.no_grad()

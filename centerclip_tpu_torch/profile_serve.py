@@ -30,6 +30,7 @@ from .serve import RetrievalEngine
 GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
                                  "attention_fwd_kernel")),
           ("attention bwd kernel", ("attention_bwd_mma_kernel",
+                                    "attention_bwd_tiled_kernel",
                                     "attention_bwd_kernel")),
           ("layernorm kernel", ("_ln_fwd",)),
           ("layernorm bwd kernel", ("_ln_bwd",)),

@@ -2,17 +2,21 @@
 """Where the time of a training step goes on the card.
 
     python -m centerclip_tpu_torch.profile_train [--batch 128] [--steps 1]
+        [--preset msrvtt_vitb32_k6] [--remat 0|1]
 
-Builds the JAX package's preset `msrvtt_vitb32_k6` (ViT-B/32, kmediods++
-12 -> 6 frames, meanP, bf16 towers, AdamW) on seeded random weights and a
+Builds a preset of the JAX package (by default `msrvtt_vitb32_k6`: ViT-B/32,
+kmediods++ 12 -> 6 frames, meanP, bf16 towers, AdamW; `--remat` overrides
+its `remat`) on seeded random weights and a
 `Trainer` over it, takes two warm-up steps on one batch of `--batch` seeded
 uint8 clips with seeded token rows (tensors in pinned memory, as the data
 loader hands them out on the card), then profiles `--steps` more under
 `torch.profiler`: the wall time (host clock, ending in a device sync), the
 device time summed over kernels and copies, the device's busy share, and
 the device time by group (the port's five kernels, cuBLAS matmuls, the
-optimizer's foreach kernels, copies, the rest) and by kernel name.  Exits
-non-zero without a CUDA device, or if the profiler records no device time.
+optimizer's foreach kernels, copies, the rest) and by kernel name, and the
+peak device memory allocated.  Exits non-zero without a CUDA device, if
+the profiler records no device time, or, with a message and the peak
+allocated so far, if the step does not fit in device memory.
 """
 from __future__ import annotations
 
@@ -34,13 +38,19 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--top", type=int, default=16)
+    ap.add_argument("--preset", default="msrvtt_vitb32_k6")
+    ap.add_argument("--remat", type=int, choices=(0, 1), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
     print(torch.cuda.get_device_name(0))
-    run = preset("msrvtt_vitb32_k6", batch_size=args.batch)
+    overrides = dict(batch_size=args.batch)
+    if args.remat is not None:
+        overrides["remat"] = bool(args.remat)
+    run = preset(args.preset, **overrides)
     cfg = run.model
+    print(f"{args.preset}, batch {args.batch}, remat {cfg.remat}")
     trainer = Trainer(run, CLIP4Clip(cfg, device="cuda", seed=0),
                       total_steps=args.steps + 2)
     g = np.random.default_rng(0)
@@ -51,11 +61,22 @@ def main(argv=None) -> int:
         "video": g.integers(0, 256, (args.batch, 1, cfg.max_frames, 3,
                                      224, 224), dtype=np.uint8),
         "video_mask": np.ones((args.batch, cfg.max_frames), np.int32)})
-    trainer.train_epoch(0, [batch, batch], n_display=10 ** 9)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer.train_epoch(0, [batch, batch], n_display=10 ** 9)  # warm-up
+    except torch.OutOfMemoryError:
+        print(f"out of device memory in a training step at batch "
+              f"{args.batch} (peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB of "
+              f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.3f}"
+              f" GiB)")
+        return 1
     profile(f"{args.steps} training step(s) of {args.batch} clips (pinned "
             f"host batch)",
             lambda: trainer.train_epoch(1, [batch] * args.steps,
                                         n_display=10 ** 9), args.top)
+    print(f"peak device memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return 0
 
 

@@ -75,7 +75,10 @@ def resume(path: str, state: TrainState, load_weights_only: bool = False
            ) -> Tuple[TrainState, int, float]:
     """Resume semantics of the reference (main.py:188-212): a full restore
     of parameters, optimizer state and counters, or the weights only.
-    Loads into `state` in place; returns (state, epoch, best_r1)."""
+    Loads into `state` in place; returns (state, the epoch to start at,
+    best_r1).  `ckpt_<e>` is written after epoch e, so a full restore starts
+    at e + 1 (the JAX package returns e and trains epoch e a second time);
+    the weights alone start at epoch 0."""
     payload = load_checkpoint(path)
     state.model.load_state_dict(payload["params"], strict=True)
     if load_weights_only:
@@ -83,7 +86,7 @@ def resume(path: str, state: TrainState, load_weights_only: bool = False
     state.optimizer.load_state_dict(payload["opt_state"])
     meta = payload["meta"]
     state.global_step = int(meta["global_step"])
-    return state, int(meta["epoch"]), float(meta["best_r1"])
+    return state, int(meta["epoch"]) + 1, float(meta["best_r1"])
 
 
 def export_torch_checkpoint(model: nn.Module, path: str, epoch: int = 0,

@@ -35,7 +35,8 @@
    training batch's shapes, where the autograd Function must return the
    kernel's gradient bit for bit, and the LayerNorm backward must return
    the same bits from a second call; its device launches per call are
-   counted by torch.profiler), with errors, CUDA-event times, the time
+   counted in a CUDA graph that one call is captured into), with errors,
+   CUDA-event times, the time
    of one PyTorch library call for the same function where there is one
    (SDPA; its backward by `torch.autograd.grad`, so nothing accumulates
    into `.grad` between timed calls), the kernel's time over it, and the
@@ -68,10 +69,31 @@
    The first eval batch of the .npy loader must equal the .fstore loader's
    byte for byte.
 
-Prints a `{"training": ...}`, a `{"main": ...}` and a `{"kernels": [...]}`
-JSON line and, last, one JSON line {"ok": true, "device": {...}}.  Any
-failed check exits non-zero before it.  Without a CUDA device it exits
-non-zero at once.
+7. ViT-B/16 phase, the fourth main path: the preset `msrvtt_vitb16_k6`
+   (12 frames of 224 x 224 at patch 16: L = 197 in blocks 1-6; k-medoids of
+   2 x 196 = 392 tokens per segment into K = 160 before block 7, L = 161
+   after) on seeded random weights (no ViT-B-16.pt in the repo).  First an
+   encode of 64 seeded clips through `RetrievalEngine` (batches of 32) and
+   one search; then 2 untimed and 3 timed training steps at the recipe's
+   batch of 128 with `remat` (without it the step does not fit in 80 GB),
+   the peak memory printed, and one checkpoint-and-resume step that must
+   equal the uninterrupted one.  Counts are zeroed before the encode and
+   before the steps and read after each: the vision blocks' backward must
+   run kernel B's key-tiled variant (12 launches a step, and the text
+   tower's 12 the L <= 128 variant), k-medoids only its global variant
+   (N > SHARED_MAX_N).  Then B and A at qkv [1536, 197, 2304] and
+   [768, 161, 2304], C and D at LayerNorm rows [302592, 768] and
+   [123648, 768], and E on the tokens the first step and the encode
+   clustered ([768, 392, 392] and [192, 392, 392], K = 160), each against
+   its plain version as in the kernel phase.  (The kernel phase also holds
+   E at N = 147, K = 49: the first training step's tokens as the 12 -> 4
+   presets cluster them.)
+
+Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}` and a
+`{"kernels": [...]}` JSON line (the key-tiled backward and the global
+k-medoids variant as rows of their own) and, last, one JSON line {"ok":
+true, "device": {...}}.  Any failed check exits non-zero before it.
+Without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -134,6 +156,14 @@ EXP62_FLAGS = [
     "--num_thread_reader", "8", "--cluster_inter", "1",
     "--cluster_algo", "kmediods++", "--cluster_num_blocks", *["49"] * 12,
     "--target_frames_blocks", *["12"] * 6, *["6"] * 6]
+# the fourth main path: ViT-B/16 at the recipe's batch of 128; the step
+# count is what is cut to keep the script inside its time limit
+VITB16_PRESET, VITB16_WARMUP_STEPS, VITB16_TIMED_STEPS = \
+    "msrvtt_vitb16_k6", 2, 3
+VITB16_REMAT = True
+VITB16_REMAT_WHY = ("without it the step at batch 128 does not fit in the "
+                    "card's 80 GB: python -m centerclip_tpu_torch.profile_train "
+                    "--preset msrvtt_vitb16_k6 --remat 0")
 SLEEP_CYCLES = 4_000_000          # ~2 ms at the H100's ~1.98 GHz boost clock
 QUERIES = ["a man is cooking pasta in a kitchen",
            "two dogs are playing in the snow",
@@ -181,28 +211,51 @@ def time_ms(torch, fn, flush, iters=10, warmup=3):
     return total / iters
 
 
+# the CUDA runtime's cudaGraphNodeType values of the work a call may enqueue
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "child graph", 5: "empty", 6: "event wait",
+                    7: "event record", 10: "mem alloc", 11: "mem free"}
+
+
 def device_launches(torch, fn):
-    """Device activities (kernels, copies, memsets) of one call of `fn`, as
-    torch.profiler records them; fails if it records none."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    """The device work one call of `fn` enqueues, by node type: the call is
+    captured into a CUDA graph (nothing runs; `fn` must have run before at
+    the same shapes, so nothing compiles or grows a cache inside the
+    capture) and the graph's nodes are read through the CUDA runtime.
+    (torch.profiler, opened once per call late in a long process, was seen
+    to get no device activity from CUPTI at all.)"""
+    import ctypes
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not names:
-        fail("the profiler recorded no device activity")
-    return names
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = rt.cudaGraphGetNodes(raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    err = err or rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        err = err or rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                             ctypes.byref(kind))
+        kinds.append(GRAPH_NODE_TYPES.get(kind.value, str(kind.value)))
+    del graph
+    if err:
+        fail(f"reading the captured graph's nodes: CUDA error {err}")
+    if not kinds:
+        fail("the captured call enqueued no device work")
+    return kinds
 
 
 def zero_counts(counters):
-    """Zero every kernel's launch count, and attention's by variant."""
-    from centerclip_tpu_torch.ops import attention_cuda
+    """Zero every kernel's launch count, and attention's and k-medoids' by
+    variant."""
+    from centerclip_tpu_torch.ops import attention_cuda, kmedoids_cuda
     for fn in counters:
         fn.launches = 0
     attention_cuda.reset_counts()
+    kmedoids_cuda.reset_counts()
 
 
 def attention_variant_counts(path, backward):
@@ -334,7 +387,8 @@ def training_phase(torch, np, dev, counters):
         trainer2 = Trainer(run, other, total_steps=total_steps)
         _, epoch, _ = resume(path, trainer2.state)
         t_ckpt = time.time() - t0
-    if trainer2.state.global_step != trainer.state.global_step or epoch != 0:
+    # ckpt of epoch 0: the resumed run starts at epoch 1
+    if trainer2.state.global_step != trainer.state.global_step or epoch != 1:
         fail("resume did not restore the step counters")
     trainer.train_epoch(1, [batch], n_display=1)
     trainer2.train_epoch(1, [batch], n_display=1)
@@ -489,7 +543,8 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     assignments where the ids agree.  Returns the row and (X, D, l2,
     steps) for timing."""
     from centerclip_tpu_torch.ops import kmedoids_cuda
-    from centerclip_tpu_torch.ops.kmedoids import (kmedoids_inputs,
+    from centerclip_tpu_torch.ops.kmedoids import (_assign_step, _update_step,
+                                                   kmedoids_inputs,
                                                    kmedoids_on_distances)
     X, D, l2 = kmedoids_inputs(points, distance, norm_p, pre_norm)
     a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(
@@ -506,10 +561,17 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     c1, c2 = cost(m1, a1), cost(m2, a2)
     cost_rel = ((c1 - c2).abs() / c2.abs()).max().item()
     st = steps.long()
+    # the plain version stops on the batch-mean shift, the kernel at each
+    # segment's fixed point: the segments where one more Lloyd step would
+    # still move the plain version's medoid set
+    nxt = _update_step(D, _assign_step(D, m2.long()), K).sort(dim=1).values
+    short = int((nxt != m2.long()).any(dim=1).sum())
     print(f"kmedoids [{label}] X {tuple(X.shape)} K={K}: segments with "
           f"other ids {n_diff}/{Bs}, max relative cost gap {cost_rel:.3e} "
           f"(tol {KMEDOIDS_COST_RTOL}), Lloyd steps min/mean/max "
-          f"{int(st.min())}/{st.float().mean().item():.2f}/{int(st.max())}")
+          f"{int(st.min())}/{st.float().mean().item():.2f}/{int(st.max())}, "
+          f"segments the plain version left short of their fixed point "
+          f"{short}/{Bs}")
     if n_diff and cost_rel > KMEDOIDS_COST_RTOL:
         fail(f"k-medoids kernel [{label}] found a costlier clustering than "
              f"its plain version")
@@ -520,8 +582,434 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
              f"agree")
     row = dict(shape=list(X.shape), max_abs_err=float((m1 != m2).sum()),
                segments_differing=n_diff, max_rel_cost_gap=cost_rel,
-               lloyd_steps_mean=st.float().mean().item())
+               lloyd_steps_mean=st.float().mean().item(),
+               plain_short_of_fixed_point=short)
     return row, (X, D, l2, steps)
+
+
+def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
+    """Kernel B against `attention_bwd_plain` on seeded bf16 qkv
+    [B, L, 3 * 64 H] and dO (causal mask if `mask_kind`): within one bf16
+    ulp, the share of differing values printed, the autograd Function's
+    gradient the kernel's bit for bit; kernel A's forward held and timed
+    (beside SDPA) on the way.  Times the kernel, the plain version and
+    SDPA's backward.  Returns (B's row, A's row)."""
+    from centerclip_tpu_torch.ops import attention_cuda
+    mem_rate, bf16_peak, _ = peaks
+    D = 64 * H
+    gen = torch.Generator(device=dev).manual_seed(B + L)
+    qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    dout = torch.randn((B, L, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    mask = (torch.full((L, L), float("-inf"), device=dev).triu(1)
+            if mask_kind else None)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H, mask)
+    xg = qkv.clone().requires_grad_(True)
+    out = attention_cuda.fused_attention(xg, H, mask)
+    out.backward(dout)
+    # kernel A's forward at the training shape, held as in the serving
+    # shapes above
+    fwd_ref = attention_cuda.attention_plain(qkv, H, mask)
+    torch.cuda.synchronize()
+    fwd_err = (out.detach().float() - fwd_ref.float()).abs()
+    if not bool((fwd_err <= BF16_ATOL
+                 + BF16_RTOL * fwd_ref.float().abs()).all()):
+        fail(f"attention [{label}, training] disagrees with its plain "
+             f"version")
+    del out, fwd_ref
+    f_ms = time_ms(torch, lambda: attention_cuda.fused_attention(
+        qkv, H, mask), flush=flush)
+    f_plain_ms = time_ms(torch, lambda: attention_cuda.attention_plain(
+        qkv, H, mask), flush=flush)
+    qh, kh, vh = (t.reshape(B, L, H, 64).transpose(1, 2)
+                  for t in qkv.split(D, dim=-1))
+    f_lib_ms = time_ms(torch, lambda: torch.nn.functional
+                       .scaled_dot_product_attention(
+                           qh, kh, vh, is_causal=mask is not None),
+                       flush=flush)
+    del qh, kh, vh
+    f_b_ms, f_b_by = bound(qkv.numel() * 2 + B * L * D * 2
+                           + (L * L * 4 if mask is not None else 0),
+                           4.0 * B * H * L * L * 64, bf16_peak, mem_rate)
+    fwd_row = dict(shape=list(qkv.shape), max_abs_err=fwd_err.max().item(),
+                   ms=f_ms, plain_ms=f_plain_ms, library_ms=f_lib_ms,
+                   bound_ms=f_b_ms, bound_by=f_b_by)
+    print(f"attention [{label}, training] qkv {tuple(qkv.shape)} bf16 "
+          f"H={H}: max_abs_err {fwd_err.max().item():.3e} (tol "
+          f"{BF16_ATOL} + {BF16_RTOL}*|ref|) ms {f_ms:.4f} plain "
+          f"{f_plain_ms:.4f} sdpa {f_lib_ms:.4f} bound {f_b_ms:.4f} "
+          f"({f_b_by})")
+    del fwd_err
+    err = (dqkv.float() - ref.float()).abs()
+    ok = bool((err <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
+    differing = (dqkv != ref).float().mean().item()
+    passes = torch.equal(xg.grad, dqkv)
+    del xg, ref
+    ms = time_ms(torch, lambda: attention_cuda.attention_backward(
+        qkv, dout, H, mask), flush=flush)
+    plain_ms = time_ms(torch, lambda: attention_cuda.attention_bwd_plain(
+        qkv, dout, H, mask), flush=flush)
+    q, k, v = (t.reshape(B, L, H, 64).transpose(1, 2).detach()
+               .requires_grad_(True) for t in qkv.split(D, dim=-1))
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=mask is not None)
+    do_h = dout.reshape(B, L, H, 64).transpose(1, 2)
+    # autograd.grad returns fresh gradients: nothing accumulates into
+    # q.grad, k.grad, v.grad from one timed call to the next
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o, (q, k, v), do_h, retain_graph=True), flush=flush)
+    del q, k, v, o
+    b_ms, b_by = bound(2 * qkv.numel() * 2 + dout.numel() * 2
+                       + (L * L * 4 if mask is not None else 0),
+                       5 * 2.0 * B * H * L * L * 64, bf16_peak, mem_rate)
+    variant = attention_cuda.choose_variant(qkv.dtype, 64, L,
+                                            backward=True)
+    print(f"attention bwd [{label}] qkv {tuple(qkv.shape)} bf16 H={H}, "
+          f"{variant} variant: max_abs_err {err.max().item():.3e} (tol "
+          f"{BF16_ATOL} + {BF16_RTOL}*|ref|), values differing from the "
+          f"plain version {differing:.4%}, Function passes the kernel's "
+          f"gradient through: {passes}; ms {ms:.4f} plain {plain_ms:.4f} "
+          f"sdpa bwd {lib_ms:.4f} bound {b_ms:.4f} ({b_by}); ms / sdpa "
+          f"bwd {ms / lib_ms:.3f}, ms / bound {ms / b_ms:.2f}")
+    if not ok:
+        fail(f"attention bwd [{label}] disagrees with its plain version")
+    if not passes:
+        fail(f"attention bwd [{label}]: the autograd Function's gradient "
+             f"is not the kernel's")
+    return dict(shape=list(qkv.shape), variant=variant,
+                max_abs_err=err.max().item(), share_differing=differing, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, vs_library=ms / lib_ms,
+                bound_ms=b_ms, bound_by=b_by), fwd_row
+
+
+def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D):
+    """Kernel D against `layer_norm_bwd_plain` on seeded bf16 x, dy [R, D]
+    (dx within one bf16 ulp, dgamma/dbeta within SUM_RTOL of the sum of
+    the terms' magnitudes, the autograd Function's gradients the kernel's,
+    a second call equal to the bit, its device launches per call counted);
+    kernel C's forward held and timed on the way.  Times the kernel, the
+    plain version and ATen's fp32 backward.  Returns (D's row, C's row)."""
+    from centerclip_tpu_torch.ops import layernorm_triton
+    mem_rate, _, fp32_peak = peaks
+    gen = torch.Generator(device=dev).manual_seed(R + 1)
+    x = (torch.randn((R, D), generator=gen, device=dev) * 3 + 1).to(
+        torch.bfloat16)
+    dy = torch.randn((R, D), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(D, generator=gen, device=dev) * 0.1 + 1
+    b = torch.randn(D, generator=gen, device=dev)
+    dx, dw, db = layernorm_triton.layer_norm_backward(x, w, dy)
+    rx, rw, rb = layernorm_triton.layer_norm_bwd_plain(x, w, dy)
+    xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+    out = layernorm_triton.layer_norm(xs, ws, bs)
+    out.backward(dy)
+    # kernel C's forward at the training shape
+    fwd_ref = layernorm_triton.layer_norm_plain(x, w, b)
+    torch.cuda.synchronize()
+    fwd_err = (out.detach().float() - fwd_ref.float()).abs()
+    if not bool((fwd_err <= BF16_ATOL
+                 + BF16_RTOL * fwd_ref.float().abs()).all()):
+        fail(f"layernorm [{label}, training] disagrees with its plain "
+             f"version")
+    passes = (torch.equal(xs.grad, dx) and torch.equal(ws.grad, dw)
+              and torch.equal(bs.grad, db))
+    del xs, ws, bs, out, fwd_ref
+    xf, dyf = x.float(), dy.float()
+    f_ms = time_ms(torch, lambda: layernorm_triton.layer_norm(x, w, b),
+                   flush=flush)
+    f_plain_ms = time_ms(torch, lambda: layernorm_triton.layer_norm_plain(
+        x, w, b), flush=flush)
+    f_lib_ms = time_ms(torch, lambda: torch.nn.functional.layer_norm(
+        xf, (D,), w, b, 1e-5), flush=flush)
+    f_b_ms, f_b_by = bound(2 * x.numel() * x.element_size() + 2 * D * 4,
+                           8.0 * R * D, fp32_peak, mem_rate)
+    fwd_row = dict(shape=[R, D], dtype="bfloat16",
+                   max_abs_err=fwd_err.max().item(), ms=f_ms,
+                   plain_ms=f_plain_ms, library_ms=f_lib_ms, bound_ms=f_b_ms,
+                   bound_by=f_b_by)
+    print(f"layernorm [{label}, training] x ({R}, {D}) bf16: "
+          f"max_abs_err {fwd_err.max().item():.3e} (tol {BF16_ATOL} + "
+          f"{BF16_RTOL}*|ref|) ms {f_ms:.4f} plain {f_plain_ms:.4f} "
+          f"F.layer_norm(fp32) {f_lib_ms:.4f} bound {f_b_ms:.4f} "
+          f"({f_b_by})")
+    del fwd_err
+    xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
+        xf.var(-1, correction=0, keepdim=True) + 1e-5)
+    err_x = (dx.float() - rx.float()).abs()
+    ok = bool((err_x <= BF16_ATOL + BF16_RTOL * rx.float().abs()).all())
+    err_wb = 0.0
+    for out, ref, terms in ((dw, rw, (dyf * xhat).abs().sum(0)),
+                            (db, rb, dyf.abs().sum(0))):
+        e = (out - ref).abs()
+        ok = ok and bool((e <= SUM_RTOL * terms + 1e-6).all())
+        err_wb = max(err_wb, e.max().item())
+    del xhat, rx
+    ms = time_ms(torch, lambda: layernorm_triton.layer_norm_backward(
+        x, w, dy), flush=flush)
+    plain_ms = time_ms(torch, lambda: layernorm_triton
+                       .layer_norm_bwd_plain(x, w, dy), flush=flush)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(xf, [D], w, b, 1e-5)
+    lib_ms = time_ms(torch, lambda: torch.ops.aten
+                     .native_layer_norm_backward(
+                         dyf, xf, [D], mean, rstd, w, b,
+                         [True, True, True]), flush=flush)
+    b_ms, b_by = bound(3 * x.numel() * 2 + 3 * D * 4, 16.0 * R * D,
+                       fp32_peak, mem_rate)
+    again = layernorm_triton.layer_norm_backward(x, w, dy)
+    bitwise = all(torch.equal(u, v) for u, v in zip(again, (dx, dw, db)))
+    del again
+    dev_names = device_launches(torch, lambda: layernorm_triton
+                                .layer_norm_backward(x, w, dy))
+    print(f"layernorm bwd [{label}] x ({R}, {D}) bf16: dx max_abs_err "
+          f"{err_x.max().item():.3e} (tol {BF16_ATOL} + {BF16_RTOL}*|ref|)"
+          f", dgamma/dbeta max_abs_err {err_wb:.3e} (tol {SUM_RTOL}*sum"
+          f"|terms| + 1e-6), Function passes the kernel's gradients "
+          f"through: {passes}, a second call equal to the bit: "
+          f"{bitwise}; device launches per call {len(dev_names)} "
+          f"{sorted(set(dev_names))}; ms {ms:.4f} plain {plain_ms:.4f} "
+          f"native_layer_norm_backward(fp32) {lib_ms:.4f} bound "
+          f"{b_ms:.4f} ({b_by})")
+    if not bitwise:
+        fail(f"layernorm bwd [{label}]: two calls on the same inputs "
+             f"differ")
+    if not ok:
+        fail(f"layernorm bwd [{label}] disagrees with its plain version")
+    if not passes:
+        fail(f"layernorm bwd [{label}]: the autograd Function's "
+             f"gradients are not the kernel's")
+    return dict(shape=[R, D], dtype="bfloat16",
+                max_abs_err=max(err_x.max().item(), err_wb), ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, device_launches_per_call=len(dev_names)), fwd_row
+
+
+def kmedoids_case(torch, flush, peaks, label, x, before_frames,
+                  after_frames, K, iters):
+    """Kernel E held (`hold_kmedoids`) and timed against its plain version
+    on the patch tokens `x` [B * before_frames, 1 + P, width] a cluster
+    layer took, grouped into `after_frames` segments per clip."""
+    from centerclip_tpu_torch.ops import kmedoids_cuda
+    from centerclip_tpu_torch.ops.cluster_layer import segment_major
+    from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
+    mem_rate, _, fp32_peak = peaks
+    Bc = x.shape[0] // before_frames
+    row, (X, D, l2, steps) = hold_kmedoids(torch, label, segment_major(
+        x[:, 1:, :].reshape(Bc, before_frames, -1, x.shape[-1]),
+        after_frames, before_frames // after_frames), K, iters)
+    Bs, N = X.shape[0], X.shape[1]
+    ms = time_ms(torch, lambda: kmedoids_cuda.kmedoids_from_distances(
+        D, l2, K, iters), flush=flush)
+    plain_ms = time_ms(torch, lambda: kmedoids_on_distances(
+        X, D, l2, K, iter_limit=iters), flush=flush)
+    st = steps.long()
+    ops = float(Bs * 2 * K * N + (st * (2 * N * K + 2 * N * N)).sum()
+                + Bs * N * K)
+    # outputs: assign [B, N], meds [B, K], steps [B], all int32
+    b_ms, b_by = bound(D.numel() * 4 + l2.numel() * 4 + Bs * N * 4
+                       + Bs * K * 4 + steps.numel() * 4, ops,
+                       fp32_peak, mem_rate)
+    variant = kmedoids_cuda.choose_variant(N)
+    print(f"kmedoids [{label}] {variant} variant: ms {ms:.4f} plain "
+          f"{plain_ms:.4f} bound {b_ms:.5f} ({b_by})")
+    return dict(row, variant=variant, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def vitb16_phase(torch, np, dev, flush, peaks, counters):
+    """The fourth main path: ViT-B/16 (the preset msrvtt_vitb16_k6: L = 197
+    in blocks 1-6, k-medoids of 2 x 196 = 392 tokens per segment into
+    K = 160 before block 7, L = 161 after), encoding a gallery through
+    `RetrievalEngine` and training through `Trainer` at batch 128 with
+    `remat`; then kernels B and E at their new variants' shapes, and A, C
+    and D at the new shapes, against their plain versions."""
+    import tempfile
+    from centerclip_tpu_torch.config import preset
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.ops import _build, attention_cuda as ac
+    from centerclip_tpu_torch.ops import kmedoids_cuda as kc
+    from centerclip_tpu_torch.serve import RetrievalEngine
+    from centerclip_tpu_torch.train import Trainer, resume, save_checkpoint
+    run = preset(VITB16_PRESET, remat=VITB16_REMAT)
+    B, cfg = run.batch_size, run.model
+    spec = next(s for s in cfg.cluster_plan() if s is not None)
+    N, K = spec.frame_duration * spec.before_cluster_num, spec.cluster_num
+    if (N, K) != (392, 160) or kc.choose_variant(N) != kc.GLOBAL:
+        fail(f"{VITB16_PRESET} clusters N={N}, K={K}")
+
+    def variants():
+        return {"attention_backward": dict(ac.attention_backward
+                                           .variant_launches),
+                "fused_attention": dict(ac.fused_attention.variant_launches),
+                "kmedoids": dict(kc.kmedoids_from_distances.variant_launches)}
+
+    def first_cluster_input(model, store):
+        mod = next(b.tokencluster_inter
+                   for b in model.clip.visual.transformer.resblocks
+                   if b.tokencluster_inter is not None)
+
+        def capture(module, args):
+            store.setdefault("x", args[0].detach().clone())
+        return mod.register_forward_pre_hook(capture)
+
+    # ---- encode: 64 clips in batches of 32 and one search
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0).eval()
+    engine = RetrievalEngine(model, device=dev)
+    g = np.random.default_rng(16)
+    clips = g.integers(0, 256, (N_CLIPS, 1, FRAMES, 3, RES, RES),
+                       dtype=np.uint8)
+    masks = np.ones((N_CLIPS, FRAMES), np.int32)
+    ids = [f"b16clip{i:03d}" for i in range(N_CLIPS)]
+
+    def batches(lo=0, hi=N_CLIPS):
+        for s in range(lo, hi, BATCH):
+            yield {"video": clips[s:min(s + BATCH, hi)],
+                   "video_mask": masks[s:min(s + BATCH, hi)]}
+    engine.build_index(batches(0, 2), ids[:2], quantize="int8")  # warm-up
+    engine.search(QUERIES, k=2)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    enc_x = {}
+    hook = first_cluster_input(model, enc_x)
+    zero_counts(counters)
+    t0 = time.time()
+    index = engine.build_index(batches(), ids, quantize="int8")
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    hits = engine.search(QUERIES, k=5)
+    enc_launches = {fn.__name__: fn.launches for fn in counters}
+    enc_variants = variants()
+    hook.remove()
+    gallery = index._codes[:N_CLIPS].float() * index._scales[:N_CLIPS]
+    print(f"vitb16 encode: {N_CLIPS} clips in {t_build:.3f} s = "
+          f"{N_CLIPS / t_build:.2f} clips/s (batches of {BATCH}; set-up and "
+          f"warm-up {t_setup:.2f} s); launches {enc_launches}, by variant "
+          f"{enc_variants}")
+    if tuple(gallery.shape) != (N_CLIPS, 512) or \
+            not bool(torch.isfinite(gallery).all()):
+        fail("the ViT-B/16 gallery is not finite [64, 512]")
+    if any(len(row) != 5 or not all(np.isfinite([h["score"] for h in row]))
+           for row in hits):
+        fail(f"bad ViT-B/16 hits {hits}")
+    km = enc_variants["kmedoids"]
+    if not km[kc.GLOBAL] or km[kc.SHARED] or \
+            enc_variants["fused_attention"][ac.CUDA_CORE] or \
+            not enc_launches["layer_norm"]:
+        fail(f"the ViT-B/16 encode ran other kernel variants: {enc_variants}")
+    del engine, index, gallery, model
+    torch.cuda.empty_cache()
+
+    # ---- training at batch 128: warm-up and timed steps, then resume
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0)
+    steps = VITB16_WARMUP_STEPS + VITB16_TIMED_STEPS
+    trainer = Trainer(run, model, total_steps=steps + 1)
+    g = np.random.default_rng(17)
+    tok, amask = token_rows(np, g, B, cfg.max_words)
+    batch = {"input_ids": tok, "attention_mask": amask,
+             "video": g.integers(0, 256, (B, 1, cfg.max_frames, 3, RES, RES),
+                                 dtype=np.uint8),
+             "video_mask": np.ones((B, cfg.max_frames), np.int32)}
+    t_setup = time.time() - t0
+    train_x = {}
+    hook = first_cluster_input(model, train_x)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.time()
+        loss, _ = trainer.train_epoch(0, [batch], n_display=1)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        losses.append(loss)
+        hook.remove()
+        if not np.isfinite(loss):
+            fail(f"ViT-B/16 training loss {loss} is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    train_variants = variants()
+    timed = sorted(step_s[VITB16_WARMUP_STEPS:])
+    med = timed[len(timed) // 2]
+    print(f"vitb16 training ({VITB16_PRESET}, batch {B}, remat "
+          f"{'on' if cfg.remat else 'off'}: {VITB16_REMAT_WHY}; set-up "
+          f"{t_setup:.2f} s): losses {[round(x, 6) for x in losses]}, step "
+          f"times {[round(x * 1e3, 3) for x in step_s]} ms; median of the "
+          f"{VITB16_TIMED_STEPS} timed {med * 1e3:.3f} ms = {B / med:.2f} "
+          f"clips/s; peak memory allocated {peak / 2**30:.3f} GiB")
+    print(f"vitb16 launches during the training steps: {launches}, by "
+          f"variant {train_variants}")
+    # per step: 12 vision blocks at L = 197 / 161 (key-tiled backward), 12
+    # text blocks at L = 32 (the L <= 128 backward), one k-medoids launch
+    bwd, kmv = train_variants["attention_backward"], train_variants["kmedoids"]
+    want = {ac.TENSOR_CORE_TILED: 12 * steps, ac.TENSOR_CORE: 12 * steps,
+            ac.CUDA_CORE: 0}
+    if bwd != want or kmv != {kc.GLOBAL: steps, kc.SHARED: 0} or \
+            train_variants["fused_attention"][ac.CUDA_CORE]:
+        fail(f"the ViT-B/16 training steps ran other kernel variants than "
+             f"the key-tiled backward ({want}) and the global k-medoids: "
+             f"{train_variants}")
+    for fn_name, n in launches.items():
+        if n == 0:
+            fail(f"{fn_name} was never launched on the ViT-B/16 path")
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = save_checkpoint(tmp, trainer.state, epoch=0, best_r1=0.0)
+        other = CLIP4Clip(cfg, device=dev, seed=1)
+        trainer2 = Trainer(run, other, total_steps=steps + 1)
+        _, epoch, _ = resume(path, trainer2.state)
+    if trainer2.state.global_step != trainer.state.global_step or epoch != 1:
+        fail("the ViT-B/16 resume did not restore the step counters")
+    trainer.train_epoch(1, [batch], n_display=1)
+    trainer2.train_epoch(1, [batch], n_display=1)
+    other_sd = other.state_dict()
+    diff = [k for k, v in model.state_dict().items()
+            if not torch.equal(v, other_sd[k])]
+    print(f"vitb16 resumed step: {len(diff)} of {len(other_sd)} tensors "
+          f"differ from the uninterrupted step")
+    if diff:
+        fail(f"the ViT-B/16 resumed step differs: {diff[:5]}")
+    del trainer, trainer2, model, other, other_sd, batch
+    torch.cuda.empty_cache()
+
+    # ---- kernels at the ViT-B/16 shapes
+    bwd_rows, fwd_rows = [], []
+    for case in (("ViT-B/16 vision blocks 1-6", B * FRAMES, 197, 12, None),
+                 ("ViT-B/16 vision blocks 7-12", B * FRAMES // 2, 161, 12,
+                  None)):
+        row, fwd_row = hold_attention_bwd(torch, dev, flush, peaks, *case)
+        if row["variant"] != ac.TENSOR_CORE_TILED:
+            fail(f"attention bwd at {row['shape']} took {row['variant']}")
+        bwd_rows.append(row)
+        fwd_rows.append(fwd_row)
+    ln_rows, lnf_rows = [], []
+    for case in (("ViT-B/16 vision ln_1/ln_2, blocks 1-6",
+                  B * FRAMES * 197, 768),
+                 ("ViT-B/16 vision ln_1/ln_2, blocks 7-12",
+                  B * FRAMES // 2 * 161, 768)):
+        row, fwd_row = hold_layernorm_bwd(torch, dev, flush, peaks, *case)
+        ln_rows.append(row)
+        lnf_rows.append(fwd_row)
+    km_rows = [kmedoids_case(torch, flush, peaks, "ViT-B/16 training",
+                             train_x.pop("x"), FRAMES, spec.after_frames, K,
+                             cfg.cluster.iter_limit),
+               kmedoids_case(torch, flush, peaks, "ViT-B/16 encode",
+                             enc_x.pop("x"), FRAMES, spec.after_frames, K,
+                             cfg.cluster.iter_limit)]
+    result = dict(
+        preset=VITB16_PRESET, batch=B, remat=cfg.remat, steps=steps,
+        step_ms=med * 1e3, clips_per_s=B / med,
+        step_ms_all=[x * 1e3 for x in step_s], losses=losses,
+        peak_memory_bytes=peak, resumed_step_equal=True,
+        encode_clips=N_CLIPS, encode_s=t_build,
+        encode_clips_per_s=N_CLIPS / t_build)
+    return result, dict(
+        launches=launches, variants=train_variants,
+        encode_launches=enc_launches, encode_variants=enc_variants,
+        attention_bwd=bwd_rows, attention_fwd=fwd_rows,
+        layernorm_bwd=ln_rows, layernorm_fwd=lnf_rows, kmedoids=km_rows)
 
 
 def write_msrvtt_fixture(np, root):
@@ -800,7 +1288,6 @@ def main() -> int:
         return 2
     from centerclip_tpu_torch.ops import (_build, attention_cuda,
                                           kmedoids_cuda, layernorm_triton)
-    from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
     from centerclip_tpu_torch.config import flagship_config
     from centerclip_tpu_torch.serve import RetrievalEngine
 
@@ -815,7 +1302,8 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         fail("TF32 matmuls are on")
-    mem_rate, bf16_peak, fp32_peak = card_peaks(name)
+    peaks = card_peaks(name)
+    mem_rate, bf16_peak, fp32_peak = peaks
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------------- build
@@ -1034,34 +1522,18 @@ def main() -> int:
         bound_by=a["bound_by"], library_ms=a["library_ms"], shapes=ln_rows))
 
     # k-medoids on the tokens the serving phase (first batch) and the first
-    # training step clustered
-    from centerclip_tpu_torch.ops.cluster_layer import segment_major
+    # training step clustered; the training tokens also as the 12 -> 4
+    # presets (msrvtt_vitb32_k4, msvd_vitb32_k4) cluster them: 4 segments of
+    # 3 frames, N = 147, K = 49
     spec = cluster_mod.spec
     K, iters = spec.cluster_num, cfg.cluster.iter_limit
-
-    def kmedoids_case(label, x):
-        Bc = x.shape[0] // spec.before_frames
-        row, (X, D, l2, steps) = hold_kmedoids(torch, label, segment_major(
-            x[:, 1:, :].reshape(Bc, spec.before_frames, -1, x.shape[-1]),
-            spec.after_frames, spec.frame_duration), K, iters)
-        Bs, N = X.shape[0], X.shape[1]
-        ms = time_ms(torch, lambda: kmedoids_cuda.kmedoids_from_distances(
-            D, l2, K, iters), flush=flush)
-        plain_ms = time_ms(torch, lambda: kmedoids_on_distances(
-            X, D, l2, K, iter_limit=iters), flush=flush)
-        st = steps.long()
-        ops = float(Bs * 2 * K * N + (st * (2 * N * K + 2 * N * N)).sum()
-                    + Bs * N * K)
-        # outputs: assign [B, N], meds [B, K], steps [B], all int32
-        b_ms, b_by = bound(D.numel() * 4 + l2.numel() * 4 + Bs * N * 4
-                           + Bs * K * 4 + steps.numel() * 4, ops,
-                           fp32_peak, mem_rate)
-        print(f"kmedoids [{label}] ms {ms:.4f} plain {plain_ms:.4f} bound "
-              f"{b_ms:.5f} ({b_by})")
-        return dict(row, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by)
-    km_rows = [kmedoids_case("serving", captured["x"]),
-               kmedoids_case("training", train_cluster_x)]
+    km_rows = [
+        kmedoids_case(torch, flush, peaks, "serving", captured["x"],
+                      spec.before_frames, spec.after_frames, K, iters),
+        kmedoids_case(torch, flush, peaks, "training", train_cluster_x,
+                      spec.before_frames, spec.after_frames, K, iters),
+        kmedoids_case(torch, flush, peaks, "training, 12 -> 4 frames",
+                      train_cluster_x, spec.before_frames, 4, K, iters)]
     del train_cluster_x
     a = km_rows[0]
     results.append(dict(
@@ -1077,9 +1549,9 @@ def main() -> int:
         lloyd_steps_mean=a["lloyd_steps_mean"], shapes=km_rows))
 
     def extend_forward_row(kernel, rows, key="training_shapes"):
-        """Add a kernel's errors (and, for LayerNorm at the training shapes,
-        times) at another path's shapes to its row (its top-level times stay
-        those of the first serving shape)."""
+        """Add a kernel's rows at another path's shapes (errors, and times
+        where they were taken) to its entry; its top-level times stay
+        those of its first shape."""
         row = next(r for r in results if r["name"] == kernel)
         row[key] = rows
         row["max_abs_err"] = max([row["max_abs_err"]]
@@ -1093,78 +1565,10 @@ def main() -> int:
                  ("vision blocks 7-12", TB * FRAMES // 2, 50, 12, None),
                  ("text", TB, 32, 8, "causal")]
     bwd_rows, attn_train_rows = [], []
-    for label, B, L, H, mask_kind in bwd_cases:
-        D = 64 * H
-        gen = torch.Generator(device=dev).manual_seed(B + L)
-        qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(
-            torch.bfloat16)
-        dout = torch.randn((B, L, D), generator=gen, device=dev).to(
-            torch.bfloat16)
-        mask = (torch.full((L, L), float("-inf"), device=dev).triu(1)
-                if mask_kind else None)
-        dqkv, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
-        ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H, mask)
-        xg = qkv.clone().requires_grad_(True)
-        out = attention_cuda.fused_attention(xg, H, mask)
-        out.backward(dout)
-        # kernel A's forward at the training shape, held as in the serving
-        # shapes above
-        fwd_ref = attention_cuda.attention_plain(qkv, H, mask)
-        torch.cuda.synchronize()
-        fwd_err = (out.detach().float() - fwd_ref.float()).abs()
-        if not bool((fwd_err <= BF16_ATOL
-                     + BF16_RTOL * fwd_ref.float().abs()).all()):
-            fail(f"attention [{label}, training] disagrees with its plain "
-                 f"version")
-        attn_train_rows.append(dict(shape=list(qkv.shape),
-                                    max_abs_err=fwd_err.max().item()))
-        print(f"attention [{label}, training] qkv {tuple(qkv.shape)} bf16 "
-              f"H={H}: max_abs_err {fwd_err.max().item():.3e} (tol "
-              f"{BF16_ATOL} + {BF16_RTOL}*|ref|)")
-        del out, fwd_ref, fwd_err
-        err = (dqkv.float() - ref.float()).abs()
-        ok = bool((err <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
-        differing = (dqkv != ref).float().mean().item()
-        passes = torch.equal(xg.grad, dqkv)
-        del xg, ref
-        ms = time_ms(torch, lambda: attention_cuda.attention_backward(
-            qkv, dout, H, mask), flush=flush)
-        plain_ms = time_ms(torch, lambda: attention_cuda.attention_bwd_plain(
-            qkv, dout, H, mask), flush=flush)
-        q, k, v = (t.reshape(B, L, H, 64).transpose(1, 2).detach()
-                   .requires_grad_(True) for t in qkv.split(D, dim=-1))
-        o = torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=mask is not None)
-        do_h = dout.reshape(B, L, H, 64).transpose(1, 2)
-        # autograd.grad returns fresh gradients: nothing accumulates into
-        # q.grad, k.grad, v.grad from one timed call to the next
-        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
-            o, (q, k, v), do_h, retain_graph=True), flush=flush)
-        del q, k, v, o
-        b_ms, b_by = bound(2 * qkv.numel() * 2 + dout.numel() * 2
-                           + (L * L * 4 if mask is not None else 0),
-                           5 * 2.0 * B * H * L * L * 64, bf16_peak, mem_rate)
-        variant = attention_cuda.choose_variant(qkv.dtype, 64, L,
-                                                backward=True)
-        print(f"attention bwd [{label}] qkv {tuple(qkv.shape)} bf16 H={H}, "
-              f"{variant} variant: max_abs_err {err.max().item():.3e} (tol "
-              f"{BF16_ATOL} + {BF16_RTOL}*|ref|), values differing from the "
-              f"plain version {differing:.4%}, Function passes the kernel's "
-              f"gradient through: {passes}; ms {ms:.4f} plain {plain_ms:.4f} "
-              f"sdpa bwd {lib_ms:.4f} bound {b_ms:.4f} ({b_by}); ms / sdpa "
-              f"bwd {ms / lib_ms:.3f}, ms / bound {ms / b_ms:.2f}")
-        if not ok:
-            fail(f"attention bwd [{label}] disagrees with its plain version")
-        if not passes:
-            fail(f"attention bwd [{label}]: the autograd Function's gradient "
-                 f"is not the kernel's")
-        bwd_rows.append(dict(shape=list(qkv.shape), variant=variant,
-                             max_abs_err=err.max().item(),
-                             share_differing=differing, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms,
-                             vs_library=ms / lib_ms, bound_ms=b_ms,
-                             bound_by=b_by))
-        del qkv, dout, dqkv
+    for case in bwd_cases:
+        row, fwd_row = hold_attention_bwd(torch, dev, flush, peaks, *case)
+        bwd_rows.append(row)
+        attn_train_rows.append(fwd_row)
     extend_forward_row("attention_fwd", attn_train_rows)
     a = bwd_rows[0]
     results.append(dict(
@@ -1184,98 +1588,10 @@ def main() -> int:
                  ("vision ln_post (CLS)", TB * FRAMES // 2, 768),
                  ("text ln_1/ln_2/ln_final", TB * 32, 512)]
     lnb_rows, ln_train_rows = [], []
-    for label, R, D in lnb_cases:
-        gen = torch.Generator(device=dev).manual_seed(R + 1)
-        x = (torch.randn((R, D), generator=gen, device=dev) * 3 + 1).to(
-            torch.bfloat16)
-        dy = torch.randn((R, D), generator=gen, device=dev).to(torch.bfloat16)
-        w = torch.randn(D, generator=gen, device=dev) * 0.1 + 1
-        b = torch.randn(D, generator=gen, device=dev)
-        dx, dw, db = layernorm_triton.layer_norm_backward(x, w, dy)
-        rx, rw, rb = layernorm_triton.layer_norm_bwd_plain(x, w, dy)
-        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
-        out = layernorm_triton.layer_norm(xs, ws, bs)
-        out.backward(dy)
-        # kernel C's forward at the training shape
-        fwd_ref = layernorm_triton.layer_norm_plain(x, w, b)
-        torch.cuda.synchronize()
-        fwd_err = (out.detach().float() - fwd_ref.float()).abs()
-        if not bool((fwd_err <= BF16_ATOL
-                     + BF16_RTOL * fwd_ref.float().abs()).all()):
-            fail(f"layernorm [{label}, training] disagrees with its plain "
-                 f"version")
-        passes = (torch.equal(xs.grad, dx) and torch.equal(ws.grad, dw)
-                  and torch.equal(bs.grad, db))
-        del xs, ws, bs, out, fwd_ref
-        xf, dyf = x.float(), dy.float()
-        f_ms = time_ms(torch, lambda: layernorm_triton.layer_norm(x, w, b),
-                       flush=flush)
-        f_plain_ms = time_ms(torch, lambda: layernorm_triton.layer_norm_plain(
-            x, w, b), flush=flush)
-        f_lib_ms = time_ms(torch, lambda: torch.nn.functional.layer_norm(
-            xf, (D,), w, b, 1e-5), flush=flush)
-        f_b_ms, f_b_by = bound(2 * x.numel() * x.element_size() + 2 * D * 4,
-                               8.0 * R * D, fp32_peak, mem_rate)
-        ln_train_rows.append(dict(shape=[R, D], dtype="bfloat16",
-                                  max_abs_err=fwd_err.max().item(), ms=f_ms,
-                                  plain_ms=f_plain_ms, library_ms=f_lib_ms,
-                                  bound_ms=f_b_ms, bound_by=f_b_by))
-        print(f"layernorm [{label}, training] x ({R}, {D}) bf16: "
-              f"max_abs_err {fwd_err.max().item():.3e} (tol {BF16_ATOL} + "
-              f"{BF16_RTOL}*|ref|) ms {f_ms:.4f} plain {f_plain_ms:.4f} "
-              f"F.layer_norm(fp32) {f_lib_ms:.4f} bound {f_b_ms:.4f} "
-              f"({f_b_by})")
-        del fwd_err
-        xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
-            xf.var(-1, correction=0, keepdim=True) + 1e-5)
-        err_x = (dx.float() - rx.float()).abs()
-        ok = bool((err_x <= BF16_ATOL + BF16_RTOL * rx.float().abs()).all())
-        err_wb = 0.0
-        for out, ref, terms in ((dw, rw, (dyf * xhat).abs().sum(0)),
-                                (db, rb, dyf.abs().sum(0))):
-            e = (out - ref).abs()
-            ok = ok and bool((e <= SUM_RTOL * terms + 1e-6).all())
-            err_wb = max(err_wb, e.max().item())
-        del xhat, rx
-        ms = time_ms(torch, lambda: layernorm_triton.layer_norm_backward(
-            x, w, dy), flush=flush)
-        plain_ms = time_ms(torch, lambda: layernorm_triton
-                           .layer_norm_bwd_plain(x, w, dy), flush=flush)
-        _, mean, rstd = torch.ops.aten.native_layer_norm(xf, [D], w, b, 1e-5)
-        lib_ms = time_ms(torch, lambda: torch.ops.aten
-                         .native_layer_norm_backward(
-                             dyf, xf, [D], mean, rstd, w, b,
-                             [True, True, True]), flush=flush)
-        b_ms, b_by = bound(3 * x.numel() * 2 + 3 * D * 4, 16.0 * R * D,
-                           fp32_peak, mem_rate)
-        again = layernorm_triton.layer_norm_backward(x, w, dy)
-        bitwise = all(torch.equal(u, v) for u, v in zip(again, (dx, dw, db)))
-        del again
-        dev_names = device_launches(torch, lambda: layernorm_triton
-                                    .layer_norm_backward(x, w, dy))
-        print(f"layernorm bwd [{label}] x ({R}, {D}) bf16: dx max_abs_err "
-              f"{err_x.max().item():.3e} (tol {BF16_ATOL} + {BF16_RTOL}*|ref|)"
-              f", dgamma/dbeta max_abs_err {err_wb:.3e} (tol {SUM_RTOL}*sum"
-              f"|terms| + 1e-6), Function passes the kernel's gradients "
-              f"through: {passes}, a second call equal to the bit: "
-              f"{bitwise}; device launches per call {len(dev_names)} "
-              f"{sorted(set(dev_names))}; ms {ms:.4f} plain {plain_ms:.4f} "
-              f"native_layer_norm_backward(fp32) {lib_ms:.4f} bound "
-              f"{b_ms:.4f} ({b_by})")
-        if not bitwise:
-            fail(f"layernorm bwd [{label}]: two calls on the same inputs "
-                 f"differ")
-        if not ok:
-            fail(f"layernorm bwd [{label}] disagrees with its plain version")
-        if not passes:
-            fail(f"layernorm bwd [{label}]: the autograd Function's "
-                 f"gradients are not the kernel's")
-        lnb_rows.append(dict(shape=[R, D], dtype="bfloat16",
-                             max_abs_err=max(err_x.max().item(), err_wb),
-                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by,
-                             device_launches_per_call=len(dev_names)))
-        del x, dy, xf, dyf, dx, mean, rstd
+    for case in lnb_cases:
+        row, fwd_row = hold_layernorm_bwd(torch, dev, flush, peaks, *case)
+        lnb_rows.append(row)
+        ln_train_rows.append(fwd_row)
     extend_forward_row("layernorm_fwd", ln_train_rows)
     a = lnb_rows[0]
     results.append(dict(
@@ -1325,8 +1641,41 @@ def main() -> int:
     path_counts["main"] = (main_res["launches"], main_res["variants"])
     for kernel, rows in main_res["held"].items():
         extend_forward_row(kernel, rows, key="main_shapes")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------ ViT-B/16 (fourth path) + report
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    vitb16, b16 = vitb16_phase(torch, np, dev, flush, peaks, counters)
+    del flush
+    path_counts["vitb16_encode"] = (b16["encode_launches"],
+                                    b16["encode_variants"])
+    path_counts["vitb16_training"] = (b16["launches"], b16["variants"])
+    for kernel in ("attention_fwd", "attention_bwd", "layernorm_fwd",
+                   "layernorm_bwd", "kmedoids"):
+        extend_forward_row(kernel, b16[kernel], key="vitb16_shapes")
     for row in results:
         row.update(path_launches(row.pop("counter")))
+    # the two variants this slice added, as rows of their own: their first
+    # shapes' numbers, and their launches on the ViT-B/16 path
+    for row_name, kernel, fn_name, variant in (
+            ("attention_bwd_key_tiled", "attention_bwd", "attention_backward",
+             attention_cuda.TENSOR_CORE_TILED),
+            ("kmedoids_global", "kmedoids", "kmedoids",
+             kmedoids_cuda.GLOBAL)):
+        base = next(r for r in results if r["name"] == kernel)
+        rows = b16[kernel]
+        by_path = {p: b16[k][fn_name][variant] for p, k in (
+            ("vitb16_encode", "encode_variants"),
+            ("vitb16_training", "variants"))}
+        a = rows[0]
+        results.append(dict(
+            name=row_name, route="cuda", source=base["source"],
+            replaces=base["replaces"], variant=variant,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=a["ms"],
+            plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+            bound_by=a["bound_by"], library_ms=a.get("library_ms"),
+            shapes=rows))
 
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"training": {**{k: v for k, v in train.items()
@@ -1335,9 +1684,10 @@ def main() -> int:
     print(json.dumps({"main": {k: v for k, v in main_res.items()
                                if k not in ("launches", "variants",
                                             "held")}}))
+    print(json.dumps({"vitb16": vitb16}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

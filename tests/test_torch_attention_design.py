@@ -3,6 +3,10 @@
 
 - The wrappers' choice of kernel variant, a pure function of dtype,
   head_dim and L.
+- The key-tiled backward's row statistics: per query row, over key tiles
+  of 32, the running max m, l = sum exp(s - m) and a = sum exp(s - m) dP
+  (rescaled when m grows) give the softmax and delta = a / l; emulated
+  here and held against `attention_bwd_plain` at L = 197.
 - The backward kernel's one departure from the plain version's operands:
   dS enters the dQ and dK products as the pair hi = T(dS), lo = T(dS - hi)
   of 16-bit operands with fp32 accumulation (two mma per product), emulated
@@ -18,6 +22,7 @@ import torch
 
 from centerclip_tpu_torch.ops import _build, attention_cuda
 from centerclip_tpu_torch.ops.attention_cuda import (CUDA_CORE, TENSOR_CORE,
+                                                     TENSOR_CORE_TILED,
                                                      choose_variant)
 
 # bf16 tolerance of the card's kernel-vs-plain checks (chip_smoke.py,
@@ -33,6 +38,9 @@ BF16_ATOL, BF16_RTOL = 1.6e-2, 1.6e-2
     (torch.float16, 16, 1, True, TENSOR_CORE),
     (torch.float16, 128, 128, True, TENSOR_CORE),     # the backward's limit
     (torch.bfloat16, 64, 197, False, TENSOR_CORE),    # ViT-B/16 forward
+    (torch.bfloat16, 64, 129, True, TENSOR_CORE_TILED),   # past 128 keys
+    (torch.bfloat16, 64, 197, True, TENSOR_CORE_TILED),   # ViT-B/16 backward
+    (torch.float16, 64, 256, True, TENSOR_CORE_TILED),    # the tiled limit
     (torch.float32, 64, 50, False, CUDA_CORE),
     (torch.float32, 40, 197, True, CUDA_CORE),        # fp32: any head_dim
 ])
@@ -41,8 +49,8 @@ def test_choose_variant(dtype, hd, L, backward, expected):
 
 
 @pytest.mark.parametrize("dtype,hd,L,backward", [
-    (torch.bfloat16, 64, 129, True),      # backward beyond 128 keys
-    (torch.bfloat16, 64, 197, True),
+    (torch.bfloat16, 64, 257, True),      # backward beyond 256 keys
+    (torch.float16, 64, 1024, True),
     (torch.bfloat16, 40, 50, False),      # head_dim not a multiple of 16
     (torch.float16, 72, 32, True),
     (torch.float64, 64, 50, False),       # no float64 kernel
@@ -65,6 +73,64 @@ def test_cpu_tensors_take_the_plain_versions_whatever_the_variant():
     assert torch.equal(out, attention_cuda.attention_plain(qkv, 2))
     dqkv, _ = attention_cuda.attention_backward(qkv, dout, 2)
     assert torch.equal(dqkv, attention_cuda.attention_bwd_plain(qkv, dout, 2)[0])
+
+
+# ------------------------------------------------ key-tiled row statistics
+def _tiled_bwd_emulated(qkv, dout, heads, tile=32):
+    """The key-tiled variant's arithmetic: sweep 1 over key tiles keeps the
+    online max, sum and sum of exp(s - m) dP per query row; P and dS are
+    then formed per tile from the finished statistics; dV, dQ and dK as
+    the plain version's products (the hi/lo operands are held above)."""
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    hd = D // heads
+    scale = hd ** -0.5
+
+    def split_heads(x):
+        return x.reshape(B, L, heads, hd).transpose(1, 2).float()
+    q, k, v = qkv.split(D, dim=-1)
+    qs = split_heads((q * scale).to(qkv.dtype))
+    kf, vf, do = split_heads(k), split_heads(v), split_heads(dout)
+    m = torch.full((B, heads, L, 1), float("-inf"))
+    l = torch.zeros((B, heads, L, 1))
+    a = torch.zeros((B, heads, L, 1))
+    for j0 in range(0, L, tile):
+        s = qs @ kf[..., j0:j0 + tile, :].transpose(-1, -2)
+        dp = do @ vf[..., j0:j0 + tile, :].transpose(-1, -2)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        x = torch.exp(s - mn)
+        shrink = torch.exp(m - mn)
+        l = l * shrink + x.sum(-1, keepdim=True)
+        a = a * shrink + (x * dp).sum(-1, keepdim=True)
+        m = mn
+    delta = a / l
+    probs = torch.exp(qs @ kf.transpose(-1, -2) - m) / l
+    dp = do @ vf.transpose(-1, -2)
+    ds = probs * (dp - delta)
+    dv = probs.to(qkv.dtype).float().transpose(-1, -2) @ do
+    dq = (ds @ kf) * scale
+    dk = ds.transpose(-1, -2) @ qs
+    return torch.cat([g.transpose(1, 2).reshape(B, L, D) for g in (dq, dk, dv)],
+                     dim=-1).to(qkv.dtype)
+
+
+@pytest.mark.parametrize("L", [129, 161, 197])
+def test_key_tiled_statistics_keep_the_plain_backward(L):
+    """The online statistics move P and dS only by fp32 rounding: the
+    emulated key-tiled backward stays within half the card's bf16
+    tolerance of the plain version and changes under 1 % of its values."""
+    B, H, hd = 2, 12, 64
+    D = H * hd
+    g = np.random.default_rng(L)
+    qkv = torch.from_numpy(g.standard_normal((B, L, 3 * D)).astype(
+        np.float32)).to(torch.bfloat16)
+    dout = torch.from_numpy(g.standard_normal((B, L, D)).astype(
+        np.float32)).to(torch.bfloat16)
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H)
+    out = _tiled_bwd_emulated(qkv, dout, H)
+    o, r = out.float(), ref.float()
+    assert ((o - r).abs() / (BF16_ATOL + BF16_RTOL * r.abs())).max() <= 0.5
+    assert (o != r).float().mean().item() <= 0.01
 
 
 # --------------------------------------------------------- hi/lo dS operands

@@ -212,7 +212,7 @@ def test_kmedoids_kernel_matches_plain(cuda, B, N, Dim, K, distance,
 
 
 def test_kmedoids_kernel_rejects_large_n(cuda):
-    X = _randn((2, 320, 16), torch.float32, cuda)
+    X = _randn((2, kmedoids_cuda.GLOBAL_MAX_N + 1, 16), torch.float32, cuda)
     with pytest.raises(ValueError):
         kmedoids_cuda.kmedoids(X, 49)
 
@@ -276,6 +276,31 @@ def test_attention_bwd_kernel_matches_plain(cuda, B, L, H, hd, dtype, causal,
         assert dmask is None
 
 
+@pytest.mark.parametrize("L,dtype,causal", [
+    (129, torch.bfloat16, False),       # the first length past 128
+    (161, torch.bfloat16, False),       # ViT-B/16 blocks 7-12
+    (197, torch.bfloat16, False),       # ViT-B/16 blocks 1-6
+    (256, torch.bfloat16, False),       # the key-tiled variant's limit
+    (197, torch.float16, False),
+    (161, torch.bfloat16, True),        # a mask, without its gradient
+])
+def test_attention_bwd_key_tiled_matches_plain(cuda, L, dtype, causal):
+    B, H = 6, 12
+    qkv = _randn((B, L, 3 * H * 64), dtype, cuda, seed=L)
+    dout = _randn((B, L, H * 64), dtype, cuda, seed=L + 1)
+    mask = _causal(L, cuda) if causal else None
+    before = _variant_counts(attention_cuda.attention_backward)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
+    again, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
+    torch.cuda.synchronize()
+    after = _variant_counts(attention_cuda.attention_backward)
+    assert after[attention_cuda.TENSOR_CORE_TILED] \
+        == before[attention_cuda.TENSOR_CORE_TILED] + 2
+    assert torch.equal(dqkv, again)                     # deterministic
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H, mask)
+    torch.testing.assert_close(dqkv.float(), ref.float(), **BF16_TOL)
+
+
 def test_attention_function_backward_is_the_kernel(cuda):
     B, L, H = 6, 50, 12
     qkv = _randn((B, L, 3 * H * 64), torch.bfloat16, cuda, seed=3)
@@ -292,14 +317,15 @@ def test_attention_function_backward_is_the_kernel(cuda):
 
 
 def test_attention_bwd_rejects_what_it_cannot_take(cuda):
-    qkv = _randn((2, 197, 3 * 768), torch.bfloat16, cuda)
-    dout = _randn((2, 197, 768), torch.bfloat16, cuda)
-    with pytest.raises(ValueError):                     # L > 128
+    qkv = _randn((2, 257, 3 * 768), torch.bfloat16, cuda)
+    dout = _randn((2, 257, 768), torch.bfloat16, cuda)
+    with pytest.raises(ValueError):                     # L > 256
         attention_cuda.attention_backward(qkv, dout, 12)
-    with pytest.raises(ValueError):                     # L = 129
+    with pytest.raises(ValueError):                     # L = 129: no dmask
         attention_cuda.attention_backward(
             _randn((1, 129, 3 * 128), torch.float16, cuda),
-            _randn((1, 129, 128), torch.float16, cuda), 2)
+            _randn((1, 129, 128), torch.float16, cuda), 2,
+            _causal(129, cuda), mask_grad=True)
     with pytest.raises(ValueError):                     # hd % 16
         attention_cuda.attention_backward(
             _randn((1, 50, 3 * 80), torch.bfloat16, cuda),
@@ -489,6 +515,34 @@ def _check_kmedoids_on_distances(X, K, iter_limit=100, id_sort=True):
 def test_kmedoids_kernel_shapes(cuda, B, N, K):
     X = _blobs(B, N, 32, 8, seed=N * 7 + K, device=cuda)
     _check_kmedoids_on_distances(X, K)
+
+
+@pytest.mark.parametrize("B,N,K", [
+    (16, 257, 100),     # the first N past the shared-memory variant's
+    (64, 392, 160),     # ViT-B/16: 2 x 196 tokens, K = 160
+    (8, 512, 200),      # the global variant's limit
+    (8, 393, 160),      # odd N
+])
+def test_kmedoids_global_variant_matches_plain(cuda, B, N, K):
+    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.GLOBAL
+    before = dict(kmedoids_cuda.kmedoids_from_distances.variant_launches)
+    X = _blobs(B, N, 64, 40, seed=N + K, device=cuda)
+    _check_kmedoids_on_distances(X, K)
+    after = kmedoids_cuda.kmedoids_from_distances.variant_launches
+    assert after[kmedoids_cuda.GLOBAL] == before[kmedoids_cuda.GLOBAL] + 1
+
+
+@pytest.mark.parametrize("N,K", [(98, 49), (147, 49), (196, 98), (232, 116)])
+def test_kmedoids_global_variant_equals_shared(cuda, N, K):
+    """Where both variants run, they give the same bits: the one algorithm
+    with D read from shared memory or from device memory."""
+    X = _blobs(48, N, 64, 20, seed=N, device=cuda)
+    _, D, l2 = kmedoids_inputs(X)
+    outs = [kmedoids_cuda.kmedoids_from_distances(D, l2, K, variant=v)
+            for v in (kmedoids_cuda.SHARED, kmedoids_cuda.GLOBAL)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_kmedoids_kernel_one_step_and_no_sort(cuda):

@@ -13,7 +13,9 @@ kernel (E), held on the CPU.
   members in ascending order, and each cluster's first-index argmin,
   emulated here with numpy and held against the port's
   `kmedoids_on_distances` and the JAX package's `kmedoids_from_distances`
-  (interpret mode) on the same distances.
+  (interpret mode) on the same distances.  Both kernel variants (D in
+  shared memory, or read from device memory) run it; which one a segment
+  size takes is a pure function of N.
 """
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ import torch
 from centerclip_tpu.ops.distances import pairwise_distance as jax_pairwise
 from centerclip_tpu.ops.kmedoids_pallas import kmedoids_from_distances
 from centerclip_tpu.ops.layernorm_pallas import _ln_bwd_call
-from centerclip_tpu_torch.ops import layernorm_triton
+from centerclip_tpu_torch.ops import _build, kmedoids_cuda, layernorm_triton
 from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
 from centerclip_tpu_torch.ops.layernorm_triton import (
     _BWD_SM_WARPS, bwd_launch_plan, layer_norm_bwd_plain)
@@ -215,9 +217,11 @@ def _check_three(X, D, l2, K):
         np.testing.assert_array_equal(a, np.asarray(a_jax)[b])
 
 
-@pytest.mark.parametrize("N,K", [(20, 4), (98, 49)])
+@pytest.mark.parametrize("N,K", [(20, 4), (98, 49), (392, 160)])
 def test_member_mask_lloyd_matches_plain_and_jax(N, K):
-    x = _blobs(N + K, 2, N, 16)
+    """Both kernel variants run this one algorithm (the global variant at
+    ViT-B/16's N = 392, K = 160)."""
+    x = _blobs(N + K, 2, N, 16, centres=8 if N < 256 else 60)
     D = np.asarray(jax_pairwise(jnp.asarray(x), jnp.asarray(x),
                                 all_negative=True, self_nearest=True))
     l2 = np.linalg.norm(x, axis=-1).astype(np.float32)
@@ -246,6 +250,32 @@ def test_member_mask_lloyd_first_index_wins_exact_ties(K):
             middle = group[np.argsort(p[b, group])[1:3]]
             assert m[k] == middle.min()
     _check_three(p[..., None].copy(), D, l2, K)
+
+
+@pytest.mark.parametrize("N,variant", [
+    (1, kmedoids_cuda.SHARED), (98, kmedoids_cuda.SHARED),
+    (147, kmedoids_cuda.SHARED), (235, kmedoids_cuda.SHARED),
+    (236, kmedoids_cuda.GLOBAL), (392, kmedoids_cuda.GLOBAL),
+    (512, kmedoids_cuda.GLOBAL)])
+def test_kmedoids_variant_from_n(N, variant):
+    assert kmedoids_cuda.choose_variant(N) == variant
+
+
+@pytest.mark.parametrize("N", [0, 513, 1024])
+def test_kmedoids_variant_raises_past_its_range(N):
+    with pytest.raises(ValueError):
+        kmedoids_cuda.choose_variant(N)
+
+
+def test_shared_variant_fits_at_any_k():
+    """SHARED_MAX_N is the largest N whose shared-memory layout
+    (csrc/kmedoids.cu `smem_bytes`: D, sums, assignment, two medoid lists,
+    member masks and 16 words) fits the 227 KB a CTA may opt into at K = N;
+    one more point does not."""
+    def smem(N, K):
+        return (N * N + 2 * N + 2 * K + K * -(-N // 32) + 16) * 4
+    n = kmedoids_cuda.SHARED_MAX_N
+    assert smem(n, n) <= _build.MAX_SMEM_BYTES < smem(n + 1, n + 1)
 
 
 def test_ordered_keys_keep_the_float_order():

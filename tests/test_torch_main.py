@@ -432,20 +432,29 @@ def test_main_fails_fast_on_a_missing_data_path(msrvtt_root, tmp_path):
 
 
 def test_main_resumes_from_its_checkpoint(msrvtt_root, tmp_path):
-    """`--resume <out>/ckpt_0` restores the parameters, the optimizer and
-    the step count (JAX `main.py:155-160` semantics: the loop restarts at
-    the checkpoint's epoch); the best R@1 carries over."""
+    """`--resume <out>/ckpt_0` of a 2-epoch run restores the parameters,
+    the optimizer and the step count and starts at epoch 1: the resumed
+    run takes the uninterrupted run's epoch-1 steps, with the same losses,
+    and ends on the same weights; the best R@1 carries over."""
     from centerclip_tpu_torch import main as port_main
     out = tmp_path / "first"
+    two = ["--epochs", "2"]
     best = _with_resolution(cli, lambda: port_main.main(
-        _argv(msrvtt_root, out), device="cpu"))
+        _argv(msrvtt_root, out, two), device="cpu"))
+    steps, losses = _losses(out)
+    assert steps == [1, 2, 3, 4]
     argv = _argv(msrvtt_root, tmp_path / "resumed",
-                 ["--resume", str(out / "ckpt_0"), "--epochs", "2"])
+                 two + ["--resume", str(out / "ckpt_0")])
     best2 = _with_resolution(cli, lambda: port_main.main(argv,
                                                          device="cpu"))
-    steps, losses = _losses(tmp_path / "resumed")
-    assert steps == [3, 4, 5, 6] and np.isfinite(losses).all()
+    steps2, losses2 = _losses(tmp_path / "resumed")
+    assert steps2 == steps[2:] and losses2 == losses[2:]
     ckpt = torch.load(tmp_path / "resumed" / "ckpt.pth.tar",
                       weights_only=False)
-    assert (ckpt["epoch"], ckpt["global_step"]) == (1, 6)
-    assert best2 >= best
+    ref = torch.load(out / "ckpt.pth.tar", weights_only=False)
+    assert (ckpt["epoch"], ckpt["global_step"]) == \
+        (ref["epoch"], ref["global_step"]) == (1, 4)
+    assert sorted(ckpt["state_dict"]) == sorted(ref["state_dict"])
+    for k, v in ref["state_dict"].items():
+        assert torch.equal(ckpt["state_dict"][k], v), k
+    assert best2 == best

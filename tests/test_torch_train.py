@@ -438,9 +438,20 @@ def test_presets_match_jax(overrides):
     assert a.batch_size == overrides.get("batch_size", 128)
 
 
-@pytest.mark.parametrize("name", ["msrvtt_vitb32_k4", "lsmdc_vitb32_k6",
-                                  "lsmdc_vitb32_spectral6", "activity_vitb32",
-                                  "msrvtt_vitb16_k6"])
+@pytest.mark.parametrize("name,overrides", [
+    ("msrvtt_vitb32_k4", {}), ("lsmdc_vitb32_k6", {}), ("msvd_vitb32_k4", {}),
+    ("msrvtt_vitb16_k6", {}), ("msrvtt_vitb16_k6", {"remat": True})])
+def test_ported_presets_match_jax_field_by_field(name, overrides):
+    a = port_config.preset(name, **overrides)
+    b = jax_config.preset(name, **overrides)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert a.model.remat == overrides.get("remat", False)
+    # the port builds every one of them (no config raises)
+    from centerclip_tpu_torch.models.clip import check_supported
+    check_supported(a.model)
+
+
+@pytest.mark.parametrize("name", ["lsmdc_vitb32_spectral6", "activity_vitb32"])
 def test_presets_the_port_does_not_run_are_refused(name):
     jax_config.preset(name)
     with pytest.raises(KeyError, match="unknown preset"):
@@ -500,7 +511,7 @@ def test_checkpoint_roundtrip(jax_init, tmp_path):
     fresh = TrainState(other, build_optimizer(
         run.optim, other, 4, freeze_layer_num=run.freeze_layer_num))
     state, epoch, best = resume(path, fresh)
-    assert (epoch, best, state.global_step) == (0, 12.5, 1)
+    assert (epoch, best, state.global_step) == (1, 12.5, 1)   # next epoch
     for k, v in model.state_dict().items():
         assert torch.equal(other.state_dict()[k], v), k
     a, b = trainer.optimizer.state_dict(), state.optimizer.state_dict()
