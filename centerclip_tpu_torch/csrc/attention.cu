@@ -14,9 +14,10 @@
 // (q is scaled and rounded to T first, as `q * scale` does on a T tensor;
 // P is normalised in fp32, then rounded to T).
 //
-// Two variants, chosen by the wrapper from dtype and head_dim:
+// Three variants, chosen by the wrapper from dtype, head_dim and L:
 //
-// * attention_fwd_mma_kernel (bf16 / fp16, hd % 16 == 0): tensor cores.
+// * attention_fwd_mma_kernel (bf16 / fp16, hd % 16 == 0, L <= 128): tensor
+//   cores.
 //   A persistent grid (as many CTAs of 4 warps as fit on the card) walks
 //   the (sample, head) items.  An item's q, k, v rows (hd contiguous
 //   elements at a 16-byte aligned offset) come in by 16-byte cp.async into
@@ -39,6 +40,20 @@
 //   keeps everything else on chip, and the two-stage pipeline keeps the
 //   loads in flight while the CTA computes (one CTA per item that loads,
 //   then computes, ran 1.6x slower at [384, 50, 2304]).
+// * attention_fwd_long_kernel (bf16 / fp16, hd % 16 == 0, L > 128): the
+//   same arithmetic (exp as cc::exp2_scaled, a few fp32 ulps from expf)
+//   split over blocks of 64 query rows.  At
+//   ViT-B/16's L = 197 a whole item staged as above takes 185 KB of shared
+//   memory, so one CTA of 4 warps would run per SM, its 13 query tiles in
+//   4 rounds of 4 warps.  Here one CTA of 4 warps takes (item, 64 query
+//   rows) and streams K and V through a ring of 64-key tiles: 55 KB of
+//   shared memory and at most 128 registers a thread, so 4 CTAs (16 warps)
+//   are resident per SM.  The price is reading K twice and V once per query
+//   block, from L2 for all but the first block of an item (the blocks of
+//   an item are neighbours in launch order).  Bound on this card: its three
+//   [L, L, hd] products (S twice, P.V once) are ~0.75 L flops per byte of
+//   q, k, v and out (148 at L = 197), below the ~295 flop/byte ridge, so
+//   moving those bytes bounds it (PERF.md has its time beside the bound).
 // * attention_fwd_kernel (fp32): CUDA cores, the products as fmaf loops from
 //   shared memory (tensor cores have no exact fp32 product, and TF32 is off
 //   in the port), the fp32 [L, L] scores in shared memory.
@@ -374,6 +389,171 @@ int launch_mma(const void* qkv, const void* mask, void* out, int B, int L, int H
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------ bf16 / fp16, L > 128 (long)
+using cc::kTile;
+constexpr int kLongCtas = 4;       // CTAs per SM the register budget aims at
+
+// shared memory (T): the CTA's 64 query rows, a ring of two stages of K
+// and V tiles of 64 rows (rows hd + 8 apart), one [16][72] staging tile
+// per warp: 55 296 bytes at hd = 64
+__host__ __device__ inline size_t long_smem(int hd, size_t elem) {
+  return ((size_t)(1 + 2 * cc::kRing) * kTile * (hd + kPad) + kWarps * kStage) * elem;
+}
+
+// One CTA per (sample, head, block of 64 query rows); an item's blocks are
+// neighbours in launch order, so its K and V come from device memory about
+// once and otherwise from L2.  The q block is staged once, scaled and
+// rounded to T in place.  K (pass 1) and K, V (pass 2, once per 64 head
+// channels) stream through a two-stage cp.async ring of 64-row tiles: step
+// s + 1 loads while step s computes.  Pass 1 finds each row's max m and sum
+// l over all key tiles, pass 2 recomputes S and runs O = P.V with
+// P = exp(S - m) / l rounded to T (the arithmetic of `attend`; exp as
+// cc::exp2_scaled).  Keys are masked only in a tile that reaches past L or
+// under a mask.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWarps * 32, kLongCtas)
+attention_fwd_long_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                          T* __restrict__ out, int L, int H, int hd_arg, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = HD ? HD : hd_arg;         // HD: a head_dim compiled in, else 0
+  const int Lp = pad16(L), ld = hd + kPad, tile = kTile * ld;
+  const int n_kt = (L + kTile - 1) / kTile;
+  const int item = blockIdx.x / n_kt, r0 = (blockIdx.x % n_kt) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = r0 + warp * 16;           // the warp's first query row
+  const bool active = q0 < Lp;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* ring = sq + tile;                     // stage s: K at ring + 2 s tile, V next
+  T* stage = ring + 2 * cc::kRing * tile + warp * kStage;
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const T* base = qkv + (size_t)(item / H) * L * row + (size_t)(item % H) * hd;
+  T* ob = out + (size_t)(item / H) * L * D + (size_t)(item % H) * hd;
+  const int n_steps = n_kt * (1 + (hd + kCols - 1) / kCols);
+
+  auto prefetch = [&](int s) {
+    if (s < n_steps) {
+      T* st = ring + (s % cc::kRing) * 2 * tile;
+      const int k0 = (s % n_kt) * kTile;
+      cc::load_tile(st, ld, base + D, row, k0, L, Lp, hd);
+      if (s >= n_kt) cc::load_tile(st + tile, ld, base + 2 * D, row, k0, L, Lp, hd);
+    }
+    cc::cp_async_commit();
+  };
+  cc::load_tile(sq, ld, base, row, r0, L, Lp, hd);
+  for (int s = 0; s < cc::kRing - 1; ++s) prefetch(s);
+
+  // per row (two per thread: g and g + 8): the running max m and the
+  // quad-local part of l; after pass 1 m log2 e and 1 / l
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2], mlog[2];
+  float acc[kCols / 8][4];
+  for (int s = 0; s < n_steps; ++s) {
+    cc::cp_async_wait<cc::kRing - 2>();   // step s's tiles (and q)
+    if (s == 0) cc::scale_rows(sq, ld, min(kTile, L - r0), hd, scale);
+    __syncthreads();
+    prefetch(s + cc::kRing - 1);           // into the stage step s - 1 used
+    const T* sk = ring + (s % cc::kRing) * 2 * tile;
+    const T* sv = sk + tile;
+    const int kt = s % n_kt, k0 = kt * kTile;
+    const int n_live = min(kKeys, Lp - k0) / 8;     // n-tiles of keys before Lp
+    if (active) {
+      float sc[kKeys / 8][4];
+      cc::tile_product<T>(sc, sq, warp * 16, sk, ld, hd, Lp - k0, lane);
+      if (mask != nullptr || k0 + kTile > L) cc::mask_tile(sc, q0, k0, L, mask, lane);
+      if (s < n_kt) {
+        // pass 1
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float cm = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < kKeys / 8; ++nt)
+            cm = fmaxf(cm, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
+          const float mn = fmaxf(m[r], cc::quad_max(cm));
+          const float nlog = finite_ref(mn) * cc::kLog2e;
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < kKeys / 8; ++nt)
+            if (nt < n_live)
+              sum += cc::exp2_scaled(sc[nt][2 * r], nlog)
+                     + cc::exp2_scaled(sc[nt][2 * r + 1], nlog);
+          l[r] = l[r] * cc::exp2_scaled(m[r], nlog) + sum;     // 0 * l while m is -inf
+          m[r] = mn;
+        }
+        if (kt == n_kt - 1) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            inv[r] = 1.f / cc::quad_sum(l[r]);
+            mlog[r] = finite_ref(m[r]) * cc::kLog2e;
+          }
+        }
+      } else {
+        // pass 2: O[:, c0 .. c0 + 63] += P . V over this key tile, with
+        // P = exp(S - m) / l rounded to T in its A fragments
+        const int c0 = (s / n_kt - 1) * kCols;
+        const int n_tiles = min(kCols, hd - c0) / 8;
+        if (kt == 0) {
+#pragma unroll
+          for (int nt = 0; nt < kCols / 8; ++nt)
+            acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+        }
+#pragma unroll
+        for (int nt = 0; nt < kKeys / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[nt][e] = nt < n_live ? cc::exp2_scaled(sc[nt][e], mlog[e >> 1]) : 0.f;
+        uint32_t pa[kKeys / 16][4];
+        probs<T>(pa, sc, inv);
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) {
+          if (k0 + kk * 16 < Lp) {
+#pragma unroll
+            for (int np = 0; np < kCols / 16; ++np) {
+              if (2 * np < n_tiles) {
+                uint32_t bv[4];
+                cc::ldmatrix_x4_trans(bv, cc::trans_b_pair(sv, ld, kk * 16, c0 + np * 16,
+                                                           lane));
+                cc::mma16816<T>(acc[2 * np], pa[kk], bv[0], bv[1]);
+                cc::mma16816<T>(acc[2 * np + 1], pa[kk], bv[2], bv[3]);
+              }
+            }
+          }
+        }
+        if (kt == n_kt - 1)
+          cc::store_tile<T, kCols / 8>(acc, stage, ob, (size_t)D, q0, L, c0, n_tiles, 1.f,
+                                       lane);
+      }
+    }
+  }
+}
+
+// the kernel for this head_dim: compiled for ViT's 64, else the generic one
+template <typename T>
+const void* long_kernel(int hd) {
+  return hd == 64 ? (const void*)attention_fwd_long_kernel<T, 64>
+                  : (const void*)attention_fwd_long_kernel<T, 0>;
+}
+
+template <typename T>
+int launch_long(const void* qkv, const void* mask, void* out, int B, int L, int H,
+                int hd, float scale, cudaStream_t stream) {
+  if (hd % 16 != 0 || L < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = long_smem(hd, sizeof(T));
+  const int err = set_smem(long_kernel<T>(hd), smem);
+  if (err) return err;
+  const long long grid = (long long)B * H * ((L + kTile - 1) / kTile);
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const T* q = static_cast<const T*>(qkv);
+  const float* mk = static_cast<const float*>(mask);
+  T* o = static_cast<T*>(out);
+  if (hd == 64)
+    attention_fwd_long_kernel<T, 64><<<(unsigned)grid, kWarps * 32, smem, stream>>>(
+        q, mk, o, L, H, hd, scale);
+  else
+    attention_fwd_long_kernel<T, 0><<<(unsigned)grid, kWarps * 32, smem, stream>>>(
+        q, mk, o, L, H, hd, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -385,6 +565,36 @@ size_t cc_attention_mma_smem_bytes(int L, int hd, int elem_bytes) {
 }
 
 size_t cc_attention_simt_smem_bytes(int L, int hd) { return simt_smem(L, hd); }
+
+size_t cc_attention_long_smem_bytes(int L, int hd, int elem_bytes) {
+  (void)L;
+  return long_smem(hd, (size_t)elem_bytes);
+}
+
+// Registers per thread, shared-memory bytes per CTA and resident CTAs per
+// SM (out[0..2]) of the long variant's kernel for head_dim hd and dtype
+// (1 bfloat16, 2 float16).
+int cc_attention_fwd_long_occupancy(int hd, int dtype, int* out) {
+  switch (dtype) {
+    case 1:
+      return cc::occupancy(long_kernel<__nv_bfloat16>(hd), long_smem(hd, 2), out);
+    case 2:
+      return cc::occupancy(long_kernel<__half>(hd), long_smem(hd, 2), out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Long-sequence tensor-core variant (L > 128).  dtype: 1 bfloat16,
+// 2 float16; hd % 16 == 0; qkv and out 16-byte aligned.  mask may be null.
+int cc_attention_fwd_long(const void* qkv, const void* mask, void* out, int B, int L,
+                          int H, int hd, int dtype, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1: return launch_long<__nv_bfloat16>(qkv, mask, out, B, L, H, hd, scale, s);
+    case 2: return launch_long<__half>(qkv, mask, out, B, L, H, hd, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // Tensor-core variant.  dtype: 1 bfloat16, 2 float16; hd % 16 == 0; qkv and
 // out 16-byte aligned.  mask may be null.

@@ -44,28 +44,31 @@
 //   design keeps every [L, L] intermediate on chip.  S and dP of a warp's
 //   rows are held whole in registers, which caps L at 128 (two register
 //   widths, 64 and 128 keys, are compiled).
-// * attention_bwd_tiled_kernel (bf16 / fp16, hd % 16 == 0, 128 < L <= 256):
-//   the same arithmetic with no [L, L] row held whole anywhere; one CTA of
-//   8 warps per (sample, head), qs, k, v and dO in shared memory as above.
-//   Query rows: each warp owns 16 of them and sweeps the keys twice in
-//   tiles of 32.  The first sweep computes S and dP per tile and keeps, per
-//   row, the running max m, l = sum exp(s - m) and a = sum exp(s - m) dP
-//   (both rescaled when m grows), which give the softmax's max and sum and
-//   delta = rowsum(dP * P) = a / l; the three go to shared memory.  The
-//   second sweep recomputes S and dP per tile, forms P = exp(s - m) / l and
-//   dS = P (dP - delta) in fp32 and accumulates dQ = hd^-0.5 dS.K (dS as
-//   the hi/lo pair) in registers.  Key rows, after one barrier: each warp
-//   owns 16 key rows and loops over query tiles of 16: S^T = K.qs^T and
-//   dP^T = V.dO^T, then P^T and dS^T from the rows' m, l and delta, then
-//   dV += T(P)^T.dO and dK += dS^T.qs, the C tiles becoming A fragments in
-//   registers.  delta is not taken from the rounded forward output
-//   (rowsum(dO * O) would move dS by about 2^-8).  S and dP are computed
-//   three times instead of once: at L = 197, hd = 64 that is ~11 products
-//   of 2 Lp^2 hd flops per head, ~1.1 Tflop for ViT-B/16's 1536 x 12
-//   heads, ~1.1 ms at the H100's dense bf16 peak, above the 0.97 ms its
-//   bytes take.  One CTA (~140 KB of shared memory at L = 197) fills an SM.
-//   Sums run in a fixed order and nothing is atomic: deterministic.  No
-//   mask gradient (only the text tower has a mask, at L <= 77).
+// * the long variant (bf16 / fp16, hd % 16 == 0, 128 < L <= 256): the same
+//   arithmetic with no [L, L] row and no whole head held anywhere, in two
+//   launches of 4-warp CTAs that stream 64-row tiles through a cp.async
+//   ring.  attention_bwd_dq_kernel takes (item, 64 query rows): pass 1 over
+//   the key tiles computes S and dP and keeps, per row, the running max m,
+//   l = sum exp(s - m) and a = sum exp(s - m) dP (both rescaled when m
+//   grows), which give the softmax's max and sum and delta = rowsum(dP * P)
+//   = a / l, written as fp32 scratch for the second launch; pass 2
+//   recomputes S and dP, forms P and dS = P (dP - delta) and accumulates
+//   dQ = hd^-0.5 dS.K (dS as the hi/lo pair) in registers.
+//   attention_bwd_dkv_kernel takes (item, 64 keys): it stages K and V of its
+//   tile, streams qs, dO and the statistics of 64 query rows at a time, and
+//   per warp of 16 keys computes S^T = K.qs^T and dP^T = V.dO^T, then P^T
+//   and dS^T, then dV += T(P)^T.dO and dK += dS^T.qs, the C tiles becoming
+//   A fragments in registers.  delta is not taken from the rounded forward
+//   output (rowsum(dO * O) would move dS by about 2^-8).  Each kernel needs
+//   64-66 KB of shared memory and at most 168 registers a thread, so 3 CTAs
+//   (12 warps) are resident per SM (a CTA holding a whole (sample, head)
+//   needs ~140 KB at L = 197, one per SM).  S and
+//   dP are still computed three times (twice in the first launch, once in
+//   the second): 11 products of 2 L^2 hd flops per head, ~1.0 Tflop for
+//   ViT-B/16's 1536 x 12 heads at L = 197, ~1.0 ms at the H100's dense bf16
+//   peak, about the 0.97 ms its bytes take.  Sums run in a fixed order and
+//   nothing is atomic: deterministic.  No mask gradient (only the text
+//   tower has a mask, at L <= 77).
 // * attention_bwd_kernel (fp32): CUDA cores, the products as fmaf loops from
 //   shared memory (no exact fp32 tensor-core product; TF32 is off), P and dS
 //   as fp32 [L, L] tiles in shared memory.
@@ -445,166 +448,156 @@ int launch_mma(const void* qkv, const void* mask, const void* dout, void* dqkv,
   return launch_mma<T, 128>(qkv, mask, dout, dqkv, dmask, B, L, H, hd, scale, stream);
 }
 
-// ----------------------------------- bf16 / fp16, 128 < L <= 256 (key tiles)
-constexpr int kTiledWarps = 8;
-constexpr int kKeyTile = 32;       // keys per register tile of the query sweeps
-constexpr int kKT = kKeyTile / 8;  // its n-tiles
-constexpr int kTiledMaxL = 256;
+// ------------------------------------------ bf16 / fp16, L > 128 (long)
+// Two launches, neither of which holds a whole head: the first takes
+// (item, block of 64 query rows), the second (item, tile of 64 keys); each
+// streams the other side's rows through a two-stage cp.async ring of
+// 64-row tiles (step s + 1 loads while step s computes).
+using cc::kTile;
+constexpr int kLongCtas = 3;       // CTAs per SM the register budget aims at
+constexpr int kHalf = 32;          // queries per register pass of the dK / dV kernel
 
-// shared memory: qs, k, v, dO [Lp][hd + 8] (T); the rows' max, sum and
-// delta [Lp] each (fp32); one [16][72] staging tile (T) per warp
-__host__ __device__ inline size_t tiled_smem(int L, int hd, size_t elem) {
-  const size_t Lp = pad16(L);
-  return 4 * Lp * (hd + kPad) * elem + 3 * Lp * sizeof(float)
-         + kTiledWarps * kStage * elem;
+// Shared memory (T) of the dQ kernel: q and dO of its block, a ring of two
+// stages of K and V tiles, one [16][72] staging tile per warp (64 512 bytes
+// at hd = 64); the dK / dV kernel stages K and V and rings q and dO, and
+// adds the ring's fp32 row statistics (2 stages x 3 x 64; 66 048 bytes).
+__host__ __device__ inline size_t dq_smem(int hd, size_t elem) {
+  return ((size_t)(2 + 2 * cc::kRing) * kTile * (hd + kPad) + kWarps * kStage) * elem;
+}
+__host__ __device__ inline size_t dkv_smem(int hd, size_t elem) {
+  return dq_smem(hd, elem) + cc::kRing * 3 * kTile * sizeof(float);
 }
 
-// S = qs.K^T and dP = dO.V^T for query rows q0..q0+15 and keys
-// j0..j0+kKeyTile-1, then the keys past L set to -inf and the mask added on
-// real query rows.  Key n-tiles past the padded length are not computed.
-template <typename T>
-__device__ __forceinline__ void score_tile(float (&s)[kKT][4], float (&dp)[kKT][4],
-                                           const T* sq, const T* sk, const T* sv,
-                                           const T* sdo, const float* mask, int ld,
-                                           int q0, int j0, int L, int Lp, int hd,
-                                           int lane) {
-#pragma unroll
-  for (int nt = 0; nt < kKT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-  for (int ks = 0; ks < hd; ks += 16) {
-    uint32_t aq[4], ag[4];
-    cc::ldmatrix_x4(aq, cc::a_frag(sq, ld, q0, ks, lane));
-    cc::ldmatrix_x4(ag, cc::a_frag(sdo, ld, q0, ks, lane));
-#pragma unroll
-    for (int np = 0; np < kKT / 2; ++np) {
-      if (j0 + np * 16 < Lp) {
-        uint32_t bk[4], bv[4];
-        cc::ldmatrix_x4(bk, cc::b_pair(sk, ld, j0 + np * 16, ks, lane));
-        cc::mma16816<T>(s[2 * np], aq, bk[0], bk[1]);
-        cc::mma16816<T>(s[2 * np + 1], aq, bk[2], bk[3]);
-        cc::ldmatrix_x4(bv, cc::b_pair(sv, ld, j0 + np * 16, ks, lane));
-        cc::mma16816<T>(dp[2 * np], ag, bv[0], bv[1]);
-        cc::mma16816<T>(dp[2 * np + 1], ag, bv[2], bv[3]);
-      }
-    }
-  }
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < kKT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = q0 + g + (e >> 1) * 8, j = j0 + nt * 8 + 2 * t + (e & 1);
-      if (j >= L)
-        s[nt][e] = -INFINITY;
-      else if (mask != nullptr && i < L)
-        s[nt][e] += mask[(size_t)i * L + j];
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kTiledWarps * 32)
-attention_bwd_tiled_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                           const T* __restrict__ dout, T* __restrict__ dqkv, int L,
-                           int H, int hd, float scale) {
+// Launch 1: one CTA per (sample, head, block of 64 query rows); q (scaled
+// and rounded to T in place) and dO are staged once, K and V stream through
+// the ring twice (pass 2 once per 64 head channels).  Pass 1: S = qs.K^T and
+// dP = dO.V^T per key tile, and per row the running max m,
+// l = sum exp(s - m) and a = sum exp(s - m) dP (both rescaled as m grows),
+// which give the softmax and delta = rowsum(P dP) = a / l; the three go to
+// `stats` ([3][B*H][64 * key tiles] fp32: m log2 e, m taken as 0 for a row
+// that is all -inf; 1 / l; delta) for launch 2 (exp as cc::exp2_scaled).  Pass 2: S and dP again, P = exp(S - m) / l,
+// dS = P (dP - delta), and dQ = hd^-0.5 dS.K with dS as the hi/lo pair, in
+// registers.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWarps * 32, kLongCtas)
+attention_bwd_dq_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                        const T* __restrict__ dout, T* __restrict__ dqkv,
+                        float* __restrict__ stats, int n_items, int L, int H,
+                        int hd_arg, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Lp = pad16(L), ld = hd + kPad;
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + Lp * ld;
-  T* sv = sk + Lp * ld;
-  T* sdo = sv + Lp * ld;
-  float* rmax = reinterpret_cast<float*>(sdo + Lp * ld);
-  float* rsum = rmax + Lp;
-  float* rdelta = rsum + Lp;
+  const int hd = HD ? HD : hd_arg;         // HD: a head_dim compiled in, else 0
+  const int Lp = pad16(L), ld = hd + kPad, tile = kTile * ld;
+  const int n_kt = (L + kTile - 1) / kTile, Ls = n_kt * kTile;
+  const int item = blockIdx.x / n_kt, r0 = (blockIdx.x % n_kt) * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  T* stage = reinterpret_cast<T*>(rdelta + Lp) + warp * kStage;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  const int q0 = r0 + warp * 16;           // the warp's first query row
+  const bool active = q0 < Lp;
+  T* sq = reinterpret_cast<T*>(smem);
+  T* sdo = sq + tile;
+  T* ring = sdo + tile;                    // stage s: K at ring + 2 s tile, V next
+  T* stage = ring + 2 * cc::kRing * tile + warp * kStage;
   const int D = H * hd;
   const size_t row = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * L * row + (size_t)h * hd;
-  cc::load_rows(sq, ld, base, row, L, Lp, hd);
-  cc::load_rows(sk, ld, base + D, row, L, Lp, hd);
-  cc::load_rows(sv, ld, base + 2 * D, row, L, Lp, hd);
-  cc::load_rows(sdo, ld, dout + (size_t)b * L * D + (size_t)h * hd, (size_t)D, L, Lp, hd);
-  cc::cp_async_wait_all();
-  __syncthreads();
-  for (int e = threadIdx.x; e < L * hd; e += blockDim.x) {
-    T* p = sq + (e / hd) * ld + e % hd;
-    *p = cc::from_f<T>(cc::to_f<T>(*p) * scale);
-  }
-  __syncthreads();
+  const size_t first = (size_t)(item / H) * L, col = (size_t)(item % H) * hd;
+  const T* base = qkv + first * row + col;
+  T* gb = dqkv + first * row + col;
+  const int n_steps = n_kt * (1 + (hd + kCols - 1) / kCols);
 
-  T* gb = dqkv + (size_t)b * L * row + (size_t)h * hd;
+  auto prefetch = [&](int s) {
+    if (s < n_steps) {
+      T* st = ring + (s % cc::kRing) * 2 * tile;
+      const int k0 = (s % n_kt) * kTile;
+      cc::load_tile(st, ld, base + D, row, k0, L, Lp, hd);
+      cc::load_tile(st + tile, ld, base + 2 * D, row, k0, L, Lp, hd);
+    }
+    cc::cp_async_commit();
+  };
+  cc::load_tile(sq, ld, base, row, r0, L, Lp, hd);
+  cc::load_tile(sdo, ld, dout + first * D + col, (size_t)D, r0, L, Lp, hd);
+  for (int s = 0; s < cc::kRing - 1; ++s) prefetch(s);
 
-  // ------------------------------------------------ query rows, per warp
-  for (int q0 = warp * 16; q0 < Lp; q0 += kTiledWarps * 16) {
-    // sweep 1: per row (two per thread: g and g + 8) the running max m,
-    // l = sum exp(s - m) and a = sum exp(s - m) dP
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
-    for (int j0 = 0; j0 < Lp; j0 += kKeyTile) {
-      float s[kKT][4], dp[kKT][4];
-      score_tile<T>(s, dp, sq, sk, sv, sdo, mask, ld, q0, j0, L, Lp, hd, lane);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+  // after pass 1: m log2 e, 1 / l and delta per row
+  float ref[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float acc[kCols / 8][4];
+  for (int s = 0; s < n_steps; ++s) {
+    cc::cp_async_wait<cc::kRing - 2>();   // step s's tiles (and q, dO)
+    if (s == 0) cc::scale_rows(sq, ld, min(kTile, L - r0), hd, scale);
+    __syncthreads();
+    prefetch(s + cc::kRing - 1);           // into the stage step s - 1 used
+    const T* sk = ring + (s % cc::kRing) * 2 * tile;
+    const T* sv = sk + tile;
+    const int kt = s % n_kt, k0 = kt * kTile;
+    const int n_live = min(kTile, Lp - k0) / 8;     // n-tiles of keys before Lp
+    if (active) {
+      float sc[kTile / 8][4], dp[kTile / 8][4];
+      cc::tile_product<T>(sc, sq, warp * 16, sk, ld, hd, Lp - k0, lane);
+      cc::tile_product<T>(dp, sdo, warp * 16, sv, ld, hd, Lp - k0, lane);
+      if (mask != nullptr || k0 + kTile > L) cc::mask_tile(sc, q0, k0, L, mask, lane);
+      if (s < n_kt) {
+        // pass 1: per row (two per thread: g and g + 8) m, l and a
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float tmax = -INFINITY;
+        for (int r = 0; r < 2; ++r) {
+          float tmax = -INFINITY;
 #pragma unroll
-        for (int nt = 0; nt < kKT; ++nt)
-          tmax = fmaxf(tmax, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-        const float mn = fmaxf(m[r], cc::quad_max(tmax));
-        const float ref = mn == -INFINITY ? 0.f : mn;
-        float ls = 0.f, as = 0.f;
+          for (int nt = 0; nt < kTile / 8; ++nt)
+            tmax = fmaxf(tmax, fmaxf(sc[nt][2 * r], sc[nt][2 * r + 1]));
+          const float mn = fmaxf(m[r], cc::quad_max(tmax));
+          const float nlog = (mn == -INFINITY ? 0.f : mn) * cc::kLog2e;
+          float ls = 0.f, as = 0.f;
 #pragma unroll
-        for (int nt = 0; nt < kKT; ++nt)
+          for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const float x = expf(s[nt][2 * r + c] - ref);
-            ls += x;
-            as += x * dp[nt][2 * r + c];
+            for (int c = 0; c < 2; ++c) {
+              if (nt < n_live) {
+                const float x = cc::exp2_scaled(sc[nt][2 * r + c], nlog);
+                ls += x;
+                as += x * dp[nt][2 * r + c];
+              }
+            }
+          const float shrink = cc::exp2_scaled(m[r], nlog);     // 0 while m is -inf
+          l[r] = l[r] * shrink + cc::quad_sum(ls);
+          a[r] = a[r] * shrink + cc::quad_sum(as);
+          m[r] = mn;
+        }
+        if (kt == n_kt - 1) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            ref[r] = (m[r] == -INFINITY ? 0.f : m[r]) * cc::kLog2e;
+            inv[r] = 1.f / l[r];
+            delta[r] = a[r] / l[r];
+            if (t == 0) {
+              const size_t i = (size_t)item * Ls + q0 + g + 8 * r;
+              const size_t plane = (size_t)n_items * Ls;
+              stats[i] = ref[r];
+              stats[plane + i] = inv[r];
+              stats[2 * plane + i] = delta[r];
+            }
           }
-        const float shrink = expf(m[r] - ref);      // 0 while m is -inf
-        l[r] = l[r] * shrink + cc::quad_sum(ls);
-        a[r] = a[r] * shrink + cc::quad_sum(as);
-        m[r] = mn;
-      }
-    }
-    float ref[2], delta[2];
+        }
+      } else {
+        // pass 2: dQ[:, c0 .. c0 + 63] += dS . K over this key tile; rows
+        // >= L (padding) get P = dS = 0
+        const int c0 = (s / n_kt - 1) * kCols;
+        const int n_tiles = min(kCols, hd - c0) / 8;
+        if (kt == 0) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ref[r] = m[r] == -INFINITY ? 0.f : m[r];
-      delta[r] = a[r] / l[r];
-      if (t == 0) {
-        const int i = q0 + g + 8 * r;
-        rmax[i] = ref[r];
-        rsum[i] = l[r];
-        rdelta[i] = delta[r];
-      }
-    }
-
-    // sweep 2: P and dS per key tile, dQ = hd^-0.5 * dS . K, 64 channels
-    // at a time; rows >= L (padding) get P = dS = 0
-    for (int c0 = 0; c0 < hd; c0 += kCols) {
-      const int n_tiles = min(kCols, hd - c0) / 8;
-      float acc[kCols / 8][4];
+          for (int nt = 0; nt < kCols / 8; ++nt)
+            acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+        }
 #pragma unroll
-      for (int nt = 0; nt < kCols / 8; ++nt)
-        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-      for (int j0 = 0; j0 < Lp; j0 += kKeyTile) {
-        float s[kKT][4], dp[kKT][4];
-        score_tile<T>(s, dp, sq, sk, sv, sdo, mask, ld, q0, j0, L, Lp, hd, lane);
-#pragma unroll
-        for (int nt = 0; nt < kKT; ++nt)
+        for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int r = e >> 1;
-            const float p = q0 + g + 8 * r < L ? expf(s[nt][e] - ref[r]) / l[r] : 0.f;
+            const float p = nt < n_live && q0 + g + 8 * r < L
+                                ? cc::exp2_scaled(sc[nt][e], ref[r]) * inv[r] : 0.f;
             dp[nt][e] = p * (dp[nt][e] - delta[r]);
           }
 #pragma unroll
-        for (int kk = 0; kk < kKT / 2; ++kk) {
-          if (j0 + kk * 16 < Lp) {
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          if (k0 + kk * 16 < Lp) {
             uint32_t ah[4], al[4];
             split2<T>(dp[2 * kk][0], dp[2 * kk][1], ah[0], al[0]);
             split2<T>(dp[2 * kk][2], dp[2 * kk][3], ah[1], al[1]);
@@ -614,8 +607,8 @@ attention_bwd_tiled_kernel(const T* __restrict__ qkv, const float* __restrict__ 
             for (int np = 0; np < kCols / 16; ++np) {
               if (2 * np < n_tiles) {
                 uint32_t bk[4];
-                cc::ldmatrix_x4_trans(bk, cc::trans_b_pair(sk, ld, j0 + kk * 16,
-                                                           c0 + np * 16, lane));
+                cc::ldmatrix_x4_trans(bk, cc::trans_b_pair(sk, ld, kk * 16, c0 + np * 16,
+                                                           lane));
                 cc::mma16816<T>(acc[2 * np], ah, bk[0], bk[1]);
                 cc::mma16816<T>(acc[2 * np], al, bk[0], bk[1]);
                 cc::mma16816<T>(acc[2 * np + 1], ah, bk[2], bk[3]);
@@ -624,96 +617,218 @@ attention_bwd_tiled_kernel(const T* __restrict__ qkv, const float* __restrict__ 
             }
           }
         }
+        if (kt == n_kt - 1)
+          cc::store_tile<T, kCols / 8>(acc, stage, gb, row, q0, L, c0, n_tiles, scale,
+                                       lane);
       }
-      cc::store_tile<T, kCols / 8>(acc, stage, gb, row, q0, L, c0, n_tiles, scale, lane);
-    }
-  }
-  __syncthreads();
-
-  // -------------------------------------------------- key rows, per warp
-  for (int k0 = warp * 16; k0 < Lp; k0 += kTiledWarps * 16) {
-    for (int c0 = 0; c0 < hd; c0 += kCols) {
-      const int n_tiles = min(kCols, hd - c0) / 8;
-      float av[kCols / 8][4], ak[kCols / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kCols / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
-      for (int i0 = 0; i0 < Lp; i0 += 16) {
-        // S^T and dP^T of keys k0..k0+15 (rows) and queries i0..i0+15
-        float st[2][4], dpt[2][4];
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-        for (int ks = 0; ks < hd; ks += 16) {
-          uint32_t ak_[4], av_[4], bq[4], bo[4];
-          cc::ldmatrix_x4(ak_, cc::a_frag(sk, ld, k0, ks, lane));
-          cc::ldmatrix_x4(bq, cc::b_pair(sq, ld, i0, ks, lane));
-          cc::mma16816<T>(st[0], ak_, bq[0], bq[1]);
-          cc::mma16816<T>(st[1], ak_, bq[2], bq[3]);
-          cc::ldmatrix_x4(av_, cc::a_frag(sv, ld, k0, ks, lane));
-          cc::ldmatrix_x4(bo, cc::b_pair(sdo, ld, i0, ks, lane));
-          cc::mma16816<T>(dpt[0], av_, bo[0], bo[1]);
-          cc::mma16816<T>(dpt[1], av_, bo[2], bo[3]);
-        }
-        // element (key j = k0 + g + 8 (e / 2), query i = i0 + 8 nt + 2 t + e % 2)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int j = k0 + g + (e >> 1) * 8, i = i0 + nt * 8 + 2 * t + (e & 1);
-            float p = 0.f;
-            if (i < L && j < L) {
-              float x = st[nt][e];
-              if (mask != nullptr) x += mask[(size_t)i * L + j];
-              p = expf(x - rmax[i]) / rsum[i];
-            }
-            st[nt][e] = p;
-            dpt[nt][e] = p * (dpt[nt][e] - rdelta[i]);
-          }
-        const uint32_t ap[4] = {cc::pack2<T>(st[0][0], st[0][1]),
-                                cc::pack2<T>(st[0][2], st[0][3]),
-                                cc::pack2<T>(st[1][0], st[1][1]),
-                                cc::pack2<T>(st[1][2], st[1][3])};
-        uint32_t ah[4], al[4];
-        split2<T>(dpt[0][0], dpt[0][1], ah[0], al[0]);
-        split2<T>(dpt[0][2], dpt[0][3], ah[1], al[1]);
-        split2<T>(dpt[1][0], dpt[1][1], ah[2], al[2]);
-        split2<T>(dpt[1][2], dpt[1][3], ah[3], al[3]);
-#pragma unroll
-        for (int np = 0; np < kCols / 16; ++np) {
-          if (2 * np < n_tiles) {
-            uint32_t bo[4], bq[4];
-            cc::ldmatrix_x4_trans(bo, cc::trans_b_pair(sdo, ld, i0, c0 + np * 16, lane));
-            cc::mma16816<T>(av[2 * np], ap, bo[0], bo[1]);
-            cc::mma16816<T>(av[2 * np + 1], ap, bo[2], bo[3]);
-            cc::ldmatrix_x4_trans(bq, cc::trans_b_pair(sq, ld, i0, c0 + np * 16, lane));
-            cc::mma16816<T>(ak[2 * np], ah, bq[0], bq[1]);
-            cc::mma16816<T>(ak[2 * np], al, bq[0], bq[1]);
-            cc::mma16816<T>(ak[2 * np + 1], ah, bq[2], bq[3]);
-            cc::mma16816<T>(ak[2 * np + 1], al, bq[2], bq[3]);
-          }
-        }
-      }
-      cc::store_tile<T, kCols / 8>(ak, stage, gb + D, row, k0, L, c0, n_tiles, 1.f, lane);
-      cc::store_tile<T, kCols / 8>(av, stage, gb + 2 * D, row, k0, L, c0, n_tiles, 1.f,
-                                   lane);
     }
   }
 }
 
+// Launch 2: one CTA per (sample, head, tile of 64 keys); K and V of its tile
+// are staged once, and q (scaled and rounded to T on arrival, each thread
+// on its own chunks), dO and the rows' statistics stream through the ring
+// in blocks of 64 queries (once per 64 head channels).  Each warp owns 16
+// keys: per 32 queries S^T = K.qs^T and dP^T = V.dO^T, then P^T and dS^T
+// from the statistics, then dV += T(P)^T.dO and dK += dS^T.qs (dS as the
+// hi/lo pair), the C tiles becoming A fragments in registers.  Every sum
+// runs in a fixed order; nothing is atomic.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWarps * 32, kLongCtas)
+attention_bwd_dkv_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                         const T* __restrict__ dout, T* __restrict__ dqkv,
+                         const float* __restrict__ stats, int n_items, int L, int H,
+                         int hd_arg, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = HD ? HD : hd_arg;
+  const int Lp = pad16(L), ld = hd + kPad, tile = kTile * ld;
+  const int n_kt = (L + kTile - 1) / kTile, Ls = n_kt * kTile;
+  const int item = blockIdx.x / n_kt, j0 = (blockIdx.x % n_kt) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int jw = j0 + warp * 16;           // the warp's first key
+  const bool active = jw < Lp;
+  T* sk = reinterpret_cast<T*>(smem);
+  T* sv = sk + tile;
+  T* ring = sv + tile;                     // stage s: q at ring + 2 s tile, dO next
+  float* sst = reinterpret_cast<float*>(ring + 2 * cc::kRing * tile);  // stage s: m, l, delta
+  T* stage = reinterpret_cast<T*>(sst + 3 * cc::kRing * kTile) + warp * kStage;
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const size_t first = (size_t)(item / H) * L, col = (size_t)(item % H) * hd;
+  const T* base = qkv + first * row + col;
+  const T* dob = dout + first * D + col;
+  T* gb = dqkv + first * row + col;
+  const size_t plane = (size_t)n_items * Ls;
+  const int n_steps = n_kt * ((hd + kCols - 1) / kCols);
+
+  auto prefetch = [&](int s) {
+    if (s < n_steps) {
+      T* st = ring + (s % cc::kRing) * 2 * tile;
+      const int i0 = (s % n_kt) * kTile;
+      cc::load_tile(st, ld, base, row, i0, L, Lp, hd);
+      cc::load_tile(st + tile, ld, dob, (size_t)D, i0, L, Lp, hd);
+      for (int e = threadIdx.x; e < 3 * kTile; e += blockDim.x)
+        cc::cp_async4(sst + (s % cc::kRing) * 3 * kTile + e,
+                      stats + (e / kTile) * plane + (size_t)item * Ls + i0 + e % kTile);
+    }
+    cc::cp_async_commit();
+  };
+  cc::load_tile(sk, ld, base + D, row, j0, L, Lp, hd);
+  cc::load_tile(sv, ld, base + 2 * D, row, j0, L, Lp, hd);
+  for (int s = 0; s < cc::kRing - 1; ++s) prefetch(s);
+
+  float av[kCols / 8][4], ak[kCols / 8][4];
+  for (int s = 0; s < n_steps; ++s) {
+    cc::cp_async_wait<cc::kRing - 2>();   // step s's rows (and K, V)
+    T* sq = ring + (s % cc::kRing) * 2 * tile;
+    const int qt = s % n_kt, i0 = qt * kTile;
+    cc::scale_rows(sq, ld, min(kTile, L - i0), hd, scale);
+    __syncthreads();
+    prefetch(s + cc::kRing - 1);           // into the stage step s - 1 used
+    const T* sdo = sq + tile;
+    const float* rmax = sst + (s % cc::kRing) * 3 * kTile;
+    const float* rinv = rmax + kTile;
+    const float* rdelta = rinv + kTile;
+    if (active) {
+      const int c0 = (s / n_kt) * kCols;
+      const int n_tiles = min(kCols, hd - c0) / 8;
+      if (qt == 0) {
+#pragma unroll
+        for (int nt = 0; nt < kCols / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) av[nt][e] = ak[nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int h0 = 0; h0 < kTile; h0 += kHalf) {
+        if (i0 + h0 < Lp) {
+          // S^T and dP^T of the warp's 16 keys (rows) and queries i0 + h0 ..
+          float st[kHalf / 8][4], dpt[kHalf / 8][4];
+#pragma unroll
+          for (int nt = 0; nt < kHalf / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < hd; ks += 16) {
+            uint32_t ak_[4], av_[4];
+            cc::ldmatrix_x4(ak_, cc::a_frag(sk, ld, warp * 16, ks, lane));
+            cc::ldmatrix_x4(av_, cc::a_frag(sv, ld, warp * 16, ks, lane));
+#pragma unroll
+            for (int np = 0; np < kHalf / 16; ++np) {
+              if (i0 + h0 + np * 16 < Lp) {
+                uint32_t bq[4], bo[4];
+                cc::ldmatrix_x4(bq, cc::b_pair(sq, ld, h0 + np * 16, ks, lane));
+                cc::mma16816<T>(st[2 * np], ak_, bq[0], bq[1]);
+                cc::mma16816<T>(st[2 * np + 1], ak_, bq[2], bq[3]);
+                cc::ldmatrix_x4(bo, cc::b_pair(sdo, ld, h0 + np * 16, ks, lane));
+                cc::mma16816<T>(dpt[2 * np], av_, bo[0], bo[1]);
+                cc::mma16816<T>(dpt[2 * np + 1], av_, bo[2], bo[3]);
+              }
+            }
+          }
+          // element (key j = jw + g + 8 (e / 2), query i = i0 + h0 + 8 nt +
+          // 2 t + e % 2); statistics of rows past L are never read, and
+          // only a block at the edge or under a mask checks
+          const bool edge = mask != nullptr || i0 + h0 + kHalf > L || j0 + kTile > L;
+#pragma unroll
+          for (int nt = 0; nt < kHalf / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int j = jw + g + (e >> 1) * 8;
+              const int il = h0 + nt * 8 + 2 * t + (e & 1), i = i0 + il;
+              float p = 0.f, ds = 0.f;
+              if (!edge || (i < L && j < L)) {
+                float x = st[nt][e];
+                if (mask != nullptr) x += mask[(size_t)i * L + j];
+                p = cc::exp2_scaled(x, rmax[il]) * rinv[il];
+                ds = p * (dpt[nt][e] - rdelta[il]);
+              }
+              st[nt][e] = p;
+              dpt[nt][e] = ds;
+            }
+#pragma unroll
+          for (int kk = 0; kk < kHalf / 16; ++kk) {
+            if (i0 + h0 + kk * 16 < Lp) {
+              const uint32_t ap[4] = {cc::pack2<T>(st[2 * kk][0], st[2 * kk][1]),
+                                      cc::pack2<T>(st[2 * kk][2], st[2 * kk][3]),
+                                      cc::pack2<T>(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                                      cc::pack2<T>(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+              uint32_t ah[4], al[4];
+              split2<T>(dpt[2 * kk][0], dpt[2 * kk][1], ah[0], al[0]);
+              split2<T>(dpt[2 * kk][2], dpt[2 * kk][3], ah[1], al[1]);
+              split2<T>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1], ah[2], al[2]);
+              split2<T>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+              for (int np = 0; np < kCols / 16; ++np) {
+                if (2 * np < n_tiles) {
+                  uint32_t bo[4], bq[4];
+                  cc::ldmatrix_x4_trans(bo, cc::trans_b_pair(sdo, ld, h0 + kk * 16,
+                                                             c0 + np * 16, lane));
+                  cc::mma16816<T>(av[2 * np], ap, bo[0], bo[1]);
+                  cc::mma16816<T>(av[2 * np + 1], ap, bo[2], bo[3]);
+                  cc::ldmatrix_x4_trans(bq, cc::trans_b_pair(sq, ld, h0 + kk * 16,
+                                                             c0 + np * 16, lane));
+                  cc::mma16816<T>(ak[2 * np], ah, bq[0], bq[1]);
+                  cc::mma16816<T>(ak[2 * np], al, bq[0], bq[1]);
+                  cc::mma16816<T>(ak[2 * np + 1], ah, bq[2], bq[3]);
+                  cc::mma16816<T>(ak[2 * np + 1], al, bq[2], bq[3]);
+                }
+              }
+            }
+          }
+        }
+      }
+      if (qt == n_kt - 1) {
+        cc::store_tile<T, kCols / 8>(ak, stage, gb + D, row, jw, L, c0, n_tiles, 1.f, lane);
+        cc::store_tile<T, kCols / 8>(av, stage, gb + 2 * D, row, jw, L, c0, n_tiles, 1.f,
+                                     lane);
+      }
+    }
+  }
+}
+
+// the kernels for this head_dim: compiled for ViT's 64, else the generic ones
 template <typename T>
-int launch_tiled(const void* qkv, const void* mask, const void* dout, void* dqkv, int B,
-                 int L, int H, int hd, float scale, cudaStream_t stream) {
-  if (hd % 16 != 0 || L <= kMaxL || L > kTiledMaxL) return (int)cudaErrorInvalidValue;
-  const size_t smem = tiled_smem(L, hd, sizeof(T));
-  const int err = set_smem((const void*)attention_bwd_tiled_kernel<T>, smem);
+const void* dq_kernel(int hd) {
+  return hd == 64 ? (const void*)attention_bwd_dq_kernel<T, 64>
+                  : (const void*)attention_bwd_dq_kernel<T, 0>;
+}
+template <typename T>
+const void* dkv_kernel(int hd) {
+  return hd == 64 ? (const void*)attention_bwd_dkv_kernel<T, 64>
+                  : (const void*)attention_bwd_dkv_kernel<T, 0>;
+}
+
+template <typename T>
+int launch_long(const void* qkv, const void* mask, const void* dout, void* dqkv,
+                void* stats, int B, int L, int H, int hd, float scale,
+                cudaStream_t stream) {
+  if (hd % 16 != 0 || L < 1) return (int)cudaErrorInvalidValue;
+  int n_items = B * H;
+  const long long grid = (long long)n_items * ((L + kTile - 1) / kTile);
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const void* q = qkv;
+  const void* mk = mask;
+  const void* dout_ = dout;
+  void* out = dqkv;
+  void* st = stats;
+  void* args[] = {&q, &mk, &dout_, &out, &st, &n_items, &L, &H, &hd, &scale};
+  size_t smem = dq_smem(hd, sizeof(T));
+  int err = set_smem(dq_kernel<T>(hd), smem);
+  if (!err)
+    err = (int)cudaLaunchKernel(dq_kernel<T>(hd), dim3((unsigned)grid), dim3(kWarps * 32),
+                                args, smem, stream);
   if (err) return err;
-  attention_bwd_tiled_kernel<T><<<B * H, kTiledWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(mask),
-      static_cast<const T*>(dout), static_cast<T*>(dqkv), L, H, hd, scale);
-  return (int)cudaGetLastError();
+  smem = dkv_smem(hd, sizeof(T));
+  if ((err = set_smem(dkv_kernel<T>(hd), smem))) return err;
+  return (int)cudaLaunchKernel(dkv_kernel<T>(hd), dim3((unsigned)grid), dim3(kWarps * 32),
+                               args, smem, stream);
+}
+
+template <typename T>
+int long_occupancy(int which, int hd, int* out) {
+  if (which == 0) return cc::occupancy(dq_kernel<T>(hd), dq_smem(hd, sizeof(T)), out);
+  return cc::occupancy(dkv_kernel<T>(hd), dkv_smem(hd, sizeof(T)), out);
 }
 
 }  // namespace
@@ -728,9 +843,27 @@ size_t cc_attention_bwd_mma_smem_bytes(int L, int hd, int elem_bytes) {
 
 size_t cc_attention_bwd_simt_smem_bytes(int L, int hd) { return simt_smem(L, hd); }
 
-size_t cc_attention_bwd_tiled_smem_bytes(int L, int hd, int elem_bytes) {
-  return tiled_smem(L, hd, (size_t)elem_bytes);
+// Long-sequence variant (L > 128): the larger of its two kernels' needs.
+size_t cc_attention_bwd_long_smem_bytes(int L, int hd, int elem_bytes) {
+  (void)L;
+  return dkv_smem(hd, (size_t)elem_bytes);
 }
+
+// Rows of fp32 statistics per (sample, head) the long variant's `stats`
+// scratch holds ([3][B*H][this]).
+int cc_attention_bwd_long_stats_len(int L) { return (L + kTile - 1) / kTile * kTile; }
+
+// Registers per thread, shared-memory bytes per CTA and resident CTAs per
+// SM (out[0..2]) of the long variant's dQ (which = 0) or dK / dV (which = 1)
+// kernel for head_dim hd and dtype (1 bfloat16, 2 float16).
+int cc_attention_bwd_long_occupancy(int which, int hd, int dtype, int* out) {
+  switch (dtype) {
+    case 1: return long_occupancy<__nv_bfloat16>(which, hd, out);
+    case 2: return long_occupancy<__half>(which, hd, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 
 // Tensor-core variant.  dtype: 1 bfloat16, 2 float16; hd % 16 == 0,
 // 1 <= L <= 128; qkv, dout and dqkv 16-byte aligned.  mask and dmask may be
@@ -748,17 +881,20 @@ int cc_attention_bwd_mma(const void* qkv, const void* mask, const void* dout,
   }
 }
 
-// Key-tiled tensor-core variant.  dtype as above; hd % 16 == 0,
-// 128 < L <= 256; qkv, dout and dqkv 16-byte aligned; mask may be null.
-int cc_attention_bwd_tiled(const void* qkv, const void* mask, const void* dout,
-                           void* dqkv, int B, int L, int H, int hd, int dtype,
-                           float scale, void* stream) {
+// Long-sequence tensor-core variant (L > 128): two launches.  dtype as
+// above; hd % 16 == 0; qkv, dout and dqkv 16-byte aligned; mask may be
+// null (no mask gradient); stats is fp32 scratch of
+// 3 * B * H * cc_attention_bwd_long_stats_len(L) values.
+int cc_attention_bwd_long(const void* qkv, const void* mask, const void* dout,
+                          void* dqkv, void* stats, int B, int L, int H, int hd,
+                          int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
-      return launch_tiled<__nv_bfloat16>(qkv, mask, dout, dqkv, B, L, H, hd, scale, s);
+      return launch_long<__nv_bfloat16>(qkv, mask, dout, dqkv, stats, B, L, H, hd, scale,
+                                        s);
     case 2:
-      return launch_tiled<__half>(qkv, mask, dout, dqkv, B, L, H, hd, scale, s);
+      return launch_long<__half>(qkv, mask, dout, dqkv, stats, B, L, H, hd, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,6 +18,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace cc {
@@ -71,6 +72,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
@@ -236,6 +242,113 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ------------------------------------------------ tiles of long sequences
+// The kernels for L > 128 never hold a whole head: they stream its rows
+// through shared memory in tiles of 64 (16 rows per warp of a 4-warp CTA).
+constexpr int kTile = 64;
+// stages of the cp.async ring those tiles stream through
+constexpr int kRing = 2;
+
+// exp(x - m) for those kernels as 2^(x log2 e - m log2 e): one FMA and one
+// ex2.approx (relative error ~2^-22, far under the 2^-8 of the bf16 P and
+// dS operands it feeds), where expf takes about ten instructions.  `mlog`
+// is m log2 e; exp2_scaled(-inf, mlog) = 0.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float exp2_scaled(float x, float mlog) {
+  return ex2(fmaf(x, kLog2e, -mlog));
+}
+
+// Rows r0 .. r0 + 63 of one head (row i at base + i * stride) into dst,
+// rows ld apart, by cp.async (not waited for): rows at or past L are zeroed
+// up to the padded length Lp; rows past Lp are left alone (no product reads
+// them).
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* base, size_t stride,
+                                          int r0, int L, int Lp, int hd) {
+  load_rows(dst, ld, base + (size_t)r0 * stride, stride, min(kTile, L - r0),
+            min(kTile, Lp - r0), hd);
+}
+
+// x * scale rounded to T in rows 0 .. rows-1 of a tile.  Each thread takes
+// the 16-byte chunks its own load_rows / load_tile copied, so once its
+// cp.async group has been waited for no barrier is needed before this.
+template <typename T>
+__device__ __forceinline__ void scale_rows(T* dst, int ld, int rows, int hd, float scale) {
+  const int per_row = hd / 8;
+  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+    uint32_t* p = reinterpret_cast<uint32_t*>(dst + (e / per_row) * ld + (e % per_row) * 8);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float lo, hi;
+      unpack2<T>(p[k], lo, hi);
+      p[k] = pack2<T>(lo * scale, hi * scale);
+    }
+  }
+}
+
+// c = A[arow .. arow+15] . B[0 .. 63]^T over hd channels for one warp (A
+// and B row major, rows ld apart; fp32 accumulation).  The 16-row blocks of
+// B at or past `brows` (the padded rows the tile has) are not computed and
+// stay 0.
+template <typename T>
+__device__ __forceinline__ void tile_product(float (&c)[kTile / 8][4], const T* sa, int arow,
+                                             const T* sb, int ld, int hd, int brows,
+                                             int lane) {
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < hd; ks += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_frag(sa, ld, arow, ks, lane));
+#pragma unroll
+    for (int np = 0; np < kTile / 16; ++np) {
+      if (np * 16 < brows) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_pair(sb, ld, np * 16, ks, lane));
+        mma16816<T>(c[2 * np], a, b[0], b[1]);
+        mma16816<T>(c[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The softmax's mask on a C tile of scores (query rows i0 .., keys k0 ..):
+// keys at or past L are -inf; `mask` [L, L] (may be null) is added on rows
+// before L.
+__device__ __forceinline__ void mask_tile(float (&s)[kTile / 8][4], int i0, int k0, int L,
+                                          const float* __restrict__ mask, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + (e >> 1) * 8, j = k0 + nt * 8 + 2 * t + (e & 1);
+      if (j >= L)
+        s[nt][e] = -INFINITY;
+      else if (mask != nullptr && i < L)
+        s[nt][e] += mask[(size_t)i * L + j];
+    }
+}
+
+// Occupancy of a kernel launched with 4 warps and `smem` bytes of dynamic
+// shared memory: out[0] registers per thread, out[1] shared-memory bytes
+// per CTA, out[2] resident CTAs per SM.  Returns the cudaError_t.
+inline int occupancy(const void* kernel, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (!err) err = set_smem(kernel, smem);
+  if (!err)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, 128, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)smem;
+  return err;
 }
 
 }  // namespace cc

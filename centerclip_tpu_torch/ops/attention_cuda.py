@@ -16,13 +16,16 @@ so the projection's backward stays one matmul.  At CLIP's sequence lengths
 inputs and outputs, not by flops.
 
 Each source has a "tensor_core" variant (bf16 / fp16 with head_dim % 16 ==
-0: mma.sync from ldmatrix, cp.async loads; the backward up to L = 128, where
-a warp holds its rows of S and dP whole in registers) and a "cuda_core"
-variant (fp32: fmaf loops, since tensor cores have no exact fp32 product and
-TF32 is off).  The backward has a third, "tensor_core_tiled" (bf16 / fp16,
-128 < L <= 256: the same arithmetic over key tiles, for ViT-B/16's 197 and
-161 tokens).  `choose_variant` picks one from dtype, head_dim and L before
-the launch; what none takes raises.
+0, L <= 128: mma.sync from ldmatrix, cp.async loads, one CTA per (sample,
+head); the backward's warps hold their rows of S and dP whole in
+registers), a "tensor_core_long" variant (bf16 / fp16, L > 128; the backward
+up to L = 256: ViT-B/16's 197 and 161 tokens) that splits each (sample,
+head) over CTAs of 64 query rows (the forward and the backward's dQ launch)
+or 64 keys (the backward's dK / dV launch) and streams the other side's
+rows in tiles of 64, and a "cuda_core" variant (fp32: fmaf loops, since
+tensor cores have no exact fp32 product and TF32 is off).  `choose_variant`
+picks one from dtype, head_dim and L before the launch; what none takes
+raises.
 
 `fused_attention` is differentiable through `_FusedAttention`: kernel A
 forward, kernel B backward.  For CPU tensors both sides take their plain
@@ -41,15 +44,18 @@ from . import _build
 
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
-TENSOR_CORE_TILED = "tensor_core_tiled"
-# the tensor-core backward holds a warp's S and dP rows whole in registers;
-# the key-tiled one takes the lengths above, up to its own limit
-TENSOR_CORE_BWD_MAX_L = 128
-TILED_BWD_MAX_L = 256
+TENSOR_CORE_LONG = "tensor_core_long"
+VARIANTS = (TENSOR_CORE, TENSOR_CORE_LONG, CUDA_CORE)
+# the tensor-core variants stage a whole (sample, head) and the backward's
+# warps hold their S and dP rows whole in registers; the long variants take
+# the lengths above (the backward up to its own limit)
+TENSOR_CORE_MAX_L = 128
+LONG_BWD_MAX_L = 256
 _SMEM_FNS = {(False, TENSOR_CORE): "cc_attention_mma_smem_bytes",
+             (False, TENSOR_CORE_LONG): "cc_attention_long_smem_bytes",
              (False, CUDA_CORE): "cc_attention_simt_smem_bytes",
              (True, TENSOR_CORE): "cc_attention_bwd_mma_smem_bytes",
-             (True, TENSOR_CORE_TILED): "cc_attention_bwd_tiled_smem_bytes",
+             (True, TENSOR_CORE_LONG): "cc_attention_bwd_long_smem_bytes",
              (True, CUDA_CORE): "cc_attention_bwd_simt_smem_bytes"}
 
 
@@ -119,8 +125,8 @@ def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
                    backward: bool = False) -> str:
     """The kernel variant a CUDA tensor takes, from its dtype, head_dim and
     sequence length alone: for bf16 / fp16 with head_dim a multiple of 16
-    TENSOR_CORE (the backward only up to L = TENSOR_CORE_BWD_MAX_L, then
-    TENSOR_CORE_TILED up to TILED_BWD_MAX_L), CUDA_CORE for fp32.  Raises
+    TENSOR_CORE up to L = TENSOR_CORE_MAX_L and TENSOR_CORE_LONG past it
+    (the backward up to LONG_BWD_MAX_L), CUDA_CORE for fp32.  Raises
     ValueError for what no variant takes; whether the tiles fit in shared
     memory is checked at launch from the sources' own sizes."""
     if L < 1 or head_dim < 1:
@@ -133,12 +139,10 @@ def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
     if head_dim % 16:
         raise ValueError(f"the {dtype} kernels need head_dim % 16 == 0; got "
                          f"{head_dim}")
-    if backward and L > TILED_BWD_MAX_L:
+    if backward and L > LONG_BWD_MAX_L:
         raise ValueError(f"the {dtype} backward kernels take L <= "
-                         f"{TILED_BWD_MAX_L}; got {L}")
-    if backward and L > TENSOR_CORE_BWD_MAX_L:
-        return TENSOR_CORE_TILED
-    return TENSOR_CORE
+                         f"{LONG_BWD_MAX_L}; got {L}")
+    return TENSOR_CORE_LONG if L > TENSOR_CORE_MAX_L else TENSOR_CORE
 
 
 def _check_cuda_inputs(qkv: torch.Tensor, heads: int,
@@ -183,6 +187,42 @@ def _entry(lib: ctypes.CDLL, name: str, n_ptrs: int, n_ints: int,
     return fn
 
 
+def _stats_len(lib: ctypes.CDLL, L: int) -> int:
+    fn = lib.cc_attention_bwd_long_stats_len
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return fn(L)
+
+
+def long_occupancy(dtype: torch.dtype, head_dim: int,
+                   backward: bool = False) -> dict:
+    """{kernel: {"registers", "smem_bytes", "ctas_per_sm"}} of the long
+    variant's kernels (the forward's one, the backward's two) for this dtype
+    and head_dim on the current card (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    code = _DTYPE_CODES[dtype]
+    if backward:
+        lib = _build.load("attention_bwd")
+        kernels = (("attention_bwd_dq_kernel", (0,)),
+                   ("attention_bwd_dkv_kernel", (1,)))
+        name = "cc_attention_bwd_long_occupancy"
+    else:
+        lib = _build.load("attention")
+        kernels = (("attention_fwd_long_kernel", ()),)
+        name = "cc_attention_fwd_long_occupancy"
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * (len(kernels[0][1]) + 2) + [ctypes.c_void_p]
+    out = {}
+    for kernel, which in kernels:
+        vals = (ctypes.c_int * 3)()
+        _build.check(lib, fn(*which, head_dim, code, ctypes.addressof(vals)),
+                     f"occupancy of {kernel}")
+        out[kernel] = dict(registers=vals[0], smem_bytes=vals[1],
+                           ctas_per_sm=vals[2])
+    return out
+
+
 def _count(fn, variant: str) -> None:
     fn.launches += 1
     fn.variant_launches[variant] += 1
@@ -204,8 +244,10 @@ def _forward(qkv: torch.Tensor, heads: int,
     mask_ptr = attn_mask.data_ptr() if attn_mask is not None else None
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if variant == TENSOR_CORE:
-            err = _entry(lib, "cc_attention_fwd_mma", 3, 4, True)(
+        if variant != CUDA_CORE:
+            name = ("cc_attention_fwd_mma" if variant == TENSOR_CORE
+                    else "cc_attention_fwd_long")
+            err = _entry(lib, name, 3, 4, True)(
                 qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, heads, hd,
                 _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
         else:
@@ -239,9 +281,9 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         raise ValueError("dout must start at a 16-byte aligned address")
     if mask_grad and attn_mask is None:
         raise ValueError("mask_grad needs an attn_mask")
-    if mask_grad and variant == TENSOR_CORE_TILED:
-        raise ValueError(f"the key-tiled backward (L > "
-                         f"{TENSOR_CORE_BWD_MAX_L}) has no mask gradient")
+    if mask_grad and variant == TENSOR_CORE_LONG:
+        raise ValueError(f"the long backward (L > {TENSOR_CORE_MAX_L}) has "
+                         f"no mask gradient")
     dqkv = torch.empty_like(qkv)
     dmask = (torch.zeros((L, L), dtype=torch.float32, device=qkv.device)
              if mask_grad else None)
@@ -258,10 +300,14 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
             err = _entry(lib, "cc_attention_bwd_mma", 5, 4, True)(
                 *ptrs, B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
                 float(hd ** -0.5), stream)
-        elif variant == TENSOR_CORE_TILED:
-            err = _entry(lib, "cc_attention_bwd_tiled", 4, 4, True)(
-                *ptrs[:4], B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
-                float(hd ** -0.5), stream)
+        elif variant == TENSOR_CORE_LONG:
+            # m, l and delta of every query row, from the first launch to
+            # the second
+            stats = torch.empty((3, B * heads, _stats_len(lib, L)),
+                                dtype=torch.float32, device=qkv.device)
+            err = _entry(lib, "cc_attention_bwd_long", 5, 4, True)(
+                *ptrs[:4], stats.data_ptr(), B, L, heads, hd,
+                _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
         else:
             err = _entry(lib, "cc_attention_bwd_simt", 5, 4, False)(
                 *ptrs, B, L, heads, hd, float(hd ** -0.5), stream)
@@ -309,8 +355,7 @@ def reset_counts() -> None:
     """Zero both wrappers' launch counts, the totals and by variant."""
     for fn in (fused_attention, attention_backward):
         fn.launches = 0
-        fn.variant_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
-    attention_backward.variant_launches[TENSOR_CORE_TILED] = 0
+        fn.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 reset_counts()

@@ -28,9 +28,11 @@ from .models.clip4clip import CLIP4Clip
 from .serve import RetrievalEngine
 
 GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
+                                 "attention_fwd_long_kernel",
                                  "attention_fwd_kernel")),
           ("attention bwd kernel", ("attention_bwd_mma_kernel",
-                                    "attention_bwd_tiled_kernel",
+                                    "attention_bwd_dq_kernel",
+                                    "attention_bwd_dkv_kernel",
                                     "attention_bwd_kernel")),
           ("layernorm kernel", ("_ln_fwd",)),
           ("layernorm bwd kernel", ("_ln_bwd",)),

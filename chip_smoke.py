@@ -78,11 +78,14 @@
    batch of 128 with `remat` (without it the step does not fit in 80 GB),
    the peak memory printed, and one checkpoint-and-resume step that must
    equal the uninterrupted one.  Counts are zeroed before the encode and
-   before the steps and read after each: the vision blocks' backward must
-   run kernel B's key-tiled variant (12 launches a step, and the text
-   tower's 12 the L <= 128 variant), k-medoids only its global variant
+   before the steps and read after each: the vision blocks must run
+   attention's long variants only (L > 128: the encode's 12 forward
+   launches a batch; a training step's 24 forward launches, `remat` running
+   each block's forward twice, and 12 backward launches, the text tower's
+   the L <= 128 variants), k-medoids only its global variant
    (N > SHARED_MAX_N).  Then B and A at qkv [1536, 197, 2304] and
-   [768, 161, 2304], C and D at LayerNorm rows [302592, 768] and
+   [768, 161, 2304] (with their kernels' registers, shared memory per CTA
+   and resident CTAs per SM), C and D at LayerNorm rows [302592, 768] and
    [123648, 768], and E on the tokens the first step and the encode
    clustered ([768, 392, 392] and [192, 392, 392], K = 160), each against
    its plain version as in the kernel phase.  (The kernel phase also holds
@@ -90,8 +93,8 @@
    presets cluster them.)
 
 Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}` and a
-`{"kernels": [...]}` JSON line (the key-tiled backward and the global
-k-medoids variant as rows of their own) and, last, one JSON line {"ok":
+`{"kernels": [...]}` JSON line (attention's long forward and backward and
+the global k-medoids variant as rows of their own) and, last, one JSON line {"ok":
 true, "device": {...}}.  Any failed check exits non-zero before it.
 Without a CUDA device it exits non-zero at once.
 """
@@ -260,15 +263,17 @@ def zero_counts(counters):
 
 def attention_variant_counts(path, backward):
     """The attention wrappers' launches by variant since the counts were
-    zeroed; fails unless the tensor-core variants ran (the backward only on
-    the training path) and the CUDA-core (fp32) variants did not."""
+    zeroed on a ViT-B/32 path (L <= 128); fails unless the tensor-core
+    variants ran (the backward only on the training path) and neither the
+    CUDA-core (fp32) nor the long (L > 128) variants did."""
     from centerclip_tpu_torch.ops import attention_cuda as ac
     counts = {fn.__name__: dict(fn.variant_launches)
               for fn in (ac.fused_attention, ac.attention_backward)}
     print(f"attention launches by variant during the {path} path: {counts}")
     for name, by in counts.items():
-        if by[ac.CUDA_CORE]:
-            fail(f"{name} launched its CUDA-core variant on the {path} path")
+        if by[ac.CUDA_CORE] or by[ac.TENSOR_CORE_LONG]:
+            fail(f"{name} launched its CUDA-core or long variant on the "
+                 f"{path} path: {by}")
         if (backward or name == "fused_attention") and not by[ac.TENSOR_CORE]:
             fail(f"{name} never launched its tensor-core variant on the "
                  f"{path} path")
@@ -633,11 +638,16 @@ def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
     f_b_ms, f_b_by = bound(qkv.numel() * 2 + B * L * D * 2
                            + (L * L * 4 if mask is not None else 0),
                            4.0 * B * H * L * L * 64, bf16_peak, mem_rate)
-    fwd_row = dict(shape=list(qkv.shape), max_abs_err=fwd_err.max().item(),
+    fwd_variant = attention_cuda.choose_variant(qkv.dtype, 64, L)
+    fwd_row = dict(shape=list(qkv.shape), variant=fwd_variant,
+                   max_abs_err=fwd_err.max().item(),
                    ms=f_ms, plain_ms=f_plain_ms, library_ms=f_lib_ms,
                    bound_ms=f_b_ms, bound_by=f_b_by)
+    if fwd_variant == attention_cuda.TENSOR_CORE_LONG:
+        fwd_row["occupancy"] = attention_cuda.long_occupancy(qkv.dtype, 64)
     print(f"attention [{label}, training] qkv {tuple(qkv.shape)} bf16 "
-          f"H={H}: max_abs_err {fwd_err.max().item():.3e} (tol "
+          f"H={H}, {fwd_variant} variant{occupancy_note(fwd_row)}: "
+          f"max_abs_err {fwd_err.max().item():.3e} (tol "
           f"{BF16_ATOL} + {BF16_RTOL}*|ref|) ms {f_ms:.4f} plain "
           f"{f_plain_ms:.4f} sdpa {f_lib_ms:.4f} bound {f_b_ms:.4f} "
           f"({f_b_by})")
@@ -666,8 +676,11 @@ def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
                        5 * 2.0 * B * H * L * L * 64, bf16_peak, mem_rate)
     variant = attention_cuda.choose_variant(qkv.dtype, 64, L,
                                             backward=True)
+    occupancy = (attention_cuda.long_occupancy(qkv.dtype, 64, backward=True)
+                 if variant == attention_cuda.TENSOR_CORE_LONG else None)
     print(f"attention bwd [{label}] qkv {tuple(qkv.shape)} bf16 H={H}, "
-          f"{variant} variant: max_abs_err {err.max().item():.3e} (tol "
+          f"{variant} variant{occupancy_note(dict(occupancy=occupancy))}: "
+          f"max_abs_err {err.max().item():.3e} (tol "
           f"{BF16_ATOL} + {BF16_RTOL}*|ref|), values differing from the "
           f"plain version {differing:.4%}, Function passes the kernel's "
           f"gradient through: {passes}; ms {ms:.4f} plain {plain_ms:.4f} "
@@ -678,10 +691,25 @@ def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
     if not passes:
         fail(f"attention bwd [{label}]: the autograd Function's gradient "
              f"is not the kernel's")
-    return dict(shape=list(qkv.shape), variant=variant,
-                max_abs_err=err.max().item(), share_differing=differing, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, vs_library=ms / lib_ms,
-                bound_ms=b_ms, bound_by=b_by), fwd_row
+    row = dict(shape=list(qkv.shape), variant=variant,
+               max_abs_err=err.max().item(), share_differing=differing, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, vs_library=ms / lib_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    if occupancy is not None:
+        row["occupancy"] = occupancy
+    return row, fwd_row
+
+
+def occupancy_note(row):
+    """' (kernel: registers, shared memory per CTA, CTAs per SM; ...)' for
+    a row of a long-variant kernel, else ''."""
+    occ = row.get("occupancy")
+    if not occ:
+        return ""
+    return " (" + "; ".join(
+        f"{k}: {v['registers']} registers, {v['smem_bytes']} B shared "
+        f"memory per CTA, {v['ctas_per_sm']} CTAs per SM"
+        for k, v in occ.items()) + ")"
 
 
 def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D):
@@ -892,9 +920,13 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     if any(len(row) != 5 or not all(np.isfinite([h["score"] for h in row]))
            for row in hits):
         fail(f"bad ViT-B/16 hits {hits}")
-    km = enc_variants["kmedoids"]
-    if not km[kc.GLOBAL] or km[kc.SHARED] or \
-            enc_variants["fused_attention"][ac.CUDA_CORE] or \
+    # the vision blocks' attention (L = 197, 161) through the long forward
+    # only: 12 launches per batch of clips; the queries' text tower (L = 32)
+    # through the tensor-core one
+    km, fwd = enc_variants["kmedoids"], enc_variants["fused_attention"]
+    n_batches = -(-N_CLIPS // BATCH)
+    if not km[kc.GLOBAL] or km[kc.SHARED] or fwd[ac.CUDA_CORE] or \
+            fwd[ac.TENSOR_CORE_LONG] != 12 * n_batches or \
             not enc_launches["layer_norm"]:
         fail(f"the ViT-B/16 encode ran other kernel variants: {enc_variants}")
     del engine, index, gallery, model
@@ -940,16 +972,21 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
           f"clips/s; peak memory allocated {peak / 2**30:.3f} GiB")
     print(f"vitb16 launches during the training steps: {launches}, by "
           f"variant {train_variants}")
-    # per step: 12 vision blocks at L = 197 / 161 (key-tiled backward), 12
-    # text blocks at L = 32 (the L <= 128 backward), one k-medoids launch
+    # per step: 12 vision blocks at L = 197 / 161 (the long variants), 12
+    # text blocks at L = 32 (the L <= 128 ones), each block's forward twice
+    # under remat; one k-medoids launch
     bwd, kmv = train_variants["attention_backward"], train_variants["kmedoids"]
-    want = {ac.TENSOR_CORE_TILED: 12 * steps, ac.TENSOR_CORE: 12 * steps,
-            ac.CUDA_CORE: 0}
-    if bwd != want or kmv != {kc.GLOBAL: steps, kc.SHARED: 0} or \
-            train_variants["fused_attention"][ac.CUDA_CORE]:
+    fwd = train_variants["fused_attention"]
+    per_fwd = 2 if cfg.remat else 1
+    want_bwd = {ac.TENSOR_CORE_LONG: 12 * steps, ac.TENSOR_CORE: 12 * steps,
+                ac.CUDA_CORE: 0}
+    want_fwd = {ac.TENSOR_CORE_LONG: 12 * per_fwd * steps,
+                ac.TENSOR_CORE: 12 * per_fwd * steps, ac.CUDA_CORE: 0}
+    if bwd != want_bwd or fwd != want_fwd or \
+            kmv != {kc.GLOBAL: steps, kc.SHARED: 0}:
         fail(f"the ViT-B/16 training steps ran other kernel variants than "
-             f"the key-tiled backward ({want}) and the global k-medoids: "
-             f"{train_variants}")
+             f"the long attention variants (forward {want_fwd}, backward "
+             f"{want_bwd}) and the global k-medoids: {train_variants}")
     for fn_name, n in launches.items():
         if n == 0:
             fail(f"{fn_name} was never launched on the ViT-B/16 path")
@@ -980,8 +1017,10 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
                  ("ViT-B/16 vision blocks 7-12", B * FRAMES // 2, 161, 12,
                   None)):
         row, fwd_row = hold_attention_bwd(torch, dev, flush, peaks, *case)
-        if row["variant"] != ac.TENSOR_CORE_TILED:
-            fail(f"attention bwd at {row['shape']} took {row['variant']}")
+        if row["variant"] != ac.TENSOR_CORE_LONG or \
+                fwd_row["variant"] != ac.TENSOR_CORE_LONG:
+            fail(f"attention at {row['shape']} took {fwd_row['variant']} / "
+                 f"{row['variant']}")
         bwd_rows.append(row)
         fwd_rows.append(fwd_row)
     ln_rows, lnf_rows = [], []
@@ -1655,11 +1694,13 @@ def main() -> int:
         extend_forward_row(kernel, b16[kernel], key="vitb16_shapes")
     for row in results:
         row.update(path_launches(row.pop("counter")))
-    # the two variants this slice added, as rows of their own: their first
+    # the variants for ViT-B/16's shapes, as rows of their own: their first
     # shapes' numbers, and their launches on the ViT-B/16 path
     for row_name, kernel, fn_name, variant in (
-            ("attention_bwd_key_tiled", "attention_bwd", "attention_backward",
-             attention_cuda.TENSOR_CORE_TILED),
+            ("attention_fwd_long", "attention_fwd", "fused_attention",
+             attention_cuda.TENSOR_CORE_LONG),
+            ("attention_bwd_long", "attention_bwd", "attention_backward",
+             attention_cuda.TENSOR_CORE_LONG),
             ("kmedoids_global", "kmedoids", "kmedoids",
              kmedoids_cuda.GLOBAL)):
         base = next(r for r in results if r["name"] == kernel)
@@ -1675,6 +1716,7 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=a["ms"],
             plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
             bound_by=a["bound_by"], library_ms=a.get("library_ms"),
+            **({"occupancy": a["occupancy"]} if "occupancy" in a else {}),
             shapes=rows))
 
     print(f"total {time.time() - t_start:.1f} s")

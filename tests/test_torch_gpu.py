@@ -276,15 +276,17 @@ def test_attention_bwd_kernel_matches_plain(cuda, B, L, H, hd, dtype, causal,
         assert dmask is None
 
 
-@pytest.mark.parametrize("L,dtype,causal", [
-    (129, torch.bfloat16, False),       # the first length past 128
-    (161, torch.bfloat16, False),       # ViT-B/16 blocks 7-12
-    (197, torch.bfloat16, False),       # ViT-B/16 blocks 1-6
-    (256, torch.bfloat16, False),       # the key-tiled variant's limit
-    (197, torch.float16, False),
+# the long variants (L > 128): 64-row tiles, the last one ragged
+LONG_CASES = [(L, dtype, False) for L in (129, 131, 161, 197, 256)
+              for dtype in (torch.bfloat16, torch.float16)] + [
     (161, torch.bfloat16, True),        # a mask, without its gradient
-])
+    (197, torch.float16, True)]
+
+
+@pytest.mark.parametrize("L,dtype,causal", LONG_CASES)
 def test_attention_bwd_key_tiled_matches_plain(cuda, L, dtype, causal):
+    """Kernel B's long variant: two calls equal to the bit, each within one
+    ulp of the plain version, counted under its variant."""
     B, H = 6, 12
     qkv = _randn((B, L, 3 * H * 64), dtype, cuda, seed=L)
     dout = _randn((B, L, H * 64), dtype, cuda, seed=L + 1)
@@ -294,11 +296,80 @@ def test_attention_bwd_key_tiled_matches_plain(cuda, L, dtype, causal):
     again, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
     torch.cuda.synchronize()
     after = _variant_counts(attention_cuda.attention_backward)
-    assert after[attention_cuda.TENSOR_CORE_TILED] \
-        == before[attention_cuda.TENSOR_CORE_TILED] + 2
+    assert after[attention_cuda.TENSOR_CORE_LONG] \
+        == before[attention_cuda.TENSOR_CORE_LONG] + 2
     assert torch.equal(dqkv, again)                     # deterministic
     ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H, mask)
     torch.testing.assert_close(dqkv.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("L,dtype,causal", LONG_CASES + [
+    (300, torch.bfloat16, False), (520, torch.float16, True)])
+def test_attention_long_forward_matches_plain(cuda, L, dtype, causal):
+    """Kernel A's long variant, past the backward's 256 too: two calls
+    equal to the bit, within one ulp of the plain version, counted under
+    its variant."""
+    B, H = 5, 12
+    qkv = _randn((B, L, 3 * H * 64), dtype, cuda, seed=L + 2)
+    mask = _causal(L, cuda) if causal else None
+    before = _variant_counts(attention_cuda.fused_attention)
+    out = attention_cuda.fused_attention(qkv, H, mask)
+    again = attention_cuda.fused_attention(qkv, H, mask)
+    torch.cuda.synchronize()
+    after = _variant_counts(attention_cuda.fused_attention)
+    assert after[attention_cuda.TENSOR_CORE_LONG] \
+        == before[attention_cuda.TENSOR_CORE_LONG] + 2
+    assert after[attention_cuda.TENSOR_CORE] == before[attention_cuda.TENSOR_CORE]
+    assert torch.equal(out, again)
+    torch.testing.assert_close(
+        out.float(), attention_cuda.attention_plain(qkv, H, mask).float(),
+        **BF16_TOL)
+
+
+# head_dim below, at and above one 64-channel register tile (the kernels
+# compiled for 64 and the generic ones)
+@pytest.mark.parametrize("hd", [16, 48, 128])
+def test_attention_long_head_dims(cuda, hd):
+    B, L, H = 3, 197, 2
+    qkv = _randn((B, L, 3 * H * hd), torch.bfloat16, cuda, seed=hd)
+    dout = _randn((B, L, H * hd), torch.bfloat16, cuda, seed=hd + 1)
+    out = attention_cuda.fused_attention(qkv, H)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H)
+    torch.testing.assert_close(
+        out.float(), attention_cuda.attention_plain(qkv, H).float(),
+        **BF16_TOL)
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H)
+    torch.testing.assert_close(dqkv.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("B,L", [(1536, 197), (768, 161)])
+def test_attention_long_vitb16_shapes(cuda, B, L):
+    """ViT-B/16's full-width shapes (12 heads of 64, the recipe's batch of
+    128 clips x 12 or 6 frames): both long kernels within one ulp, the
+    backward through the autograd Function to the bit."""
+    H = 12
+    qkv = _randn((B, L, 3 * H * 64), torch.bfloat16, cuda, seed=B + L)
+    dout = _randn((B, L, H * 64), torch.bfloat16, cuda, seed=B + L + 1)
+    x = qkv.clone().requires_grad_(True)
+    out = attention_cuda.fused_attention(x, H)
+    out.backward(dout)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H)
+    assert torch.equal(x.grad, dqkv)
+    torch.testing.assert_close(
+        out.detach().float(), attention_cuda.attention_plain(qkv, H).float(),
+        **BF16_TOL)
+    del out, x
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H)
+    torch.testing.assert_close(dqkv.float(), ref.float(), **BF16_TOL)
+
+
+def test_attention_long_occupancy(cuda):
+    """The long kernels' registers and shared memory leave room for the
+    CTAs per SM their launch bounds aim at (4 for A, 3 for B's two)."""
+    fwd = attention_cuda.long_occupancy(torch.bfloat16, 64)
+    bwd = attention_cuda.long_occupancy(torch.bfloat16, 64, backward=True)
+    assert fwd["attention_fwd_long_kernel"]["ctas_per_sm"] >= 4, fwd
+    assert all(v["ctas_per_sm"] >= 3 for v in bwd.values()), bwd
 
 
 def test_attention_function_backward_is_the_kernel(cuda):
