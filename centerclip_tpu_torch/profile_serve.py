@@ -4,14 +4,17 @@
     python -m centerclip_tpu_torch.profile_serve [--batch 32] [--queries 4]
 
 Builds the flagship CLIP4Clip (`config.flagship_config`, bf16, seeded random
-weights), warms up, then runs one gallery batch of `--batch` seeded uint8
-clips and one search of `--queries` texts under `torch.profiler`.  For each
-it prints the wall time (host clock, ending in a device sync), the device
-time summed over kernels and copies, the device's busy share of the wall
-time, and the device time by group (the port's kernels, cuBLAS matmuls,
-copies, the rest) and by kernel name.  Exits non-zero without a CUDA
-device, or if the profiler records no device time.  `profile` is shared
-with `profile_train.py`.
+weights), warms up (`RetrievalEngine.warmup`), then runs one gallery batch
+of `--batch` seeded uint8 clips twice, from pageable numpy arrays and from
+pinned tensors (as the data registry's loaders hand them to
+`serve/cli.py build`), and one search of `--queries` texts, each under
+`torch.profiler`.  For each it prints the wall time (host clock, ending in
+a device sync), the device time summed over kernels and copies, the
+device's busy share of the wall time, and the device time by group (the
+port's kernels, cuBLAS matmuls, copies, the rest) and by kernel name; last
+the copies' share of the encode's device time, pageable and pinned.  Exits
+non-zero without a CUDA device, or if the profiler records no device time.
+`profile` is shared with `profile_train.py`.
 """
 from __future__ import annotations
 
@@ -54,7 +57,9 @@ def _group(name: str) -> str:
     return "other"
 
 
-def profile(label: str, fn, top: int) -> None:
+def profile(label: str, fn, top: int) -> dict:
+    """Run `fn` once under torch.profiler and print its breakdown; returns
+    {"wall_ms", "device_ms", "by_group_ms"}."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -79,6 +84,8 @@ def profile(label: str, fn, top: int) -> None:
         print(f"  {group:18s} {us / 1e3:9.3f} ms {100 * us / device_us:5.1f}%")
     for name, us in by_name.most_common(top):
         print(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+    return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+            "by_group_ms": {k: v / 1e3 for k, v in by_group.items()}}
 
 
 def main(argv=None) -> int:
@@ -99,15 +106,24 @@ def main(argv=None) -> int:
                                           224, 224), dtype=np.uint8),
              "video_mask": np.ones((args.batch, cfg.max_frames), np.int32)}
     texts = (QUERIES * args.queries)[: args.queries]
-    engine.build_index([batch], [f"v{i}" for i in range(args.batch)],
+    pinned = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+    engine.build_index([pinned], [f"v{i}" for i in range(args.batch)],
                        quantize="int8")
+    engine.warmup(k=5, max_queries=args.queries)
     for _ in range(2):                                      # warm-up
         engine.embed_video_batches([batch])
+        engine.embed_video_batches([pinned])
         engine.search(texts, k=5)
-    profile(f"gallery batch of {args.batch} clips",
-            lambda: engine.embed_video_batches([batch]), args.top)
+    share = {}
+    for kind, b in (("pageable", batch), ("pinned", pinned)):
+        r = profile(f"gallery batch of {args.batch} clips ({kind})",
+                    lambda: engine.embed_video_batches([b]), args.top)
+        share[kind] = r["by_group_ms"].get("copies", 0.0) / r["device_ms"]
     profile(f"search of {len(texts)} queries",
             lambda: engine.search(texts, k=5), args.top)
+    print(f"copies' share of the encode's device time: pageable "
+          f"{100 * share['pageable']:.1f}%, pinned "
+          f"{100 * share['pinned']:.1f}%")
     return 0
 
 

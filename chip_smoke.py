@@ -92,14 +92,45 @@
    E at N = 147, K = 49: the first training step's tokens as the 12 -> 4
    presets cluster them.)
 
-Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}` and a
-`{"kernels": [...]}` JSON line (attention's long forward and backward and
+8. Serve phase, the fifth main path (run between the main and the ViT-B/16
+   phases, on the main phase's fixture and run-1 checkpoint):
+   `python -m centerclip_tpu_torch.serve.cli`'s `main(argv)` with
+   experiment 62's flags, `--init_model <ckpt.pth.tar>` and the .fstore.
+   `build --quantize float32` through the registry's pinned test loader
+   (every gallery batch must arrive pinned), then `query` of the 48
+   evaluation captions from a `--queries_file` (top 48), each score held to
+   the Evaluator's similarity matrix within SERVE_SCORE_ATOL and no pair
+   ranked against it by more than that (the check must see pairs more
+   than the tolerance apart, and must fail each ranking held to the next
+   query's row); `build --quantize int8`, `serve --port 0` on a thread
+   (warm-up of the 8 query buckets up to the 128 queries a request may
+   hold), `GET /healthz` and `POST /search` of the 4 queries, which must
+   equal `engine.search` on the same index (first request after warm-up
+   and the steady latency printed); `build --index_type ivf --n_clusters 8
+   --nprobe 8`, whose ids must equal flat's outside ties.  Counts are
+   zeroed before the first build and read after the IVF build: A, C and E
+   must have launched, A only its tensor-core variant; the first input of
+   each shape they took in between is recorded at the model's call sites
+   and each kernel is held against its plain version on it.  The first
+   and the steady search at 5 and 33 queries, sizes no call ran before,
+   are printed, unpadded and padded to the warmed buckets.  Then IVF at deployment size: 1M x 512
+   int8 rows drawn on the card (benchmarks/ivf_bench.py's clusterable
+   recipe), 1024 cells, 5 Lloyd steps: build time, recall@10 against flat
+   at nprobe 8 / 32 / 64, ids equal to flat's at nprobe 1024, device time
+   per search (CUDA events) of flat and IVF at batches of 1 and 32, and a
+   live `add` of 100 rows (no re-group; each its own top 1).  Last the
+   encode rate of the 48 clips from pinned and from pageable memory (the
+   same embeddings to the bit).
+
+Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
+`{"serve": ...}` and a `{"kernels": [...]}` JSON line (attention's long forward and backward and
 the global k-medoids variant as rows of their own) and, last, one JSON line {"ok":
 true, "device": {...}}.  Any failed check exits non-zero before it.
 Without a CUDA device it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -167,6 +198,25 @@ VITB16_REMAT = True
 VITB16_REMAT_WHY = ("without it the step at batch 128 does not fit in the "
                     "card's 80 GB: python -m centerclip_tpu_torch.profile_train "
                     "--preset msrvtt_vitb16_k6 --remat 0")
+# the serve phase: serve/cli.py on the main phase's fixture and checkpoint.
+# Scores are logits (cosine x exp(logit_scale), ~14.3 here).  Against the
+# Evaluator's fp32 similarity the engine rounds both score operands to bf16
+# (at most 2^-8 in cosine for unit vectors) and runs the towers at other
+# batch shapes (48 clips padded to 64, the texts in other batches), where
+# cuBLAS may round a bf16 activation otherwise (~3e-3 in cosine):
+# 14.3 x 7e-3
+SERVE_SCORE_ATOL = 0.1
+# IVF at full probe against flat: the same codes and exact bf16 products,
+# fp32 sums in another order: within 1e-5 of the largest score
+IVF_SCORE_RTOL = 1e-5
+# the IVF cell at deployment size (benchmarks/ivf_bench.py:51-53, 66-85:
+# 1M x 512 int8, 1024 cells, 5 Lloyd steps, 32 clusterable queries)
+IVF_N, IVF_D, IVF_CELLS, IVF_ITERS = 1_000_000, 512, 1024, 5
+IVF_QUERIES = 32
+IVF_NPROBES, IVF_K, IVF_ADD = (8, 32, 64), 10, 100
+HTTP_REPEATS, ENCODE_REPEATS = 20, 3
+# query batch sizes the serve phase runs last, first unpadded, then padded
+UNWARMED_QUERIES = (5, 33)
 SLEEP_CYCLES = 4_000_000          # ~2 ms at the H100's ~1.98 GHz boost clock
 QUERIES = ["a man is cooking pasta in a kitchen",
            "two dogs are playing in the snow",
@@ -1100,81 +1150,134 @@ def copy_ms(torch, host, dev):
     return start.elapsed_time(end) / 3
 
 
-def main_phase(torch, np, dev, counters):
+def kernel_call_sites():
+    """The model's call sites of kernels A, C and E: (module, attribute,
+    kernel row, the key under which the first input of a shape is kept)."""
+    from centerclip_tpu_torch.models import layers
+    from centerclip_tpu_torch.ops import cluster_layer
+    return ((layers, "fused_attention", "attention_fwd",
+             lambda qkv, heads, mask=None: (tuple(qkv.shape), mask is None)),
+            (layers, "layer_norm", "layernorm_fwd",
+             lambda x, *_: (tuple(x.shape), x.dtype)),
+            (cluster_layer, "kmedoids", "kmedoids",
+             lambda x, *_: tuple(x.shape)))
+
+
+@contextlib.contextmanager
+def recording_kernel_inputs(torch, seen, active=lambda: True):
+    """Within the block, keep in `seen` a copy of the first input of each
+    shape that kernels A, C and E take at the model's call sites, while
+    `active()` holds.  The copies are made on first sight only."""
+    sites = kernel_call_sites()
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in sites]
+
+    def recording(fn, kernel, key_of):
+        def record(*args, **kw):
+            key = (kernel, key_of(*args))
+            if active() and key not in seen:
+                seen[key] = ([a.detach().clone() if torch.is_tensor(a)
+                              else a for a in args], kw)
+            return fn(*args, **kw)
+        return record
+    for mod, attr, kernel, key_of in sites:
+        setattr(mod, attr, recording(getattr(mod, attr), kernel, key_of))
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+
+
+def hold_recorded(torch, seen, label, what):
+    """Kernels A, C and E against their plain versions on the inputs
+    `recording_kernel_inputs` kept, with the kernel phase's tolerances;
+    rows by kernel.  Fails if a kernel got no input in `what`."""
+    from centerclip_tpu_torch.ops import attention_cuda, layernorm_triton
+    held = {"attention_fwd": [], "layernorm_fwd": [], "kmedoids": []}
+    for (kernel, key), (args, kw) in seen.items():
+        case = f"{label} {tuple(args[0].shape)}"
+        if kernel == "attention_fwd":
+            qkv, H, mask = (list(args) + [None])[:3]
+            err = hold_close(torch, f"attention [{case}]",
+                             attention_cuda.fused_attention(qkv, H, mask),
+                             attention_cuda.attention_plain(qkv, H, mask),
+                             BF16_ATOL, BF16_RTOL)
+            row = dict(shape=list(qkv.shape), max_abs_err=err)
+        elif kernel == "layernorm_fwd":
+            x = args[0]
+            atol, rtol = ((BF16_ATOL, BF16_RTOL)
+                          if x.dtype == torch.bfloat16
+                          else (FP32_ATOL, FP32_RTOL))
+            err = hold_close(torch, f"layernorm [{case}]",
+                             layernorm_triton.layer_norm(*args),
+                             layernorm_triton.layer_norm_plain(*args),
+                             atol, rtol)
+            row = dict(shape=list(x.shape), dtype=str(x.dtype)
+                       .split(".")[-1], max_abs_err=err)
+        else:
+            row, _ = hold_kmedoids(torch, case, *args, **kw)
+        if kernel != "kmedoids":
+            print(f"{kernel} [{case}]: max_abs_err "
+                  f"{row['max_abs_err']:.3e}")
+        held[kernel].append(row)
+    for kernel, rows in held.items():
+        if not rows:
+            fail(f"{what} gave {kernel} no input")
+    return held
+
+
+def main_phase(torch, np, dev, counters, root):
     """The third main path: `centerclip_tpu_torch.main.main` on the
-    synthetic MSR-VTT (run 1: train + evaluate; run 2: eval-only reload),
-    and the host-side check of the two loaders."""
-    import tempfile
+    synthetic MSR-VTT written into `root` (run 1: train + evaluate; run 2:
+    eval-only reload), and the host-side check of the two loaders.  The
+    fixture, run 1's checkpoint and its evaluation's similarity matrix stay
+    for the serve phase (`handoff`)."""
     from centerclip_tpu_torch import cli
     from centerclip_tpu_torch.data.registry import DATALOADER_DICT
     from centerclip_tpu_torch.main import main as run_main
-    from centerclip_tpu_torch.models import layers
     from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
-    from centerclip_tpu_torch.ops import (_build, attention_cuda,
-                                          cluster_layer, layernorm_triton)
     from centerclip_tpu_torch.train import evaluate, loop
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
-        t0 = time.time()
-        store = write_msrvtt_fixture(np, root)
-        t_fixture = time.time() - t0
-        paths = ["--train_csv", os.path.join(root, "train.csv"),
-                 "--val_csv", os.path.join(root, "test.csv"),
-                 "--data_path", os.path.join(root, "MSRVTT_data.json"),
-                 "--pretrained_dir", os.path.join(root, "pretrained")]
-        argv = EXP62_FLAGS + paths + [
-            "--features_path", store, "--output_dir",
-            os.path.join(root, "out"), "--epochs", "1", "--n_display", "1"]
+    t0 = time.time()
+    store = write_msrvtt_fixture(np, root)
+    t_fixture = time.time() - t0
+    paths = ["--train_csv", os.path.join(root, "train.csv"),
+             "--val_csv", os.path.join(root, "test.csv"),
+             "--data_path", os.path.join(root, "MSRVTT_data.json"),
+             "--pretrained_dir", os.path.join(root, "pretrained")]
+    argv = EXP62_FLAGS + paths + [
+        "--features_path", store, "--output_dir",
+        os.path.join(root, "out"), "--epochs", "1", "--n_display", "1"]
 
-        # what the run hands the model and the evaluator, recorded
-        evals, pinned = [], []
-        evaluate_fn, to_device = evaluate.Evaluator.evaluate, \
-            loop.batch_to_device
+    # what the run hands the model and the evaluator, recorded
+    evals, pinned = [], []
+    evaluate_fn, to_device = evaluate.Evaluator.evaluate, \
+        loop.batch_to_device
 
-        def recording_evaluate(self, *a, **k):
-            t = time.time()
-            in_eval[0] = True
-            try:
-                res = evaluate_fn(self, *a, **k)
-            finally:
-                in_eval[0] = False
-            evals.append((res, time.time() - t))
-            return res
-
-        def recording_to_device(batch, device):
-            pinned.append(all(torch.as_tensor(v).is_pinned()
-                              for v in batch.values()))
-            return to_device(batch, device)
-
-        # the first input of each shape that kernels A, C and E take in an
-        # evaluation (the model's call sites; the ragged batch's shapes are
-        # not the kernel phase's), held against the plain versions after the
-        # runs.  The training steps' shapes are the training phase's, held
-        # there; recording them too would add the copies to the peak memory.
-        seen, in_eval = {}, [False]
-        kernel_calls = ((layers, "fused_attention", "attention_fwd",
-                         lambda qkv, heads, mask=None: (tuple(qkv.shape),
-                                                        mask is None)),
-                        (layers, "layer_norm", "layernorm_fwd",
-                         lambda x, *_: (tuple(x.shape), x.dtype)),
-                        (cluster_layer, "kmedoids", "kmedoids",
-                         lambda x, *_: tuple(x.shape)))
-
-        def recording(fn, kernel, key_of):
-            def record(*args, **kw):
-                key = (kernel, key_of(*args))
-                if in_eval[0] and key not in seen:
-                    seen[key] = ([a.detach().clone() if torch.is_tensor(a)
-                                  else a for a in args], kw)
-                return fn(*args, **kw)
-            return record
-        originals = [(mod, attr, getattr(mod, attr))
-                     for mod, attr, _, _ in kernel_calls]
-        for mod, attr, kernel, key_of in kernel_calls:
-            setattr(mod, attr, recording(getattr(mod, attr), kernel, key_of))
-        evaluate.Evaluator.evaluate = recording_evaluate
-        loop.batch_to_device = recording_to_device
+    def recording_evaluate(self, *a, **k):
+        t = time.time()
+        in_eval[0] = True
         try:
+            res = evaluate_fn(self, *a, **k)
+        finally:
+            in_eval[0] = False
+        evals.append((res, time.time() - t))
+        return res
+
+    def recording_to_device(batch, device):
+        pinned.append(all(torch.as_tensor(v).is_pinned()
+                          for v in batch.values()))
+        return to_device(batch, device)
+
+    # the first input of each shape that kernels A, C and E take in an
+    # evaluation (the model's call sites; the ragged batch's shapes are
+    # not the kernel phase's), held against the plain versions after the
+    # runs.  The training steps' shapes are the training phase's, held
+    # there; recording them too would add the copies to the peak memory.
+    seen, in_eval = {}, [False]
+    evaluate.Evaluator.evaluate = recording_evaluate
+    loop.batch_to_device = recording_to_device
+    try:
+        with recording_kernel_inputs(torch, seen, lambda: in_eval[0]):
             zero_counts(counters)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1190,79 +1293,49 @@ def main_phase(torch, np, dev, counters):
                 "--do_train", "0", "--output_dir", os.path.join(root, "eval"),
                 "--init_model", os.path.join(root, "out", "ckpt.pth.tar")])
             t_run2 = time.time() - t0
-        finally:
-            evaluate.Evaluator.evaluate = evaluate_fn
-            loop.batch_to_device = to_device
-            for mod, attr, fn in originals:
-                setattr(mod, attr, fn)
-        with open(os.path.join(root, "out", "tensorboard",
-                               "scalars.jsonl")) as f:
-            scalars = [json.loads(line) for line in f]
-        out_files = sorted(os.listdir(os.path.join(root, "out")))
+    finally:
+        evaluate.Evaluator.evaluate = evaluate_fn
+        loop.batch_to_device = to_device
+    with open(os.path.join(root, "out", "tensorboard",
+                           "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    out_files = sorted(os.listdir(os.path.join(root, "out")))
 
-        # kernels A, C and E against their plain versions on the inputs the
-        # evaluation gave them (these launches come after the counts were
-        # read)
-        held = {"attention_fwd": [], "layernorm_fwd": [], "kmedoids": []}
-        for (kernel, key), (args, kw) in seen.items():
-            label = f"main evaluation {tuple(args[0].shape)}"
-            if kernel == "attention_fwd":
-                qkv, H, mask = (list(args) + [None])[:3]
-                err = hold_close(torch, f"attention [{label}]",
-                                 attention_cuda.fused_attention(qkv, H, mask),
-                                 attention_cuda.attention_plain(qkv, H, mask),
-                                 BF16_ATOL, BF16_RTOL)
-                row = dict(shape=list(qkv.shape), max_abs_err=err)
-            elif kernel == "layernorm_fwd":
-                x = args[0]
-                atol, rtol = ((BF16_ATOL, BF16_RTOL)
-                              if x.dtype == torch.bfloat16
-                              else (FP32_ATOL, FP32_RTOL))
-                err = hold_close(torch, f"layernorm [{label}]",
-                                 layernorm_triton.layer_norm(*args),
-                                 layernorm_triton.layer_norm_plain(*args),
-                                 atol, rtol)
-                row = dict(shape=list(x.shape), dtype=str(x.dtype)
-                           .split(".")[-1], max_abs_err=err)
-            else:
-                row, _ = hold_kmedoids(torch, label, *args, **kw)
-            if kernel != "kmedoids":
-                print(f"{kernel} [{label}]: max_abs_err "
-                      f"{row['max_abs_err']:.3e}")
-            held[kernel].append(row)
-        del seen
-        for kernel, rows in held.items():
-            if not rows:
-                fail(f"the main run's evaluation gave {kernel} no input")
+    # kernels A, C and E against their plain versions on the inputs the
+    # evaluation gave them (these launches come after the counts were
+    # read)
+    held = hold_recorded(torch, seen, "main evaluation", "the main run's "
+                         "evaluation")
+    del seen
 
-        # host side: the first eval batch of the .npy and the .fstore loader
-        tok = SimpleTokenizer()
-        first, t_first = {}, {}
-        for kind, extra in (("npy", ["--features_path",
-                                     os.path.join(root, "videos"),
-                                     "--video_suffix", ".npy"]),
-                            ("fstore", ["--features_path", store])):
-            cfg = cli.parse_args(EXP62_FLAGS + paths + extra + [
-                "--output_dir", os.path.join(root, "unused")])
-            t0 = time.time()
-            loader, _ = DATALOADER_DICT["msrvtt"]["val"](cfg, tok,
-                                                         device=dev)
-            first[kind] = next(iter(loader))
-            t_first[kind] = time.time() - t0
-        same_first = sorted(first["npy"]) == sorted(first["fstore"]) and all(
-            torch.equal(torch.as_tensor(first["npy"][k]),
-                        torch.as_tensor(first["fstore"][k]))
-            for k in first["npy"])
-        video = torch.as_tensor(first["fstore"]["video"])
-        train_video = torch.empty((MAIN_BATCH, *video.shape[1:]),
-                                  dtype=video.dtype, pin_memory=True)
-        pageable = torch.empty(train_video.shape, dtype=video.dtype)
-        video_shape = video.shape[2:]
-        if not train_video.is_pinned() or pageable.is_pinned():
-            fail("the copy buffers are not pinned and pageable")
-        h2d_pinned = copy_ms(torch, train_video, dev)
-        h2d_pageable = copy_ms(torch, pageable, dev)
-        del first, video, train_video, pageable
+    # host side: the first eval batch of the .npy and the .fstore loader
+    tok = SimpleTokenizer()
+    first, t_first = {}, {}
+    for kind, extra in (("npy", ["--features_path",
+                                 os.path.join(root, "videos"),
+                                 "--video_suffix", ".npy"]),
+                        ("fstore", ["--features_path", store])):
+        cfg = cli.parse_args(EXP62_FLAGS + paths + extra + [
+            "--output_dir", os.path.join(root, "unused")])
+        t0 = time.time()
+        loader, _ = DATALOADER_DICT["msrvtt"]["val"](cfg, tok,
+                                                     device=dev)
+        first[kind] = next(iter(loader))
+        t_first[kind] = time.time() - t0
+    same_first = sorted(first["npy"]) == sorted(first["fstore"]) and all(
+        torch.equal(torch.as_tensor(first["npy"][k]),
+                    torch.as_tensor(first["fstore"][k]))
+        for k in first["npy"])
+    video = torch.as_tensor(first["fstore"]["video"])
+    train_video = torch.empty((MAIN_BATCH, *video.shape[1:]),
+                              dtype=video.dtype, pin_memory=True)
+    pageable = torch.empty(train_video.shape, dtype=video.dtype)
+    video_shape = video.shape[2:]
+    if not train_video.is_pinned() or pageable.is_pinned():
+        fail("the copy buffers are not pinned and pageable")
+    h2d_pinned = copy_ms(torch, train_video, dev)
+    h2d_pageable = copy_ms(torch, pageable, dev)
+    del first, video, train_video, pageable
 
     res1, t_eval = evals[0]
     steps = [r["train/batch_time"] for r in scalars]
@@ -1316,6 +1389,390 @@ def main_phase(torch, np, dev, counters):
         npy_equals_fstore=same_first, h2d_ms_pinned=h2d_pinned,
         h2d_ms_pageable=h2d_pageable,
         h2d_pinned_share_of_step=h2d_pinned / (med * 1e3),
+        launches=launches, variants=variants, held=held), dict(
+        paths=paths, store=store, sim=res1["sim_matrix"],
+        ckpt=os.path.join(root, "out", "ckpt.pth.tar"))
+
+
+def ids_agree(scores, ref_ids, ids, k, atol):
+    """The first k of [Q, k + 1] ranked ids equal the reference's wherever
+    the reference's neighbouring scores differ by more than atol (a tie's
+    order may fall either way).  Returns the number of positions that
+    differ outside ties."""
+    import numpy as np
+    tied = np.abs(np.diff(scores, axis=1)) <= atol              # [Q, k]
+    exempt = tied[:, :k] | np.concatenate(
+        [np.zeros((len(tied), 1), bool), tied[:, :k - 1]], axis=1)
+    return int(((ids[:, :k] != ref_ids[:, :k]) & ~exempt).sum())
+
+
+def http(method, url, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method=method)
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        out = resp.status, json.loads(resp.read())
+    return out + ((time.perf_counter() - t0) * 1e3,)
+
+
+def serve_phase(torch, np_, dev, counters, root, handoff, flush):
+    """The fifth main path: `python -m centerclip_tpu_torch.serve.cli`
+    build / query / serve on the main phase's synthetic MSR-VTT and its
+    run-1 checkpoint, IVF on the same 48 clips, then the IVF index at
+    deployment size and the encode from pinned and pageable memory."""
+    import contextlib
+    import csv
+    import io
+    import threading
+    import unittest.mock
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.models.tokenizer import tokenize_batch
+    from centerclip_tpu_torch.serve import IVFVideoIndex, VideoIndex
+    from centerclip_tpu_torch.serve import cli as serve_cli
+    from centerclip_tpu_torch.serve import engine as engine_mod
+    from centerclip_tpu_torch.serve.index import QUERY_BUCKETS
+    from centerclip_tpu_torch.serve.http import RetrievalServer
+
+    flags = EXP62_FLAGS + handoff["paths"] + [
+        "--features_path", handoff["store"], "--output_dir",
+        os.path.join(root, "serve"), "--init_model", handoff["ckpt"]]
+    with open(os.path.join(root, "test.csv"), newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    vids, captions = [r[0] for r in rows], [r[1] for r in rows]
+    qfile = os.path.join(root, "queries.txt")
+    with open(qfile, "w") as f:
+        f.write("".join(c + "\n" for c in captions))
+    path = {kind: os.path.join(root, f"gallery_{kind}.npz")
+            for kind in ("float32", "int8", "ivf")}
+
+    # what the CLI hands the engine, the server it starts, its warm-up
+    pinned, servers, warm, quiet = [], [], [], io.StringIO()
+    batches_fn = serve_cli.gallery_batches
+    serve_forever, warmup = RetrievalServer.serve_forever, \
+        RetrievalServer.warmup
+
+    def recording_batches(*a, **k):
+        for b in batches_fn(*a, **k):
+            pinned.append(all(t.is_pinned() for t in b.values()))
+            yield b
+
+    def recording_warmup(self, *a, **k):
+        t0 = time.time()
+        in_warmup[0] = True
+        try:
+            n = warmup(self, *a, **k)
+        finally:
+            in_warmup[0] = False
+        torch.cuda.synchronize()
+        warm.append((n, time.time() - t0))
+        return n
+
+    def handing_over(self):
+        servers.append(self)
+        serve_forever(self)
+
+    def run(argv):
+        with contextlib.redirect_stdout(quiet):
+            return serve_cli.main(argv + flags)
+
+    # the first input of each shape that kernels A, C and E take on this
+    # path (gallery batch padded on the card, the query batches, the
+    # warm-up's), held against the plain versions after the counts are read;
+    # a query's input replaces the warm-up's (its token ids are all 1)
+    seen, seen_warm, in_warmup = {}, {}, [False]
+    serve_cli.gallery_batches = recording_batches
+    RetrievalServer.warmup = recording_warmup
+    RetrievalServer.serve_forever = handing_over
+    try:
+        with recording_kernel_inputs(torch, seen,
+                                     lambda: not in_warmup[0]), \
+                recording_kernel_inputs(torch, seen_warm,
+                                        lambda: in_warmup[0]):
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            f32 = run(["build", "--index_path", path["float32"], "--quantize",
+                       "float32"])
+            torch.cuda.synchronize()
+            t_build = time.time() - t0
+            t0 = time.time()
+            results = run(["query", "--index_path", path["float32"],
+                           "--queries_file", qfile, "--topk",
+                           str(MAIN_VIDEOS)])
+            t_query = time.time() - t0
+            printed = [json.loads(line)
+                       for line in quiet.getvalue().splitlines()
+                       if line.startswith('{"query"')]
+            run(["build", "--index_path", path["int8"], "--quantize", "int8"])
+            th = threading.Thread(target=serve_cli.main, daemon=True, args=(
+                ["serve", "--index_path", path["int8"], "--port", "0",
+                 "--topk", "5"] + flags,))
+            t0 = time.time()
+            th.start()
+            while not servers and th.is_alive() and time.time() - t0 < 300:
+                time.sleep(0.05)
+            if not servers:
+                fail("serve/cli.py serve did not start its server")
+            server = servers[0]
+            t_listen = time.time() - t0
+            base = "http://%s:%d" % server.address
+            health = http("GET", base + "/healthz")
+            body = {"queries": QUERIES, "k": 5}
+            first = http("POST", base + "/search", body)
+            steady = [http("POST", base + "/search", body)
+                      for _ in range(HTTP_REPEATS)]
+            engine = server.engine
+            direct = engine.search(QUERIES, k=5)
+            server._httpd.shutdown()
+            th.join(timeout=60)
+            server._httpd.server_close()
+            ivf48 = run(["build", "--index_path", path["ivf"], "--index_type",
+                         "ivf", "--n_clusters", "8", "--nprobe", "8",
+                         "--quantize", "int8"])
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counters}
+            variants = attention_variant_counts("serve CLI", backward=False)
+    finally:
+        serve_cli.gallery_batches = batches_fn
+        RetrievalServer.warmup = warmup
+        RetrievalServer.serve_forever = serve_forever
+    seen_warm.update(seen)
+    held = hold_recorded(torch, seen_warm, "serve CLI", "the serve CLI path")
+    del seen, seen_warm
+
+    # first and steady search at batch sizes no call ran before: unpadded
+    # (the engine's bucket padding switched off), then as the engine runs
+    # them, padded to buckets the warm-up ran
+    ids, _, _ = tokenize_batch(engine.tokenizer, captions,
+                               max_words=engine.max_words)
+    unwarmed = {"unpadded": {}, "padded": {}}
+    for n in UNWARMED_QUERIES:
+        for kind in unwarmed:
+            times = []
+            with unittest.mock.patch.object(
+                    engine_mod, "_next_bucket",
+                    (lambda m: m) if kind == "unpadded"
+                    else engine_mod._next_bucket):
+                for _ in range(1 + SEARCH_REPEATS):
+                    t0 = time.perf_counter()
+                    engine.search_token_ids(ids[:n], k=5)
+                    times.append((time.perf_counter() - t0) * 1e3)
+            unwarmed[kind][n] = dict(
+                first_ms=times[0],
+                steady_ms=sorted(times[1:])[SEARCH_REPEATS // 2])
+
+    # the float32 gallery's answers against the Evaluator's similarity
+    sim = handoff["sim"]
+    col = {v: j for j, v in enumerate(f32.video_ids)}
+
+    def against(rows):
+        """The CLI's rankings held to `rows` of the Evaluator's similarity:
+        the largest score difference, and the pairs ranked against it by
+        more than the tolerance (ranked above another, the Evaluator's
+        score may not be lower by more than SERVE_SCORE_ATOL)."""
+        err, wrong = 0.0, 0
+        for i, ranked in zip(rows, results):
+            cols = [col[r["video_id"]] for r in ranked]
+            if sorted(cols) != list(range(MAIN_VIDEOS)):
+                fail(f"query {i} did not rank every clip once: {cols}")
+            ref = sim[i, cols]
+            err = max(err, float(np_.abs(
+                np_.array([r["score"] for r in ranked]) - ref).max()))
+            wrong += int(np_.triu(ref[None, :] - ref[:, None]
+                                  > SERVE_SCORE_ATOL, 1).sum())
+        return err, wrong
+    score_err, misordered = against(range(MAIN_VIDEOS))
+    # the control: each query's ranking held to the next query's row (a
+    # wrong query path) must fail the same check
+    control_err, control_misordered = against(
+        [(i + 1) % MAIN_VIDEOS for i in range(MAIN_VIDEOS)])
+    # what the ordering check can see: each query's spread of the 48
+    # Evaluator scores and the pairs more than the tolerance apart
+    spread = float(np_.median(sim.max(1) - sim.min(1)))
+    pairs_apart = int(sum(np_.triu(np_.abs(r[None, :] - r[:, None])
+                                   > SERVE_SCORE_ATOL, 1).sum()
+                          for r in sim))
+    # the IVF index on the same 48 clips at nprobe = K against flat (int8),
+    # both searched with the same query embeddings
+    with torch.inference_mode():
+        q48 = engine._embed_text(ids)[:MAIN_VIDEOS]
+        fs, fi = (t.cpu().numpy() for t in engine.index.search_device(
+            q48, IVF_K + 1))
+        vs, vi = (t.cpu().numpy() for t in ivf48.search_device(
+            q48, IVF_K + 1))
+    tol48 = IVF_SCORE_RTOL * np_.abs(fs).max()
+    ivf48_differ = ids_agree(fs, fi, vi, IVF_K, tol48)
+    ivf48_err = float(np_.abs(vs - fs).max())
+
+    steady_ms = [r[2] for r in steady]
+    steady_mean = sum(steady_ms) / len(steady_ms)
+    print(f"serve CLI: build (float32, 48 clips from the pinned loader) "
+          f"{t_build:.3f} s, query of {len(captions)} captions (top "
+          f"{MAIN_VIDEOS}) {t_query:.3f} s; batches pinned {pinned}; "
+          f"scores against the Evaluator: max |err| {score_err:.4e} (tol "
+          f"{SERVE_SCORE_ATOL}), pairs ordered against it by more than the "
+          f"tol {misordered}; the Evaluator's scores: median spread per "
+          f"query {spread:.4f}, pairs more than the tol apart {pairs_apart}; "
+          f"control (each ranking held to the next query's row): max |err| "
+          f"{control_err:.4e}, pairs ordered against it {control_misordered}")
+    print(f"serve CLI: int8 daemon listening after {t_listen:.3f} s, "
+          f"warm-up {warm} (buckets, s); /healthz {health[1]}; first "
+          f"/search after warm-up {first[2]:.3f} ms (server took_ms "
+          f"{first[1]['took_ms']}), steady {steady_mean:.3f} ms (mean of "
+          f"{HTTP_REPEATS}, host clock, 4 queries, k=5); search at sizes no "
+          f"call ran before, unpadded and padded to warmed buckets (first, "
+          f"median of {SEARCH_REPEATS} more, host clock, ms): {unwarmed}")
+    print(f"serve CLI: IVF (8 cells, nprobe 8) on the 48 clips against flat "
+          f"int8: {ivf48_differ} ids differ outside ties, max |score err| "
+          f"{ivf48_err:.3e} (tol {tol48:.3e})")
+    print(f"launches during the serve CLI path: {launches}")
+    for fn_name in ("fused_attention", "layer_norm",
+                    "kmedoids_from_distances"):
+        if launches[fn_name] == 0:
+            fail(f"{fn_name} was never launched on the serve CLI path")
+    if len(pinned) != 3 or not all(pinned):
+        fail(f"the CLI's gallery batches did not all arrive pinned: {pinned}")
+    if f32.video_ids != vids or len(results) != MAIN_VIDEOS \
+            or len(printed) != MAIN_VIDEOS:
+        fail("serve CLI build / query returned the wrong gallery or rows")
+    if score_err > SERVE_SCORE_ATOL or misordered:
+        fail("the serve CLI's answers disagree with the Evaluator's "
+             "similarity")
+    if pairs_apart == 0:
+        fail("no two of the Evaluator's scores for a query are more than "
+             "the tolerance apart: the ordering check compares nothing")
+    if control_err <= SERVE_SCORE_ATOL and not control_misordered:
+        fail("the check passes a ranking held to the wrong query's scores")
+    if health[0] != 200 or not health[1]["ok"] or \
+            health[1]["videos"] != MAIN_VIDEOS:
+        fail(f"/healthz answered {health}")
+    if first[0] != 200 or first[1]["results"] != direct or any(
+            r[0] != 200 or r[1]["results"] != direct for r in steady):
+        fail("POST /search differs from engine.search on the same index")
+    if not warm or warm[0][0] != len(QUERY_BUCKETS):
+        fail(f"the server's warm-up ran {warm}")
+    if ivf48_differ or ivf48_err > tol48:
+        fail("IVF at full probe differs from flat on the 48 clips")
+
+    # ------------------------------------------- IVF at deployment size
+    g = torch.Generator(device=dev).manual_seed(0)
+    centers = torch.randn((IVF_CELLS, IVF_D), generator=g, device=dev)
+    centers /= centers.norm(dim=1, keepdim=True)
+    noise = 0.25 / IVF_D ** 0.5
+
+    def draw(n):
+        which = torch.randint(IVF_CELLS, (n,), generator=g, device=dev)
+        return centers[which] + noise * torch.randn((n, IVF_D), generator=g,
+                                                    device=dev)
+    emb, q = draw(IVF_N), draw(IVF_QUERIES)
+    q = q / q.norm(dim=1, keepdim=True)
+    gallery_ids = [str(i) for i in range(IVF_N)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    flat = VideoIndex(emb, gallery_ids, quantize="int8")
+    torch.cuda.synchronize()
+    t_flat = time.time() - t0
+    t0 = time.time()
+    ivf = IVFVideoIndex(emb, gallery_ids, quantize="int8",
+                        n_clusters=IVF_CELLS, iters=IVF_ITERS)
+    torch.cuda.synchronize()
+    t_ivf = time.time() - t0
+    del emb
+    fs, fi = (t.cpu().numpy() for t in flat.search_device(q, IVF_K + 1))
+    recall = {}
+    for p in IVF_NPROBES:
+        ai = ivf.search_device(q, IVF_K, nprobe=p)[1].cpu().numpy()
+        recall[p] = float(np_.mean([len(set(a) & set(e[:IVF_K])) / IVF_K
+                                    for a, e in zip(ai, fi)]))
+    vs, vi = (t.cpu().numpy() for t in ivf.search_device(
+        q, IVF_K + 1, nprobe=IVF_CELLS))
+    tol = IVF_SCORE_RTOL * np_.abs(fs).max()
+    full_differ = ids_agree(fs, fi, vi, IVF_K, tol)
+    full_err = float(np_.abs(vs - fs).max())
+    search_ms = {}
+    for b in (1, IVF_QUERIES):
+        qb = q[:b]
+        search_ms[f"flat_b{b}"] = time_ms(
+            torch, lambda: flat.search_device(qb, IVF_K), flush)
+        for p in IVF_NPROBES:
+            search_ms[f"ivf{p}_b{b}"] = time_ms(
+                torch, lambda: ivf.search_device(qb, IVF_K, nprobe=p), flush)
+    flat_bound = IVF_N * (IVF_D + 4) / card_peaks(
+        torch.cuda.get_device_name(0))[0] * 1e3
+    new = draw(IVF_ADD)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ivf.add(new, [f"new{i}" for i in range(IVF_ADD)])
+    torch.cuda.synchronize()
+    t_add = time.time() - t0
+    _, top = ivf.search(new.cpu().numpy(), k=1)
+    self_top1 = ivf.lookup(top[:, 0]) == [f"new{i}" for i in range(IVF_ADD)]
+    layout = dict(capacity=ivf.capacity, regroups=ivf.regroups,
+                  rows=len(ivf))
+    del flat, ivf, centers, q, new, gallery_ids
+    torch.cuda.empty_cache()
+    print(f"IVF at {IVF_N} x {IVF_D} int8, {IVF_CELLS} cells, {IVF_ITERS} "
+          f"Lloyd steps (drawn on the card): build {t_ivf:.3f} s (flat "
+          f"{t_flat:.3f} s), capacity {layout['capacity']}; recall@{IVF_K} "
+          f"against flat {recall}; nprobe {IVF_CELLS}: {full_differ} ids "
+          f"differ outside ties, max |score err| {full_err:.3e} (tol "
+          f"{tol:.3e}); device ms per search {search_ms} (flat's bound "
+          f"{flat_bound:.4f} ms: the int8 gallery and its scales read "
+          f"once); add {IVF_ADD} rows {t_add * 1e3:.3f} ms, regroups "
+          f"{layout['regroups']}, each its own top-1: {self_top1}")
+    if full_differ or full_err > tol:
+        fail("IVF at nprobe = K differs from flat at 1M rows")
+    if layout["regroups"] != 0 or not self_top1 or \
+            layout["rows"] != IVF_N + IVF_ADD:
+        fail(f"the live add went wrong: {layout}, self top-1 {self_top1}")
+
+    # ------------------------------- encode rate, pinned and pageable
+    cfg = cli.parse_args(flags)
+    loader, _ = DATALOADER_DICT["msrvtt"]["val"](cfg, engine.tokenizer,
+                                                 device=dev)
+    first_batch = next(iter(loader))
+    gal = {k: first_batch[k] for k in ("video", "video_mask")}
+    pageable = {k: v.clone() for k, v in gal.items()}
+    if not all(v.is_pinned() for v in gal.values()) or any(
+            v.is_pinned() for v in pageable.values()):
+        fail("the encode's batches are not pinned and pageable")
+    n_clips = gal["video_mask"].shape[0]
+    enc = {"pinned": [], "pageable": []}
+    out = {}
+    for _ in range(ENCODE_REPEATS):
+        for kind, b in (("pinned", gal), ("pageable", pageable)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out[kind] = engine.embed_video_batches([b])
+            enc[kind].append(time.time() - t0)
+    rate = {k: n_clips / min(v) for k, v in enc.items()}
+    print(f"encode of {n_clips} clips (one batch, host clock, best of "
+          f"{ENCODE_REPEATS}): pinned {rate['pinned']:.2f} clips/s, "
+          f"pageable {rate['pageable']:.2f} clips/s; equal: "
+          f"{np_.array_equal(out['pinned'], out['pageable'])}")
+    if not np_.array_equal(out["pinned"], out["pageable"]):
+        fail("the pinned and the pageable encode differ")
+    return dict(
+        build_s=t_build, query_s=t_query, batches_pinned=pinned,
+        evaluator_max_abs_err=score_err, evaluator_atol=SERVE_SCORE_ATOL,
+        misordered_pairs=misordered, evaluator_median_spread=spread,
+        evaluator_pairs_apart=pairs_apart, control_max_abs_err=control_err,
+        control_misordered_pairs=control_misordered, listen_s=t_listen,
+        warmup_buckets=warm[0][0], warmup_s=warm[0][1],
+        first_request_ms=first[2], first_request_took_ms=first[1]["took_ms"],
+        steady_request_ms=steady_mean, unwarmed_search_ms=unwarmed,
+        ivf48_ids_differing=ivf48_differ, ivf48_max_abs_err=ivf48_err,
+        ivf=dict(n=IVF_N, d=IVF_D, cells=IVF_CELLS, iters=IVF_ITERS,
+                 build_s=t_ivf, flat_build_s=t_flat, recall_at_10=recall,
+                 full_probe_ids_differing=full_differ,
+                 full_probe_max_abs_err=full_err, search_ms=search_ms,
+                 flat_bound_ms=flat_bound, add_rows=IVF_ADD,
+                 add_ms=t_add * 1e3, **layout),
+        encode_clips=n_clips,
+        encode_clips_per_s=rate, encode_s_all=enc,
         launches=launches, variants=variants, held=held)
 
 
@@ -1676,11 +2133,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ----------------------------------------- main (third path) + report
-    main_res = main_phase(torch, np, dev, counters)
-    path_counts["main"] = (main_res["launches"], main_res["variants"])
-    for kernel, rows in main_res["held"].items():
-        extend_forward_row(kernel, rows, key="main_shapes")
-    torch.cuda.empty_cache()
+    import tempfile
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        main_res, handoff = main_phase(torch, np, dev, counters, root)
+        path_counts["main"] = (main_res["launches"], main_res["variants"])
+        for kernel, rows in main_res["held"].items():
+            extend_forward_row(kernel, rows, key="main_shapes")
+        torch.cuda.empty_cache()
+
+        # ------------------------------ serve CLI (fifth path) + report
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        serve_res = serve_phase(torch, np, dev, counters, root, handoff,
+                                flush)
+        del flush, handoff
+        path_counts["serve_cli"] = (serve_res.pop("launches"),
+                                    serve_res.pop("variants"))
+        for kernel, rows in serve_res.pop("held").items():
+            extend_forward_row(kernel, rows, key="serve_cli_shapes")
+        torch.cuda.empty_cache()
 
     # ------------------------------------ ViT-B/16 (fourth path) + report
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -1727,6 +2198,7 @@ def main() -> int:
                                if k not in ("launches", "variants",
                                             "held")}}))
     print(json.dumps({"vitb16": vitb16}))
+    print(json.dumps({"serve": serve_res}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

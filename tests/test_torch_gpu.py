@@ -736,3 +736,94 @@ def test_main_trains_and_reloads_on_the_card(cuda, tmp_path, monkeypatch):
     assert res is evals[-1] and len(evals) == 2
     np.testing.assert_array_equal(res["sim_matrix"], evals[0]["sim_matrix"])
     assert res["t2v"] == evals[0]["t2v"]
+
+
+# ------------------------------------------------------------------ serving
+def _tied(scores, atol):
+    """[Q, k] scores sorted descending -> [Q, k-1] mask of neighbours that
+    differ by no more than atol (their order may fall either way)."""
+    return np.abs(np.diff(scores, axis=1)) <= atol
+
+
+@pytest.mark.parametrize("quantize", ["float32", "int8"])
+def test_ivf_at_full_probe_equals_flat_on_the_card(cuda, quantize):
+    """A clusterable gallery drawn on the card: IVF at nprobe = K gives
+    the flat index's ids (where neighbouring scores are not tied to fp32
+    summation order) and scores, and the CPU's ids on the same rows."""
+    from centerclip_tpu_torch.serve import IVFVideoIndex, VideoIndex
+    g = torch.Generator(device=cuda).manual_seed(0)
+    centers = torch.randn((64, 128), generator=g, device=cuda)
+    centers /= centers.norm(dim=1, keepdim=True)
+    which = torch.randint(64, (20000,), generator=g, device=cuda)
+    emb = centers[which] + 0.25 / 128 ** 0.5 * torch.randn(
+        (20000, 128), generator=g, device=cuda)
+    ids = [str(i) for i in range(20000)]
+    q = (centers[:40] + 0.02 * torch.randn((40, 128), generator=g,
+                                           device=cuda)).cpu().numpy()
+    flat = VideoIndex(emb, ids, quantize=quantize)
+    ivf = IVFVideoIndex(emb, ids, quantize=quantize, n_clusters=64,
+                        iters=3)
+    assert ivf.centroids.device.type == "cuda" and ivf.regroups == 0
+    s0, i0 = flat.search(q, k=10)
+    s1, i1 = ivf.search(q, k=10, nprobe=64)
+    tol = 1e-5 * np.abs(s0).max()
+    np.testing.assert_allclose(s1, s0, rtol=0, atol=tol)
+    untied = ~(np.concatenate([_tied(s0, tol), np.zeros((40, 1), bool)], 1)
+               | np.concatenate([np.zeros((40, 1), bool), _tied(s0, tol)],
+                                1))
+    np.testing.assert_array_equal(i1[untied], i0[untied])
+    cpu = VideoIndex(emb.cpu(), ids, quantize=quantize, device="cpu")
+    s2, i2 = cpu.search(q, k=10)
+    np.testing.assert_array_equal(i2[untied], i0[untied])
+    # recall@10 at a partial probe on clusterable rows
+    _, i8 = ivf.search(q, k=10, nprobe=8)
+    recall = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i8, i0)])
+    assert recall >= 0.9, recall
+    # a live add lands in the cells' slack and is its own top hit
+    new = emb[:50] + 0.01 * torch.randn((50, 128), generator=g,
+                                        device=cuda)
+    ivf.add(new, [f"new{i}" for i in range(50)])
+    assert ivf.regroups == 0 and len(ivf) == 20050
+    _, top = ivf.search(new.cpu().numpy(), k=1)
+    assert ivf.lookup(top[:, 0]) == [f"new{i}" for i in range(50)]
+
+
+def test_pinned_batch_encode_equals_pageable_and_warmup(cuda, monkeypatch):
+    """The engine encodes a pinned batch (and a short one padded on the
+    card) to the same bits as the pageable numpy batch; the CLI's
+    re-batching keeps pinned rows pinned; `warmup` loads the forward
+    path's kernel libraries and runs each query bucket."""
+    from centerclip_tpu_torch.ops import _build
+    from centerclip_tpu_torch.serve import RetrievalEngine, VideoIndex
+    from centerclip_tpu_torch.serve.cli import gallery_batches
+    monkeypatch.setitem(port_config.CLIP_ARCHS, "tiny-gpu-serve", dict(
+        embed_dim=32, image_resolution=64, vision_layers=2, vision_width=128,
+        vision_patch_size=16, vision_heads=2, context_length=16,
+        vocab_size=49408, transformer_width=128, transformer_heads=2,
+        transformer_layers=2))
+    run = port_config.make_run_config(
+        clip_name="tiny-gpu-serve", max_frames=4, max_words=16,
+        inter=True, algo="kmediods++", cluster_num_blocks=(8, 8),
+        target_frames_blocks=(4, 2))
+    engine = RetrievalEngine(CLIP4Clip(run.model, device=cuda, seed=0))
+    g = np.random.default_rng(0)
+    video = g.integers(0, 256, (6, 1, 4, 3, 64, 64), dtype=np.uint8)
+    vmask = np.ones((6, 4), np.int32)
+    batch = {"video": video, "video_mask": vmask}
+    pinned = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
+    pageable = engine.embed_video_batches([batch])
+    on_pinned = engine.embed_video_batches([pinned])
+    np.testing.assert_array_equal(on_pinned, pageable)
+    parts = [{k: v[s:s + 4] for k, v in pinned.items()} for s in (0, 4)]
+    rebatched = list(gallery_batches(parts, True, [1, 2, 3, 4, 5, 6], 4))
+    assert [b["video"].shape[0] for b in rebatched] == [4, 2]
+    assert all(t.is_pinned() for b in rebatched for t in b.values())
+    np.testing.assert_array_equal(
+        engine.embed_video_batches(rebatched),
+        engine.embed_video_batches([{k: v[s:e] for k, v in batch.items()}
+                                    for s, e in ((0, 4), (4, 6))]))
+    engine.index = VideoIndex(pageable, [f"v{i}" for i in range(6)])
+    assert engine.warmup(k=3, max_queries=8) == 4
+    assert set(_build.FORWARD_SOURCES) <= set(_build._libs)
+    hits = engine.search(["a cat", "a dog"], k=3)
+    assert [len(h) for h in hits] == [3, 3]

@@ -163,3 +163,124 @@ def test_engine_needs_a_gpu_unless_told_cpu(monkeypatch):
         VideoIndex(*_emb(5, n=4))
     with pytest.raises(RuntimeError):
         eng.search_token_ids(np.ones((1, CTX), np.int32))   # no index yet
+
+
+# ------------------------------------------------ add, lookup, warmup, IVF
+@pytest.mark.parametrize("quantize", QUANT)
+def test_index_add_equals_fresh_build_and_jax(quantize):
+    """`add` keeps the stored codes and gives the new rows their own: the
+    same codes as one build over all rows, and the JAX package's answers
+    after its own `add`."""
+    emb, ids = _emb(8, n=30)
+    index = VideoIndex(emb[:19], ids[:19], quantize=quantize, device="cpu")
+    before = index._codes[:19].clone()
+    index.add(emb[19:], ids[19:])
+    assert len(index) == 30 and index.video_ids == ids
+    assert index.n_padded == 32
+    assert torch.equal(index._codes[:19], before)
+    fresh = VideoIndex(emb, ids, quantize=quantize, device="cpu")
+    assert torch.equal(index._codes, fresh._codes)
+    if quantize == "int8":
+        assert torch.equal(index._scales, fresh._scales)
+    jidx = JaxIndex(emb[:19], ids[:19], quantize=quantize)
+    jidx.add(emb[19:], ids[19:])
+    q = np.random.default_rng(9).standard_normal((4, 32)).astype(np.float32)
+    s, i = index.search(q, k=8)
+    js, ji = jidx.search(q, k=8)
+    np.testing.assert_array_equal(i, ji)
+    np.testing.assert_allclose(s, js, rtol=1e-5, atol=1e-6)
+    assert index.lookup(i[0]) == jidx.lookup(ji[0]) == \
+        [ids[int(r)] for r in ji[0]]
+    with pytest.raises(ValueError):
+        index.add(emb[:2, :16], ids[:2])
+
+
+def test_warmup_counts_the_buckets_as_jax():
+    jeng, eng = _engines()
+    assert eng.warmup(max_queries=8) == 4          # no index: text tower
+    for e in (jeng, eng):
+        e.build_index(iter(_batches()), [f"v{i}" for i in range(11)])
+    for n in (0, 1, 4, 20):
+        assert eng.warmup(k=3, max_queries=n) == jeng.warmup(
+            k=3, max_queries=n)
+
+
+def _ivf_engines(tmp_path, nprobe):
+    """The two packages' engines on one IVF index (built by the port,
+    saved, loaded by the JAX package)."""
+    from centerclip_tpu.serve import IVFVideoIndex as JaxIVF
+    from centerclip_tpu_torch.serve import IVFVideoIndex
+    jeng, eng = _engines()
+    gallery = eng.embed_video_batches(iter(_batches()))
+    vids = [f"v{i}" for i in range(11)]
+    eng.index = IVFVideoIndex(gallery, vids, n_clusters=4, nprobe=nprobe,
+                              device="cpu")
+    eng.index.save(str(tmp_path / "ivf.npz"))
+    jeng.index = JaxIVF.load(str(tmp_path / "ivf.npz"))
+    return jeng, eng
+
+
+def test_engine_chunks_queries_by_the_index_bucket(tmp_path):
+    """37 queries over an IVF index go through in chunks of its
+    `max_query_bucket` (32): the same answers as one flat search at full
+    probe, and the JAX engine's."""
+    jeng, eng = _ivf_engines(tmp_path, nprobe=4)
+    assert eng.index.max_query_bucket == 32
+    ids, _ = token_ids(37)
+    calls = []
+    search_device = eng.index.search_device
+
+    def counting(q, k, nprobe=None):
+        calls.append(q.shape[0])
+        return search_device(q, k, nprobe)
+    eng.index.search_device = counting
+    s, i = eng.search_token_ids(ids, k=5)
+    assert calls == [32, 8] and s.shape == (37, 5)      # 5 -> bucket 8
+    flat = VideoIndex(eng.embed_video_batches(iter(_batches())),
+                      eng.index.video_ids, device="cpu")
+    fs, fi = RetrievalEngine(eng.model, index=flat, device="cpu") \
+        .search_token_ids(ids, k=5)
+    np.testing.assert_array_equal(i, fi)
+    np.testing.assert_allclose(s, fs, rtol=1e-5, atol=1e-5)
+    js, ji = jeng.search_token_ids(ids, k=5)
+    np.testing.assert_array_equal(i, ji)
+    np.testing.assert_allclose(s, js, rtol=0, atol=2e-2)
+
+
+def token_ids(n):
+    from centerclip_tpu_torch.models.tokenizer import (SimpleTokenizer,
+                                                       tokenize_batch)
+    texts = [f"clip number {i} of a cat" for i in range(n)]
+    ids, _, _ = tokenize_batch(SimpleTokenizer(), texts, max_words=CTX)
+    return ids, texts
+
+
+def test_engine_search_drops_no_result_slots(tmp_path):
+    """k past the probed cells' rows: the index returns -1 slots and the
+    engine drops them, as the JAX engine does on the same index."""
+    jeng, eng = _ivf_engines(tmp_path, nprobe=1)
+    texts = ["a cat sitting on a mat", "people dancing"]
+    _, idx = eng.search_token_ids(token_ids(2)[0], k=11)
+    assert (idx < 0).any()
+    out, ref = eng.search(texts, k=11), jeng.search(texts, k=11)
+    for o, r in zip(out, ref):
+        assert 0 < len(o) < 11
+        assert [h["video_id"] for h in o] == [h["video_id"] for h in r]
+
+
+def test_serve_entry_points_need_a_gpu_unless_told_cpu(monkeypatch,
+                                                       tmp_path):
+    from centerclip_tpu_torch.serve import IVFVideoIndex, cli
+    from centerclip_tpu_torch.serve.ivf import spherical_kmeans
+    emb, ids = _emb(10, n=16)
+    path = str(tmp_path / "g.npz")
+    VideoIndex(emb, ids, device="cpu").save(path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: IVFVideoIndex(emb, ids, n_clusters=2),
+                 lambda: spherical_kmeans(emb, 2),
+                 lambda: load_index(path),
+                 lambda: cli.main(["query", "--index_path", path,
+                                   "--query", "a cat", "--output_dir",
+                                   str(tmp_path / "out")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
