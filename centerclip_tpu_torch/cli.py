@@ -216,12 +216,14 @@ def args_to_run_config(args: argparse.Namespace) -> RunConfig:
         warmup_proportion=args.warmup_proportion,
         clip_grad_norm=args.clip_grad_norm,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
-        # cluster
+        # cluster: the block plans reach DeepCluster too (the JAX package's
+        # CLI drops them without --cluster_inter, so its deep_cluster_plan
+        # fails on any --deep_cluster run)
         inter=bool(args.cluster_inter), algo=args.cluster_algo,
         cluster_num_blocks=tuple(args.cluster_num_blocks)
-        if args.cluster_inter else (),
+        if args.cluster_inter or args.deep_cluster else (),
         target_frames_blocks=tuple(args.target_frames_blocks)
-        if args.cluster_inter else (),
+        if args.cluster_inter or args.deep_cluster else (),
         distance=args.cluster_distance, threshold=args.cluster_threshold,
         iter_limit=args.cluster_iter_limit,
         minkowski_p=args.minkowski_norm_p,

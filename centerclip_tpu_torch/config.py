@@ -368,8 +368,8 @@ def flagship_config(compute_dtype: str = "bfloat16") -> ModelConfig:
 # Canonical per-dataset presets (reference: scripts/*.sh case blocks)
 # ---------------------------------------------------------------------------
 def preset(name: str, **overrides) -> RunConfig:
-    """Named experiment presets matching the reference's script configs.
-    Only the presets whose algorithms and widths the port runs are here."""
+    """Named experiment presets matching the reference's script configs:
+    the JAX package's seven."""
     presets = {
         # scripts/msrvtt.sh:78-93 (eclip_msrvtt_62): ViT-B/32 kmediods++ 12->6
         "msrvtt_vitb32_k6": dict(
@@ -395,6 +395,14 @@ def preset(name: str, **overrides) -> RunConfig:
             cluster_num_blocks=(49,) * 12,
             target_frames_blocks=(12,) * 6 + (6,) * 6,
             optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
+        # scripts/lsmdc.sh:127-140 (lsmdc_22): spectral-KNN 12->6
+        "lsmdc_vitb32_spectral6": dict(
+            datatype="lsmdc", clip_name="ViT-B/32", sim_header="meanP",
+            max_words=32, max_frames=12,
+            inter=True, algo="spectral", spectral_graph="KNN",
+            cluster_num_blocks=(49,) * 12,
+            target_frames_blocks=(12,) * 6 + (6,) * 6,
+            optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
         # scripts/msvd.sh:72-83 (msvd_22): kmediods++ 12->4
         "msvd_vitb32_k4": dict(
             datatype="msvd", clip_name="ViT-B/32", sim_header="meanP",
@@ -403,6 +411,14 @@ def preset(name: str, **overrides) -> RunConfig:
             cluster_num_blocks=(49,) * 12,
             target_frames_blocks=(12,) * 6 + (4,) * 6,
             optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=5),
+        # scripts/activitynet.sh:29-68: paragraph retrieval, 60 frames
+        "activity_vitb32": dict(
+            datatype="activity", clip_name="ViT-B/32", sim_header="meanP",
+            max_words=77, max_frames=60,
+            inter=True, algo="kmediods++",
+            cluster_num_blocks=(49,) * 12,
+            target_frames_blocks=(60,) * 6 + (15,) * 6,
+            optim="AdamW", lr=2e-3, coef_lr=1e-3, weight_decay=0.2, epochs=8),
         # scripts/msrvtt.sh:46-51 (b16): ViT-B/16 kmediods++ 12->6 frames
         # before block 7, 2 x 196 patch tokens -> 160 medoids per segment
         "msrvtt_vitb16_k6": dict(

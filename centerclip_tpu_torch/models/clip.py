@@ -6,14 +6,18 @@ the JAX package's `models/clip.py`, reference: modules/clip.py:272-512).
   normalisation `(x/255 - mean)/std` is folded into the patch weights, so no
   float copy of the frames exists.  It is a matmul, not a convolution, so
   cuDNN's TF32 default never applies.
-* Cluster modules run before the blocks the cluster plan names.
+* Cluster modules run before the blocks the cluster plan names (and
+  `token_shift` once more after its block); a DeepCluster head runs before
+  the blocks `deep_cluster_plan` names, and its WCSS loss (training only)
+  is summed into `encode_image`'s `cluster_loss`.  A `generator` reaches
+  the cluster modules, for `sparse_sampling`'s random columns.
 * ln_post and the projection run on the CLS token only.
 * Text features are pooled at the EOT token (the largest id).
 * With `cfg.remat` every residual block of both towers runs under
   `torch.utils.checkpoint` (its activations are recomputed in the backward,
   as the JAX package's `nn.remat(ResidualAttentionBlock)`); the cluster
-  modules run outside the recomputed blocks, so k-medoids runs once per
-  forward.
+  modules and DeepCluster heads run outside the recomputed blocks, so
+  clustering runs once per forward.
 
 The 3-D patchify, the ResNet towers and sequence or pipeline parallelism
 are not ported; a config that asks for them raises.
@@ -21,6 +25,7 @@ are not ported; a config that asks for them raises.
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.cluster_layer import TokenClusterInter
+from ..ops.deepcluster import DeepCluster, deep_cluster_plan
 from .layers import LayerNormF32, ResidualAttentionBlock, causal_mask
 
 # CLIP's pixel statistics (reference: dataloaders/rawvideo_util.py)
@@ -44,8 +50,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.sequence_parallel or cfg.pipeline_parallel > 1:
         raise NotImplementedError(
             "sequence and pipeline parallelism are not ported")
-    if cfg.cluster.deep_cluster:
-        raise NotImplementedError("deep_cluster is not ported yet")
 
 
 class Transformer(nn.Module):
@@ -68,7 +72,10 @@ class Transformer(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """CLIP ViT with the cluster modules of `cfg.cluster_plan()`."""
+    """CLIP ViT with the cluster modules of `cfg.cluster_plan()` (on their
+    blocks, `tokencluster_inter`) and the DeepCluster heads of
+    `deep_cluster_plan(cfg)` (`deepcluster_{i}`, the JAX package's names:
+    the reference's torch schema has none for them)."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -88,6 +95,14 @@ class VisionTransformer(nn.Module):
             if spec is not None:
                 block.tokencluster_inter = TokenClusterInter(
                     spec, cfg.cluster, width)
+        self.deep_blocks = []
+        tokens = grid * grid
+        for i, spec in enumerate(deep_cluster_plan(cfg)):
+            if spec is not None:
+                self.add_module(f"deepcluster_{i}",
+                                DeepCluster(spec, cfg.cluster, tokens))
+                self.deep_blocks.append(i)
+                tokens = spec.cluster_num
         self.ln_post = LayerNormF32(width)
         self.proj = nn.Parameter(torch.empty(width, arch["embed_dim"]))
 
@@ -109,21 +124,33 @@ class VisionTransformer(nn.Module):
         x = patches @ kernel.reshape(kernel.shape[0], -1).t().to(dt)
         return x if bias is None else x + bias.to(dt)
 
-    def forward(self, video: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B*T, 3, H, W] uint8 or CLIP-normalised float frames ->
-        [B*T_final, embed_dim] fp32 CLS features."""
+        ([B*T_final, embed_dim] fp32 CLS features, fp32 cluster_loss: the
+        DeepCluster heads' WCSS with `training`, else 0)."""
         dt = self.dtype
         x = self._patchify(video)
         BT, _, width = x.shape
         cls = self.class_embedding.to(dt).expand(BT, 1, width)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
         x = self.ln_pre(x)
-        for block in self.transformer.resblocks:
-            if block.tokencluster_inter is not None:
-                x = block.tokencluster_inter(x)
+        cluster_loss = torch.zeros((), device=x.device)
+        for i, block in enumerate(self.transformer.resblocks):
+            if i in self.deep_blocks:
+                x, loss = getattr(self, f"deepcluster_{i}")(x, training)
+                cluster_loss = cluster_loss + loss
+            inter = block.tokencluster_inter
+            if inter is not None:
+                x = inter(x, generator)
             x = self.transformer.run_block(block, x)
+            if inter is not None and inter.spec.algo == "token_shift":
+                # the JAX package's `cluster_post_{i}`: the shift again,
+                # after the block (it has no parameters)
+                x = inter(x)
         x = self.ln_post(x[:, 0, :].contiguous()).float()
-        return x @ self.proj
+        return x @ self.proj, cluster_loss
 
 
 class CLIP(nn.Module):
@@ -165,7 +192,8 @@ class CLIP(nn.Module):
             self.logit_scale.fill_(math.log(1 / 0.07))
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters") \
-                    and not isinstance(m, (nn.Linear, nn.Conv2d, nn.Embedding)):
+                    and not isinstance(m, (nn.Linear, nn.Conv2d, nn.Embedding,
+                                           nn.LayerNorm)):
                 m.reset_parameters(generator)
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
@@ -182,6 +210,9 @@ class CLIP(nn.Module):
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]
         return pooled @ self.text_projection
 
-    def encode_image(self, video: torch.Tensor) -> torch.Tensor:
-        """[B*T, 3, H, W] -> [B*T_final, embed_dim] fp32 CLS features."""
-        return self.visual(video)
+    def encode_image(self, video: torch.Tensor, training: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B*T, 3, H, W] -> ([B*T_final, embed_dim] fp32 CLS features,
+        cluster_loss)."""
+        return self.visual(video, training, generator)

@@ -5,15 +5,16 @@ JAX package's `models/clip4clip.py`, reference: modules/clip4clip.py).
 `get_sequence_output` and `get_visual_output` encode the two modalities to
 fp32; `loose_similarity` is the meanP similarity (masked mean of the
 normalised frame features, 1e-12 norm eps, scaled by exp(logit_scale));
-`forward(..., training=True)` adds the symmetric InfoNCE loss.  Every path
-is differentiable: callers that only encode (the serving engine, the
-evaluator) run it under `torch.inference_mode()`.  The seqTransf, seqLSTM
+`forward(..., training=True)` adds the symmetric InfoNCE loss and the
+cluster loss (a DeepCluster head's WCSS; 0 for the other algorithms).
+Every path is differentiable: callers that only encode (the serving engine,
+the evaluator) run it under `torch.inference_mode()`.  The seqTransf, seqLSTM
 and tightTransf headers are not ported yet; a config that asks for them
 raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -59,22 +60,35 @@ class CLIP4Clip(nn.Module):
         """[B, L] ids -> [B, 1, D] fp32 (clip4clip.py:265-272)."""
         return self.clip.encode_text(input_ids).float()[:, None, :]
 
-    def get_visual_output(self, video: torch.Tensor,
-                          video_mask: torch.Tensor) -> torch.Tensor:
+    def visual_output_and_loss(self, video: torch.Tensor,
+                               video_mask: torch.Tensor,
+                               training: bool = False,
+                               generator: Optional[torch.Generator] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, 1, T, C, H, W] or [B*T, C, H, W] uint8 / float frames ->
-        [B, T_final, D] fp32 (clip4clip.py:222-243)."""
+        ([B, T_final, D] fp32, cluster_loss) (clip4clip.py:222-243)."""
         B = video_mask.shape[0]
         if video.dim() == 6:
             video = video.reshape(-1, *video.shape[-3:])
-        feats = self.clip.encode_image(video)
-        return feats.reshape(B, -1, feats.shape[-1]).float()
+        feats, cluster_loss = self.clip.encode_image(video, training,
+                                                     generator)
+        return feats.reshape(B, -1, feats.shape[-1]).float(), cluster_loss
+
+    def get_visual_output(self, video: torch.Tensor,
+                          video_mask: torch.Tensor) -> torch.Tensor:
+        """The eval encode: [B, T_final, D] fp32 features."""
+        return self.visual_output_and_loss(video, video_mask)[0]
 
     def video_mask_after_cluster(self, video_mask: torch.Tensor
                                  ) -> torch.Tensor:
-        cfg = self.cfg
-        if cfg.cluster.inter and cfg.cluster.algo == "kmediods++":
-            return video_mask_after_cluster(video_mask, cfg.final_frames,
-                                            cfg.f_frame_duration)
+        """The frame mask subsampled to the frames the vision tower keeps,
+        for every algorithm that merges frames (clip4clip.py:106-113)."""
+        cl = self.cfg.cluster
+        if (cl.inter and cl.algo in ("kmediods++", "pooling",
+                                     "sparse_sampling", "spectral")) \
+                or cl.deep_cluster:
+            return video_mask_after_cluster(video_mask, self.cfg.final_frames,
+                                            self.cfg.f_frame_duration)
         return video_mask
 
     @staticmethod
@@ -117,13 +131,18 @@ class CLIP4Clip(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 video: Optional[torch.Tensor] = None,
                 video_mask: Optional[torch.Tensor] = None,
-                training: bool = False) -> Dict[str, torch.Tensor]:
+                training: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """Joint forward (JAX package `models/clip4clip.py:232-272`).
 
         Returns sequence_output / visual_output and, with `training`, the
         loss terms: sim_loss = 0.5 (CE(sim) + CE(sim^T)) over the meanP
-        logits with the post-cluster video mask, cluster_loss = 0
-        (kmediods++ has no learned clustering loss), loss = their sum.
+        logits with the post-cluster video mask, cluster_loss (the
+        DeepCluster heads' WCSS, else 0), loss = their sum.  Without
+        `training` and with `pre_visual_pooling` (ActivityNet), the visual
+        output is the pooled, normalised [B, D] video vector.  `generator`
+        draws the training step's random choices (`sparse_sampling`).
         `attention_mask` is accepted for the reference's signature; meanP
         does not read it."""
         del attention_mask
@@ -131,15 +150,23 @@ class CLIP4Clip(nn.Module):
         if input_ids is not None:
             out["sequence_output"] = self.get_sequence_output(
                 input_ids.reshape(-1, input_ids.shape[-1]))
+        cluster_loss = None
         if video is not None:
             video_mask = self.video_mask_after_cluster(
                 video_mask.reshape(-1, video_mask.shape[-1]))
-            out["visual_output"] = self.get_visual_output(video, video_mask)
+            visual, cluster_loss = self.visual_output_and_loss(
+                video, video_mask, training=training,
+                generator=generator if training else None)
+            if not training and self.cfg.pre_visual_pooling:
+                # the eval memory valve (clip4clip.py:237-243)
+                visual = self.pooled_video(visual, video_mask)
+            out["visual_output"] = visual
         if training:
             sim = self.loose_similarity(out["sequence_output"],
                                         out["visual_output"], video_mask)
             sim_loss = 0.5 * (cross_entropy(sim) + cross_entropy(sim.t()))
-            cluster_loss = torch.zeros((), device=sim.device)
+            if cluster_loss is None:
+                cluster_loss = torch.zeros((), device=sim.device)
             out.update(sim_loss=sim_loss, cluster_loss=cluster_loss,
                        loss=sim_loss + cluster_loss)
         return out

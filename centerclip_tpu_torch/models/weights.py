@@ -8,6 +8,11 @@ loads with `load_state_dict(strict=True)`.  This module converts the JAX
 package's parameter tree (as numpy arrays) to that schema, reads checkpoint
 files, and applies the reference's from_pretrained weight-seeding tricks
 (`apply_pretrain_tricks`, JAX package `models/weights.py:187-234`).
+
+The reference's torch schema has no names for the DeepCluster heads; the
+port names them after the JAX package's tree (`deepcluster_{i}` under the
+vision tower): `clip.visual.deepcluster_{i}.{fc1,fc2,fc3,ln1,ln2,ln3}.
+{weight,bias}`.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..ops.cluster_layer import CLUSTERING_ALGOS
+from ..ops.deepcluster import deep_cluster_plan
 
 # (JAX parameter path, torch key, transform)
 Entry = Tuple[Tuple[str, ...], str, str]
@@ -49,7 +56,8 @@ def _block_entries(param_prefix: Tuple[str, ...], torch_prefix: str
 
 def clip4clip_entries(cfg: ModelConfig) -> List[Entry]:
     """The mapping table of the ported model (the CLIP towers of a meanP
-    CLIP4Clip, JAX package `models/weights.py:98-141`)."""
+    CLIP4Clip, JAX package `models/weights.py:98-141`), with the learned
+    cluster extras and the DeepCluster heads."""
     arch = cfg.arch
     v, t = ("clip", "visual"), ("clip", "text")
     e = [(("clip", "logit_scale"), "clip.logit_scale", ""),
@@ -67,14 +75,29 @@ def clip4clip_entries(cfg: ModelConfig) -> List[Entry]:
     names = []
     if cfg.cluster.cluster_embedding:
         names.append("cluster_embed")
+    if cfg.cluster.cluster_frame_embedding:
+        names.append("cluster_frame_embed")
     if cfg.cluster.adaptive_cls:
         names.append("cls_multiplier")
     for i, spec in enumerate(cfg.cluster_plan()):
-        if spec is None or spec.algo != "kmediods++":
+        if spec is None or spec.algo not in CLUSTERING_ALGOS:
             continue
         prefix = f"clip.visual.transformer.resblocks.{i}.tokencluster_inter"
         for name in names:
             e.append((v + (f"cluster_{i}", name), f"{prefix}.{name}", ""))
+    for i, spec in enumerate(deep_cluster_plan(cfg)):
+        if spec is None:
+            continue
+        head = v + (f"deepcluster_{i}",)
+        for n in ("1", "2", "3"):
+            e += [(head + (f"fc{n}", "kernel"),
+                   f"clip.visual.deepcluster_{i}.fc{n}.weight", "T"),
+                  (head + (f"fc{n}", "bias"),
+                   f"clip.visual.deepcluster_{i}.fc{n}.bias", ""),
+                  (head + (f"ln{n}", "scale"),
+                   f"clip.visual.deepcluster_{i}.ln{n}.weight", ""),
+                  (head + (f"ln{n}", "bias"),
+                   f"clip.visual.deepcluster_{i}.ln{n}.bias", "")]
     e += [(t + ("token_embedding",), "clip.token_embedding.weight", ""),
           (t + ("positional_embedding",), "clip.positional_embedding", ""),
           (t + ("ln_final", "norm", "scale"), "clip.ln_final.weight", ""),

@@ -11,9 +11,10 @@ pinned tensors (as the data registry's loaders hand them to
 `torch.profiler`.  For each it prints the wall time (host clock, ending in
 a device sync), the device time summed over kernels and copies, the
 device's busy share of the wall time, and the device time by group (the
-port's kernels, cuBLAS matmuls, copies, the rest) and by kernel name; last
-the copies' share of the encode's device time, pageable and pinned.  Exits
-non-zero without a CUDA device, or if the profiler records no device time.
+port's kernels, cuBLAS matmuls, copies, the rest) and by kernel name with
+launch counts; last the copies' share of the encode's device time,
+pageable and pinned.  Exits non-zero without a CUDA device, or if the
+profiler records no device time.
 `profile` is shared with `profile_train.py`.
 """
 from __future__ import annotations
@@ -42,6 +43,11 @@ GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
           ("kmedoids kernel", ("kmedoids_kernel",)),
           ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90")),
           ("optimizer (foreach)", ("multi_tensor_apply",)),
+          # torch.linalg.eigh's cuSOLVER Jacobi solver (spectral clustering)
+          ("eigensolve (cuSOLVER)", ("syevj", "syevbj", "rotate_batch",
+                                     "pegasus", "colperm", "fnrma",
+                                     "offa_stage", "batch_symmetrize",
+                                     "batch_eye", "copy_info_kernel")),
           ("copies", ("memcpy", "memset")))
 QUERIES = ["a man is cooking pasta in a kitchen",
            "two dogs are playing in the snow",
@@ -58,7 +64,8 @@ def _group(name: str) -> str:
 
 
 def profile(label: str, fn, top: int) -> dict:
-    """Run `fn` once under torch.profiler and print its breakdown; returns
+    """Run `fn` once under torch.profiler and print its breakdown (device
+    time by group, and by kernel name with its launch count); returns
     {"wall_ms", "device_ms", "by_group_ms"}."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -68,10 +75,11 @@ def profile(label: str, fn, top: int) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    by_name = collections.Counter()
+    by_name, launches = collections.Counter(), collections.Counter()
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] += evt.time_range.elapsed_us()
+            launches[evt.name] += 1
     device_us = sum(by_name.values())
     if device_us == 0:
         raise SystemExit(f"{label}: the profiler recorded no device time")
@@ -83,7 +91,7 @@ def profile(label: str, fn, top: int) -> dict:
     for group, us in by_group.most_common():
         print(f"  {group:18s} {us / 1e3:9.3f} ms {100 * us / device_us:5.1f}%")
     for name, us in by_name.most_common(top):
-        print(f"    {us / 1e3:9.3f} ms  {name[:100]}")
+        print(f"    {us / 1e3:9.3f} ms {launches[name]:6d}x  {name[:100]}")
     return {"wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
             "by_group_ms": {k: v / 1e3 for k, v in by_group.items()}}
 

@@ -12,13 +12,20 @@ were, so an epoch's tail steps on the mean of what is left.  Losses stay
 on the device until they are logged.  Host batches may be numpy arrays or
 tensors in pinned memory (the data loader's `pin_memory`), whose copy to
 the card is then asynchronous.
+
+Each optimizer step draws its random choices (`sparse_sampling`'s token
+columns) from its own `torch.Generator` on the model's device, seeded from
+(`cfg.seed`, the global step): the counterpart of the JAX package's
+`jax.random.fold_in(rng, step)`, so a resumed run draws what the
+uninterrupted run drew.  The draws themselves are not `jax.random`'s.
 """
 from __future__ import annotations
 
 import logging
 import os
 import time
-from typing import Callable, Dict, Iterable, List, Mapping, Tuple, Union
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -54,17 +61,27 @@ def batch_to_device(batch: Batch, device: torch.device
     return out
 
 
+def step_generator(seed: int, global_step: int, device) -> torch.Generator:
+    """The generator of optimizer step `global_step` (1-based): a function
+    of (seed, step) only."""
+    state = np.random.SeedSequence([seed, global_step]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 def make_train_step(model: CLIP4Clip, optimizer: GroupedAdam,
                     accum_steps: int = 1) -> Callable:
     """The train step.  With `accum_steps <= 1` it takes one batch, else a
-    list of micro-batches (any number).  It returns {loss, sim_loss,
-    cluster_loss} as device scalars, the means over the micro-batches.
-    After it returns, each trainable parameter's `.grad` holds the clipped
-    gradient the update used."""
+    list of micro-batches (any number), and an optional generator for the
+    model's random choices (the micro-batches draw from it in turn).  It
+    returns {loss, sim_loss, cluster_loss} as device scalars, the means
+    over the micro-batches.  After it returns, each trainable parameter's
+    `.grad` holds the clipped gradient the update used."""
     device = model.device
 
-    def _grad(batch: Batch) -> torch.Tensor:
-        out = model(**batch_to_device(batch, device), training=True)
+    def _grad(batch: Batch, generator) -> torch.Tensor:
+        out = model(**batch_to_device(batch, device), training=True,
+                    generator=generator)
         out["loss"].backward()
         return torch.stack([out[k].detach() for k in LOSS_KEYS])
 
@@ -72,18 +89,21 @@ def make_train_step(model: CLIP4Clip, optimizer: GroupedAdam,
         optimizer.step()
         clamp_logit_scale(model)
 
-    def single_step(batch: Batch) -> Dict[str, torch.Tensor]:
+    def single_step(batch: Batch, generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        losses = _grad(batch)
+        losses = _grad(batch, generator)
         _apply()
         return dict(zip(LOSS_KEYS, losses.unbind()))
 
     if accum_steps <= 1:
         return single_step
 
-    def accum_step(micro_batches: List[Batch]) -> Dict[str, torch.Tensor]:
+    def accum_step(micro_batches: List[Batch],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        losses = torch.stack([_grad(mb) for mb in micro_batches])
+        losses = torch.stack([_grad(mb, generator) for mb in micro_batches])
         with torch.no_grad():
             torch._foreach_div_(optimizer.grads(), float(losses.shape[0]))
         _apply()
@@ -121,6 +141,11 @@ class Trainer:
             scalars["train/lr"], scalars["train/scale"])
         if self.metric_writer is not None:
             self.metric_writer.log(scalars, step=gstep)
+
+    def _generator(self) -> torch.Generator:
+        """The next optimizer step's generator."""
+        return step_generator(self.cfg.seed, self.state.global_step + 1,
+                              self.model.device)
 
     def _start_profiler(self):
         """torch.profiler over epoch 0's first `profile_steps` batches
@@ -165,10 +190,10 @@ class Trainer:
                 micro.append(batch)
                 if len(micro) < self.accum:
                     continue
-                logs = self._step_fn(micro)
+                logs = self._step_fn(micro, self._generator())
                 micro = []
             else:
-                logs = self._step_fn(batch)
+                logs = self._step_fn(batch, self._generator())
             self.state.global_step += 1
             gstep = self.state.global_step
             loss_log.append(logs["loss"])
@@ -193,7 +218,7 @@ class Trainer:
             # (JAX package train/loop.py:210-224)
             logger.info("Epoch %d: flushing %d tail micro-batch(es)", epoch,
                         len(micro))
-            loss_log.append(self._step_fn(micro)["loss"])
+            loss_log.append(self._step_fn(micro, self._generator())["loss"])
             self.state.global_step += 1
         total = float(torch.stack(loss_log).sum()) if loss_log else 0.0
         return total / max(len(loss_log), 1), self.state.global_step

@@ -106,7 +106,7 @@ NEW_ADDED_MODULES = ("time_embedding", "frame_embedding", "deepcluster")
 _ALWAYS_TRAINED = ("clip.ln_final.", "clip.text_projection", "clip.logit_scale",
                    "clip.visual.ln_post.", "clip.visual.proj",
                    "clip.visual.conv2.")
-_BLOCK = re.compile(r"\.resblocks\.(\d+)\.")
+_BLOCK = re.compile(r"\.(?:resblocks\.|deepcluster_)(\d+)\.")
 
 
 def param_group_label(key: str) -> str:
@@ -129,8 +129,9 @@ def trainable_mask(keys: Iterable[str], freeze_layer_num: int = -1,
     With freeze_layer_num in [0, 12], CLIP parameters are frozen except the
     top layers (ln_final, text_projection, logit_scale, visual.ln_post,
     visual.proj, the 3-D patch conv2) and the blocks with index >=
-    freeze_layer_num (a cluster module follows its block's index): so 0
-    freezes the embeddings, conv1 and ln_pre and trains every block.  -1
+    freeze_layer_num (a cluster module or a DeepCluster head follows its
+    block's index): so 0 freezes the embeddings, conv1 and ln_pre and
+    trains every block.  -1
     freezes nothing.  `freeze_clip` freezes the whole CLIP tower except the
     `NEW_ADDED_MODULES`.  Everything outside `clip.` always trains."""
     out = {}

@@ -122,11 +122,44 @@
    encode rate of the 48 clips from pinned and from pageable memory (the
    same embeddings to the bit).
 
+9. Cluster phase, the sixth main path (after the ViT-B/16 phase): the
+   preset `lsmdc_vitb32_spectral6` (spectral clustering on a KNN graph,
+   12 -> 6 frames before block 7, K = 49), its random vision weights'
+   residual stream scaled so that the tokens it clusters lie a median
+   2 sigma apart (at the seed's scale the heat kernel underflows off the
+   diagonal: W = I, L_sym = 0; the phase fails on such tokens), encodes 64
+   clips through `RetrievalEngine` and trains 2 + 3 steps at batch 128
+   with the `eigh` solver (all five kernels must launch), then 1 + 3 with
+   the `subspace` solver; the spectral clustering and its eigensolve are
+   timed by CUDA events inside the same calls, in those steps and alone at
+   L_sym [768, 98, 98] (a training step's) and [192, 98, 98] (an encode
+   batch's); kernel E is held against its plain version on the spectral
+   embeddings recorded at its call site; card against CPU: L_sym's
+   eigenvalues (within EIGVAL_ATOL) and a 2-clip embedding with the card's
+   medoid ids replayed.  Then `pooling`, `sparse_sampling`, `temporal_shift`,
+   `token_shift` (experiment 62's flags with `--cluster_algo <algo>`) and
+   `deep_cluster` (`--deep_cluster 1 --cluster_inter 0`): 1 + 2 steps at
+   batch 128 each (A-D must launch, k-medoids must not; finite losses, a
+   positive cluster loss for deep_cluster only), and a 2-clip encode held
+   to the CPU's.
+10. Activity phase, the seventh: the preset `activity_vitb32` at the
+   recipe's size (60 frames, 77 words, batch 128, 60 -> 15 frames, k-medoids
+   of 196 tokens into 49, `remat` on: ACTIVITY_REMAT_WHY): 2 + 3 training
+   steps (k-medoids on its shared-memory variant only), an encode of 64
+   clips in batches of 32 that `pre_visual_pooling` pools to unit [64, 512]
+   vectors in `CLIP4Clip.forward`, then A and B at qkv [7680, 50, 2304] and
+   [128, 77, 1536] causal, C and D at [384000, 768] and E on the tokens the
+   first step and the encode clustered ([1920, 196, 196] and
+   [480, 196, 196]) against their plain versions.
+
 Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
-`{"serve": ...}` and a `{"kernels": [...]}` JSON line (attention's long forward and backward and
-the global k-medoids variant as rows of their own) and, last, one JSON line {"ok":
-true, "device": {...}}.  Any failed check exits non-zero before it.
-Without a CUDA device it exits non-zero at once.
+`{"serve": ...}`, a `{"cluster": ...}`, an `{"activity": ...}` and a
+`{"kernels": [...]}` JSON line (attention's long forward and backward and
+the global k-medoids variant as rows of their own; every kernel's rows at
+each path's shapes, its launches by path) and, last, one JSON line {"ok":
+true, "device": {...}}; before them, each phase's time.  Any failed check
+exits non-zero before it.  Without a CUDA device it exits non-zero at
+once.
 """
 from __future__ import annotations
 
@@ -198,6 +231,30 @@ VITB16_REMAT = True
 VITB16_REMAT_WHY = ("without it the step at batch 128 does not fit in the "
                     "card's 80 GB: python -m centerclip_tpu_torch.profile_train "
                     "--preset msrvtt_vitb16_k6 --remat 0")
+# the sixth main path: the spectral preset, then the other algorithms at
+# experiment 62's block flags; a 2-clip encode of each against the CPU
+CLUSTER_PRESET, CLUSTER_WARMUP_STEPS, CLUSTER_TIMED_STEPS = \
+    "lsmdc_vitb32_spectral6", 2, 3
+BASELINE_ALGOS = ("pooling", "sparse_sampling", "temporal_shift",
+                  "token_shift", "deep_cluster")
+BASELINE_WARMUP_STEPS, BASELINE_TIMED_STEPS = 1, 2
+# the spectral preset's random vision weights put the tokens block 7 clusters
+# so far apart that the heat kernel underflows off the diagonal (W = I,
+# L_sym = 0): the stream is scaled so that their median distance is this
+# many sigma (exp(-2) between tokens that far apart)
+SPECTRAL_MEDIAN_SIGMAS = 2.0
+# L_sym's eigenvalues, card (cuSOLVER, cuBLAS affinity) against CPU
+# (LAPACK, oneDNN) from the same fp32 tokens: the affinity rounds
+# otherwise by ~1e-7 relative, the eigenvalues lie in [0, 2]
+EIGVAL_ATOL = 1e-4
+# the seventh main path: ActivityNet at the recipe's size
+ACTIVITY_PRESET, ACTIVITY_WARMUP_STEPS, ACTIVITY_TIMED_STEPS = \
+    "activity_vitb32", 2, 3
+ACTIVITY_REMAT = True
+ACTIVITY_REMAT_WHY = ("without it the step at batch 128 runs out of the "
+                      "card's 80 GB (76.464 GiB allocated): python -m "
+                      "centerclip_tpu_torch.profile_train --preset "
+                      "activity_vitb32 --remat 0")
 # the serve phase: serve/cli.py on the main phase's fixture and checkpoint.
 # Scores are logits (cosine x exp(logit_scale), ~14.3 here).  Against the
 # Evaluator's fp32 similarity the engine rounds both score operands to bf16
@@ -362,12 +419,8 @@ def training_phase(torch, np, dev, counters):
     t0 = time.time()
     model = CLIP4Clip(cfg, device=dev, seed=0)
     trainer = Trainer(run, model, total_steps=total_steps)
-    g = np.random.default_rng(1)
-    ids, amask = token_rows(np, g, B, cfg.max_words)
-    batch = {"input_ids": ids, "attention_mask": amask,
-             "video": g.integers(0, 256, (B, 1, cfg.max_frames, 3, RES, RES),
-                                 dtype=np.uint8),
-             "video_mask": np.ones((B, cfg.max_frames), np.int32)}
+    batch = seeded_batch(np, np.random.default_rng(1), B, cfg.max_frames,
+                         cfg.max_words)
     trainable = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
     print(f"training set-up ({TRAIN_PRESET}: batch {B}, {run.optim.optim} lr "
@@ -390,42 +443,27 @@ def training_phase(torch, np, dev, counters):
         trainer.optimizer.step()
     trainer.optimizer.step = checked_update
 
-    # the first step's k-medoids input, for the kernel phase (the hook
-    # returns None: a returned value would replace the module's input)
+    # the first step's k-medoids input, for the kernel phase
     captured = {}
-    cluster_mod = next(b.tokencluster_inter
-                       for b in model.clip.visual.transformer.resblocks
-                       if b.tokencluster_inter is not None)
-
-    def capture(module, args):
-        captured["x"] = args[0].detach().clone()
-    hook = cluster_mod.register_forward_pre_hook(capture)
-
+    hook = first_input_hook(cluster_module(model), captured)
     zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_s, losses = [], []
-    for step in range(TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS):
-        t0 = time.time()
-        loss, gstep = trainer.train_epoch(0, [batch], n_display=1)
-        torch.cuda.synchronize()
-        step_s.append(time.time() - t0)
-        losses.append(loss)
-        if not np.isfinite(loss):
-            fail(f"training loss {loss} at step {gstep} is not finite")
-        hook.remove()                      # one capture, in the first step
+    med, step_ms, losses, _ = timed_steps(torch, np, trainer, batch,
+                                          TRAIN_WARMUP_STEPS,
+                                          TRAIN_TIMED_STEPS, TRAIN_PRESET)
+    hook.remove()
+    trainer.metric_writer = None
     if "step" in vars(trainer.optimizer):
         fail("the first training step did not reach the optimizer")
     launches = {fn.__name__: fn.launches for fn in counters}
     variants = attention_variant_counts("training", backward=True)
     peak = torch.cuda.max_memory_allocated()
-    timed = sorted(step_s[TRAIN_WARMUP_STEPS:])
-    med = timed[len(timed) // 2]
     print(f"training: losses {[round(x, 6) for x in losses]}, step times "
           f"(host clock, ends in a sync, copies from host included) "
-          f"{[round(x * 1e3, 3) for x in step_s]} ms; median of the "
-          f"{TRAIN_TIMED_STEPS} timed {med * 1e3:.3f} ms = "
-          f"{B / med:.2f} clips/s; peak memory allocated "
+          f"{[round(x, 3) for x in step_ms]} ms; median of the "
+          f"{TRAIN_TIMED_STEPS} timed {med:.3f} ms = "
+          f"{B / med * 1e3:.2f} clips/s; peak memory allocated "
           f"{peak / 2**30:.3f} GiB; logit_scale "
           f"{float(model.clip.logit_scale.detach()):.6f}")
     print(f"launches during the training steps: {launches}")
@@ -472,8 +510,8 @@ def training_phase(torch, np, dev, counters):
     if res["sim_matrix"].shape != (n, n) or not np.isfinite(
             res["sim_matrix"]).all() or not np.isfinite(metrics).all():
         fail("evaluation gave a bad similarity matrix or metrics")
-    result = dict(batch=B, step_ms=med * 1e3, clips_per_s=B / med,
-                  step_ms_all=[x * 1e3 for x in step_s], losses=losses,
+    result = dict(batch=B, step_ms=med, clips_per_s=B / med * 1e3,
+                  step_ms_all=step_ms, losses=losses,
                   peak_memory_bytes=peak, R1=res["R1"], launches=launches,
                   variants=variants)
     return result, batch, captured["x"]
@@ -867,14 +905,20 @@ def kmedoids_case(torch, flush, peaks, label, x, before_frames,
     """Kernel E held (`hold_kmedoids`) and timed against its plain version
     on the patch tokens `x` [B * before_frames, 1 + P, width] a cluster
     layer took, grouped into `after_frames` segments per clip."""
-    from centerclip_tpu_torch.ops import kmedoids_cuda
     from centerclip_tpu_torch.ops.cluster_layer import segment_major
-    from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
-    mem_rate, _, fp32_peak = peaks
     Bc = x.shape[0] // before_frames
-    row, (X, D, l2, steps) = hold_kmedoids(torch, label, segment_major(
+    return kmedoids_points_case(torch, flush, peaks, label, segment_major(
         x[:, 1:, :].reshape(Bc, before_frames, -1, x.shape[-1]),
         after_frames, before_frames // after_frames), K, iters)
+
+
+def kmedoids_points_case(torch, flush, peaks, label, points, K, iters):
+    """Kernel E held (`hold_kmedoids`) and timed against its plain version
+    on [B, N, Dim] points: the row of the kernel table at their shape."""
+    from centerclip_tpu_torch.ops import kmedoids_cuda
+    from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
+    mem_rate, _, fp32_peak = peaks
+    row, (X, D, l2, steps) = hold_kmedoids(torch, label, points, K, iters)
     Bs, N = X.shape[0], X.shape[1]
     ms = time_ms(torch, lambda: kmedoids_cuda.kmedoids_from_distances(
         D, l2, K, iters), flush=flush)
@@ -921,15 +965,6 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
                 "fused_attention": dict(ac.fused_attention.variant_launches),
                 "kmedoids": dict(kc.kmedoids_from_distances.variant_launches)}
 
-    def first_cluster_input(model, store):
-        mod = next(b.tokencluster_inter
-                   for b in model.clip.visual.transformer.resblocks
-                   if b.tokencluster_inter is not None)
-
-        def capture(module, args):
-            store.setdefault("x", args[0].detach().clone())
-        return mod.register_forward_pre_hook(capture)
-
     # ---- encode: 64 clips in batches of 32 and one search
     t0 = time.time()
     model = CLIP4Clip(cfg, device=dev, seed=0).eval()
@@ -949,7 +984,7 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     torch.cuda.synchronize()
     t_setup = time.time() - t0
     enc_x = {}
-    hook = first_cluster_input(model, enc_x)
+    hook = first_input_hook(cluster_module(model), enc_x)
     zero_counts(counters)
     t0 = time.time()
     index = engine.build_index(batches(), ids, quantize="int8")
@@ -987,38 +1022,27 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     model = CLIP4Clip(cfg, device=dev, seed=0)
     steps = VITB16_WARMUP_STEPS + VITB16_TIMED_STEPS
     trainer = Trainer(run, model, total_steps=steps + 1)
-    g = np.random.default_rng(17)
-    tok, amask = token_rows(np, g, B, cfg.max_words)
-    batch = {"input_ids": tok, "attention_mask": amask,
-             "video": g.integers(0, 256, (B, 1, cfg.max_frames, 3, RES, RES),
-                                 dtype=np.uint8),
-             "video_mask": np.ones((B, cfg.max_frames), np.int32)}
+    batch = seeded_batch(np, np.random.default_rng(17), B, cfg.max_frames,
+                         cfg.max_words)
     t_setup = time.time() - t0
     train_x = {}
-    hook = first_cluster_input(model, train_x)
+    hook = first_input_hook(cluster_module(model), train_x)
     zero_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_s, losses = [], []
-    for _ in range(steps):
-        t0 = time.time()
-        loss, _ = trainer.train_epoch(0, [batch], n_display=1)
-        torch.cuda.synchronize()
-        step_s.append(time.time() - t0)
-        losses.append(loss)
-        hook.remove()
-        if not np.isfinite(loss):
-            fail(f"ViT-B/16 training loss {loss} is not finite")
+    med, step_ms, losses, _ = timed_steps(torch, np, trainer, batch,
+                                          VITB16_WARMUP_STEPS,
+                                          VITB16_TIMED_STEPS, "ViT-B/16")
+    hook.remove()
+    trainer.metric_writer = None
     peak = torch.cuda.max_memory_allocated()
     launches = {fn.__name__: fn.launches for fn in counters}
     train_variants = variants()
-    timed = sorted(step_s[VITB16_WARMUP_STEPS:])
-    med = timed[len(timed) // 2]
     print(f"vitb16 training ({VITB16_PRESET}, batch {B}, remat "
           f"{'on' if cfg.remat else 'off'}: {VITB16_REMAT_WHY}; set-up "
           f"{t_setup:.2f} s): losses {[round(x, 6) for x in losses]}, step "
-          f"times {[round(x * 1e3, 3) for x in step_s]} ms; median of the "
-          f"{VITB16_TIMED_STEPS} timed {med * 1e3:.3f} ms = {B / med:.2f} "
+          f"times {[round(x, 3) for x in step_ms]} ms; median of the "
+          f"{VITB16_TIMED_STEPS} timed {med:.3f} ms = {B / med * 1e3:.2f} "
           f"clips/s; peak memory allocated {peak / 2**30:.3f} GiB")
     print(f"vitb16 launches during the training steps: {launches}, by "
           f"variant {train_variants}")
@@ -1089,8 +1113,8 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
                              cfg.cluster.iter_limit)]
     result = dict(
         preset=VITB16_PRESET, batch=B, remat=cfg.remat, steps=steps,
-        step_ms=med * 1e3, clips_per_s=B / med,
-        step_ms_all=[x * 1e3 for x in step_s], losses=losses,
+        step_ms=med, clips_per_s=B / med * 1e3,
+        step_ms_all=step_ms, losses=losses,
         peak_memory_bytes=peak, resumed_step_equal=True,
         encode_clips=N_CLIPS, encode_s=t_build,
         encode_clips_per_s=N_CLIPS / t_build)
@@ -1099,6 +1123,612 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
         encode_launches=enc_launches, encode_variants=enc_variants,
         attention_bwd=bwd_rows, attention_fwd=fwd_rows,
         layernorm_bwd=ln_rows, layernorm_fwd=lnf_rows, kmedoids=km_rows)
+
+
+class ScalarLog:
+    """Stands in for a Trainer's metric writer: keeps every logged step's
+    scalars (n_display 1: every step)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log(self, scalars, step):
+        self.rows.append(dict(scalars, step=step))
+
+
+def timed_steps(torch, np, trainer, batch, warmup, timed, label):
+    """`warmup` + `timed` Trainer steps on one host batch, each timed on
+    the host clock ending in a device sync; fails on a loss that is not
+    finite.  Returns (median ms of the timed steps, every step's ms, every
+    step's loss, every step's logged scalars)."""
+    log = ScalarLog()
+    trainer.metric_writer = log
+    step_s, losses = [], []
+    for _ in range(warmup + timed):
+        t0 = time.time()
+        loss, gstep = trainer.train_epoch(0, [batch], n_display=1)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        losses.append(loss)
+        if not np.isfinite(loss):
+            fail(f"{label}: training loss {loss} at step {gstep} is not "
+                 f"finite")
+    timed_s = sorted(step_s[warmup:])
+    return timed_s[len(timed_s) // 2] * 1e3, [x * 1e3 for x in step_s], \
+        losses, log.rows
+
+
+def seeded_batch(np, g, B, frames, words):
+    """A host training batch of B seeded uint8 clips of `frames` frames and
+    B seeded token rows of `words`."""
+    ids, amask = token_rows(np, g, B, words)
+    return {"input_ids": ids, "attention_mask": amask,
+            "video": g.integers(0, 256, (B, 1, frames, 3, RES, RES),
+                                dtype=np.uint8),
+            "video_mask": np.ones((B, frames), np.int32)}
+
+
+def cluster_module(model):
+    """The first block's cluster module of a model's vision tower."""
+    return next(b.tokencluster_inter
+                for b in model.clip.visual.transformer.resblocks
+                if b.tokencluster_inter is not None)
+
+
+def first_input_hook(module, store):
+    """Keep a copy of the first input `module` takes in `store["x"]` (the
+    hook returns None: a returned value would replace the input)."""
+    def capture(_, args):
+        store.setdefault("x", args[0].detach().clone())
+    return module.register_forward_pre_hook(capture)
+
+
+def cosines(a, b):
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def path_counts_of(counters, path, backward):
+    """(launches by kernel, attention's launches by variant) since the
+    counts were zeroed, on a ViT-B/32 path: see attention_variant_counts."""
+    return ({fn.__name__: fn.launches for fn in counters},
+            attention_variant_counts(path, backward))
+
+
+def baseline_flags(algo):
+    """scripts/msrvtt.sh's `common` + experiment 62 flags with
+    `--cluster_algo <algo>`; `deep_cluster` with `--deep_cluster 1
+    --cluster_inter 0` on the same block plans.  (Nothing is written to
+    the output directory: the flags are only parsed.)"""
+    flags = EXP62_FLAGS + ["--output_dir", "cluster_phase"]
+    if algo == "deep_cluster":
+        flags[flags.index("--cluster_inter") + 1] = "0"
+        return flags + ["--deep_cluster", "1"]
+    flags[flags.index("--cluster_algo") + 1] = algo
+    return flags
+
+
+@contextlib.contextmanager
+def spectral_spans(torch, spans):
+    """While active, CUDA events around every `batch_spectral_clustering`
+    call and every eigensolve inside one (`spectral.eigenpairs`), appended
+    to spans["clustering"] and spans["eigensolve"] as (start, end) pairs:
+    the stream's time in each part of the same calls, the host's waits
+    inside them included."""
+    from centerclip_tpu_torch.ops import spectral
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.setdefault(name, []).append((start, end))
+            return out
+        return wrapper
+    saved = spectral.batch_spectral_clustering, spectral.eigenpairs
+    spectral.batch_spectral_clustering = timed("clustering", saved[0])
+    spectral.eigenpairs = timed("eigensolve", saved[1])
+    try:
+        yield spans
+    finally:
+        spectral.batch_spectral_clustering, spectral.eigenpairs = saved
+
+
+def spans_ms(pairs):
+    return [start.elapsed_time(end) for start, end in pairs]
+
+
+def spectral_call_ms(torch, fn, flush, iters=3, warmup=1):
+    """(ms of one call of `fn`, ms of the eigensolve inside that call), by
+    CUDA events in the same calls (`spectral_spans`), means over `iters`
+    calls, each after an L2 flush and behind a sleep kernel (`time_ms`)."""
+    for _ in range(warmup):
+        fn()
+    whole = eig = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        spans = {}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        with spectral_spans(torch, spans):
+            start.record()
+            fn()
+            end.record()
+        end.synchronize()
+        whole += start.elapsed_time(end)
+        eig += sum(spans_ms(spans["eigensolve"]))
+    return whole / iters, eig / iters
+
+
+def set_spectral_solver(model, solver):
+    """Switch every cluster module of `model` to the spectral `solver`."""
+    import dataclasses
+    for block in model.clip.visual.transformer.resblocks:
+        inter = block.tokencluster_inter
+        if inter is not None:
+            inter.cfg = dataclasses.replace(inter.cfg, spectral_solver=solver)
+
+
+def cluster_phase(torch, np, dev, flush, peaks, counters):
+    """The sixth main path: the preset lsmdc_vitb32_spectral6 (spectral
+    clustering on a KNN graph, 12 -> 6 frames before block 7, K = 49), its
+    random vision weights' residual stream scaled
+    (`profile_train.scale_vision_stream`) so that the tokens
+    it clusters lie a median SPECTRAL_MEDIAN_SIGMAS sigma apart, encoding 64
+    clips and training at batch 128 with each solver; the clustering and
+    its eigensolve timed by CUDA events inside the same calls, in the steps
+    and alone; kernel E held on the spectral embeddings recorded at its
+    call site; the card against the CPU (L_sym's eigenvalues; the embedding
+    with the card's medoid ids replayed); then the other algorithms at
+    experiment 62's flags, each a few training steps and a 2-clip encode
+    against the CPU."""
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.config import preset
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.ops import kmedoids_cuda as kc, spectral
+    from centerclip_tpu_torch.ops.cluster_layer import segment_major
+    from centerclip_tpu_torch.profile_train import scale_vision_stream
+    from centerclip_tpu_torch.serve import RetrievalEngine
+    from centerclip_tpu_torch.train import Trainer
+    run = preset(CLUSTER_PRESET)
+    B, cfg = run.batch_size, run.model
+    cl = cfg.cluster
+    spec = next(s for s in cfg.cluster_plan() if s is not None)
+    N, K = spec.frame_duration * spec.before_cluster_num, spec.cluster_num
+    if spec.algo != "spectral" or (N, K) != (98, 49) \
+            or kc.choose_variant(N) != kc.SHARED \
+            or cl.spectral_solver != "eigh":
+        fail(f"{CLUSTER_PRESET} clusters N={N}, K={K} by {spec.algo} "
+             f"({cl.spectral_solver})")
+    sites = ((spectral, "kmedoids", "kmedoids",
+              lambda x, *_: tuple(x.shape)),)
+    graph = (cl.spectral_sigma, cl.spectral_graph, spec.spectral_knn_k)
+    paths = {}
+
+    def segments(x):
+        Bc = x.shape[0] // spec.before_frames
+        return segment_major(x[:, 1:, :].reshape(
+            Bc, spec.before_frames, -1, x.shape[-1]), spec.after_frames,
+            spec.frame_duration).float()
+
+    def median_sigmas(x):
+        res = segments(x)
+        return (torch.cdist(res, res).median() / cl.spectral_sigma).item()
+
+    # ---- the stream's scale, then an encode of 64 clips in batches of 32
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0).eval()
+    engine = RetrievalEngine(model, device=dev)
+    g = np.random.default_rng(21)
+    clips = g.integers(0, 256, (N_CLIPS, 1, FRAMES, 3, RES, RES),
+                       dtype=np.uint8)
+    masks = np.ones((N_CLIPS, FRAMES), np.int32)
+    ids = [f"spclip{i:03d}" for i in range(N_CLIPS)]
+
+    def batches(lo=0, hi=N_CLIPS):
+        for s in range(lo, hi, BATCH):
+            yield {"video": clips[s:min(s + BATCH, hi)],
+                   "video_mask": masks[s:min(s + BATCH, hi)]}
+    probe = {}
+    hook = first_input_hook(cluster_module(model), probe)
+    engine.build_index(batches(0, 2), ids[:2], quantize="int8")  # warm-up
+    hook.remove()
+    seed_sigmas = median_sigmas(probe.pop("x"))
+    alpha = SPECTRAL_MEDIAN_SIGMAS / seed_sigmas
+    scale_vision_stream(model, alpha)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    enc_x, seen, enc_spans = {}, {}, {}
+    hook = first_input_hook(cluster_module(model), enc_x)
+    zero_counts(counters)
+    t0 = time.time()
+    with recording_kernel_inputs(torch, seen, sites=sites), \
+            spectral_spans(torch, enc_spans):
+        index = engine.build_index(batches(), ids, quantize="int8")
+        torch.cuda.synchronize()
+    t_build = time.time() - t0
+    hook.remove()
+    paths["spectral_encode"] = path_counts_of(counters, "spectral encode",
+                                              backward=False)
+    if not paths["spectral_encode"][0]["kmedoids_from_distances"]:
+        fail("the spectral encode never launched k-medoids")
+    gallery = index._codes[:N_CLIPS].float() * index._scales[:N_CLIPS]
+    if tuple(gallery.shape) != (N_CLIPS, 512) or \
+            not bool(torch.isfinite(gallery).all()):
+        fail("the spectral gallery is not finite [64, 512]")
+    enc_clu = sum(spans_ms(enc_spans["clustering"]))
+    enc_eig = sum(spans_ms(enc_spans["eigensolve"]))
+    print(f"cluster [{CLUSTER_PRESET}] the random weights put the tokens "
+          f"block 7's cluster layer takes a median {seed_sigmas:.3f} sigma "
+          f"apart (sigma {cl.spectral_sigma}): vision residual stream scaled "
+          f"by {alpha:.6f} to {SPECTRAL_MEDIAN_SIGMAS} sigma")
+    print(f"cluster [{CLUSTER_PRESET}] encode: {N_CLIPS} clips in "
+          f"{t_build:.3f} s = {N_CLIPS / t_build:.2f} clips/s (batches of "
+          f"{BATCH}; set-up and warm-up {t_setup:.2f} s), spectral "
+          f"clustering {enc_clu:.3f} ms of it ({enc_clu / t_build / 1e3:.1%}),"
+          f" eigensolve {enc_eig:.3f} ms; launches "
+          f"{paths['spectral_encode'][0]}")
+
+    # ---- card against CPU: L_sym's eigenvalues on the first encode
+    # batch's tokens; the embedding of 2 clips with the card's medoid ids
+    # replayed on the CPU
+    t0 = time.time()
+    res = segments(enc_x["x"])
+    enc_sigmas = (torch.cdist(res, res).median() / cl.spectral_sigma).item()
+    W = spectral.construct_affinity(res, res, sigma=cl.spectral_sigma)
+    off_diag = ((W > 0).sum() - W.shape[0] * N).item() / (
+        W.shape[0] * N * (N - 1))
+    L_card = spectral.normalized_laplacian(res, *graph)
+    ev_card = torch.linalg.eigvalsh(L_card)
+    ev_sub, vec_sub = spectral.eigenpairs(L_card, K, "subspace")
+    if not (L_card.is_cuda and ev_card.is_cuda and ev_sub.is_cuda):
+        fail("the spectral eigensolve did not run on the card")
+    sub_err = (ev_sub - ev_card[:, :K]).abs().max().item()
+    sub_res = torch.linalg.vector_norm(
+        L_card @ vec_sub - vec_sub * ev_sub[:, None, :], dim=1).max().item()
+    ev_cpu = torch.linalg.eigvalsh(spectral.normalized_laplacian(
+        res.cpu(), *graph))
+    eig_err = (ev_card.cpu() - ev_cpu).abs().max().item()
+    gap = (ev_cpu[:, K] - ev_cpu[:, K - 1]).min().item()
+    ev_max = ev_cpu.max().item()
+    del W, L_card, vec_sub
+    mod = cluster_module(model)
+    chosen, differing = [], [0, 0]
+
+    def record(res_tmp, own=mod._cluster):
+        out = own(res_tmp)
+        chosen.append(tuple(a.cpu() for a in out))
+        return out
+    mod._cluster = record
+    card_video = engine.embed_video_batches(batches(0, 2))
+    del mod._cluster
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_model = CLIP4Clip(cfg, device="cpu", seed=1).eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()}, strict=True)
+    cpu_mod = cluster_module(cpu_model)
+
+    def replay(res_tmp, own=cpu_mod._cluster):
+        mine = own(res_tmp)[1]
+        differing[0] += int((mine != chosen[0][1]).any(dim=1).sum())
+        differing[1] += mine.shape[0]
+        return chosen[0]
+    cpu_mod._cluster = replay
+    cpu_video = RetrievalEngine(cpu_model, device="cpu").embed_video_batches(
+        batches(0, 2))
+    cos_v = cosines(card_video, cpu_video)
+    print(f"cluster [{CLUSTER_PRESET}] card vs CPU ({time.time() - t0:.1f} "
+          f"s) on {tuple(res.shape)} tokens a median {enc_sigmas:.3f} sigma "
+          f"apart: share of nonzero heat-kernel affinities off the diagonal "
+          f"{off_diag:.4f}; L_sym eigenvalues max |err| {eig_err:.3e} (tol "
+          f"{EIGVAL_ATOL}), smallest gap between eigenvalues {K} and "
+          f"{K + 1} {gap:.3e}, largest eigenvalue {ev_max:.4f}; the "
+          f"subspace solver's {K} eigenvalues against eigh's on the card: "
+          f"max |diff| {sub_err:.3e}, largest residual |L v - lambda v| "
+          f"{sub_res:.3e}; video cosine with the card's medoid ids replayed "
+          f"{np.round(cos_v, 6).tolist()} (min {VIDEO_MIN_COS}); segments "
+          f"where the CPU's own medoids differ {differing[0]}/{differing[1]}")
+    if not off_diag > 0 or not ev_max > 1:
+        fail("the spectral path clustered tokens out of the heat kernel's "
+             "reach (W = I, L_sym = 0)")
+    if not eig_err <= EIGVAL_ATOL:
+        fail("card and CPU eigenvalues of L_sym disagree")
+    if cos_v.min() < VIDEO_MIN_COS:
+        fail("card and CPU spectral embeddings disagree")
+    del engine, index, gallery, model, cpu_model, cpu_mod, mod
+    torch.cuda.empty_cache()
+
+    # ---- training at batch 128 with each solver; the clustering and its
+    # eigensolve timed inside the steps
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0)
+    scale_vision_stream(model, alpha)
+    steps = {"eigh": (CLUSTER_WARMUP_STEPS, CLUSTER_TIMED_STEPS),
+             "subspace": (1, CLUSTER_TIMED_STEPS)}
+    trainer = Trainer(run, model, total_steps=sum(map(sum, steps.values())))
+    batch = seeded_batch(np, np.random.default_rng(22), B, FRAMES,
+                         cfg.max_words)
+    t_setup = time.time() - t0
+    train_x, step_rows = {}, {}
+    hook = first_input_hook(cluster_module(model), train_x)
+    for solver in spectral.SOLVERS:
+        warm, timed = steps[solver]
+        set_spectral_solver(model, solver)
+        spans = {}
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recording_kernel_inputs(torch, seen, sites=sites), \
+                spectral_spans(torch, spans):
+            med, step_ms, _, _ = timed_steps(torch, np, trainer, batch,
+                                             warm, timed, CLUSTER_PRESET)
+        peak = torch.cuda.max_memory_allocated()
+        launches = path_counts_of(counters, f"spectral training ({solver})",
+                                  backward=True)
+        if solver == cl.spectral_solver:
+            hook.remove()
+            paths["spectral_training"] = launches
+        launches = launches[0]
+        if len(spans["clustering"]) != warm + timed:
+            fail(f"{len(spans['clustering'])} spectral clusterings in "
+                 f"{warm + timed} steps")
+        step_sum = sum(step_ms[warm:])
+        clu = sum(spans_ms(spans["clustering"][warm:]))
+        eig = sum(spans_ms(spans["eigensolve"][warm:]))
+        step_rows[solver] = dict(
+            step_ms=med, clips_per_s=B / med * 1e3, step_ms_all=step_ms,
+            peak_memory_bytes=peak, clustering_ms=clu / timed,
+            eigensolve_ms=eig / timed, clustering_share_of_step=clu / step_sum,
+            eigensolve_share_of_step=eig / step_sum,
+            eigensolve_share_of_clustering=eig / clu)
+        print(f"cluster [{CLUSTER_PRESET}] training, {solver} (batch {B}, "
+              f"set-up {t_setup:.2f} s): step times "
+              f"{[round(x, 3) for x in step_ms]} ms; median of the {timed} "
+              f"timed {med:.3f} ms = {B / med * 1e3:.2f} clips/s; in the "
+              f"timed steps spectral clustering {clu / timed:.3f} ms a step "
+              f"({clu / step_sum:.1%} of the step), its eigensolve "
+              f"{eig / timed:.3f} ms ({eig / step_sum:.1%} of the step, "
+              f"{eig / clu:.1%} of the clustering); peak memory allocated "
+              f"{peak / 2**30:.3f} GiB; launches {launches}")
+        for fn_name, n in launches.items():
+            if n == 0:
+                fail(f"{fn_name} was never launched on the spectral path "
+                     f"({solver})")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+
+    # ---- the spectral clustering alone, its eigensolve timed inside it
+    spectral_rows = []
+    for label, x in (("training", train_x.pop("x")),
+                     ("encode", enc_x.pop("x"))):
+        res = segments(x)
+        for solver in spectral.SOLVERS:
+            full_ms, eig_ms = spectral_call_ms(
+                torch, lambda: spectral.batch_spectral_clustering(
+                    res, K, mode=cl.spectral_graph,
+                    knn_k=spec.spectral_knn_k, metric=cl.distance,
+                    iter_limit=cl.iter_limit, id_sort=cl.id_sort,
+                    correct_sign=cl.svd_correct_sign,
+                    sigma=cl.spectral_sigma, solver=solver), flush)
+            spectral_rows.append(dict(
+                shape=[res.shape[0], N, N], path=label, solver=solver,
+                clustering_ms=full_ms, eigensolve_ms=eig_ms,
+                eigensolve_share=eig_ms / full_ms))
+            print(f"spectral [{label}] L_sym {(res.shape[0], N, N)} {solver}"
+                  f" alone: clustering {full_ms:.3f} ms, eigensolve inside "
+                  f"it {eig_ms:.3f} ms ({eig_ms / full_ms:.1%})")
+        del res
+
+    # ---- kernel E on the spectral embeddings recorded at its call site
+    km_rows = [kmedoids_points_case(torch, flush, peaks,
+                                    f"spectral embedding {key}", args[0],
+                                    args[1], kw.get("iter_limit",
+                                                    cl.iter_limit))
+               for (_, key), (args, kw) in seen.items()]
+    seen.clear()
+    eigh_row = step_rows[cl.spectral_solver]
+    result = dict(preset=CLUSTER_PRESET, batch=B, step_ms=eigh_row["step_ms"],
+                  clips_per_s=eigh_row["clips_per_s"],
+                  step_ms_all=eigh_row["step_ms_all"],
+                  peak_memory_bytes=eigh_row["peak_memory_bytes"],
+                  steps_by_solver=step_rows, stream_scale=alpha,
+                  seed_median_sigmas=seed_sigmas, median_sigmas=enc_sigmas,
+                  encode_clips=N_CLIPS, encode_s=t_build,
+                  encode_clips_per_s=N_CLIPS / t_build,
+                  encode_clustering_ms=enc_clu, encode_eigensolve_ms=enc_eig,
+                  eigenvalue_max_abs_err=eig_err, eigen_gap_min=gap,
+                  eigenvalue_max=ev_max, subspace_vs_eigh_max_abs=sub_err,
+                  subspace_residual_max=sub_res,
+                  affinity_offdiag_nonzero=off_diag,
+                  video_cos_min=float(cos_v.min()),
+                  spectral=spectral_rows, baselines={})
+
+    # ---- the other algorithms at experiment 62's block flags
+    for algo in BASELINE_ALGOS:
+        t0 = time.time()
+        brun = cli.parse_args(baseline_flags(algo))
+        model = CLIP4Clip(brun.model, device=dev, seed=0)
+        trainer = Trainer(brun, model, total_steps=BASELINE_WARMUP_STEPS
+                          + BASELINE_TIMED_STEPS)
+        batch = seeded_batch(np, np.random.default_rng(23),
+                             brun.batch_size, FRAMES, brun.model.max_words)
+        t_setup = time.time() - t0
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bmed, bms, _, rows = timed_steps(torch, np, trainer, batch,
+                                         BASELINE_WARMUP_STEPS,
+                                         BASELINE_TIMED_STEPS, algo)
+        bpeak = torch.cuda.max_memory_allocated()
+        paths[f"{algo}_training"] = path_counts_of(
+            counters, f"{algo} training", backward=True)
+        launches = paths[f"{algo}_training"][0]
+        closs = [r["train/cluster_loss"] for r in rows]
+        for fn_name, n in launches.items():
+            if (n == 0) != (fn_name == "kmedoids_from_distances"):
+                fail(f"{algo} training launched {fn_name} {n} times")
+        if not all(np.isfinite(closs)) or \
+                any((c > 0) != (algo == "deep_cluster") for c in closs):
+            fail(f"{algo}: cluster losses {closs}")
+        del trainer
+        t1 = time.time()
+        two = {k: batch[k][:2] for k in ("video", "video_mask")}
+        card_video = RetrievalEngine(model.eval(), device=dev) \
+            .embed_video_batches([two])
+        cpu_model = CLIP4Clip(brun.model, device="cpu", seed=1).eval()
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()}, strict=True)
+        cpu_video = RetrievalEngine(cpu_model, device="cpu") \
+            .embed_video_batches([two])
+        cos = cosines(card_video, cpu_video)
+        print(f"cluster [{algo}] (set-up {t_setup:.2f} s): step times "
+              f"{[round(x, 3) for x in bms]} ms, median of the "
+              f"{BASELINE_TIMED_STEPS} timed {bmed:.3f} ms = "
+              f"{brun.batch_size / bmed * 1e3:.2f} clips/s, peak memory "
+              f"allocated {bpeak / 2**30:.3f} GiB, cluster losses "
+              f"{[round(c, 4) for c in closs]}, launches {launches}; "
+              f"2-clip encode card vs CPU ({time.time() - t1:.1f} s) "
+              f"cosine {np.round(cos, 6).tolist()} (min {VIDEO_MIN_COS})")
+        if cos.min() < VIDEO_MIN_COS:
+            fail(f"card and CPU {algo} embeddings disagree")
+        result["baselines"][algo] = dict(
+            step_ms=bmed, clips_per_s=brun.batch_size / bmed * 1e3,
+            step_ms_all=bms, peak_memory_bytes=bpeak, cluster_losses=closs,
+            video_cos_min=float(cos.min()))
+        del model, cpu_model, batch
+        torch.cuda.empty_cache()
+    return result, dict(paths=paths, kmedoids=km_rows)
+
+
+def activity_phase(torch, np, dev, flush, peaks, counters):
+    """The seventh main path: the preset activity_vitb32 at the recipe's
+    size (60 frames, 77 words, batch 128; k-medoids of 4 x 49 = 196 tokens
+    per segment into K = 49 before block 7, 60 -> 15 frames), training
+    steps through `Trainer` and an encode of 64 clips pooled by
+    `pre_visual_pooling` (`CLIP4Clip.forward`); then A and B at the
+    vision blocks' and the text tower's shapes, C and D at the vision
+    rows, E on the tokens the first step and the encode clustered, each
+    against its plain version."""
+    from centerclip_tpu_torch.config import preset
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.ops import kmedoids_cuda as kc
+    from centerclip_tpu_torch.train import Trainer
+    run = preset(ACTIVITY_PRESET, remat=ACTIVITY_REMAT)
+    B, cfg = run.batch_size, run.model
+    T, L_text = cfg.max_frames, cfg.max_words
+    spec = next(s for s in cfg.cluster_plan() if s is not None)
+    N, K = spec.frame_duration * spec.before_cluster_num, spec.cluster_num
+    if (B, T, L_text, N, K) != (128, 60, 77, 196, 49) or \
+            kc.choose_variant(N) != kc.SHARED or not cfg.pre_visual_pooling:
+        fail(f"{ACTIVITY_PRESET}: batch {B}, {T} frames, {L_text} words, "
+             f"N={N}, K={K}")
+    paths = {}
+
+    # ---- training at batch 128
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0)
+    steps = ACTIVITY_WARMUP_STEPS + ACTIVITY_TIMED_STEPS
+    trainer = Trainer(run, model, total_steps=steps)
+    batch = seeded_batch(np, np.random.default_rng(60), B, T, L_text)
+    t_setup = time.time() - t0
+    train_x = {}
+    hook = first_input_hook(cluster_module(model), train_x)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    med, step_ms, _, _ = timed_steps(torch, np, trainer, batch,
+                                     ACTIVITY_WARMUP_STEPS,
+                                     ACTIVITY_TIMED_STEPS, ACTIVITY_PRESET)
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+    paths["activity_training"] = path_counts_of(
+        counters, "activity training", backward=True)
+    launches = paths["activity_training"][0]
+    km_variants = dict(kc.kmedoids_from_distances.variant_launches)
+    print(f"activity training ({ACTIVITY_PRESET}, batch {B}, {T} frames, "
+          f"{L_text} words, remat {'on' if cfg.remat else 'off'}: "
+          f"{ACTIVITY_REMAT_WHY}; set-up {t_setup:.2f} s): step times "
+          f"{[round(x, 3) for x in step_ms]} ms; median of the "
+          f"{ACTIVITY_TIMED_STEPS} timed {med:.3f} ms = "
+          f"{B / med * 1e3:.2f} clips/s; peak memory allocated "
+          f"{peak / 2**30:.3f} GiB; launches {launches}, k-medoids by "
+          f"variant {km_variants}")
+    for fn_name, n in launches.items():
+        if n == 0:
+            fail(f"{fn_name} was never launched on the activity path")
+    if km_variants != {kc.SHARED: steps, kc.GLOBAL: 0}:
+        fail(f"activity k-medoids ran other variants: {km_variants}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # ---- encode 64 clips in batches of 32, pooled (pre_visual_pooling)
+    model.eval()
+    g = np.random.default_rng(61)
+    clips = g.integers(0, 256, (N_CLIPS, 1, T, 3, RES, RES), dtype=np.uint8)
+    masks = np.ones((N_CLIPS, T), np.int32)
+    with torch.inference_mode():                  # warm-up, 2 clips
+        model(video=torch.as_tensor(clips[:2]).to(dev),
+              video_mask=torch.as_tensor(masks[:2]).to(dev))
+    enc_x = {}
+    hook = first_input_hook(cluster_module(model), enc_x)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pooled = []
+    with torch.inference_mode():
+        for s in range(0, N_CLIPS, BATCH):
+            pooled.append(model(
+                video=torch.as_tensor(clips[s:s + BATCH]).to(dev),
+                video_mask=torch.as_tensor(masks[s:s + BATCH]).to(dev)
+            )["visual_output"])
+        pooled = torch.cat(pooled)
+        torch.cuda.synchronize()
+    t_enc = time.time() - t0
+    hook.remove()
+    paths["activity_encode"] = path_counts_of(counters, "activity encode",
+                                              backward=False)
+    norms = pooled.norm(dim=-1)
+    print(f"activity encode: {N_CLIPS} clips of {T} frames in {t_enc:.3f} "
+          f"s = {N_CLIPS / t_enc:.2f} clips/s (batches of {BATCH}, "
+          f"pooled by pre_visual_pooling to {tuple(pooled.shape)}, norms "
+          f"{norms.min().item():.6f}-{norms.max().item():.6f}); launches "
+          f"{paths['activity_encode'][0]}")
+    if tuple(pooled.shape) != (N_CLIPS, 512) or \
+            not bool(torch.isfinite(pooled).all()) or \
+            not bool(((norms - 1).abs() < 1e-3).all()):
+        fail("the activity encode is not finite, unit [64, 512]")
+    if not paths["activity_encode"][0]["kmedoids_from_distances"]:
+        fail("the activity encode never launched k-medoids")
+    del model, pooled, clips
+    torch.cuda.empty_cache()
+
+    # ---- kernels at the activity shapes
+    bwd_rows, fwd_rows = [], []
+    for case in (("activity vision blocks 1-6", B * T, 50, 12, None),
+                 ("activity text", B, L_text, 8, "causal")):
+        row, fwd_row = hold_attention_bwd(torch, dev, flush, peaks, *case)
+        bwd_rows.append(row)
+        fwd_rows.append(fwd_row)
+    ln_row, lnf_row = hold_layernorm_bwd(
+        torch, dev, flush, peaks, "activity vision ln_1/ln_2, blocks 1-6",
+        B * T * 50, 768)
+    km_rows = [kmedoids_case(torch, flush, peaks, f"activity {label}",
+                             x.pop("x"), T, spec.after_frames, K,
+                             cfg.cluster.iter_limit)
+               for label, x in (("training", train_x), ("encode", enc_x))]
+    result = dict(preset=ACTIVITY_PRESET, batch=B, frames=T, words=L_text,
+                  remat=cfg.remat, step_ms=med, clips_per_s=B / med * 1e3,
+                  step_ms_all=step_ms, peak_memory_bytes=peak,
+                  encode_clips=N_CLIPS, encode_s=t_enc,
+                  encode_clips_per_s=N_CLIPS / t_enc)
+    return result, dict(paths=paths, attention_bwd=bwd_rows,
+                        attention_fwd=fwd_rows, layernorm_bwd=[ln_row],
+                        layernorm_fwd=[lnf_row], kmedoids=km_rows)
 
 
 def write_msrvtt_fixture(np, root):
@@ -1164,11 +1794,12 @@ def kernel_call_sites():
 
 
 @contextlib.contextmanager
-def recording_kernel_inputs(torch, seen, active=lambda: True):
+def recording_kernel_inputs(torch, seen, active=lambda: True, sites=None):
     """Within the block, keep in `seen` a copy of the first input of each
-    shape that kernels A, C and E take at the model's call sites, while
-    `active()` holds.  The copies are made on first sight only."""
-    sites = kernel_call_sites()
+    shape that kernels A, C and E take at the model's call sites (or at
+    `sites`, entries as `kernel_call_sites` gives them), while `active()`
+    holds.  The copies are made on first sight only."""
+    sites = kernel_call_sites() if sites is None else sites
     originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in sites]
 
     def recording(fn, kernel, key_of):
@@ -1788,6 +2419,13 @@ def main() -> int:
     from centerclip_tpu_torch.serve import RetrievalEngine
 
     t_start = time.time()
+    phase_s, last = {}, [t_start]
+
+    def phase_done(label):
+        """Record the time since the previous phase ended."""
+        now = time.time()
+        phase_s[label] = now - last[0]
+        last[0] = now
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1811,6 +2449,7 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line:
                 print(f"  {src}: {line.strip()}")
+    phase_done("build")
 
     # ----------------------------------------------------- serving (main path)
     cfg = flagship_config()
@@ -1837,14 +2476,8 @@ def main() -> int:
 
     # capture the main path's k-medoids input for the kernel phase
     captured = {}
-    cluster_mod = next(b.tokencluster_inter
-                       for b in model.clip.visual.transformer.resblocks
-                       if b.tokencluster_inter is not None)
-
-    def capture(module, args):
-        if "x" not in captured:
-            captured["x"] = args[0].detach().clone()
-    hook = cluster_mod.register_forward_pre_hook(capture)
+    cluster_mod = cluster_module(model)
+    hook = first_input_hook(cluster_mod, captured)
 
     counters = (attention_cuda.fused_attention,
                 attention_cuda.attention_backward, layernorm_triton.layer_norm,
@@ -1892,10 +2525,13 @@ def main() -> int:
             fail(f"bad hits for {q!r}: {row}")
     print(f"top hit per query: {[row[0] for row in hits]}")
 
+    phase_done("serving")
+
     # ---------------------------------------------- training (second path)
     train, train_batch, train_cluster_x = training_phase(torch, np, dev,
                                                          counters)
     torch.cuda.empty_cache()
+    phase_done("training")
 
     # each main path's launch counts and attention variants, by kernel;
     # the main phase adds its own after it runs
@@ -2102,6 +2738,7 @@ def main() -> int:
                                      for r in lnb_rows), shapes=lnb_rows))
     del flush
     torch.cuda.empty_cache()
+    phase_done("kernels")
 
     # ------------------------------------------------------------ CPU check
     t0 = time.time()
@@ -2115,10 +2752,6 @@ def main() -> int:
     card_text = engine.encode_texts(QUERIES)
     cpu_text = cpu_engine.encode_texts(QUERIES)
 
-    def cosines(a, b):
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-        return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
-                                  * np.linalg.norm(b, axis=-1))
     cos_v, cos_t = cosines(card_video, cpu_video), cosines(card_text,
                                                            cpu_text)
     print(f"CPU check ({time.time() - t0:.1f} s): video cosine "
@@ -2131,6 +2764,7 @@ def main() -> int:
     del model, engine, index, gallery, cluster_mod, captured, cpu_model, \
         cpu_engine, train_batch
     torch.cuda.empty_cache()
+    phase_done("cpu_check")
 
     # ----------------------------------------- main (third path) + report
     import tempfile
@@ -2141,6 +2775,7 @@ def main() -> int:
         for kernel, rows in main_res["held"].items():
             extend_forward_row(kernel, rows, key="main_shapes")
         torch.cuda.empty_cache()
+        phase_done("main")
 
         # ------------------------------ serve CLI (fifth path) + report
         flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -2152,6 +2787,7 @@ def main() -> int:
         for kernel, rows in serve_res.pop("held").items():
             extend_forward_row(kernel, rows, key="serve_cli_shapes")
         torch.cuda.empty_cache()
+    phase_done("serve")
 
     # ------------------------------------ ViT-B/16 (fourth path) + report
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -2163,6 +2799,22 @@ def main() -> int:
     for kernel in ("attention_fwd", "attention_bwd", "layernorm_fwd",
                    "layernorm_bwd", "kmedoids"):
         extend_forward_row(kernel, b16[kernel], key="vitb16_shapes")
+    phase_done("vitb16")
+
+    # --------------------- cluster algorithms and activity (sixth, seventh)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cluster, cl = cluster_phase(torch, np, dev, flush, peaks, counters)
+    torch.cuda.empty_cache()
+    phase_done("cluster")
+    activity, act = activity_phase(torch, np, dev, flush, peaks, counters)
+    phase_done("activity")
+    del flush
+    path_counts.update(cl["paths"])
+    path_counts.update(act["paths"])
+    extend_forward_row("kmedoids", cl["kmedoids"], key="cluster_shapes")
+    for kernel in ("attention_fwd", "attention_bwd", "layernorm_fwd",
+                   "layernorm_bwd", "kmedoids"):
+        extend_forward_row(kernel, act[kernel], key="activity_shapes")
     for row in results:
         row.update(path_launches(row.pop("counter")))
     # the variants for ViT-B/16's shapes, as rows of their own: their first
@@ -2190,7 +2842,8 @@ def main() -> int:
             **({"occupancy": a["occupancy"]} if "occupancy" in a else {}),
             shapes=rows))
 
-    print(f"total {time.time() - t_start:.1f} s")
+    print(f"total {time.time() - t_start:.1f} s; by phase (s) "
+          f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(json.dumps({"training": {**{k: v for k, v in train.items()
                                        if k not in ("launches", "variants")},
                                    "cpu_check": train_check}}))
@@ -2199,6 +2852,8 @@ def main() -> int:
                                             "held")}}))
     print(json.dumps({"vitb16": vitb16}))
     print(json.dumps({"serve": serve_res}))
+    print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"activity": activity}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

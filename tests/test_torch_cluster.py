@@ -93,6 +93,19 @@ def test_video_mask_after_cluster_matches_jax(T_, final):
 
 
 def test_unported_cluster_algos_raise():
-    spec = dataclasses.replace(_specs()[1], algo="spectral")
+    """Every algorithm of the JAX package is ported
+    (tests/test_torch_cluster_algos.py::test_every_cluster_algo_builds);
+    a name outside them still raises, and so do the ResNet towers and the
+    seqTransf header, which are not ported yet."""
+    from centerclip_tpu_torch.config import make_run_config
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    assert set(cluster_layer.PORTED_ALGOS) == {
+        "kmediods++", "pooling", "sparse_sampling", "spectral",
+        "temporal_shift", "token_shift"}
+    spec = dataclasses.replace(_specs()[1], algo="agglomerative")
     with pytest.raises(NotImplementedError):
         cluster_layer.TokenClusterInter(spec, ClusterConfig(inter=True), W)
+    for over in (dict(clip_name="RN50"), dict(sim_header="seqTransf")):
+        cfg = make_run_config(inter=True, algo="spectral", **over).model
+        with pytest.raises(NotImplementedError):
+            CLIP4Clip(cfg, device="cpu")

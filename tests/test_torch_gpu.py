@@ -671,15 +671,14 @@ def test_reader_gathers_into_pinned_memory(cuda, tmp_path):
         assert on_card["input_ids"].dtype == torch.int64
 
 
-def test_main_trains_and_reloads_on_the_card(cuda, tmp_path, monkeypatch):
-    """`main` at a tiny size on the card (bf16, a .fstore): every kernel
-    launches, and an eval-only reload of its checkpoint gives the same
-    similarity matrix to the bit."""
+def _tiny_main_argv(tmp_path, monkeypatch):
+    """`main`'s flags for a tiny model (2 + 2 blocks, 16 patch tokens of
+    64 x 64 frames, 4 -> 2 frames before block 2) on a tiny MSR-VTT in a
+    .fstore under `tmp_path`."""
     import csv
     import dataclasses
     import json
-    from centerclip_tpu_torch import cli, main as port_main
-    from centerclip_tpu_torch.train import evaluate
+    from centerclip_tpu_torch import cli
     monkeypatch.setitem(port_config.CLIP_ARCHS, "tiny-gpu-main", dict(
         embed_dim=32, image_resolution=64, vision_layers=2, vision_width=128,
         vision_patch_size=16, vision_heads=2, context_length=16,
@@ -711,6 +710,17 @@ def test_main_trains_and_reloads_on_the_card(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(cli, "args_to_run_config", lambda a: dataclasses
                         .replace(orig(a), data=dataclasses.replace(
                             orig(a).data, image_resolution=64)))
+    return argv
+
+
+def test_main_trains_and_reloads_on_the_card(cuda, tmp_path, monkeypatch):
+    """`main` at a tiny size on the card (bf16, a .fstore): every kernel
+    launches, and an eval-only reload of its checkpoint gives the same
+    similarity matrix to the bit."""
+    import json
+    from centerclip_tpu_torch import main as port_main
+    from centerclip_tpu_torch.train import evaluate
+    argv = _tiny_main_argv(tmp_path, monkeypatch)
     evals = []
     orig_evaluate = evaluate.Evaluator.evaluate
 
@@ -736,6 +746,36 @@ def test_main_trains_and_reloads_on_the_card(cuda, tmp_path, monkeypatch):
     assert res is evals[-1] and len(evals) == 2
     np.testing.assert_array_equal(res["sim_matrix"], evals[0]["sim_matrix"])
     assert res["t2v"] == evals[0]["t2v"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cluster_algo", "spectral", "--spectral_graph", "KNN"],
+    ["--cluster_algo", "sparse_sampling"],
+    ["--cluster_inter", "0", "--deep_cluster", "1"]])
+def test_main_trains_the_other_cluster_algorithms_on_the_card(
+        cuda, tmp_path, monkeypatch, flags):
+    """`main` with another algorithm's flags (the later flag wins) on the
+    card: kernels A-D launch, E only for spectral (its embedding's
+    k-medoids), finite losses, a positive cluster loss for deep_cluster
+    only, an evaluation."""
+    import json
+    from centerclip_tpu_torch import main as port_main
+    argv = _tiny_main_argv(tmp_path, monkeypatch) + flags
+    counters = (attention_cuda.fused_attention,
+                attention_cuda.attention_backward, layernorm_triton.layer_norm,
+                layernorm_triton.layer_norm_backward,
+                kmedoids_cuda.kmedoids_from_distances)
+    before = [fn.launches for fn in counters]
+    best = port_main.main(argv)
+    moved = [fn.launches > b for fn, b in zip(counters, before)]
+    assert moved == [True] * 4 + ["spectral" in flags]
+    assert 0.0 <= best <= 100.0
+    with open(tmp_path / "out" / "tensorboard" / "scalars.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert len(recs) == 2
+    for r in recs:
+        assert np.isfinite(r["train/sim_loss"])
+        assert (r["train/cluster_loss"] > 0) == ("--deep_cluster" in flags)
 
 
 # ------------------------------------------------------------------ serving
@@ -827,3 +867,144 @@ def test_pinned_batch_encode_equals_pageable_and_warmup(cuda, monkeypatch):
     assert set(_build.FORWARD_SOURCES) <= set(_build._libs)
     hits = engine.search(["a cat", "a dog"], k=3)
     assert [len(h) for h in hits] == [3, 3]
+
+
+# --------------------------------------------- the other cluster algorithms
+def _spectral_tokens(B, seed, device):
+    """B segments of 98 tokens of width 768 in 7 planted groups, as the
+    cluster layer hands them to spectral clustering (fp32)."""
+    return _blobs(B, 98, 768, 7, seed=seed, device=device) * 0.05
+
+
+@pytest.mark.parametrize("solver", ["eigh", "subspace"])
+def test_spectral_embedding_on_the_card_matches_plain(cuda, solver):
+    """L_sym and its eigensolve on the card (no host round trip) against
+    the CPU on the same tokens: eigenvalues within 1e-4, the projector onto
+    the first K eigenvectors within 1e-3 (planted groups: a clear gap).
+    The heat-kernel graph: a KNN graph's edges at its k-th neighbour flip
+    with the distances' rounding, so card and CPU may hold other graphs.
+    L_sym within 1e-5 + 1e-4 relative: each squared distance (~1e2) sums
+    768 fp32 products in an order that differs between the CPU and the
+    card's cuBLAS kernel (whose choice may change from run to run), some
+    1e-4 apart, which moves the affinities by ~1e-5 relative.
+    `subspace` takes the JAX package's 12 steps from its cosine basis,
+    which lies nearly orthogonal to these groups' eigenvectors: where the
+    CPU's residual |L v - lambda v| shows a pair left unconverged (above
+    1e-2), that pair's Ritz value moves with rounding, and the eigenvalues
+    are held within 1e-3; 24 steps converge every pair, held within 1e-4."""
+    from centerclip_tpu_torch.ops import spectral
+    X = _spectral_tokens(24, 1, cuda)
+    L = spectral.normalized_laplacian(X, 2.0, "HeatKernel", 10)
+    K = 7
+
+    def solve(L_sym, iters=12):
+        if solver == "eigh":
+            lam, vec = torch.linalg.eigh(L_sym)
+            return lam[:, :K], vec[..., :K]
+        return spectral._smallest_eigvecs_subspace(L_sym, K, iters=iters)
+    lam, vec = solve(L)
+    assert lam.is_cuda and vec.is_cuda
+    Lc = spectral.normalized_laplacian(X.cpu(), 2.0, "HeatKernel", 10)
+    lam_c, vec_c = solve(Lc)
+    residual = torch.linalg.vector_norm(
+        Lc @ vec_c - vec_c * lam_c[:, None, :], dim=1).max().item()
+    torch.testing.assert_close(L.cpu(), Lc, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lam.cpu(), lam_c, rtol=0,
+                               atol=1e-3 if residual > 1e-2 else 1e-4)
+    torch.testing.assert_close((vec @ vec.mT).cpu(), vec_c @ vec_c.mT,
+                               rtol=0, atol=1e-3)
+    if solver == "subspace":
+        lam, _ = solve(L, iters=24)
+        lam_c, vec_c = solve(Lc, iters=24)
+        assert torch.linalg.vector_norm(
+            Lc @ vec_c - vec_c * lam_c[:, None, :], dim=1).max() < 1e-3
+        torch.testing.assert_close(lam.cpu(), lam_c, rtol=0, atol=1e-4)
+
+
+def test_kmedoids_kernel_on_spectral_embeddings(cuda):
+    """Kernel E at the spectral path's shape: the row-normalised embedding
+    [768, 98, 49] of ViT-B/32-wide tokens in planted groups (a KNN graph
+    with edges between tokens, not W = I), D [768, 98, 98], K = 49."""
+    from centerclip_tpu_torch.ops import spectral
+    X = _spectral_tokens(768, 0, cuda)
+    Q = spectral.spectral_embedding(X, 49, mode="KNN", knn_k=10, sigma=2.0)
+    assert Q.shape == (768, 98, 49)
+    _check_kmedoids_on_distances(Q, 49)
+
+
+def test_spectral_layer_on_the_card_matches_plain(cuda):
+    """The spectral cluster layer at ViT-B/32's shapes (2 clips of 12
+    frames, 49 + 1 tokens, width 768, 12 -> 6 frames, K = 49), bf16, on
+    tokens in planted groups (at randn's scale the heat kernel underflows
+    off the diagonal): the card's output against the CPU's with the card's
+    medoid ids replayed."""
+    from centerclip_tpu_torch.ops.cluster_layer import TokenClusterInter
+    spec = port_config.BlockClusterSpec(
+        block_id=7, algo="spectral", before_cluster_num=49, cluster_num=49,
+        before_frames=12, after_frames=6, frame_duration=2, spectral_knn_k=10)
+    cfg = port_config.ClusterConfig(inter=True, algo="spectral",
+                                    spectral_graph="KNN")
+    x = (_blobs(24, 50, 768, 7, seed=7, device=cuda) * 0.05).bfloat16()
+    mod = TokenClusterInter(spec, cfg, 768)
+    chosen = []
+
+    def record(res_tmp, own=mod._cluster):
+        out = own(res_tmp)
+        chosen.append(tuple(a.cpu() for a in out))
+        return out
+    mod._cluster = record
+    before = kmedoids_cuda.kmedoids_from_distances.launches
+    out = mod(x)
+    torch.cuda.synchronize()
+    assert kmedoids_cuda.kmedoids_from_distances.launches == before + 1
+    assert out.shape == (12, 50, 768) and out.dtype == torch.bfloat16
+    cpu = TokenClusterInter(spec, cfg, 768)
+    cpu._cluster = lambda res_tmp: chosen[0]
+    torch.testing.assert_close(out.cpu(), cpu(x.cpu()), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("algo", ["kmediods++", "pooling", "sparse_sampling",
+                                  "spectral", "temporal_shift",
+                                  "token_shift", "deep_cluster"])
+def test_each_algorithm_eval_forward_card_matches_plain(cuda, algo,
+                                                        monkeypatch):
+    """A 2 + 2 block model of each algorithm (width 128, 4 frames -> 2):
+    the card's eval video embedding against the CPU's on the same weights
+    (cosine >= 0.99; kmediods++ and spectral with the card's medoid ids
+    replayed: at K = 8 of 32 tokens, rounding picks other medoids)."""
+    monkeypatch.setitem(port_config.CLIP_ARCHS, "tiny-gpu-algos", dict(
+        embed_dim=32, image_resolution=64, vision_layers=2, vision_width=128,
+        vision_patch_size=16, vision_heads=2, context_length=16,
+        vocab_size=100, transformer_width=128, transformer_heads=2,
+        transformer_layers=2))
+    kw = dict(clip_name="tiny-gpu-algos", max_frames=4, max_words=16,
+              cluster_num_blocks=(16, 8), target_frames_blocks=(4, 2))
+    if algo == "deep_cluster":
+        kw["deep_cluster"] = True
+    else:
+        kw.update(inter=True, algo=algo)
+    cfg = port_config.make_run_config(**kw).model
+    card = CLIP4Clip(cfg, device=cuda, seed=0).eval()
+    cpu = CLIP4Clip(cfg, device="cpu", seed=0).eval()
+    g = np.random.default_rng(1)
+    video = torch.from_numpy(g.integers(0, 256, (3, 1, 4, 3, 64, 64),
+                                        dtype=np.uint8))
+    vmask = torch.ones((3, 4), dtype=torch.int32)
+    if algo in ("kmediods++", "spectral"):
+        chosen = []
+        mc = card.clip.visual.transformer.resblocks[1].tokencluster_inter
+
+        def record(res_tmp, own=mc._cluster):
+            out = own(res_tmp)
+            chosen.append(tuple(a.cpu() for a in out))
+            return out
+        mc._cluster = record
+        cpu.clip.visual.transformer.resblocks[1].tokencluster_inter \
+            ._cluster = lambda res_tmp: chosen[0]
+    with torch.inference_mode():
+        a = card(video=video.to(cuda), video_mask=vmask.to(cuda))
+        b = cpu(video=video, video_mask=vmask)
+    va, vb = a["visual_output"].float().cpu(), b["visual_output"].float()
+    assert va.shape == vb.shape and bool(torch.isfinite(va).all())
+    cos = torch.nn.functional.cosine_similarity(va.flatten(1), vb.flatten(1))
+    assert float(cos.min()) >= 0.99, cos

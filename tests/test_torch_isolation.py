@@ -34,7 +34,7 @@ def test_importing_every_port_module_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'centerclip_tpu', 'triton'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 45, names\n"
+        "assert len(names) >= 48, names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -83,13 +83,28 @@ def test_tokenizer_treats_empty_stand_in_modules_as_absent(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(inter=True, algo="kmediods++",
                                      cluster_num_blocks=(49,) * 12,
                                      target_frames_blocks=(12,) * 6 + (6,) * 6),
-                                dict(tensor_parallel=2)])
+                                dict(tensor_parallel=2),
+                                dict(inter=True, algo="spectral",
+                                     spectral_graph="KNN", spectral_spg=True,
+                                     spectral_solver="subspace",
+                                     cluster_num_blocks=(49,) * 12,
+                                     target_frames_blocks=(12,) * 6 + (4,) * 6),
+                                dict(deep_cluster=True,
+                                     cluster_num_blocks=(49,) * 12,
+                                     target_frames_blocks=(12,) * 6 + (6,) * 6,
+                                     datatype="activity"),
+                                dict(preset="lsmdc_vitb32_spectral6"),
+                                dict(preset="activity_vitb32")])
 def test_port_config_matches_jax_config(kw):
     import dataclasses
     from centerclip_tpu import config as jax_config
     from centerclip_tpu_torch import config as port_config
-    a = port_config.make_run_config(**kw)
-    b = jax_config.make_run_config(**kw)
+    if "preset" in kw:
+        a = port_config.preset(kw["preset"])
+        b = jax_config.preset(kw["preset"])
+    else:
+        a = port_config.make_run_config(**kw)
+        b = jax_config.make_run_config(**kw)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
     assert [dataclasses.asdict(s) if s else None
             for s in a.model.cluster_plan()] == \

@@ -107,7 +107,7 @@ def test_cli_refuses_the_parallel_strategies(flag):
 
 
 @pytest.mark.parametrize("extra", [["--sim_header", "seqTransf"],
-                                   ["--cluster_algo", "spectral"],
+                                   ["--sim_header", "seqLSTM"],
                                    ["--linear_patch", "3d"],
                                    ["--pretrained_clip_name", "RN50"]])
 def test_unported_algorithms_parse_and_the_builder_refuses(extra):
@@ -458,3 +458,28 @@ def test_main_resumes_from_its_checkpoint(msrvtt_root, tmp_path):
     for k, v in ref["state_dict"].items():
         assert torch.equal(ckpt["state_dict"][k], v), k
     assert best2 == best
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cluster_algo", "spectral", "--spectral_graph", "KNN",
+     "--spectral_knn_k", "5"],
+    ["--cluster_algo", "sparse_sampling"],
+    ["--cluster_inter", "0", "--deep_cluster", "1"]])
+def test_main_trains_and_evaluates_the_other_cluster_algorithms(
+        msrvtt_root, tmp_path, flags):
+    """`main` with another algorithm's flags (the later flag wins): an
+    epoch of training with its losses logged (a positive cluster loss for
+    deep_cluster only), the evaluation, the checkpoint."""
+    from centerclip_tpu_torch import main as port_main
+    out = tmp_path / "out"
+    best = _with_resolution(cli, lambda: port_main.main(
+        _argv(msrvtt_root, out) + flags, device="cpu"))
+    assert np.isfinite(best)
+    with open(out / "tensorboard" / "scalars.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    closs = [r["train/cluster_loss"] for r in recs if
+             "train/cluster_loss" in r]
+    assert closs and all(np.isfinite(closs))
+    assert all((c > 0) == ("--deep_cluster" in flags) for c in closs)
+    sd = torch.load(out / "ckpt.pth.tar", weights_only=False)["state_dict"]
+    assert any("deepcluster" in k for k in sd) == ("--deep_cluster" in flags)

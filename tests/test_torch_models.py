@@ -188,7 +188,7 @@ def test_checkpoint_file_roundtrip(pair, tmp_path):
 
 def test_builders_refuse_what_is_not_ported():
     for over in (dict(sim_header="seqTransf"), dict(linear_patch="3d"),
-                 dict(pipeline_parallel=2), dict(algo="spectral")):
+                 dict(pipeline_parallel=2), dict(clip_name="RN50")):
         cfg = port_config.make_run_config(**config_kw(**over)).model
         with pytest.raises(NotImplementedError):
             CLIP4Clip(cfg, device="cpu")

@@ -440,7 +440,9 @@ def test_presets_match_jax(overrides):
 
 @pytest.mark.parametrize("name,overrides", [
     ("msrvtt_vitb32_k4", {}), ("lsmdc_vitb32_k6", {}), ("msvd_vitb32_k4", {}),
-    ("msrvtt_vitb16_k6", {}), ("msrvtt_vitb16_k6", {"remat": True})])
+    ("msrvtt_vitb16_k6", {}), ("msrvtt_vitb16_k6", {"remat": True}),
+    ("lsmdc_vitb32_spectral6", {}), ("activity_vitb32", {}),
+    ("activity_vitb32", {"remat": True})])
 def test_ported_presets_match_jax_field_by_field(name, overrides):
     a = port_config.preset(name, **overrides)
     b = jax_config.preset(name, **overrides)
@@ -453,9 +455,13 @@ def test_ported_presets_match_jax_field_by_field(name, overrides):
 
 @pytest.mark.parametrize("name", ["lsmdc_vitb32_spectral6", "activity_vitb32"])
 def test_presets_the_port_does_not_run_are_refused(name):
-    jax_config.preset(name)
-    with pytest.raises(KeyError, match="unknown preset"):
-        port_config.preset(name)
+    """The port now has every preset of the JAX package (these two were
+    the last); a name that neither package has is refused by both."""
+    a, b = port_config.preset(name), jax_config.preset(name)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for config in (port_config, jax_config):
+        with pytest.raises(KeyError, match="unknown preset"):
+            config.preset(name + "_x")
 
 
 @pytest.mark.parametrize("freeze", [0, -1])
