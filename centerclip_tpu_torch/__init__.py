@@ -22,3 +22,14 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' explicitly to run the plain PyTorch versions")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def set_fp32_numerics() -> None:
+    """The JAX package's fp32 numerics on the card: fp32 matmuls and
+    convolutions in full fp32, never TF32.  PyTorch's defaults differ for
+    the two: `torch.backends.cuda.matmul.allow_tf32` is False but
+    `torch.backends.cudnn.allow_tf32` is True, which would run the ResNet
+    tower's and the 3-D patchify's fp32 convolutions in TF32.  The model
+    builder calls this; the flags are process-wide."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

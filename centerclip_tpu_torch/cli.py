@@ -5,10 +5,11 @@ params.py:19-326).
 Every flag and default of the JAX package's parser, so the canonical
 `scripts/*.sh` flags translate 1:1 (`python -m centerclip_tpu_torch.main
 <flags>`); `args_to_run_config` funnels the namespace into the typed config
-tree, equal field by field to the JAX package's.  Flags of algorithms the
-port does not run yet still parse; the model builder raises
-`NotImplementedError` for them.  The parallel strategies are refused here:
-the port runs one process on one GPU.
+tree, equal field by field to the JAX package's.  Every header, tower
+and patchify of the JAX package builds; `--sim_header seqLSTM` parses and
+builds and raises at the similarity, as the JAX package's does.  The
+parallel strategies are refused here: the port runs one process on one
+GPU.
 """
 from __future__ import annotations
 

@@ -1,2 +1,3 @@
 # coding=utf-8
-"""CLIP towers, CLIP4Clip (meanP), tokenizer and weight conversion."""
+"""CLIP towers (ViT and ResNet), CLIP4Clip and its similarity headers, the
+cross model, tokenizer and weight conversion."""

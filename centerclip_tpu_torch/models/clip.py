@@ -18,9 +18,19 @@ the JAX package's `models/clip.py`, reference: modules/clip.py:272-512).
   as the JAX package's `nn.remat(ResidualAttentionBlock)`); the cluster
   modules and DeepCluster heads run outside the recomputed blocks, so
   clustering runs once per forward.
+* `linear_patch="3d"`: the tubelet patchify (`patchify_3d`), the JAX
+  package's `lax.conv` over [frames, H, W] with a [width, 3, 3, P, P]
+  kernel, temporal padding 1 and stride (1, P, P), in the compute dtype,
+  computed as one matmul over each frame's and its neighbours' patches.
+  It takes CLIP-normalised float frames only: the uint8 fold exists only
+  for the 2-D matmul, and uint8 frames raise.
+* ResNet archs (`vision_layers` a tuple: RN50, RN101) get
+  `resnet.ModifiedResNet` as the vision tower, in fp32, without clustering;
+  uint8 frames raise there too (`CLIP4Clip.get_visual_output` normalises
+  them first).
 
-The 3-D patchify, the ResNet towers and sequence or pipeline parallelism
-are not ported; a config that asks for them raises.
+Sequence and pipeline parallelism are not ported; a config that asks for
+them raises.
 """
 from __future__ import annotations
 
@@ -29,12 +39,14 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..ops.cluster_layer import TokenClusterInter
 from ..ops.deepcluster import DeepCluster, deep_cluster_plan
 from .layers import LayerNormF32, ResidualAttentionBlock, causal_mask
+from .resnet import ModifiedResNet
 
 # CLIP's pixel statistics (reference: dataloaders/rawvideo_util.py)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -43,23 +55,56 @@ CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise on the parts of a config the port does not implement yet."""
-    if isinstance(cfg.arch["vision_layers"], (tuple, list)):
-        raise NotImplementedError("ResNet vision towers are not ported yet")
-    if cfg.linear_patch != "2d":
-        raise NotImplementedError("the 3-D patchify is not ported yet")
     if cfg.sequence_parallel or cfg.pipeline_parallel > 1:
         raise NotImplementedError(
             "sequence and pipeline parallelism are not ported")
 
 
+def is_resnet(cfg: ModelConfig) -> bool:
+    """True for the ResNet archs (their `vision_layers` is a tuple)."""
+    return isinstance(cfg.arch["vision_layers"], (tuple, list))
+
+
+def patchify_3d(video: torch.Tensor, weight: torch.Tensor, frames: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """The tubelet patchify (reference: clip.py:298-321; JAX package
+    `models/clip.py:229-260`): [B*frames, C, H, W] float frames and a
+    [width, C, 3, P, P] kernel -> [B*frames, gh*gw, width] in `dtype`,
+    temporal kernel 3 with padding 1, spatial kernel and stride P.
+
+    The convolution's spatial stride equals its kernel, so it is one
+    matmul: each frame's patches beside its two neighbours' (zero frames
+    at the clip's ends), [B*frames*gh*gw, 3*C*P*P], times the kernel laid
+    out to match, with one fp32 accumulation and one rounding to `dtype`
+    as in the convolution.  On the H100 cuDNN's bf16 `F.conv3d` with this
+    32 x 32 stride takes 7.6x as long (`chip_smoke.py` times both)."""
+    if video.dtype == torch.uint8:
+        # the uint8 normalisation fold exists only in the 2-D patchify
+        # matmul; raw frames here would be consumed as 0..255
+        raise ValueError(
+            "uint8 video reached the 3-D patchify — normalise to float "
+            "(CLIP mean/std) before encode_image with linear_patch='3d'")
+    BT, C, H, W = video.shape
+    O, _, kt, P, _ = weight.shape
+    B, gh, gw = BT // frames, H // P, W // P
+    p = video.to(dtype).reshape(B, frames, C, gh, P, gw, P)
+    p = p.permute(0, 1, 3, 5, 2, 4, 6).reshape(B, frames, gh * gw, C * P * P)
+    p = F.pad(p, (0, 0, 0, 0, kt // 2, kt // 2))
+    taps = torch.cat([p[:, k:k + frames] for k in range(kt)], dim=-1)
+    kernel = weight.permute(0, 2, 1, 3, 4).reshape(O, -1).to(dtype)
+    return (taps @ kernel.t()).reshape(BT, gh * gw, O)
+
+
 class Transformer(nn.Module):
-    """A stack of residual blocks (`transformer.resblocks.{i}`)."""
+    """A stack of residual blocks (`transformer.resblocks.{i}`); `fused`
+    picks their attention core (`models/layers.py`)."""
 
     def __init__(self, width: int, layers: int, heads: int,
-                 dtype: torch.dtype, remat: bool = False):
+                 dtype: torch.dtype, remat: bool = False, fused: bool = True):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, dtype) for _ in range(layers))
+            ResidualAttentionBlock(width, heads, dtype, fused)
+            for _ in range(layers))
         self.remat = remat
 
     def run_block(self, block: ResidualAttentionBlock, x: torch.Tensor,
@@ -84,6 +129,10 @@ class VisionTransformer(nn.Module):
         grid = arch["image_resolution"] // P
         self.dtype, self.patch = dtype, P
         self.conv1 = nn.Conv2d(3, width, P, P, bias=False)   # weight holder
+        self.frames, self.conv2 = cfg.max_frames, None
+        if cfg.linear_patch == "3d":
+            self.conv2 = nn.Conv3d(3, width, (3, P, P), (1, P, P), (1, 0, 0),
+                                   bias=False)               # weight holder
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(
             torch.empty(grid * grid + 1, width))
@@ -131,7 +180,10 @@ class VisionTransformer(nn.Module):
         ([B*T_final, embed_dim] fp32 CLS features, fp32 cluster_loss: the
         DeepCluster heads' WCSS with `training`, else 0)."""
         dt = self.dtype
-        x = self._patchify(video)
+        if self.conv2 is not None:
+            x = patchify_3d(video, self.conv2.weight, self.frames, dt)
+        else:
+            x = self._patchify(video)
         BT, _, width = x.shape
         cls = self.class_embedding.to(dt).expand(BT, 1, width)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
@@ -164,7 +216,14 @@ class CLIP(nn.Module):
         dtype = getattr(torch, cfg.compute_dtype)
         width = arch["transformer_width"]
         self.dtype = dtype
-        self.visual = VisionTransformer(cfg, dtype)
+        if is_resnet(cfg):
+            # reference: clip.py:379-387; heads = width * 32 / 64
+            self.visual = ModifiedResNet(
+                arch["vision_layers"], arch["embed_dim"],
+                arch["vision_width"] * 32 // 64, arch["image_resolution"],
+                arch["vision_width"])
+        else:
+            self.visual = VisionTransformer(cfg, dtype)
         self.token_embedding = nn.Embedding(arch["vocab_size"], width)
         self.positional_embedding = nn.Parameter(
             torch.empty(arch["context_length"], width))
@@ -179,21 +238,25 @@ class CLIP(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded initialisation with the JAX package's initialisers."""
         v = self.visual
-        vw = v.class_embedding.shape[0]
         tw = self.positional_embedding.shape[1]
         with torch.no_grad():
-            v.conv1.weight.normal_(0.0, v.conv1.weight[0].numel() ** -0.5,
-                                   generator=generator)
-            for p in (v.class_embedding, v.positional_embedding, v.proj):
-                p.normal_(0.0, vw ** -0.5, generator=generator)
+            if isinstance(v, VisionTransformer):
+                vw = v.class_embedding.shape[0]
+                for conv in (v.conv1, v.conv2):
+                    if conv is not None:
+                        conv.weight.normal_(
+                            0.0, conv.weight[0].numel() ** -0.5,
+                            generator=generator)
+                for p in (v.class_embedding, v.positional_embedding, v.proj):
+                    p.normal_(0.0, vw ** -0.5, generator=generator)
             self.token_embedding.weight.normal_(0.0, 0.02, generator=generator)
             self.positional_embedding.normal_(0.0, 0.01, generator=generator)
             self.text_projection.normal_(0.0, tw ** -0.5, generator=generator)
             self.logit_scale.fill_(math.log(1 / 0.07))
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters") \
-                    and not isinstance(m, (nn.Linear, nn.Conv2d, nn.Embedding,
-                                           nn.LayerNorm)):
+                    and not isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d,
+                                           nn.Embedding, nn.LayerNorm)):
                 m.reset_parameters(generator)
 
     def encode_text(self, text: torch.Tensor) -> torch.Tensor:
@@ -214,5 +277,14 @@ class CLIP(nn.Module):
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B*T, 3, H, W] -> ([B*T_final, embed_dim] fp32 CLS features,
-        cluster_loss)."""
+        cluster_loss); the ResNet tower's pooled features and a zero
+        cluster loss for the ResNet archs."""
+        if isinstance(self.visual, ModifiedResNet):
+            if video.dtype == torch.uint8:
+                # no normalisation fold for the ResNet stem (stride-2 convs)
+                raise ValueError(
+                    "uint8 video reached the ResNet tower — normalise to "
+                    "float (CLIP mean/std) before encode_image")
+            return self.visual(video.float()).float(), \
+                torch.zeros((), device=video.device)
         return self.visual(video, training, generator)

@@ -8,6 +8,18 @@ param_dtype=float32)`); LayerNorm computes in fp32 and returns the input's
 dtype; attention logits and softmax are fp32.  Layout is [batch, tokens,
 dim] throughout.  LayerNorm and the attention core go through the port's
 kernel wrappers, which use their plain versions on CPU tensors.
+
+`fused` selects the attention core, as the JAX package's `fused` flag does
+(`models/layers.py:58-116` there): the CLIP towers' blocks are built with
+`fused=True` and run the attention kernel (A forward, B backward; on a CUDA
+tensor it launches or raises).  The similarity headers' blocks (seqTransf's
+`transformerClip`, the cross model) are built with `fused=False`, the JAX
+block's default, and run `attention_plain` on every device: the JAX
+block's own unfused path (fp32 logits and softmax), which JAX runs there
+outside any Pallas kernel.  Their key-padding mask is per sample,
+[B, 1, 1, L], which neither the TPU kernel nor kernel A takes (both take
+one [L, L] mask).  That is a choice made when the block is built, never a
+fallback from a kernel that failed.
 """
 from __future__ import annotations
 
@@ -16,7 +28,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.attention_cuda import fused_attention
+from ..ops.attention_cuda import attention_plain, fused_attention
 from ..ops.layernorm_triton import EPS, layer_norm
 
 
@@ -59,11 +71,14 @@ class LayerNormF32(nn.Module):
 class MultiHeadAttention(nn.Module):
     """Self-attention with a packed QKV projection (`in_proj_weight` rows in
     Q, K, V order, as torch's nn.MultiheadAttention stores them), whose
-    `[B, L, 3*D]` output goes straight into the attention kernel."""
+    `[B, L, 3*D]` output goes straight into the attention kernel
+    (`fused=True`) or into its plain version `attention_plain`
+    (`fused=False`)."""
 
-    def __init__(self, width: int, heads: int, dtype: torch.dtype):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype,
+                 fused: bool = True):
         super().__init__()
-        self.heads, self.dtype = heads, dtype
+        self.heads, self.dtype, self.fused = heads, dtype, fused
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = nn.Linear(width, width)
@@ -81,8 +96,8 @@ class MultiHeadAttention(nn.Module):
         dt = self.dtype
         qkv = nn.functional.linear(x.to(dt), self.in_proj_weight.to(dt),
                                    self.in_proj_bias.to(dt))
-        out = fused_attention(qkv, self.heads, attn_mask)
-        return linear(out, self.out_proj, dt)
+        attend = fused_attention if self.fused else attention_plain
+        return linear(attend(qkv, self.heads, attn_mask), self.out_proj, dt)
 
 
 class MLP(nn.Module):
@@ -109,11 +124,13 @@ class ResidualAttentionBlock(nn.Module):
     """Pre-LN transformer block (reference: clip.py:197-253).  A vision block
     may carry the clustering module that runs before it
     (`tokencluster_inter`, the reference's attribute name); the tower calls
-    it, so the token count changes between blocks."""
+    it, so the token count changes between blocks.  `fused` picks the
+    attention core (module docstring)."""
 
-    def __init__(self, width: int, heads: int, dtype: torch.dtype):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype,
+                 fused: bool = True):
         super().__init__()
-        self.attn = MultiHeadAttention(width, heads, dtype)
+        self.attn = MultiHeadAttention(width, heads, dtype, fused)
         self.ln_1 = LayerNormF32(width)
         self.mlp = MLP(width, dtype)
         self.ln_2 = LayerNormF32(width)

@@ -13,6 +13,16 @@ The reference's torch schema has no names for the DeepCluster heads; the
 port names them after the JAX package's tree (`deepcluster_{i}` under the
 vision tower): `clip.visual.deepcluster_{i}.{fc1,fc2,fc3,ln1,ln2,ln3}.
 {weight,bias}`.
+
+The ResNet towers (RN50, RN101) have the reference's names
+(modules/clip.py:40-180): `clip.visual.conv{1,2,3}.weight`,
+`clip.visual.bn{1,2,3}.{weight,bias,running_mean,running_var}`,
+`clip.visual.layer{l}.{b}.{conv,bn}{1,2,3}.*`, `...downsample.{0,1}.*` and
+`clip.visual.attnpool.{positional_embedding,q_proj,k_proj,v_proj,c_proj}`.
+The JAX package's table has no ResNet entries; its tree names them
+`layer{l}_{b}`, `downsample_conv` / `downsample_bn`, and `FrozenBatchNorm`'s
+`scale` / `bias` / `mean` / `var`, with HWIO convolution kernels,
+which `state_dict_from_jax_params` transposes to torch's OIHW.
 """
 from __future__ import annotations
 
@@ -54,14 +64,103 @@ def _block_entries(param_prefix: Tuple[str, ...], torch_prefix: str
     return e
 
 
+def _resnet_entries(arch: dict) -> List[Entry]:
+    """The ResNet tower (JAX package `models/resnet.py` tree, the
+    reference's torch names); 'HWIO' marks an [H, W, in, out] convolution kernel."""
+    v, tv = ("clip", "visual"), "clip.visual"
+    e: List[Entry] = []
+
+    def conv(path, key):
+        e.append((v + path + ("kernel",), f"{key}.weight", "HWIO"))
+
+    def bn(path, key):
+        for leaf, name in (("scale", "weight"), ("bias", "bias"),
+                           ("mean", "running_mean"), ("var", "running_var")):
+            e.append((v + path + (leaf,), f"{key}.{name}", ""))
+    for i in (1, 2, 3):
+        conv((f"conv{i}",), f"{tv}.conv{i}")
+        bn((f"bn{i}",), f"{tv}.bn{i}")
+    width = arch["vision_width"]
+    inplanes = width
+    for li, blocks in enumerate(arch["vision_layers"]):
+        planes = width * 2 ** li
+        for b in range(blocks):
+            node, key = (f"layer{li + 1}_{b}",), f"{tv}.layer{li + 1}.{b}"
+            for i in (1, 2, 3):
+                conv(node + (f"conv{i}",), f"{key}.conv{i}")
+                bn(node + (f"bn{i}",), f"{key}.bn{i}")
+            if b == 0 and (li > 0 or inplanes != planes * 4):
+                conv(node + ("downsample_conv",), f"{key}.downsample.0")
+                bn(node + ("downsample_bn",), f"{key}.downsample.1")
+            inplanes = planes * 4
+    pool, key = v + ("attnpool",), f"{tv}.attnpool"
+    e.append((pool + ("positional_embedding",),
+              f"{key}.positional_embedding", ""))
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        e += [(pool + (proj, "kernel"), f"{key}.{proj}.weight", "T"),
+              (pool + (proj, "bias"), f"{key}.{proj}.bias", "")]
+    return e
+
+
+def _header_entries(cfg: ModelConfig) -> List[Entry]:
+    """The similarity headers (JAX package `models/weights.py:146-169`)."""
+    e: List[Entry] = []
+    if cfg.sim_header in ("seqLSTM", "seqTransf"):
+        e.append((("frame_position_embeddings",),
+                  "frame_position_embeddings.weight", ""))
+    if cfg.sim_header == "seqTransf":
+        for i in range(cfg.cross_num_hidden_layers):
+            e += _block_entries((f"transformerClip_{i}",),
+                                f"transformerClip.resblocks.{i}")
+    if not cfg.loose_type:
+        e.append((("cross", "position_embeddings"),
+                  "cross.embeddings.position_embeddings.weight", ""))
+        for i in range(cfg.cross_num_hidden_layers):
+            e += _block_entries(("cross", f"resblocks_{i}"),
+                                f"cross.transformer.resblocks.{i}")
+        e += [(("cross", "ln_pool", "norm", "scale"),
+               "cross.pooler.ln_pool.weight", ""),
+              (("cross", "ln_pool", "norm", "bias"),
+               "cross.pooler.ln_pool.bias", ""),
+              (("cross", "pooler_dense", "kernel"),
+               "cross.pooler.dense.weight", "T"),
+              (("cross", "pooler_dense", "bias"), "cross.pooler.dense.bias",
+               ""),
+              (("similarity_dense", "kernel"), "similarity_dense.weight",
+               "T"),
+              (("similarity_dense", "bias"), "similarity_dense.bias", "")]
+    return e
+
+
 def clip4clip_entries(cfg: ModelConfig) -> List[Entry]:
-    """The mapping table of the ported model (the CLIP towers of a meanP
-    CLIP4Clip, JAX package `models/weights.py:98-141`), with the learned
-    cluster extras and the DeepCluster heads."""
+    """The mapping table of the ported model (JAX package
+    `models/weights.py:98-170`): the CLIP towers (a ViT with its learned
+    cluster extras, the 3-D patchify's `conv2` and the DeepCluster heads,
+    or a ResNet), then the similarity headers."""
     arch = cfg.arch
     v, t = ("clip", "visual"), ("clip", "text")
-    e = [(("clip", "logit_scale"), "clip.logit_scale", ""),
-         (v + ("conv1",), "clip.visual.conv1.weight", ""),
+    e = [(("clip", "logit_scale"), "clip.logit_scale", "")]
+    if isinstance(arch["vision_layers"], (tuple, list)):
+        e += _resnet_entries(arch)
+    else:
+        e += _vit_entries(cfg)
+    e += [(t + ("token_embedding",), "clip.token_embedding.weight", ""),
+          (t + ("positional_embedding",), "clip.positional_embedding", ""),
+          (t + ("ln_final", "norm", "scale"), "clip.ln_final.weight", ""),
+          (t + ("ln_final", "norm", "bias"), "clip.ln_final.bias", ""),
+          (t + ("text_projection",), "clip.text_projection", "")]
+    for i in range(arch["transformer_layers"]):
+        e += _block_entries(t + (f"resblocks_{i}",),
+                            f"clip.transformer.resblocks.{i}")
+    return e + _header_entries(cfg)
+
+
+def _vit_entries(cfg: ModelConfig) -> List[Entry]:
+    """The ViT tower with the learned cluster extras, `conv2` (3-D
+    patchify) and the DeepCluster heads."""
+    arch = cfg.arch
+    v = ("clip", "visual")
+    e = [(v + ("conv1",), "clip.visual.conv1.weight", ""),
          (v + ("class_embedding",), "clip.visual.class_embedding", ""),
          (v + ("positional_embedding",), "clip.visual.positional_embedding",
           "")]
@@ -69,6 +168,8 @@ def clip4clip_entries(cfg: ModelConfig) -> List[Entry]:
         e.append((v + (ln, "norm", "scale"), f"clip.visual.{ln}.weight", ""))
         e.append((v + (ln, "norm", "bias"), f"clip.visual.{ln}.bias", ""))
     e.append((v + ("proj",), "clip.visual.proj", ""))
+    if cfg.linear_patch == "3d":
+        e.append((v + ("conv2",), "clip.visual.conv2.weight", ""))
     for i in range(arch["vision_layers"]):
         e += _block_entries(v + (f"resblocks_{i}",),
                             f"clip.visual.transformer.resblocks.{i}")
@@ -98,14 +199,6 @@ def clip4clip_entries(cfg: ModelConfig) -> List[Entry]:
                    f"clip.visual.deepcluster_{i}.ln{n}.weight", ""),
                   (head + (f"ln{n}", "bias"),
                    f"clip.visual.deepcluster_{i}.ln{n}.bias", "")]
-    e += [(t + ("token_embedding",), "clip.token_embedding.weight", ""),
-          (t + ("positional_embedding",), "clip.positional_embedding", ""),
-          (t + ("ln_final", "norm", "scale"), "clip.ln_final.weight", ""),
-          (t + ("ln_final", "norm", "bias"), "clip.ln_final.bias", ""),
-          (t + ("text_projection",), "clip.text_projection", "")]
-    for i in range(arch["transformer_layers"]):
-        e += _block_entries(t + (f"resblocks_{i}",),
-                            f"clip.transformer.resblocks.{i}")
     return e
 
 
@@ -124,6 +217,8 @@ def state_dict_from_jax_params(params: Mapping, cfg: ModelConfig
         val = np.array(node, dtype=np.float32, copy=True)
         if tf == "T":
             val = np.ascontiguousarray(val.T)
+        elif tf == "HWIO":
+            val = np.ascontiguousarray(val.transpose(3, 2, 0, 1))
         sd[key] = torch.from_numpy(val)
     return sd
 

@@ -3,10 +3,11 @@
 
     python -m centerclip_tpu_torch.profile_train [--batch 128] [--steps 1]
         [--preset msrvtt_vitb32_k6] [--remat 0|1] [--stream_scale A]
+        [--sim_header meanP|seqTransf|tightTransf] [--cross_logits N]
 
 Builds a preset of the JAX package (by default `msrvtt_vitb32_k6`: ViT-B/32,
 kmediods++ 12 -> 6 frames, meanP, bf16 towers, AdamW; `--remat` overrides
-its `remat`) on seeded random weights (`--stream_scale` multiplies the
+its `remat`, `--sim_header` its header) on seeded random weights (`--stream_scale` multiplies the
 vision residual stream: `scale_vision_stream`) and a
 `Trainer` over it, takes two warm-up steps on one batch of `--batch` seeded
 uint8 clips with seeded token rows (tensors in pinned memory, as the data
@@ -17,11 +18,16 @@ the device time by group (the port's five kernels, cuBLAS matmuls, the
 optimizer's foreach kernels, copies, the rest) and by kernel name (with
 launch counts), and the peak device memory allocated.  Exits non-zero without a CUDA device, if
 the profiler records no device time, or, with a message and the peak
-allocated so far, if the step does not fit in device memory.
+allocated so far, if the step does not fit in device memory.  With
+tightTransf, `--cross_logits N` then profiles one chunk of the evaluation's
+scoring from seeded cached features: `--cross_chunk` texts against N
+videos through the cross model (`CLIP4Clip.cross_similarity`), with the
+cross model's matmul FLOPs over the cuBLAS group's device time.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import numpy as np
@@ -65,7 +71,13 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="msrvtt_vitb32_k6")
     ap.add_argument("--remat", type=int, choices=(0, 1), default=None)
     ap.add_argument("--stream_scale", type=float, default=1.0)
+    ap.add_argument("--sim_header", default=None,
+                    choices=("meanP", "seqTransf", "tightTransf"))
+    ap.add_argument("--cross_logits", type=int, default=0)
+    ap.add_argument("--cross_chunk", type=int, default=64)
     args = ap.parse_args(argv)
+    if args.cross_logits and args.sim_header != "tightTransf":
+        ap.error("--cross_logits needs --sim_header tightTransf")
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
@@ -73,10 +85,13 @@ def main(argv=None) -> int:
     overrides = dict(batch_size=args.batch)
     if args.remat is not None:
         overrides["remat"] = bool(args.remat)
+    if args.sim_header is not None:
+        overrides["sim_header"] = args.sim_header
     run = preset(args.preset, **overrides)
     cfg = run.model
-    print(f"{args.preset}, batch {args.batch}, remat {cfg.remat}, vision "
-          f"stream scaled by {args.stream_scale}")
+    print(f"{args.preset}, batch {args.batch}, remat {cfg.remat}, "
+          f"sim_header {cfg.sim_header}, vision stream scaled by "
+          f"{args.stream_scale}")
     model = CLIP4Clip(cfg, device="cuda", seed=0)
     scale_vision_stream(model, args.stream_scale)
     trainer = Trainer(run, model, total_steps=args.steps + 2)
@@ -104,7 +119,47 @@ def main(argv=None) -> int:
                                         n_display=10 ** 9), args.top)
     print(f"peak device memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if args.cross_logits:
+        del trainer, batch
+        torch.cuda.empty_cache()
+        cross_chunk(model.eval(), args.cross_logits, args.cross_chunk,
+                    args.top)
     return 0
+
+
+def cross_chunk(model: CLIP4Clip, n: int, chunk: int, top: int) -> None:
+    """Profile tightTransf's scoring of `chunk` texts against `n` videos
+    from seeded cached features ([chunk, 1, D], [n, T', D]): `chunk * n`
+    pairs of 1 + T' tokens through the cross model's blocks and pooler,
+    in fp32 without TF32.  Prints the cross model's matmul FLOPs over the
+    cuBLAS group's device time and over the whole device time."""
+    cfg = model.cfg
+    D, T = cfg.arch["embed_dim"], cfg.final_frames
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seq = torch.randn((chunk, 1, D), generator=gen, device="cuda")
+    vis = torch.randn((n, T, D), generator=gen, device="cuda")
+    vmask = torch.ones((n, T), dtype=torch.int32, device="cuda")
+    model.cfg = dataclasses.replace(cfg, cross_chunk_size=chunk)
+    with torch.inference_mode():
+        model.cross_similarity(seq, vis, vmask)                  # warm-up
+        res = profile(f"tightTransf scoring of {chunk} texts x {n} videos "
+                      f"(one chunk)",
+                      lambda: model.cross_similarity(seq, vis, vmask), top)
+    model.cfg = cfg
+    # per pair: L tokens through each block (qkv 3 D^2, out D^2, MLP
+    # 8 D^2; the scores and their product with V 2 L D) and the pooler D^2
+    L = 1 + T
+    flop = 2.0 * chunk * n * (cfg.cross_num_hidden_layers * L * (
+        12 * D * D + 2 * L * D) + D * D)
+    mm_ms = res["by_group_ms"].get("matmul (cuBLAS)", 0.0)
+    if mm_ms == 0.0:
+        raise SystemExit("the profile holds no kernel of the cuBLAS group")
+    print(f"cross model matmuls {flop / 1e12:.3f} TFLOP: "
+          f"{flop / mm_ms / 1e9:.2f} TFLOP/s over the cuBLAS group's "
+          f"{mm_ms:.3f} ms ({100 * mm_ms / res['device_ms']:.1f} % of "
+          f"device time), {flop / res['device_ms'] / 1e9:.2f} TFLOP/s over "
+          f"all device time, {flop / res['wall_ms'] / 1e9:.2f} over the "
+          f"wall")
 
 
 if __name__ == "__main__":

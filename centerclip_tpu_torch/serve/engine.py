@@ -3,9 +3,13 @@
 `serve/engine.py`).
 
 Tokenizer -> text tower -> gallery index top-k (flat `VideoIndex` or
-`IVFVideoIndex`).  The scores are the model's meanP similarity logits: the
-gallery stores the pooled, normalised video vectors, the query gets the
-same normalisation, and the scores are scaled by exp(logit_scale).
+`IVFVideoIndex`).  The scores are the model's loose similarity logits
+(meanP or seqTransf): the gallery stores the pooled, normalised video
+vectors (after the seqTransf header where the model has it), the query
+gets the same normalisation, and the scores are scaled by
+exp(logit_scale).  tightTransf scores every (text, video) pair through the
+cross model and cannot be served from a pooled index: the engine refuses
+it (and seqLSTM) when it is built, as the JAX package's does.
 PyTorch runs eagerly: each call runs the text tower and the index's
 scoring and reads its result back to the host once.  Queries are padded to
 `QUERY_BUCKETS`: on the card the first search at a row count no call ran
@@ -40,7 +44,7 @@ class RetrievalEngine:
     """Query engine over a gallery index.
 
     Args:
-        model: a meanP `CLIP4Clip`; it is moved to `device`.
+        model: a meanP or seqTransf `CLIP4Clip`; it is moved to `device`.
         index: optional pre-built index (else call `build_index`).
         tokenizer: optional tokenizer (built on first use otherwise).
         device: None means the GPU and raises `RuntimeError` without one;
@@ -49,6 +53,11 @@ class RetrievalEngine:
 
     def __init__(self, model: CLIP4Clip, index: Optional[VideoIndex] = None,
                  tokenizer: Optional[SimpleTokenizer] = None, device=None):
+        if model.cfg.sim_header not in ("meanP", "seqTransf"):
+            raise ValueError(
+                f"sim_header={model.cfg.sim_header!r} cannot be served from "
+                "a pooled index; meanP/seqTransf only (use train.evaluate."
+                "Evaluator for tightTransf)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.index = index
@@ -148,11 +157,11 @@ class RetrievalEngine:
     # ----------------------------------------------------------- index build
     def _embed_video(self, video: torch.Tensor, video_mask: torch.Tensor
                      ) -> torch.Tensor:
-        """Pooled, normalised video vectors [B, D] (the video side of
-        `loose_similarity`)."""
+        """Pooled, normalised video vectors [B, D]: the video side of
+        `loose_similarity` (JAX package `serve/engine.py:126-142`)."""
         m = self.model
         vm = m.video_mask_after_cluster(video_mask)
-        return m.pooled_video(m.get_visual_output(video, vm), vm)
+        return m.video_vector(m.get_visual_output(video, vm), vm)
 
     @torch.inference_mode()
     def embed_video_batches(

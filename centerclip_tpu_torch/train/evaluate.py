@@ -6,7 +6,9 @@ Two phases, like the reference:
 1. Feature caching: encode every test batch (multi-sentence datasets encode
    every caption but only the videos at cut-off rows, main.py:427-442).
    Results stay on the device and are read back once, at the end.
-2. Similarity assembly: the meanP logits, `text_block` texts at a time.
+2. Similarity assembly: the model's `get_similarity_logits` (meanP,
+   seqTransf, or tightTransf's all-pairs cross scoring), `text_block`
+   texts at a time.
 Metrics: the standard or the multi-sentence protocol (main.py:466-494).
 Everything runs under `torch.inference_mode()`.
 """
@@ -82,12 +84,13 @@ class Evaluator:
     def similarity_matrix(self, cached: Dict[str, Any],
                           text_block: int = 512) -> np.ndarray:
         """Phase 2 (main.py:463-464, 502-534): the [n_texts, n_videos]
-        meanP logits, `text_block` texts at a time."""
+        logits of the model's header, `text_block` texts at a time (JAX
+        package `train/evaluate.py:103-106, 167-180`)."""
         seq = cached["sequence"]
         vis = self._tensor(cached["visual"])
         vmask = self._tensor(cached["video_mask"])
-        rows = [self.model.loose_similarity(
-            self._tensor(seq[s:s + text_block]), vis, vmask)
+        rows = [self.model.get_similarity_logits(
+            self._tensor(seq[s:s + text_block]), vis, None, vmask)
             for s in range(0, seq.shape[0], text_block)]
         return torch.cat(rows).cpu().numpy()
 

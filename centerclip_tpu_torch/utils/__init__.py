@@ -1,2 +1,2 @@
 # coding=utf-8
-"""Logging and metric writing."""
+"""Logging and metric writing, the file cache, seeding and dtype helpers."""

@@ -5,7 +5,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), checks that TF32 is
-   off, and builds the CUDA C++ kernels and the FrameStore reader from
+   off (cuBLAS at start, cuDNN after the first model build), and builds the CUDA C++ kernels and the FrameStore reader from
    `centerclip_tpu_torch/csrc` (one nvcc per kernel source and the host
    compiler for the reader, all started together).
 2. Serving phase, the first main path: a full-width ViT-B/32 CLIP4Clip
@@ -151,9 +151,34 @@
    [128, 77, 1536] causal, C and D at [384000, 768] and E on the tokens the
    first step and the encode clustered ([1920, 196, 196] and
    [480, 196, 196]) against their plain versions.
+11. Headers phase, the eighth: experiment 62's flags with `--sim_header
+   seqTransf` (2 + 3 training steps at batch 128, a checkpoint-and-resume
+   step equal to the uninterrupted one, an encode of 64 clips through
+   `RetrievalEngine` and a search) and with `--sim_header tightTransf`
+   (loose_type off: 2 + 3 steps, 128 x 128 pairs of 7 tokens through the
+   4-layer fp32 cross model, peak memory, `Evaluator.evaluate` on 64
+   clips), then the tightTransf logits of 1000 x 1000 seeded cached
+   features in chunks of 64 texts, timed, with a block of 64 rows across a
+   chunk boundary and the ragged tail held to the unchunked block.  The
+   header blocks' attention is the plain fp32 path (a per-sample mask that
+   kernel A does not take); their LayerNorms run C and D in fp32, held
+   against the plain version at [768, 512] and [114688, 512].
+12. Towers phase, the ninth: `--linear_patch 3d` (2 + 3 steps at batch
+   128; the patchify alone by CUDA events, beside `F.conv3d` on the same
+   inputs; a 2-clip encode card vs CPU) and
+   `--pretrained_clip_name RN50` with clustering off (an encode of 64
+   clips and a search; a 2-clip encode card vs CPU), after checking that
+   the model builder turned cuDNN's TF32 off.
+13. Preprocess phase, the tenth: `preprocess.build_framestore` over the
+   main phase's .npy videos must write its .fstore byte for byte;
+   `preprocess.visualize_clusters --mode mask` and `--mode overlay` on a
+   seeded 12-frame .npy video on the card: kernel E must launch, and its
+   medoid ids must equal the plain version's on the same pixel tokens
+   ([6, 98, 3072], K = 49); E held and timed there.
 
 Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
-`{"serve": ...}`, a `{"cluster": ...}`, an `{"activity": ...}` and a
+`{"serve": ...}`, a `{"cluster": ...}`, an `{"activity": ...}`, a
+`{"headers": ...}`, a `{"towers": ...}`, a `{"preprocess": ...}` and a
 `{"kernels": [...]}` JSON line (attention's long forward and backward and
 the global k-medoids variant as rows of their own; every kernel's rows at
 each path's shapes, its launches by path) and, last, one JSON line {"ok":
@@ -255,6 +280,16 @@ ACTIVITY_REMAT_WHY = ("without it the step at batch 128 runs out of the "
                       "card's 80 GB (76.464 GiB allocated): python -m "
                       "centerclip_tpu_torch.profile_train --preset "
                       "activity_vitb32 --remat 0")
+# the headers phase: experiment 62 with seqTransf / tightTransf, and the
+# tightTransf logits of MSR-VTT's 1k-A test size from cached features; a
+# chunk's rows held to the unchunked rows (fp32, other matmul batch sizes)
+HEADERS_WARMUP_STEPS, HEADERS_TIMED_STEPS = 2, 3
+CROSS_GALLERY, CROSS_CHUNK, CROSS_BLOCK_ATOL = 1000, 64, 1e-4
+# the towers phase: experiment 62 with the 3-D patchify, and RN50
+TOWERS_WARMUP_STEPS, TOWERS_TIMED_STEPS = 2, 3
+# the preprocess phase: visualize_clusters at its defaults (12 frames, 6
+# segments, K = 49)
+VIS_FRAMES, VIS_K = 12, 49
 # the serve phase: serve/cli.py on the main phase's fixture and checkpoint.
 # Scores are logits (cosine x exp(logit_scale), ~14.3 here).  Against the
 # Evaluator's fp32 similarity the engine rounds both score operands to bf16
@@ -274,6 +309,8 @@ IVF_NPROBES, IVF_K, IVF_ADD = (8, 32, 64), 10, 100
 HTTP_REPEATS, ENCODE_REPEATS = 20, 3
 # query batch sizes the serve phase runs last, first unpadded, then padded
 UNWARMED_QUERIES = (5, 33)
+# a launch slower than twice the median and this many ms is printed
+SLOW_LAUNCH_MS = 0.05
 SLEEP_CYCLES = 4_000_000          # ~2 ms at the H100's ~1.98 GHz boost clock
 QUERIES = ["a man is cooking pasta in a kitchen",
            "two dogs are playing in the snow",
@@ -299,15 +336,18 @@ def bound(bytes_moved: float, ops: float, op_peak: float, mem_rate: float):
 
 
 def time_ms(torch, fn, flush, iters=10, warmup=3):
-    """Mean device time of `fn` in ms by CUDA events.  Before each launch the
-    L2 cache is flushed (the main path's inputs mostly come from device
+    """Median device time of `fn` in ms by CUDA events.  Before each launch
+    the L2 cache is flushed (the main path's inputs mostly come from device
     memory) and a sleep kernel holds the card busy while the host enqueues
     the events and `fn`, so a launch's host overhead is not timed as device
     time.  (`fn`s that read results back to the host, like the plain
-    k-medoids stop test, are timed with their waits.)"""
+    k-medoids stop test, are timed with their waits.)  The median, not the
+    mean: a launch the host enqueues only after the sleep has ended (its
+    thread held off the CPU longer than the sleep) times that wait as
+    device time; such a launch is printed."""
     for _ in range(warmup):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
@@ -317,8 +357,12 @@ def time_ms(torch, fn, flush, iters=10, warmup=3):
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    med = sorted(times)[iters // 2]
+    if max(times) > 2 * med + SLOW_LAUNCH_MS:
+        print(f"time_ms: launches of {[round(t, 4) for t in times]} ms, "
+              f"median {med:.4f}: a launch waited on the host")
+    return med
 
 
 # the CUDA runtime's cudaGraphNodeType values of the work a call may enqueue
@@ -407,12 +451,9 @@ def token_rows(np, g, n, length, vocab=49408):
 def training_phase(torch, np, dev, counters):
     """The second main path: preset training steps, checkpoint + resume,
     evaluation.  Returns what the kernel phase and the report need."""
-    import tempfile
     from centerclip_tpu_torch.config import preset
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
-    from centerclip_tpu_torch.ops import _build
-    from centerclip_tpu_torch.train import (Evaluator, Trainer, resume,
-                                            save_checkpoint)
+    from centerclip_tpu_torch.train import Evaluator, Trainer
     run = preset(TRAIN_PRESET)
     B, cfg = run.batch_size, run.model
     total_steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS + 1
@@ -472,28 +513,7 @@ def training_phase(torch, np, dev, counters):
             fail(f"{fn_name} was never launched on the training path")
 
     # checkpoint, resume into a fresh model and optimizer, one more step each
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        t0 = time.time()
-        path = save_checkpoint(tmp, trainer.state, epoch=0, best_r1=0.0)
-        other = CLIP4Clip(cfg, device=dev, seed=1)
-        trainer2 = Trainer(run, other, total_steps=total_steps)
-        _, epoch, _ = resume(path, trainer2.state)
-        t_ckpt = time.time() - t0
-    # ckpt of epoch 0: the resumed run starts at epoch 1
-    if trainer2.state.global_step != trainer.state.global_step or epoch != 1:
-        fail("resume did not restore the step counters")
-    trainer.train_epoch(1, [batch], n_display=1)
-    trainer2.train_epoch(1, [batch], n_display=1)
-    other_sd = other.state_dict()
-    diff = [k for k, v in model.state_dict().items()
-            if not torch.equal(v, other_sd[k])]
-    print(f"checkpoint save + resume {t_ckpt:.2f} s; one more step from the "
-          f"trained and the resumed state: {len(diff)} of {len(other_sd)} "
-          f"tensors differ")
-    if diff:
-        fail(f"the resumed step differs: {diff[:5]}")
-    del trainer2, other, other_sd
+    resumed_step(torch, run, model, trainer, batch, total_steps, "training")
 
     # two-phase evaluation on 64 of the clips with their texts
     t0 = time.time()
@@ -800,19 +820,23 @@ def occupancy_note(row):
         for k, v in occ.items()) + ")"
 
 
-def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D):
-    """Kernel D against `layer_norm_bwd_plain` on seeded bf16 x, dy [R, D]
-    (dx within one bf16 ulp, dgamma/dbeta within SUM_RTOL of the sum of
-    the terms' magnitudes, the autograd Function's gradients the kernel's,
-    a second call equal to the bit, its device launches per call counted);
+def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
+    """Kernel D against `layer_norm_bwd_plain` on seeded x, dy [R, D] of
+    `dtype` (bf16 by default; dx within one bf16 ulp, fp32 within
+    FP32_ATOL / FP32_RTOL; dgamma/dbeta within SUM_RTOL of the sum of the
+    terms' magnitudes, the autograd Function's gradients the kernel's, a
+    second call equal to the bit, its device launches per call counted);
     kernel C's forward held and timed on the way.  Times the kernel, the
     plain version and ATen's fp32 backward.  Returns (D's row, C's row)."""
     from centerclip_tpu_torch.ops import layernorm_triton
+    dtype = dtype or torch.bfloat16
+    name = str(dtype).split(".")[-1]
+    atol, rtol = ((BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16
+                  else (FP32_ATOL, FP32_RTOL))
     mem_rate, _, fp32_peak = peaks
     gen = torch.Generator(device=dev).manual_seed(R + 1)
-    x = (torch.randn((R, D), generator=gen, device=dev) * 3 + 1).to(
-        torch.bfloat16)
-    dy = torch.randn((R, D), generator=gen, device=dev).to(torch.bfloat16)
+    x = (torch.randn((R, D), generator=gen, device=dev) * 3 + 1).to(dtype)
+    dy = torch.randn((R, D), generator=gen, device=dev).to(dtype)
     w = torch.randn(D, generator=gen, device=dev) * 0.1 + 1
     b = torch.randn(D, generator=gen, device=dev)
     dx, dw, db = layernorm_triton.layer_norm_backward(x, w, dy)
@@ -824,8 +848,7 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D):
     fwd_ref = layernorm_triton.layer_norm_plain(x, w, b)
     torch.cuda.synchronize()
     fwd_err = (out.detach().float() - fwd_ref.float()).abs()
-    if not bool((fwd_err <= BF16_ATOL
-                 + BF16_RTOL * fwd_ref.float().abs()).all()):
+    if not bool((fwd_err <= atol + rtol * fwd_ref.float().abs()).all()):
         fail(f"layernorm [{label}, training] disagrees with its plain "
              f"version")
     passes = (torch.equal(xs.grad, dx) and torch.equal(ws.grad, dw)
@@ -840,20 +863,20 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D):
         xf, (D,), w, b, 1e-5), flush=flush)
     f_b_ms, f_b_by = bound(2 * x.numel() * x.element_size() + 2 * D * 4,
                            8.0 * R * D, fp32_peak, mem_rate)
-    fwd_row = dict(shape=[R, D], dtype="bfloat16",
+    fwd_row = dict(shape=[R, D], dtype=name,
                    max_abs_err=fwd_err.max().item(), ms=f_ms,
                    plain_ms=f_plain_ms, library_ms=f_lib_ms, bound_ms=f_b_ms,
                    bound_by=f_b_by)
-    print(f"layernorm [{label}, training] x ({R}, {D}) bf16: "
-          f"max_abs_err {fwd_err.max().item():.3e} (tol {BF16_ATOL} + "
-          f"{BF16_RTOL}*|ref|) ms {f_ms:.4f} plain {f_plain_ms:.4f} "
+    print(f"layernorm [{label}, training] x ({R}, {D}) {name}: "
+          f"max_abs_err {fwd_err.max().item():.3e} (tol {atol} + "
+          f"{rtol}*|ref|) ms {f_ms:.4f} plain {f_plain_ms:.4f} "
           f"F.layer_norm(fp32) {f_lib_ms:.4f} bound {f_b_ms:.4f} "
           f"({f_b_by})")
     del fwd_err
     xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
         xf.var(-1, correction=0, keepdim=True) + 1e-5)
     err_x = (dx.float() - rx.float()).abs()
-    ok = bool((err_x <= BF16_ATOL + BF16_RTOL * rx.float().abs()).all())
+    ok = bool((err_x <= atol + rtol * rx.float().abs()).all())
     err_wb = 0.0
     for out, ref, terms in ((dw, rw, (dyf * xhat).abs().sum(0)),
                             (db, rb, dyf.abs().sum(0))):
@@ -870,15 +893,15 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D):
                      .native_layer_norm_backward(
                          dyf, xf, [D], mean, rstd, w, b,
                          [True, True, True]), flush=flush)
-    b_ms, b_by = bound(3 * x.numel() * 2 + 3 * D * 4, 16.0 * R * D,
-                       fp32_peak, mem_rate)
+    b_ms, b_by = bound(3 * x.numel() * x.element_size() + 3 * D * 4,
+                       16.0 * R * D, fp32_peak, mem_rate)
     again = layernorm_triton.layer_norm_backward(x, w, dy)
     bitwise = all(torch.equal(u, v) for u, v in zip(again, (dx, dw, db)))
     del again
     dev_names = device_launches(torch, lambda: layernorm_triton
                                 .layer_norm_backward(x, w, dy))
-    print(f"layernorm bwd [{label}] x ({R}, {D}) bf16: dx max_abs_err "
-          f"{err_x.max().item():.3e} (tol {BF16_ATOL} + {BF16_RTOL}*|ref|)"
+    print(f"layernorm bwd [{label}] x ({R}, {D}) {name}: dx max_abs_err "
+          f"{err_x.max().item():.3e} (tol {atol} + {rtol}*|ref|)"
           f", dgamma/dbeta max_abs_err {err_wb:.3e} (tol {SUM_RTOL}*sum"
           f"|terms| + 1e-6), Function passes the kernel's gradients "
           f"through: {passes}, a second call equal to the bit: "
@@ -894,7 +917,7 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D):
     if not passes:
         fail(f"layernorm bwd [{label}]: the autograd Function's "
              f"gradients are not the kernel's")
-    return dict(shape=[R, D], dtype="bfloat16",
+    return dict(shape=[R, D], dtype=name,
                 max_abs_err=max(err_x.max().item(), err_wb), ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by, device_launches_per_call=len(dev_names)), fwd_row
@@ -945,13 +968,12 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     `RetrievalEngine` and training through `Trainer` at batch 128 with
     `remat`; then kernels B and E at their new variants' shapes, and A, C
     and D at the new shapes, against their plain versions."""
-    import tempfile
     from centerclip_tpu_torch.config import preset
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
-    from centerclip_tpu_torch.ops import _build, attention_cuda as ac
+    from centerclip_tpu_torch.ops import attention_cuda as ac
     from centerclip_tpu_torch.ops import kmedoids_cuda as kc
     from centerclip_tpu_torch.serve import RetrievalEngine
-    from centerclip_tpu_torch.train import Trainer, resume, save_checkpoint
+    from centerclip_tpu_torch.train import Trainer
     run = preset(VITB16_PRESET, remat=VITB16_REMAT)
     B, cfg = run.batch_size, run.model
     spec = next(s for s in cfg.cluster_plan() if s is not None)
@@ -1065,24 +1087,8 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
         if n == 0:
             fail(f"{fn_name} was never launched on the ViT-B/16 path")
 
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        path = save_checkpoint(tmp, trainer.state, epoch=0, best_r1=0.0)
-        other = CLIP4Clip(cfg, device=dev, seed=1)
-        trainer2 = Trainer(run, other, total_steps=steps + 1)
-        _, epoch, _ = resume(path, trainer2.state)
-    if trainer2.state.global_step != trainer.state.global_step or epoch != 1:
-        fail("the ViT-B/16 resume did not restore the step counters")
-    trainer.train_epoch(1, [batch], n_display=1)
-    trainer2.train_epoch(1, [batch], n_display=1)
-    other_sd = other.state_dict()
-    diff = [k for k, v in model.state_dict().items()
-            if not torch.equal(v, other_sd[k])]
-    print(f"vitb16 resumed step: {len(diff)} of {len(other_sd)} tensors "
-          f"differ from the uninterrupted step")
-    if diff:
-        fail(f"the ViT-B/16 resumed step differs: {diff[:5]}")
-    del trainer, trainer2, model, other, other_sd, batch
+    resumed_step(torch, run, model, trainer, batch, steps + 1, "vitb16")
+    del trainer, model, batch
     torch.cuda.empty_cache()
 
     # ---- kernels at the ViT-B/16 shapes
@@ -1158,6 +1164,39 @@ def timed_steps(torch, np, trainer, batch, warmup, timed, label):
         losses, log.rows
 
 
+def resumed_step(torch, run, model, trainer, batch, total_steps, label):
+    """Checkpoint `trainer`'s state after epoch 0, resume it into a fresh
+    model and Trainer (seed 1), take one more step from each on `batch`
+    and fail unless the two models are equal to the bit.  Returns the
+    seconds the save and resume took."""
+    import tempfile
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.ops import _build
+    from centerclip_tpu_torch.train import Trainer, resume, save_checkpoint
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        t0 = time.time()
+        path = save_checkpoint(tmp, trainer.state, epoch=0, best_r1=0.0)
+        other = CLIP4Clip(run.model, device=model.device, seed=1)
+        trainer2 = Trainer(run, other, total_steps=total_steps)
+        _, epoch, _ = resume(path, trainer2.state)
+        t_ckpt = time.time() - t0
+    # ckpt of epoch 0: the resumed run starts at epoch 1
+    if trainer2.state.global_step != trainer.state.global_step or epoch != 1:
+        fail(f"the {label} resume did not restore the step counters")
+    trainer.train_epoch(1, [batch], n_display=1)
+    trainer2.train_epoch(1, [batch], n_display=1)
+    other_sd = other.state_dict()
+    diff = [k for k, v in model.state_dict().items()
+            if not torch.equal(v, other_sd[k])]
+    print(f"{label}: checkpoint save + resume {t_ckpt:.2f} s; one more "
+          f"step from the trained and the resumed state: {len(diff)} of "
+          f"{len(other_sd)} tensors differ")
+    if diff:
+        fail(f"the {label} resumed step differs: {diff[:5]}")
+    return t_ckpt
+
+
 def seeded_batch(np, g, B, frames, words):
     """A host training batch of B seeded uint8 clips of `frames` frames and
     B seeded token rows of `words`."""
@@ -1198,16 +1237,11 @@ def path_counts_of(counters, path, backward):
 
 
 def baseline_flags(algo):
-    """scripts/msrvtt.sh's `common` + experiment 62 flags with
-    `--cluster_algo <algo>`; `deep_cluster` with `--deep_cluster 1
-    --cluster_inter 0` on the same block plans.  (Nothing is written to
-    the output directory: the flags are only parsed.)"""
-    flags = EXP62_FLAGS + ["--output_dir", "cluster_phase"]
+    """Experiment 62's flags with `--cluster_algo <algo>`; `deep_cluster`
+    with `--deep_cluster 1 --cluster_inter 0` on the same block plans."""
     if algo == "deep_cluster":
-        flags[flags.index("--cluster_inter") + 1] = "0"
-        return flags + ["--deep_cluster", "1"]
-    flags[flags.index("--cluster_algo") + 1] = algo
-    return flags
+        return exp62_flags(cluster_inter="0", deep_cluster="1")
+    return exp62_flags(cluster_algo=algo)
 
 
 @contextlib.contextmanager
@@ -1738,7 +1772,9 @@ def write_msrvtt_fixture(np, root):
     import csv
     from centerclip_tpu_torch.data.framestore import FrameStoreWriter
     g = np.random.default_rng(5)
-    vids = [f"video{i}" for i in range(MAIN_VIDEOS)]
+    # zero-padded: the .fstore holds them in the order that
+    # preprocess/build_framestore.py reads a folder (names sorted)
+    vids = [f"video{i:02d}" for i in range(MAIN_VIDEOS)]
     things = ["a dog", "two cooks", "a red car", "children", "a singer",
               "a cat", "players", "a boat"]
     acts = ["runs on a beach", "cooks pasta, then eats it", "drives at night",
@@ -1819,12 +1855,13 @@ def recording_kernel_inputs(torch, seen, active=lambda: True, sites=None):
             setattr(mod, attr, fn)
 
 
-def hold_recorded(torch, seen, label, what):
+def hold_recorded(torch, seen, label, what,
+                  kernels=("attention_fwd", "layernorm_fwd", "kmedoids")):
     """Kernels A, C and E against their plain versions on the inputs
     `recording_kernel_inputs` kept, with the kernel phase's tolerances;
-    rows by kernel.  Fails if a kernel got no input in `what`."""
+    rows by kernel.  Fails if one of `kernels` got no input in `what`."""
     from centerclip_tpu_torch.ops import attention_cuda, layernorm_triton
-    held = {"attention_fwd": [], "layernorm_fwd": [], "kmedoids": []}
+    held = {kernel: [] for kernel in kernels}
     for (kernel, key), (args, kw) in seen.items():
         case = f"{label} {tuple(args[0].shape)}"
         if kernel == "attention_fwd":
@@ -2407,6 +2444,468 @@ def serve_phase(torch, np_, dev, counters, root, handoff, flush):
         launches=launches, variants=variants, held=held)
 
 
+def exp62_flags(**changes):
+    """scripts/msrvtt.sh's `common` + experiment 62 flags with `--<flag>
+    <value>` replaced or appended (a value of None removes a switch such
+    as `--loose_type`).  Nothing is written to the output directory: the
+    flags are only parsed."""
+    flags = EXP62_FLAGS + ["--output_dir", "extra_phases"]
+    for flag, value in changes.items():
+        name = "--" + flag
+        if value is None:
+            flags.remove(name)
+        elif name in flags:
+            flags[flags.index(name) + 1] = value
+        else:
+            flags += [name, value]
+    return flags
+
+
+def raw_counts(counters):
+    """(launches by kernel, attention's launches by variant) since the
+    counts were zeroed, with no check on the variants (for a path that runs
+    no attention)."""
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    return ({fn.__name__: fn.launches for fn in counters},
+            {fn.__name__: dict(fn.variant_launches)
+             for fn in (ac.fused_attention, ac.attention_backward)})
+
+
+def launched(label, launches, expected):
+    """Fail unless exactly the kernels in `expected` launched."""
+    for fn_name, n in launches.items():
+        if (n > 0) != (fn_name in expected):
+            fail(f"{label}: {fn_name} launched {n} times (expected "
+                 f"{'some' if fn_name in expected else 'none'})")
+
+
+def train_steps_of(torch, np, counters, flags, warmup, timed, label,
+                   seed):
+    """Build experiment 62's model with `flags` changed, take `warmup` +
+    `timed` Trainer steps at batch 128 on a seeded batch, counts zeroed
+    before them; fails unless all five kernels launched (attention on its
+    tensor-core variants).  Returns (run, model, trainer, batch, result
+    dict, path counts)."""
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.train import Trainer
+    t0 = time.time()
+    run = cli.parse_args(flags)
+    model = CLIP4Clip(run.model, device="cuda", seed=0)
+    trainer = Trainer(run, model, total_steps=warmup + timed + 1)
+    batch = seeded_batch(np, np.random.default_rng(seed), run.batch_size,
+                         FRAMES, run.model.max_words)
+    t_setup = time.time() - t0
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    med, step_ms, losses, _ = timed_steps(torch, np, trainer, batch, warmup,
+                                          timed, label)
+    peak = torch.cuda.max_memory_allocated()
+    counts = path_counts_of(counters, f"{label} training", backward=True)
+    B = run.batch_size
+    print(f"{label} training (batch {B}, set-up {t_setup:.2f} s): losses "
+          f"{[round(x, 6) for x in losses]}, step times "
+          f"{[round(x, 3) for x in step_ms]} ms; median of the {timed} "
+          f"timed {med:.3f} ms = {B / med * 1e3:.2f} clips/s; peak memory "
+          f"allocated {peak / 2**30:.3f} GiB; launches {counts[0]}")
+    launched(f"{label} training", counts[0], counts[0].keys())
+    return run, model, trainer, batch, dict(
+        batch=B, step_ms=med, clips_per_s=B / med * 1e3, step_ms_all=step_ms,
+        losses=losses, peak_memory_bytes=peak), counts
+
+
+def encode_and_search(torch, np, dev, counters, model, seed, label):
+    """`RetrievalEngine.build_index` over N_CLIPS seeded clips in batches of
+    BATCH (a 2-clip warm-up first), then one search of the 4 queries,
+    counts zeroed before the build.  Fails on a gallery that is not finite
+    or on bad hits.  Returns (result dict, path counts, engine)."""
+    from centerclip_tpu_torch.serve import RetrievalEngine
+    engine = RetrievalEngine(model.eval(), device=dev)
+    g = np.random.default_rng(seed)
+    clips = g.integers(0, 256, (N_CLIPS, 1, FRAMES, 3, RES, RES),
+                       dtype=np.uint8)
+    masks = np.ones((N_CLIPS, FRAMES), np.int32)
+    ids = [f"clip{i:03d}" for i in range(N_CLIPS)]
+
+    def batches(hi=N_CLIPS):
+        for s in range(0, hi, BATCH):
+            yield {"video": clips[s:min(s + BATCH, hi)],
+                   "video_mask": masks[s:min(s + BATCH, hi)]}
+    engine.build_index(batches(2), ids[:2])
+    engine.search(QUERIES, k=2)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index = engine.build_index(batches(), ids)
+    torch.cuda.synchronize()
+    t_enc = time.time() - t0
+    t0 = time.time()
+    hits = engine.search(QUERIES, k=5)
+    t_search = time.time() - t0
+    counts = path_counts_of(counters, f"{label} encode", backward=False)
+    gallery = index._codes[:N_CLIPS].float()
+    dim = model.cfg.arch["embed_dim"]
+    print(f"{label} encode: {N_CLIPS} clips in {t_enc:.3f} s = "
+          f"{N_CLIPS / t_enc:.2f} clips/s (batches of {BATCH}), gallery "
+          f"{tuple(gallery.shape)}; search of {len(QUERIES)} queries "
+          f"{t_search * 1e3:.2f} ms; top hits "
+          f"{[row[0]['video_id'] for row in hits]}; launches {counts[0]}")
+    if tuple(gallery.shape) != (N_CLIPS, dim) or \
+            not bool(torch.isfinite(gallery).all()):
+        fail(f"{label}: the gallery is not finite [{N_CLIPS}, {dim}]")
+    for row in hits:
+        scores = [h["score"] for h in row]
+        if len({h["video_id"] for h in row}) != 5 \
+                or not all(np.isfinite(scores)) \
+                or scores != sorted(scores, reverse=True):
+            fail(f"{label}: bad hits {row}")
+    return dict(encode_clips=N_CLIPS, encode_s=t_enc,
+                encode_clips_per_s=N_CLIPS / t_enc,
+                search_ms=t_search * 1e3), counts, engine
+
+
+def card_vs_cpu(torch, np, model, batch, label):
+    """The 2-clip pooled embedding of `model` on the card against the same
+    weights on the CPU, by cosine (VIDEO_MIN_COS)."""
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.serve import RetrievalEngine
+    t0 = time.time()
+    two = {k: batch[k][:2] for k in ("video", "video_mask")}
+    card = RetrievalEngine(model.eval(), device="cuda") \
+        .embed_video_batches([two])
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_model = CLIP4Clip(model.cfg, device="cpu", seed=1).eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()}, strict=True)
+    cpu = RetrievalEngine(cpu_model, device="cpu").embed_video_batches([two])
+    cos = cosines(card, cpu)
+    print(f"{label}: 2-clip encode card vs CPU ({time.time() - t0:.1f} s) "
+          f"cosine {np.round(cos, 6).tolist()} (min {VIDEO_MIN_COS})")
+    if cos.min() < VIDEO_MIN_COS:
+        fail(f"card and CPU {label} embeddings disagree")
+    return float(cos.min())
+
+
+def headers_phase(torch, np, dev, flush, peaks, counters):
+    """The eighth main path: the similarity headers at experiment 62's
+    flags (ViT-B/32, kmediods++ 12 -> 6 frames, K = 49, bf16 towers, batch
+    128).  seqTransf: HEADERS_WARMUP_STEPS + HEADERS_TIMED_STEPS training
+    steps, a checkpoint-and-resume step equal to the uninterrupted one, an
+    encode of 64 clips through `RetrievalEngine` (the header before the
+    pooling) and a search.  tightTransf (loose_type off): the same steps
+    (128 x 128 pairs of 7 tokens through the 4-layer fp32 cross model),
+    peak memory, `Evaluator.evaluate` on 64 clips; then the tightTransf
+    logits of CROSS_GALLERY texts x CROSS_GALLERY videos from seeded cached
+    features ([1000, 1, 512], [1000, 6, 512]) with `cross_chunk_size`
+    CROSS_CHUNK, timed, its peak memory, and a 64-row block across a chunk
+    boundary and the ragged tail held to the unchunked block
+    (CROSS_BLOCK_ATOL).  The header blocks run no attention kernel (their
+    attention is the JAX package's plain fp32 path); their LayerNorms take
+    kernels C and D in fp32, held against the plain version at the training
+    shapes, and C also on the first input of each shape the encode, the
+    evaluation and the logits (the last whole chunk and the ragged tail,
+    run again) gave it."""
+    import dataclasses
+    from centerclip_tpu_torch.train import Evaluator
+    paths, result = {}, {}
+    steps = (HEADERS_WARMUP_STEPS, HEADERS_TIMED_STEPS)
+
+    # ---- seqTransf: training, resume, encode and search
+    run, model, trainer, batch, res, paths["seqTransf_training"] = \
+        train_steps_of(torch, np, counters,
+                       exp62_flags(sim_header="seqTransf"), *steps,
+                       "seqTransf", seed=70)
+    res["resume_s"] = resumed_step(torch, run, model, trainer, batch,
+                                   sum(steps) + 1, "seqTransf")
+    del trainer
+    # kernel C's inputs off the towers' rows: the first of each shape on
+    # the encode, the tightTransf evaluation and the 1k x 1k logits, held
+    # against the plain version after each run's counts are read
+    ln_site = [s for s in kernel_call_sites() if s[2] == "layernorm_fwd"]
+    seen, held_rows = {}, []
+    with recording_kernel_inputs(torch, seen, sites=ln_site):
+        enc, paths["seqTransf_encode"], engine = encode_and_search(
+            torch, np, dev, counters, model, 71, "seqTransf")
+    held_rows += hold_recorded(torch, seen, "seqTransf encode",
+                               "the seqTransf encode",
+                               ("layernorm_fwd",))["layernorm_fwd"]
+    launched("seqTransf encode", paths["seqTransf_encode"][0],
+             ("fused_attention", "layer_norm", "kmedoids_from_distances"))
+    result["seqTransf"] = dict(res, **enc)
+    del model, engine, batch
+    torch.cuda.empty_cache()
+
+    # ---- tightTransf: training, evaluation
+    run, model, trainer, batch, res, paths["tightTransf_training"] = \
+        train_steps_of(torch, np, counters,
+                       exp62_flags(sim_header="tightTransf",
+                                   loose_type=None), *steps,
+                       "tightTransf", seed=72)
+    cfg = run.model
+    if cfg.loose_type or cfg.cross_num_hidden_layers != 4:
+        fail(f"tightTransf: loose_type {cfg.loose_type}, "
+             f"{cfg.cross_num_hidden_layers} cross layers")
+    del trainer
+    torch.cuda.empty_cache()
+    model.eval()
+    zero_counts(counters)
+    seen.clear()
+    t0 = time.time()
+    with recording_kernel_inputs(torch, seen, sites=ln_site):
+        ev = Evaluator(model).evaluate(
+            {k: v[s:s + BATCH] for k, v in batch.items()}
+            for s in range(0, N_EVAL_CLIPS, BATCH))
+    t_eval = time.time() - t0
+    paths["tightTransf_eval"] = path_counts_of(counters, "tightTransf eval",
+                                               backward=False)
+    held_rows += hold_recorded(torch, seen, "tightTransf eval",
+                               "the tightTransf evaluation",
+                               ("layernorm_fwd",))["layernorm_fwd"]
+    seen.clear()
+    sim = ev["sim_matrix"]
+    print(f"tightTransf evaluation of {N_EVAL_CLIPS} clips ({t_eval:.2f} s, "
+          f"all pairs through the cross model): R@1 {ev['R1']:.4f} (random "
+          f"weights), logits {sim.min():.4f}..{sim.max():.4f}")
+    if sim.shape != (N_EVAL_CLIPS, N_EVAL_CLIPS) or \
+            not np.isfinite(sim).all() or sim.std() == 0:
+        fail("the tightTransf evaluation gave a bad similarity matrix")
+    res.update(eval_s=t_eval, eval_R1=ev["R1"])
+
+    # ---- tightTransf logits of 1000 x 1000 cached features, chunked
+    n, D = CROSS_GALLERY, cfg.arch["embed_dim"]
+    gen = torch.Generator(device=dev).manual_seed(73)
+    seq = torch.randn((n, 1, D), generator=gen, device=dev)
+    vis = torch.randn((n, cfg.final_frames, D), generator=gen, device=dev)
+    vmask = torch.ones((n, cfg.final_frames), dtype=torch.int32, device=dev)
+    model.cfg = dataclasses.replace(cfg, cross_chunk_size=CROSS_CHUNK)
+    with torch.inference_mode():
+        model.cross_similarity(seq[:CROSS_CHUNK], vis[:CROSS_CHUNK],
+                               vmask[:CROSS_CHUNK])          # warm-up
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        full = model.cross_similarity(seq, vis, vmask)
+        torch.cuda.synchronize()
+        t_1k = time.time() - t0
+        peak_1k = torch.cuda.max_memory_allocated()
+        paths["tightTransf_logits_1k"] = raw_counts(counters)
+        # rows 936-999: across the chunk boundary at 960 and the ragged
+        # tail of 40 rows, scored unchunked
+        # the last whole chunk and the ragged tail again, C's first input
+        # of each shape kept (the timed run's rows: the same chunks)
+        with recording_kernel_inputs(torch, seen, sites=ln_site):
+            model.cross_similarity(seq[-(CROSS_CHUNK + n % CROSS_CHUNK):],
+                                   vis, vmask)
+        model.cfg = dataclasses.replace(cfg, cross_chunk_size=0)
+        lo = n - CROSS_CHUNK
+        block = model.cross_similarity(seq[lo:], vis, vmask)
+        block_err = (block - full[lo:]).abs().max().item()
+    model.cfg = cfg
+    held_rows += hold_recorded(torch, seen, "tightTransf logits 1k",
+                               "the tightTransf logits",
+                               ("layernorm_fwd",))["layernorm_fwd"]
+    del seen
+    counts_1k = paths["tightTransf_logits_1k"][0]
+    # per (text, video) pair: 7 tokens through 4 blocks (qkv, out, MLP
+    # 2 x 4 matmuls of 512 x 2048) and the pooler; fp32 without TF32
+    L = 1 + cfg.final_frames
+    flop = 2.0 * n * n * (cfg.cross_num_hidden_layers * L * (
+        12 * D * D + 2 * L * D) + D * D)
+    print(f"tightTransf logits {n} x {n} (chunks of {CROSS_CHUNK} texts, "
+          f"{L} tokens a pair): {t_1k:.3f} s, {n * n / t_1k:.0f} pairs/s, "
+          f"{flop / t_1k / 1e12:.2f} TFLOP/s of {flop / 1e12:.1f} TFLOP; "
+          f"peak memory allocated {peak_1k / 2**30:.3f} GiB; rows "
+          f"{lo}-{n - 1} unchunked vs chunked max_abs_err {block_err:.3e} "
+          f"(tol {CROSS_BLOCK_ATOL}); launches {counts_1k}")
+    if tuple(full.shape) != (n, n) or not bool(torch.isfinite(full).all()):
+        fail("the 1000 x 1000 tightTransf logits are not finite")
+    if block_err > CROSS_BLOCK_ATOL:
+        fail("a chunked tightTransf block differs from the unchunked one")
+    launched("tightTransf 1k x 1k logits", counts_1k, ("layer_norm",))
+    res.update(logits_1k_s=t_1k, logits_1k_pairs_per_s=n * n / t_1k,
+               logits_1k_tflop=flop / 1e12,
+               logits_1k_peak_memory_bytes=peak_1k,
+               chunk_block_max_abs_err=block_err)
+    result["tightTransf"] = res
+    del model, batch, seq, vis, full, block
+    torch.cuda.empty_cache()
+
+    # ---- kernels C and D on the header blocks' fp32 rows
+    B = run.batch_size
+    ln_rows = [hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D,
+                                  torch.float32)
+               for label, R in (("seqTransf blocks (fp32)",
+                                 B * cfg.final_frames),
+                                ("cross blocks (fp32)", B * B * L))]
+    return result, dict(paths=paths, layernorm_bwd=[r for r, _ in ln_rows],
+                        layernorm_fwd=[f for _, f in ln_rows] + held_rows)
+
+
+def towers_phase(torch, np, dev, flush, peaks, counters):
+    """The ninth main path: the other towers.  `--linear_patch 3d` at
+    experiment 62's flags: TOWERS_WARMUP_STEPS + TOWERS_TIMED_STEPS
+    training steps at batch 128 (all five kernels), the patchify alone
+    (CUDA events: the port's matmul beside `F.conv3d` on the same inputs,
+    and its bound), a 2-clip encode card vs CPU.  RN50 (cluster
+    off, as the JAX package's tests/test_resnet.py): an encode of 64 clips
+    of 12 frames through `RetrievalEngine` (embed dim 1024, fp32 tower with
+    cuDNN's TF32 off) and a search (A and C in the text tower, no E), a
+    2-clip encode card vs CPU."""
+    from centerclip_tpu_torch.models.clip import (CLIP_MEAN, CLIP_STD,
+                                                  patchify_3d)
+    mem_rate, bf16_peak, _ = peaks
+    paths, result = {}, {}
+    steps = (TOWERS_WARMUP_STEPS, TOWERS_TIMED_STEPS)
+
+    # ---- the 3-D patchify
+    run, model, trainer, batch, res, paths["patch3d_training"] = \
+        train_steps_of(torch, np, counters, exp62_flags(linear_patch="3d"),
+                       *steps, "3-D patchify", seed=80)
+    del trainer
+    torch.cuda.empty_cache()
+    w = model.clip.visual.conv2.weight.detach()
+    u8 = torch.as_tensor(batch["video"]).to(dev).reshape(-1, 3, RES, RES)
+    mean = torch.tensor(CLIP_MEAN, device=dev)[:, None, None]
+    std = torch.tensor(CLIP_STD, device=dev)[:, None, None]
+    video = (u8.float() / 255.0 - mean) / std
+    del u8
+    bf16 = torch.bfloat16
+    P = w.shape[-1]
+
+    def conv3d():
+        """The same function as one cuDNN call (the JAX package's
+        `lax.conv`)."""
+        x5 = video.reshape(-1, FRAMES, *video.shape[1:]).transpose(1, 2)
+        out = torch.nn.functional.conv3d(x5.to(bf16), w.to(bf16),
+                                         stride=(1, P, P), padding=(1, 0, 0))
+        return out.permute(0, 2, 3, 4, 1).reshape(video.shape[0], -1,
+                                                  w.shape[0])
+    with torch.inference_mode():
+        out = patchify_3d(video, w, FRAMES, bf16)
+        err = hold_close(torch, "the 3-D patchify against F.conv3d",
+                         out.float(), conv3d().float(), BF16_ATOL, BF16_RTOL)
+        ms = time_ms(torch, lambda: patchify_3d(video, w, FRAMES, bf16),
+                     flush=flush)
+        conv_ms = time_ms(torch, conv3d, flush=flush)
+    BT, O = video.shape[0], w.shape[0]
+    b_ms, b_by = bound(video.numel() * 4 + w.numel() * 4 + out.numel() * 2,
+                       2.0 * BT * out.shape[1] * O * w[0].numel(), bf16_peak,
+                       mem_rate)
+    print(f"3-D patchify [{BT}, 3, {RES}, {RES}] fp32 -> {tuple(out.shape)} "
+          f"bf16 (kernel {tuple(w.shape)}): {ms:.4f} ms (one matmul), "
+          f"F.conv3d {conv_ms:.4f} ms (max_abs_err {err:.3e}), bound "
+          f"{b_ms:.4f} ({b_by}); the step's median {res['step_ms']:.3f} ms")
+    res.update(patchify_ms=ms, patchify_conv3d_ms=conv_ms,
+               patchify_bound_ms=b_ms, patchify_bound_by=b_by,
+               patchify_shape=list(video.shape))
+    del video, out
+    res["video_cos_min"] = card_vs_cpu(torch, np, model, batch,
+                                       "3-D patchify")
+    result["patch3d"] = res
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # ---- RN50: encode and search
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    rrun = cli.parse_args(exp62_flags(pretrained_clip_name="RN50",
+                                      cluster_inter="0"))
+    t0 = time.time()
+    model = CLIP4Clip(rrun.model, device=dev, seed=0)
+    t_setup = time.time() - t0
+    if torch.backends.cudnn.allow_tf32 is not False or \
+            torch.backends.cuda.matmul.allow_tf32 is not False:
+        fail("TF32 is on for the ResNet tower's convolutions")
+    enc, paths["rn50_encode"], engine = encode_and_search(
+        torch, np, dev, counters, model, 81, "RN50")
+    launched("RN50 encode", paths["rn50_encode"][0],
+             ("fused_attention", "layer_norm"))
+    two = seeded_batch(np, np.random.default_rng(82), 2, FRAMES, 32)
+    enc.update(set_up_s=t_setup, video_cos_min=card_vs_cpu(
+        torch, np, model, two, "RN50"))
+    result["rn50"] = enc
+    del model, engine
+    torch.cuda.empty_cache()
+    return result, dict(paths=paths)
+
+
+def preprocess_phase(torch, np, dev, flush, peaks, counters, root):
+    """The tenth main path: the preprocess tools.  `build_framestore` over
+    the main phase's seeded .npy videos must write the .fstore (and its
+    .json) the main phase wrote, byte for byte; `visualize_clusters --mode
+    mask --save_ids 1` and `--mode overlay` on a seeded .npy video of
+    VIS_FRAMES frames (segments of 2: [6, 98, 3072] fp32 pixel tokens,
+    K = VIS_K, iter_limit 60) on the card: kernel E must launch and its ids
+    must equal the plain version's on the card, on the same tokens."""
+    import filecmp
+    from centerclip_tpu_torch.ops.kmedoids import batch_fast_kmedoids
+    from centerclip_tpu_torch.preprocess import (build_framestore,
+                                                 visualize_clusters as vc)
+    result = {}
+    # ---- the FrameStore of the main phase's videos
+    out = os.path.join(root, "rebuilt.fstore")
+    t0 = time.time()
+    n = build_framestore.main(["--input_root", os.path.join(root, "videos"),
+                               "--output", out])
+    t_pack = time.time() - t0
+    same = [filecmp.cmp(os.path.join(root, "videos.fstore") + ext,
+                        out + ext, shallow=False) for ext in ("", ".json")]
+    size = os.path.getsize(out)
+    print(f"preprocess build_framestore: {n} videos, {size} bytes in "
+          f"{t_pack:.2f} s ({size / t_pack / 2**20:.1f} MiB/s); equal to "
+          f"the main phase's .fstore byte for byte: {same[0]}, its .json: "
+          f"{same[1]}")
+    if n != MAIN_VIDEOS or not all(same):
+        fail("build_framestore wrote another .fstore than the main phase's")
+    result.update(framestore_videos=n, framestore_bytes=size,
+                  framestore_s=t_pack)
+
+    # ---- visualize_clusters on the card
+    g = np.random.default_rng(90)
+    frames = g.integers(0, 256, (VIS_FRAMES, RES, RES, 3), dtype=np.uint8)
+    video = os.path.join(root, "visualize.npy")
+    np.save(video, frames)
+    counts, times = None, {}
+    for mode in ("mask", "overlay"):
+        out_dir = os.path.join(root, f"visualize_{mode}")
+        zero_counts(counters)
+        t0 = time.time()
+        vc.main(["--video", video, "--output_dir", out_dir, "--mode", mode,
+                 "--max_frames", str(VIS_FRAMES), "--cluster_num",
+                 str(VIS_K), "--segment_frames", str(VIS_FRAMES // 2),
+                 "--save_ids", "1"])
+        torch.cuda.synchronize()
+        times[mode] = time.time() - t0
+        c = raw_counts(counters)
+        launched(f"visualize_clusters --mode {mode}", c[0],
+                 ("kmedoids_from_distances",))
+        counts = c if counts is None else (
+            {k: v + c[0][k] for k, v in counts[0].items()}, counts[1])
+        written = len(os.listdir(out_dir))
+        print(f"visualize_clusters --mode {mode}: {times[mode]:.2f} s, "
+              f"{written} files; launches {c[0]}")
+        if written < 2 * VIS_FRAMES:
+            fail(f"visualize_clusters --mode {mode} wrote {written} files")
+    ids = np.load(os.path.join(root, "visualize_mask", "ids_0.npy"))
+    tokens, _ = vc.pixel_tokens(frames, VIS_FRAMES // 2)
+    x = torch.from_numpy(tokens).to(dev)
+    _, plain = batch_fast_kmedoids(x, VIS_K, iter_limit=vc.KMEDOIDS_ITER_LIMIT)
+    differ = int((plain.cpu().numpy() != ids).any(axis=1).sum())
+    print(f"visualize_clusters medoid ids {ids.shape}: the kernel's vs the "
+          f"plain version's on the card, segments with other ids {differ}")
+    if differ:
+        fail("visualize_clusters' medoid ids differ from the plain "
+             "version's")
+    km_row = kmedoids_points_case(torch, flush, peaks,
+                                  "visualize_clusters pixel tokens", x,
+                                  VIS_K, vc.KMEDOIDS_ITER_LIMIT)
+    result.update(visualize_s=times, medoid_segments_differing=differ)
+    return result, dict(paths={"visualize_clusters": counts},
+                        kmedoids=[km_row])
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2455,6 +2954,13 @@ def main() -> int:
     cfg = flagship_config()
     t0 = time.time()
     model = build_model(cfg, dev, seed=0)
+    # the model builder sets the JAX package's fp32 numerics: PyTorch's
+    # default lets cuDNN run fp32 convolutions in TF32
+    if torch.backends.cudnn.allow_tf32 is not False or \
+            torch.backends.cuda.matmul.allow_tf32 is not False:
+        fail("TF32 is on after the model builder ran (cuDNN "
+             f"{torch.backends.cudnn.allow_tf32}, cuBLAS "
+             f"{torch.backends.cuda.matmul.allow_tf32})")
     engine = RetrievalEngine(model, device=dev)
     g = np.random.default_rng(0)
     clips = g.integers(0, 256, (N_CLIPS, 1, FRAMES, 3, RES, RES),
@@ -2769,24 +3275,25 @@ def main() -> int:
     # ----------------------------------------- main (third path) + report
     import tempfile
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
-        main_res, handoff = main_phase(torch, np, dev, counters, root)
-        path_counts["main"] = (main_res["launches"], main_res["variants"])
-        for kernel, rows in main_res["held"].items():
-            extend_forward_row(kernel, rows, key="main_shapes")
-        torch.cuda.empty_cache()
-        phase_done("main")
+    # the main phase's fixture stays until the preprocess phase reads it
+    workdir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    root = workdir.name
+    main_res, handoff = main_phase(torch, np, dev, counters, root)
+    path_counts["main"] = (main_res["launches"], main_res["variants"])
+    for kernel, rows in main_res["held"].items():
+        extend_forward_row(kernel, rows, key="main_shapes")
+    torch.cuda.empty_cache()
+    phase_done("main")
 
-        # ------------------------------ serve CLI (fifth path) + report
-        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-        serve_res = serve_phase(torch, np, dev, counters, root, handoff,
-                                flush)
-        del flush, handoff
-        path_counts["serve_cli"] = (serve_res.pop("launches"),
-                                    serve_res.pop("variants"))
-        for kernel, rows in serve_res.pop("held").items():
-            extend_forward_row(kernel, rows, key="serve_cli_shapes")
-        torch.cuda.empty_cache()
+    # ---------------------------------- serve CLI (fifth path) + report
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    serve_res = serve_phase(torch, np, dev, counters, root, handoff, flush)
+    del flush, handoff
+    path_counts["serve_cli"] = (serve_res.pop("launches"),
+                                serve_res.pop("variants"))
+    for kernel, rows in serve_res.pop("held").items():
+        extend_forward_row(kernel, rows, key="serve_cli_shapes")
+    torch.cuda.empty_cache()
     phase_done("serve")
 
     # ------------------------------------ ViT-B/16 (fourth path) + report
@@ -2807,10 +3314,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("cluster")
     activity, act = activity_phase(torch, np, dev, flush, peaks, counters)
+    torch.cuda.empty_cache()
     phase_done("activity")
+
+    # ---------------- headers, towers, preprocess (eighth to tenth paths)
+    headers, hd = headers_phase(torch, np, dev, flush, peaks, counters)
+    torch.cuda.empty_cache()
+    phase_done("headers")
+    towers, tw = towers_phase(torch, np, dev, flush, peaks, counters)
+    torch.cuda.empty_cache()
+    phase_done("towers")
+    preprocess, pp = preprocess_phase(torch, np, dev, flush, peaks,
+                                      counters, root)
+    workdir.cleanup()
+    phase_done("preprocess")
     del flush
-    path_counts.update(cl["paths"])
-    path_counts.update(act["paths"])
+    for extra in (cl, act, hd, tw, pp):
+        path_counts.update(extra["paths"])
+    for kernel in ("layernorm_fwd", "layernorm_bwd"):
+        extend_forward_row(kernel, hd[kernel], key="header_shapes")
+    extend_forward_row("kmedoids", pp["kmedoids"], key="preprocess_shapes")
     extend_forward_row("kmedoids", cl["kmedoids"], key="cluster_shapes")
     for kernel in ("attention_fwd", "attention_bwd", "layernorm_fwd",
                    "layernorm_bwd", "kmedoids"):
@@ -2854,6 +3377,9 @@ def main() -> int:
     print(json.dumps({"serve": serve_res}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"activity": activity}))
+    print(json.dumps({"headers": headers}))
+    print(json.dumps({"towers": towers}))
+    print(json.dumps({"preprocess": preprocess}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -95,8 +95,9 @@ def test_video_mask_after_cluster_matches_jax(T_, final):
 def test_unported_cluster_algos_raise():
     """Every algorithm of the JAX package is ported
     (tests/test_torch_cluster_algos.py::test_every_cluster_algo_builds);
-    a name outside them still raises, and so do the ResNet towers and the
-    seqTransf header, which are not ported yet."""
+    a name outside them still raises.  The ResNet towers and the seqTransf
+    header build beside a cluster config, as in the JAX package (the
+    ResNet tower runs no cluster module)."""
     from centerclip_tpu_torch.config import make_run_config
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
     assert set(cluster_layer.PORTED_ALGOS) == {
@@ -106,6 +107,11 @@ def test_unported_cluster_algos_raise():
     with pytest.raises(NotImplementedError):
         cluster_layer.TokenClusterInter(spec, ClusterConfig(inter=True), W)
     for over in (dict(clip_name="RN50"), dict(sim_header="seqTransf")):
-        cfg = make_run_config(inter=True, algo="spectral", **over).model
-        with pytest.raises(NotImplementedError):
-            CLIP4Clip(cfg, device="cpu")
+        cfg = make_run_config(inter=True, algo="spectral",
+                              cluster_num_blocks=(49,) * 12,
+                              target_frames_blocks=(12,) * 6 + (6,) * 6,
+                              **over).model
+        model = CLIP4Clip(cfg, device="cpu")
+        inter = [m for m in model.modules()
+                 if isinstance(m, cluster_layer.TokenClusterInter)]
+        assert len(inter) == (0 if "clip_name" in over else 1)

@@ -1008,3 +1008,143 @@ def test_each_algorithm_eval_forward_card_matches_plain(cuda, algo,
     assert va.shape == vb.shape and bool(torch.isfinite(va).all())
     cos = torch.nn.functional.cosine_similarity(va.flatten(1), vb.flatten(1))
     assert float(cos.min()) >= 0.99, cos
+
+
+# ------------------------------------ headers, 3-D patchify, ResNet towers
+_TINY_GPU = dict(embed_dim=64, image_resolution=64, vision_layers=2,
+                 vision_width=128, vision_patch_size=16, vision_heads=2,
+                 context_length=16, vocab_size=100, transformer_width=128,
+                 transformer_heads=2, transformer_layers=2)
+_TINY_GPU_RN = dict(embed_dim=64, image_resolution=64,
+                    vision_layers=(1, 1, 1, 1), vision_width=16,
+                    vision_patch_size=None, context_length=16,
+                    vocab_size=100, transformer_width=128,
+                    transformer_heads=2, transformer_layers=2)
+# fp32 card (cuBLAS / cuDNN in true fp32: TF32 off) vs CPU, sums in
+# another order
+FP32_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _tiny_batch(n, res=64, seed=0):
+    g = np.random.default_rng(seed)
+    ids = g.integers(1, 98, (n, 16))
+    ids[:, -1] = 99
+    vmask = np.ones((n, 4), np.int32)
+    vmask[-1, -2:] = 0
+    return {"input_ids": ids, "attention_mask": np.ones((n, 16), np.int32),
+            "video": g.integers(0, 256, (n, 1, 4, 3, res, res),
+                                dtype=np.uint8), "video_mask": vmask}
+
+
+@pytest.mark.parametrize("header", ["seqTransf", "tightTransf"])
+def test_header_blocks_on_the_card_run_no_attention_kernel(cuda, header,
+                                                           monkeypatch):
+    """The seqTransf / cross blocks run the plain fp32 attention on the
+    card (their per-sample mask is one kernel A does not take) and their
+    LayerNorms launch kernel C on fp32 rows; their logits equal the CPU's.
+    Then one training step: the towers launch A-E, the loss is finite."""
+    from centerclip_tpu_torch.train import Trainer
+    monkeypatch.setitem(port_config.CLIP_ARCHS, "tiny-gpu-headers",
+                        _TINY_GPU)
+    run = port_config.make_run_config(
+        clip_name="tiny-gpu-headers", max_frames=4, max_words=16,
+        sim_header=header, cross_num_hidden_layers=2,
+        inter=True, algo="kmediods++", cluster_num_blocks=(8, 8),
+        target_frames_blocks=(4, 2), optim="AdamW", lr=1e-3,
+        freeze_layer_num=0, **({} if header == "tightTransf"
+                               else {"loose_type": True}))
+    card = CLIP4Clip(run.model, device=cuda, seed=0)
+    cpu = CLIP4Clip(run.model, device="cpu", seed=0)
+    assert torch.backends.cudnn.allow_tf32 is False
+    g = np.random.default_rng(2)
+    seq = torch.from_numpy(g.standard_normal((5, 1, 64)).astype(np.float32))
+    vis = torch.from_numpy(g.standard_normal((4, 2, 64)).astype(np.float32))
+    vmask = torch.tensor([[1, 1], [1, 0], [1, 1], [1, 1]])
+    a0 = attention_cuda.fused_attention.launches
+    c0 = layernorm_triton.layer_norm.launches
+    with torch.inference_mode():
+        out = card.get_similarity_logits(seq.to(cuda), vis.to(cuda), None,
+                                         vmask.to(cuda))
+        ref = cpu.get_similarity_logits(seq, vis, None, vmask)
+    torch.cuda.synchronize()
+    assert attention_cuda.fused_attention.launches == a0
+    assert layernorm_triton.layer_norm.launches > c0
+    torch.testing.assert_close(out.cpu(), ref, **FP32_TOL)
+
+    counters = (attention_cuda.fused_attention,
+                attention_cuda.attention_backward, layernorm_triton.layer_norm,
+                layernorm_triton.layer_norm_backward,
+                kmedoids_cuda.kmedoids_from_distances)
+    before = [fn.launches for fn in counters]
+    loss, gstep = Trainer(run, card, total_steps=4).train_epoch(
+        0, [_tiny_batch(4)], n_display=1)
+    torch.cuda.synchronize()
+    assert gstep == 1 and np.isfinite(loss)
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_patchify_3d_on_the_card_matches_cpu(cuda, dtype):
+    """ViT-B/32's tubelet patchify (12 frames of 224 x 224, width 768) on
+    the card against the CPU's fp32 one on the same (for bf16:
+    bf16-rounded) inputs, and against `F.conv3d` on the card.  Each
+    output is a sum of 9216 products taken in another order: within 1e-6
+    of the sum of their magnitudes, and for bf16 one bf16 ulp more."""
+    from centerclip_tpu_torch import set_fp32_numerics
+    from centerclip_tpu_torch.models.clip import patchify_3d
+    set_fp32_numerics()
+    video = _randn((2 * 12, 3, 224, 224), torch.float32, "cpu", seed=3)
+    w = _randn((768, 3, 3, 32, 32), torch.float32, "cpu", seed=4,
+               scale=0.02)
+    if dtype == torch.bfloat16:
+        video, w = video.bfloat16().float(), w.bfloat16().float()
+    ref = patchify_3d(video, w, 12, torch.float32)
+    terms = patchify_3d(video.abs(), w.abs(), 12, torch.float32)
+    out = patchify_3d(video.to(cuda), w.to(cuda), 12, dtype)
+    x5 = video.to(cuda).reshape(2, 12, 3, 224, 224).transpose(1, 2)
+    conv = torch.nn.functional.conv3d(
+        x5.to(dtype), w.to(cuda, dtype), stride=(1, 32, 32),
+        padding=(1, 0, 0)).permute(0, 2, 3, 4, 1).reshape(24, 49, 768)
+    torch.cuda.synchronize()
+    assert out.shape == (24, 49, 768) and out.dtype == dtype
+    tol = 1e-6 * terms
+    if dtype == torch.bfloat16:
+        tol = tol + BF16_TOL["atol"] + BF16_TOL["rtol"] * ref.abs()
+    for got in (out, conv):
+        err = (got.float().cpu() - ref).abs()
+        assert bool((err <= tol).all()), float((err - tol).max())
+
+
+def test_narrow_resnet_on_the_card_matches_cpu(cuda, monkeypatch):
+    """A narrow ModifiedResNet (layers (1, 1, 1, 1), width 16) in fp32 with
+    cuDNN's TF32 off: the visual features on the card equal the CPU's."""
+    monkeypatch.setitem(port_config.CLIP_ARCHS, "tiny-gpu-rn", _TINY_GPU_RN)
+    cfg = port_config.make_run_config(clip_name="tiny-gpu-rn", max_frames=4,
+                                      max_words=16).model
+    card = CLIP4Clip(cfg, device=cuda, seed=0).eval()
+    cpu = CLIP4Clip(cfg, device="cpu", seed=0).eval()
+    assert torch.backends.cudnn.allow_tf32 is False
+    b = _tiny_batch(3)
+    video, vmask = torch.from_numpy(b["video"]), torch.ones(3, 4)
+    with torch.inference_mode():
+        out = card.get_visual_output(video.to(cuda), vmask.to(cuda))
+        ref = cpu.get_visual_output(video, vmask)
+    assert out.shape == (3, 4, 64) and out.dtype == torch.float32
+    torch.testing.assert_close(out.cpu(), ref, **FP32_TOL)
+
+
+def test_rn50_encodes_on_the_card_like_the_cpu(cuda):
+    """RN50 at full width: a 2-frame clip's features on the card against
+    the CPU's, same seeded weights (cosine >= 0.9999)."""
+    cfg = port_config.make_run_config(clip_name="RN50", max_frames=2).model
+    card = CLIP4Clip(cfg, device=cuda, seed=0).eval()
+    cpu = CLIP4Clip(cfg, device="cpu", seed=0).eval()
+    video = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (1, 1, 2, 3, 224, 224), dtype=np.uint8))
+    with torch.inference_mode():
+        out = card.get_visual_output(video.to(cuda), torch.ones(1, 2,
+                                                                device=cuda))
+        ref = cpu.get_visual_output(video, torch.ones(1, 2))
+    assert out.shape == (1, 2, 1024) and bool(torch.isfinite(out).all())
+    cos = torch.nn.functional.cosine_similarity(out.cpu()[0], ref[0])
+    assert float(cos.min()) >= 0.9999, cos

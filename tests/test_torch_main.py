@@ -111,11 +111,21 @@ def test_cli_refuses_the_parallel_strategies(flag):
                                    ["--linear_patch", "3d"],
                                    ["--pretrained_clip_name", "RN50"]])
 def test_unported_algorithms_parse_and_the_builder_refuses(extra):
+    """These flags parse to the JAX package's config, and the port builds
+    them as the JAX package does (they were refused before they were
+    ported); seqLSTM builds and raises at the similarity, as in JAX."""
     cfg = cli.parse_args(EXP62 + extra)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jax_cli.parse_args(EXP62 + extra))
-    with pytest.raises(NotImplementedError):
-        CLIP4Clip(cfg.model, device="cpu")
+    model = CLIP4Clip(cfg.model, device="cpu")
+    D = cfg.model.arch["embed_dim"]
+    seq, vis = torch.ones(2, 1, D), torch.ones(2, 6, D)
+    if cfg.model.sim_header == "seqLSTM":
+        with pytest.raises(NotImplementedError, match="seqLSTM"):
+            model.get_similarity_logits(seq, vis, None, torch.ones(2, 12))
+    else:
+        sim = model.get_similarity_logits(seq, vis, None, torch.ones(2, 12))
+        assert tuple(sim.shape) == (2, 2)
 
 
 # ------------------------------------------------------- pretrain tricks

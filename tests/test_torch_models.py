@@ -187,10 +187,30 @@ def test_checkpoint_file_roundtrip(pair, tmp_path):
 
 
 def test_builders_refuse_what_is_not_ported():
-    for over in (dict(sim_header="seqTransf"), dict(linear_patch="3d"),
-                 dict(pipeline_parallel=2), dict(clip_name="RN50")):
+    """The builder builds wherever the JAX package builds: the seqTransf,
+    seqLSTM and tightTransf headers, the 3-D patchify and the ResNet
+    towers; seqLSTM raises at the similarity, as the JAX package's does.
+    What is not ported, sequence and pipeline parallelism, raises at
+    build."""
+    b = make_inputs(4)
+    for over in (dict(sim_header="seqTransf"), dict(sim_header="seqLSTM"),
+                 dict(sim_header="tightTransf"), dict(linear_patch="3d"),
+                 dict(clip_name="RN50", inter=False, cluster_num_blocks=(),
+                      target_frames_blocks=())):
         cfg = port_config.make_run_config(**config_kw(**over)).model
-        with pytest.raises(NotImplementedError):
+        model = CLIP4Clip(cfg, device="cpu")
+        seq = torch.ones(3, 1, cfg.arch["embed_dim"])
+        vis = torch.ones(3, 2, cfg.arch["embed_dim"])
+        if over.get("sim_header") == "seqLSTM":
+            with pytest.raises(NotImplementedError, match="seqLSTM"):
+                model.get_similarity_logits(seq, vis, None, t(b[2][:, :2]))
+        else:
+            sim = model.get_similarity_logits(seq, vis, None, t(b[2][:, :2]))
+            assert tuple(sim.shape) == (3, 3)
+    for over in (dict(pipeline_parallel=2),
+                 dict(tensor_parallel=2, sequence_parallel=True)):
+        cfg = port_config.make_run_config(**config_kw(**over)).model
+        with pytest.raises(NotImplementedError, match="parallelism"):
             CLIP4Clip(cfg, device="cpu")
 
 
