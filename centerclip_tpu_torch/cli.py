@@ -7,9 +7,10 @@ Every flag and default of the JAX package's parser, so the canonical
 <flags>`); `args_to_run_config` funnels the namespace into the typed config
 tree, equal field by field to the JAX package's.  Every header, tower
 and patchify of the JAX package builds; `--sim_header seqLSTM` parses and
-builds and raises at the similarity, as the JAX package's does.  The
-parallel strategies are refused here: the port runs one process on one
-GPU.
+builds and raises at the similarity, as the JAX package's does.  Data
+parallelism and FSDP run one process per GPU under `torchrun`
+(`--data_parallel`, `--fsdp`); tensor, sequence and pipeline parallelism
+are refused here (ROADMAP.md section 1, items 1.3 and 1.4).
 """
 from __future__ import annotations
 
@@ -104,14 +105,16 @@ def get_parser(description="CenterCLIP on Retrieval Task (PyTorch/CUDA)"
                    help="rematerialize transformer blocks on backward "
                         "(activation-memory relief for long-video configs)")
     # parallelism (replaces --world_size/--local_rank/--init_method/--dp/...):
-    # the JAX package's flags and defaults; the port runs only the defaults
-    # (one GPU) and refuses the others in check_single_device
+    # the JAX package's flags and defaults; the port refuses the strategies
+    # it does not run yet in check_ported_parallelism
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="data-parallel devices; 0 = all (the port: one GPU)")
+                   help="data-parallel shards, one torchrun process each; "
+                        "0 = every process")
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help="model-axis shards (not ported: 1 only)")
     p.add_argument("--fsdp", type=int, default=0,
-                   help="ZeRO-style sharding (not ported: 0 only)")
+                   help="shard parameters, gradients and Adam moments over "
+                        "the data axis (FSDP)")
     p.add_argument("--sequence_parallel", type=int, default=0,
                    help="sequence parallelism (not ported: 0 only)")
     p.add_argument("--pipeline_parallel", type=int, default=1,
@@ -152,23 +155,22 @@ def get_parser(description="CenterCLIP on Retrieval Task (PyTorch/CUDA)"
     return p
 
 
-def check_single_device(args: argparse.Namespace) -> None:
-    """Refuse the parallel strategies, which the port does not run yet."""
-    for flag, on in (("--data_parallel > 1", args.data_parallel > 1),
-                     ("--tensor_parallel > 1", args.tensor_parallel > 1),
-                     ("--fsdp", bool(args.fsdp)),
-                     ("--pipeline_parallel > 1", args.pipeline_parallel > 1),
-                     ("--sequence_parallel", bool(args.sequence_parallel))):
+def check_ported_parallelism(args: argparse.Namespace) -> None:
+    """Refuse the parallel strategies the port does not run yet."""
+    for flag, on, item in (
+            ("--tensor_parallel > 1", args.tensor_parallel > 1, "1.3"),
+            ("--sequence_parallel", bool(args.sequence_parallel), "1.3"),
+            ("--pipeline_parallel > 1", args.pipeline_parallel > 1, "1.4")):
         if on:
             raise NotImplementedError(
-                f"{flag} is not ported yet: the port runs one process on "
-                f"one GPU (ROADMAP.md section 2, item 4: Parallelism)")
+                f"{flag} is not ported yet: the port runs data parallelism "
+                f"and FSDP only (ROADMAP.md section 1, item {item})")
 
 
 def args_to_run_config(args: argparse.Namespace) -> RunConfig:
     """Funnel the argparse namespace into the typed config (the analogue of
     params.py:286-321 derivations, handled in make_run_config)."""
-    check_single_device(args)
+    check_ported_parallelism(args)
     precision = {"amp": "bf16", "fp16": "bf16", "bf16": "bf16",
                  "fp32": "fp32"}[args.precision]
     kw = dict(

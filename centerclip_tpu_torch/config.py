@@ -40,7 +40,7 @@ CLIP_ARCHS = {
                      vision_width=768, vision_patch_size=16, context_length=77,
                      vocab_size=49408, transformer_width=512,
                      transformer_heads=8, transformer_layers=12),
-    # ResNet towers are not ported yet; the entries stay so configs compare
+    # the ResNet towers (models/resnet.py)
     "RN50": dict(embed_dim=1024, image_resolution=224,
                  vision_layers=(3, 4, 6, 3), vision_width=64,
                  vision_patch_size=None, context_length=77, vocab_size=49408,

@@ -6,7 +6,9 @@ reference: dataloaders/data_dataloaders.py:12-270).
 activity have `test=None`, so evaluation falls back to the val loader exactly
 like the reference (main.py:142-149).  Every factory takes the run's
 `device`: on a CUDA device its loader pins the batches' host memory.  The
-port runs one process, so the train loader's shard is (0, 1).
+train loader reads this process's shard (`parallel.data_shard_geometry`):
+`batch_size // shard_count` rows a step, the shard padded by wrapping
+around the epoch's order so every process takes as many steps.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from ..config import RunConfig
 from ..models.tokenizer import SimpleTokenizer
+from ..parallel.mesh import data_shard_geometry
 from .datasets import (ActivityNetDataset, DiDeMoDataset, LSMDCDataset,
                        MSRVTTEvalDataset, MSRVTTTrainDataset, MSVDDataset,
                        read_csv)
@@ -35,12 +38,14 @@ def _pin(device) -> bool:
 
 
 def _train_loader(cfg: RunConfig, dataset, device):
-    # one process reads the whole global batch: the loader's default shard
-    # (0, 1)
-    loader = BatchLoader(dataset, cfg.batch_size, shuffle=True,
-                         drop_last=True,
+    # shard by data-axis row ownership (JAX data/registry.py:27-39)
+    shard_index, shard_count = data_shard_geometry(
+        cfg.tensor_parallel, cfg.model.pipeline_parallel)
+    loader = BatchLoader(dataset, max(cfg.batch_size // shard_count, 1),
+                         shuffle=True, drop_last=True,
                          num_threads=cfg.data.num_thread_reader,
-                         seed=cfg.seed, pin_memory=_pin(device))
+                         seed=cfg.seed, process_index=shard_index,
+                         process_count=shard_count, pin_memory=_pin(device))
     return loader, len(dataset), loader
 
 

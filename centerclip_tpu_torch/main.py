@@ -6,15 +6,27 @@
         --datatype msrvtt --train_csv ... --val_csv ... --data_path ... \\
         --features_path <videos dir, or a .fstore> --output_dir ... <flags>
 
-The same flags as `python main.py` (see `cli.py`), in one process on one
-GPU: fail-fast data-path checks, `hparams_train.json`, the loaders (val
-falls back to test and back), the model initialised from `--init_model`, or
-from `<pretrained_dir>/ViT-B-32.pt` when it is there, or from scratch; then
+The same flags as `python main.py` (see `cli.py`): fail-fast data-path
+checks, `hparams_train.json`, the loaders (val falls back to test and
+back), the model initialised from `--init_model`, or from
+`<pretrained_dir>/ViT-B-32.pt` when it is there, or from scratch; then
 either one evaluation (`--do_train 0 --do_eval 1`) or the epoch loop with an
 evaluation after every epoch (ties update the best), `ckpt_<epoch>`,
 `ckpt_best` and `ckpt.pth.tar`, and `--resume`.  `main(argv, device)` runs
 on the card unless the caller names another device; with none given and no
 CUDA device it raises.
+
+On N GPUs, one process each (JAX `main.py` on an N-chip data mesh):
+
+    torchrun --nproc_per_node N -m centerclip_tpu_torch.main <flags> \
+        [--fsdp 1]
+
+Each rank joins the process group before any device work, trains on its
+shard of every global batch of `--batch_size` (DDP, or FSDP with `--fsdp
+1`), and prints its epoch's mean loss to stdout; rank 0 alone logs,
+evaluates (on the whole parameters: under FSDP every rank first gathers
+them, `host_state`), and writes the checkpoints, while the other ranks
+wait at a barrier.
 """
 from __future__ import annotations
 
@@ -41,26 +53,39 @@ def check_data_paths(cfg) -> None:
 
 
 def main(argv=None, device=None):
-    from . import resolve_device
+    import torch.distributed as dist
     from .cli import parse_args
+    from .parallel.mesh import init_distributed
     cfg = parse_args(argv)
-    device = resolve_device(device)
+    # join the process group before any device work
+    device = init_distributed(device)
+    try:
+        return _run(cfg, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _run(cfg, device):
     from .config import save_hparams
     from .data.registry import DATALOADER_DICT
     from .models.clip4clip import CLIP4Clip
     from .models.tokenizer import SimpleTokenizer
+    from .parallel.mesh import (is_sharded, process_barrier, process_index,
+                                world_size)
     from .train import state as state_mod
     from .train.evaluate import Evaluator
     from .train.loop import Trainer
     from .utils.logging import MetricWriter, setup_logging
 
+    rank, world = process_index(), world_size()
     os.makedirs(cfg.output_dir, exist_ok=True)
     setup_logging(os.path.join(cfg.output_dir, "log.txt"),
-                  level=logging.INFO)
+                  level=logging.INFO, process_index=rank)
     logger = logging.getLogger("main")
-    save_hparams(cfg.output_dir, cfg)
-    logger.info("device: %s", device)
+    if rank == 0:
+        save_hparams(cfg.output_dir, cfg)
+    logger.info("device: %s, processes: %d", device, world)
     check_data_paths(cfg)
 
     tokenizer = SimpleTokenizer()
@@ -97,15 +122,18 @@ def main(argv=None, device=None):
     multi_sentence = bool(getattr(test_loader.dataset,
                                   "multi_sentence_per_video", False))
     cut_offs = list(getattr(test_loader.dataset, "cut_off_points", []))
-    evaluator = Evaluator(model)
 
-    # ---- eval-only path (main.py:232-239)
+    # ---- eval-only path (main.py:232-239: rank 0 evaluates, the other
+    # ranks wait)
     if cfg.do_eval and not cfg.do_train:
-        res = evaluator.evaluate(
-            test_loader, multi_sentence=multi_sentence,
-            cut_off_points=cut_offs,
-            inference_speed_test=cfg.inference_speed_test)
-        logger.info("eval R@1: %.2f", res["R1"])
+        res = None
+        if rank == 0:
+            res = Evaluator(model).evaluate(
+                test_loader, multi_sentence=multi_sentence,
+                cut_off_points=cut_offs,
+                inference_speed_test=cfg.inference_speed_test)
+            logger.info("eval R@1: %.2f", res["R1"])
+        process_barrier("eval_only_done")
         return res
 
     # ---- training path (main.py:244-288)
@@ -119,8 +147,15 @@ def main(argv=None, device=None):
                 n_train, steps_per_epoch, total_steps)
 
     trainer = Trainer(cfg, model, total_steps=total_steps)
-    trainer.metric_writer = MetricWriter(
-        os.path.join(cfg.output_dir, "tensorboard"))
+    sharded = is_sharded(model)
+    if rank == 0:
+        trainer.metric_writer = MetricWriter(
+            os.path.join(cfg.output_dir, "tensorboard"))
+        # under FSDP rank 0 evaluates and exports a copy with whole
+        # parameters, loaded from the gathered ones every epoch
+        eval_model = (CLIP4Clip(cfg.model, device=device, seed=cfg.seed)
+                      if sharded else model)
+        evaluator = Evaluator(eval_model)
 
     start_epoch, best_r1, best_epoch = 0, 0.0, -1
     if cfg.resume:
@@ -138,24 +173,41 @@ def main(argv=None, device=None):
                                               n_display=cfg.n_display)
             logger.info("Epoch %d/%d done in %.1fs, mean loss %.4f",
                         epoch + 1, cfg.epochs, time.time() - t0, loss)
-            # the reference evaluates every epoch, unconditionally
-            # (main.py:250-262; --do_eval is its eval-only-and-exit flag)
-            res = evaluator.evaluate(test_loader,
-                                     multi_sentence=multi_sentence,
-                                     cut_off_points=cut_offs)
-            r1 = res["R1"]
+            if world > 1:
+                # the log is rank 0's: every rank's own loss to stdout
+                print(f"rank {rank} epoch {epoch} mean_loss={loss:.6f}",
+                      flush=True)
+            # every rank gathers sharded parameters and moments (a
+            # collective) before rank 0's evaluation and writes
+            host = state_mod.host_state(trainer.state) if sharded else None
+            r1 = 0.0
+            if rank == 0:
+                if sharded:
+                    eval_model.load_state_dict(host["params"], strict=True)
+                # the reference evaluates every epoch, unconditionally
+                # (main.py:250-262; --do_eval is its eval-only-and-exit
+                # flag)
+                res = evaluator.evaluate(test_loader,
+                                         multi_sentence=multi_sentence,
+                                         cut_off_points=cut_offs)
+                r1 = res["R1"]
             # ties update best (reference main.py:257 `best_R1 <= R1`): the
             # first eval always writes ckpt_best, later epochs win ties
             is_best = r1 >= best_r1
             if is_best:
                 best_r1, best_epoch = r1, epoch
-            state_mod.save_checkpoint(cfg.output_dir, trainer.state, epoch,
-                                      best_r1, is_best=is_best)
-            state_mod.export_torch_checkpoint(
-                model, os.path.join(cfg.output_dir, "ckpt.pth.tar"),
-                epoch=epoch, global_step=gstep, best_r1=best_r1)
+            if rank == 0:
+                state_mod.save_checkpoint(cfg.output_dir, trainer.state,
+                                          epoch, best_r1, is_best=is_best,
+                                          host=host)
+                state_mod.export_torch_checkpoint(
+                    eval_model, os.path.join(cfg.output_dir, "ckpt.pth.tar"),
+                    epoch=epoch, global_step=gstep, best_r1=best_r1)
+            # the other ranks wait here while rank 0 evaluates and writes
+            process_barrier(f"epoch_{epoch}_done")
     finally:
-        trainer.metric_writer.close()
+        if trainer.metric_writer is not None:
+            trainer.metric_writer.close()
     logger.info("The best R1 is: %.4f, best_epoch=%d", best_r1, best_epoch)
     return best_r1
 

@@ -57,7 +57,8 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise on the parts of a config the port does not implement yet."""
     if cfg.sequence_parallel or cfg.pipeline_parallel > 1:
         raise NotImplementedError(
-            "sequence and pipeline parallelism are not ported")
+            "sequence and pipeline parallelism are not ported (ROADMAP.md "
+            "section 1, items 1.3 and 1.4)")
 
 
 def is_resnet(cfg: ModelConfig) -> bool:

@@ -40,6 +40,8 @@ from torch import nn
 from .. import resolve_device, set_fp32_numerics
 from ..config import ModelConfig
 from ..ops.cluster_layer import video_mask_after_cluster
+from ..parallel.collectives import all_gather, all_gather_local_grads
+from ..parallel.mesh import world_size
 from .clip import CLIP, CLIP_MEAN, CLIP_STD, Transformer, is_resnet
 from .cross import CrossConfig, CrossModel, key_padding_mask
 from .layers import _lecun_normal_
@@ -293,7 +295,11 @@ class CLIP4Clip(nn.Module):
         loss terms: sim_loss = 0.5 (CE(sim) + CE(sim^T)) over
         `get_similarity_logits` with the post-cluster video mask,
         cluster_loss (the DeepCluster heads' WCSS, else 0), loss = their
-        sum.  Without `training` and with `pre_visual_pooling`
+        sum.  In a process group of more than one rank, sim_loss is the
+        loss of the global batch: the text and video features and the
+        video mask of every rank are gathered before the similarity (the
+        headers see all of them), and cluster_loss stays this rank's
+        mean.  Without `training` and with `pre_visual_pooling`
         (ActivityNet), the visual output is the pooled, normalised [B, D]
         video vector.  `generator` draws the training step's random choices
         (`sparse_sampling`)."""
@@ -313,9 +319,19 @@ class CLIP4Clip(nn.Module):
                 visual = self.pooled_video(visual, video_mask)
             out["visual_output"] = visual
         if training:
-            sim = self.get_similarity_logits(out["sequence_output"],
-                                             out["visual_output"],
-                                             attention_mask, video_mask)
+            seq, visual = out["sequence_output"], out["visual_output"]
+            world = world_size()
+            if world > 1:
+                # the loss over the global batch (reference
+                # modules/utils.py:47-64): every rank's features, the
+                # gradient through this rank's rows only, times the world
+                # size, so that the ranks' averaged gradients are the
+                # one-process gradient of the global-batch loss
+                seq = all_gather_local_grads(seq, grad_scale=world)
+                visual = all_gather_local_grads(visual, grad_scale=world)
+                video_mask = all_gather(video_mask)
+            sim = self.get_similarity_logits(seq, visual, attention_mask,
+                                             video_mask)
             sim_loss = 0.5 * (cross_entropy(sim) + cross_entropy(sim.t()))
             if cluster_loss is None:
                 cluster_loss = torch.zeros((), device=sim.device)

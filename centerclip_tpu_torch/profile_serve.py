@@ -48,6 +48,7 @@ GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
                                      "pegasus", "colperm", "fnrma",
                                      "offa_stage", "batch_symmetrize",
                                      "batch_eye", "copy_info_kernel")),
+          ("collectives (NCCL)", ("nccl",)),
           ("copies", ("memcpy", "memset")))
 QUERIES = ["a man is cooking pasta in a kitchen",
            "two dogs are playing in the snow",
@@ -77,7 +78,10 @@ def profile(label: str, fn, top: int) -> dict:
         wall_us = (time.time() - t0) * 1e6
     by_name, launches = collections.Counter(), collections.Counter()
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations on the device's timeline (`nccl:all_reduce`,
+        # `DistributedDataParallel.forward`) span kernels counted already
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not evt.is_user_annotation:
             by_name[evt.name] += evt.time_range.elapsed_us()
             launches[evt.name] += 1
     device_us = sum(by_name.values())

@@ -4,6 +4,8 @@
     python -m centerclip_tpu_torch.profile_train [--batch 128] [--steps 1]
         [--preset msrvtt_vitb32_k6] [--remat 0|1] [--stream_scale A]
         [--sim_header meanP|seqTransf|tightTransf] [--cross_logits N]
+    torchrun --nproc_per_node N -m centerclip_tpu_torch.profile_train \
+        [--fsdp 0|1] [the flags above]
 
 Builds a preset of the JAX package (by default `msrvtt_vitb32_k6`: ViT-B/32,
 kmediods++ 12 -> 6 frames, meanP, bf16 towers, AdamW; `--remat` overrides
@@ -23,11 +25,18 @@ tightTransf, `--cross_logits N` then profiles one chunk of the evaluation's
 scoring from seeded cached features: `--cross_chunk` texts against N
 videos through the cross model (`CLIP4Clip.cross_similarity`), with the
 cross model's matmul FLOPs over the cuBLAS group's device time.
+
+Under `torchrun` each rank takes `--batch / N` rows of the global batch
+under DDP, or FSDP with `--fsdp 1` (the `Trainer`'s wrapper), and rank 0
+prints its own card's profile; NCCL's kernels are a group of their own,
+and they overlap the compute streams, so the device time can exceed the
+wall.  Build the kernels first (`ops/_build.py`), not in N ranks at once.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -36,6 +45,7 @@ import torch
 from .config import preset
 from .data.loader import pin_batch
 from .models.clip4clip import CLIP4Clip
+from .parallel.mesh import init_distributed, process_index, world_size
 from .profile_serve import profile
 from .train import Trainer
 
@@ -75,14 +85,20 @@ def main(argv=None) -> int:
                     choices=("meanP", "seqTransf", "tightTransf"))
     ap.add_argument("--cross_logits", type=int, default=0)
     ap.add_argument("--cross_chunk", type=int, default=64)
+    ap.add_argument("--fsdp", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     if args.cross_logits and args.sim_header != "tightTransf":
         ap.error("--cross_logits needs --sim_header tightTransf")
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 2
-    print(torch.cuda.get_device_name(0))
-    overrides = dict(batch_size=args.batch)
+    dev = init_distributed()
+    world = world_size()
+    if process_index() != 0:          # rank 0 prints its card's profile
+        sys.stdout = open(os.devnull, "w")
+    print(f"{torch.cuda.get_device_name(dev)}, {world} process(es), fsdp "
+          f"{args.fsdp}")
+    overrides = dict(batch_size=args.batch, fsdp=bool(args.fsdp))
     if args.remat is not None:
         overrides["remat"] = bool(args.remat)
     if args.sim_header is not None:
@@ -92,17 +108,18 @@ def main(argv=None) -> int:
     print(f"{args.preset}, batch {args.batch}, remat {cfg.remat}, "
           f"sim_header {cfg.sim_header}, vision stream scaled by "
           f"{args.stream_scale}")
-    model = CLIP4Clip(cfg, device="cuda", seed=0)
+    model = CLIP4Clip(cfg, device=dev, seed=0)
     scale_vision_stream(model, args.stream_scale)
     trainer = Trainer(run, model, total_steps=args.steps + 2)
-    g = np.random.default_rng(0)
-    ids = g.integers(1, 49406, (args.batch, cfg.max_words))
+    rows = args.batch // world
+    g = np.random.default_rng(process_index())
+    ids = g.integers(1, 49406, (rows, cfg.max_words))
     ids[:, 0], ids[:, -1] = 49406, 49407
     batch = pin_batch({
         "input_ids": ids, "attention_mask": np.ones(ids.shape, np.int32),
-        "video": g.integers(0, 256, (args.batch, 1, cfg.max_frames, 3,
+        "video": g.integers(0, 256, (rows, 1, cfg.max_frames, 3,
                                      224, 224), dtype=np.uint8),
-        "video_mask": np.ones((args.batch, cfg.max_frames), np.int32)})
+        "video_mask": np.ones((rows, cfg.max_frames), np.int32)})
     torch.cuda.reset_peak_memory_stats()
     try:
         trainer.train_epoch(0, [batch, batch], n_display=10 ** 9)  # warm-up
@@ -113,8 +130,8 @@ def main(argv=None) -> int:
               f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.3f}"
               f" GiB)")
         return 1
-    profile(f"{args.steps} training step(s) of {args.batch} clips (pinned "
-            f"host batch)",
+    profile(f"{args.steps} training step(s) of {args.batch} clips, "
+            f"{rows} on this card (pinned host batch)",
             lambda: trainer.train_epoch(1, [batch] * args.steps,
                                         n_display=10 ** 9), args.top)
     print(f"peak device memory allocated "
@@ -124,6 +141,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         cross_chunk(model.eval(), args.cross_logits, args.cross_chunk,
                     args.top)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return 0
 
 

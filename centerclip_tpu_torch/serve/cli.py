@@ -19,8 +19,10 @@ against it, once or as an HTTP daemon, on the GPU.
       --index_path gallery.npz --port 8080
 
 Every flag of `centerclip_tpu_torch.cli` is accepted (model variant,
-cluster configuration, dataset paths; the parallel strategies are refused
-there: one process, one GPU); the serve flags are below.  Weights load as
+cluster configuration, dataset paths); the serve flags are below.  The
+CLI encodes on one GPU: `--data_parallel` above 1, whose JAX counterpart
+shards the encode over a data mesh, is refused (ROADMAP.md section 1,
+item 1.1), as are the strategies the training CLI refuses.  Weights load as
 `main` loads them: --init_model, else the pretrained CLIP archive when it
 is there, else the seeded initialisation.  `main(argv, device)` runs on the
 card unless the caller names another device; with none given and no CUDA
@@ -194,6 +196,10 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     from .. import resolve_device
     from ..cli import parse_args
     cfg = parse_args(rest)
+    if cfg.data_parallel > 1:
+        raise NotImplementedError(
+            "--data_parallel > 1 is not ported for the serve CLI: it "
+            "encodes on one GPU (ROADMAP.md section 1, item 1.1)")
     device = resolve_device(device)
 
     from ..models.tokenizer import SimpleTokenizer

@@ -11,6 +11,12 @@ Two phases, like the reference:
    texts at a time.
 Metrics: the standard or the multi-sentence protocol (main.py:466-494).
 Everything runs under `torch.inference_mode()`.
+
+In a run of more than one process only rank 0 evaluates, on a model with
+whole parameters (under FSDP, a copy loaded from the gathered ones), while
+the other ranks wait at a barrier (`main.py`; JAX `main.py:110-135`,
+reference main.py:232-239).  A model whose parameters are FSDP shards
+raises here: its forward would need every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models.clip4clip import CLIP4Clip
+from ..parallel.mesh import is_sharded
 from .loop import Batch
 from .metrics import (compute_metrics, reshape_multi_sentence_sim,
                       tensor_text_to_video_metrics, tensor_video_to_text_sim)
@@ -33,6 +40,9 @@ class Evaluator:
     """Stateless two-phase evaluator over the model's device."""
 
     def __init__(self, model: CLIP4Clip):
+        if is_sharded(model):
+            raise ValueError("the Evaluator takes a model with whole "
+                             "parameters, not FSDP shards")
         self.model = model
 
     def _tensor(self, x) -> torch.Tensor:

@@ -18,6 +18,16 @@ columns) from its own `torch.Generator` on the model's device, seeded from
 (`cfg.seed`, the global step): the counterpart of the JAX package's
 `jax.random.fold_in(rng, step)`, so a resumed run draws what the
 uninterrupted run drew.  The draws themselves are not `jax.random`'s.
+
+Under `torchrun` the `Trainer` builds the `"data"` mesh from the config
+and wraps the model (`parallel.shard_params`: DDP, or FSDP with
+`cfg.fsdp`); each rank steps on its rows of the global batch, the model's
+loss is the global batch's (`CLIP4Clip.forward`), and a step's update is
+the one-process update at the global batch.  Gradient accumulation
+reduces the gradients on its last micro-batch only.  The logged losses
+are the means over the ranks.  Tensor, sequence and pipeline parallelism
+raise (ROADMAP.md section 1, items 1.3 and 1.4), as does a data extent
+other than the world size.
 """
 from __future__ import annotations
 
@@ -32,7 +42,11 @@ import torch
 
 from ..config import RunConfig
 from ..models.clip4clip import CLIP4Clip
-from .optim import GroupedAdam, build_optimizer, current_lr
+from ..parallel.collectives import psum
+from ..parallel.mesh import (create_mesh, gradient_sync,
+                             reduce_replicated_grads, shard_batch,
+                             shard_params, unwrap, world_size)
+from .optim import GroupedAdam, build_optimizer, current_lr, set_trainable
 from .state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -48,17 +62,9 @@ def clamp_logit_scale(model: CLIP4Clip) -> None:
     model.clip.logit_scale.clamp_(LOGIT_SCALE_MIN, LOGIT_SCALE_MAX)
 
 
-def batch_to_device(batch: Batch, device: torch.device
-                    ) -> Dict[str, torch.Tensor]:
-    """Host batch {input_ids, attention_mask, video, video_mask} (numpy or
-    tensors) -> tensors on `device`; token ids become int64 there.  A
-    pinned tensor is copied as it is, so the copy does not block the
-    host."""
-    out = {}
-    for key in ("input_ids", "attention_mask", "video", "video_mask"):
-        t = torch.as_tensor(batch[key]).to(device, non_blocking=True)
-        out[key] = t.long() if key == "input_ids" else t
-    return out
+# host batch {input_ids, attention_mask, video, video_mask} -> tensors on
+# the device (`parallel.mesh.shard_batch`)
+batch_to_device = shard_batch
 
 
 def step_generator(seed: int, global_step: int, device) -> torch.Generator:
@@ -69,32 +75,40 @@ def step_generator(seed: int, global_step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def make_train_step(model: CLIP4Clip, optimizer: GroupedAdam,
+def make_train_step(model: torch.nn.Module, optimizer: GroupedAdam,
                     accum_steps: int = 1) -> Callable:
-    """The train step.  With `accum_steps <= 1` it takes one batch, else a
-    list of micro-batches (any number), and an optional generator for the
-    model's random choices (the micro-batches draw from it in turn).  It
-    returns {loss, sim_loss, cluster_loss} as device scalars, the means
-    over the micro-batches.  After it returns, each trainable parameter's
-    `.grad` holds the clipped gradient the update used."""
-    device = model.device
+    """The train step of `model`, a `CLIP4Clip` or the module that wraps it
+    for data parallelism (`parallel.shard_params`).  With `accum_steps <=
+    1` it takes one batch, else a list of micro-batches (any number), and
+    an optional generator for the model's random choices (the
+    micro-batches draw from it in turn).  It returns {loss, sim_loss,
+    cluster_loss} as device scalars, the means over the micro-batches and
+    the ranks.  After it returns, each trainable parameter's `.grad` holds
+    the clipped gradient the update used (under FSDP, this rank's
+    shard)."""
+    net = unwrap(model)
+    device = net.device
+    world = world_size()
 
-    def _grad(batch: Batch, generator) -> torch.Tensor:
-        out = model(**batch_to_device(batch, device), training=True,
-                    generator=generator)
-        out["loss"].backward()
+    def _grad(batch: Batch, generator, sync: bool = True) -> torch.Tensor:
+        with gradient_sync(model, sync):
+            out = model(**batch_to_device(batch, device), training=True,
+                        generator=generator)
+            out["loss"].backward()
         return torch.stack([out[k].detach() for k in LOSS_KEYS])
 
-    def _apply() -> None:
+    def _apply(losses: torch.Tensor) -> Dict[str, torch.Tensor]:
+        reduce_replicated_grads(model)
         optimizer.step()
-        clamp_logit_scale(model)
+        clamp_logit_scale(net)
+        if world > 1:
+            losses = psum(losses) / world
+        return dict(zip(LOSS_KEYS, losses.unbind()))
 
     def single_step(batch: Batch, generator: Optional[torch.Generator] = None
                     ) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        losses = _grad(batch, generator)
-        _apply()
-        return dict(zip(LOSS_KEYS, losses.unbind()))
+        return _apply(_grad(batch, generator))
 
     if accum_steps <= 1:
         return single_step
@@ -103,32 +117,45 @@ def make_train_step(model: CLIP4Clip, optimizer: GroupedAdam,
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        losses = torch.stack([_grad(mb, generator) for mb in micro_batches])
+        last = len(micro_batches) - 1
+        losses = torch.stack([_grad(mb, generator, sync=i == last)
+                              for i, mb in enumerate(micro_batches)])
         with torch.no_grad():
             torch._foreach_div_(optimizer.grads(), float(losses.shape[0]))
-        _apply()
-        return dict(zip(LOSS_KEYS, losses.mean(dim=0).unbind()))
+        return _apply(losses.mean(dim=0))
 
     return accum_step
 
 
 class Trainer:
     """Epoch loop (reference: main_worker + train_epoch,
-    main.py:72-378).  Builds the configured optimizer over `model` (whose
-    frozen parameters it marks `requires_grad=False`).  Set
-    `metric_writer` (a `utils.logging.MetricWriter`) to record the scalars
-    of every displayed step."""
+    main.py:72-378).  Builds the `"data"` mesh and the wrapper from the
+    config's parallel fields (JAX `train/loop.py:133-143`; one process
+    without a process group trains unwrapped), then the configured
+    optimizer over `model` (whose frozen parameters it marks
+    `requires_grad=False` before wrapping).  `model` stays the model
+    (under FSDP, its parameters become shards); `module` is what a step
+    calls.  Set `metric_writer` (a `utils.logging.MetricWriter`) to record
+    the scalars of every displayed step."""
 
     def __init__(self, cfg: RunConfig, model: CLIP4Clip, total_steps: int):
         self.cfg = cfg
         self.model = model
+        self.mesh = create_mesh(
+            cfg.data_parallel, cfg.tensor_parallel,
+            cfg.model.pipeline_parallel, cfg.model.sequence_parallel,
+            device_type=model.device.type)
+        set_trainable(model, cfg.freeze_layer_num, cfg.freeze_clip)
+        self.module = shard_params(model, self.mesh, fsdp=cfg.fsdp,
+                                   find_unused_parameters=cfg.freeze_clip)
         self.optimizer = build_optimizer(
             cfg.optim, model, total_steps,
             freeze_layer_num=cfg.freeze_layer_num, freeze_clip=cfg.freeze_clip)
         self.state = TrainState(model, self.optimizer, 0)
         self.total_steps = total_steps
         self.accum = cfg.optim.gradient_accumulation_steps
-        self._step_fn = make_train_step(model, self.optimizer, self.accum)
+        self._step_fn = make_train_step(self.module, self.optimizer,
+                                        self.accum)
         self.metric_writer = None
 
     def _log(self, epoch: int, gstep: int, scalars: Dict[str, float]

@@ -1,14 +1,19 @@
 # coding=utf-8
 """Retrieval metrics (reference: utils/metrics.py), NumPy — metrics run on
 the host over the assembled similarity matrix.  An own copy of the JAX
-package's `train/metrics.py`; `AverageMeter` has no cross-process sync
-(the port has no distributed training yet).
+package's `train/metrics.py`; `AverageMeter` syncs over the ranks with a
+`psum` of (count, sum).
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..parallel.collectives import psum
+from ..parallel.mesh import world_size
 
 
 def compute_metrics(x: np.ndarray) -> Dict[str, float]:
@@ -84,7 +89,9 @@ def reshape_multi_sentence_sim(sim_matrix: np.ndarray,
 
 
 class AverageMeter:
-    """Running average (reference: metrics.py:88-118)."""
+    """Running average (reference: metrics.py:88-118).  Cross-process sync
+    is a `psum` over (count, sum) in a process group of more than one
+    rank."""
 
     def __init__(self):
         self.reset()
@@ -99,4 +106,17 @@ class AverageMeter:
         self.val = float(val)
         self.sum += float(val) * n
         self.count += n
+        self.avg = self.sum / max(self.count, 1)
+
+    def synchronize_between_processes(self) -> None:
+        """COLLECTIVE: count and sum summed over the ranks (JAX
+        `train/metrics.py:97-106`); a no-op in one process."""
+        if world_size() == 1:
+            return
+        # the group's device: NCCL reduces CUDA tensors only
+        device = ("cuda" if dist.get_backend() == "nccl" else "cpu")
+        t = psum(torch.tensor([self.count, self.sum], dtype=torch.float64,
+                              device=device)).cpu()
+        self.count = int(t[0])
+        self.sum = float(t[1])
         self.avg = self.sum / max(self.count, 1)

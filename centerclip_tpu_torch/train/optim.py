@@ -25,6 +25,11 @@ norm), the global-norm clip to `clip_grad_norm`, the update rule, and the
 freeze mask on the updates (the optimizer holds only trainable parameters,
 so weight decay never moves a frozen one).  Every step is plain PyTorch on
 the parameters' device; no value is read back to the host.
+
+Under FSDP a parameter, its gradient and its moments are this rank's
+shards (DTensors); the update runs on the local shards, and the norms
+(the global clip, BertAdam's per-parameter clip) add the shards' squares
+over the ranks in one all-reduce, so the step is the one-process step.
 """
 from __future__ import annotations
 
@@ -33,9 +38,11 @@ import re
 from typing import Callable, Dict, Iterable, List, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import OptimConfig
+from ..parallel.mesh import is_shard, local, shard_like
 
 LabelledParams = Iterable[Tuple[str, nn.Parameter]]
 
@@ -171,8 +178,13 @@ class GroupedAdam:
         named = list(named_params)
         self.names: List[str] = [n for n, _ in named]
         self.params: List[nn.Parameter] = [p for _, p in named]
+        # a sharded parameter's moments are sharded alike
         self.exp_avg = [torch.zeros_like(p) for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        self._sharded = [i for i, p in enumerate(self.params)
+                         if is_shard(p)]
+        self._group = (self.params[self._sharded[0]].device_mesh.get_group()
+                       if self._sharded else None)
         self.groups: Dict[str, List[int]] = {}
         for i, name in enumerate(self.names):
             self.groups.setdefault(param_group_label(name), []).append(i)
@@ -185,12 +197,27 @@ class GroupedAdam:
             p.grad = None
 
     def grads(self) -> List[torch.Tensor]:
+        """The gradients (this rank's shards under FSDP); a parameter the
+        loss did not reach gets a zero gradient."""
         out = []
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            out.append(p.grad)
+            out.append(local(p.grad))
         return out
+
+    def _norms(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each gradient's L2 norm over its whole parameter: a shard's
+        squared norm is summed over the ranks."""
+        norms = torch._foreach_norm(grads)
+        if self._group is None or dist.get_world_size(self._group) == 1:
+            return norms
+        sq = torch.stack([norms[i] for i in self._sharded]).square()
+        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=self._group)
+        norms = list(norms)
+        for i, n in zip(self._sharded, sq.sqrt().unbind()):
+            norms[i] = n
+        return norms
 
     def _group_lr(self, label: str) -> float:
         return self.cfg.lr * (self.cfg.coef_lr if label.startswith("clip")
@@ -209,8 +236,7 @@ class GroupedAdam:
         if cfg.clip_grad_norm and cfg.clip_grad_norm > 0:
             # optax.clip_by_global_norm: g unchanged below the limit, else
             # g / norm * limit
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(grads)))
+            norm = torch.linalg.vector_norm(torch.stack(self._norms(grads)))
             keep = norm < cfg.clip_grad_norm
             torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
             torch._foreach_mul_(grads, torch.where(keep, 1.0,
@@ -227,7 +253,7 @@ class GroupedAdam:
         sched = BERT_SCHEDULES[cfg.schedule](
             self.step_count / max(self.total_steps, 1), cfg.warmup_proportion)
         # per-parameter clipping to norm 1 (optimization.py:137-139)
-        norms = torch._foreach_norm(grads)
+        norms = self._norms(grads)
         for g, n in zip(grads, norms):
             g.mul_(torch.clamp(1.0 / n.clamp_min(1e-12), max=1.0))
         for label, idx in self.groups.items():
@@ -270,26 +296,50 @@ class GroupedAdam:
             torch._foreach_add_(ps, upd, alpha=-step_lr)
 
     def _select(self, idx: List[int], grads: List[torch.Tensor]):
-        return ([self.params[i] for i in idx], [grads[i] for i in idx],
-                [self.exp_avg[i] for i in idx],
-                [self.exp_avg_sq[i] for i in idx])
+        """Local tensors (shards under FSDP) of the parameters `idx`."""
+        return ([local(self.params[i]) for i in idx], [grads[i] for i in idx],
+                [local(self.exp_avg[i]) for i in idx],
+                [local(self.exp_avg_sq[i]) for i in idx])
 
     def state_dict(self) -> dict:
-        """The moments by parameter name (copies on the CPU) and the step."""
+        """The moments by parameter name (copies on the CPU) and the step.
+        Sharded moments stay shards: `parallel.fetch_replicated` gathers
+        them (a collective)."""
+        def copy(t):
+            return t.detach() if is_shard(t) else t.detach().cpu().clone()
         return {"step": self.step_count,
-                "exp_avg": {n: t.detach().cpu().clone()
+                "exp_avg": {n: copy(t)
                             for n, t in zip(self.names, self.exp_avg)},
-                "exp_avg_sq": {n: t.detach().cpu().clone()
+                "exp_avg_sq": {n: copy(t)
                                for n, t in zip(self.names, self.exp_avg_sq)}}
 
+    @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
+        """Load whole moments (a sharded moment keeps its shard of each)."""
         for key in ("exp_avg", "exp_avg_sq"):
             if set(sd[key]) != set(self.names):
                 raise KeyError(f"optimizer state names differ from the "
                                f"trainable parameters ({key})")
             for n, t in zip(self.names, getattr(self, key)):
-                t.copy_(sd[key][n])
+                src = sd[key][n]
+                if is_shard(t):
+                    local(t).copy_(shard_like(src, t))
+                else:
+                    t.copy_(src)
         self.step_count = int(sd["step"])
+
+
+def set_trainable(model: nn.Module, freeze_layer_num: int = -1,
+                  freeze_clip: bool = False) -> Dict[str, bool]:
+    """Set each parameter's `requires_grad` from the freeze mask (see the
+    module docstring); returns the mask.  A data-parallel wrapper must see
+    the mask: the trainer sets it before wrapping."""
+    named = list(model.named_parameters())
+    mask = trainable_mask((n for n, _ in named), freeze_layer_num,
+                          freeze_clip)
+    for name, p in named:
+        p.requires_grad_(mask[name])
+    return mask
 
 
 def build_optimizer(cfg: OptimConfig, model: nn.Module, total_steps: int,
@@ -297,13 +347,9 @@ def build_optimizer(cfg: OptimConfig, model: nn.Module, total_steps: int,
                     ) -> GroupedAdam:
     """The configured optimizer over `model`'s trainable parameters.  Sets
     `requires_grad` from the freeze mask (see the module docstring)."""
-    named = list(model.named_parameters())
-    mask = trainable_mask((n for n, _ in named), freeze_layer_num,
-                          freeze_clip)
-    for name, p in named:
-        p.requires_grad_(mask[name])
-    return GroupedAdam(cfg, [(n, p) for n, p in named if mask[n]],
-                       total_steps)
+    mask = set_trainable(model, freeze_layer_num, freeze_clip)
+    return GroupedAdam(cfg, [(n, p) for n, p in model.named_parameters()
+                             if mask[n]], total_steps)
 
 
 def current_lr(cfg: OptimConfig, step: int, total_steps: int) -> float:

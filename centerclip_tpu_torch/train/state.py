@@ -10,6 +10,11 @@ best_r1}`, written with `torch.save` as `<dir>/ckpt_<epoch>`, with
 which `import_torch_checkpoint` (and the JAX package's) read back;
 `init_from_pretrained_clip` starts a model from OpenAI's CLIP weights.
 Both load with `strict=False` and report the missing and unexpected keys.
+
+Under FSDP the parameters and moments are shards: `host_state` gathers
+them (a collective every rank runs) and rank 0 alone writes the whole
+tensors, in the same key schema, so a checkpoint of either layout loads
+into the other (`resume` keeps each rank's shard of a whole tensor).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..models.weights import (apply_pretrain_tricks, clip4clip_entries,
                               load_torch_checkpoint)
+from ..parallel.mesh import fetch_replicated, is_sharded, load_replicated
 from .optim import GroupedAdam
 
 
@@ -42,17 +48,33 @@ def _replace_link(link: str, target: str) -> None:
     os.symlink(target, link)
 
 
+def _whole(module: nn.Module) -> None:
+    if is_sharded(module):
+        raise ValueError("the parameters are FSDP shards: every rank must "
+                         "gather them first (host_state / fetch_replicated)")
+
+
+def host_state(state: TrainState) -> Dict[str, Any]:
+    """{params, opt_state}: the whole parameters and moments as copies on
+    the host.  A COLLECTIVE when they are sharded: every rank calls it."""
+    return fetch_replicated({"params": state.model.state_dict(),
+                             "opt_state": state.optimizer.state_dict()})
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
-                    best_r1: float, is_best: bool = False) -> str:
+                    best_r1: float, is_best: bool = False,
+                    host: Optional[Dict[str, Any]] = None) -> str:
     """Write `<ckpt_dir>/ckpt_<epoch>`; point `ckpt_latest` at it and copy
-    it to `ckpt_best` when `is_best` (misc.py:14-18).  Returns its path."""
+    it to `ckpt_best` when `is_best` (misc.py:14-18).  Returns its path.
+    `host` is `host_state(state)`, which a sharded state needs."""
+    if host is None:
+        _whole(state.model)
+        host = host_state(state)
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"ckpt_{epoch}")
     payload = {
-        "params": {k: v.detach().cpu().clone()
-                   for k, v in state.model.state_dict().items()},
-        "opt_state": state.optimizer.state_dict(),
+        "params": host["params"], "opt_state": host["opt_state"],
         "meta": {"epoch": int(epoch), "global_step": int(state.global_step),
                  "best_r1": float(best_r1)},
     }
@@ -78,9 +100,10 @@ def resume(path: str, state: TrainState, load_weights_only: bool = False
     Loads into `state` in place; returns (state, the epoch to start at,
     best_r1).  `ckpt_<e>` is written after epoch e, so a full restore starts
     at e + 1 (the JAX package returns e and trains epoch e a second time);
-    the weights alone start at epoch 0."""
+    the weights alone start at epoch 0.  A sharded state takes each rank's
+    shard of the whole tensors (every rank reads the file)."""
     payload = load_checkpoint(path)
-    state.model.load_state_dict(payload["params"], strict=True)
+    load_replicated(state.model, payload["params"])
     if load_weights_only:
         return state, 0, 0.0
     state.optimizer.load_state_dict(payload["opt_state"])
@@ -93,7 +116,9 @@ def export_torch_checkpoint(model: nn.Module, path: str, epoch: int = 0,
                             global_step: int = 0, best_r1: float = 0.0,
                             arch: str = "CLIP4Clip") -> None:
     """Write a reference-compatible ckpt.pth.tar (main.py:262-272 schema,
-    JAX package `train/state.py:124-136`)."""
+    JAX package `train/state.py:124-136`) of a model with whole
+    parameters."""
+    _whole(model)
     torch.save({
         "epoch": epoch, "global_step": global_step, "arch": arch,
         "state_dict": {k: v.detach().cpu().clone()

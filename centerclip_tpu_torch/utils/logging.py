@@ -2,10 +2,11 @@
 """Logging + metric writing (port of the JAX package's `utils/logging.py`;
 reference: utils/log.py, TensorBoard usage in main.py:179-182,360-372).
 
-The port runs one process, so the reference's queue-based multiprocess
-logging (and the JAX package's process-0 filter) collapses to one stderr
-handler and a file.  Scalars go to a JSONL file (always) and to TensorBoard
-when `torch.utils.tensorboard` can be imported.
+The reference's queue-based multiprocess logging collapses to per-process
+logging with a process-0 filter, as in the JAX package: rank 0 logs to
+stderr and to the file, the other ranks log nothing.  Scalars go to a JSONL
+file (always) and to TensorBoard when `torch.utils.tensorboard` can be
+imported.
 """
 from __future__ import annotations
 
@@ -17,10 +18,25 @@ import time
 from typing import Dict, Optional
 
 
+class ProcessZeroFilter(logging.Filter):
+    """Only pass records on process 0 (the reference's WorkerLogFilter,
+    utils/log.py:77-92)."""
+
+    def __init__(self, process_index: int):
+        super().__init__()
+        self.process_index = process_index
+
+    def filter(self, record):
+        return self.process_index == 0
+
+
 def setup_logging(log_file: Optional[str] = None,
-                  level: int = logging.INFO) -> None:
+                  level: int = logging.INFO,
+                  process_index: int = 0) -> None:
+    """stderr and `log_file` handlers on the root logger that pass records
+    on process 0 only (no file on the other processes)."""
     handlers = [logging.StreamHandler(sys.stderr)]
-    if log_file is not None:
+    if log_file is not None and process_index == 0:
         os.makedirs(os.path.dirname(os.path.abspath(log_file)), exist_ok=True)
         handlers.append(logging.FileHandler(log_file))
     fmt = logging.Formatter(
@@ -29,8 +45,10 @@ def setup_logging(log_file: Optional[str] = None,
     root = logging.getLogger()
     root.setLevel(level)
     root.handlers.clear()
+    flt = ProcessZeroFilter(process_index)
     for h in handlers:
         h.setFormatter(fmt)
+        h.addFilter(flt)
         root.addHandler(h)
 
 

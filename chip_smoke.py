@@ -176,10 +176,35 @@
    medoid ids must equal the plain version's on the same pixel tokens
    ([6, 98, 3072], K = 49); E held and timed there.
 
+14. Parallel phase, the eleventh (after the towers phase, on the main
+   phase's fixture and init: experiment 62 at a global batch of 128):
+   `python -m torch.distributed.run` starts this script as ranks
+   (`--parallel-leg`).  Leg (a), one NCCL rank: PARALLEL_STEPS steps
+   unwrapped (before the process group exists), then under DDP
+   (`--data_parallel 1`) and FSDP (`--fsdp 1`) from the same init on the
+   same batches; losses, step-1 gradients and parameters must equal the
+   unwrapped ones to the bit, all five kernels must launch (counts zeroed
+   before, read after each) and kernel D only on the default stream with
+   its tickets zero after; then PARALLEL_TIMED timed steps each (median
+   and peak memory); then `main` with `--data_parallel 1 --fsdp 1` (rank
+   0 evaluates the gathered parameters and writes) and the eval-only
+   reload of its export in one process, equal to the bit.  Leg (b),
+   GLOO_RANKS ranks sharing the card over gloo at 64 clips each: which
+   collectives gloo takes on CUDA tensors, then the first step under DDP
+   (and FSDP where gloo takes its collectives) held to leg (a)'s
+   unwrapped step at batch 128 (loss within PARALLEL_LOSS_RTOL, every
+   gradient by cosine >= PARALLEL_GRAD_MIN_COS).  A failed rank fails the
+   script; nothing falls back.  `python3 chip_smoke.py --gpus N` runs
+   only leg (c) on a machine with N cards: one NCCL rank a card, each
+   first taking the one-process step at batch 128 on its card, then DDP
+   and FSDP at 128 / N rows a rank held to it as leg (b) is, with their
+   step times beside the one-card step's, then `main --fsdp 1` over the
+   N ranks.
+
 Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
 `{"serve": ...}`, a `{"cluster": ...}`, an `{"activity": ...}`, a
-`{"headers": ...}`, a `{"towers": ...}`, a `{"preprocess": ...}` and a
-`{"kernels": [...]}` JSON line (attention's long forward and backward and
+`{"headers": ...}`, a `{"towers": ...}`, a `{"preprocess": ...}`, a
+`{"parallel": ...}` and a `{"kernels": [...]}` JSON line (attention's long forward and backward and
 the global k-medoids variant as rows of their own; every kernel's rows at
 each path's shapes, its launches by path) and, last, one JSON line {"ok":
 true, "device": {...}}; before them, each phase's time.  Any failed check
@@ -248,6 +273,21 @@ EXP62_FLAGS = [
     "--num_thread_reader", "8", "--cluster_inter", "1",
     "--cluster_algo", "kmediods++", "--cluster_num_blocks", *["49"] * 12,
     "--target_frames_blocks", *["12"] * 6, *["6"] * 6]
+# the eleventh main path: data parallelism and FSDP under
+# `python -m torch.distributed.run`, on the main phase's fixture and init
+# (experiment 62 at a global batch of 128).  One NCCL rank: PARALLEL_STEPS
+# compared steps (equal to the unwrapped steps to the bit), then
+# PARALLEL_TIMED timed ones, per wrapper.  GLOO_RANKS ranks on the one card
+# over gloo (NCCL will not put two ranks on one GPU): the first step's loss
+# within PARALLEL_LOSS_RTOL of the one-process step's at batch 128 and
+# every gradient within cosine PARALLEL_GRAD_MIN_COS of it.  Tightened
+# from the card-vs-CPU budget (1e-3, 0.99) to what the card allows: the
+# gathered global batch gives the one-process loss to the bit, and the
+# towers at 64 (or 32) rows a rank, where cuBLAS picks other bf16 kernels
+# than at 128, leave each gradient's cosine above 0.99996.
+PARALLEL_STEPS, PARALLEL_TIMED, GLOO_RANKS = 2, 5, 2
+PARALLEL_LOSS_RTOL, PARALLEL_GRAD_MIN_COS = 1e-5, 0.9999
+PARALLEL_TIMEOUT = 600
 # the fourth main path: ViT-B/16 at the recipe's batch of 128; the step
 # count is what is cut to keep the script inside its time limit
 VITB16_PRESET, VITB16_WARMUP_STEPS, VITB16_TIMED_STEPS = \
@@ -1803,6 +1843,18 @@ def write_msrvtt_fixture(np, root):
     return store
 
 
+def main_argv(root, out_dir, extra=()):
+    """`main`'s argv on the synthetic MSR-VTT in `root` (the .fstore)."""
+    return EXP62_FLAGS + [
+        "--train_csv", os.path.join(root, "train.csv"),
+        "--val_csv", os.path.join(root, "test.csv"),
+        "--data_path", os.path.join(root, "MSRVTT_data.json"),
+        "--pretrained_dir", os.path.join(root, "pretrained"),
+        "--features_path", os.path.join(root, "videos.fstore"),
+        "--output_dir", out_dir, "--epochs", "1", "--n_display", "1",
+        *extra]
+
+
 def copy_ms(torch, host, dev):
     """CUDA-event time of one host-to-device copy of `host` (mean of 3)."""
     host.to(dev, non_blocking=True)
@@ -2906,6 +2958,514 @@ def preprocess_phase(torch, np, dev, flush, peaks, counters, root):
                         kmedoids=[km_row])
 
 
+def kernel_counters():
+    """The five kernels' wrappers, each counting its launches."""
+    from centerclip_tpu_torch.ops import (attention_cuda, kmedoids_cuda,
+                                          layernorm_triton)
+    return (attention_cuda.fused_attention,
+            attention_cuda.attention_backward, layernorm_triton.layer_norm,
+            layernorm_triton.layer_norm_backward,
+            kmedoids_cuda.kmedoids_from_distances)
+
+
+def first_batches(loader, n):
+    """The first `n` batches of a loader (its producer then stops)."""
+    it = iter(loader)
+    try:
+        return [next(it) for _ in range(n)]
+    finally:
+        it.close()
+
+
+@contextlib.contextmanager
+def recording_ln_bwd_streams(torch, streams):
+    """Record the stream of every launch of kernel D (at its ticket
+    buffer's lookup, once per launch)."""
+    from centerclip_tpu_torch.ops import layernorm_triton as ln
+    tickets = ln._tickets
+
+    def recording(device, n):
+        streams.append(torch.cuda.current_stream(device).cuda_stream)
+        return tickets(device, n)
+    ln._tickets = recording
+    try:
+        yield
+    finally:
+        ln._tickets = tickets
+
+
+def parallel_steps(torch, cfg, batches, counters, label, dev,
+                   timed=PARALLEL_TIMED):
+    """Build experiment 62's model from `cfg`'s seed, wrap it as `cfg` says
+    (the Trainer: unwrapped without a process group, DDP, or FSDP), take
+    PARALLEL_STEPS compared steps on `batches` (counts zeroed before, read
+    after; kernel D's streams recorded) and `timed` timed ones.
+    Returns the steps' losses, the whole parameters after the compared
+    steps (on the host), step 1's clipped gradients (whole), the counts,
+    D's streams, the median step and the peak memory."""
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.ops import layernorm_triton as ln
+    from centerclip_tpu_torch.parallel import fetch_replicated
+    from centerclip_tpu_torch.train import Trainer
+    from centerclip_tpu_torch.train.loop import make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = CLIP4Clip(cfg.model, device=dev, seed=cfg.seed)
+    trainer = Trainer(cfg, model, total_steps=PARALLEL_STEPS + PARALLEL_TIMED)
+    step = make_train_step(trainer.module, trainer.optimizer)
+    streams, losses, grads1 = [], [], None
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    with recording_ln_bwd_streams(torch, streams):
+        for i, b in enumerate(batches):
+            losses.append(float(step(b)["loss"]))
+            if i == 0:
+                grads1 = fetch_replicated({n: p.grad for n, p in
+                                           model.named_parameters()
+                                           if p.grad is not None})
+    torch.cuda.synchronize()
+    counts = path_counts_of(counters, label, backward=True)
+    params = fetch_replicated(model.state_dict())
+    dirty = int(ln._ticket_buffers[dev].abs().sum())
+    print(f"{label}: compared steps done, losses {losses}", flush=True)
+    step_s = []
+    for i in range(timed):
+        t0 = time.time()
+        float(step(batches[i % len(batches)])["loss"])
+        step_s.append(time.time() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del trainer, model, step
+    torch.cuda.empty_cache()
+    default = torch.cuda.default_stream(dev).cuda_stream
+    return dict(losses=losses, params=params, grads1=grads1, counts=counts,
+                d_streams=sorted(set(streams)), d_launches=len(streams),
+                d_on_default_stream=set(streams) == {default},
+                d_tickets_dirty=dirty,
+                step_ms=sorted(step_s)[len(step_s) // 2] * 1e3,
+                step_ms_all=[x * 1e3 for x in step_s], peak_bytes=peak)
+
+
+def differing(torch, a, b):
+    """Names whose tensors differ between two state dicts, with the largest
+    absolute difference of each."""
+    return {k: float((a[k].float() - b[k].float()).abs().max())
+            for k in a if not torch.equal(a[k], b[k])}
+
+
+def held_to_one_process(r, loss, grads):
+    """A wrapped run's first step (`parallel_steps`) against the
+    one-process step's loss and whole gradients: the relative loss
+    difference and each gradient's cosine, beside the run's own
+    numbers."""
+    cos = {k: float(cosines(r["grads1"][k].double().reshape(1, -1),
+                            grads[k].double().reshape(1, -1))[0])
+           for k in grads}
+    return dict(
+        loss=r["losses"][0], loss_one_process=loss,
+        loss_rel=abs(r["losses"][0] - loss) / abs(loss),
+        grad_keys_equal=sorted(r["grads1"]) == sorted(grads),
+        grad_min_cos=min(cos.values()),
+        grad_worst=sorted(cos.items(), key=lambda kv: kv[1])[:3],
+        **{k: v for k, v in r.items()
+           if k not in ("params", "grads1", "losses")})
+
+
+def parallel_leg_single(torch, np, root, out_path):
+    """Leg (a), one NCCL rank: the unwrapped steps before the process
+    group exists, then DDP and FSDP from the same init on the same
+    batches, then `main` under FSDP (rank 0's evaluation and checkpoint)
+    and its eval-only reload."""
+    from centerclip_tpu_torch import cli, parallel
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.main import main as run_main
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    from centerclip_tpu_torch.train import evaluate
+    dev = torch.device("cuda", 0)
+    counters = kernel_counters()
+    out = os.path.join(root, "parallel_out")
+    cfg = cli.parse_args(main_argv(root, out))
+    loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](cfg, SimpleTokenizer(),
+                                                      device=dev)
+    batches = first_batches(loader, PARALLEL_STEPS)
+    runs = {"unwrapped": parallel_steps(torch, cfg, batches, counters,
+                                        "parallel unwrapped", dev)}
+    ref = runs["unwrapped"]
+    torch.save({"loss": ref["losses"][0], "grads": ref["grads1"]},
+               os.path.join(root, "parallel_ref.pt"))
+    parallel.init_distributed()
+    for label, extra in (("ddp", ["--data_parallel", "1"]),
+                         ("fsdp", ["--data_parallel", "1", "--fsdp", "1"])):
+        runs[label] = parallel_steps(
+            torch, cli.parse_args(main_argv(root, out, extra)), batches,
+            counters, f"parallel {label}", dev)
+    result = {}
+    for label, r in runs.items():
+        result[label] = {k: v for k, v in r.items()
+                         if k not in ("params", "grads1")}
+        if label != "unwrapped":
+            result[label]["params_differing"] = differing(
+                torch, r["params"], ref["params"])
+            result[label]["losses_equal"] = r["losses"] == ref["losses"]
+            result[label]["grads1_differing"] = differing(
+                torch, r["grads1"], ref["grads1"])
+    del runs, ref
+
+    # `main` under FSDP on one rank: train, rank 0 evaluates the gathered
+    # parameters and writes; then the eval-only reload of its export
+    evals = []
+    evaluate_fn = evaluate.Evaluator.evaluate
+
+    def recording_evaluate(self, *a, **k):
+        evals.append(evaluate_fn(self, *a, **k))
+        return evals[-1]
+    evaluate.Evaluator.evaluate = recording_evaluate
+    try:
+        zero_counts(counters)
+        t0 = time.time()
+        best = run_main(main_argv(root, out, ["--data_parallel", "1",
+                                              "--fsdp", "1"]))
+        t_main = time.time() - t0
+        counts = path_counts_of(counters, "parallel main", backward=True)
+        # the export reloads in a run of one process (no process group)
+        os.environ.pop("WORLD_SIZE")
+        run_main(main_argv(root, os.path.join(root, "parallel_eval"), [
+            "--do_train", "0", "--init_model",
+            os.path.join(out, "ckpt.pth.tar")]))
+    finally:
+        evaluate.Evaluator.evaluate = evaluate_fn
+    with open(os.path.join(out, "tensorboard", "scalars.jsonl")) as f:
+        steps = [json.loads(line)["train/batch_time"] * 1e3 for line in f]
+    res1, res2 = evals
+    result["main_fsdp"] = dict(
+        counts=counts, run_s=t_main, R1=res1["R1"], best_r1=best,
+        step_ms_all=steps, files=sorted(os.listdir(out)),
+        reload_equal=bool(np.array_equal(res1["sim_matrix"],
+                                         res2["sim_matrix"])
+                          and res1["t2v"] == res2["t2v"]))
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def parallel_leg_gloo(torch, np, root, out_path):
+    """Leg (b), GLOO_RANKS ranks sharing cuda:0 over gloo at 64 clips a
+    rank: which collectives gloo takes on CUDA tensors, then the first
+    step under DDP (and under FSDP where gloo takes its collectives)
+    against leg (a)'s one-process step at batch 128."""
+    from centerclip_tpu_torch import cli, parallel
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    parallel.init_distributed(dev, backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4, 8), float(rank + 1), device=dev)
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty((4 * world, 8)), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty((4 // world, 8)), x)}
+    gloo_cuda = {}
+    for name, probe in probes.items():
+        # which collectives gloo's CUDA path has: a refusal is the answer
+        try:
+            probe()
+            torch.cuda.synchronize()
+            gloo_cuda[name] = "ok"
+        except (RuntimeError, ValueError) as e:
+            gloo_cuda[name] = str(e).strip().splitlines()[0][:300]
+    print(f"parallel gloo rank {rank}: gloo on CUDA tensors {gloo_cuda}",
+          flush=True)
+    ref = torch.load(os.path.join(root, "parallel_ref.pt"))
+    counters = kernel_counters()
+    out = os.path.join(root, "parallel_gloo_out")
+    cfg = cli.parse_args(main_argv(root, out, ["--data_parallel",
+                                               str(world)]))
+    loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](cfg, SimpleTokenizer(),
+                                                      device=dev)
+    batch = first_batches(loader, 1)
+    result = {"gloo_cuda": gloo_cuda, "rank_rows": len(batch[0]["input_ids"])}
+    strategies = [("ddp", [])]
+    if gloo_cuda["all_gather_into_tensor"] == gloo_cuda[
+            "reduce_scatter_tensor"] == "ok":
+        strategies.append(("fsdp", ["--fsdp", "1"]))
+    for label, extra in strategies:
+        print(f"parallel gloo rank {rank}: {label}", flush=True)
+        # one timed step: two ranks sharing a card show no speed
+        r = parallel_steps(torch, cli.parse_args(main_argv(
+            root, out, ["--data_parallel", str(world)] + extra)), batch,
+            counters, f"parallel gloo {label}", dev, timed=1)
+        result[label] = held_to_one_process(r, ref["loss"], ref["grads"])
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+    parallel.process_barrier("gloo_leg_done")
+    dist.destroy_process_group()
+
+
+def collective_bandwidth(torch, dev, world, mib=256, iters=5):
+    """NCCL's all-reduce and all-gather over the ranks on `mib` MiB of
+    fp32 (the size of a ViT-B/32 step's ~0.6 GB of gradients, in a few
+    buckets): median ms by CUDA events after a warm-up, and the bus
+    bandwidth in GB/s (nccl-tests' convention: all-reduce moves
+    2 (n - 1) / n of the bytes per rank, all-gather (n - 1) / n)."""
+    import torch.distributed as dist
+    n = mib << 18
+    x = torch.ones(n, device=dev)
+    out = x.new_empty(n * world)
+    res = {}
+    for name, fn, factor in (
+            ("all_reduce", lambda: dist.all_reduce(x), 2 * (world - 1) / world),
+            ("all_gather", lambda: dist.all_gather_into_tensor(out, x),
+             (world - 1) / world)):
+        fn()
+        times = []
+        for _ in range(iters):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = sorted(times)[iters // 2]
+        nbytes = n * 4 * (world if name == "all_gather" else 1)
+        res[name] = dict(ms=ms, bus_gbps=nbytes * factor / ms / 1e6)
+    return dict(mib=mib, **res)
+
+
+def parallel_leg_multi(torch, np, root, out_path):
+    """Leg (c), one NCCL rank per card of a machine with several
+    (`chip_smoke.py --gpus N`): each rank first takes the one-process
+    step at the global batch of 128 on its own card (before the process
+    group exists), then the first step under DDP and under FSDP at
+    128 / N rows a rank, held to it as leg (b) is; then `main --fsdp 1`
+    over the N ranks (rank 0 evaluates and writes)."""
+    from centerclip_tpu_torch import cli, parallel
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.main import main as run_main
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    world = int(os.environ["WORLD_SIZE"])
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    counters = kernel_counters()
+    out = os.path.join(root, "parallel_multi_out")
+    tok = SimpleTokenizer()
+    cfg = cli.parse_args(main_argv(root, out))
+    loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](cfg, tok, device=dev)
+    ref = parallel_steps(torch, cfg, first_batches(loader, 1), counters,
+                         "parallel multi unwrapped", dev)
+    parallel.init_distributed()
+    rank = parallel.mesh.process_index()
+    bandwidth = collective_bandwidth(torch, dev, world)
+    dp = main_argv(root, out, ["--data_parallel", str(world)])
+    loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](cli.parse_args(dp),
+                                                      tok, device=dev)
+    batch = first_batches(loader, 1)
+    result = {"rank_rows": len(batch[0]["input_ids"]),
+              "bandwidth": bandwidth, "unwrapped": {
+        k: v for k, v in ref.items() if k not in ("params", "grads1")}}
+    for label, extra in (("ddp", []), ("fsdp", ["--fsdp", "1"])):
+        r = parallel_steps(torch, cli.parse_args(dp + extra), batch,
+                           counters, f"parallel multi {label}", dev)
+        result[label] = held_to_one_process(r, ref["losses"][0],
+                                            ref["grads1"])
+    main_out = os.path.join(root, "parallel_multi_main")
+    zero_counts(counters)
+    t0 = time.time()
+    run_main(main_argv(root, main_out, ["--data_parallel", str(world),
+                                        "--fsdp", "1"]))
+    result["main_fsdp"] = dict(
+        run_s=time.time() - t0, counts=path_counts_of(
+            counters, "parallel multi main", backward=True))
+    if rank == 0:
+        with open(os.path.join(main_out, "log.txt")) as f:
+            log = f.read()
+        result["main_fsdp"].update(
+            files=sorted(os.listdir(main_out)),
+            logged_processes=f"processes: {world}" in log,
+            evaluated="Text-to-Video: R@1" in log)
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+
+
+def multi_gpu_main(n: int) -> int:
+    """`chip_smoke.py --gpus N`: leg (c) alone on N cards (build, main's
+    fixture, one torchrun launch of N ranks); prints the cards, the
+    checks, a `{"multi_gpu": ...}` line and last the `{"ok": ...}` line."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke: needs {n} CUDA devices", file=sys.stderr)
+        return 2
+    import tempfile
+    from centerclip_tpu_torch.ops import _build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print("\n".join(smi))
+    t0 = time.time()
+    _build.build(_build.KERNEL_SOURCES + _build.HOST_SOURCES, force=True)
+    print(f"built in {time.time() - t0:.2f} s")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        write_msrvtt_fixture(np, root)
+        res, t_leg = torchrun_leg(n, "multi", root)
+    un = res["unwrapped"]
+    bw = res["bandwidth"]
+    print(f"NCCL over {n} cards, {bw['mib']} MiB fp32 a rank: all_reduce "
+          f"{bw['all_reduce']['ms']:.3f} ms ({bw['all_reduce']['bus_gbps']:.1f}"
+          f" GB/s bus), all_gather {bw['all_gather']['ms']:.3f} ms "
+          f"({bw['all_gather']['bus_gbps']:.1f} GB/s bus)")
+    print(f"one process, batch {MAIN_BATCH}, one card: median step "
+          f"{un['step_ms']:.3f} ms, peak {un['peak_bytes'] / 2**30:.3f} GiB")
+    for label in ("ddp", "fsdp"):
+        r = res[label]
+        print(f"multi {label}, {n} NCCL ranks x {res['rank_rows']} clips "
+              f"({smi[0]}): loss {r['loss']} vs one process "
+              f"{r['loss_one_process']} (rel {r['loss_rel']:.3e}, tol "
+              f"{PARALLEL_LOSS_RTOL}); gradient cosine min "
+              f"{r['grad_min_cos']:.6f} (min {PARALLEL_GRAD_MIN_COS}); "
+              f"median step {r['step_ms']:.3f} ms = "
+              f"{un['step_ms'] / r['step_ms']:.2f}x the one-card step; peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB; kernel D on streams "
+              f"{r['d_streams']}, tickets dirty {r['d_tickets_dirty']}")
+        if r["loss_rel"] > PARALLEL_LOSS_RTOL or not r["grad_keys_equal"] \
+                or r["grad_min_cos"] < PARALLEL_GRAD_MIN_COS:
+            fail(f"multi {label} differs from the one-process step")
+        if not r["d_on_default_stream"] or r["d_tickets_dirty"]:
+            fail(f"multi {label}: kernel D left the compute stream")
+        launched(f"multi {label}", r["counts"][0], r["counts"][0].keys())
+    m = res["main_fsdp"]
+    print(f"main --data_parallel {n} --fsdp 1: {m['run_s']:.2f} s, rank 0 "
+          f"logged processes {m['logged_processes']}, evaluated "
+          f"{m['evaluated']}, files {m['files']}")
+    launched("multi main", m["counts"][0], m["counts"][0].keys())
+    if not (m["logged_processes"] and m["evaluated"]
+            and {"ckpt.pth.tar", "ckpt_0"} <= set(m["files"])):
+        fail("multi main's log, evaluation or checkpoint is missing")
+    print(json.dumps({"multi_gpu": dict(cards=smi, leg_s=t_leg, **{
+        k: v for k, v in res.items()})}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def torchrun_leg(nproc, leg, root):
+    """Run `chip_smoke.py --parallel-leg <leg>` under
+    `python -m torch.distributed.run` with `nproc` processes (its own
+    session, killed whole on the time limit); fails if any rank fails.
+    Returns the leg's JSON and its wall time."""
+    out_path = os.path.join(root, f"parallel_{leg}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+           "--parallel-leg", leg, root, out_path]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=PARALLEL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        log, _ = proc.communicate()
+        fail(f"parallel leg {leg} ran past {PARALLEL_TIMEOUT} s:\n"
+             f"{log[-4000:]}")
+    lines = [ln for ln in log.splitlines()
+             if ln.startswith(("attention launches", "parallel"))]
+    for ln in lines:
+        print(f"  [{leg}] {ln}")
+    if proc.returncode != 0:
+        fail(f"parallel leg {leg} exited {proc.returncode}:\n{log[-6000:]}")
+    with open(out_path) as f:
+        return json.load(f), time.time() - t0
+
+
+def parallel_phase(torch, np, root, smi):
+    """The eleventh main path (see PARALLEL_STEPS): leg (a) on one NCCL
+    rank, leg (b) on GLOO_RANKS gloo ranks sharing the card; their checks,
+    times and counts."""
+    torch.cuda.empty_cache()
+    single, t_single = torchrun_leg(1, "single", root)
+    paths = {}
+    unwrapped = single["unwrapped"]
+    for label in ("ddp", "fsdp"):
+        r = single[label]
+        paths[f"parallel_{label}"] = tuple(r["counts"])
+        print(f"parallel {label}, one NCCL rank, {smi}: losses {r['losses']}"
+              f" (unwrapped {unwrapped['losses']}, equal "
+              f"{r['losses_equal']}); parameters differing after "
+              f"{PARALLEL_STEPS} steps {r['params_differing']}; step-1 "
+              f"gradients differing {r['grads1_differing']}; median step "
+              f"{r['step_ms']:.3f} ms (unwrapped {unwrapped['step_ms']:.3f}"
+              f", overhead {r['step_ms'] - unwrapped['step_ms']:+.3f} ms); "
+              f"peak {r['peak_bytes'] / 2**30:.3f} GiB (unwrapped "
+              f"{unwrapped['peak_bytes'] / 2**30:.3f}); kernel D launches "
+              f"{r['d_launches']} on streams {r['d_streams']}, tickets "
+              f"dirty {r['d_tickets_dirty']}")
+        if not r["losses_equal"] or r["params_differing"] \
+                or r["grads1_differing"]:
+            fail(f"parallel {label} differs from the unwrapped steps")
+        if not r["d_on_default_stream"] or r["d_tickets_dirty"]:
+            fail(f"parallel {label}: kernel D left the compute stream or "
+                 f"its tickets dirty")
+        launched(f"parallel {label}", r["counts"][0], r["counts"][0].keys())
+    m = single["main_fsdp"]
+    paths["parallel_main_fsdp"] = tuple(m["counts"])
+    print(f"parallel main --fsdp 1 on one rank: {m['run_s']:.2f} s, step "
+          f"times {[round(x, 3) for x in m['step_ms_all']]} ms, R@1 "
+          f"{m['R1']}, reload equal {m['reload_equal']}, files "
+          f"{m['files']}")
+    launched("parallel main", m["counts"][0], m["counts"][0].keys())
+    if not m["reload_equal"] or m["best_r1"] != m["R1"] or not {
+            "ckpt.pth.tar", "ckpt_0"} <= set(m["files"]):
+        fail("parallel main's evaluation, checkpoint or reload is wrong")
+    gloo, t_gloo = torchrun_leg(GLOO_RANKS, "gloo", root)
+    print(f"gloo on CUDA tensors: {gloo['gloo_cuda']}")
+    for label in ("ddp", "fsdp"):
+        if label not in gloo:
+            print(f"parallel gloo {label}: not run, gloo refuses its "
+                  f"collectives on CUDA tensors")
+            continue
+        r = gloo[label]
+        paths[f"parallel_gloo_{label}"] = tuple(r["counts"])
+        print(f"parallel gloo {label}, {GLOO_RANKS} ranks x "
+              f"{gloo['rank_rows']} clips on one card: loss {r['loss']} vs "
+              f"one process {r['loss_one_process']} (rel "
+              f"{r['loss_rel']:.3e}, tol {PARALLEL_LOSS_RTOL}); gradient "
+              f"cosine min {r['grad_min_cos']:.6f} (min "
+              f"{PARALLEL_GRAD_MIN_COS}; worst {r['grad_worst']}); one "
+              f"timed step {r['step_ms']:.3f} ms (two processes on one "
+              f"card: no multi-GPU speed)")
+        if r["loss_rel"] > PARALLEL_LOSS_RTOL or not r["grad_keys_equal"] \
+                or r["grad_min_cos"] < PARALLEL_GRAD_MIN_COS:
+            fail(f"parallel gloo {label} differs from the one-process step")
+        if not r["d_on_default_stream"] or r["d_tickets_dirty"]:
+            fail(f"parallel gloo {label}: kernel D left the compute stream")
+        launched(f"parallel gloo {label}", r["counts"][0],
+                 r["counts"][0].keys())
+    summary = dict(card=smi, single_s=t_single, gloo_s=t_gloo,
+                   gloo_cuda=gloo["gloo_cuda"])
+    for label in ("unwrapped", "ddp", "fsdp"):
+        r = single[label]
+        summary[label] = dict(step_ms=r["step_ms"],
+                              step_ms_all=r["step_ms_all"],
+                              peak_bytes=r["peak_bytes"], losses=r["losses"])
+    for label in ("ddp", "fsdp"):
+        summary[label]["overhead_ms"] = (single[label]["step_ms"]
+                                         - unwrapped["step_ms"])
+        if label in gloo:
+            g = gloo[label]
+            summary[f"gloo_{label}"] = dict(
+                loss_rel=g["loss_rel"], grad_min_cos=g["grad_min_cos"],
+                step_ms=g["step_ms"], peak_bytes=g["peak_bytes"])
+    summary["main_fsdp"] = {k: v for k, v in m.items() if k != "counts"}
+    return summary, paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2985,10 +3545,7 @@ def main() -> int:
     cluster_mod = cluster_module(model)
     hook = first_input_hook(cluster_mod, captured)
 
-    counters = (attention_cuda.fused_attention,
-                attention_cuda.attention_backward, layernorm_triton.layer_norm,
-                layernorm_triton.layer_norm_backward,
-                kmedoids_cuda.kmedoids_from_distances)
+    counters = kernel_counters()
     serving_kernels = ("fused_attention", "layer_norm",
                        "kmedoids_from_distances")
     zero_counts(counters)
@@ -3324,6 +3881,11 @@ def main() -> int:
     towers, tw = towers_phase(torch, np, dev, flush, peaks, counters)
     torch.cuda.empty_cache()
     phase_done("towers")
+
+    # ------- data parallelism and FSDP on the main fixture (eleventh path)
+    parallel_res, par_paths = parallel_phase(torch, np, root, smi)
+    path_counts.update(par_paths)
+    phase_done("parallel")
     preprocess, pp = preprocess_phase(torch, np, dev, flush, peaks,
                                       counters, root)
     workdir.cleanup()
@@ -3380,6 +3942,7 @@ def main() -> int:
     print(json.dumps({"headers": headers}))
     print(json.dumps({"towers": towers}))
     print(json.dumps({"preprocess": preprocess}))
+    print(json.dumps({"parallel": parallel_res}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3387,5 +3950,25 @@ def main() -> int:
     return 0
 
 
+def parallel_worker(argv) -> int:
+    """A rank of a parallel leg: `--parallel-leg {single,gloo} <root>
+    <out.json>` (started by torchrun_leg)."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import faulthandler
+    faulthandler.enable()     # a rank that crashes prints its Python stack
+    leg, root, out_path = argv
+    {"single": parallel_leg_single, "gloo": parallel_leg_gloo,
+     "multi": parallel_leg_multi}[leg](torch, np, root, out_path)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-leg"]:
+        sys.exit(parallel_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gpus"]:
+        sys.exit(multi_gpu_main(int(sys.argv[2])))
     sys.exit(main())

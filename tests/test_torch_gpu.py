@@ -512,6 +512,88 @@ def test_one_training_step_of_a_tiny_model_on_the_card(cuda, monkeypatch):
             and bool(grad.abs().max() > 0), name
 
 
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_one_nccl_rank_steps_equal_the_unwrapped_steps(cuda, monkeypatch,
+                                                       fsdp):
+    """DDP, or FSDP, over a world of one NCCL rank: two steps of a 2 + 2
+    block clustered model launch all five kernels (kernel D on the default
+    stream only) and give the unwrapped steps' losses, gradients and
+    parameters to the bit."""
+    import socket
+    import torch.distributed as dist
+    from centerclip_tpu_torch import parallel
+    from centerclip_tpu_torch.train import Trainer
+    from centerclip_tpu_torch.train.loop import make_train_step
+    monkeypatch.setitem(port_config.CLIP_ARCHS, "tiny-gpu-dp", dict(
+        embed_dim=32, image_resolution=64, vision_layers=2, vision_width=128,
+        vision_patch_size=16, vision_heads=2, context_length=16,
+        vocab_size=100, transformer_width=128, transformer_heads=2,
+        transformer_layers=2))
+    kw = dict(clip_name="tiny-gpu-dp", max_frames=4, max_words=16,
+              inter=True, algo="kmediods++", cluster_num_blocks=(8, 8),
+              target_frames_blocks=(4, 2), optim="AdamW", lr=1e-3)
+    g = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        ids = g.integers(1, 98, (4, 16))
+        ids[:, -1] = 99
+        batches.append({
+            "input_ids": ids, "attention_mask": np.ones((4, 16), np.int32),
+            "video": g.integers(0, 256, (4, 1, 4, 3, 64, 64),
+                                dtype=np.uint8),
+            "video_mask": np.ones((4, 4), np.int32)})
+    counters = (attention_cuda.fused_attention,
+                attention_cuda.attention_backward, layernorm_triton.layer_norm,
+                layernorm_triton.layer_norm_backward,
+                kmedoids_cuda.kmedoids_from_distances)
+    streams = []
+    tickets = layernorm_triton._tickets
+
+    def recording(device, n):
+        streams.append(torch.cuda.current_stream(device).cuda_stream)
+        return tickets(device, n)
+    monkeypatch.setattr(layernorm_triton, "_tickets", recording)
+
+    def steps(run):
+        model = CLIP4Clip(run.model, device=cuda, seed=0)
+        trainer = Trainer(run, model, total_steps=4)
+        step = make_train_step(trainer.module, trainer.optimizer)
+        losses, grads = [], []
+        for b in batches:
+            losses.append(float(step(b)["loss"]))
+            grads.append(parallel.fetch_replicated(
+                {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}))
+        return losses, grads, parallel.fetch_replicated(model.state_dict())
+
+    ref = steps(port_config.make_run_config(**kw))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                     RANK="0", WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    parallel.init_distributed()
+    try:
+        before = [fn.launches for fn in counters]
+        streams.clear()
+        got = steps(port_config.make_run_config(data_parallel=1, fsdp=fsdp,
+                                                **kw))
+        torch.cuda.synchronize()
+        assert all(fn.launches > b for fn, b in zip(counters, before))
+    finally:
+        dist.destroy_process_group()
+    assert set(streams) == {torch.cuda.default_stream(cuda).cuda_stream}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert int(layernorm_triton._ticket_buffers[dev].abs().sum()) == 0
+    assert got[0] == ref[0]
+    for a, b in ((got[1][0], ref[1][0]), (got[1][1], ref[1][1]),
+                 (got[2], ref[2])):
+        assert sorted(a) == sorted(b)
+        for k in b:
+            assert torch.equal(a[k], b[k]), k
+
+
 # ------------------------------------------------ LayerNorm backward design
 # row counts at the plan's edges (one program, one partial tile, one tile
 # per program, many tiles per program) at a width that is no power of two
