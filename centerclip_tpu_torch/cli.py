@@ -8,9 +8,10 @@ Every flag and default of the JAX package's parser, so the canonical
 tree, equal field by field to the JAX package's.  Every header, tower
 and patchify of the JAX package builds; `--sim_header seqLSTM` parses and
 builds and raises at the similarity, as the JAX package's does.  Data
-parallelism and FSDP run one process per GPU under `torchrun`
-(`--data_parallel`, `--fsdp`); tensor, sequence and pipeline parallelism
-are refused here (ROADMAP.md section 1, items 1.3 and 1.4).
+parallelism, FSDP and tensor and sequence parallelism run one process per
+GPU under `torchrun` (`--data_parallel`, `--fsdp`, `--tensor_parallel`,
+`--sequence_parallel`); pipeline parallelism is refused here (ROADMAP.md
+section 1, item 1.4).
 """
 from __future__ import annotations
 
@@ -99,24 +100,31 @@ def get_parser(description="CenterCLIP on Retrieval Task (PyTorch/CUDA)"
     p.add_argument("--precision", type=str, default="amp",
                    choices=["amp", "fp16", "fp32", "bf16"])
     p.add_argument("--fused_attention", type=int, default=1,
-                   help="accepted for parity with the JAX package; CUDA "
-                        "tensors always take the port's attention kernels")
+                   help="accepted for parity with the JAX package (which "
+                        "turns it off under --tensor_parallel); CUDA "
+                        "tensors always take the port's attention kernels, "
+                        "on each rank's heads")
     p.add_argument("--remat", type=int, default=0,
                    help="rematerialize transformer blocks on backward "
                         "(activation-memory relief for long-video configs)")
     # parallelism (replaces --world_size/--local_rank/--init_method/--dp/...):
-    # the JAX package's flags and defaults; the port refuses the strategies
-    # it does not run yet in check_ported_parallelism
+    # the JAX package's flags and defaults; the port refuses the strategy it
+    # does not run yet in check_ported_parallelism
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="data-parallel shards, one torchrun process each; "
-                        "0 = every process")
+                   help="devices, one torchrun process each, as the JAX "
+                        "package counts them; the data shards are this "
+                        "over --tensor_parallel; 0 = every process")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="model-axis shards (not ported: 1 only)")
+                   help="model-axis extent: Megatron column/row-parallel "
+                        "blocks over this many ranks, which must divide "
+                        "the processes and every block stack's heads")
     p.add_argument("--fsdp", type=int, default=0,
                    help="shard parameters, gradients and Adam moments over "
                         "the data axis (FSDP)")
     p.add_argument("--sequence_parallel", type=int, default=0,
-                   help="sequence parallelism (not ported: 0 only)")
+                   help="split the towers' residual stream's tokens over "
+                        "the model axis between the parallel layers "
+                        "(needs --tensor_parallel > 1)")
     p.add_argument("--pipeline_parallel", type=int, default=1,
                    help="GPipe stages (not ported: 1 only)")
     p.add_argument("--pipeline_microbatches", type=int, default=0,
@@ -156,15 +164,12 @@ def get_parser(description="CenterCLIP on Retrieval Task (PyTorch/CUDA)"
 
 
 def check_ported_parallelism(args: argparse.Namespace) -> None:
-    """Refuse the parallel strategies the port does not run yet."""
-    for flag, on, item in (
-            ("--tensor_parallel > 1", args.tensor_parallel > 1, "1.3"),
-            ("--sequence_parallel", bool(args.sequence_parallel), "1.3"),
-            ("--pipeline_parallel > 1", args.pipeline_parallel > 1, "1.4")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: the port runs data parallelism "
-                f"and FSDP only (ROADMAP.md section 1, item {item})")
+    """Refuse the parallel strategy the port does not run yet."""
+    if args.pipeline_parallel > 1:
+        raise NotImplementedError(
+            "--pipeline_parallel > 1 is not ported yet: the port runs data, "
+            "tensor and sequence parallelism and FSDP (ROADMAP.md section "
+            "1, item 1.4)")
 
 
 def args_to_run_config(args: argparse.Namespace) -> RunConfig:

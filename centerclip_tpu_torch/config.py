@@ -6,11 +6,14 @@ BlockClusterSpec, build_cluster_plan, ModelConfig, make_run_config, the
 per-dataset `preset`s, `to_dict` and `save_hparams`), so the port imports
 nothing of that package.  The fields are the same, so configs built from
 the same keywords compare field by field.  `remat` recomputes each
-transformer block in the backward (`torch.utils.checkpoint`).  Fields that
-only steer TPU code (`fused_attention`, `sequence_parallel`,
-`pipeline_parallel`) are accepted; the port's model builders ignore
-`fused_attention` (CUDA tensors always take the port's kernels) and raise on
-the others.
+transformer block in the backward (`torch.utils.checkpoint`).
+`tensor_parallel` and `sequence_parallel` are run by the `Trainer`
+(`parallel/mesh.py`).  `fused_attention` is accepted and ignored: the JAX
+package turns it off under tensor parallelism, as `make_run_config` does
+here so that the configs compare equal, but the port's CUDA tensors always
+take kernels A and B, under tensor parallelism on each rank's heads.
+`pipeline_parallel > 1` raises where the model is built and in the
+`Trainer`.
 """
 from __future__ import annotations
 
@@ -336,6 +339,8 @@ def make_run_config(**kw) -> RunConfig:
     if data_kw.get("datatype") == "activity":
         model_kw.setdefault("pre_visual_pooling", True)
     # the same field rewrites as the JAX package, so configs compare equal
+    # (`fused_attention` off under tensor parallelism is not read: the
+    # port's CUDA tensors take kernels A and B on each rank's heads)
     if run_kw.get("tensor_parallel", 1) > 1:
         model_kw["fused_attention"] = False
         if model_kw.get("pipeline_parallel", 1) > 1:

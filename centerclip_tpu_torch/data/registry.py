@@ -6,7 +6,8 @@ reference: dataloaders/data_dataloaders.py:12-270).
 activity have `test=None`, so evaluation falls back to the val loader exactly
 like the reference (main.py:142-149).  Every factory takes the run's
 `device`: on a CUDA device its loader pins the batches' host memory.  The
-train loader reads this process's shard (`parallel.data_shard_geometry`):
+train loader reads this process's shard (`parallel.data_shard_geometry`;
+under tensor parallelism the ranks of a model group read the same shard):
 `batch_size // shard_count` rows a step, the shard padded by wrapping
 around the epoch's order so every process takes as many steps.
 """

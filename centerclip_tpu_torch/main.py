@@ -16,17 +16,20 @@ evaluation after every epoch (ties update the best), `ckpt_<epoch>`,
 on the card unless the caller names another device; with none given and no
 CUDA device it raises.
 
-On N GPUs, one process each (JAX `main.py` on an N-chip data mesh):
+On N GPUs, one process each (JAX `main.py` on an N-chip mesh):
 
     torchrun --nproc_per_node N -m centerclip_tpu_torch.main <flags> \
-        [--fsdp 1]
+        [--fsdp 1] [--tensor_parallel T [--sequence_parallel 1]]
 
 Each rank joins the process group before any device work, trains on its
-shard of every global batch of `--batch_size` (DDP, or FSDP with `--fsdp
-1`), and prints its epoch's mean loss to stdout; rank 0 alone logs,
-evaluates (on the whole parameters: under FSDP every rank first gathers
-them, `host_state`), and writes the checkpoints, while the other ranks
-wait at a barrier.
+model group's shard of every global batch of `--batch_size` (DDP, or FSDP
+with `--fsdp 1`, over the N / T data shards; with `--tensor_parallel T`
+the T ranks of a model group hold the slices of one model and read the
+same rows), and prints its epoch's mean loss to stdout; rank 0 alone
+logs, evaluates (on the whole parameters: under FSDP or tensor
+parallelism every rank first gathers them, `host_state`, into rank 0's
+whole copy), and writes the checkpoints, while the other ranks wait at a
+barrier.
 """
 from __future__ import annotations
 
@@ -151,8 +154,9 @@ def _run(cfg, device):
     if rank == 0:
         trainer.metric_writer = MetricWriter(
             os.path.join(cfg.output_dir, "tensorboard"))
-        # under FSDP rank 0 evaluates and exports a copy with whole
-        # parameters, loaded from the gathered ones every epoch
+        # under FSDP or tensor parallelism rank 0 evaluates and exports a
+        # copy with whole parameters, loaded from the gathered ones every
+        # epoch
         eval_model = (CLIP4Clip(cfg.model, device=device, seed=cfg.seed)
                       if sharded else model)
         evaluator = Evaluator(eval_model)
@@ -177,7 +181,7 @@ def _run(cfg, device):
                 # the log is rank 0's: every rank's own loss to stdout
                 print(f"rank {rank} epoch {epoch} mean_loss={loss:.6f}",
                       flush=True)
-            # every rank gathers sharded parameters and moments (a
+            # every rank gathers sharded or sliced parameters and moments (a
             # collective) before rank 0's evaluation and writes
             host = state_mod.host_state(trainer.state) if sharded else None
             r1 = 0.0

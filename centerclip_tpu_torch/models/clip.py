@@ -29,8 +29,18 @@ the JAX package's `models/clip.py`, reference: modules/clip.py:272-512).
   uint8 frames raise there too (`CLIP4Clip.get_visual_output` normalises
   them first).
 
-Sequence and pipeline parallelism are not ported; a config that asks for
-them raises.
+* Under tensor parallelism every block holds this rank's slices
+  (`parallel.mesh.split_model`).  With sequence parallelism the residual
+  stream stays token-split over the model group within a run of blocks
+  (`parallel.mesh.shard_tokens`) and is gathered whole at the run's end
+  (`unshard_tokens`): before a cluster module, a DeepCluster head or
+  token_shift's second shift, before `ln_post` on the CLS token and before
+  `ln_final` and the EOT pick, which need every token, and which then run
+  replicated on every rank of the group, as JAX's GSPMD reshards there.
+  Remat'd blocks replay their forward collectives in the backward, in the
+  same order on every rank.
+
+Pipeline parallelism is not ported; a config that asks for it raises.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig
 from ..ops.cluster_layer import TokenClusterInter
 from ..ops.deepcluster import DeepCluster, deep_cluster_plan
+from ..parallel.mesh import shard_tokens, unshard_tokens
 from .layers import LayerNormF32, ResidualAttentionBlock, causal_mask
 from .resnet import ModifiedResNet
 
@@ -55,10 +66,10 @@ CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise on the parts of a config the port does not implement yet."""
-    if cfg.sequence_parallel or cfg.pipeline_parallel > 1:
+    if cfg.pipeline_parallel > 1:
         raise NotImplementedError(
-            "sequence and pipeline parallelism are not ported (ROADMAP.md "
-            "section 1, items 1.3 and 1.4)")
+            "pipeline parallelism is not ported (ROADMAP.md section 1, item "
+            "1.4)")
 
 
 def is_resnet(cfg: ModelConfig) -> bool:
@@ -98,23 +109,50 @@ def patchify_3d(video: torch.Tensor, weight: torch.Tensor, frames: int,
 
 class Transformer(nn.Module):
     """A stack of residual blocks (`transformer.resblocks.{i}`); `fused`
-    picks their attention core (`models/layers.py`)."""
+    picks their attention core (`models/layers.py`).  `token_split` marks
+    a tower's stack, whose stream sequence parallelism splits; `axes` is
+    set by `parallel.mesh.split_model`."""
 
     def __init__(self, width: int, layers: int, heads: int,
-                 dtype: torch.dtype, remat: bool = False, fused: bool = True):
+                 dtype: torch.dtype, remat: bool = False, fused: bool = True,
+                 token_split: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, dtype, fused)
             for _ in range(layers))
         self.remat = remat
+        self.token_split = token_split
+        self.axes = None
+
+    @property
+    def sp(self) -> bool:
+        """True when the stack's stream is token-split over the model
+        group."""
+        return self.axes is not None and self.axes.sp
 
     def run_block(self, block: ResidualAttentionBlock, x: torch.Tensor,
-                  attn_mask=None) -> torch.Tensor:
+                  attn_mask=None, length: Optional[int] = None
+                  ) -> torch.Tensor:
         """One block, recomputed in the backward when `remat` is on and
-        gradients are being recorded."""
+        gradients are being recorded; `length` is the whole stream's under
+        sequence parallelism."""
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, x, attn_mask, use_reentrant=False)
-        return block(x, attn_mask)
+            return checkpoint(block, x, attn_mask, length,
+                              use_reentrant=False)
+        return block(x, attn_mask, length)
+
+    def run(self, blocks, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
+        """A run of blocks on the whole stream x [B, L, D]: token-split
+        within the run under sequence parallelism, whole again after it."""
+        if not self.sp:
+            for block in blocks:
+                x = self.run_block(block, x, attn_mask)
+            return x
+        length = x.shape[1]
+        x = shard_tokens(x, self.axes)
+        for block in blocks:
+            x = self.run_block(block, x, attn_mask, length)
+        return unshard_tokens(x, self.axes, length)
 
 
 class VisionTransformer(nn.Module):
@@ -140,7 +178,8 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNormF32(width)
         self.transformer = Transformer(
             width, arch["vision_layers"],
-            arch.get("vision_heads", width // 64), dtype, cfg.remat)
+            arch.get("vision_heads", width // 64), dtype, cfg.remat,
+            token_split=True)
         for block, spec in zip(self.transformer.resblocks, cfg.cluster_plan()):
             if spec is not None:
                 block.tokencluster_inter = TokenClusterInter(
@@ -190,18 +229,24 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
         x = self.ln_pre(x)
         cluster_loss = torch.zeros((), device=x.device)
+        run = []       # the blocks since the last whole-token module
         for i, block in enumerate(self.transformer.resblocks):
+            inter = block.tokencluster_inter
+            if i in self.deep_blocks or inter is not None:
+                x = self.transformer.run(run, x)
+                run = []
             if i in self.deep_blocks:
                 x, loss = getattr(self, f"deepcluster_{i}")(x, training)
                 cluster_loss = cluster_loss + loss
-            inter = block.tokencluster_inter
             if inter is not None:
                 x = inter(x, generator)
-            x = self.transformer.run_block(block, x)
+            run.append(block)
             if inter is not None and inter.spec.algo == "token_shift":
                 # the JAX package's `cluster_post_{i}`: the shift again,
                 # after the block (it has no parameters)
-                x = inter(x)
+                x = inter(self.transformer.run(run, x))
+                run = []
+        x = self.transformer.run(run, x)
         x = self.ln_post(x[:, 0, :].contiguous()).float()
         return x @ self.proj, cluster_loss
 
@@ -230,7 +275,7 @@ class CLIP(nn.Module):
             torch.empty(arch["context_length"], width))
         self.transformer = Transformer(width, arch["transformer_layers"],
                                        arch["transformer_heads"], dtype,
-                                       cfg.remat)
+                                       cfg.remat, token_split=True)
         self.ln_final = LayerNormF32(width)
         self.text_projection = nn.Parameter(
             torch.empty(width, arch["embed_dim"]))
@@ -267,8 +312,7 @@ class CLIP(nn.Module):
         x = self.token_embedding.weight[text].to(dt)
         x = x + self.positional_embedding[:L].to(dt)
         mask = causal_mask(L, device=x.device)
-        for block in self.transformer.resblocks:
-            x = self.transformer.run_block(block, x, mask)
+        x = self.transformer.run(self.transformer.resblocks, x, mask)
         x = self.ln_final(x).float()
         eot = text.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]

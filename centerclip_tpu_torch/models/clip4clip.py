@@ -22,6 +22,8 @@ The header blocks are built with `fused=False`: their attention is the
 plain fp32 path of the JAX package's blocks, chosen at build time, because
 the per-sample mask is one the attention kernel does not take
 (`models/layers.py`).  The CLIP towers' attention still runs kernels A / B.
+Under tensor parallelism the header blocks are split as the towers' are
+(JAX splits them by the same names), without sequence parallelism.
 
 `forward(..., training=True)` adds the symmetric InfoNCE loss over
 `get_similarity_logits` and the cluster loss (a DeepCluster head's WCSS; 0
@@ -85,6 +87,8 @@ class CLIP4Clip(nn.Module):
                 num_hidden_layers=cfg.cross_num_hidden_layers,
                 max_position_embeddings=ctx))
             self.similarity_dense = nn.Linear(width, 1)
+        # the mesh's axes (`parallel.mesh.shard_params`); None alone
+        self.axes = None
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
 
@@ -295,10 +299,10 @@ class CLIP4Clip(nn.Module):
         loss terms: sim_loss = 0.5 (CE(sim) + CE(sim^T)) over
         `get_similarity_logits` with the post-cluster video mask,
         cluster_loss (the DeepCluster heads' WCSS, else 0), loss = their
-        sum.  In a process group of more than one rank, sim_loss is the
-        loss of the global batch: the text and video features and the
-        video mask of every rank are gathered before the similarity (the
-        headers see all of them), and cluster_loss stays this rank's
+        sum.  Over more than one data shard, sim_loss is the loss of the
+        global batch: the text and video features and the video mask of
+        every rank of the data group are gathered before the similarity
+        (the headers see all of them), and cluster_loss stays this rank's
         mean.  Without `training` and with `pre_visual_pooling`
         (ActivityNet), the visual output is the pooled, normalised [B, D]
         video vector.  `generator` draws the training step's random choices
@@ -320,16 +324,21 @@ class CLIP4Clip(nn.Module):
             out["visual_output"] = visual
         if training:
             seq, visual = out["sequence_output"], out["visual_output"]
-            world = world_size()
-            if world > 1:
+            group, shards = ((self.axes.data_group, self.axes.data_size)
+                             if self.axes is not None else (None,
+                                                            world_size()))
+            if shards > 1:
                 # the loss over the global batch (reference
-                # modules/utils.py:47-64): every rank's features, the
-                # gradient through this rank's rows only, times the world
-                # size, so that the ranks' averaged gradients are the
-                # one-process gradient of the global-batch loss
-                seq = all_gather_local_grads(seq, grad_scale=world)
-                visual = all_gather_local_grads(visual, grad_scale=world)
-                video_mask = all_gather(video_mask)
+                # modules/utils.py:47-64): every data shard's features, the
+                # gradient through this rank's rows only, times the data
+                # extent, so that the gradients averaged over the data
+                # group are the one-process gradient of the global-batch
+                # loss.  The ranks of a model group hold the same rows:
+                # gathering over the world would count each row tp times.
+                seq = all_gather_local_grads(seq, group, grad_scale=shards)
+                visual = all_gather_local_grads(visual, group,
+                                                grad_scale=shards)
+                video_mask = all_gather(video_mask, group)
             sim = self.get_similarity_logits(seq, visual, attention_mask,
                                              video_mask)
             sim_loss = 0.5 * (cross_entropy(sim) + cross_entropy(sim.t()))

@@ -20,16 +20,28 @@ outside any Pallas kernel.  Their key-padding mask is per sample,
 [B, 1, 1, L], which neither the TPU kernel nor kernel A takes (both take
 one [L, L] mask).  That is a choice made when the block is built, never a
 fallback from a kernel that failed.
+
+Under tensor parallelism (`parallel.mesh.split_model`) a block holds this
+rank's slices and its attention `H / tp` local heads: the packed
+`[B, L, 3 D / tp]` projection goes to kernel A (or `attention_plain`) as
+whole heads, and the block places the Megatron operators of
+`parallel/collectives.py` around its column- and row-parallel layers,
+where the JAX block's `shard_tokens` constraints put GSPMD's collectives
+(`models/layers.py:152-166` there).  The row-parallel biases add after the
+reduction.  With `axes.sp` the block takes and returns this rank's tokens
+of the stream; LayerNorm (kernels C and D) then runs on those rows only.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from ..ops.attention_cuda import attention_plain, fused_attention
 from ..ops.layernorm_triton import EPS, layer_norm
+from ..parallel.collectives import (copy_to_model, gather_tokens,
+                                    reduce_from_model, reduce_scatter_tokens)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -41,6 +53,17 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
     """`layer` applied in `dtype` (operands cast, fp32 parameters kept)."""
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     return nn.functional.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+                 reduce: Optional[Callable]) -> torch.Tensor:
+    """`linear` of a row-parallel layer: without `reduce` the layer whole;
+    with it the partial product of this rank's input features, reduced
+    over the model group (`reduce`), then the bias."""
+    if reduce is None:
+        return linear(x, layer, dtype)
+    y = nn.functional.linear(x.to(dtype), layer.weight.to(dtype))
+    return reduce(y) + layer.bias.to(dtype)
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -73,7 +96,8 @@ class MultiHeadAttention(nn.Module):
     Q, K, V order, as torch's nn.MultiheadAttention stores them), whose
     `[B, L, 3*D]` output goes straight into the attention kernel
     (`fused=True`) or into its plain version `attention_plain`
-    (`fused=False`)."""
+    (`fused=False`).  `heads` is the local count under tensor parallelism,
+    and `reduce` the row-parallel reduction (`row_parallel`)."""
 
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
                  fused: bool = True):
@@ -92,12 +116,14 @@ class MultiHeadAttention(nn.Module):
             self.out_proj.bias.zero_()
 
     def forward(self, x: torch.Tensor,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_mask: Optional[torch.Tensor] = None,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
         dt = self.dtype
         qkv = nn.functional.linear(x.to(dt), self.in_proj_weight.to(dt),
                                    self.in_proj_bias.to(dt))
         attend = fused_attention if self.fused else attention_plain
-        return linear(attend(qkv, self.heads, attn_mask), self.out_proj, dt)
+        return row_parallel(attend(qkv, self.heads, attn_mask),
+                            self.out_proj, dt, reduce)
 
 
 class MLP(nn.Module):
@@ -115,9 +141,10 @@ class MLP(nn.Module):
             with torch.no_grad():
                 layer.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(quick_gelu(linear(x, self.c_fc, self.dtype)),
-                      self.c_proj, self.dtype)
+    def forward(self, x: torch.Tensor,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
+        return row_parallel(quick_gelu(linear(x, self.c_fc, self.dtype)),
+                            self.c_proj, self.dtype, reduce)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -125,7 +152,8 @@ class ResidualAttentionBlock(nn.Module):
     may carry the clustering module that runs before it
     (`tokencluster_inter`, the reference's attribute name); the tower calls
     it, so the token count changes between blocks.  `fused` picks the
-    attention core (module docstring)."""
+    attention core (module docstring); `axes` (a `parallel.mesh.Axes`, set
+    by `split_model`) its tensor and sequence parallelism."""
 
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
                  fused: bool = True):
@@ -135,11 +163,32 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = MLP(width, dtype)
         self.ln_2 = LayerNormF32(width)
         self.tokencluster_inter: Optional[nn.Module] = None
+        self.axes = None
 
     def forward(self, x: torch.Tensor,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), attn_mask)
-        return x + self.mlp(self.ln_2(x))
+                attn_mask: Optional[torch.Tensor] = None,
+                length: Optional[int] = None) -> torch.Tensor:
+        """x [B, L, D] whole, or under sequence parallelism this rank's
+        [B, ceil(length / tp), D] tokens of a stream of `length`."""
+        axes = self.axes
+        if axes is None or not axes.tp:
+            x = x + self.attn(self.ln_1(x), attn_mask)
+            return x + self.mlp(self.ln_2(x))
+        group = axes.model_group
+        if axes.sp:
+            def enter(h):
+                return gather_tokens(h, group, length)
+
+            def leave(h):
+                return reduce_scatter_tokens(h, group)
+        else:
+            def enter(h):
+                return copy_to_model(h, group)
+
+            def leave(h):
+                return reduce_from_model(h, group)
+        x = x + self.attn(enter(self.ln_1(x)), attn_mask, leave)
+        return x + self.mlp(enter(self.ln_2(x)), leave)
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:

@@ -1,38 +1,67 @@
 # coding=utf-8
-"""The data axis: process group, device mesh, loader shards and the DDP /
-FSDP wrappers (port of the JAX package's `parallel/mesh.py`).
+"""The data and model axes: process groups, the device mesh, loader shards,
+the tensor-parallel slices and the DDP / FSDP wrappers (port of the JAX
+package's `parallel/mesh.py`).
 
 The JAX package runs one process per host over a `"data"` mesh of all its
-chips.  The port keeps PyTorch's idiom, the reference's own (main.py:54-62,
-123-125): one process per GPU, started by `torchrun` (`RANK`, `WORLD_SIZE`,
+chips, folded into `(data, model)` under tensor parallelism.  The port
+keeps PyTorch's idiom, the reference's own (main.py:54-62, 123-125): one
+process per GPU, started by `torchrun` (`RANK`, `WORLD_SIZE`,
 `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`), NCCL for CUDA tensors and
-gloo for CPU tensors, and a `torch.distributed.device_mesh` whose one axis
-has JAX's name, `"data"`.  Each rank runs on `cuda:LOCAL_RANK`.
+gloo for CPU tensors, and a `torch.distributed.device_mesh` with JAX's
+axis names.  Each rank runs on `cuda:LOCAL_RANK`.
 
-* Plain data parallelism wraps the model in `DistributedDataParallel`: the
-  parameters are replicated and the gradients averaged over the ranks.
-* `fsdp` applies `fully_shard` to every transformer block and to the root:
-  each parameter is split on its first axis (`Shard(0)`), all-gathered
-  where a layer uses it and its gradient reduce-scattered; the optimizer's
-  moments follow the parameters (`zeros_like` of a sharded parameter is
-  sharded).  JAX shards the largest axis that the data extent divides
-  (`mesh.py:224-277`); the placement differs, the function computed does
-  not.  Scalars (`logit_scale`) and the cluster modules that a vision block
-  carries but the tower calls before the block stay replicated, as JAX
-  leaves a parameter without a divisible axis: their gradients are
-  averaged by `reduce_replicated_grads`.
+* Plain data parallelism wraps the model in `DistributedDataParallel`
+  over the data group: the parameters are replicated and the gradients
+  averaged over the data shards.
+* `fsdp` applies `fully_shard` over the data axis to every transformer
+  block and to the root: each parameter is split on its first axis
+  (`Shard(0)`), all-gathered where a layer uses it and its gradient
+  reduce-scattered; the optimizer's moments follow the parameters
+  (`zeros_like` of a sharded parameter is sharded).  JAX shards the
+  largest axis that the data extent divides (`mesh.py:224-277`); the
+  placement differs, the function computed does not.  Scalars
+  (`logit_scale`) and the cluster modules that a vision block carries but
+  the tower calls before the block stay replicated, as JAX leaves a
+  parameter without a divisible axis: their gradients are averaged by
+  `reduce_replicated_grads`.
+* Tensor parallelism (`tensor_parallel > 1`) folds the ranks into
+  `(data, model)`, the model axis fastest-varying as JAX's
+  `reshape(data, second)` (`mesh.py:88`): ranks `i * tp .. i * tp + tp - 1`
+  form a model group and read the same rows (`data_shard_geometry`).  A
+  block's parameters are split Megatron-style by their owner's name
+  (`_tp_spec`, JAX `mesh.py:200-221`): `in_proj` and `c_fc` column-parallel,
+  `out_proj.weight` and `c_proj.weight` row-parallel, the rest replicated.
+  `in_proj` is split per head: a rank keeps the q, k and v rows of its
+  `H / tp` heads, so that kernel A takes its packed `[B, L, 3 D / tp]`
+  projection as `H / tp` whole heads (JAX splits contiguous columns and
+  GSPMD reshards around its attention).  The slices are plain tensors;
+  `fetch_replicated` gathers them (and any FSDP shard of them) to the whole
+  tensors of the canonical schema, and `load_replicated` takes whole
+  tensors back to a rank's slices.  The block's collectives are
+  `collectives.py`'s Megatron operators.
+* Sequence parallelism (`sequence_parallel`, with tensor parallelism)
+  keeps the towers' residual stream token-split over the model group
+  within a run of blocks (`shard_tokens` / `unshard_tokens`, the
+  counterpart of JAX's `shard_tokens`, `mesh.py:92-113`), padded to
+  `ceil(L / tp)` tokens a rank.  A block's LayerNorm parameters and
+  row-parallel biases then see 1 / tp of the tokens:
+  `reduce_sequence_parallel_grads` sums their gradients over the model
+  group.
 
-Tensor and pipeline parallelism (the `"model"` and `"pipe"` axes) are not
-ported yet (ROADMAP.md section 1, items 1.3 and 1.4): `create_mesh`
-raises on them.
+Pipeline parallelism (the `"pipe"` axis) is not ported yet (ROADMAP.md
+section 1, item 1.4): `create_mesh` raises on it.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import logging
 import os
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from dataclasses import dataclass
+from typing import (Any, Dict, Iterable, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -95,33 +124,91 @@ def init_distributed(device=None, backend: Optional[str] = None
 
 def create_mesh(data_parallel: int = 0, tensor_parallel: int = 1,
                 pipeline_parallel: int = 1, sequence_parallel: bool = False,
-                device_type: str = "cuda"):
-    """The `"data"` device mesh over every rank, or None in a run of one
-    process without a process group (the model then runs unwrapped).
+                device_type: str = "cuda", heads: Iterable[int] = ()):
+    """The device mesh over every rank: `("data",)`, or `("data", "model")`
+    with `tensor_parallel > 1`; None in a run of one process without a
+    process group (the model then runs unwrapped).
 
-    `data_parallel <= 0` means every rank (the analogue of the reference
-    counting GPUs); another value must equal the world size, since every
-    rank is one data shard (JAX raises on an extent the devices do not
-    divide, `mesh.py:84-87`).  The model and pipe axes are not ported."""
-    if tensor_parallel > 1 or sequence_parallel:
-        raise NotImplementedError(
-            "tensor and sequence parallelism are not ported yet "
-            "(ROADMAP.md section 1, item 1.3)")
+    `data_parallel` counts processes, one per GPU, as the JAX package's
+    counts devices (`mesh.py:56-89`); `<= 0` means every process, and
+    another value must equal the world size (a process cannot sit out).
+    The data extent is then `world / tensor_parallel`.  Raises ValueError
+    when `tensor_parallel` does not divide the world (JAX `mesh.py:85-87`)
+    or the `heads` of every block stack of the model, when
+    `sequence_parallel` comes without tensor parallelism, and
+    NotImplementedError for the pipe axis."""
     if pipeline_parallel > 1:
         raise NotImplementedError(
             "pipeline parallelism is not ported yet (ROADMAP.md section 1, "
             "item 1.4)")
+    tp = max(int(tensor_parallel), 1)
+    if sequence_parallel and tp == 1:
+        raise ValueError("sequence_parallel requires tensor_parallel > 1")
+    uneven = sorted({h for h in heads if h % tp})
+    if uneven:
+        raise ValueError(
+            f"model extent {tp} does not divide the {uneven} heads of a "
+            f"block stack: each rank takes whole heads")
     world = world_size()
     if data_parallel > 0 and data_parallel != world:
         raise ValueError(
             f"data extent {data_parallel} does not match the {world} "
-            f"process(es) of the run: start one process per data shard "
-            f"(torchrun --nproc_per_node {data_parallel}) or pass 0")
+            f"process(es) of the run: --data_parallel counts processes, "
+            f"one per GPU (torchrun --nproc_per_node {data_parallel}), or "
+            f"pass 0")
+    if world % tp:
+        raise ValueError(f"model extent {tp} does not divide the {world} "
+                         f"process(es) of the run")
     if not dist.is_initialized():
         return None
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, (world,),
-                            mesh_dim_names=(DATA_AXIS,))
+    if tp == 1:
+        return init_device_mesh(device_type, (world,),
+                                mesh_dim_names=(DATA_AXIS,))
+    return init_device_mesh(device_type, (world // tp, tp),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+@dataclass(frozen=True)
+class Axes:
+    """A rank's place on the mesh, as the model's modules read it: the data
+    group (the global-batch gather, gradient averages) and, under tensor
+    parallelism, the model group, its extent, this rank's index on it and
+    whether the towers split their tokens over it (`sp`)."""
+    data_group: Any
+    data_size: int
+    model_group: Any = None
+    model_size: int = 1
+    model_rank: int = 0
+    sp: bool = False
+
+    @property
+    def tp(self) -> bool:
+        return self.model_size > 1
+
+
+def mesh_axes(mesh, sequence_parallel: bool = False) -> Optional[Axes]:
+    """The `Axes` of this rank on `mesh` (None without a mesh)."""
+    if mesh is None:
+        return None
+    if MODEL_AXIS not in (mesh.mesh_dim_names or ()):
+        group = mesh.get_group()
+        return Axes(group, dist.get_world_size(group))
+    data, model = mesh.get_group(DATA_AXIS), mesh.get_group(MODEL_AXIS)
+    return Axes(data, dist.get_world_size(data), model,
+                dist.get_world_size(model), dist.get_rank(model),
+                bool(sequence_parallel))
+
+
+def axes_of(module: nn.Module) -> Optional[Axes]:
+    """The `Axes` `shard_params` gave a model (None for one that runs
+    alone)."""
+    return getattr(unwrap(module), "axes", None)
+
+
+def block_heads(model: nn.Module) -> List[int]:
+    """The head count of every block of the model (`_blocks`)."""
+    return [b.attn.heads for b in _blocks(model)]
 
 
 def data_shard_geometry(tensor_parallel: int = 1, pipeline_parallel: int = 1,
@@ -152,6 +239,24 @@ def data_shard_geometry(tensor_parallel: int = 1, pipeline_parallel: int = 1,
     return pi // group, pc // group
 
 
+def shard_tokens(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """Sequence parallelism's layout of a run's residual stream (JAX
+    `shard_tokens`, `mesh.py:92-113`): this rank's `ceil(L / tp)` tokens
+    of a [batch, L, ...] stream every rank of the model group holds whole
+    (zero-padded past L on the last ranks)."""
+    from .collectives import split_tokens
+    return split_tokens(x, axes.model_group)
+
+
+def unshard_tokens(x: torch.Tensor, axes: Axes, length: int
+                   ) -> torch.Tensor:
+    """The inverse of `shard_tokens`: the whole [batch, length, ...] stream
+    on every rank of the model group, where a cluster layer, a DeepCluster
+    head, `ln_post` or the EOT pick needs every token."""
+    from .collectives import gather_whole_tokens
+    return gather_whole_tokens(x, axes.model_group, length)
+
+
 def shard_batch(batch: Mapping[str, Any], device: torch.device
                 ) -> Dict[str, torch.Tensor]:
     """A rank's rows of the global batch to its device: {input_ids,
@@ -173,8 +278,12 @@ def is_shard(t) -> bool:
 
 
 def is_sharded(module: nn.Module) -> bool:
-    """True when any parameter of `module` is an FSDP shard (a DTensor)."""
-    return any(is_shard(p) for p in module.parameters())
+    """True when the model's parameters are not whole: FSDP shards
+    (DTensors) or tensor-parallel slices.  Its forward then needs every
+    rank, and its state dict `fetch_replicated`."""
+    axes = axes_of(module)
+    return (axes is not None and axes.tp) or any(
+        is_shard(p) for p in module.parameters())
 
 
 def local(t: torch.Tensor) -> torch.Tensor:
@@ -191,6 +300,88 @@ def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return distribute_tensor(full.to(like.device, like.dtype),
                              like.device_mesh, like.placements,
                              src_data_rank=None).to_local()
+
+
+# -------------------------------------------------- tensor-parallel slices
+HEADS, COLUMN, ROW = "heads", "column", "row"
+
+
+def _tp_spec(key: str) -> Optional[str]:
+    """How tensor parallelism splits the parameter of torch key `key`
+    (JAX `mesh.py:200-221`, by the owner's name, in every block of
+    `_blocks`): `HEADS` for `in_proj` (its q, k and v rows per head),
+    `COLUMN` for `c_fc` (output features: rows of the weight, the bias),
+    `ROW` for the weights of `out_proj` and `c_proj` (input features:
+    columns), None (replicated) for everything else, their biases
+    included: they add after the reduction."""
+    if ".resblocks." not in key:
+        return None
+    if key.endswith((".attn.in_proj_weight", ".attn.in_proj_bias")):
+        return HEADS
+    if key.endswith((".mlp.c_fc.weight", ".mlp.c_fc.bias")):
+        return COLUMN
+    if key.endswith((".attn.out_proj.weight", ".mlp.c_proj.weight")):
+        return ROW
+    return None
+
+
+def param_shardings(keys: Iterable[str]) -> Dict[str, Optional[str]]:
+    """The tensor-parallel split of every parameter, by torch key
+    (`_tp_spec`): the counterpart of JAX's `param_shardings`
+    (`mesh.py:247-264`), whose FSDP half is `fully_shard`'s here."""
+    return {k: _tp_spec(k) for k in keys}
+
+
+def take_slice(whole: torch.Tensor, spec: str, size: int, rank: int
+               ) -> torch.Tensor:
+    """Rank `rank`'s slice of a whole parameter split `spec` over `size`
+    ranks (a copy)."""
+    if spec == HEADS:           # [3 D, ...] -> q, k, v rows of its heads
+        parts = whole.reshape(3, size, -1, *whole.shape[1:])[:, rank]
+        return parts.reshape(-1, *whole.shape[1:]).clone()
+    if spec == COLUMN:
+        return whole.chunk(size, dim=0)[rank].clone()
+    return whole.chunk(size, dim=1)[rank].contiguous()
+
+
+def join_slices(parts: List[torch.Tensor], spec: str) -> torch.Tensor:
+    """The whole parameter from every rank's slice, in rank order: the
+    inverse of `take_slice`."""
+    if spec == HEADS:
+        rest = parts[0].shape[1:]
+        stacked = torch.stack([p.reshape(3, -1, *rest) for p in parts], 1)
+        return stacked.reshape(-1, *rest)
+    return torch.cat(parts, dim=0 if spec == COLUMN else 1)
+
+
+def slice_state(state: Mapping[str, Any], axes: Optional[Axes]
+                ) -> Dict[str, Any]:
+    """A whole state dict (torch keys) to this rank's tensor-parallel
+    slices (`_tp_spec`); the other entries as they are (no
+    communication)."""
+    if axes is None or not axes.tp:
+        return dict(state)
+    return {k: take_slice(t, _tp_spec(k), axes.model_size, axes.model_rank)
+            if _tp_spec(k) is not None else t for k, t in state.items()}
+
+
+def gather_state(state: Mapping[str, Any], axes: Optional[Axes]
+                 ) -> Dict[str, Any]:
+    """COLLECTIVE over the model group: the inverse of `slice_state`, each
+    slice all-gathered (in the dict's order, the same on every rank) and
+    joined to the whole tensor, on its device."""
+    if axes is None or not axes.tp:
+        return dict(state)
+    out = {}
+    for key, t in state.items():
+        spec = _tp_spec(key)
+        if spec is not None and isinstance(t, torch.Tensor):
+            t = t.detach().contiguous()
+            parts = [torch.empty_like(t) for _ in range(axes.model_size)]
+            dist.all_gather(parts, t, group=axes.model_group)
+            t = join_slices(parts, spec)
+        out[key] = t
+    return out
 
 
 def _gather_shards(t) -> torch.Tensor:
@@ -214,29 +405,49 @@ def _gather_shards(t) -> torch.Tensor:
     return torch.cat(parts)[:t.shape[0]]
 
 
-def fetch_replicated(tree):
+def fetch_replicated(tree, axes: Optional[Axes] = None):
     """COLLECTIVE: a nested dict of tensors with every FSDP shard gathered
-    to its full tensor, as copies on the host (JAX `mesh.py:154-169`).
+    over the data group and, with `axes` under tensor parallelism, every
+    slice over the model group (`gather_state`, by torch key), as whole
+    copies on the host (JAX `mesh.py:154-169`).
 
     Rank 0's evaluation, export and checkpoint need whole tensors; the
-    all-gather of a sharded tensor is a collective, so every rank calls
-    this (in the same order) before rank 0 alone writes.  Tensors that are
-    not sharded are copied as they are; other leaves pass through."""
-    if isinstance(tree, Mapping):
-        return {k: fetch_replicated(v) for k, v in tree.items()}
-    if is_shard(tree):
-        return _gather_shards(tree).cpu()
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().clone()
-    return tree
+    gathers are collectives, so every rank calls this (in the same order)
+    before rank 0 alone writes.  Tensors that are neither are copied as
+    they are; other leaves pass through."""
+    def unshard(t):
+        if is_shard(t):
+            return _gather_shards(t)
+        return t.detach() if isinstance(t, torch.Tensor) else t
+
+    def host(t):
+        return t.cpu().clone() if isinstance(t, torch.Tensor) else t
+    if not isinstance(tree, Mapping):
+        return host(unshard(tree))
+    whole = gather_state({k: v if isinstance(v, Mapping) else unshard(v)
+                          for k, v in tree.items()}, axes)
+    return {k: fetch_replicated(v, axes) if isinstance(v, Mapping)
+            else host(v) for k, v in whole.items()}
+
+
+@torch.no_grad()
+def copy_part(t: torch.Tensor, whole: torch.Tensor) -> None:
+    """Copy into `t` its part of `whole`: the FSDP shard of an FSDP
+    parameter or moment, else all of it."""
+    if is_shard(t):
+        local(t).copy_(shard_like(whole, t))
+    else:
+        t.copy_(whole)
 
 
 @torch.no_grad()
 def load_replicated(module: nn.Module,
                     state_dict: Mapping[str, torch.Tensor]) -> None:
-    """Load full tensors into `module`, as `load_state_dict(strict=True)`
-    does, whether its parameters are whole or FSDP shards (each rank keeps
-    its shard of each full tensor): the inverse of `fetch_replicated`."""
+    """Load whole tensors into `module`, as `load_state_dict(strict=True)`
+    does, whether its parameters are whole, FSDP shards or
+    tensor-parallel slices (each rank keeps its part of each whole
+    tensor: `slice_state`, then `copy_part`): the inverse of
+    `fetch_replicated`."""
     if not is_sharded(module):
         module.load_state_dict(state_dict, strict=True)
         return
@@ -246,12 +457,9 @@ def load_replicated(module: nn.Module,
     if missing or unexpected:
         raise KeyError(f"state dict keys differ from the model's: missing "
                        f"{missing}, unexpected {unexpected}")
+    parts = slice_state(state_dict, axes_of(module))
     for key, t in own.items():
-        src = state_dict[key]
-        if is_shard(t):
-            local(t).copy_(shard_like(src, t))
-        else:
-            t.copy_(src)
+        copy_part(t, parts[key])
 
 
 def _blocks(model: nn.Module) -> Iterator[nn.Module]:
@@ -263,21 +471,59 @@ def _blocks(model: nn.Module) -> Iterator[nn.Module]:
             yield from blocks
 
 
+@torch.no_grad()
+def split_model(model: nn.Module, axes: Axes) -> None:
+    """Replace every block's column- and row-parallel parameters by this
+    rank's slices (`_tp_spec`), give each attention its `H / tp` local
+    heads, and hand `axes` to the model, its block stacks and their
+    blocks.  The towers' stacks (`token_split`) split their tokens when
+    `axes.sp` (the JAX towers' `sp`); the header blocks (seqTransf, the
+    cross model) do not, as in JAX."""
+    params = dict(model.named_parameters())
+    for key, spec in param_shardings(params).items():
+        if spec is None:
+            continue
+        p = params[key]
+        owner_key, name = key.rsplit(".", 1)
+        owner = model.get_submodule(owner_key)
+        setattr(owner, name, nn.Parameter(
+            take_slice(p.data, spec, axes.model_size, axes.model_rank),
+            requires_grad=p.requires_grad))
+    whole_tokens = dataclasses.replace(axes, sp=False)
+    model.axes = axes
+    for m in model.modules():
+        blocks = getattr(m, "resblocks", None)
+        if isinstance(blocks, nn.ModuleList):
+            m.axes = axes if getattr(m, "token_split", False) \
+                else whole_tokens
+            for block in blocks:
+                block.axes = m.axes
+                block.attn.heads //= axes.model_size
+
+
 def shard_params(model: nn.Module, mesh, fsdp: bool = False,
-                 find_unused_parameters: bool = False) -> nn.Module:
-    """The module a train step calls: `model` itself without a mesh;
-    `DistributedDataParallel(model)` for plain data parallelism; with
-    `fsdp`, `model` after `fully_shard` per transformer block and on the
-    root (the module docstring).  The freeze mask must be set before:
-    frozen parameters (`requires_grad=False`) are not reduced."""
+                 find_unused_parameters: bool = False,
+                 sequence_parallel: bool = False) -> nn.Module:
+    """The module a train step calls: `model` itself without a mesh; under
+    tensor parallelism `model` split first (`split_model`); then
+    `DistributedDataParallel(model)` over the data group, or with `fsdp`
+    `model` after `fully_shard` over the data axis per transformer block
+    and on the root (the module docstring).  The freeze mask must be set
+    before: frozen parameters (`requires_grad=False`) are not reduced."""
     if mesh is None:
         return model
+    axes = mesh_axes(mesh, sequence_parallel)
+    if axes.tp:
+        split_model(model, axes)
+        mesh = mesh[DATA_AXIS]
+    else:
+        model.axes = axes
     if not fsdp:
         from torch.nn.parallel import DistributedDataParallel
         device = next(model.parameters()).device
         return DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda"
-            else None, process_group=mesh.get_group(),
+            else None, process_group=axes.data_group,
             find_unused_parameters=find_unused_parameters)
     from torch.distributed.fsdp import fully_shard
     for block in list(_blocks(model)):
@@ -316,17 +562,52 @@ def gradient_sync(module: nn.Module, enabled: bool):
         yield
 
 
+def _all_reduce_flat(grads: List[torch.Tensor], group) -> None:
+    """Sum `grads` over `group` in place, as one flat all-reduce."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(f.view_as(g))
+
+
 @torch.no_grad()
 def reduce_replicated_grads(module: nn.Module) -> None:
-    """Average over the ranks the gradients of an FSDP model's parameters
-    that are not sharded (FSDP reduces only its shards).  A no-op for a
-    model without shards: DDP reduces every gradient itself."""
-    if not is_sharded(module) or world_size() == 1:
+    """Average over the data group the gradients of an FSDP model's
+    parameters that are not sharded (FSDP reduces only its shards).  A
+    no-op for a model without shards: DDP reduces every gradient
+    itself."""
+    axes = axes_of(module)
+    if axes is None or axes.data_size == 1 or not any(
+            is_shard(p) for p in module.parameters()):
         return
-    for p in module.parameters():
-        if p.grad is not None and not is_shard(p):
-            dist.all_reduce(p.grad, op=dist.ReduceOp.SUM)
-            p.grad.div_(world_size())
+    grads = [p.grad for p in module.parameters()
+             if p.grad is not None and not is_shard(p)]
+    _all_reduce_flat(grads, axes.data_group)
+    torch._foreach_div_(grads, float(axes.data_size))
+
+
+@torch.no_grad()
+def reduce_sequence_parallel_grads(module: nn.Module) -> None:
+    """Sum over the model group the gradients that sequence parallelism
+    leaves partial: a token-split block's LayerNorm weights and biases and
+    its row-parallel biases (`out_proj.bias`, `c_proj.bias`), each rank's
+    over its own tokens (kernel D's dgamma and dbeta, the bias sums).
+    Without sequence parallelism they are whole and equal on every rank of
+    the group, and are left alone."""
+    axes = axes_of(module)
+    if axes is None or not axes.sp:
+        return
+    grads = []
+    for block in _blocks(unwrap(module)):
+        if block.axes.sp:
+            for p in (block.ln_1.weight, block.ln_1.bias, block.ln_2.weight,
+                      block.ln_2.bias, block.attn.out_proj.bias,
+                      block.mlp.c_proj.bias):
+                if p.grad is not None:
+                    grads.append(local(p.grad))
+    _all_reduce_flat(grads, axes.model_group)
 
 
 def process_barrier(name: str) -> None:

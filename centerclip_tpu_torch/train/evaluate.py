@@ -13,10 +13,12 @@ Metrics: the standard or the multi-sentence protocol (main.py:466-494).
 Everything runs under `torch.inference_mode()`.
 
 In a run of more than one process only rank 0 evaluates, on a model with
-whole parameters (under FSDP, a copy loaded from the gathered ones), while
-the other ranks wait at a barrier (`main.py`; JAX `main.py:110-135`,
-reference main.py:232-239).  A model whose parameters are FSDP shards
-raises here: its forward would need every rank.
+whole parameters (under FSDP or tensor parallelism, a copy loaded from the
+gathered ones), while the other ranks wait at a barrier (`main.py`;
+reference main.py:232-239).  JAX evaluates on its 2-D mesh (`main.py:
+110-135`); the port keeps rank 0's whole copy on purpose.  A model whose
+parameters are FSDP shards or tensor-parallel slices raises here: its
+forward would need every rank.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ class Evaluator:
     def __init__(self, model: CLIP4Clip):
         if is_sharded(model):
             raise ValueError("the Evaluator takes a model with whole "
-                             "parameters, not FSDP shards")
+                             "parameters, not FSDP shards or tensor-parallel "
+                             "slices")
         self.model = model
 
     def _tensor(self, x) -> torch.Tensor:

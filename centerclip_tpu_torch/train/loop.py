@@ -19,15 +19,18 @@ columns) from its own `torch.Generator` on the model's device, seeded from
 `jax.random.fold_in(rng, step)`, so a resumed run draws what the
 uninterrupted run drew.  The draws themselves are not `jax.random`'s.
 
-Under `torchrun` the `Trainer` builds the `"data"` mesh from the config
-and wraps the model (`parallel.shard_params`: DDP, or FSDP with
-`cfg.fsdp`); each rank steps on its rows of the global batch, the model's
-loss is the global batch's (`CLIP4Clip.forward`), and a step's update is
-the one-process update at the global batch.  Gradient accumulation
+Under `torchrun` the `Trainer` builds the mesh from the config, `"data"`
+or `("data", "model")` with `cfg.tensor_parallel > 1`, and wraps the
+model (`parallel.shard_params`: the tensor-parallel slices, then DDP, or
+FSDP with `cfg.fsdp`, over the data axis); each model group steps on its
+rows of the global batch, the model's loss is the global batch's
+(`CLIP4Clip.forward`), and a step's update is the one-process update at
+the global batch.  With `cfg.model.sequence_parallel` the gradients it
+leaves partial are summed over the model group before the update
+(`parallel.mesh.reduce_sequence_parallel_grads`).  Gradient accumulation
 reduces the gradients on its last micro-batch only.  The logged losses
-are the means over the ranks.  Tensor, sequence and pipeline parallelism
-raise (ROADMAP.md section 1, items 1.3 and 1.4), as does a data extent
-other than the world size.
+are the means over the ranks.  Pipeline parallelism raises (ROADMAP.md
+section 1, item 1.4), as does a process count other than the world size.
 """
 from __future__ import annotations
 
@@ -43,8 +46,9 @@ import torch
 from ..config import RunConfig
 from ..models.clip4clip import CLIP4Clip
 from ..parallel.collectives import psum
-from ..parallel.mesh import (create_mesh, gradient_sync,
-                             reduce_replicated_grads, shard_batch,
+from ..parallel.mesh import (block_heads, create_mesh, gradient_sync,
+                             reduce_replicated_grads,
+                             reduce_sequence_parallel_grads, shard_batch,
                              shard_params, unwrap, world_size)
 from .optim import GroupedAdam, build_optimizer, current_lr, set_trainable
 from .state import TrainState
@@ -85,7 +89,7 @@ def make_train_step(model: torch.nn.Module, optimizer: GroupedAdam,
     cluster_loss} as device scalars, the means over the micro-batches and
     the ranks.  After it returns, each trainable parameter's `.grad` holds
     the clipped gradient the update used (under FSDP, this rank's
-    shard)."""
+    shard; under tensor parallelism, of this rank's slice)."""
     net = unwrap(model)
     device = net.device
     world = world_size()
@@ -99,6 +103,7 @@ def make_train_step(model: torch.nn.Module, optimizer: GroupedAdam,
 
     def _apply(losses: torch.Tensor) -> Dict[str, torch.Tensor]:
         reduce_replicated_grads(model)
+        reduce_sequence_parallel_grads(model)
         optimizer.step()
         clamp_logit_scale(net)
         if world > 1:
@@ -129,12 +134,12 @@ def make_train_step(model: torch.nn.Module, optimizer: GroupedAdam,
 
 class Trainer:
     """Epoch loop (reference: main_worker + train_epoch,
-    main.py:72-378).  Builds the `"data"` mesh and the wrapper from the
-    config's parallel fields (JAX `train/loop.py:133-143`; one process
-    without a process group trains unwrapped), then the configured
-    optimizer over `model` (whose frozen parameters it marks
-    `requires_grad=False` before wrapping).  `model` stays the model
-    (under FSDP, its parameters become shards); `module` is what a step
+    main.py:72-378).  Builds the mesh and the wrapper from the config's
+    parallel fields (JAX `train/loop.py:133-143`; one process without a
+    process group trains unwrapped), then the configured optimizer over
+    `model` (whose frozen parameters it marks `requires_grad=False` before
+    wrapping).  `model` stays the model (under FSDP its parameters become
+    shards, under tensor parallelism slices); `module` is what a step
     calls.  Set `metric_writer` (a `utils.logging.MetricWriter`) to record
     the scalars of every displayed step."""
 
@@ -144,10 +149,12 @@ class Trainer:
         self.mesh = create_mesh(
             cfg.data_parallel, cfg.tensor_parallel,
             cfg.model.pipeline_parallel, cfg.model.sequence_parallel,
-            device_type=model.device.type)
+            device_type=model.device.type, heads=block_heads(model))
         set_trainable(model, cfg.freeze_layer_num, cfg.freeze_clip)
-        self.module = shard_params(model, self.mesh, fsdp=cfg.fsdp,
-                                   find_unused_parameters=cfg.freeze_clip)
+        self.module = shard_params(
+            model, self.mesh, fsdp=cfg.fsdp,
+            find_unused_parameters=cfg.freeze_clip,
+            sequence_parallel=cfg.model.sequence_parallel)
         self.optimizer = build_optimizer(
             cfg.optim, model, total_steps,
             freeze_layer_num=cfg.freeze_layer_num, freeze_clip=cfg.freeze_clip)

@@ -27,22 +27,28 @@ so weight decay never moves a frozen one).  Every step is plain PyTorch on
 the parameters' device; no value is read back to the host.
 
 Under FSDP a parameter, its gradient and its moments are this rank's
-shards (DTensors); the update runs on the local shards, and the norms
-(the global clip, BertAdam's per-parameter clip) add the shards' squares
-over the ranks in one all-reduce, so the step is the one-process step.
+shards (DTensors); under tensor parallelism a block's column- and
+row-parallel parameters are this rank's slices, with moments alike
+(`zeros_like`).  The update runs on the local parts, and the norms (the
+global clip, BertAdam's per-parameter clip) add the squares of a shard's
+parts over the data group and of a slice's over the model group (both
+for an FSDP shard of a slice), one all-reduce each; a parameter
+replicated on the model group counts once.  So the step is the
+one-process step.
 """
 from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
 from ..config import OptimConfig
-from ..parallel.mesh import is_shard, local, shard_like
+from ..parallel.mesh import (Axes, axes_of, copy_part, is_shard, local,
+                             param_shardings, slice_state)
 
 LabelledParams = Iterable[Tuple[str, nn.Parameter]]
 
@@ -169,7 +175,7 @@ class GroupedAdam:
     optimizer's own step (the JAX package's `opt_state.step`)."""
 
     def __init__(self, cfg: OptimConfig, named_params: LabelledParams,
-                 total_steps: int):
+                 total_steps: int, axes: Optional[Axes] = None):
         if cfg.optim not in ("BertAdam", "AdamW"):
             raise NotImplementedError(cfg.optim)
         if cfg.optim == "BertAdam" and cfg.schedule not in BERT_SCHEDULES:
@@ -185,6 +191,11 @@ class GroupedAdam:
                          if is_shard(p)]
         self._group = (self.params[self._sharded[0]].device_mesh.get_group()
                        if self._sharded else None)
+        # tensor-parallel slices, by name
+        self.axes = axes
+        self._sliced = ([i for i, spec in enumerate(
+            param_shardings(self.names).values()) if spec is not None]
+            if axes is not None and axes.tp else [])
         self.groups: Dict[str, List[int]] = {}
         for i, name in enumerate(self.names):
             self.groups.setdefault(param_group_label(name), []).append(i)
@@ -208,15 +219,18 @@ class GroupedAdam:
 
     def _norms(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """Each gradient's L2 norm over its whole parameter: a shard's
-        squared norm is summed over the ranks."""
-        norms = torch._foreach_norm(grads)
-        if self._group is None or dist.get_world_size(self._group) == 1:
-            return norms
-        sq = torch.stack([norms[i] for i in self._sharded]).square()
-        dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=self._group)
-        norms = list(norms)
-        for i, n in zip(self._sharded, sq.sqrt().unbind()):
-            norms[i] = n
+        squared norm is summed over the data group, a tensor-parallel
+        slice's over the model group."""
+        norms = list(torch._foreach_norm(grads))
+        model_group = self.axes.model_group if self._sliced else None
+        for idx, group in ((self._sharded, self._group),
+                           (self._sliced, model_group)):
+            if not idx or dist.get_world_size(group) == 1:
+                continue
+            sq = torch.stack([norms[i] for i in idx]).square()
+            dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=group)
+            for i, n in zip(idx, sq.sqrt().unbind()):
+                norms[i] = n
         return norms
 
     def _group_lr(self, label: str) -> float:
@@ -303,29 +317,30 @@ class GroupedAdam:
 
     def state_dict(self) -> dict:
         """The moments by parameter name (copies on the CPU) and the step.
-        Sharded moments stay shards: `parallel.fetch_replicated` gathers
-        them (a collective)."""
-        def copy(t):
-            return t.detach() if is_shard(t) else t.detach().cpu().clone()
+        Shards and tensor-parallel slices stay on the device as they are:
+        `parallel.fetch_replicated` gathers them (a collective)."""
+        sliced = {self.names[i] for i in self._sliced}
+
+        def copy(n, t):
+            return (t.detach() if is_shard(t) or n in sliced
+                    else t.detach().cpu().clone())
         return {"step": self.step_count,
-                "exp_avg": {n: copy(t)
+                "exp_avg": {n: copy(n, t)
                             for n, t in zip(self.names, self.exp_avg)},
-                "exp_avg_sq": {n: copy(t)
+                "exp_avg_sq": {n: copy(n, t)
                                for n, t in zip(self.names, self.exp_avg_sq)}}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Load whole moments (a sharded moment keeps its shard of each)."""
+        """Load whole moments (a sharded or sliced moment keeps its part of
+        each)."""
         for key in ("exp_avg", "exp_avg_sq"):
             if set(sd[key]) != set(self.names):
                 raise KeyError(f"optimizer state names differ from the "
                                f"trainable parameters ({key})")
+            parts = slice_state(sd[key], self.axes)
             for n, t in zip(self.names, getattr(self, key)):
-                src = sd[key][n]
-                if is_shard(t):
-                    local(t).copy_(shard_like(src, t))
-                else:
-                    t.copy_(src)
+                copy_part(t, parts[n])
         self.step_count = int(sd["step"])
 
 
@@ -346,10 +361,11 @@ def build_optimizer(cfg: OptimConfig, model: nn.Module, total_steps: int,
                     freeze_layer_num: int = -1, freeze_clip: bool = False
                     ) -> GroupedAdam:
     """The configured optimizer over `model`'s trainable parameters.  Sets
-    `requires_grad` from the freeze mask (see the module docstring)."""
+    `requires_grad` from the freeze mask (see the module docstring); a
+    model split by `parallel.shard_params` hands it its axes."""
     mask = set_trainable(model, freeze_layer_num, freeze_clip)
     return GroupedAdam(cfg, [(n, p) for n, p in model.named_parameters()
-                             if mask[n]], total_steps)
+                             if mask[n]], total_steps, axes=axes_of(model))
 
 
 def current_lr(cfg: OptimConfig, step: int, total_steps: int) -> float:

@@ -11,10 +11,12 @@ which `import_torch_checkpoint` (and the JAX package's) read back;
 `init_from_pretrained_clip` starts a model from OpenAI's CLIP weights.
 Both load with `strict=False` and report the missing and unexpected keys.
 
-Under FSDP the parameters and moments are shards: `host_state` gathers
-them (a collective every rank runs) and rank 0 alone writes the whole
-tensors, in the same key schema, so a checkpoint of either layout loads
-into the other (`resume` keeps each rank's shard of a whole tensor).
+Under FSDP the parameters and moments are shards, under tensor
+parallelism a block's column- and row-parallel ones slices: `host_state`
+gathers them over both axes (a collective every rank runs) and rank 0
+alone writes the whole tensors, in the canonical key schema and shapes
+(`in_proj_weight` [3 D, D]), so a checkpoint of any layout loads into any
+other (`resume` keeps each rank's part of a whole tensor).
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from torch import nn
 from ..config import ModelConfig
 from ..models.weights import (apply_pretrain_tricks, clip4clip_entries,
                               load_torch_checkpoint)
-from ..parallel.mesh import fetch_replicated, is_sharded, load_replicated
+from ..parallel.mesh import (axes_of, fetch_replicated, is_sharded,
+                             load_replicated)
 from .optim import GroupedAdam
 
 
@@ -50,15 +53,18 @@ def _replace_link(link: str, target: str) -> None:
 
 def _whole(module: nn.Module) -> None:
     if is_sharded(module):
-        raise ValueError("the parameters are FSDP shards: every rank must "
-                         "gather them first (host_state / fetch_replicated)")
+        raise ValueError("the parameters are FSDP shards or tensor-parallel "
+                         "slices: every rank must gather them first "
+                         "(host_state / fetch_replicated)")
 
 
 def host_state(state: TrainState) -> Dict[str, Any]:
     """{params, opt_state}: the whole parameters and moments as copies on
-    the host.  A COLLECTIVE when they are sharded: every rank calls it."""
+    the host.  A COLLECTIVE when they are sharded or sliced: every rank
+    calls it."""
     return fetch_replicated({"params": state.model.state_dict(),
-                             "opt_state": state.optimizer.state_dict()})
+                             "opt_state": state.optimizer.state_dict()},
+                            axes_of(state.model))
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
@@ -100,8 +106,8 @@ def resume(path: str, state: TrainState, load_weights_only: bool = False
     Loads into `state` in place; returns (state, the epoch to start at,
     best_r1).  `ckpt_<e>` is written after epoch e, so a full restore starts
     at e + 1 (the JAX package returns e and trains epoch e a second time);
-    the weights alone start at epoch 0.  A sharded state takes each rank's
-    shard of the whole tensors (every rank reads the file)."""
+    the weights alone start at epoch 0.  A sharded or sliced state takes
+    each rank's part of the whole tensors (every rank reads the file)."""
     payload = load_checkpoint(path)
     load_replicated(state.model, payload["params"])
     if load_weights_only:

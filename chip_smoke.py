@@ -198,8 +198,27 @@
    only leg (c) on a machine with N cards: one NCCL rank a card, each
    first taking the one-process step at batch 128 on its card, then DDP
    and FSDP at 128 / N rows a rank held to it as leg (b) is, with their
-   step times beside the one-card step's, then `main --fsdp 1` over the
-   N ranks.
+   step times beside the one-card step's, then the tensor-parallel meshes
+   of TP_MULTI_MESHES ((2, 2) + SP, (2, 2) + SP + FSDP, (1, 4) + SP: 50
+   vision tokens over 4 ranks, 3 vision and 2 text heads a rank) held to
+   it as leg (b') is, with step time and peak memory beside DDP's, then
+   `main --fsdp 1` over the N ranks, and last `main --tensor_parallel 2
+   --sequence_parallel 1` over them (rank 0 evaluates and writes; its
+   export must load with `strict=True` into a model of one process).
+15. Still in the parallel phase, the twelfth main path: leg (b'),
+   TP_GLOO_RANKS gloo ranks sharing the card as a (data 1, model 2) mesh
+   at TP_GLOO_BATCH clips: each rank takes the one-process step on the
+   same batch first, then the first step under tensor parallelism and
+   under tensor and sequence parallelism (kernels A and B on each rank's
+   6 vision and 4 text heads, C and D on its rows, E replicated), held to
+   it by TP_LOSS_RTOL and TP_GRAD_MIN_COS after gathering (the
+   one-process step's medoid ids replayed); every kernel's
+   count must have moved on each rank (zeroed before, read after each
+   run), and the two ranks' cluster-layer inputs and medoid ids must be
+   equal to the bit.  Then A and B at the local shapes of leg (c)'s
+   meshes (TP_ATTENTION_CASES) and C and D at their SP-local rows
+   (TP_LAYERNORM_CASES) against their plain versions, timed beside SDPA
+   and ATen.
 
 Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
 `{"serve": ...}`, a `{"cluster": ...}`, an `{"activity": ...}`, a
@@ -288,6 +307,32 @@ EXP62_FLAGS = [
 PARALLEL_STEPS, PARALLEL_TIMED, GLOO_RANKS = 2, 5, 2
 PARALLEL_LOSS_RTOL, PARALLEL_GRAD_MIN_COS = 1e-5, 0.9999
 PARALLEL_TIMEOUT = 600
+# the twelfth main path: tensor and sequence parallelism on the same fixture
+# and init.  Leg (b'): TP_GLOO_RANKS gloo ranks share the card as a
+# (data 1, model TP_GLOO_RANKS) mesh at a global batch of TP_GLOO_BATCH, cut
+# from the recipe's 128 because gloo stages every one of a step's ~100
+# activation all-reduces (or reduce-scatters and all-gathers) through host
+# memory.  A TP step is held to the one-process step at the same batch by
+# TP_LOSS_RTOL and TP_GRAD_MIN_COS, looser than the data legs' (whose
+# ranks compute each row as one process does): each rank's bf16 partial
+# products of a row-parallel layer, and its bf16 partial input gradients of
+# a column-parallel one, are rounded before the model group sums them, one
+# more rounding per block and direction than one process makes.  The
+# card-vs-CPU budget is (1e-3, 0.99); these keep its loss bound and hold
+# the gradients ten times closer.  That rounding moves some of k-medoids'
+# 49 picks in most segments against the one-process step's, and a moved
+# medoid hands blocks 7-12 other tokens: the TP runs replay the
+# one-process step's medoid ids (`recording_cluster`), as the CPU tests
+# replay ids where ties flip, and count the segments and the ids whose own
+# picks differed.  Leg (c) holds its TP meshes the same way.
+TP_GLOO_RANKS, TP_GLOO_BATCH = 2, 32
+TP_LOSS_RTOL, TP_GRAD_MIN_COS = 1e-3, 0.999
+# leg (c)'s meshes on four cards: (label, flags), each at the global 128
+TP_MULTI_MESHES = (
+    ("tp2_sp", ["--tensor_parallel", "2", "--sequence_parallel", "1"]),
+    ("tp2_sp_fsdp", ["--tensor_parallel", "2", "--sequence_parallel", "1",
+                     "--fsdp", "1"]),
+    ("tp4_sp", ["--tensor_parallel", "4", "--sequence_parallel", "1"]))
 # the fourth main path: ViT-B/16 at the recipe's batch of 128; the step
 # count is what is cut to keep the script inside its time limit
 VITB16_PRESET, VITB16_WARMUP_STEPS, VITB16_TIMED_STEPS = \
@@ -2997,15 +3042,16 @@ def recording_ln_bwd_streams(torch, streams):
 def parallel_steps(torch, cfg, batches, counters, label, dev,
                    timed=PARALLEL_TIMED):
     """Build experiment 62's model from `cfg`'s seed, wrap it as `cfg` says
-    (the Trainer: unwrapped without a process group, DDP, or FSDP), take
+    (the Trainer: unwrapped without a process group, DDP, or FSDP, on the
+    tensor-parallel slices with `--tensor_parallel`), take
     PARALLEL_STEPS compared steps on `batches` (counts zeroed before, read
     after; kernel D's streams recorded) and `timed` timed ones.
     Returns the steps' losses, the whole parameters after the compared
-    steps (on the host), step 1's clipped gradients (whole), the counts,
-    D's streams, the median step and the peak memory."""
+    steps (on the host, gathered), step 1's clipped gradients (whole), the
+    counts, D's streams, the median step and the peak memory."""
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
     from centerclip_tpu_torch.ops import layernorm_triton as ln
-    from centerclip_tpu_torch.parallel import fetch_replicated
+    from centerclip_tpu_torch.parallel import axes_of, fetch_replicated
     from centerclip_tpu_torch.train import Trainer
     from centerclip_tpu_torch.train.loop import make_train_step
     torch.cuda.empty_cache()
@@ -3022,10 +3068,11 @@ def parallel_steps(torch, cfg, batches, counters, label, dev,
             if i == 0:
                 grads1 = fetch_replicated({n: p.grad for n, p in
                                            model.named_parameters()
-                                           if p.grad is not None})
+                                           if p.grad is not None},
+                                          axes_of(model))
     torch.cuda.synchronize()
     counts = path_counts_of(counters, label, backward=True)
-    params = fetch_replicated(model.state_dict())
+    params = fetch_replicated(model.state_dict(), axes_of(model))
     dirty = int(ln._ticket_buffers[dev].abs().sum())
     print(f"{label}: compared steps done, losses {losses}", flush=True)
     step_s = []
@@ -3205,6 +3252,165 @@ def parallel_leg_gloo(torch, np, root, out_path):
     dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def recording_cluster(torch, store, replay=None, shard=(0, 1)):
+    """Keep the first input of the vision cluster layer and the first
+    (assign, medoid ids) its k-medoids returned (kernel E's).  With
+    `replay` (another run's store) the layer then takes that run's ids
+    instead, the clips of data shard `shard` = (index, count) of them, so
+    that a medoid that rounding flipped does not change the tokens the
+    later blocks see; the segments whose own ids differed are counted in
+    `store["medoid_segments_differing"]`, the share of its picks that the
+    other run did not pick in `store["medoid_ids_differing"]`."""
+    from centerclip_tpu_torch.ops import cluster_layer
+    cls = cluster_layer.TokenClusterInter
+    forward, cluster = cls.forward, cls._cluster
+
+    def recording_forward(self, x, *a, **k):
+        store.setdefault("input", x.detach().clone())
+        return forward(self, x, *a, **k)
+
+    def recording_cluster_ids(self, res_tmp):
+        assign, meds = cluster(self, res_tmp)
+        store.setdefault("assign", assign.clone())
+        store.setdefault("medoids", meds.clone())
+        if replay is None:
+            return assign, meds
+        S, (d, n) = self.spec.after_frames, shard
+
+        def rows(t):
+            # segment-major [S * B, ...]; the loader deals the global
+            # batch's clips to the shards in turn: clips d, d + n, ...
+            t = t.reshape(S, -1, n, *t.shape[1:])[:, :, d]
+            return t.reshape(-1, *t.shape[2:])
+        assign, own = rows(replay["assign"]), meds
+        meds = rows(replay["medoids"])
+        store.setdefault("medoid_segments_differing",
+                         int((own != meds).any(-1).sum()))
+        # ids are sorted: a medoid moved shifts the later positions, so
+        # count the picks that are not in the other run's set
+        store.setdefault("medoid_ids_differing", float(
+            (own[:, :, None] != meds[:, None, :]).all(-1).float().mean()))
+        return assign, meds
+    cls.forward, cls._cluster = recording_forward, recording_cluster_ids
+    try:
+        yield store
+    finally:
+        cls.forward, cls._cluster = forward, cluster
+
+
+def equal_on_ranks(torch, t, group=None):
+    """True when `t` is equal to the bit on every rank of `group`."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(t)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def tp_steps(torch, root, out, flags, counters, label, dev, ref,
+             timed=PARALLEL_TIMED):
+    """A tensor-parallel run of `parallel_steps` on the rows the registry's
+    loader gives this rank's model group under `flags`, held to the
+    one-process step `ref` (`held_to_one_process`) with `ref`'s medoid ids
+    replayed (`recording_cluster`; its "clusters" store), with whether the
+    ranks of each model group clustered the same tokens into the same
+    medoids and in how many segments the group's own ids differed from
+    `ref`'s."""
+    import torch.distributed as dist
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    cfg = cli.parse_args(main_argv(root, out, flags))
+    loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](
+        cfg, SimpleTokenizer(), device=dev)
+    batch = first_batches(loader, 1)
+    tp = int(cfg.tensor_parallel)
+    shard = (dist.get_rank() // tp, dist.get_world_size() // tp)
+    store = {}
+    with recording_cluster(torch, store, ref["clusters"], shard):
+        r = parallel_steps(torch, cfg, batch, counters, label, dev,
+                           timed=timed)
+    res = held_to_one_process(r, ref["losses"][0], ref["grads1"])
+    # the Trainer's mesh is gone with its model: compare over a model group
+    # of the same ranks, made here
+    group = model_group(torch, tp)
+    res.update(rank_rows=len(batch[0]["input_ids"]),
+               cluster_input_equal=equal_on_ranks(torch, store["input"],
+                                                  group),
+               medoids_equal=equal_on_ranks(torch, store["medoids"], group),
+               cluster_input_shape=list(store["input"].shape),
+               medoid_segments_differing=store["medoid_segments_differing"],
+               medoid_ids_differing=store["medoid_ids_differing"],
+               medoid_segments=int(store["medoids"].shape[0]))
+    return res
+
+
+def clustered_steps(torch, cfg, batches, counters, label, dev, **kw):
+    """`parallel_steps` with the cluster layer's first ids kept, under
+    "clusters", for `tp_steps` to replay."""
+    store = {}
+    with recording_cluster(torch, store):
+        r = parallel_steps(torch, cfg, batches, counters, label, dev, **kw)
+    r["clusters"] = {k: store[k] for k in ("assign", "medoids")}
+    return r
+
+
+def model_group(torch, tp):
+    """This rank's model group of a (world / tp, tp) mesh: ranks
+    i * tp .. i * tp + tp - 1 (every rank makes every group)."""
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mine = None
+    for i in range(world // tp):
+        g = dist.new_group(list(range(i * tp, (i + 1) * tp)))
+        if rank // tp == i:
+            mine = g
+    return mine
+
+
+def parallel_leg_tp_gloo(torch, np, root, out_path):
+    """Leg (b'), TP_GLOO_RANKS gloo ranks sharing cuda:0 as a (data 1,
+    model TP_GLOO_RANKS) mesh at TP_GLOO_BATCH clips: each rank first takes
+    the one-process step on the same batch (before the process group
+    exists), then TP and TP + SP (one compared and one timed step each),
+    held to it by TP_LOSS_RTOL and TP_GRAD_MIN_COS; the ranks' cluster
+    inputs and medoid ids compared to the bit; every rank's counts handed
+    to rank 0."""
+    from centerclip_tpu_torch import cli, parallel
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    counters = kernel_counters()
+    out = os.path.join(root, "parallel_tp_gloo_out")
+    batch_flags = ["--batch_size", str(TP_GLOO_BATCH)]
+    cfg = cli.parse_args(main_argv(root, out, batch_flags))
+    loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](cfg, SimpleTokenizer(),
+                                                      device=dev)
+    ref = clustered_steps(torch, cfg, first_batches(loader, 1), counters,
+                          "parallel tp gloo unwrapped", dev, timed=1)
+    parallel.init_distributed(dev, backend="gloo")
+    world = dist.get_world_size()
+    result = {"unwrapped": {k: v for k, v in ref.items()
+                            if k not in ("params", "grads1", "clusters")}}
+    for label, extra in (("tp", []), ("tp_sp", ["--sequence_parallel", "1"])):
+        print(f"parallel tp gloo rank {dist.get_rank()}: {label}",
+              flush=True)
+        result[label] = tp_steps(
+            torch, root, out, batch_flags + ["--tensor_parallel", str(world)]
+            + extra, counters, f"parallel tp gloo {label}", dev, ref,
+            timed=1)
+    ranks = [None] * world
+    dist.all_gather_object(ranks, result)
+    if dist.get_rank() == 0:
+        with open(out_path, "w") as f:
+            json.dump(ranks, f)
+    parallel.process_barrier("tp_gloo_leg_done")
+    dist.destroy_process_group()
+
+
 def collective_bandwidth(torch, dev, world, mib=256, iters=5):
     """NCCL's all-reduce and all-gather over the ranks on `mib` MiB of
     fp32 (the size of a ViT-B/32 step's ~0.6 GB of gradients, in a few
@@ -3240,7 +3446,8 @@ def parallel_leg_multi(torch, np, root, out_path):
     (`chip_smoke.py --gpus N`): each rank first takes the one-process
     step at the global batch of 128 on its own card (before the process
     group exists), then the first step under DDP and under FSDP at
-    128 / N rows a rank, held to it as leg (b) is; then `main --fsdp 1`
+    128 / N rows a rank, held to it as leg (b) is, and on each mesh of
+    TP_MULTI_MESHES, held to it as leg (b') is; then `main --fsdp 1`
     over the N ranks (rank 0 evaluates and writes)."""
     from centerclip_tpu_torch import cli, parallel
     from centerclip_tpu_torch.data.registry import DATALOADER_DICT
@@ -3254,8 +3461,8 @@ def parallel_leg_multi(torch, np, root, out_path):
     tok = SimpleTokenizer()
     cfg = cli.parse_args(main_argv(root, out))
     loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](cfg, tok, device=dev)
-    ref = parallel_steps(torch, cfg, first_batches(loader, 1), counters,
-                         "parallel multi unwrapped", dev)
+    ref = clustered_steps(torch, cfg, first_batches(loader, 1), counters,
+                          "parallel multi unwrapped", dev)
     parallel.init_distributed()
     rank = parallel.mesh.process_index()
     bandwidth = collective_bandwidth(torch, dev, world)
@@ -3265,12 +3472,18 @@ def parallel_leg_multi(torch, np, root, out_path):
     batch = first_batches(loader, 1)
     result = {"rank_rows": len(batch[0]["input_ids"]),
               "bandwidth": bandwidth, "unwrapped": {
-        k: v for k, v in ref.items() if k not in ("params", "grads1")}}
+        k: v for k, v in ref.items()
+        if k not in ("params", "grads1", "clusters")}}
     for label, extra in (("ddp", []), ("fsdp", ["--fsdp", "1"])):
         r = parallel_steps(torch, cli.parse_args(dp + extra), batch,
                            counters, f"parallel multi {label}", dev)
         result[label] = held_to_one_process(r, ref["losses"][0],
                                             ref["grads1"])
+    for label, extra in TP_MULTI_MESHES:
+        result[label] = tp_steps(torch, root, out, ["--data_parallel",
+                                                    str(world)] + extra,
+                                 counters, f"parallel multi {label}", dev,
+                                 ref)
     main_out = os.path.join(root, "parallel_multi_main")
     zero_counts(counters)
     t0 = time.time()
@@ -3286,6 +3499,43 @@ def parallel_leg_multi(torch, np, root, out_path):
             files=sorted(os.listdir(main_out)),
             logged_processes=f"processes: {world}" in log,
             evaluated="Text-to-Video: R@1" in log)
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+
+
+def parallel_leg_multi_main_tp(torch, np, root, out_path):
+    """Leg (c)'s last run: `main --tensor_parallel 2 --sequence_parallel 1`
+    over the N ranks (rank 0 evaluates and writes), then, on rank 0, its
+    export loaded with `strict=True` into a model of one process."""
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.main import main as run_main
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    world = int(os.environ["WORLD_SIZE"])
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    counters = kernel_counters()
+    main_out = os.path.join(root, "parallel_multi_main_tp")
+    argv = main_argv(root, main_out, [
+        "--data_parallel", str(world), "--tensor_parallel", "2",
+        "--sequence_parallel", "1"])
+    zero_counts(counters)
+    t0 = time.time()
+    run_main(argv)
+    result = dict(run_s=time.time() - t0, counts=path_counts_of(
+        counters, "parallel multi main tp", backward=True))
+    if int(os.environ["RANK"]) == 0:
+        with open(os.path.join(main_out, "log.txt")) as f:
+            log = f.read()
+        model = CLIP4Clip(cli.parse_args(argv).model, device=dev, seed=1)
+        sd = torch.load(os.path.join(main_out, "ckpt.pth.tar"),
+                        map_location=dev, weights_only=False)["state_dict"]
+        model.load_state_dict(sd, strict=True)
+        in_proj = sd["clip.visual.transformer.resblocks.0.attn.in_proj_weight"]
+        result.update(files=sorted(os.listdir(main_out)),
+                      logged_processes=f"processes: {world}" in log,
+                      evaluated="Text-to-Video: R@1" in log,
+                      export_reloads_strict=True,
+                      export_in_proj_shape=list(in_proj.shape))
         with open(out_path, "w") as f:
             json.dump(result, f)
 
@@ -3313,6 +3563,7 @@ def multi_gpu_main(n: int) -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         write_msrvtt_fixture(np, root)
         res, t_leg = torchrun_leg(n, "multi", root)
+        main_tp, t_main_tp = torchrun_leg(n, "multi_main_tp", root)
     un = res["unwrapped"]
     bw = res["bandwidth"]
     print(f"NCCL over {n} cards, {bw['mib']} MiB fp32 a rank: all_reduce "
@@ -3338,6 +3589,24 @@ def multi_gpu_main(n: int) -> int:
         if not r["d_on_default_stream"] or r["d_tickets_dirty"]:
             fail(f"multi {label}: kernel D left the compute stream")
         launched(f"multi {label}", r["counts"][0], r["counts"][0].keys())
+    ddp = res["ddp"]
+    for label, _ in TP_MULTI_MESHES:
+        r = res[label]
+        print(f"multi {label}, {n} NCCL ranks x {r['rank_rows']} clips a "
+              f"model group ({smi[0]}): loss {r['loss']} vs one process "
+              f"{r['loss_one_process']} (rel {r['loss_rel']:.3e}, tol "
+              f"{TP_LOSS_RTOL}); gradient cosine min {r['grad_min_cos']:.6f}"
+              f" (min {TP_GRAD_MIN_COS}; worst {r['grad_worst']}); median "
+              f"step {r['step_ms']:.3f} ms (DDP {ddp['step_ms']:.3f}, one "
+              f"card {un['step_ms']:.3f}); peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB (DDP "
+              f"{ddp['peak_bytes'] / 2**30:.3f}); cluster input "
+              f"{r['cluster_input_shape']} equal on the model group "
+              f"{r['cluster_input_equal']}, medoid ids {r['medoids_equal']}"
+              f", segments whose ids differ from the one-process step's "
+              f"{r['medoid_segments_differing']} of {r['medoid_segments']}"
+              f", ids {r['medoid_ids_differing']:.4f} (replayed)")
+        check_tp_run(f"multi {label}", r)
     m = res["main_fsdp"]
     print(f"main --data_parallel {n} --fsdp 1: {m['run_s']:.2f} s, rank 0 "
           f"logged processes {m['logged_processes']}, evaluated "
@@ -3346,7 +3615,20 @@ def multi_gpu_main(n: int) -> int:
     if not (m["logged_processes"] and m["evaluated"]
             and {"ckpt.pth.tar", "ckpt_0"} <= set(m["files"])):
         fail("multi main's log, evaluation or checkpoint is missing")
-    print(json.dumps({"multi_gpu": dict(cards=smi, leg_s=t_leg, **{
+    m = main_tp
+    print(f"main --data_parallel {n} --tensor_parallel 2 --sequence_parallel"
+          f" 1: {m['run_s']:.2f} s ({t_main_tp:.1f} s with the launch), "
+          f"rank 0 logged processes {m['logged_processes']}, evaluated "
+          f"{m['evaluated']}, files {m['files']}, export reloads strict "
+          f"{m['export_reloads_strict']} (in_proj "
+          f"{m['export_in_proj_shape']})")
+    launched("multi main tp", m["counts"][0], m["counts"][0].keys())
+    if not (m["logged_processes"] and m["evaluated"]
+            and {"ckpt.pth.tar", "ckpt_0"} <= set(m["files"])
+            and m["export_in_proj_shape"] == [2304, 768]):
+        fail("multi main tp's log, evaluation or export is wrong")
+    print(json.dumps({"multi_gpu": dict(cards=smi, leg_s=t_leg,
+                                        main_tp=main_tp, **{
         k: v for k, v in res.items()})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3384,10 +3666,63 @@ def torchrun_leg(nproc, leg, root):
         return json.load(f), time.time() - t0
 
 
+# kernels A-D at the per-rank shapes of leg (c)'s meshes at the global
+# batch of 128: (2, 2) gives a model group 64 clips, (1, 4) 128; vision
+# blocks 1-6 (12 frames, L = 50), the text tower (32 tokens, causal), and
+# under SP the token chunks ceil(50 / tp) and 32 / tp
+TP_ATTENTION_CASES = (("tp 2, vision blocks 1-6", 768, 50, 6, None),
+                      ("tp 4, vision blocks 1-6", 1536, 50, 3, None),
+                      ("tp 2, text", 64, 32, 4, "causal"),
+                      ("tp 4, text", 128, 32, 2, "causal"))
+TP_LAYERNORM_CASES = (("tp 2 + SP, vision ln_1/ln_2 blocks 1-6",
+                       768 * 25, 768),
+                      ("tp 4 + SP, vision ln_1/ln_2 blocks 1-6",
+                       1536 * 13, 768),
+                      ("tp 2 + SP, text ln_1/ln_2", 64 * 16, 512),
+                      ("tp 4 + SP, text ln_1/ln_2", 128 * 8, 512))
+
+
+def tp_kernel_rows(torch, dev, flush, peaks):
+    """Kernels A and B at TP_ATTENTION_CASES' local heads and C and D at
+    TP_LAYERNORM_CASES' SP-local rows, each against its plain version and
+    timed beside SDPA or ATen (`hold_attention_bwd`,
+    `hold_layernorm_bwd`); rows by kernel."""
+    rows = {k: [] for k in ("attention_fwd", "attention_bwd",
+                            "layernorm_fwd", "layernorm_bwd")}
+    for case in TP_ATTENTION_CASES:
+        row, fwd_row = hold_attention_bwd(torch, dev, flush, peaks, *case)
+        rows["attention_bwd"].append(dict(row, label=case[0]))
+        rows["attention_fwd"].append(dict(fwd_row, label=case[0]))
+    for case in TP_LAYERNORM_CASES:
+        row, fwd_row = hold_layernorm_bwd(torch, dev, flush, peaks, *case)
+        rows["layernorm_bwd"].append(dict(row, label=case[0]))
+        rows["layernorm_fwd"].append(dict(fwd_row, label=case[0]))
+    return rows
+
+
+def check_tp_run(label, r, ranks=None):
+    """Fail a tensor-parallel run (`tp_steps`) that differs from the
+    one-process step beyond TP_LOSS_RTOL / TP_GRAD_MIN_COS, whose model
+    group clustered different tokens or picked other medoids, whose kernel
+    D left the compute stream, or in which a kernel did not launch (on
+    every rank in `ranks`, else this one)."""
+    if r["loss_rel"] > TP_LOSS_RTOL or not r["grad_keys_equal"] \
+            or r["grad_min_cos"] < TP_GRAD_MIN_COS:
+        fail(f"{label} differs from the one-process step")
+    if not (r["cluster_input_equal"] and r["medoids_equal"]):
+        fail(f"{label}: the ranks of a model group clustered differently")
+    if not r["d_on_default_stream"] or r["d_tickets_dirty"]:
+        fail(f"{label}: kernel D left the compute stream")
+    for i, rr in enumerate(ranks or [r]):
+        launched(f"{label} rank {i}", rr["counts"][0],
+                 rr["counts"][0].keys())
+
+
 def parallel_phase(torch, np, root, smi):
-    """The eleventh main path (see PARALLEL_STEPS): leg (a) on one NCCL
-    rank, leg (b) on GLOO_RANKS gloo ranks sharing the card; their checks,
-    times and counts."""
+    """The eleventh and twelfth main paths (see PARALLEL_STEPS and
+    TP_GLOO_BATCH): leg (a) on one NCCL rank, leg (b) on GLOO_RANKS gloo
+    ranks sharing the card, leg (b') on TP_GLOO_RANKS gloo ranks as a
+    model group; their checks, times and counts."""
     torch.cuda.empty_cache()
     single, t_single = torchrun_leg(1, "single", root)
     paths = {}
@@ -3447,8 +3782,47 @@ def parallel_phase(torch, np, root, smi):
             fail(f"parallel gloo {label}: kernel D left the compute stream")
         launched(f"parallel gloo {label}", r["counts"][0],
                  r["counts"][0].keys())
+    tp_ranks, t_tp = torchrun_leg(TP_GLOO_RANKS, "tp_gloo", root)
+    tp = tp_ranks[0]
+    for label in ("tp", "tp_sp"):
+        r = tp[label]
+        paths[f"parallel_gloo_{label}"] = tuple(r["counts"])
+        print(f"parallel gloo {label}, ({TP_GLOO_RANKS} ranks, data 1 x "
+              f"model {TP_GLOO_RANKS}) x {r['rank_rows']} clips on one "
+              f"card: loss {r['loss']} vs one process "
+              f"{r['loss_one_process']} (rel {r['loss_rel']:.3e}, tol "
+              f"{TP_LOSS_RTOL}); gradient cosine min "
+              f"{r['grad_min_cos']:.6f} (min {TP_GRAD_MIN_COS}; worst "
+              f"{r['grad_worst']}); cluster input "
+              f"{r['cluster_input_shape']} equal on the ranks "
+              f"{r['cluster_input_equal']}, medoid ids "
+              f"{r['medoids_equal']}, segments whose ids differ from the "
+              f"one-process step's {r['medoid_segments_differing']} of "
+              f"{r['medoid_segments']}, ids "
+              f"{r['medoid_ids_differing']:.4f} (replayed); launches by "
+              f"rank "
+              f"{[rr[label]['counts'][0] for rr in tp_ranks]}; one timed "
+              f"step {r['step_ms']:.3f} ms, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB")
+        check_tp_run(f"parallel gloo {label}", r,
+                     [rr[label] for rr in tp_ranks])
     summary = dict(card=smi, single_s=t_single, gloo_s=t_gloo,
-                   gloo_cuda=gloo["gloo_cuda"])
+                   tp_gloo_s=t_tp, gloo_cuda=gloo["gloo_cuda"])
+    for label in ("tp", "tp_sp"):
+        r = tp[label]
+        summary[f"gloo_{label}"] = dict(
+            rank_rows=r["rank_rows"], loss_rel=r["loss_rel"],
+            grad_min_cos=r["grad_min_cos"], grad_worst=r["grad_worst"],
+            step_ms=r["step_ms"], peak_bytes=r["peak_bytes"],
+            cluster_input_equal=r["cluster_input_equal"],
+            medoids_equal=r["medoids_equal"],
+            medoid_segments_differing=r["medoid_segments_differing"],
+            medoid_ids_differing=r["medoid_ids_differing"],
+            launches_by_rank=[rr[label]["counts"][0] for rr in tp_ranks])
+    summary["gloo_tp_unwrapped"] = dict(
+        step_ms=tp["unwrapped"]["step_ms"],
+        peak_bytes=tp["unwrapped"]["peak_bytes"],
+        loss=tp["unwrapped"]["losses"][0])
     for label in ("unwrapped", "ddp", "fsdp"):
         r = single[label]
         summary[label] = dict(step_ms=r["step_ms"],
@@ -3882,9 +4256,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("towers")
 
-    # ------- data parallelism and FSDP on the main fixture (eleventh path)
+    # --- data, tensor and sequence parallelism on the main fixture (eleventh
+    # and twelfth paths), then A-D at the model axis's per-rank shapes
     parallel_res, par_paths = parallel_phase(torch, np, root, smi)
     path_counts.update(par_paths)
+    for kernel, rows in tp_kernel_rows(torch, dev, flush, peaks).items():
+        extend_forward_row(kernel, rows, key="tp_shapes")
     phase_done("parallel")
     preprocess, pp = preprocess_phase(torch, np, dev, flush, peaks,
                                       counters, root)
@@ -3951,8 +4328,8 @@ def main() -> int:
 
 
 def parallel_worker(argv) -> int:
-    """A rank of a parallel leg: `--parallel-leg {single,gloo} <root>
-    <out.json>` (started by torchrun_leg)."""
+    """A rank of a parallel leg: `--parallel-leg {single,gloo,tp_gloo,
+    multi,multi_main_tp} <root> <out.json>` (started by torchrun_leg)."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -3962,7 +4339,9 @@ def parallel_worker(argv) -> int:
     faulthandler.enable()     # a rank that crashes prints its Python stack
     leg, root, out_path = argv
     {"single": parallel_leg_single, "gloo": parallel_leg_gloo,
-     "multi": parallel_leg_multi}[leg](torch, np, root, out_path)
+     "tp_gloo": parallel_leg_tp_gloo, "multi": parallel_leg_multi,
+     "multi_main_tp": parallel_leg_multi_main_tp}[leg](
+        torch, np, root, out_path)
     return 0
 
 

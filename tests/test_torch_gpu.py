@@ -594,6 +594,54 @@ def test_one_nccl_rank_steps_equal_the_unwrapped_steps(cuda, monkeypatch,
             assert torch.equal(a[k], b[k]), k
 
 
+# ------------------------------------------- tensor and sequence parallelism
+# a rank's heads under tensor parallelism: ViT-B/32's 12 vision heads over
+# 2 or 4 ranks (qkv [N, 50, 1152] / [N, 50, 576]), the text tower's 8
+# (qkv [128, 32, 768] / [128, 32, 384], causal)
+@pytest.mark.parametrize("B,L,H,causal", [(768, 50, 6, False),
+                                          (1536, 50, 3, False),
+                                          (128, 32, 4, True),
+                                          (128, 32, 2, True)])
+def test_attention_kernels_at_tensor_parallel_shapes(cuda, B, L, H, causal):
+    """Kernels A and B on a rank's local heads against their plain
+    versions, within one bf16 ulp."""
+    qkv = _randn((B, L, 3 * 64 * H), torch.bfloat16, cuda, seed=B + H)
+    dout = _randn((B, L, 64 * H), torch.bfloat16, cuda, seed=B + H + 1)
+    mask = _causal(L, cuda) if causal else None
+    a0 = attention_cuda.fused_attention.launches
+    b0 = attention_cuda.attention_backward.launches
+    out = attention_cuda.fused_attention(qkv, H, mask)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
+    torch.cuda.synchronize()
+    assert attention_cuda.fused_attention.launches == a0 + 1
+    assert attention_cuda.attention_backward.launches == b0 + 1
+    assert out.shape == (B, L, 64 * H) and dqkv.shape == qkv.shape
+    torch.testing.assert_close(
+        out.float(), attention_cuda.attention_plain(qkv, H, mask).float(),
+        **BF16_TOL)
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H, mask)
+    torch.testing.assert_close(dqkv.float(), ref.float(), **BF16_TOL)
+
+
+# a rank's LayerNorm rows under sequence parallelism: ceil(50 / tp) vision
+# tokens of 768 clips (tp 2) or 1536 (tp 4), 32 / tp text tokens
+@pytest.mark.parametrize("R,D", [(768 * 25, 768), (1536 * 13, 768),
+                                 (64 * 16, 512), (128 * 8, 512)])
+def test_layernorm_kernels_at_sequence_parallel_rows(cuda, R, D):
+    """Kernels C and D on a rank's token chunk against their plain
+    versions (dx within one bf16 ulp; dgamma and dbeta, the partial sums
+    the model group then adds, within SUM_RTOL of the terms' sum)."""
+    x = _randn((R, D), torch.bfloat16, cuda, seed=R, scale=3.0) + 1.5
+    w = _randn((D,), torch.float32, cuda, seed=1, scale=0.1) + 1.0
+    b = _randn((D,), torch.float32, cuda, seed=2)
+    dy = _randn((R, D), torch.bfloat16, cuda, seed=3)
+    y = layernorm_triton.layer_norm(x, w, b)
+    torch.testing.assert_close(
+        y.float(), layernorm_triton.layer_norm_plain(x, w, b).float(),
+        **BF16_TOL)
+    _check_ln_bwd(x, w, dy, layernorm_triton.layer_norm_backward(x, w, dy))
+
+
 # ------------------------------------------------ LayerNorm backward design
 # row counts at the plan's edges (one program, one partial tile, one tile
 # per program, many tiles per program) at a width that is no power of two

@@ -99,21 +99,27 @@ def test_cli_experiment_62_config_equals_jax(extra, tmp_path):
                                   ["--pipeline_parallel", "2"],
                                   ["--sequence_parallel", "1"]])
 def test_cli_refuses_the_parallel_strategies(flag):
-    """Data parallelism and FSDP parse into the JAX package's config; the
-    strategies not ported yet are refused with a pointer to the roadmap."""
-    if flag[0] in ("--data_parallel", "--fsdp"):
-        a, b = cli.parse_args(EXP62 + flag), jax_cli.parse_args(EXP62 + flag)
+    """Data, tensor and sequence parallelism and FSDP parse into the JAX
+    package's config, field by field (sequence parallelism with
+    `--tensor_parallel 2`, which both packages require of it); pipeline
+    parallelism, not ported yet, is refused with a pointer to the
+    roadmap."""
+    if flag[0] != "--pipeline_parallel":
+        argv = EXP62 + flag + (["--tensor_parallel", "2"]
+                               if flag[0] == "--sequence_parallel" else [])
+        a, b = cli.parse_args(argv), jax_cli.parse_args(argv)
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
-        assert (a.data_parallel, a.fsdp) == ((2, False) if flag[0] ==
-                                             "--data_parallel" else (0, True))
+        assert (a.data_parallel, a.fsdp, a.tensor_parallel,
+                a.model.sequence_parallel) == {
+            "--data_parallel": (2, False, 1, False),
+            "--fsdp": (0, True, 1, False),
+            "--tensor_parallel": (0, False, 2, False),
+            "--sequence_parallel": (0, False, 2, True)}[flag[0]]
         return
-    item = "1.4" if flag[0] == "--pipeline_parallel" else "1.3"
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md section 1, item {item}"):
+                       match="ROADMAP.md section 1, item 1.4"):
         cli.parse_args(EXP62 + flag)
-    jax_cli.parse_args(EXP62 + flag + (["--tensor_parallel", "2"]
-                                       if "--sequence_parallel" in flag
-                                       else []))
+    jax_cli.parse_args(EXP62 + flag)
 
 
 @pytest.mark.parametrize("extra", [["--sim_header", "seqTransf"],

@@ -498,15 +498,17 @@ def test_resume_across_the_two_layouts(world, tmp_path):
 
 # ------------------------------------------------------------------ F1
 @pytest.mark.parametrize("over,error,match", [
-    ({"tensor_parallel": 2}, NotImplementedError, "section 1, item 1.3"),
-    ({"tensor_parallel": 2, "sequence_parallel": True}, NotImplementedError,
-     "section 1, item 1.3"),
+    ({"tensor_parallel": 2}, ValueError,
+     "model extent 2 does not divide the 1 process"),
+    ({"tensor_parallel": 3, "sequence_parallel": True}, ValueError,
+     r"model extent 3 does not divide the \[2\] heads"),
     ({"pipeline_parallel": 2}, NotImplementedError, "section 1, item 1.4"),
     ({"data_parallel": 3}, ValueError, "data extent 3")])
 def test_trainer_refuses_what_it_does_not_run(over, error, match):
-    """The trainer reads the parallel fields (it ignored them before): a
-    config from `make_run_config` that asks for a strategy the port does
-    not run, or for 3 data shards in a world of 1, raises."""
+    """The trainer reads the parallel fields: a config from
+    `make_run_config` that asks for the strategy the port does not run
+    (pipeline), for a model extent that does not divide the world of 1 or
+    the tiny arch's 2 heads, or for 3 processes in a world of 1, raises."""
     model = CLIP4Clip(run_config("meanP", 1).model, device="cpu")
     with pytest.raises(error, match=match):
         Trainer(run_config("meanP", 1, **over), model, total_steps=1)
