@@ -8,10 +8,11 @@ Every flag and default of the JAX package's parser, so the canonical
 tree, equal field by field to the JAX package's.  Every header, tower
 and patchify of the JAX package builds; `--sim_header seqLSTM` parses and
 builds and raises at the similarity, as the JAX package's does.  Data
-parallelism, FSDP and tensor and sequence parallelism run one process per
-GPU under `torchrun` (`--data_parallel`, `--fsdp`, `--tensor_parallel`,
-`--sequence_parallel`); pipeline parallelism is refused here (ROADMAP.md
-section 1, item 1.4).
+parallelism, FSDP, tensor and sequence parallelism and pipeline
+parallelism run one process per GPU under `torchrun` (`--data_parallel`,
+`--fsdp`, `--tensor_parallel`, `--sequence_parallel`,
+`--pipeline_parallel`, `--pipeline_microbatches`); tensor and pipeline
+parallelism together raise, as in JAX (`make_run_config`).
 """
 from __future__ import annotations
 
@@ -101,19 +102,19 @@ def get_parser(description="CenterCLIP on Retrieval Task (PyTorch/CUDA)"
                    choices=["amp", "fp16", "fp32", "bf16"])
     p.add_argument("--fused_attention", type=int, default=1,
                    help="accepted for parity with the JAX package (which "
-                        "turns it off under --tensor_parallel); CUDA "
-                        "tensors always take the port's attention kernels, "
-                        "on each rank's heads")
+                        "turns it off under --tensor_parallel and "
+                        "--pipeline_parallel); CUDA tensors always take "
+                        "the port's attention kernels")
     p.add_argument("--remat", type=int, default=0,
                    help="rematerialize transformer blocks on backward "
                         "(activation-memory relief for long-video configs)")
     # parallelism (replaces --world_size/--local_rank/--init_method/--dp/...):
-    # the JAX package's flags and defaults; the port refuses the strategy it
-    # does not run yet in check_ported_parallelism
+    # the JAX package's flags and defaults
     p.add_argument("--data_parallel", type=int, default=0,
                    help="devices, one torchrun process each, as the JAX "
                         "package counts them; the data shards are this "
-                        "over --tensor_parallel; 0 = every process")
+                        "over --tensor_parallel or --pipeline_parallel; "
+                        "0 = every process")
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help="model-axis extent: Megatron column/row-parallel "
                         "blocks over this many ranks, which must divide "
@@ -126,9 +127,12 @@ def get_parser(description="CenterCLIP on Retrieval Task (PyTorch/CUDA)"
                         "the model axis between the parallel layers "
                         "(needs --tensor_parallel > 1)")
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="GPipe stages (not ported: 1 only)")
+                   help="pipe-axis extent: GPipe stages over this many "
+                        "ranks, which must divide the processes (not with "
+                        "--tensor_parallel)")
     p.add_argument("--pipeline_microbatches", type=int, default=0,
-                   help="GPipe microbatch count (unused by the port)")
+                   help="GPipe microbatch count; 0 = the largest <= 4 x "
+                        "stages that divides a rank's rows")
     # cluster algorithms
     p.add_argument("--cluster_algo", type=str, default="kmediods++",
                    choices=["kmediods++", "pooling", "sparse_sampling",
@@ -163,19 +167,9 @@ def get_parser(description="CenterCLIP on Retrieval Task (PyTorch/CUDA)"
     return p
 
 
-def check_ported_parallelism(args: argparse.Namespace) -> None:
-    """Refuse the parallel strategy the port does not run yet."""
-    if args.pipeline_parallel > 1:
-        raise NotImplementedError(
-            "--pipeline_parallel > 1 is not ported yet: the port runs data, "
-            "tensor and sequence parallelism and FSDP (ROADMAP.md section "
-            "1, item 1.4)")
-
-
 def args_to_run_config(args: argparse.Namespace) -> RunConfig:
     """Funnel the argparse namespace into the typed config (the analogue of
     params.py:286-321 derivations, handled in make_run_config)."""
-    check_ported_parallelism(args)
     precision = {"amp": "bf16", "fp16": "bf16", "bf16": "bf16",
                  "fp32": "fp32"}[args.precision]
     kw = dict(

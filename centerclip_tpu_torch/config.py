@@ -7,13 +7,15 @@ per-dataset `preset`s, `to_dict` and `save_hparams`), so the port imports
 nothing of that package.  The fields are the same, so configs built from
 the same keywords compare field by field.  `remat` recomputes each
 transformer block in the backward (`torch.utils.checkpoint`).
-`tensor_parallel` and `sequence_parallel` are run by the `Trainer`
-(`parallel/mesh.py`).  `fused_attention` is accepted and ignored: the JAX
-package turns it off under tensor parallelism, as `make_run_config` does
-here so that the configs compare equal, but the port's CUDA tensors always
-take kernels A and B, under tensor parallelism on each rank's heads.
-`pipeline_parallel > 1` raises where the model is built and in the
-`Trainer`.
+`tensor_parallel`, `sequence_parallel`, `pipeline_parallel` and
+`pipeline_microbatches` are run by the `Trainer` (`parallel/mesh.py`,
+`parallel/pipeline.py`); tensor and pipeline parallelism together raise,
+as in JAX.  `fused_attention` is accepted and ignored: the JAX package
+turns it off under tensor and under pipeline parallelism, as
+`make_run_config` does here so that the configs compare equal, but the
+port's CUDA tensors always take kernels A and B, under tensor parallelism
+on each rank's heads, under pipeline parallelism on each stage's
+microbatches.
 """
 from __future__ import annotations
 
@@ -339,8 +341,9 @@ def make_run_config(**kw) -> RunConfig:
     if data_kw.get("datatype") == "activity":
         model_kw.setdefault("pre_visual_pooling", True)
     # the same field rewrites as the JAX package, so configs compare equal
-    # (`fused_attention` off under tensor parallelism is not read: the
-    # port's CUDA tensors take kernels A and B on each rank's heads)
+    # (`fused_attention` off under tensor or pipeline parallelism is not
+    # read: the port's CUDA tensors take kernels A and B on each rank's
+    # heads, on each stage's microbatches)
     if run_kw.get("tensor_parallel", 1) > 1:
         model_kw["fused_attention"] = False
         if model_kw.get("pipeline_parallel", 1) > 1:

@@ -13,9 +13,10 @@ counterpart of JAX's asynchronously dispatched `device_put`.
 """
 from __future__ import annotations
 
+import copy
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -78,6 +79,20 @@ class BatchLoader:
         self.process_count = process_count
         self.prefetch = max(prefetch, 1)
         self.pin_memory = pin_memory
+        self.batch_stride = (0, 1)
+
+    def strided(self, index: int, count: int) -> "BatchLoader":
+        """A copy of this loader that loads and yields only its batches i
+        with i % count == index (a spread evaluation: each rank reads
+        only the batches it encodes)."""
+        other = copy.copy(self)
+        other.batch_stride = (index, count)
+        return other
+
+    def batch_sizes(self) -> List[int]:
+        """The row count of each batch this loader yields, in order; no
+        sample is loaded."""
+        return [len(c) for c in self._batches_of_indices()]
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -110,16 +125,21 @@ class BatchLoader:
     def __len__(self) -> int:
         n = len(self._indices())
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            n = n // self.batch_size
+        else:
+            n = (n + self.batch_size - 1) // self.batch_size
+        index, count = self.batch_stride
+        return len(range(index, n, count))
 
     def _batches_of_indices(self):
         idx = self._indices()
-        for s in range(0, len(idx), self.batch_size):
+        index, count = self.batch_stride
+        for i, s in enumerate(range(0, len(idx), self.batch_size)):
             chunk = idx[s:s + self.batch_size]
             if self.drop_last and len(chunk) < self.batch_size:
                 return
-            yield chunk
+            if i % count == index:
+                yield chunk
 
     def _collate(self, samples):
         batch = collate(samples)

@@ -19,17 +19,21 @@ CUDA device it raises.
 On N GPUs, one process each (JAX `main.py` on an N-chip mesh):
 
     torchrun --nproc_per_node N -m centerclip_tpu_torch.main <flags> \
-        [--fsdp 1] [--tensor_parallel T [--sequence_parallel 1]]
+        [--fsdp 1] [--tensor_parallel T [--sequence_parallel 1] |
+        --pipeline_parallel S [--pipeline_microbatches M]]
 
 Each rank joins the process group before any device work, trains on its
 model group's shard of every global batch of `--batch_size` (DDP, or FSDP
 with `--fsdp 1`, over the N / T data shards; with `--tensor_parallel T`
 the T ranks of a model group hold the slices of one model and read the
-same rows), and prints its epoch's mean loss to stdout; rank 0 alone
-logs, evaluates (on the whole parameters: under FSDP or tensor
-parallelism every rank first gathers them, `host_state`, into rank 0's
-whole copy), and writes the checkpoints, while the other ranks wait at a
-barrier.
+same rows; with `--pipeline_parallel S` the S ranks of a pipe group hold
+one whole model each, read the same rows and run the towers' block runs
+as S GPipe stages), and prints its epoch's mean loss to stdout.  The
+evaluation's encode is spread over the ranks (each loads and encodes
+every N-th batch on whole parameters: under FSDP or tensor parallelism
+every rank first gathers them, `host_state`, into a whole copy), and
+rank 0 alone scores it, logs and writes the checkpoints, while the other
+ranks wait at a barrier.
 """
 from __future__ import annotations
 
@@ -126,15 +130,14 @@ def _run(cfg, device):
                                   "multi_sentence_per_video", False))
     cut_offs = list(getattr(test_loader.dataset, "cut_off_points", []))
 
-    # ---- eval-only path (main.py:232-239: rank 0 evaluates, the other
-    # ranks wait)
+    # ---- eval-only path: every rank encodes its share of the batches,
+    # rank 0 scores them (main.py:232-239 evaluates on rank 0 alone)
     if cfg.do_eval and not cfg.do_train:
-        res = None
+        res = Evaluator(model).evaluate(
+            test_loader, multi_sentence=multi_sentence,
+            cut_off_points=cut_offs,
+            inference_speed_test=cfg.inference_speed_test)
         if rank == 0:
-            res = Evaluator(model).evaluate(
-                test_loader, multi_sentence=multi_sentence,
-                cut_off_points=cut_offs,
-                inference_speed_test=cfg.inference_speed_test)
             logger.info("eval R@1: %.2f", res["R1"])
         process_barrier("eval_only_done")
         return res
@@ -154,12 +157,12 @@ def _run(cfg, device):
     if rank == 0:
         trainer.metric_writer = MetricWriter(
             os.path.join(cfg.output_dir, "tensorboard"))
-        # under FSDP or tensor parallelism rank 0 evaluates and exports a
-        # copy with whole parameters, loaded from the gathered ones every
-        # epoch
-        eval_model = (CLIP4Clip(cfg.model, device=device, seed=cfg.seed)
-                      if sharded else model)
-        evaluator = Evaluator(eval_model)
+    # under FSDP or tensor parallelism every rank encodes its share of the
+    # evaluation, and rank 0 exports, on a copy with whole parameters,
+    # loaded from the gathered ones every epoch
+    eval_model = (CLIP4Clip(cfg.model, device=device, seed=cfg.seed)
+                  if sharded else model)
+    evaluator = Evaluator(eval_model)
 
     start_epoch, best_r1, best_epoch = 0, 0.0, -1
     if cfg.resume:
@@ -184,17 +187,15 @@ def _run(cfg, device):
             # every rank gathers sharded or sliced parameters and moments (a
             # collective) before rank 0's evaluation and writes
             host = state_mod.host_state(trainer.state) if sharded else None
-            r1 = 0.0
-            if rank == 0:
-                if sharded:
-                    eval_model.load_state_dict(host["params"], strict=True)
-                # the reference evaluates every epoch, unconditionally
-                # (main.py:250-262; --do_eval is its eval-only-and-exit
-                # flag)
-                res = evaluator.evaluate(test_loader,
-                                         multi_sentence=multi_sentence,
-                                         cut_off_points=cut_offs)
-                r1 = res["R1"]
+            if sharded:
+                eval_model.load_state_dict(host["params"], strict=True)
+            # the reference evaluates every epoch, unconditionally
+            # (main.py:250-262; --do_eval is its eval-only-and-exit flag);
+            # the ranks encode, rank 0 scores
+            res = evaluator.evaluate(test_loader,
+                                     multi_sentence=multi_sentence,
+                                     cut_off_points=cut_offs)
+            r1 = res["R1"] if rank == 0 else 0.0
             # ties update best (reference main.py:257 `best_R1 <= R1`): the
             # first eval always writes ckpt_best, later epochs win ties
             is_best = r1 >= best_r1

@@ -40,7 +40,15 @@ the JAX package's `models/clip.py`, reference: modules/clip.py:272-512).
   Remat'd blocks replay their forward collectives in the backward, in the
   same order on every rank.
 
-Pipeline parallelism is not ported; a config that asks for it raises.
+* Under pipeline parallelism (`parallel.mesh.stage_model`) a training
+  forward hands each run of blocks to `parallel.pipeline.pipeline_blocks`:
+  the text tower's 12 blocks with the causal mask, and in the vision
+  tower each run between two cluster modules, DeepCluster heads or
+  token_shift's second shift (JAX `models/clip.py:175-195`).  Everything
+  between the runs (the patchify, `ln_pre`, the cluster layer, the
+  DeepCluster head, `ln_post`, the projections) runs alike on every stage
+  of the pipe group, on the stream the last stage's output was broadcast
+  into.
 """
 from __future__ import annotations
 
@@ -56,20 +64,24 @@ from ..config import ModelConfig
 from ..ops.cluster_layer import TokenClusterInter
 from ..ops.deepcluster import DeepCluster, deep_cluster_plan
 from ..parallel.mesh import shard_tokens, unshard_tokens
+from ..parallel.pipeline import pipeline_blocks
 from .layers import LayerNormF32, ResidualAttentionBlock, causal_mask
 from .resnet import ModifiedResNet
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise on a config the port cannot build.  Every part of the JAX
+    package's config is ported; what is left to refuse is a pipeline
+    extent below 1 or a negative microbatch count."""
+    if cfg.pipeline_parallel < 1 or cfg.pipeline_microbatches < 0:
+        raise ValueError(
+            f"pipeline_parallel {cfg.pipeline_parallel} must be >= 1 and "
+            f"pipeline_microbatches {cfg.pipeline_microbatches} >= 0")
+
 
 # CLIP's pixel statistics (reference: dataloaders/rawvideo_util.py)
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise on the parts of a config the port does not implement yet."""
-    if cfg.pipeline_parallel > 1:
-        raise NotImplementedError(
-            "pipeline parallelism is not ported (ROADMAP.md section 1, item "
-            "1.4)")
 
 
 def is_resnet(cfg: ModelConfig) -> bool:
@@ -141,9 +153,26 @@ class Transformer(nn.Module):
                               use_reentrant=False)
         return block(x, attn_mask, length)
 
+    @property
+    def pp(self) -> bool:
+        """True when a run of blocks takes the GPipe schedule: the stack's
+        axes carry a pipe group and the forward records gradients (a train
+        step; JAX's `_pp_active`: never in evaluation or encode, which run
+        under inference mode)."""
+        return self.axes is not None and self.axes.pp \
+            and torch.is_grad_enabled()
+
     def run(self, blocks, x: torch.Tensor, attn_mask=None) -> torch.Tensor:
         """A run of blocks on the whole stream x [B, L, D]: token-split
-        within the run under sequence parallelism, whole again after it."""
+        within the run under sequence parallelism, whole again after it;
+        on the GPipe schedule under pipeline parallelism (each stage's
+        blocks recomputed in the backward by the schedule itself, so not
+        checkpointed again under `remat`; the remainder blocks are)."""
+        if self.pp:
+            return pipeline_blocks(
+                blocks, lambda b, h: b(h, attn_mask), x,
+                self.axes.microbatches, self.axes,
+                apply_rest=lambda b, h: self.run_block(b, h, attn_mask))
         if not self.sp:
             for block in blocks:
                 x = self.run_block(block, x, attn_mask)

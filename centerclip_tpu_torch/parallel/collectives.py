@@ -33,6 +33,23 @@ group's size n does not divide is padded with zero tokens to n * ceil(L /
 n), as GSPMD pads an uneven shard: rank r holds tokens [r c, (r + 1) c) of
 the padded stream, and a gather trims the padding.  A collective that
 fails raises; nothing falls back to a whole-model path.
+
+The stage hop of pipeline parallelism (`parallel/pipeline.py`, JAX's
+`ppermute` and `psum` over the pipe axis, `pipeline.py:155-162` there):
+
+* `stage_hop`: one tick's exchange on a pipe group, a microbatch (or its
+  gradient) sent to one neighbouring stage and another received from the
+  other, paired in one `batch_isend_irecv`.  gloo's point-to-point reads
+  a tensor's memory from the host, so over gloo a CUDA tensor goes through
+  host memory (NCCL takes the device pointers); so do the broadcasts
+  below.
+* `from_last_stage`: broadcast from the last stage forward (the segment's
+  output, which only it holds: JAX's `psum`), identity backward (the
+  graph after a segment is the same on every stage, so is its cotangent;
+  a sum would scale it by the stage count);
+* `to_stages`: identity forward (every stage holds the replicated input),
+  and backward the sum over the group of a gradient that only the first
+  stage holds, as a broadcast from it.
 """
 from __future__ import annotations
 
@@ -245,3 +262,91 @@ def gather_whole_tokens(x: torch.Tensor, group, length: int
     each rank keeps its chunk's."""
     return _GatherTokens.apply(x, group, dist.get_world_size(group), length,
                                False)
+
+
+# ------------------------------------------------------------- the pipe axis
+def group_ranks(group) -> list:
+    """The global ranks of `group`, in group order."""
+    return dist.get_process_group_ranks(group)
+
+
+def _host_staged(group, t: torch.Tensor) -> bool:
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def stage_hop(send: Optional[torch.Tensor], dst: Optional[int],
+              recv_like: Optional[torch.Tensor], src: Optional[int],
+              group) -> Optional[torch.Tensor]:
+    """One tick of the pipeline: send `send` to group rank `dst` and
+    receive a tensor shaped as `recv_like` from group rank `src`, either
+    or both (None to skip), as one batch of point-to-point operations.
+    Returns the received tensor (on `recv_like`'s device), or None.  Every
+    send must meet its receive in the same tick on the peer."""
+    ranks = group_ranks(group)
+    ops, staged = [], []
+    out = None
+    if send is not None:
+        buf = send.detach().contiguous()
+        if _host_staged(group, buf):
+            buf = buf.cpu()
+        ops.append(dist.P2POp(dist.isend, buf, ranks[dst], group))
+    if recv_like is not None:
+        out = torch.empty_like(recv_like,
+                               memory_format=torch.contiguous_format)
+        buf = out
+        if _host_staged(group, out):
+            buf = torch.empty(out.shape, dtype=out.dtype)
+            staged.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, ranks[src], group))
+    if not ops:
+        return None
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        out.copy_(staged[0])
+    return out
+
+
+def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """`x` of group rank `src` on every rank of `group` (a new tensor;
+    through host memory over gloo, as `stage_hop`)."""
+    out = x.detach().contiguous().clone()
+    buf = out.cpu() if _host_staged(group, out) else out
+    dist.broadcast(buf, group_ranks(group)[src], group=group)
+    if buf is not out:
+        out.copy_(buf)
+    return out
+
+
+class _FromLastStage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        return broadcast_from(y, dist.get_world_size(group) - 1, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ToStages(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return broadcast_from(grad, 0, ctx.group), None
+
+
+def from_last_stage(y: torch.Tensor, group) -> torch.Tensor:
+    """A pipelined segment's exit: the last stage's `y` on every stage; the
+    gradient passes as it is (see the module docstring)."""
+    return _FromLastStage.apply(y, group)
+
+
+def to_stages(x: torch.Tensor, group) -> torch.Tensor:
+    """A pipelined segment's entry: `x` as it is; of its gradient, which
+    only the first stage holds, the sum over the group (a broadcast from
+    the first stage)."""
+    return _ToStages.apply(x, group)

@@ -1,10 +1,11 @@
 # coding=utf-8
-"""The data and model axes: process groups, the device mesh, loader shards,
-the tensor-parallel slices and the DDP / FSDP wrappers (port of the JAX
-package's `parallel/mesh.py`).
+"""The data, model and pipe axes: process groups, the device mesh, loader
+shards, the tensor-parallel slices, the pipeline's stages and the DDP /
+FSDP wrappers (port of the JAX package's `parallel/mesh.py`).
 
 The JAX package runs one process per host over a `"data"` mesh of all its
-chips, folded into `(data, model)` under tensor parallelism.  The port
+chips, folded into `(data, model)` under tensor parallelism and into
+`(data, pipe)` under pipeline parallelism.  The port
 keeps PyTorch's idiom, the reference's own (main.py:54-62, 123-125): one
 process per GPU, started by `torchrun` (`RANK`, `WORLD_SIZE`,
 `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`), NCCL for CUDA tensors and
@@ -49,8 +50,21 @@ axis names.  Each rank runs on `cuda:LOCAL_RANK`.
   `reduce_sequence_parallel_grads` sums their gradients over the model
   group.
 
-Pipeline parallelism (the `"pipe"` axis) is not ported yet (ROADMAP.md
-section 1, item 1.4): `create_mesh` raises on it.
+* Pipeline parallelism (`pipeline_parallel > 1`) folds the ranks into
+  `(data, pipe)`, the pipe axis fastest-varying as JAX's (`mesh.py:
+  56-89`): ranks `i * pp .. i * pp + pp - 1` form a pipe group, read the
+  same rows and run the towers' block runs on the GPipe schedule
+  (`parallel/pipeline.py`), stage `j` holding blocks `[j n / pp, (j + 1)
+  n / pp)` of a run of `n`.  The parameters and the optimizer's moments
+  stay whole on every rank, as JAX's `param_shardings` leaves them (it
+  has no pipe case): only the compute is per stage.  The pipeline's
+  autograd Function hands every rank the whole gradient of each
+  pipelined block (each stage's gathered over the pipe group), and every
+  other parameter is computed alike on each stage, so DDP or FSDP then
+  averages over the data group only.  Under FSDP the towers' blocks are
+  sharded with the root, not one by one: a stage never runs the other
+  stages' blocks.  Tensor and pipeline parallelism do not combine, as in
+  JAX.
 """
 from __future__ import annotations
 
@@ -125,23 +139,25 @@ def init_distributed(device=None, backend: Optional[str] = None
 def create_mesh(data_parallel: int = 0, tensor_parallel: int = 1,
                 pipeline_parallel: int = 1, sequence_parallel: bool = False,
                 device_type: str = "cuda", heads: Iterable[int] = ()):
-    """The device mesh over every rank: `("data",)`, or `("data", "model")`
-    with `tensor_parallel > 1`; None in a run of one process without a
+    """The device mesh over every rank: `("data",)`, `("data", "model")`
+    with `tensor_parallel > 1` or `("data", "pipe")` with
+    `pipeline_parallel > 1`; None in a run of one process without a
     process group (the model then runs unwrapped).
 
     `data_parallel` counts processes, one per GPU, as the JAX package's
     counts devices (`mesh.py:56-89`); `<= 0` means every process, and
     another value must equal the world size (a process cannot sit out).
-    The data extent is then `world / tensor_parallel`.  Raises ValueError
-    when `tensor_parallel` does not divide the world (JAX `mesh.py:85-87`)
-    or the `heads` of every block stack of the model, when
-    `sequence_parallel` comes without tensor parallelism, and
-    NotImplementedError for the pipe axis."""
-    if pipeline_parallel > 1:
-        raise NotImplementedError(
-            "pipeline parallelism is not ported yet (ROADMAP.md section 1, "
-            "item 1.4)")
+    The data extent is then `world / tensor_parallel` (or `/
+    pipeline_parallel`).  Raises ValueError when tensor and pipeline
+    parallelism are combined (JAX `mesh.py:79-81`), when either does not
+    divide the world (JAX `mesh.py:85-87`), when `tensor_parallel` does
+    not divide the `heads` of every block stack of the model, and when
+    `sequence_parallel` comes without tensor parallelism."""
     tp = max(int(tensor_parallel), 1)
+    pp = max(int(pipeline_parallel), 1)
+    if tp > 1 and pp > 1:
+        raise ValueError("tensor_parallel and pipeline_parallel cannot be "
+                         "combined on one mesh")
     if sequence_parallel and tp == 1:
         raise ValueError("sequence_parallel requires tensor_parallel > 1")
     uneven = sorted({h for h in heads if h % tp})
@@ -159,39 +175,67 @@ def create_mesh(data_parallel: int = 0, tensor_parallel: int = 1,
     if world % tp:
         raise ValueError(f"model extent {tp} does not divide the {world} "
                          f"process(es) of the run")
+    if world % pp:
+        raise ValueError(f"pipe extent {pp} does not divide the {world} "
+                         f"process(es) of the run")
     if not dist.is_initialized():
         return None
     from torch.distributed.device_mesh import init_device_mesh
-    if tp == 1:
+    if tp == 1 and pp == 1:
         return init_device_mesh(device_type, (world,),
                                 mesh_dim_names=(DATA_AXIS,))
-    return init_device_mesh(device_type, (world // tp, tp),
-                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    second, name = (tp, MODEL_AXIS) if tp > 1 else (pp, PIPE_AXIS)
+    mesh = init_device_mesh(device_type, (world // second, second),
+                            mesh_dim_names=(DATA_AXIS, name))
+    if pp > 1:
+        # a first collective on every rank of each pipe group, so that
+        # the schedule's point-to-point batches, which leave out the
+        # stages idle at a tick, find their communicator set up
+        dist.barrier(group=mesh.get_group(PIPE_AXIS))
+    return mesh
 
 
 @dataclass(frozen=True)
 class Axes:
     """A rank's place on the mesh, as the model's modules read it: the data
-    group (the global-batch gather, gradient averages) and, under tensor
-    parallelism, the model group, its extent, this rank's index on it and
-    whether the towers split their tokens over it (`sp`)."""
+    group (the global-batch gather, gradient averages); under tensor
+    parallelism the model group, its extent, this rank's index on it and
+    whether the towers split their tokens over it (`sp`); under pipeline
+    parallelism the pipe group, its extent and this rank's stage, and the
+    GPipe microbatch count (0: `pipeline.pick_microbatches`)."""
     data_group: Any
     data_size: int
     model_group: Any = None
     model_size: int = 1
     model_rank: int = 0
     sp: bool = False
+    pipe_group: Any = None
+    pipe_size: int = 1
+    stage: int = 0
+    microbatches: int = 0
 
     @property
     def tp(self) -> bool:
         return self.model_size > 1
 
+    @property
+    def pp(self) -> bool:
+        return self.pipe_size > 1
 
-def mesh_axes(mesh, sequence_parallel: bool = False) -> Optional[Axes]:
+
+def mesh_axes(mesh, sequence_parallel: bool = False,
+              microbatches: int = 0) -> Optional[Axes]:
     """The `Axes` of this rank on `mesh` (None without a mesh)."""
     if mesh is None:
         return None
-    if MODEL_AXIS not in (mesh.mesh_dim_names or ()):
+    names = mesh.mesh_dim_names or ()
+    if PIPE_AXIS in names:
+        data, pipe = mesh.get_group(DATA_AXIS), mesh.get_group(PIPE_AXIS)
+        return Axes(data, dist.get_world_size(data), pipe_group=pipe,
+                    pipe_size=dist.get_world_size(pipe),
+                    stage=dist.get_rank(pipe),
+                    microbatches=int(microbatches))
+    if MODEL_AXIS not in names:
         group = mesh.get_group()
         return Axes(group, dist.get_world_size(group))
     data, model = mesh.get_group(DATA_AXIS), mesh.get_group(MODEL_AXIS)
@@ -501,20 +545,38 @@ def split_model(model: nn.Module, axes: Axes) -> None:
                 block.attn.heads //= axes.model_size
 
 
+def stage_model(model: nn.Module, axes: Axes) -> None:
+    """Hand `axes` (with its pipe group) to the model and to the towers'
+    block stacks (`token_split`), whose training forward then runs its
+    block runs on the GPipe schedule; the header blocks (seqTransf, the
+    cross model) stay sequential, as in JAX."""
+    model.axes = axes
+    for m in model.modules():
+        if isinstance(getattr(m, "resblocks", None), nn.ModuleList) \
+                and getattr(m, "token_split", False):
+            m.axes = axes
+
+
 def shard_params(model: nn.Module, mesh, fsdp: bool = False,
                  find_unused_parameters: bool = False,
-                 sequence_parallel: bool = False) -> nn.Module:
+                 sequence_parallel: bool = False,
+                 microbatches: int = 0) -> nn.Module:
     """The module a train step calls: `model` itself without a mesh; under
-    tensor parallelism `model` split first (`split_model`); then
+    tensor parallelism `model` split first (`split_model`), under pipeline
+    parallelism its towers staged (`stage_model`); then
     `DistributedDataParallel(model)` over the data group, or with `fsdp`
     `model` after `fully_shard` over the data axis per transformer block
-    and on the root (the module docstring).  The freeze mask must be set
-    before: frozen parameters (`requires_grad=False`) are not reduced."""
+    and on the root (the module docstring; under pipeline parallelism the
+    towers' blocks with the root).  The freeze mask must be set before:
+    frozen parameters (`requires_grad=False`) are not reduced."""
     if mesh is None:
         return model
-    axes = mesh_axes(mesh, sequence_parallel)
+    axes = mesh_axes(mesh, sequence_parallel, microbatches)
     if axes.tp:
         split_model(model, axes)
+        mesh = mesh[DATA_AXIS]
+    elif axes.pp:
+        stage_model(model, axes)
         mesh = mesh[DATA_AXIS]
     else:
         model.axes = axes
@@ -526,7 +588,12 @@ def shard_params(model: nn.Module, mesh, fsdp: bool = False,
             else None, process_group=axes.data_group,
             find_unused_parameters=find_unused_parameters)
     from torch.distributed.fsdp import fully_shard
+    staged = {id(b) for m in model.modules()
+              if getattr(m, "token_split", False) and axes.pp
+              for b in m.resblocks}
     for block in list(_blocks(model)):
+        if id(block) in staged:
+            continue
         # a vision block's cluster module runs before the block, outside
         # the block's forward, so it stays out of the block's shards
         inter = getattr(block, "tokencluster_inter", None)

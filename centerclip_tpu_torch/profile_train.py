@@ -5,7 +5,8 @@
         [--preset msrvtt_vitb32_k6] [--remat 0|1] [--stream_scale A]
         [--sim_header meanP|seqTransf|tightTransf] [--cross_logits N]
     torchrun --nproc_per_node N -m centerclip_tpu_torch.profile_train \
-        [--fsdp 0|1] [--tensor_parallel T [--sequence_parallel 1]]
+        [--fsdp 0|1] [--tensor_parallel T [--sequence_parallel 1] |
+         --pipeline_parallel S [--pipeline_microbatches M]]
         [the flags above]
 
 Builds a preset of the JAX package (by default `msrvtt_vitb32_k6`: ViT-B/32,
@@ -30,7 +31,10 @@ cross model's matmul FLOPs over the cuBLAS group's device time.
 Under `torchrun` each model group takes `--batch / (N / T)` rows of the
 global batch under DDP, or FSDP with `--fsdp 1`, over the N / T data
 shards, its T ranks with `--tensor_parallel T` holding the slices of one
-model (the `Trainer`'s wrapper), and rank 0 prints its own card's profile; NCCL's kernels are a group of their own,
+model (the `Trainer`'s wrapper); with `--pipeline_parallel S` each pipe
+group of S ranks takes `--batch / (N / S)` rows and runs the towers' block
+runs as S stages on the GPipe schedule; rank 0 (stage 0) prints its own
+card's profile; NCCL's kernels are a group of their own,
 and they overlap the compute streams, so the device time can exceed the
 wall.  Build the kernels first (`ops/_build.py`), not in N ranks at once.
 """
@@ -91,6 +95,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tensor_parallel", type=int, default=1)
     ap.add_argument("--sequence_parallel", type=int, choices=(0, 1),
                     default=0)
+    ap.add_argument("--pipeline_parallel", type=int, default=1)
+    ap.add_argument("--pipeline_microbatches", type=int, default=0)
     args = ap.parse_args(argv)
     if args.cross_logits and args.sim_header != "tightTransf":
         ap.error("--cross_logits needs --sim_header tightTransf")
@@ -103,10 +109,13 @@ def main(argv=None) -> int:
         sys.stdout = open(os.devnull, "w")
     print(f"{torch.cuda.get_device_name(dev)}, {world} process(es), fsdp "
           f"{args.fsdp}, tensor_parallel {args.tensor_parallel}, "
-          f"sequence_parallel {args.sequence_parallel}")
+          f"sequence_parallel {args.sequence_parallel}, pipeline_parallel "
+          f"{args.pipeline_parallel}")
     overrides = dict(batch_size=args.batch, fsdp=bool(args.fsdp),
                      tensor_parallel=args.tensor_parallel,
-                     sequence_parallel=bool(args.sequence_parallel))
+                     sequence_parallel=bool(args.sequence_parallel),
+                     pipeline_parallel=args.pipeline_parallel,
+                     pipeline_microbatches=args.pipeline_microbatches)
     if args.remat is not None:
         overrides["remat"] = bool(args.remat)
     if args.sim_header is not None:
@@ -119,9 +128,10 @@ def main(argv=None) -> int:
     model = CLIP4Clip(cfg, device=dev, seed=0)
     scale_vision_stream(model, args.stream_scale)
     trainer = Trainer(run, model, total_steps=args.steps + 2)
-    shards = world // args.tensor_parallel      # a model group's rows
+    group = args.tensor_parallel * args.pipeline_parallel
+    shards = world // group             # a model or pipe group's rows
     rows = args.batch // shards
-    g = np.random.default_rng(process_index() // args.tensor_parallel)
+    g = np.random.default_rng(process_index() // group)
     ids = g.integers(1, 49406, (rows, cfg.max_words))
     ids[:, 0], ids[:, -1] = 49406, 49407
     batch = pin_batch({

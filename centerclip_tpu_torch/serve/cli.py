@@ -19,10 +19,13 @@ against it, once or as an HTTP daemon, on the GPU.
       --index_path gallery.npz --port 8080
 
 Every flag of `centerclip_tpu_torch.cli` is accepted (model variant,
-cluster configuration, dataset paths); the serve flags are below.  The
-CLI encodes on one GPU: `--data_parallel` above 1, whose JAX counterpart
-shards the encode over a data mesh, is refused (ROADMAP.md section 1,
-item 1.1), as are the strategies the training CLI refuses.  Weights load as
+cluster configuration, dataset paths); the serve flags are below.
+`--data_parallel N` (N > 1) runs one process over `cuda:0 .. N-1`, as
+the JAX CLI's one-process data mesh does: a model replica a card, each
+gallery batch split over the cards, the flat index's rows split over
+them (`engine.py`, `index.py`); the IVF index raises with it, as JAX's
+does (on the CPU, `device="cpu"`, the N "cards" are N copies on the
+CPU).  Weights load as
 `main` loads them: --init_model, else the pretrained CLIP archive when it
 is there, else the seeded initialisation.  `main(argv, device)` runs on the
 card unless the caller names another device; with none given and no CUDA
@@ -189,6 +192,23 @@ def gallery_batches(batches, multi_sentence: bool,
     yield from drain(force=True)
 
 
+def serve_devices(data_parallel: int, device: torch.device
+                  ) -> List[torch.device]:
+    """The cards of `--data_parallel N` (JAX `serve/cli.py:201-202` builds
+    its mesh over N local devices): `cuda:0 .. N-1`, or N times the CPU
+    when `device` is the CPU; `[device]` for N <= 1.  Raises when the
+    process sees fewer than N GPUs."""
+    n = max(int(data_parallel), 1)
+    if n == 1:
+        return [device]
+    if device.type == "cpu":
+        return [device] * n
+    if torch.cuda.device_count() < n:
+        raise RuntimeError(f"--data_parallel {n} needs {n} GPUs; this "
+                           f"process sees {torch.cuda.device_count()}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 # ---------------------------------------------------------------------- main
 def main(argv: Optional[Sequence[str]] = None, device=None):
     serve_args, rest = _serve_parser().parse_known_args(argv)
@@ -196,22 +216,28 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     from .. import resolve_device
     from ..cli import parse_args
     cfg = parse_args(rest)
-    if cfg.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1 is not ported for the serve CLI: it "
-            "encodes on one GPU (ROADMAP.md section 1, item 1.1)")
     device = resolve_device(device)
+    devices = serve_devices(cfg.data_parallel, device)
 
     from ..models.tokenizer import SimpleTokenizer
     from .engine import RetrievalEngine
-    from .index import load_index
+    from .index import check_single_device, load_index
 
     os.makedirs(cfg.output_dir, exist_ok=True)
     logging.basicConfig(level=logging.INFO)
 
+    # an IVF index with more than one card raises before the model loads
+    index = None
+    if serve_args.command == "build":
+        if serve_args.index_type == "ivf":
+            check_single_device(devices)
+    else:
+        index = load_index(serve_args.index_path, device=devices[0],
+                           devices=devices)
+
     model = load_model_and_params(cfg, device)
     tokenizer = SimpleTokenizer()
-    engine = RetrievalEngine(model, tokenizer=tokenizer, device=device)
+    engine = RetrievalEngine(model, tokenizer=tokenizer, devices=devices)
 
     if serve_args.command == "build":
         from ..data.registry import DATALOADER_DICT
@@ -240,7 +266,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
         return index
 
     # ---- query / serve
-    engine.index = load_index(serve_args.index_path, device=device)
+    engine.index = index
 
     if serve_args.command == "serve":
         from .http import RetrievalServer

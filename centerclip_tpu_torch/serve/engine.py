@@ -17,9 +17,20 @@ before takes about twice the steady one (`chip_smoke.py`'s serve phase
 measures it), so the shapes form a small set that `warmup` runs once each.  Encoding and
 search run under `torch.inference_mode()`, entered per call (it is
 thread-local, and the HTTP server calls from its handler threads).
+
+With `devices` (N cards in one process: `serve.cli --data_parallel N`,
+JAX's one-process data mesh, `serve/engine.py:42-61, 145-163` there) each
+card holds a replica of the model; every gallery batch is padded to a
+multiple of N rows (JAX's `_bucket`) and split into N contiguous parts,
+each encoded on its card, and the features are gathered on the first card
+in order; the flat index splits its rows over the cards
+(`index.VideoIndex`).  Queries are encoded on the first card.  The IVF
+index takes one card and raises with more, as JAX's does.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -29,9 +40,17 @@ import torch
 from .. import resolve_device
 from ..models.clip4clip import CLIP4Clip
 from ..models.tokenizer import SimpleTokenizer, tokenize_batch
-from .index import QUERY_BUCKETS, VideoIndex, _next_bucket
+from .index import (QUERY_BUCKETS, VideoIndex, _next_bucket,
+                    check_single_device)
 
 logger = logging.getLogger(__name__)
+
+
+def _on(device: torch.device):
+    """The CUDA device context of a card (kernels and libraries launch on
+    the current device's stream); nothing for the CPU."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -49,17 +68,25 @@ class RetrievalEngine:
         tokenizer: optional tokenizer (built on first use otherwise).
         device: None means the GPU and raises `RuntimeError` without one;
             pass "cpu" explicitly to run the plain PyTorch versions.
+        devices: the cards of a data-parallel engine (module docstring);
+            the first is `device`.
     """
 
     def __init__(self, model: CLIP4Clip, index: Optional[VideoIndex] = None,
-                 tokenizer: Optional[SimpleTokenizer] = None, device=None):
+                 tokenizer: Optional[SimpleTokenizer] = None, device=None,
+                 devices: Optional[Sequence] = None):
         if model.cfg.sim_header not in ("meanP", "seqTransf"):
             raise ValueError(
                 f"sim_header={model.cfg.sim_header!r} cannot be served from "
                 "a pooled index; meanP/seqTransf only (use train.evaluate."
                 "Evaluator for tightTransf)")
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in devices] if devices \
+            else [resolve_device(device)]
+        self.device = self.devices[0]
         self.model = model.to(self.device).eval()
+        # a replica a card (module docstring)
+        self.replicas = [self.model] + [
+            copy.deepcopy(self.model).to(d) for d in self.devices[1:]]
         self.index = index
         self._tokenizer = tokenizer
         self.max_words = model.cfg.max_words
@@ -155,11 +182,12 @@ class RetrievalEngine:
                 idx[:n].cpu().numpy())
 
     # ----------------------------------------------------------- index build
-    def _embed_video(self, video: torch.Tensor, video_mask: torch.Tensor
-                     ) -> torch.Tensor:
+    def _embed_video(self, video: torch.Tensor, video_mask: torch.Tensor,
+                     replica: int = 0) -> torch.Tensor:
         """Pooled, normalised video vectors [B, D]: the video side of
-        `loose_similarity` (JAX package `serve/engine.py:126-142`)."""
-        m = self.model
+        `loose_similarity` (JAX package `serve/engine.py:126-142`), on
+        replica `replica`'s card."""
+        m = self.replicas[replica]
         vm = m.video_mask_after_cluster(video_mask)
         return m.video_vector(m.get_visual_output(video, vm), vm)
 
@@ -172,23 +200,32 @@ class RetrievalEngine:
         "video_mask": [B,T]} as numpy arrays or tensors; a batch in pinned
         memory is copied to the card without blocking the host.  A short
         batch is padded on the device, after the copy, to the bucket of the
-        largest batch so far (sticky bucket).  Results stay on the device
-        and are read back once, at the end."""
+        largest batch so far (sticky bucket), a multiple of the card
+        count; with N cards, card i encodes rows [i b / N, (i + 1) b / N)
+        of the padded batch of b.  Results stay on the first card and are
+        read back once, at the end."""
         chunks = []
         target = 0
+        n_dev = len(self.devices)
         for batch in batches:
             vmask = torch.as_tensor(batch["video_mask"])
             video = torch.as_tensor(batch["video"])
             n = vmask.shape[0]
-            target = max(target, _next_bucket(n))
+            target = max(target, -(-_next_bucket(n) // n_dev) * n_dev)
             if video.dim() == 6:
                 video = video.reshape(-1, *video.shape[-3:])
             frames = video.shape[0] // n
-            video = _pad_rows(video.to(self.device, non_blocking=True),
-                              target * frames)
-            vmask = _pad_rows(vmask.to(self.device, non_blocking=True),
-                              target)
-            chunks.append(self._embed_video(video, vmask)[:n])
+            rows = target // n_dev
+            for i, dev in enumerate(self.devices):
+                lo, hi = min(i * rows, n), min((i + 1) * rows, n)
+                if hi == lo and i:
+                    break           # the rest of the parts are padding
+                v = _pad_rows(video[lo * frames:hi * frames].to(
+                    dev, non_blocking=True), rows * frames)
+                m = _pad_rows(vmask[lo:hi].to(dev, non_blocking=True), rows)
+                with _on(dev):
+                    out = self._embed_video(v, m, i)[:hi - lo]
+                chunks.append(out.to(self.device, non_blocking=True))
         if not chunks:
             raise ValueError("no video batches")
         return torch.cat(chunks).cpu().numpy()
@@ -202,13 +239,15 @@ class RetrievalEngine:
         nprobe, ... for ivf)."""
         if index_type not in ("flat", "ivf"):
             raise ValueError(f"unknown index_type {index_type!r}")
+        if index_type == "ivf":
+            check_single_device(self.devices)
         emb = self.embed_video_batches(batches)
         if emb.shape[0] != len(video_ids):
             raise ValueError(f"{emb.shape[0]} embeddings vs "
                              f"{len(video_ids)} ids")
         if index_type == "flat":
             self.index = VideoIndex(emb, video_ids, quantize=quantize,
-                                    device=self.device, **index_kw)
+                                    devices=self.devices, **index_kw)
         else:
             from .ivf import IVFVideoIndex
             self.index = IVFVideoIndex(emb, video_ids, quantize=quantize,

@@ -15,12 +15,19 @@ arithmetic, so both packages store the same codes) or as tensors, which are
 normalised and quantised where they lie: a gallery drawn on the card never
 visits the host.
 
+With `devices` (the cards of `serve.cli --data_parallel N`, JAX's data
+mesh, `serve/index.py:105-135` there) the padded rows are split over the
+cards in N contiguous parts; a search scores and takes the top k on each
+card, and merges the N candidate lists on the first card (one more top
+k).  The IVF index takes one device, as JAX's does.
+
 `save` / `load` use the JAX package's `.npz` format, so each package reads
 the other's files; `load_index` opens either index type.
 """
 from __future__ import annotations
 
 import json
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -100,13 +107,18 @@ class VideoIndex:
         quantize: "float32" | "bfloat16" | "int8" storage.
         device: None means the GPU (raises without one); "cpu" explicitly
             keeps the gallery on the CPU.
+        devices: the cards the rows are split over (module docstring); the
+            first is `device`, where results are merged.
     """
 
     def __init__(self, embeddings, video_ids: Sequence[str],
-                 quantize: str = "float32", device=None):
+                 quantize: str = "float32", device=None,
+                 devices: Optional[Sequence] = None):
         if quantize not in QUANT_MODES:
             raise ValueError(f"quantize must be one of {QUANT_MODES}")
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in devices] if devices \
+            else [resolve_device(device)]
+        self.device = self.devices[0]
         emb = normalize_rows(embeddings, self.device)
         check_rows(emb, len(video_ids))
         self.video_ids: List[str] = [str(v) for v in video_ids]
@@ -116,25 +128,54 @@ class VideoIndex:
         self._place(*quantize_rows(emb, quantize))
 
     def _place(self, codes: torch.Tensor, scales: Optional[torch.Tensor]):
-        """Pad the rows to a multiple of 8 on the device."""
+        """Pad the rows to a multiple of 8 (and of the card count) and put
+        each card's contiguous part on it (`_parts`: codes, scales or
+        None, first row)."""
         codes = codes.to(self.device)
-        self.n_padded = -(-self.n_valid // ROW_MULTIPLE) * ROW_MULTIPLE
+        mult = math.lcm(ROW_MULTIPLE, len(self.devices))
+        self.n_padded = -(-self.n_valid // mult) * mult
         pad = self.n_padded - codes.shape[0]
-        self._codes = torch.cat([codes, codes.new_zeros((pad, self.dim))])
-        self._scales = None
+        codes = torch.cat([codes, codes.new_zeros((pad, self.dim))])
         if scales is not None:
             scales = scales.to(self.device)
-            self._scales = torch.cat([scales, scales.new_ones((pad, 1))])
+            scales = torch.cat([scales, scales.new_ones((pad, 1))])
+        rows = self.n_padded // len(self.devices)
+        self._parts = [
+            (codes[i * rows:(i + 1) * rows].to(d),
+             scales[i * rows:(i + 1) * rows].to(d) if scales is not None
+             else None, i * rows) for i, d in enumerate(self.devices)]
+
+    @property
+    def _codes(self) -> torch.Tensor:
+        """The padded codes, whole, on the first card."""
+        return torch.cat([c.to(self.device) for c, _, _ in self._parts])
+
+    @property
+    def _scales(self) -> Optional[torch.Tensor]:
+        if self._parts[0][1] is None:
+            return None
+        return torch.cat([s.to(self.device) for _, s, _ in self._parts])
 
     def search_device(self, q: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Normalised queries [Q, D] on the index's device -> (scores
         [Q, k] fp32, row indices [Q, k] int64), still on the device."""
-        scores = score_operand(q) @ score_operand(self._codes).t()
-        if self._scales is not None:
-            scores = scores * self._scales[:, 0][None, :]
-        scores[:, self.n_valid:] = float("-inf")
-        return torch.topk(scores, k, dim=1)
+        found = []
+        for codes, scales, first in self._parts:
+            qd = q.to(codes.device)
+            scores = score_operand(qd) @ score_operand(codes).t()
+            if scales is not None:
+                scores = scores * scales[:, 0][None, :]
+            scores[:, max(self.n_valid - first, 0):] = float("-inf")
+            top = torch.topk(scores, min(k, codes.shape[0]), dim=1)
+            if len(self._parts) == 1:
+                return top
+            found.append((top.values.to(self.device),
+                          top.indices.to(self.device) + first))
+        values = torch.cat([v for v, _ in found], dim=1)
+        indices = torch.cat([i for _, i in found], dim=1)
+        top = torch.topk(values, k, dim=1)
+        return top.values, torch.gather(indices, 1, top.indices)
 
     def search(self, query_emb: np.ndarray, k: int = 5
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -182,9 +223,11 @@ class VideoIndex:
             video_ids=np.asarray(self.video_ids), meta=json.dumps(meta))
 
     @classmethod
-    def load(cls, path: str, device=None) -> "VideoIndex":
-        """Open a flat index saved by either package; the stored codes are
-        restored exactly, not re-quantised."""
+    def load(cls, path: str, device=None,
+             devices: Optional[Sequence] = None) -> "VideoIndex":
+        """Open a flat index saved by either package (on `devices`, split as
+        a build splits it); the stored codes are restored exactly, not
+        re-quantised."""
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["meta"]))
             if meta.get("index_type", "flat") != "flat":
@@ -195,7 +238,8 @@ class VideoIndex:
         quantize = meta["quantize"]
         emb = codes.astype(np.float32) * scales if quantize == "int8" \
             else codes.astype(np.float32)
-        out = cls(emb, ids, quantize=quantize, device=device)
+        out = cls(emb, ids, quantize=quantize, device=device,
+                  devices=devices)
         out._place(*codes_from_numpy(codes, scales, quantize))
         return out
 
@@ -216,12 +260,22 @@ def codes_from_numpy(codes: np.ndarray, scales: np.ndarray, quantize: str
     return (t.to(torch.bfloat16) if quantize == "bfloat16" else t), None
 
 
-def load_index(path: str, device=None):
+def load_index(path: str, device=None, devices: Optional[Sequence] = None):
     """Open a saved gallery index of either type: meta's `index_type`
-    picks the flat `VideoIndex` or the cluster-pruned `IVFVideoIndex`."""
+    picks the flat `VideoIndex` (split over `devices` when there are more
+    than one) or the cluster-pruned `IVFVideoIndex`, which raises with
+    more than one device, as JAX's does with a mesh (`ivf.py:505-508`)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["meta"]))
     if meta.get("index_type", "flat") == "ivf":
+        check_single_device(devices)
         from .ivf import IVFVideoIndex
         return IVFVideoIndex.load(path, device=device)
-    return VideoIndex.load(path, device=device)
+    return VideoIndex.load(path, device=device, devices=devices)
+
+
+def check_single_device(devices: Optional[Sequence]) -> None:
+    """Raise for more than one device: the IVF index lives on one card."""
+    if devices is not None and len(devices) > 1:
+        raise ValueError("the IVF index is single-device; drop "
+                         "--data_parallel or use the flat index")

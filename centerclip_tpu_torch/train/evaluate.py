@@ -12,16 +12,21 @@ Two phases, like the reference:
 Metrics: the standard or the multi-sentence protocol (main.py:466-494).
 Everything runs under `torch.inference_mode()`.
 
-In a run of more than one process only rank 0 evaluates, on a model with
-whole parameters (under FSDP or tensor parallelism, a copy loaded from the
-gathered ones), while the other ranks wait at a barrier (`main.py`;
-reference main.py:232-239).  JAX evaluates on its 2-D mesh (`main.py:
-110-135`); the port keeps rank 0's whole copy on purpose.  A model whose
-parameters are FSDP shards or tensor-parallel slices raises here: its
-forward would need every rank.
+In a run of more than one process phase 1 is spread over the ranks, as
+JAX's single-process evaluation shards it over its local mesh
+(`train/evaluate.py:41-47` there): every rank holds a model with whole
+parameters (under FSDP or tensor parallelism a copy loaded from the
+gathered ones), loads and encodes only every N-th batch of the loader
+(`BatchLoader.strided`; the multi-sentence cut-offs are placed by the
+batch sizes, which need no loading), and the features are gathered to
+rank 0 in the loader's order (`gather_object`, host memory).  Rank 0
+alone runs phase 2 and the metrics; `evaluate` returns None on the other
+ranks.  A model whose parameters are FSDP shards or tensor-parallel
+slices raises here: its forward would need every rank.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from typing import Any, Dict, Iterable, List, Optional
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 from ..models.clip4clip import CLIP4Clip
-from ..parallel.mesh import is_sharded
+from ..parallel.mesh import is_sharded, process_index, world_size
 from .loop import Batch
 from .metrics import (compute_metrics, reshape_multi_sentence_sim,
                       tensor_text_to_video_metrics, tensor_video_to_text_sim)
@@ -39,7 +44,9 @@ logger = logging.getLogger(__name__)
 
 
 class Evaluator:
-    """Stateless two-phase evaluator over the model's device."""
+    """Stateless two-phase evaluator over the model's device; in a run of
+    more than one process, phase 1 is spread over its ranks (module
+    docstring)."""
 
     def __init__(self, model: CLIP4Clip):
         if is_sharded(model):
@@ -58,38 +65,61 @@ class Evaluator:
                        ) -> Dict[str, Any]:
         """Phase 1 (main.py:416-452).  `batches` yield dicts with
         input_ids / video / video_mask (numpy arrays or tensors;
-        attention_mask is not read)."""
+        attention_mask is not read).  Spread over N ranks, `batches` is a
+        `BatchLoader`: each rank loads and encodes only the batches i with
+        i % N == its rank, and rank 0 alone returns the features, all
+        ranks' in the loader's order (the others None)."""
         m = self.model
-        seq_list, vis_list, vmask_list = [], [], []
-        total_video_num = 0
+        rank, world = process_index(), world_size()
+        parts = []      # (batch index, sequence, visual, mask) per batch
         cut0 = [c - 1 for c in (cut_off_points or [])]          # main.py:399
         t0 = time.time()
-        for batch in batches:
-            # numpy arrays or pinned tensors; a pinned tensor (or a view of
-            # it) is copied to the card without blocking the host
+        if world > 1:
+            starts = np.cumsum([0] + batches.batch_sizes())
+            indices = range(rank, len(starts) - 1, world)
+            batches = batches.strided(rank, world)
+        else:
+            starts, indices = None, itertools.count()
+        total_video_num = 0
+        for batch, index in zip(batches, indices):
             ids = torch.as_tensor(batch["input_ids"])
-            seq_list.append(m.get_sequence_output(
-                self._tensor(ids.reshape(-1, ids.shape[-1])).long()))
-            video = torch.as_tensor(batch["video"])
-            vmask = torch.as_tensor(batch["video_mask"])
+            filt = None
             if multi_sentence:
                 # encode only the unique videos at caption cut-offs
-                s_, e_ = total_video_num, total_video_num + ids.shape[0]
+                s_ = (total_video_num if starts is None
+                      else int(starts[index]))
+                e_ = total_video_num = s_ + ids.shape[0]
                 filt = [i - s_ for i in cut0 if s_ <= i < e_]
-                total_video_num += ids.shape[0]
-                if not filt:
-                    continue
+            # numpy arrays or pinned tensors; a pinned tensor (or a view of
+            # it) is copied to the card without blocking the host
+            seq = m.get_sequence_output(
+                self._tensor(ids.reshape(-1, ids.shape[-1])).long())
+            if filt is not None and not filt:
+                parts.append((index, seq, None, None))
+                continue
+            video = torch.as_tensor(batch["video"])
+            vmask = torch.as_tensor(batch["video_mask"])
+            if filt is not None:
                 video, vmask = video[filt], vmask[filt]
             vm = m.video_mask_after_cluster(self._tensor(vmask))
             visual = m.get_visual_output(self._tensor(video), vm)
             if m.cfg.pre_visual_pooling:
                 # ActivityNet eval memory valve (clip4clip.py:237-243)
                 visual = m.pooled_video(visual, vm)
-            vis_list.append(visual)
-            vmask_list.append(vm)
-        seq = torch.cat(seq_list).cpu().numpy()
-        vis = torch.cat(vis_list).cpu().numpy()
-        vmask = torch.cat(vmask_list).cpu().numpy()
+            parts.append((index, seq, visual, vm))
+        # one read back to the host at the end
+        parts = [(i, *(t.cpu().numpy() if t is not None else None
+                       for t in ts)) for i, *ts in parts]
+        if world > 1:
+            gathered = [None] * world if rank == 0 else None
+            torch.distributed.gather_object(parts, gathered, dst=0)
+            if rank != 0:
+                return None
+            parts = sorted((p for ps in gathered for p in ps),
+                           key=lambda p: p[0])
+        seq = np.concatenate([p[1] for p in parts])
+        vis = np.concatenate([p[2] for p in parts if p[2] is not None])
+        vmask = np.concatenate([p[3] for p in parts if p[3] is not None])
         return {"sequence": seq, "visual": vis, "video_mask": vmask,
                 "infer_time": time.time() - t0}
 
@@ -111,9 +141,12 @@ class Evaluator:
                  cut_off_points: Optional[List[int]] = None,
                  inference_speed_test: bool = False) -> Dict[str, Any]:
         """Full protocol; returns {'t2v', 'v2t', 'R1', 'sim_matrix',
-        'infer_time'} (main.py:381-499)."""
+        'infer_time'} (main.py:381-499), on rank 0 of a spread evaluation
+        (None on the other ranks)."""
         cached = self.cache_features(batches, multi_sentence=multi_sentence,
                                      cut_off_points=cut_off_points)
+        if cached is None:
+            return None
         logger.info("inference time: %.2fs", cached["infer_time"])
         if inference_speed_test:
             return {"R1": 0.0, "infer_time": cached["infer_time"]}

@@ -19,18 +19,22 @@ columns) from its own `torch.Generator` on the model's device, seeded from
 `jax.random.fold_in(rng, step)`, so a resumed run draws what the
 uninterrupted run drew.  The draws themselves are not `jax.random`'s.
 
-Under `torchrun` the `Trainer` builds the mesh from the config, `"data"`
-or `("data", "model")` with `cfg.tensor_parallel > 1`, and wraps the
-model (`parallel.shard_params`: the tensor-parallel slices, then DDP, or
-FSDP with `cfg.fsdp`, over the data axis); each model group steps on its
-rows of the global batch, the model's loss is the global batch's
-(`CLIP4Clip.forward`), and a step's update is the one-process update at
-the global batch.  With `cfg.model.sequence_parallel` the gradients it
-leaves partial are summed over the model group before the update
-(`parallel.mesh.reduce_sequence_parallel_grads`).  Gradient accumulation
-reduces the gradients on its last micro-batch only.  The logged losses
-are the means over the ranks.  Pipeline parallelism raises (ROADMAP.md
-section 1, item 1.4), as does a process count other than the world size.
+Under `torchrun` the `Trainer` builds the mesh from the config, `"data"`,
+`("data", "model")` with `cfg.tensor_parallel > 1` or `("data", "pipe")`
+with `cfg.model.pipeline_parallel > 1`, and wraps the model
+(`parallel.shard_params`: the tensor-parallel slices or the towers'
+pipe axes, then DDP, or FSDP with `cfg.fsdp`, over the data axis); each
+model or pipe group steps on its rows of the global batch, the model's
+loss is the global batch's (`CLIP4Clip.forward`), and a step's update is
+the one-process update at the global batch.  With
+`cfg.model.sequence_parallel` the gradients it leaves partial are summed
+over the model group before the update
+(`parallel.mesh.reduce_sequence_parallel_grads`); under pipeline
+parallelism the pipeline's backward already hands every rank the whole
+gradients (`parallel/pipeline.py`), so the clipping sees the gradients
+after the pipe sum.  Gradient accumulation reduces the gradients on its
+last micro-batch only.  The logged losses are the means over the ranks.
+A process count other than the world size raises.
 """
 from __future__ import annotations
 
@@ -154,7 +158,8 @@ class Trainer:
         self.module = shard_params(
             model, self.mesh, fsdp=cfg.fsdp,
             find_unused_parameters=cfg.freeze_clip,
-            sequence_parallel=cfg.model.sequence_parallel)
+            sequence_parallel=cfg.model.sequence_parallel,
+            microbatches=cfg.model.pipeline_microbatches)
         self.optimizer = build_optimizer(
             cfg.optim, model, total_steps,
             freeze_layer_num=cfg.freeze_layer_num, freeze_clip=cfg.freeze_clip)

@@ -219,6 +219,32 @@
    meshes (TP_ATTENTION_CASES) and C and D at their SP-local rows
    (TP_LAYERNORM_CASES) against their plain versions, timed beside SDPA
    and ATen.
+16. Still in the parallel phase, the thirteenth main path: leg (b''),
+   PP_GLOO_RANKS gloo ranks sharing the card as a (data 1, pipe 2) mesh at
+   TP_GLOO_BATCH clips: each rank takes the one-process step first, then
+   the first step under pipeline parallelism (the text tower's 12 blocks
+   and each 6-block vision run as 2 GPipe stages of 8 microbatches; the
+   patchify, the cluster layer with kernel E, ln_post and the loss
+   replicated on both stages), held to it as leg (b') is (the one-process
+   medoid ids replayed, the flipped segments counted) on every rank, each
+   gradient's length too (TP_GRAD_NORM_RTOL); every kernel's count must
+   have moved on each rank, the stages' cluster inputs and medoid ids and
+   the parameters after the step must be equal to the bit on the ranks,
+   and on each rank A, C and E are held against their plain versions on
+   the first input of each shape the step gave them
+   (`recording_kernel_inputs`), B and D on the same inputs with a seeded
+   output gradient.  Then A and B at the microbatch
+   shapes of leg (c)'s pipe meshes (PP_ATTENTION_CASES) and C and D at
+   their rows (PP_LAYERNORM_CASES), timed beside SDPA and ATen.  With
+   `--gpus N`, leg (c) also runs PP_MULTI_MESHES ((2, 2), (1, 4) with
+   its 2-block remainder, (2, 2) + FSDP) held to the one-process step,
+   with step time and peak memory beside DDP's; `main --pipeline_parallel
+   2` over the N ranks (its export loaded strict) and the evaluation of
+   its export on GALLERY_ROWS rows by rank 0 alone against the same
+   spread over the N ranks (metrics equal, seconds of each); and, in this
+   process, the serve CLI's `build --data_parallel N` against `build` on
+   one card (codes, scores and ranked ids, clips/s of each, the loading
+   and the cards' encode apart) and its refusal of the IVF index.
 
 Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
 `{"serve": ...}`, a `{"cluster": ...}`, an `{"activity": ...}`, a
@@ -280,6 +306,8 @@ N_EVAL_CLIPS = 64
 # short side 224) and scripts/msrvtt.sh's `common` + experiment 62 flags
 MAIN_VIDEOS, MAIN_FRAMES, MAIN_HW, MAIN_CAPTIONS = 48, 36, (224, 298), 8
 MAIN_BATCH = 128              # 48 x 8 pairs: 3 steps, then 48 clips of eval
+# `--gpus N`'s evaluation gallery: the rows of MSR-VTT's 1k-A test split
+GALLERY_ROWS = 1000
 EXP62_FLAGS = [
     "--do_train", "1", "--do_eval", "1", "--datatype", "msrvtt",
     "--max_words", "32", "--max_frames", "12", "--feature_framerate", "3",
@@ -327,12 +355,57 @@ PARALLEL_TIMEOUT = 600
 # picks differed.  Leg (c) holds its TP meshes the same way.
 TP_GLOO_RANKS, TP_GLOO_BATCH = 2, 32
 TP_LOSS_RTOL, TP_GRAD_MIN_COS = 1e-3, 0.999
+# a cosine does not see a gradient scaled by a wrong factor (the group
+# size, say): each gradient's length is held to the one-process length
+# within the error that the cosine bound allows across it, sqrt(2 (1 -
+# cos)) of the length (0.045)
+TP_GRAD_NORM_RTOL = (2 * (1 - TP_GRAD_MIN_COS)) ** 0.5
 # leg (c)'s meshes on four cards: (label, flags), each at the global 128
 TP_MULTI_MESHES = (
     ("tp2_sp", ["--tensor_parallel", "2", "--sequence_parallel", "1"]),
     ("tp2_sp_fsdp", ["--tensor_parallel", "2", "--sequence_parallel", "1",
                      "--fsdp", "1"]),
     ("tp4_sp", ["--tensor_parallel", "4", "--sequence_parallel", "1"]))
+# the thirteenth main path: pipeline parallelism (GPipe) on the same
+# fixture and init.  Leg (b''): PP_GLOO_RANKS gloo ranks share the card as
+# a (data 1, pipe PP_GLOO_RANKS) mesh at TP_GLOO_BATCH clips (gloo stages
+# each tick's hop and the segments' broadcasts through host memory).  A PP
+# step computes each row as one process does, but its matmuls run at a
+# microbatch's rows (cuBLAS picks other bf16 kernels there, as at a DP
+# rank's) and each block's weight gradient is rounded to bf16 per
+# microbatch before the fp32 sum over them: one more rounding per
+# microbatch, as TP's partial sums add one per rank.  So a PP step is held
+# as a TP step is (TP_LOSS_RTOL, TP_GRAD_MIN_COS), with the one-process
+# medoid ids replayed: where no pick flipped, the replay changes nothing,
+# and the flipped segments are counted either way.
+PP_GLOO_RANKS = 2
+ALL_KERNELS = ("attention_fwd", "attention_bwd", "layernorm_fwd",
+               "layernorm_bwd", "kmedoids")
+# leg (c)'s pipe meshes on four cards: (label, flags), each at the global
+# 128; (1, 4) splits each 6-block vision run 1 + 1 + 1 + 1 and runs the
+# remaining 2 blocks after the pipeline, and the text tower's 12 blocks
+# 3 a stage
+PP_MULTI_MESHES = (
+    ("pp2", ["--pipeline_parallel", "2"]),
+    ("pp4", ["--pipeline_parallel", "4"]),
+    ("pp2_fsdp", ["--pipeline_parallel", "2", "--fsdp", "1"]))
+# kernels A-D at the microbatch shapes of the pipe meshes at the global 128
+# (M = 4 S: (2, 2) and (1, 4) both give 96 frames a microbatch before the
+# cluster layer, 48 after it, 8 texts) and of leg (b'') (32 clips, M = 8:
+# 48 frames, 24, 4 texts)
+PP_ATTENTION_CASES = (("pp, vision blocks 1-6", 96, 50, 12, None),
+                      ("pp, vision blocks 7-12", 48, 50, 12, None),
+                      ("pp, text", 8, 32, 8, "causal"),
+                      ("pp gloo, vision blocks 7-12", 24, 50, 12, None),
+                      ("pp gloo, text", 4, 32, 8, "causal"))
+PP_LAYERNORM_CASES = (("pp, vision ln_1/ln_2 blocks 1-6", 96 * 50, 768),
+                      ("pp, vision ln_1/ln_2 blocks 7-12", 48 * 50, 768),
+                      ("pp, text ln_1/ln_2", 8 * 32, 512),
+                      ("pp gloo, vision ln_1/ln_2 7-12", 24 * 50, 768),
+                      ("pp gloo, text ln_1/ln_2", 4 * 32, 512))
+# the serve CLI's `build --data_parallel N` on main's fixture: one gallery
+# batch of all 48 clips, split 48 / N a card
+SERVE_MULTI_BATCH = MAIN_VIDEOS
 # the fourth main path: ViT-B/16 at the recipe's batch of 128; the step
 # count is what is cut to keep the script inside its time limit
 VITB16_PRESET, VITB16_WARMUP_STEPS, VITB16_TIMED_STEPS = \
@@ -905,6 +978,35 @@ def occupancy_note(row):
         for k, v in occ.items()) + ")"
 
 
+def held_layernorm_bwd(torch, label, x, w, dy):
+    """Kernel D against `layer_norm_bwd_plain` on x, dy [..., D] (x's
+    dtype) and w [D]: dx within BF16_ATOL / BF16_RTOL (bf16) or FP32_ATOL
+    / FP32_RTOL (fp32) of the plain dx, dgamma and dbeta within SUM_RTOL
+    of the sum of their terms' magnitudes; fails otherwise.  Returns the
+    kernel's (dx, dgamma, dbeta), dx's largest error and dgamma's and
+    dbeta's."""
+    from centerclip_tpu_torch.ops import layernorm_triton
+    atol, rtol = ((BF16_ATOL, BF16_RTOL) if x.dtype == torch.bfloat16
+                  else (FP32_ATOL, FP32_RTOL))
+    dx, dw, db = layernorm_triton.layer_norm_backward(x, w, dy)
+    rx, rw, rb = layernorm_triton.layer_norm_bwd_plain(x, w, dy)
+    xf = x.reshape(-1, x.shape[-1]).float()
+    dyf = dy.reshape(-1, x.shape[-1]).float()
+    xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
+        xf.var(-1, correction=0, keepdim=True) + 1e-5)
+    err_x = (dx.float() - rx.float()).abs()
+    ok = bool((err_x <= atol + rtol * rx.float().abs()).all())
+    err_wb = 0.0
+    for out, ref, terms in ((dw, rw, (dyf * xhat).abs().sum(0)),
+                            (db, rb, dyf.abs().sum(0))):
+        e = (out - ref).abs()
+        ok = ok and bool((e <= SUM_RTOL * terms + 1e-6).all())
+        err_wb = max(err_wb, e.max().item())
+    if not ok:
+        fail(f"layernorm bwd [{label}] disagrees with its plain version")
+    return (dx, dw, db), err_x.max().item(), err_wb
+
+
 def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
     """Kernel D against `layer_norm_bwd_plain` on seeded x, dy [R, D] of
     `dtype` (bf16 by default; dx within one bf16 ulp, fp32 within
@@ -924,8 +1026,8 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
     dy = torch.randn((R, D), generator=gen, device=dev).to(dtype)
     w = torch.randn(D, generator=gen, device=dev) * 0.1 + 1
     b = torch.randn(D, generator=gen, device=dev)
-    dx, dw, db = layernorm_triton.layer_norm_backward(x, w, dy)
-    rx, rw, rb = layernorm_triton.layer_norm_bwd_plain(x, w, dy)
+    (dx, dw, db), err_x, err_wb = held_layernorm_bwd(
+        torch, label, x, w, dy)
     xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
     out = layernorm_triton.layer_norm(xs, ws, bs)
     out.backward(dy)
@@ -958,17 +1060,6 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
           f"F.layer_norm(fp32) {f_lib_ms:.4f} bound {f_b_ms:.4f} "
           f"({f_b_by})")
     del fwd_err
-    xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
-        xf.var(-1, correction=0, keepdim=True) + 1e-5)
-    err_x = (dx.float() - rx.float()).abs()
-    ok = bool((err_x <= atol + rtol * rx.float().abs()).all())
-    err_wb = 0.0
-    for out, ref, terms in ((dw, rw, (dyf * xhat).abs().sum(0)),
-                            (db, rb, dyf.abs().sum(0))):
-        e = (out - ref).abs()
-        ok = ok and bool((e <= SUM_RTOL * terms + 1e-6).all())
-        err_wb = max(err_wb, e.max().item())
-    del xhat, rx
     ms = time_ms(torch, lambda: layernorm_triton.layer_norm_backward(
         x, w, dy), flush=flush)
     plain_ms = time_ms(torch, lambda: layernorm_triton
@@ -986,7 +1077,7 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
     dev_names = device_launches(torch, lambda: layernorm_triton
                                 .layer_norm_backward(x, w, dy))
     print(f"layernorm bwd [{label}] x ({R}, {D}) {name}: dx max_abs_err "
-          f"{err_x.max().item():.3e} (tol {atol} + {rtol}*|ref|)"
+          f"{err_x:.3e} (tol {atol} + {rtol}*|ref|)"
           f", dgamma/dbeta max_abs_err {err_wb:.3e} (tol {SUM_RTOL}*sum"
           f"|terms| + 1e-6), Function passes the kernel's gradients "
           f"through: {passes}, a second call equal to the bit: "
@@ -997,13 +1088,11 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
     if not bitwise:
         fail(f"layernorm bwd [{label}]: two calls on the same inputs "
              f"differ")
-    if not ok:
-        fail(f"layernorm bwd [{label}] disagrees with its plain version")
     if not passes:
         fail(f"layernorm bwd [{label}]: the autograd Function's "
              f"gradients are not the kernel's")
     return dict(shape=[R, D], dtype=name,
-                max_abs_err=max(err_x.max().item(), err_wb), ms=ms,
+                max_abs_err=max(err_x, err_wb), ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by, device_launches_per_call=len(dev_names)), fwd_row
 
@@ -1852,8 +1941,9 @@ def activity_phase(torch, np, dev, flush, peaks, counters):
 
 def write_msrvtt_fixture(np, root):
     """The synthetic MSR-VTT: videos/<id>.npy, videos.fstore (the port's
-    FrameStoreWriter), train.csv, test.csv (the csv module) and
-    MSRVTT_data.json.  Returns the .fstore's path."""
+    FrameStoreWriter), train.csv, test.csv, gallery.csv (GALLERY_ROWS rows
+    over the same clips; the csv module) and MSRVTT_data.json.  Returns
+    the .fstore's path."""
     import csv
     from centerclip_tpu_torch.data.framestore import FrameStoreWriter
     g = np.random.default_rng(5)
@@ -1881,6 +1971,14 @@ def write_msrvtt_fixture(np, root):
     with open(os.path.join(root, "test.csv"), "w", newline="") as f:
         csv.writer(f).writerows([["video_id", "sentence"]]
                                 + [[v, captions[v][0]] for v in vids])
+    # an evaluation gallery of MSR-VTT 1k-A's size: each row one of the
+    # clips (in turn) beside one of its captions
+    with open(os.path.join(root, "gallery.csv"), "w", newline="") as f:
+        csv.writer(f).writerows(
+            [["video_id", "sentence"]]
+            + [[vids[i % MAIN_VIDEOS], f"{captions[vids[i % MAIN_VIDEOS]][(
+                i // MAIN_VIDEOS) % MAIN_CAPTIONS]}, row {i}"]
+               for i in range(GALLERY_ROWS)])
     with open(os.path.join(root, "MSRVTT_data.json"), "w") as f:
         json.dump({"sentences": [{"video_id": v, "caption": c}
                                  for v in vids for c in captions[v]],
@@ -1956,11 +2054,16 @@ def hold_recorded(torch, seen, label, what,
                   kernels=("attention_fwd", "layernorm_fwd", "kmedoids")):
     """Kernels A, C and E against their plain versions on the inputs
     `recording_kernel_inputs` kept, with the kernel phase's tolerances;
-    rows by kernel.  Fails if one of `kernels` got no input in `what`."""
+    rows by kernel.  With "attention_bwd" and "layernorm_bwd" in
+    `kernels`, kernels B and D too, on the same inputs with a seeded
+    output gradient (a training step runs each backward at its
+    forward's shapes).  Fails if one of `kernels` got no input in
+    `what`."""
     from centerclip_tpu_torch.ops import attention_cuda, layernorm_triton
     held = {kernel: [] for kernel in kernels}
-    for (kernel, key), (args, kw) in seen.items():
+    for n, ((kernel, key), (args, kw)) in enumerate(seen.items()):
         case = f"{label} {tuple(args[0].shape)}"
+        gen = torch.Generator(device=args[0].device).manual_seed(n)
         if kernel == "attention_fwd":
             qkv, H, mask = (list(args) + [None])[:3]
             err = hold_close(torch, f"attention [{case}]",
@@ -1968,6 +2071,18 @@ def hold_recorded(torch, seen, label, what,
                              attention_cuda.attention_plain(qkv, H, mask),
                              BF16_ATOL, BF16_RTOL)
             row = dict(shape=list(qkv.shape), max_abs_err=err)
+            if "attention_bwd" in held:
+                dout = torch.randn((*qkv.shape[:-1], qkv.shape[-1] // 3),
+                                   generator=gen, device=qkv.device).to(
+                                       qkv.dtype)
+                err = hold_close(
+                    torch, f"attention bwd [{case}]",
+                    attention_cuda.attention_backward(qkv, dout, H, mask)[0],
+                    attention_cuda.attention_bwd_plain(qkv, dout, H, mask)[0],
+                    BF16_ATOL, BF16_RTOL)
+                print(f"attention_bwd [{case}]: max_abs_err {err:.3e}")
+                held["attention_bwd"].append(dict(shape=list(qkv.shape),
+                                                  max_abs_err=err))
         elif kernel == "layernorm_fwd":
             x = args[0]
             atol, rtol = ((BF16_ATOL, BF16_RTOL)
@@ -1977,8 +2092,18 @@ def hold_recorded(torch, seen, label, what,
                              layernorm_triton.layer_norm(*args),
                              layernorm_triton.layer_norm_plain(*args),
                              atol, rtol)
-            row = dict(shape=list(x.shape), dtype=str(x.dtype)
-                       .split(".")[-1], max_abs_err=err)
+            dtype = str(x.dtype).split(".")[-1]
+            row = dict(shape=list(x.shape), dtype=dtype, max_abs_err=err)
+            if "layernorm_bwd" in held:
+                dy = torch.randn(x.shape, generator=gen,
+                                 device=x.device).to(x.dtype)
+                _, err_x, err_wb = held_layernorm_bwd(torch, case, x,
+                                                      args[1], dy)
+                print(f"layernorm_bwd [{case}]: dx max_abs_err "
+                      f"{err_x:.3e}, dgamma/dbeta {err_wb:.3e}")
+                held["layernorm_bwd"].append(dict(
+                    shape=list(x.shape), dtype=dtype,
+                    max_abs_err=max(err_x, err_wb)))
         else:
             row, _ = hold_kmedoids(torch, case, *args, **kw)
         if kernel != "kmedoids":
@@ -3099,6 +3224,12 @@ def differing(torch, a, b):
             for k in a if not torch.equal(a[k], b[k])}
 
 
+def length_ratio(a, b):
+    """|a| / |b| (1 where both are zero)."""
+    na, nb = float(a.double().norm()), float(b.double().norm())
+    return 1.0 if na == nb else (na / nb if nb else float("inf"))
+
+
 def held_to_one_process(r, loss, grads):
     """A wrapped run's first step (`parallel_steps`) against the
     one-process step's loss and whole gradients: the relative loss
@@ -3107,12 +3238,15 @@ def held_to_one_process(r, loss, grads):
     cos = {k: float(cosines(r["grads1"][k].double().reshape(1, -1),
                             grads[k].double().reshape(1, -1))[0])
            for k in grads}
+    # a cosine is blind to a gradient's scale: each length's ratio too
+    ratio = {k: length_ratio(r["grads1"][k], grads[k]) for k in grads}
     return dict(
         loss=r["losses"][0], loss_one_process=loss,
         loss_rel=abs(r["losses"][0] - loss) / abs(loss),
         grad_keys_equal=sorted(r["grads1"]) == sorted(grads),
         grad_min_cos=min(cos.values()),
         grad_worst=sorted(cos.items(), key=lambda kv: kv[1])[:3],
+        grad_norm_worst=max(ratio.items(), key=lambda kv: abs(kv[1] - 1)),
         **{k: v for k, v in r.items()
            if k not in ("params", "grads1", "losses")})
 
@@ -3299,6 +3433,20 @@ def recording_cluster(torch, store, replay=None, shard=(0, 1)):
         cls.forward, cls._cluster = forward, cluster
 
 
+def differing_on_ranks(torch, tensors):
+    """The names in `tensors` (the same names on every rank) whose bytes
+    are not the same on every rank (a SHA-256 of each, compared)."""
+    import hashlib
+    import torch.distributed as dist
+    mine = {k: hashlib.sha256(t.detach().cpu().contiguous().reshape(-1)
+                              .view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()
+            for k, t in tensors.items()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return sorted(k for k in mine if any(e[k] != mine[k] for e in every))
+
+
 def equal_on_ranks(torch, t, group=None):
     """True when `t` is equal to the bit on every rank of `group`."""
     import torch.distributed as dist
@@ -3308,15 +3456,16 @@ def equal_on_ranks(torch, t, group=None):
     return all(torch.equal(parts[0], p) for p in parts[1:])
 
 
-def tp_steps(torch, root, out, flags, counters, label, dev, ref,
-             timed=PARALLEL_TIMED):
-    """A tensor-parallel run of `parallel_steps` on the rows the registry's
-    loader gives this rank's model group under `flags`, held to the
-    one-process step `ref` (`held_to_one_process`) with `ref`'s medoid ids
-    replayed (`recording_cluster`; its "clusters" store), with whether the
-    ranks of each model group clustered the same tokens into the same
-    medoids and in how many segments the group's own ids differed from
-    `ref`'s."""
+def grouped_steps(torch, root, out, flags, counters, label, dev, ref,
+                  timed=PARALLEL_TIMED, seen=None):
+    """A tensor- or pipeline-parallel run of `parallel_steps` on the rows
+    the registry's loader gives this rank's model or pipe group under
+    `flags`, held to the one-process step `ref` (`held_to_one_process`)
+    with `ref`'s medoid ids replayed (`recording_cluster`; its "clusters"
+    store), with whether the ranks of each group clustered the same tokens
+    into the same medoids and in how many segments the group's own ids
+    differed from `ref`'s.  With `seen`, the first input of each shape that
+    A, C and E took is kept there (`recording_kernel_inputs`)."""
     import torch.distributed as dist
     from centerclip_tpu_torch import cli
     from centerclip_tpu_torch.data.registry import DATALOADER_DICT
@@ -3325,15 +3474,26 @@ def tp_steps(torch, root, out, flags, counters, label, dev, ref,
     loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](
         cfg, SimpleTokenizer(), device=dev)
     batch = first_batches(loader, 1)
-    tp = int(cfg.tensor_parallel)
+    tp = int(cfg.tensor_parallel) * int(cfg.model.pipeline_parallel)
     shard = (dist.get_rank() // tp, dist.get_world_size() // tp)
     store = {}
-    with recording_cluster(torch, store, ref["clusters"], shard):
+    with recording_cluster(torch, store, ref["clusters"], shard), \
+            recording_kernel_inputs(torch, {} if seen is None else seen,
+                                    lambda: seen is not None):
         r = parallel_steps(torch, cfg, batch, counters, label, dev,
                            timed=timed)
     res = held_to_one_process(r, ref["losses"][0], ref["grads1"])
-    # the Trainer's mesh is gone with its model: compare over a model group
-    # of the same ranks, made here
+    # every rank's step held to the one-process step, not rank 0's alone
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, {k: res[k] for k in (
+        "loss_rel", "grad_keys_equal", "grad_min_cos", "grad_norm_worst")})
+    res["held_by_rank"] = by_rank
+    if int(cfg.model.pipeline_parallel) > 1:
+        # every parameter is replicated over the pipe and data groups
+        res["params_differing_on_ranks"] = differing_on_ranks(
+            torch, r["params"])
+    # the Trainer's mesh is gone with its model: compare over a model (or
+    # pipe) group of the same ranks, made here
     group = model_group(torch, tp)
     res.update(rank_rows=len(batch[0]["input_ids"]),
                cluster_input_equal=equal_on_ranks(torch, store["input"],
@@ -3348,7 +3508,7 @@ def tp_steps(torch, root, out, flags, counters, label, dev, ref,
 
 def clustered_steps(torch, cfg, batches, counters, label, dev, **kw):
     """`parallel_steps` with the cluster layer's first ids kept, under
-    "clusters", for `tp_steps` to replay."""
+    "clusters", for `grouped_steps` to replay."""
     store = {}
     with recording_cluster(torch, store):
         r = parallel_steps(torch, cfg, batches, counters, label, dev, **kw)
@@ -3357,7 +3517,7 @@ def clustered_steps(torch, cfg, batches, counters, label, dev, **kw):
 
 
 def model_group(torch, tp):
-    """This rank's model group of a (world / tp, tp) mesh: ranks
+    """This rank's model (or pipe) group of a (world / tp, tp) mesh: ranks
     i * tp .. i * tp + tp - 1 (every rank makes every group)."""
     import torch.distributed as dist
     world, rank = dist.get_world_size(), dist.get_rank()
@@ -3398,7 +3558,7 @@ def parallel_leg_tp_gloo(torch, np, root, out_path):
     for label, extra in (("tp", []), ("tp_sp", ["--sequence_parallel", "1"])):
         print(f"parallel tp gloo rank {dist.get_rank()}: {label}",
               flush=True)
-        result[label] = tp_steps(
+        result[label] = grouped_steps(
             torch, root, out, batch_flags + ["--tensor_parallel", str(world)]
             + extra, counters, f"parallel tp gloo {label}", dev, ref,
             timed=1)
@@ -3408,6 +3568,52 @@ def parallel_leg_tp_gloo(torch, np, root, out_path):
         with open(out_path, "w") as f:
             json.dump(ranks, f)
     parallel.process_barrier("tp_gloo_leg_done")
+    dist.destroy_process_group()
+
+
+def parallel_leg_pp_gloo(torch, np, root, out_path):
+    """Leg (b''), PP_GLOO_RANKS gloo ranks sharing cuda:0 as a (data 1, pipe
+    PP_GLOO_RANKS) mesh at TP_GLOO_BATCH clips: each rank first takes the
+    one-process step on the same batch (before the process group exists),
+    then the first step under pipeline parallelism (one compared and one
+    timed step), held to it by TP_LOSS_RTOL and TP_GRAD_MIN_COS (see
+    PP_GLOO_RANKS); the stages' cluster inputs and medoid ids and the
+    parameters after the step compared to the bit; A, C and E held
+    against their plain versions on the first input of each shape the
+    step gave them on this rank, B and D on the same inputs; every rank's
+    counts and rows handed to rank 0."""
+    from centerclip_tpu_torch import cli, parallel
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    counters = kernel_counters()
+    out = os.path.join(root, "parallel_pp_gloo_out")
+    batch_flags = ["--batch_size", str(TP_GLOO_BATCH)]
+    cfg = cli.parse_args(main_argv(root, out, batch_flags))
+    loader, _, _ = DATALOADER_DICT["msrvtt"]["train"](cfg, SimpleTokenizer(),
+                                                      device=dev)
+    ref = clustered_steps(torch, cfg, first_batches(loader, 1), counters,
+                          "parallel pp gloo unwrapped", dev, timed=1)
+    parallel.init_distributed(dev, backend="gloo")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    print(f"parallel pp gloo rank {rank}: pp", flush=True)
+    seen = {}
+    res = grouped_steps(torch, root, out, batch_flags + [
+        "--pipeline_parallel", str(world)], counters, "parallel pp gloo",
+        dev, ref, timed=1, seen=seen)
+    res["held"] = hold_recorded(torch, seen, f"pp gloo rank {rank}",
+                                "the pipelined step", ALL_KERNELS)
+    result = {"unwrapped": {k: v for k, v in ref.items()
+                            if k not in ("params", "grads1", "clusters")},
+              "pp": res}
+    ranks = [None] * world
+    dist.all_gather_object(ranks, result)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(ranks, f)
+    parallel.process_barrier("pp_gloo_leg_done")
     dist.destroy_process_group()
 
 
@@ -3447,8 +3653,9 @@ def parallel_leg_multi(torch, np, root, out_path):
     step at the global batch of 128 on its own card (before the process
     group exists), then the first step under DDP and under FSDP at
     128 / N rows a rank, held to it as leg (b) is, and on each mesh of
-    TP_MULTI_MESHES, held to it as leg (b') is; then `main --fsdp 1`
-    over the N ranks (rank 0 evaluates and writes)."""
+    TP_MULTI_MESHES and PP_MULTI_MESHES, held to it as legs (b') and
+    (b'') are; then `main --fsdp 1` over the N ranks (the ranks encode the
+    evaluation, rank 0 scores it and writes)."""
     from centerclip_tpu_torch import cli, parallel
     from centerclip_tpu_torch.data.registry import DATALOADER_DICT
     from centerclip_tpu_torch.main import main as run_main
@@ -3479,11 +3686,10 @@ def parallel_leg_multi(torch, np, root, out_path):
                            counters, f"parallel multi {label}", dev)
         result[label] = held_to_one_process(r, ref["losses"][0],
                                             ref["grads1"])
-    for label, extra in TP_MULTI_MESHES:
-        result[label] = tp_steps(torch, root, out, ["--data_parallel",
-                                                    str(world)] + extra,
-                                 counters, f"parallel multi {label}", dev,
-                                 ref)
+    for label, extra in TP_MULTI_MESHES + PP_MULTI_MESHES:
+        result[label] = grouped_steps(
+            torch, root, out, ["--data_parallel", str(world)] + extra,
+            counters, f"parallel multi {label}", dev, ref)
     main_out = os.path.join(root, "parallel_multi_main")
     zero_counts(counters)
     t0 = time.time()
@@ -3503,10 +3709,16 @@ def parallel_leg_multi(torch, np, root, out_path):
             json.dump(result, f)
 
 
-def parallel_leg_multi_main_tp(torch, np, root, out_path):
-    """Leg (c)'s last run: `main --tensor_parallel 2 --sequence_parallel 1`
-    over the N ranks (rank 0 evaluates and writes), then, on rank 0, its
-    export loaded with `strict=True` into a model of one process."""
+MULTI_MAIN_FLAGS = {
+    "multi_main_tp": ["--tensor_parallel", "2", "--sequence_parallel", "1"],
+    "multi_main_pp": ["--pipeline_parallel", "2"]}
+
+
+def multi_main_run(torch, root, leg):
+    """`main <MULTI_MAIN_FLAGS[leg]>` over the N ranks of leg (c) (the ranks
+    encode the evaluation, rank 0 scores it and writes); its run time and
+    counts, and on rank 0 its log's checks and its export loaded with
+    `strict=True` into a model of one process."""
     from centerclip_tpu_torch import cli
     from centerclip_tpu_torch.main import main as run_main
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
@@ -3514,15 +3726,17 @@ def parallel_leg_multi_main_tp(torch, np, root, out_path):
     dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     torch.cuda.set_device(dev)
     counters = kernel_counters()
-    main_out = os.path.join(root, "parallel_multi_main_tp")
-    argv = main_argv(root, main_out, [
-        "--data_parallel", str(world), "--tensor_parallel", "2",
-        "--sequence_parallel", "1"])
+    main_out = os.path.join(root, f"parallel_{leg}")
+    argv = main_argv(root, main_out, ["--data_parallel", str(world)]
+                     + MULTI_MAIN_FLAGS[leg])
     zero_counts(counters)
+    gathers = {}
     t0 = time.time()
-    run_main(argv)
+    with recording_gathers(gathers):
+        run_main(argv)
     result = dict(run_s=time.time() - t0, counts=path_counts_of(
-        counters, "parallel multi main tp", backward=True))
+        counters, f"parallel multi {leg}", backward=True),
+        eval_gather_s=[b - a for a, b in gathers["gathers"]])
     if int(os.environ["RANK"]) == 0:
         with open(os.path.join(main_out, "log.txt")) as f:
             log = f.read()
@@ -3535,9 +3749,136 @@ def parallel_leg_multi_main_tp(torch, np, root, out_path):
                       logged_processes=f"processes: {world}" in log,
                       evaluated="Text-to-Video: R@1" in log,
                       export_reloads_strict=True,
-                      export_in_proj_shape=list(in_proj.shape))
+                      export_in_proj_shape=list(in_proj.shape),
+                      export=os.path.join(main_out, "ckpt.pth.tar"))
+    return result
+
+
+def parallel_leg_multi_main_tp(torch, np, root, out_path):
+    """Leg (c)'s TP run of `main` (`multi_main_run`)."""
+    result = multi_main_run(torch, root, "multi_main_tp")
+    if int(os.environ["RANK"]) == 0:
         with open(out_path, "w") as f:
             json.dump(result, f)
+
+
+def parallel_leg_multi_main_pp(torch, np, root, out_path):
+    """Leg (c)'s PP run of `main` (`multi_main_run`)."""
+    result = multi_main_run(torch, root, "multi_main_pp")
+    if int(os.environ["RANK"]) == 0:
+        with open(out_path, "w") as f:
+            json.dump(result, f)
+
+
+@contextlib.contextmanager
+def recording_gathers(store):
+    """Within the block, append to `store["gathers"]` the host-clock
+    (start, end) of each `torch.distributed.gather_object` call (the
+    spread evaluation's gather of the features to rank 0)."""
+    import torch.distributed as dist
+    gather_fn = dist.gather_object
+    store.setdefault("gathers", [])
+
+    def timed(*a, **k):
+        t0 = time.time()
+        out = gather_fn(*a, **k)
+        store["gathers"].append((t0, time.time()))
+        return out
+    dist.gather_object = timed
+    try:
+        yield store
+    finally:
+        dist.gather_object = gather_fn
+
+
+def parallel_leg_multi_eval(torch, np, root, out_path):
+    """The evaluation of leg (c)'s PP export on the GALLERY_ROWS rows of
+    gallery.csv, twice: by `main --do_train 0` over the N ranks (each
+    loads and encodes every N-th batch of the recipe's 128, rank 0
+    scores), then, once its process group is gone, by `main --do_train
+    0` in rank 0's process alone while the other ranks exit; the metrics
+    and similarity matrices compared, with the seconds of each run and of
+    its phase 1.  Every rank first encodes one batch, so that neither run
+    pays the first launches; in the spread run each rank notes when its
+    phase 1 began, when it reached the gather to rank 0 and when the
+    gather returned (host clock).  (A second `init_process_group` in one
+    torchrun worker failed to connect on the card, so each launch makes
+    one process group.)"""
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.data.registry import DATALOADER_DICT
+    from centerclip_tpu_torch.main import main as run_main
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.models.tokenizer import SimpleTokenizer
+    from centerclip_tpu_torch.train.evaluate import Evaluator
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    export = os.path.join(root, "parallel_multi_main_pp", "ckpt.pth.tar")
+    flags = ["--do_train", "0", "--init_model", export,
+             "--val_csv", os.path.join(root, "gallery.csv")]
+    argv = main_argv(root, os.path.join(root, "parallel_eval_spread"), flags)
+    cfg = cli.parse_args(argv)
+    model = CLIP4Clip(cfg.model, device=dev, seed=1)
+    sd = torch.load(export, map_location=dev, weights_only=False)
+    model.load_state_dict(sd["state_dict"], strict=True)
+    slots = DATALOADER_DICT["msrvtt"]
+    test_fn = slots["test"] if slots["test"] is not None else slots["val"]
+    loader, rows = test_fn(cfg, SimpleTokenizer(), device=dev)
+    Evaluator(model.eval()).cache_features(first_batches(loader, 1))
+    del model, sd
+    marks = {}
+    cache_fn = Evaluator.cache_features
+
+    def timed_cache(self, *a, **k):
+        marks["enter"] = time.time()
+        out = cache_fn(self, *a, **k)
+        marks["exit"] = time.time()
+        with open(os.path.join(root, f"eval_marks_{rank}.json"), "w") as f:
+            json.dump(marks, f)
+        return out
+    Evaluator.cache_features = timed_cache
+    try:
+        with recording_gathers(marks):
+            t0 = time.time()
+            spread = run_main(argv)
+            spread_s = time.time() - t0
+    finally:
+        Evaluator.cache_features = cache_fn
+    if rank != 0:
+        return
+    # every rank wrote its marks before main's closing barrier
+    by_rank = []
+    for r in range(world):
+        with open(os.path.join(root, f"eval_marks_{r}.json")) as f:
+            by_rank.append(json.load(f))
+    first = min(m["enter"] for m in by_rank)
+    # the same evaluation in a run of one process (no process group)
+    os.environ.pop("WORLD_SIZE")
+    t0 = time.time()
+    alone = run_main(main_argv(root, os.path.join(root, "parallel_eval"),
+                               flags))
+    alone_s = time.time() - t0
+    result = dict(
+        ranks=world, rows=rows, spread_s=spread_s, alone_s=alone_s,
+        spread_infer_s=spread["infer_time"],
+        alone_infer_s=alone["infer_time"],
+        # by rank: its phase 1's start after the first rank's, its own
+        # loading and encoding, and its wait in the gather
+        spread_phase1_by_rank=[dict(
+            start_after_first_s=m["enter"] - first,
+            own_s=m["gathers"][0][0] - m["enter"],
+            gather_s=m["gathers"][0][1] - m["gathers"][0][0])
+            for m in by_rank],
+        t2v_alone=alone["t2v"],
+        t2v_spread=spread["t2v"], v2t_alone=alone["v2t"],
+        v2t_spread=spread["v2t"], metrics_equal=(
+            alone["t2v"] == spread["t2v"] and alone["v2t"] == spread["v2t"]),
+        sim_max_abs_diff=float(np.abs(alone["sim_matrix"]
+                                      - spread["sim_matrix"]).max()),
+        shape=list(spread["sim_matrix"].shape))
+    with open(out_path, "w") as f:
+        json.dump(result, f, default=lambda o: o.tolist()
+                  if hasattr(o, "tolist") else float(o))
 
 
 def multi_gpu_main(n: int) -> int:
@@ -3564,6 +3905,10 @@ def multi_gpu_main(n: int) -> int:
         write_msrvtt_fixture(np, root)
         res, t_leg = torchrun_leg(n, "multi", root)
         main_tp, t_main_tp = torchrun_leg(n, "multi_main_tp", root)
+        main_pp, t_main_pp = torchrun_leg(n, "multi_main_pp", root)
+        ev, t_eval = torchrun_leg(n, "multi_eval", root)
+        serve_dp = serve_data_parallel(torch, np, root, main_pp["export"],
+                                       n)
     un = res["unwrapped"]
     bw = res["bandwidth"]
     print(f"NCCL over {n} cards, {bw['mib']} MiB fp32 a rank: all_reduce "
@@ -3607,6 +3952,27 @@ def multi_gpu_main(n: int) -> int:
               f"{r['medoid_segments_differing']} of {r['medoid_segments']}"
               f", ids {r['medoid_ids_differing']:.4f} (replayed)")
         check_tp_run(f"multi {label}", r)
+    for label, _ in PP_MULTI_MESHES:
+        r = res[label]
+        print(f"multi {label}, {n} NCCL ranks x {r['rank_rows']} clips a "
+              f"pipe group ({smi[0]}): loss {r['loss']} vs one process "
+              f"{r['loss_one_process']} (rel {r['loss_rel']:.3e}, tol "
+              f"{TP_LOSS_RTOL}); gradient cosine min {r['grad_min_cos']:.6f}"
+              f" (min {TP_GRAD_MIN_COS}; worst {r['grad_worst']}); "
+              f"gradient length ratio furthest from 1 "
+              f"{r['grad_norm_worst']} (tol {TP_GRAD_NORM_RTOL:.4f}); by "
+              f"rank {r['held_by_rank']}; parameters differing between the "
+              f"ranks {r['params_differing_on_ranks']}; median "
+              f"step {r['step_ms']:.3f} ms (DDP {ddp['step_ms']:.3f}, one "
+              f"card {un['step_ms']:.3f}); peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB (DDP "
+              f"{ddp['peak_bytes'] / 2**30:.3f}); cluster input "
+              f"{r['cluster_input_shape']} equal on the pipe group "
+              f"{r['cluster_input_equal']}, medoid ids {r['medoids_equal']}"
+              f", segments whose ids differ from the one-process step's "
+              f"{r['medoid_segments_differing']} of {r['medoid_segments']}"
+              f" (replayed); launches {r['counts'][0]}")
+        check_tp_run(f"multi {label}", r)
     m = res["main_fsdp"]
     print(f"main --data_parallel {n} --fsdp 1: {m['run_s']:.2f} s, rank 0 "
           f"logged processes {m['logged_processes']}, evaluated "
@@ -3627,13 +3993,162 @@ def multi_gpu_main(n: int) -> int:
             and {"ckpt.pth.tar", "ckpt_0"} <= set(m["files"])
             and m["export_in_proj_shape"] == [2304, 768]):
         fail("multi main tp's log, evaluation or export is wrong")
+    m = main_pp
+    print(f"main --data_parallel {n} --pipeline_parallel 2: "
+          f"{m['run_s']:.2f} s ({t_main_pp:.1f} s with the launch; its "
+          f"evaluation's gathers to rank 0 after training "
+          f"{[round(x, 4) for x in m['eval_gather_s']]} s), rank 0 "
+          f"logged processes "
+          f"{m['logged_processes']}, evaluated {m['evaluated']}, files "
+          f"{m['files']}, export reloads strict {m['export_reloads_strict']}")
+    by_rank = [{k: round(v, 4) for k, v in m.items()}
+               for m in ev["spread_phase1_by_rank"]]
+    print(f"evaluation of its export on {ev['rows']} gallery rows "
+          f"({ev['shape']} similarity, batches of {MAIN_BATCH}; "
+          f"{smi[0]}): the eval-only `main` in one process "
+          f"{ev['alone_s']:.3f} s (phase 1 {ev['alone_infer_s']:.3f} s), "
+          f"spread over {ev['ranks']} ranks {ev['spread_s']:.3f} s (phase "
+          f"1 on rank 0 {ev['spread_infer_s']:.3f} s; by rank {by_rank}; "
+          f"{t_eval:.1f} s with the launch); metrics equal "
+          f"{ev['metrics_equal']} (t2v "
+          f"{ {k: v for k, v in ev['t2v_spread'].items() if k != 'cols'} }"
+          f"), similarity max abs diff "
+          f"{ev['sim_max_abs_diff']:.3e}")
+    launched("multi main pp", m["counts"][0], m["counts"][0].keys())
+    if not (m["logged_processes"] and m["evaluated"]
+            and {"ckpt.pth.tar", "ckpt_0"} <= set(m["files"])
+            and m["export_reloads_strict"]):
+        fail("multi main pp's log, evaluation or export is wrong")
+    if not ev["metrics_equal"] or ev["sim_max_abs_diff"] > SERVE_SCORE_ATOL:
+        fail("the evaluation spread over the ranks differs from rank 0's")
+    one, many = serve_dp["cards"][1], serve_dp["cards"][n]
+    print(f"serve CLI build --data_parallel {n} ({smi[0]}): "
+          f"{serve_dp['clips']} clips, {one['clips_per_s']:.2f} clips/s on "
+          f"one card, {many['clips_per_s']:.2f} on {n} (the second build "
+          f"each, host clock, in batches of {SERVE_MULTI_BATCH}): loading "
+          f"{one['load_s']:.4f} s / {many['load_s']:.4f} s, the cards' "
+          f"encode {one['encode_s']:.4f} s / {many['encode_s']:.4f} s "
+          f"({one['encode_clips_per_s']:.2f} / "
+          f"{many['encode_clips_per_s']:.2f} clips/s); the loaded batches "
+          f"encoded again to {one['gallery_clips']} clips: "
+          f"{one['gallery_clips_per_s']:.2f} clips/s on one card, "
+          f"{many['gallery_clips_per_s']:.2f} on {n}; codes max abs diff "
+          f"{serve_dp['codes_max_abs_diff']:.3e}; query scores max abs diff "
+          f"{serve_dp['scores_max_abs_diff']:.3e} (tol {SERVE_SCORE_ATOL}), "
+          f"ranked ids equal in {serve_dp['ids_equal']} of "
+          f"{serve_dp['queries']} queries, unequal only where the scores "
+          f"tie within the tolerance: {serve_dp['ids_consistent']}; IVF "
+          f"refused: {serve_dp['ivf_refused']}")
+    if serve_dp["scores_max_abs_diff"] > SERVE_SCORE_ATOL \
+            or not serve_dp["ids_consistent"] or not serve_dp["ivf_refused"]:
+        fail(f"the serve CLI over {n} cards differs from one card")
     print(json.dumps({"multi_gpu": dict(cards=smi, leg_s=t_leg,
-                                        main_tp=main_tp, **{
+                                        main_tp=main_tp, main_pp=main_pp,
+                                        evaluation=ev,
+                                        serve_data_parallel=serve_dp, **{
         k: v for k, v in res.items()})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_data_parallel(torch, np, root, ckpt, n):
+    """The serve CLI on main's fixture from checkpoint `ckpt`, in this
+    process: `build` (float32, one gallery batch of SERVE_MULTI_BATCH
+    clips) twice on one card and twice with `--data_parallel n`, each
+    encode timed (host clock, all cards synchronised) in two parts: the
+    loading of its batches, and `embed_video_batches` on the loaded
+    batches, once and repeated to about GALLERY_ROWS clips; `query` of
+    the 48 captions (top 10) from each index;
+    then `build --index_type ivf --data_parallel n`, which must raise.
+    Returns the rates, the differences and the checks."""
+    import csv
+    import io
+    from centerclip_tpu_torch.serve import cli as serve_cli
+    from centerclip_tpu_torch.serve import engine as engine_mod
+    flags = main_argv(root, os.path.join(root, "serve_dp"), [
+        "--init_model", ckpt, "--batch_size_val", str(SERVE_MULTI_BATCH)])
+    with open(os.path.join(root, "test.csv"), newline="") as f:
+        captions = [r[1] for r in list(csv.reader(f))[1:]]
+    qfile = os.path.join(root, "serve_dp_queries.txt")
+    with open(qfile, "w") as f:
+        f.write("".join(c + "\n" for c in captions))
+    embed = engine_mod.RetrievalEngine.embed_video_batches
+    times = []
+
+    def synced(self, fn):
+        t0 = time.time()
+        out = fn()
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+        return out, time.time() - t0
+
+    def timed_embed(self, batches):
+        # the host's share (read, decode, pin) apart from the cards':
+        # encode the loaded batches, then them again and again, a gallery
+        # of about GALLERY_ROWS clips
+        loaded, load_s = synced(self, lambda: list(batches))
+        out, encode_s = synced(self, lambda: embed(self, loaded))
+        reps = -(-GALLERY_ROWS // len(out))
+        _, gallery_s = synced(self, lambda: embed(self, loaded * reps))
+        times.append(dict(clips=len(out), seconds=load_s + encode_s,
+                          load_s=load_s, encode_s=encode_s,
+                          gallery_clips=len(out) * reps,
+                          gallery_encode_s=gallery_s))
+        return out
+    engine_mod.RetrievalEngine.embed_video_batches = timed_embed
+    quiet = io.StringIO()
+    built, ranked, rate = {}, {}, {}
+    try:
+        with contextlib.redirect_stdout(quiet):
+            for cards in (1, n):
+                path = os.path.join(root, f"gallery_dp{cards}.npz")
+                argv = ["--data_parallel", str(cards)] + flags
+                for _ in range(2):
+                    built[cards] = serve_cli.main(
+                        ["build", "--index_path", path] + argv)
+                t = times[-1]
+                rate[cards] = dict(
+                    t, clips_per_s=t["clips"] / t["seconds"],
+                    encode_clips_per_s=t["clips"] / t["encode_s"],
+                    gallery_clips_per_s=t["gallery_clips"]
+                    / t["gallery_encode_s"])
+                ranked[cards] = serve_cli.main(
+                    ["query", "--index_path", path, "--queries_file", qfile,
+                     "--topk", "10"] + argv)
+            try:
+                serve_cli.main(["build", "--index_path", os.path.join(
+                    root, "gallery_dp_ivf.npz"), "--index_type", "ivf",
+                    "--data_parallel", str(n)] + flags)
+                ivf_refused = False
+            except ValueError:
+                ivf_refused = True
+    finally:
+        engine_mod.RetrievalEngine.embed_video_batches = embed
+    one, many = ranked[1], ranked[n]
+    ids_equal, consistent, diff = 0, True, 0.0
+    for a, b in zip(one, many):
+        ia, ib = [r["video_id"] for r in a], [r["video_id"] for r in b]
+        sa = np.array([r["score"] for r in a])
+        sb = np.array([r["score"] for r in b])
+        diff = max(diff, float(np.abs(sa - sb).max()))
+        ids_equal += ia == ib
+        for i, (x, y) in enumerate(zip(ia, ib)):
+            # a position may hold another id only where its neighbours'
+            # scores lie within the tolerance of its own
+            near = [j for j in (i - 1, i + 1) if 0 <= j < len(sa)
+                    and abs(sa[j] - sa[i]) <= SERVE_SCORE_ATOL]
+            if x != y and not near:
+                consistent = False
+    return dict(clips=len(built[n]), cards={1: rate[1], n: rate[n]},
+                devices=[str(d) for d in built[n].devices],
+                codes_max_abs_diff=float((built[n]._codes.cpu()
+                                          - built[1]._codes.cpu()).abs()
+                                         .max()),
+                scores_max_abs_diff=diff, ids_equal=ids_equal,
+                queries=len(one), ids_consistent=consistent,
+                ivf_refused=ivf_refused)
 
 
 def torchrun_leg(nproc, leg, root):
@@ -3682,18 +4197,20 @@ TP_LAYERNORM_CASES = (("tp 2 + SP, vision ln_1/ln_2 blocks 1-6",
                       ("tp 4 + SP, text ln_1/ln_2", 128 * 8, 512))
 
 
-def tp_kernel_rows(torch, dev, flush, peaks):
-    """Kernels A and B at TP_ATTENTION_CASES' local heads and C and D at
-    TP_LAYERNORM_CASES' SP-local rows, each against its plain version and
-    timed beside SDPA or ATen (`hold_attention_bwd`,
-    `hold_layernorm_bwd`); rows by kernel."""
+def kernel_rows(torch, dev, flush, peaks, attention_cases,
+                layernorm_cases):
+    """Kernels A and B at `attention_cases`' shapes (TP_ATTENTION_CASES:
+    the local heads; PP_ATTENTION_CASES: the microbatches) and C and D at
+    `layernorm_cases`' rows, each against its plain version and timed
+    beside SDPA or ATen (`hold_attention_bwd`, `hold_layernorm_bwd`); rows
+    by kernel."""
     rows = {k: [] for k in ("attention_fwd", "attention_bwd",
                             "layernorm_fwd", "layernorm_bwd")}
-    for case in TP_ATTENTION_CASES:
+    for case in attention_cases:
         row, fwd_row = hold_attention_bwd(torch, dev, flush, peaks, *case)
         rows["attention_bwd"].append(dict(row, label=case[0]))
         rows["attention_fwd"].append(dict(fwd_row, label=case[0]))
-    for case in TP_LAYERNORM_CASES:
+    for case in layernorm_cases:
         row, fwd_row = hold_layernorm_bwd(torch, dev, flush, peaks, *case)
         rows["layernorm_bwd"].append(dict(row, label=case[0]))
         rows["layernorm_fwd"].append(dict(fwd_row, label=case[0]))
@@ -3701,14 +4218,22 @@ def tp_kernel_rows(torch, dev, flush, peaks):
 
 
 def check_tp_run(label, r, ranks=None):
-    """Fail a tensor-parallel run (`tp_steps`) that differs from the
-    one-process step beyond TP_LOSS_RTOL / TP_GRAD_MIN_COS, whose model
-    group clustered different tokens or picked other medoids, whose kernel
-    D left the compute stream, or in which a kernel did not launch (on
-    every rank in `ranks`, else this one)."""
-    if r["loss_rel"] > TP_LOSS_RTOL or not r["grad_keys_equal"] \
-            or r["grad_min_cos"] < TP_GRAD_MIN_COS:
-        fail(f"{label} differs from the one-process step")
+    """Fail a tensor- or pipeline-parallel run (`grouped_steps`) whose
+    step on any rank differs from the one-process step beyond
+    TP_LOSS_RTOL / TP_GRAD_MIN_COS / TP_GRAD_NORM_RTOL, whose ranks hold
+    other parameters after a pipelined step, whose model group clustered
+    different tokens or picked other medoids, whose kernel D left the
+    compute stream, or in which a kernel did not launch (on every rank in
+    `ranks`, else this one)."""
+    for i, h in enumerate(r["held_by_rank"]):
+        if h["loss_rel"] > TP_LOSS_RTOL or not h["grad_keys_equal"] \
+                or h["grad_min_cos"] < TP_GRAD_MIN_COS \
+                or abs(h["grad_norm_worst"][1] - 1) > TP_GRAD_NORM_RTOL:
+            fail(f"{label} rank {i} differs from the one-process step: "
+                 f"{h}")
+    if r.get("params_differing_on_ranks"):
+        fail(f"{label}: parameters differ between the ranks after the "
+             f"step: {r['params_differing_on_ranks'][:5]}")
     if not (r["cluster_input_equal"] and r["medoids_equal"]):
         fail(f"{label}: the ranks of a model group clustered differently")
     if not r["d_on_default_stream"] or r["d_tickets_dirty"]:
@@ -3719,10 +4244,12 @@ def check_tp_run(label, r, ranks=None):
 
 
 def parallel_phase(torch, np, root, smi):
-    """The eleventh and twelfth main paths (see PARALLEL_STEPS and
-    TP_GLOO_BATCH): leg (a) on one NCCL rank, leg (b) on GLOO_RANKS gloo
-    ranks sharing the card, leg (b') on TP_GLOO_RANKS gloo ranks as a
-    model group; their checks, times and counts."""
+    """The eleventh to thirteenth main paths (see PARALLEL_STEPS,
+    TP_GLOO_BATCH and PP_GLOO_RANKS): leg (a) on one NCCL rank, leg (b) on
+    GLOO_RANKS gloo ranks sharing the card, leg (b') on TP_GLOO_RANKS gloo
+    ranks as a model group, leg (b'') on PP_GLOO_RANKS as a pipe group;
+    their checks, times and counts, and the rows of A, C and E held on
+    leg (b'')'s shapes."""
     torch.cuda.empty_cache()
     single, t_single = torchrun_leg(1, "single", root)
     paths = {}
@@ -3806,8 +4333,46 @@ def parallel_phase(torch, np, root, smi):
               f"{r['peak_bytes'] / 2**30:.3f} GiB")
         check_tp_run(f"parallel gloo {label}", r,
                      [rr[label] for rr in tp_ranks])
+    pp_ranks, t_pp = torchrun_leg(PP_GLOO_RANKS, "pp_gloo", root)
+    r = pp_ranks[0]["pp"]
+    paths["parallel_gloo_pp"] = tuple(r["counts"])
+    print(f"parallel gloo pp, ({PP_GLOO_RANKS} ranks, data 1 x pipe "
+          f"{PP_GLOO_RANKS}) x {r['rank_rows']} clips on one card: loss "
+          f"{r['loss']} vs one process {r['loss_one_process']} (rel "
+          f"{r['loss_rel']:.3e}, tol {TP_LOSS_RTOL}); gradient cosine min "
+          f"{r['grad_min_cos']:.6f} (min {TP_GRAD_MIN_COS}; worst "
+          f"{r['grad_worst']}); gradient length ratio furthest from 1 "
+          f"{r['grad_norm_worst']} (tol {TP_GRAD_NORM_RTOL:.4f}); by rank "
+          f"{r['held_by_rank']}; parameters differing between the ranks "
+          f"after the step {r['params_differing_on_ranks']}; cluster input "
+          f"{r['cluster_input_shape']} "
+          f"equal on the stages {r['cluster_input_equal']}, medoid ids "
+          f"{r['medoids_equal']}, segments whose ids differ from the "
+          f"one-process step's {r['medoid_segments_differing']} of "
+          f"{r['medoid_segments']} (replayed); launches by rank "
+          f"{[rr['pp']['counts'][0] for rr in pp_ranks]}; one timed step "
+          f"{r['step_ms']:.3f} ms (one process "
+          f"{pp_ranks[0]['unwrapped']['step_ms']:.3f}), peak "
+          f"{r['peak_bytes'] / 2**30:.3f} GiB (one process "
+          f"{pp_ranks[0]['unwrapped']['peak_bytes'] / 2**30:.3f}); A-E "
+          f"held on the inputs rank 0 gave them: "
+          f"{ {k: [row['shape'] for row in v] for k, v in r['held'].items()} }")
+    check_tp_run("parallel gloo pp", r, [rr["pp"] for rr in pp_ranks])
     summary = dict(card=smi, single_s=t_single, gloo_s=t_gloo,
-                   tp_gloo_s=t_tp, gloo_cuda=gloo["gloo_cuda"])
+                   tp_gloo_s=t_tp, pp_gloo_s=t_pp, gloo_cuda=gloo["gloo_cuda"])
+    summary["gloo_pp"] = dict(
+        rank_rows=r["rank_rows"], loss_rel=r["loss_rel"],
+        grad_min_cos=r["grad_min_cos"], grad_worst=r["grad_worst"],
+        grad_norm_worst=r["grad_norm_worst"], held_by_rank=r["held_by_rank"],
+        params_differing_on_ranks=r["params_differing_on_ranks"],
+        step_ms=r["step_ms"], peak_bytes=r["peak_bytes"],
+        unwrapped_step_ms=pp_ranks[0]["unwrapped"]["step_ms"],
+        unwrapped_peak_bytes=pp_ranks[0]["unwrapped"]["peak_bytes"],
+        cluster_input_equal=r["cluster_input_equal"],
+        medoids_equal=r["medoids_equal"],
+        medoid_segments_differing=r["medoid_segments_differing"],
+        medoid_ids_differing=r["medoid_ids_differing"],
+        launches_by_rank=[rr["pp"]["counts"][0] for rr in pp_ranks])
     for label in ("tp", "tp_sp"):
         r = tp[label]
         summary[f"gloo_{label}"] = dict(
@@ -3837,7 +4402,7 @@ def parallel_phase(torch, np, root, smi):
                 loss_rel=g["loss_rel"], grad_min_cos=g["grad_min_cos"],
                 step_ms=g["step_ms"], peak_bytes=g["peak_bytes"])
     summary["main_fsdp"] = {k: v for k, v in m.items() if k != "counts"}
-    return summary, paths
+    return summary, paths, pp_ranks[0]["pp"]["held"]
 
 
 def main() -> int:
@@ -4234,8 +4799,7 @@ def main() -> int:
     path_counts["vitb16_encode"] = (b16["encode_launches"],
                                     b16["encode_variants"])
     path_counts["vitb16_training"] = (b16["launches"], b16["variants"])
-    for kernel in ("attention_fwd", "attention_bwd", "layernorm_fwd",
-                   "layernorm_bwd", "kmedoids"):
+    for kernel in ALL_KERNELS:
         extend_forward_row(kernel, b16[kernel], key="vitb16_shapes")
     phase_done("vitb16")
 
@@ -4256,12 +4820,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("towers")
 
-    # --- data, tensor and sequence parallelism on the main fixture (eleventh
-    # and twelfth paths), then A-D at the model axis's per-rank shapes
-    parallel_res, par_paths = parallel_phase(torch, np, root, smi)
+    # --- data, tensor, sequence and pipeline parallelism on the main
+    # fixture (eleventh to thirteenth paths), then A-D at the model axis's
+    # per-rank shapes and at the pipe axis's microbatch shapes
+    parallel_res, par_paths, pp_held = parallel_phase(torch, np, root, smi)
     path_counts.update(par_paths)
-    for kernel, rows in tp_kernel_rows(torch, dev, flush, peaks).items():
+    for kernel, rows in kernel_rows(torch, dev, flush, peaks,
+                                    TP_ATTENTION_CASES,
+                                    TP_LAYERNORM_CASES).items():
         extend_forward_row(kernel, rows, key="tp_shapes")
+    for kernel, rows in kernel_rows(torch, dev, flush, peaks,
+                                    PP_ATTENTION_CASES,
+                                    PP_LAYERNORM_CASES).items():
+        extend_forward_row(kernel, rows, key="pp_shapes")
+    for kernel, rows in pp_held.items():
+        extend_forward_row(kernel, rows, key="pp_gloo_shapes")
     phase_done("parallel")
     preprocess, pp = preprocess_phase(torch, np, dev, flush, peaks,
                                       counters, root)
@@ -4274,8 +4847,7 @@ def main() -> int:
         extend_forward_row(kernel, hd[kernel], key="header_shapes")
     extend_forward_row("kmedoids", pp["kmedoids"], key="preprocess_shapes")
     extend_forward_row("kmedoids", cl["kmedoids"], key="cluster_shapes")
-    for kernel in ("attention_fwd", "attention_bwd", "layernorm_fwd",
-                   "layernorm_bwd", "kmedoids"):
+    for kernel in ALL_KERNELS:
         extend_forward_row(kernel, act[kernel], key="activity_shapes")
     for row in results:
         row.update(path_launches(row.pop("counter")))
@@ -4329,7 +4901,8 @@ def main() -> int:
 
 def parallel_worker(argv) -> int:
     """A rank of a parallel leg: `--parallel-leg {single,gloo,tp_gloo,
-    multi,multi_main_tp} <root> <out.json>` (started by torchrun_leg)."""
+    pp_gloo,multi,multi_main_tp,multi_main_pp,multi_eval} <root>
+    <out.json>` (started by torchrun_leg)."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -4339,8 +4912,11 @@ def parallel_worker(argv) -> int:
     faulthandler.enable()     # a rank that crashes prints its Python stack
     leg, root, out_path = argv
     {"single": parallel_leg_single, "gloo": parallel_leg_gloo,
-     "tp_gloo": parallel_leg_tp_gloo, "multi": parallel_leg_multi,
-     "multi_main_tp": parallel_leg_multi_main_tp}[leg](
+     "tp_gloo": parallel_leg_tp_gloo, "pp_gloo": parallel_leg_pp_gloo,
+     "multi": parallel_leg_multi,
+     "multi_main_tp": parallel_leg_multi_main_tp,
+     "multi_main_pp": parallel_leg_multi_main_pp,
+     "multi_eval": parallel_leg_multi_eval}[leg](
         torch, np, root, out_path)
     return 0
 

@@ -638,6 +638,42 @@ def test_loader_shards_and_shuffles_like_jax(count, shuffle):
                 assert_same_batch(x, y)
 
 
+class _Counted(_Toy):
+    """A _Toy that records the samples it was asked for."""
+    def __init__(self, n):
+        super().__init__(n)
+        self.read = []
+
+    def __getitem__(self, i):
+        self.read.append(int(i))
+        return super().__getitem__(i)
+
+
+@pytest.mark.parametrize("count", [2, 3])
+@pytest.mark.parametrize("threads", [0, 2])
+def test_strided_loaders_split_the_batches_and_read_only_their_own(
+        count, threads):
+    """`strided(index, count)` yields batch i of the loader exactly when
+    i % count == index, and reads no other sample; `batch_sizes` loads
+    nothing."""
+    whole = list(loader.BatchLoader(_Toy(10), batch_size=3,
+                                    num_threads=threads))
+    ds = _Counted(10)
+    lo = loader.BatchLoader(ds, batch_size=3, num_threads=threads)
+    assert lo.batch_sizes() == [3, 3, 3, 1] and ds.read == []
+    for index in range(count):
+        ds.read.clear()
+        part = lo.strided(index, count)
+        got = list(part)
+        mine = whole[index::count]
+        assert len(part) == len(got) == len(mine)
+        for x, y in zip(got, mine):
+            assert_same_batch(x, y)
+        assert sorted(ds.read) == sorted(
+            int(i) for b in mine for i in b["input_ids"][:, 0])
+    assert lo.batch_stride == (0, 1) and len(lo) == 4
+
+
 def test_loader_hands_a_sample_error_to_the_consumer():
     """A sample that raises in a decode thread ends the epoch with that
     error (the JAX package's producer thread dies and leaves the consumer

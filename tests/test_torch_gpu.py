@@ -642,6 +642,30 @@ def test_layernorm_kernels_at_sequence_parallel_rows(cuda, R, D):
     _check_ln_bwd(x, w, dy, layernorm_triton.layer_norm_backward(x, w, dy))
 
 
+# ------------------------------------------------- pipeline parallelism
+# a stage's microbatch under pipeline parallelism (M = 4 S): ViT-B/32's
+# 96 or 48 frames before and after the cluster layer and 8 texts (the pipe
+# meshes at the global 128), 48 / 24 frames and 4 texts (two stages at 32)
+@pytest.mark.parametrize("B,L,H,causal", [(96, 50, 12, False),
+                                          (48, 50, 12, False),
+                                          (24, 50, 12, False),
+                                          (8, 32, 8, True),
+                                          (4, 32, 8, True)])
+def test_attention_kernels_at_pipeline_microbatch_shapes(cuda, B, L, H,
+                                                         causal):
+    """Kernels A and B on a stage's microbatch against their plain
+    versions, within one bf16 ulp."""
+    test_attention_kernels_at_tensor_parallel_shapes(cuda, B, L, H, causal)
+
+
+@pytest.mark.parametrize("R,D", [(96 * 50, 768), (48 * 50, 768),
+                                 (8 * 32, 512)])
+def test_layernorm_kernels_at_pipeline_microbatch_rows(cuda, R, D):
+    """Kernels C and D on a stage's microbatch rows against their plain
+    versions (as at the sequence-parallel rows)."""
+    test_layernorm_kernels_at_sequence_parallel_rows(cuda, R, D)
+
+
 # ------------------------------------------------ LayerNorm backward design
 # row counts at the plan's edges (one program, one partial tile, one tile
 # per program, many tiles per program) at a width that is no power of two

@@ -41,7 +41,7 @@ def test_importing_every_port_module_loads_no_jax():
         "'preprocess.compress_video', 'preprocess.download_lsmdc', "
         "'preprocess.folder2lmdb', 'preprocess.generate_video_path', "
         "'preprocess.visualize_clusters', 'parallel', "
-        "'parallel.collectives', 'parallel.mesh'}\n"
+        "'parallel.collectives', 'parallel.mesh', 'parallel.pipeline'}\n"
         "assert {'centerclip_tpu_torch.' + n for n in new} <= set(names)\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -99,27 +99,26 @@ def test_cli_experiment_62_config_equals_jax(extra, tmp_path):
                                   ["--pipeline_parallel", "2"],
                                   ["--sequence_parallel", "1"]])
 def test_cli_refuses_the_parallel_strategies(flag):
-    """Data, tensor and sequence parallelism and FSDP parse into the JAX
-    package's config, field by field (sequence parallelism with
-    `--tensor_parallel 2`, which both packages require of it); pipeline
-    parallelism, not ported yet, is refused with a pointer to the
-    roadmap."""
-    if flag[0] != "--pipeline_parallel":
-        argv = EXP62 + flag + (["--tensor_parallel", "2"]
-                               if flag[0] == "--sequence_parallel" else [])
-        a, b = cli.parse_args(argv), jax_cli.parse_args(argv)
-        assert dataclasses.asdict(a) == dataclasses.asdict(b)
-        assert (a.data_parallel, a.fsdp, a.tensor_parallel,
-                a.model.sequence_parallel) == {
-            "--data_parallel": (2, False, 1, False),
-            "--fsdp": (0, True, 1, False),
-            "--tensor_parallel": (0, False, 2, False),
-            "--sequence_parallel": (0, False, 2, True)}[flag[0]]
-        return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md section 1, item 1.4"):
-        cli.parse_args(EXP62 + flag)
-    jax_cli.parse_args(EXP62 + flag)
+    """Data, tensor, sequence and pipeline parallelism and FSDP parse into
+    the JAX package's config, field by field (sequence parallelism with
+    `--tensor_parallel 2`, which both packages require of it); what both
+    refuse is each strategy with `--tensor_parallel 2 --pipeline_parallel
+    2` ("combined")."""
+    argv = EXP62 + flag + (["--tensor_parallel", "2"]
+                           if flag[0] == "--sequence_parallel" else [])
+    a, b = cli.parse_args(argv), jax_cli.parse_args(argv)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert (a.data_parallel, a.fsdp, a.tensor_parallel,
+            a.model.sequence_parallel, a.model.pipeline_parallel) == {
+        "--data_parallel": (2, False, 1, False, 1),
+        "--fsdp": (0, True, 1, False, 1),
+        "--tensor_parallel": (0, False, 2, False, 1),
+        "--pipeline_parallel": (0, False, 1, False, 2),
+        "--sequence_parallel": (0, False, 2, True, 1)}[flag[0]]
+    both = ["--tensor_parallel", "2", "--pipeline_parallel", "2"]
+    for parse in (cli.parse_args, jax_cli.parse_args):
+        with pytest.raises(ValueError, match="combined"):
+            parse(argv + both)
 
 
 @pytest.mark.parametrize("extra", [["--sim_header", "seqTransf"],

@@ -190,8 +190,9 @@ def test_builders_refuse_what_is_not_ported():
     """The builder builds wherever the JAX package builds: the seqTransf,
     seqLSTM and tightTransf headers, the 3-D patchify and the ResNet
     towers, and under sequence parallelism; seqLSTM raises at the
-    similarity, as the JAX package's does.  What is not ported, pipeline
-    parallelism, raises at build."""
+    similarity, as the JAX package's does.  Pipeline parallelism builds
+    too (the Trainer stages the model later); a pipeline extent below 1
+    raises at build."""
     b = make_inputs(4)
     for over in (dict(sim_header="seqTransf"), dict(sim_header="seqLSTM"),
                  dict(sim_header="tightTransf"), dict(linear_patch="3d"),
@@ -207,14 +208,17 @@ def test_builders_refuse_what_is_not_ported():
         else:
             sim = model.get_similarity_logits(seq, vis, None, t(b[2][:, :2]))
             assert tuple(sim.shape) == (3, 3)
-    # sequence parallelism builds (the Trainer splits the model later);
-    # pipeline parallelism still raises
+    # sequence and pipeline parallelism build (the Trainer splits or
+    # stages the model later)
     cfg = port_config.make_run_config(**config_kw(
         tensor_parallel=2, sequence_parallel=True)).model
     assert cfg.sequence_parallel
     CLIP4Clip(cfg, device="cpu")
     cfg = port_config.make_run_config(**config_kw(pipeline_parallel=2)).model
-    with pytest.raises(NotImplementedError, match="section 1, item 1.4"):
+    assert cfg.pipeline_parallel == 2
+    CLIP4Clip(cfg, device="cpu")
+    cfg = port_config.make_run_config(**config_kw(pipeline_parallel=0)).model
+    with pytest.raises(ValueError, match="pipeline_parallel 0"):
         CLIP4Clip(cfg, device="cpu")
 
 

@@ -56,12 +56,14 @@ from centerclip_tpu.train import optim as jax_optim  # noqa: E402
 from centerclip_tpu.train import state as jax_state  # noqa: E402
 from centerclip_tpu_torch import config as port_config  # noqa: E402
 from centerclip_tpu_torch import parallel  # noqa: E402
+from centerclip_tpu_torch.data.loader import BatchLoader  # noqa: E402
 from centerclip_tpu_torch.models.clip4clip import CLIP4Clip  # noqa: E402
 from centerclip_tpu_torch.models.weights import (  # noqa: E402
     clip4clip_entries, state_dict_from_jax_params)
 from centerclip_tpu_torch.train import (AverageMeter, Trainer,  # noqa: E402
                                         host_state, make_train_step, resume,
                                         save_checkpoint)
+from centerclip_tpu_torch.train.evaluate import Evaluator  # noqa: E402
 
 ARCH = "tiny-parallel"
 TINY = dict(embed_dim=16, image_resolution=32, vision_layers=2,
@@ -103,6 +105,27 @@ def make_batch(seed, n=GLOBAL_BATCH):
             "video": g.integers(0, 256, (n, 1, T, 3, RES, RES),
                                 dtype=np.uint8),
             "video_mask": vmask}
+
+
+EVAL_CUTS = [2, 5, 6, 9, 12, 15]     # 15 captions of 6 videos
+
+
+def metrics_json(metrics):
+    """A metrics dict as JSON text (numpy scalars and arrays as lists)."""
+    return json.dumps(metrics, sort_keys=True, default=lambda o: o.tolist())
+
+
+def eval_batches():
+    """Five evaluation batches of 3 rows (uneven over 2 ranks: 3 + 2)."""
+    return [make_batch(30 + i, n=3) for i in range(5)]
+
+
+def eval_loader():
+    """`eval_batches` through a BatchLoader over their 15 rows, as a
+    spread evaluation takes them."""
+    rows = [{k: v[i] for k, v in b.items()} for b in eval_batches()
+            for i in range(3)]
+    return BatchLoader(rows, batch_size=3)
 
 
 def global_step_batches(accum, first_seed=10):
@@ -166,6 +189,18 @@ def _world(rank, world, port, workdir):
     meter.synchronize_between_processes()
     out["meter"] = (meter.count, meter.sum, meter.avg)
     inits = torch.load(os.path.join(workdir, "init.pt"))
+    model = port_model("meanP", inits["meanP"])
+    out["eval"] = {}
+    for multi in (False, True):
+        res = Evaluator(model).evaluate(
+            eval_loader(), multi_sentence=multi,
+            cut_off_points=EVAL_CUTS if multi else None)
+        if rank == 0:       # tensors and floats, for `torch.load`
+            out["eval"][multi] = {
+                "sim_matrix": torch.from_numpy(res["sim_matrix"]),
+                **{k: metrics_json(res[k]) for k in ("t2v", "v2t")}}
+        else:
+            assert res is None
     steps = {}
     for header, accum in CASES:
         for fsdp in (False, True):
@@ -390,6 +425,24 @@ def test_data_shard_geometry_matches_jax(monkeypatch, pc, pi, local,
         **extents, count=pc, index=pi, local_devices=local) == ref
 
 
+@pytest.mark.parametrize("multi", [False, True])
+def test_spread_evaluation_equals_one_process(world, multi):
+    """Phase 1 spread over the 2 ranks (batches 0, 2, 4 on rank 0, 1 and 3
+    on rank 1; multi-sentence: 15 captions of 6 videos), gathered to rank 0
+    in the loader's order: rank 0's similarity matrix within 1e-6 of one
+    process's, and the same metrics."""
+    got = world["eval"][multi]
+    ref = Evaluator(port_model("meanP", world["inits"]["meanP"])).evaluate(
+        eval_batches(), multi_sentence=multi,
+        cut_off_points=EVAL_CUTS if multi else None)
+    assert got["sim_matrix"].shape == ref["sim_matrix"].shape == (
+        (15, 6) if multi else (15, 15))
+    np.testing.assert_allclose(got["sim_matrix"].numpy(), ref["sim_matrix"],
+                               rtol=0, atol=1e-6)
+    for k in ("t2v", "v2t"):
+        assert got[k] == metrics_json(ref[k])
+
+
 def test_average_meter_syncs_over_the_ranks(world):
     # rank 0: 3 x 2.0, rank 1: 1 x 5.0
     assert world["meter"] == (4, 11.0, 2.75)
@@ -502,24 +555,36 @@ def test_resume_across_the_two_layouts(world, tmp_path):
      "model extent 2 does not divide the 1 process"),
     ({"tensor_parallel": 3, "sequence_parallel": True}, ValueError,
      r"model extent 3 does not divide the \[2\] heads"),
-    ({"pipeline_parallel": 2}, NotImplementedError, "section 1, item 1.4"),
+    ({"pipeline_parallel": 2}, ValueError,
+     "pipe extent 2 does not divide the 1 process"),
     ({"data_parallel": 3}, ValueError, "data extent 3")])
 def test_trainer_refuses_what_it_does_not_run(over, error, match):
     """The trainer reads the parallel fields: a config from
-    `make_run_config` that asks for the strategy the port does not run
-    (pipeline), for a model extent that does not divide the world of 1 or
-    the tiny arch's 2 heads, or for 3 processes in a world of 1, raises."""
+    `make_run_config` that asks for a model or pipe extent that does not
+    divide the world of 1 or the tiny arch's 2 heads, or for 3 processes
+    in a world of 1, raises."""
     model = CLIP4Clip(run_config("meanP", 1).model, device="cpu")
     with pytest.raises(error, match=match):
         Trainer(run_config("meanP", 1, **over), model, total_steps=1)
 
 
-def test_serve_cli_refuses_data_parallel():
+def test_serve_cli_refuses_data_parallel(tmp_path):
+    """`--data_parallel 2` runs the flat index over two cards; with an IVF
+    index it raises, as JAX's does with a mesh (`serve/engine.py:303-306`,
+    `serve/ivf.py:505-508`), for `build` and for a saved IVF index, before
+    the model loads."""
     from centerclip_tpu_torch.serve import cli as serve_cli
-    with pytest.raises(NotImplementedError, match="section 1, item 1.1"):
-        serve_cli.main(["query", "--index_path", "unused.npz",
-                        "--output_dir", "unused", "--data_parallel", "2"],
-                       device="cpu")
+    from centerclip_tpu_torch.serve.ivf import IVFVideoIndex
+    path = str(tmp_path / "ivf.npz")
+    emb = np.random.default_rng(0).normal(size=(16, 8)).astype(np.float32)
+    IVFVideoIndex(emb, [f"v{i}" for i in range(16)], n_clusters=2,
+                  device="cpu").save(path)
+    for argv in (["query", "--index_path", path],
+                 ["build", "--index_path", "unused.npz", "--index_type",
+                  "ivf"]):
+        with pytest.raises(ValueError, match="single-device"):
+            serve_cli.main(argv + ["--output_dir", str(tmp_path / "out"),
+                                   "--data_parallel", "2"], device="cpu")
 
 
 # ------------------------------------------------- two-process `main`

@@ -136,6 +136,39 @@ def test_serve_cli_build_query_ivf(msrvtt_root, tmp_path, capsys):  # noqa: F811
         VideoIndex.load(idx_path, device="cpu")
 
 
+def test_serve_cli_data_parallel_equals_one_device(msrvtt_root, tmp_path,  # noqa: F811
+                                                  capsys):
+    """`--data_parallel 2` on two CPU "cards": the gallery batches (3, 3,
+    2 clips, padded to 4) split 2 + 2 over the replicas and the flat
+    index's rows 4 + 4; the build's codes and ids, and a query's ids and
+    scores (within 1e-6) equal the one-device run's, across both
+    layouts."""
+    flags = _flags(msrvtt_root, tmp_path / "out")
+    paths = {n: str(tmp_path / f"gallery_{n}.npz") for n in (1, 2)}
+    built = {n: _run(["build", "--index_path", paths[n],
+                      "--data_parallel", str(n)] + flags) for n in (1, 2)}
+    assert [d.type for d in built[2].devices] == ["cpu", "cpu"]
+    assert len(built[2]._parts) == 2 and built[2].n_padded == 8
+    assert built[2].video_ids == built[1].video_ids
+    np.testing.assert_allclose(built[2]._codes.numpy(),
+                               built[1]._codes.numpy(), rtol=0, atol=1e-6)
+    queries = ["--query", "a person cooking in a kitchen",
+               "--query", "someone driving a car", "--query", "video3"]
+    results = {}
+    for layout in ((1, 1), (2, 2), (1, 2), (2, 1)):
+        results[layout] = _run(
+            ["query", "--index_path", paths[layout[0]], "--topk", "5",
+             "--data_parallel", str(layout[1])] + queries + flags)
+    capsys.readouterr()
+    ref = results[(1, 1)]
+    for layout, got in results.items():
+        for a, b in zip(got, ref):
+            assert [r["video_id"] for r in a] == [r["video_id"] for r in b]
+            np.testing.assert_allclose([r["score"] for r in a],
+                                       [r["score"] for r in b], rtol=0,
+                                       atol=1e-6, err_msg=str(layout))
+
+
 def test_serve_cli_http_daemon(msrvtt_root, tmp_path, capsys, monkeypatch):  # noqa: F811
     """`serve`: load the index, bind, warm up, answer a live request."""
     idx_path = str(tmp_path / "gallery.npz")
