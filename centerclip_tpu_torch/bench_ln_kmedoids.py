@@ -1,0 +1,235 @@
+# coding=utf-8
+"""Time kernel C (LayerNorm forward) and kernel E's global variant
+(k-medoids, N > SHARED_MAX_N) against an earlier version of each, in turns.
+
+    python -m centerclip_tpu_torch.bench_ln_kmedoids --old DIR
+
+DIR holds the `centerclip_tpu_torch/` tree of an earlier commit (`git
+archive <commit> centerclip_tpu_torch | tar -x -C DIR`, unpacked where git
+ignores it): its `ops/layernorm_triton.py` is loaded by path and its
+`csrc/kmedoids.cu` built with nvcc into `build/ab_old/`.  `chip_smoke.py`
+times each kernel alone; this times the two versions of each in turns
+(old, new, new, old) in one process, with `kernel_timing`'s helpers.
+
+C: at every shape `chip_smoke.py` times it at (`LAYERNORM_FWD_SHAPES`),
+both versions held against `layer_norm_plain` (one bf16 ulp, fp32 1e-5)
+and timed beside the plain version, `F.layer_norm` on the same input and
+on an fp32 copy, and the bound.  Its host cost (`HOST_SHAPES`, each
+version twice in turns) on inputs that need no gradient (serving,
+encoding) and with gamma and beta that do (training: the autograd
+Function's path).
+
+E global: on the tokens ViT-B/16's cluster layer takes (preset
+msrvtt_vitb16_k6, seeded weights and clips, the vision tower in eval mode):
+an encode batch of 32 clips (D [192, 392, 392]) and the training batch of
+128 (D [768, 392, 392]), K = 160.  The two versions must give the same ids,
+assignment and steps; both timed in full and with iter_limit 0 (KKZ, the
+id sort and the last assignment alone), beside the bound, with the mean
+Lloyd steps.  Prints the card and one JSON line.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from .kernel_timing import (LAYERNORM_FWD_SHAPES, card_peaks,
+                            host_us_per_call, kmedoids_bound,
+                            layernorm_bound, layernorm_times, time_ms)
+from .ops import _build, kmedoids_cuda, layernorm_triton
+
+HOST_SHAPES = ((128, 512), (4800, 768))
+E_PRESET, E_CLIPS, E_FRAMES, E_RES = "msrvtt_vitb16_k6", (32, 128), 12, 224
+BF16_ATOL, BF16_RTOL = 1.6e-2, 1.6e-2
+FP32_ATOL, FP32_RTOL = 1e-5, 1e-5
+
+
+def in_turns(f_old, f_new, timer):
+    """(old, new) as the means of four turns: old, new, new, old."""
+    t = [timer(f) for f in (f_old, f_new, f_new, f_old)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def load_old(tree: str):
+    """The earlier version's LayerNorm module (loaded by path) and its
+    k-medoids library (built by nvcc)."""
+    pkg = os.path.join(tree, "centerclip_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "old_layernorm_triton", os.path.join(pkg, "ops", "layernorm_triton.py"))
+    ln = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ln)
+    out_dir = os.path.join(_build.BUILD_DIR, "ab_old")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "libkmedoids.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                           os.path.join(pkg, "csrc", "kmedoids.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the old kmedoids.cu:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return ln, ctypes.CDLL(lib)
+
+
+def old_kmedoids_global(lib, D, l2, K, iter_limit):
+    """The earlier `cc_kmedoids_global` on D [B, N, N], l2 [B, N]."""
+    B, N, _ = D.shape
+    assign = torch.empty((B, N), dtype=torch.int32, device=D.device)
+    meds = torch.empty((B, K), dtype=torch.int32, device=D.device)
+    steps = torch.empty((B,), dtype=torch.int32, device=D.device)
+    fn = lib.cc_kmedoids_global
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    _build.check(lib, fn(D.data_ptr(), l2.data_ptr(), meds.data_ptr(),
+                         assign.data_ptr(), steps.data_ptr(), B, N, K,
+                         iter_limit, 1,
+                         torch.cuda.current_stream().cuda_stream),
+                 "old k-medoids kernel")
+    return assign, meds, steps
+
+
+def layernorm_rows(old_ln, flush, dev, peaks):
+    rows = []
+    for label, R, D, dtype in LAYERNORM_FWD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(R)
+        x = (torch.randn((R, D), generator=gen, device=dev) * 3 + 1).to(dtype)
+        w = torch.randn(D, generator=gen, device=dev) * 0.1 + 1
+        b = torch.randn(D, generator=gen, device=dev)
+        atol, rtol = ((FP32_ATOL, FP32_RTOL) if dtype == torch.float32
+                      else (BF16_ATOL, BF16_RTOL))
+        ref = layernorm_triton.layer_norm_plain(x, w, b).float()
+        errs = {}
+        for name, fwd in (("new", layernorm_triton._forward),
+                          ("old", old_ln._forward)):
+            err = (fwd(x, w, b, 1e-5).float() - ref).abs()
+            if not bool((err <= atol + rtol * ref.abs()).all()):
+                raise SystemExit(f"bench: {name} layernorm [{label}] "
+                                 f"disagrees with its plain version")
+            errs[name] = err.max().item()
+        del ref
+        row = dict(label=label, shape=[R, D], dtype=str(dtype).split(".")[-1],
+                   max_abs_err=errs)
+        row["old_ms"], row["new_ms"], row["turns_ms"] = in_turns(
+            lambda: old_ln._forward(x, w, b, 1e-5),
+            lambda: layernorm_triton._forward(x, w, b, 1e-5),
+            lambda f: time_ms(f, flush))
+        row.update(layernorm_times(x, w, b, flush))
+        row["bound_ms"], row["bound_by"] = layernorm_bound(x, peaks)
+        print(json.dumps(row))
+        rows.append(row)
+    host = []
+    for R, D in HOST_SHAPES:
+        x = torch.randn((R, D), device=dev).to(torch.bfloat16)
+        w = torch.ones(D, device=dev)
+        b = torch.zeros(D, device=dev)
+        wg, bg = (t.clone().requires_grad_(True) for t in (w, b))
+        calls = {"us": lambda: layernorm_triton.layer_norm(x, w, b),
+                 "us_autograd": lambda: layernorm_triton.layer_norm(x, wg, bg),
+                 "old_us": lambda: old_ln.layer_norm(x, w, b),
+                 "old_us_autograd": lambda: old_ln.layer_norm(x, wg, bg)}
+        row = dict(shape=[R, D])
+        for turn in range(2):           # every path twice, in turns
+            for key, fn in calls.items():
+                row.setdefault(key, []).append(host_us_per_call(fn))
+        print(json.dumps(row))
+        host.append(row)
+    return rows, host
+
+
+def vitb16_points(dev):
+    """{clips: the [S, 392, 768] points the cluster layer clustered}, K and
+    the iteration limit, from one eval forward of each batch size."""
+    from .config import preset
+    from .models.clip4clip import CLIP4Clip
+    from .ops import cluster_layer
+    from .serve import RetrievalEngine
+    cfg = preset(E_PRESET).model
+    model = CLIP4Clip(cfg, device=dev, seed=0).eval()
+    engine = RetrievalEngine(model, device=dev)
+    seen, real = {}, cluster_layer.kmedoids
+
+    def record(points, K, **kw):
+        seen.setdefault(points.shape[0], (points.detach().clone(), K, kw))
+        return real(points, K, **kw)
+    cluster_layer.kmedoids = record
+    try:
+        g = np.random.default_rng(16)
+        for n in E_CLIPS:
+            clips = g.integers(0, 256, (n, 1, E_FRAMES, 3, E_RES, E_RES),
+                               dtype=np.uint8)
+            engine.embed_video_batches([{"video": clips, "video_mask":
+                                         np.ones((n, E_FRAMES), np.int32)}])
+    finally:
+        cluster_layer.kmedoids = real
+    del engine, model
+    torch.cuda.empty_cache()
+    return [seen[n * E_FRAMES // 2] for n in E_CLIPS]
+
+
+def kmedoids_rows(old_lib, flush, dev, peaks):
+    from .ops.kmedoids import kmedoids_inputs
+    rows = []
+    for points, K, kw in vitb16_points(dev):
+        iters = kw["iter_limit"]
+        X, D, l2 = kmedoids_inputs(points, kw["distance"], kw["norm_p"],
+                                   kw["pre_norm"])
+        B, N = l2.shape
+        if kmedoids_cuda.choose_variant(N) != kmedoids_cuda.GLOBAL:
+            raise SystemExit(f"bench: N={N} is not the global variant's")
+        new_out = kmedoids_cuda.kmedoids_from_distances(D, l2, K, iters)
+        old_out = old_kmedoids_global(old_lib, D, l2, K, iters)
+        if not all(torch.equal(a, b) for a, b in zip(old_out, new_out)):
+            raise SystemExit(f"bench: k-medoids [{B}, {N}, {N}]: the new "
+                             f"global variant's bits differ from the old "
+                             f"one's")
+        row = dict(shape=[B, N, N], K=K, iter_limit=iters, equal_to_old=True,
+                   lloyd_steps_mean=new_out[2].float().mean().item(),
+                   lloyd_steps_max=int(new_out[2].max()))
+        for key, limit in (("", iters), ("kkz_", 0)):
+            o, n, t = in_turns(
+                lambda: old_kmedoids_global(old_lib, D, l2, K, limit),
+                lambda: kmedoids_cuda.kmedoids_from_distances(D, l2, K, limit),
+                lambda f: time_ms(f, flush))
+            row[f"old_{key}ms"], row[f"{key}ms"] = o, n
+            row[f"{key}turns_ms"] = t
+        row["bound_ms"], row["bound_by"] = kmedoids_bound(
+            K, new_out[0], new_out[2], peaks)
+        print(json.dumps(row))
+        rows.append(row)
+        del X, D, l2
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", required=True,
+                    help="a tree holding an earlier centerclip_tpu_torch/")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench_ln_kmedoids: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    dev = torch.device("cuda")
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    old_ln, old_lib = load_old(args.old)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ln_rows, host = layernorm_rows(old_ln, flush, dev, peaks)
+    km_rows = kmedoids_rows(old_lib, flush, dev, peaks)
+    print(json.dumps({"card": smi, "torch": torch.__version__,
+                      "layernorm_fwd": ln_rows, "layernorm_host": host,
+                      "kmedoids_global": km_rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -46,22 +46,51 @@
 // D @ onehot(assign) (O(N^2 K) flops per step) was a device of the TPU's
 // matrix unit.
 //
-// Two variants of the one algorithm, chosen by the wrapper from N alone:
+// Two variants of the one algorithm, chosen by the wrapper from N alone,
+// which give the same bits on the same D:
 //
 // * shared (N <= 235, where D fits in a CTA's shared memory whatever K):
-//   as above, 128 threads.
+//   kmedoids_kernel, as above, 128 threads.
 // * global (N <= 512; ViT-B/16 clusters N = 2 x 196 = 392 tokens with
-//   K = 160): D stays in device memory and every read of it goes through
-//   L2; the block's shared memory holds only the sums, assignment, medoids
-//   and member masks (13 KB at N = 392, K = 160), so 8 CTAs of 256 threads
-//   share an SM and all segments of a training step (768) are resident at
-//   once.  The steps, their order and every sum are those of the shared
-//   variant, so the two give the same bits on the same D.  Chosen over a
-//   cluster of CTAs holding D in distributed shared memory: at N = 392 a
-//   segment's D is 614 KB, so all the SMs' shared memory holds fewer than
-//   50 segments at a time and 768 would run in ~20 waves of the same
-//   latency-bound chain, while here every segment's chain runs at once and
-//   the cost is the reads of medoid rows from L2 / device memory.
+//   K = 160): kmedoids_global_kernel.  D stays in device memory (614 KB a
+//   segment at N = 392, 472 MB for a training step's 768 segments, well
+//   past the 50 MB L2), so every read of it costs a round trip to device
+//   memory, and a segment's time is the length of its chain of such reads.
+//   An earlier design ran the shared variant's steps on D in device
+//   memory: KKZ in warp 0 (K dependent row reads, ~2 us each on an H100),
+//   and every Lloyd step's assignment read all K medoid rows for every
+//   point (251 KB a segment a step at K = 160, in dependent batches of 8
+//   loads a thread).  On ViT-B/16's tokens (H100), KKZ was half of its
+//   time at an encode's 192 segments and Lloyd the rest.  This design
+//   shortens both chains and reads only what changed:
+//   - KKZ runs over all 8 warps, each thread keeping mindist of 2 points,
+//     with one block barrier a step for the first-index argmax.  While
+//     the block agrees on the pick, each warp prefetches the row of its
+//     own argmax into L2: the next pick is often one of them, so its row
+//     read hits L2 instead of device memory.  KKZ also keeps each point's
+//     nearest chosen medoid (first index on ties) and whether another one
+//     ties it: that is the first Lloyd step's assignment, from the rows
+//     KKZ reads anyway.
+//   - Each point keeps (nearest value, k, tie flag).  After an update, a
+//     point whose own medoid stayed compares only the medoids that moved,
+//     (value, k) in lexicographic order, which is exactly the first-index
+//     argmin over all K.  A point whose own medoid moved is scanned over
+//     all K by its whole warp at once (K / 32 loads a lane, then warp
+//     reductions), one such point after another.
+//   - Sums and argmins run only for clusters whose member set changed (an
+//     unchanged member set gives the same sums, so the same medoid); a
+//     candidate's sum loads its members 4 at a time and adds them in
+//     ascending order.
+//   - The last assignment after the id sort is each point's k mapped to
+//     its rank when no other medoid ties it, and a warp scan of the sorted
+//     medoids only where one may.
+//   8 warps a CTA and at most 40 registers a thread, so that 6 CTAs share
+//   an SM and all 768 segments of a training step are resident at once
+//   (15 KB of shared memory each at N = 392, K = 160).  A cluster of 4
+//   CTAs holding a segment's D in distributed shared memory was not built:
+//   all SMs together would hold ~33 segments at a time, so a training
+//   step's 768 would run in ~24 waves of the same dependent chain, and an
+//   encode's 192 in ~6.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <limits.h>
@@ -71,8 +100,14 @@ namespace {
 
 constexpr int kThreads = 128;          // shared variant
 constexpr int kGlobalThreads = 256;    // global variant
+constexpr int kGlobalWarps = kGlobalThreads / 32;
+constexpr int kGlobalCtasPerSm = 6;    // global: a training step's 768 resident
 constexpr int kMaxChunks = 8;          // 32-point chunks, shared: N <= 256
 constexpr int kGlobalMaxChunks = 16;   // global: N <= 512
+// points a thread keeps in the global variant's KKZ
+constexpr int kKkzPoints = 32 * kGlobalMaxChunks / kGlobalThreads;
+constexpr int kScanBatch = 8;          // loads in flight a thread in a scan
+constexpr int kSumBatch = 4;           // loads in flight in a candidate's sum
 
 // (v, i) beats (bv, bi): strictly better value, or equal value and lower index
 __device__ __forceinline__ bool beats(float v, int i, float bv, int bi, bool is_max) {
@@ -117,26 +152,27 @@ __host__ __device__ inline size_t smem_bytes(int N, int K) {
           + (size_t)K * n_chunks(N) + 16) * 4;
 }
 
-// the global variant's: the same without D
+// the global variant's: best, assign, sums [N]; meds, moved [K]; member
+// masks [K, chunks]; then bytes: tie [N], dirty [K], moved flags [K]
 __host__ __device__ inline size_t global_smem_bytes(int N, int K) {
-  return smem_bytes(N, K) - (size_t)N * N * 4;
+  return (3 * (size_t)N + 2 * (size_t)K + (size_t)K * n_chunks(N)) * 4
+         + ((size_t)N + 2 * (size_t)K + 3) / 4 * 4;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-// C = ceil(N / 32) chunks of 32 points, a compile-time count; kShared: D
-// copied into shared memory (else read from device memory)
-template <int C, bool kShared>
-__global__ void __launch_bounds__(kShared ? kThreads : kGlobalThreads)
+// the shared variant; C = ceil(N / 32) chunks of 32 points, a compile-time
+// count
+template <int C>
+__global__ void __launch_bounds__(kThreads)
 kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
                 int* __restrict__ meds_out, int* __restrict__ assign_out,
                 int* __restrict__ steps_out, int N, int K, int iter_limit,
                 int id_sort) {
   extern __shared__ __align__(128) float smem[];
-  float* sD = smem;                                   // [N, N], shared only
-  float* s = kShared ? sD + (size_t)N * N : smem;     // [N] candidate sums
+  float* sD = smem;                                   // [N, N]
+  float* s = sD + (size_t)N * N;                      // [N] candidate sums
   int* assign = reinterpret_cast<int*>(s + N);        // [N]
   int* meds = assign + N;                             // [K]
   int* new_meds = meds + K;                           // [K]
@@ -148,35 +184,32 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
   const int warp = tid >> 5, lane = tid & 31, n_warps = nt >> 5;
   const int b = blockIdx.x;
   const float* Db = D + (size_t)b * N * N;
-  const float* Dm = kShared ? sD : Db;                // where D's rows are read
   const uint32_t bytes = (uint32_t)N * N * 4;
   const bool bulk = bytes % 16 == 0 && (reinterpret_cast<uintptr_t>(Db) & 15) == 0;
 
-  // ---- D into shared memory (shared variant)
-  if constexpr (kShared) {
-    if (bulk) {
-      if (tid == 0) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                     :: "r"(smem_addr(&loaded)) : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      }
-      __syncthreads();
-      if (tid == 0) {
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                     :: "r"(smem_addr(&loaded)), "r"(bytes) : "memory");
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%0], [%1], %2, [%3];\n"
-            :: "r"(smem_addr(sD)), "l"(Db), "r"(bytes), "r"(smem_addr(&loaded))
-            : "memory");
-      }
-    } else {
-      for (int e = tid; e < N * N; e += nt)
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                     :: "r"(smem_addr(sD + e)), "l"(Db + e) : "memory");
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // ---- D into shared memory
+  if (bulk) {
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   :: "r"(smem_addr(&loaded)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
+    __syncthreads();
+    if (tid == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(smem_addr(&loaded)), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          :: "r"(smem_addr(sD)), "l"(Db), "r"(bytes), "r"(smem_addr(&loaded))
+          : "memory");
+    }
+  } else {
+    for (int e = tid; e < N * N; e += nt)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(smem_addr(sD + e)), "l"(Db + e) : "memory");
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
 
   // ---- KKZ's first medoid while D lands: argmax of the norms (warp 0)
@@ -190,24 +223,22 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
     }
     idx = warp_argmax(v, i);
   }
-  if constexpr (kShared) {
-    if (bulk) {
-      uint32_t done = 0;
-      while (!done)
-        asm volatile("{\n .reg .pred p;\n"
-                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-                     " selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(smem_addr(&loaded)) : "memory");
-    } else {
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-      __syncthreads();
-    }
+  if (bulk) {
+    uint32_t done = 0;
+    while (!done)
+      asm volatile("{\n .reg .pred p;\n"
+                   " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                   " selp.u32 %0, 1, 0, p;\n}\n"
+                   : "=r"(done) : "r"(smem_addr(&loaded)) : "memory");
+  } else {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
   }
 
   // ---- KKZ seeding in warp 0: mindist of points lane + 32 j in registers
   if (warp == 0) {
     int md[C];                 // ordered(mindist), INT_MIN past N
-    const float* row = Dm + (size_t)idx * N;
+    const float* row = sD + (size_t)idx * N;
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const int n = lane + 32 * j;
@@ -225,7 +256,7 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
         if (md[j] == best) i = lane + 32 * j;
       idx = __reduce_min_sync(0xffffffffu, i);
       if (lane == 0) meds[k] = idx;
-      row = Dm + (size_t)idx * N;
+      row = sD + (size_t)idx * N;
 #pragma unroll
       for (int j = 0; j < C; ++j) {
         const int n = lane + 32 * j;
@@ -247,7 +278,7 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
       const int n = 32 * c + lane;
       int a = -1;
       if (n < N) {
-        a = nearest_medoid(Dm, meds, N, K, n);
+        a = nearest_medoid(sD, meds, N, K, n);
         assign[n] = a;
       }
       const unsigned peers = __match_any_sync(0xffffffffu, a);
@@ -257,7 +288,7 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
     // each candidate's sum over its own cluster's members, ascending
     for (int n = tid; n < N; n += nt) {
       const unsigned* mine = members + assign[n] * C;
-      const float* row = Dm + (size_t)n * N;
+      const float* row = sD + (size_t)n * N;
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c)
@@ -300,8 +331,323 @@ kmedoids_kernel(const float* __restrict__ D, const float* __restrict__ l2,
     __syncthreads();
   }
   for (int n = tid; n < N; n += nt)
-    assign_out[(size_t)b * N + n] = nearest_medoid(Dm, meds, N, K, n);
+    assign_out[(size_t)b * N + n] = nearest_medoid(sD, meds, N, K, n);
   for (int k = tid; k < K; k += nt) meds_out[(size_t)b * K + k] = meds[k];
+  if (tid == 0) steps_out[b] = steps;
+}
+
+// (d, k) into the running first-index minimum (bv, bk); tie: another k
+// holds the minimum value too (once set it stays set until a strictly
+// lower value arrives, so it may be set where no tie is left: a hint that
+// is never wrong when clear)
+__device__ __forceinline__ void take(int d, int k, int& bv, int& bk, bool& tie) {
+  if (d < bv) { bv = d; bk = k; tie = false; }
+  else if (d == bv) { tie = true; if (k < bk) bk = k; }
+}
+
+// the moved-medoid list's entries: k in the low 16 bits, its new medoid
+// above them
+__device__ __forceinline__ int pack_moved(int k, int med) { return k | (med << 16); }
+
+// point n's (bv, bk, tie) over its current medoid and the medoids that
+// moved, moved[0, n_moved) (its own medoid stayed)
+__device__ __forceinline__ void scan_moved(const float* __restrict__ Db,
+                                           const int* moved, int n_moved, int N,
+                                           int n, int& bv, int& bk, bool& tie) {
+  for (int i0 = 0; i0 < n_moved; i0 += kScanBatch) {
+    int d[kScanBatch], k[kScanBatch];
+#pragma unroll
+    for (int u = 0; u < kScanBatch; ++u) {
+      const int m = i0 + u < n_moved ? moved[i0 + u] : 0;
+      k[u] = m & 0xffff;
+      d[u] = i0 + u < n_moved ? ordered(__ldg(Db + (size_t)(m >> 16) * N + n)) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kScanBatch; ++u)
+      if (i0 + u < n_moved) take(d[u], k[u], bv, bk, tie);
+  }
+}
+
+// the warp together: (value, first k, tie) of point n's nearest medoid over
+// all K, lane l taking k = l, l + 32, ...; every lane gets it
+__device__ __forceinline__ void warp_scan_all(const float* __restrict__ Db,
+                                              const int* meds, int N, int K,
+                                              int n, int& bv, int& bk, bool& tie) {
+  const int lane = threadIdx.x & 31;
+  int v = INT_MAX, kk = INT_MAX;
+  bool t = false;
+#pragma unroll 4
+  for (int k = lane; k < K; k += 32)
+    take(ordered(__ldg(Db + (size_t)meds[k] * N + n)), k, v, kk, t);
+  bv = __reduce_min_sync(0xffffffffu, v);
+  const unsigned at_min = __ballot_sync(0xffffffffu, v == bv);
+  bk = __reduce_min_sync(0xffffffffu, v == bv ? kk : INT_MAX);
+  tie = __popc(at_min) > 1 || __any_sync(0xffffffffu, v == bv && t);
+}
+
+// KKZ's next pick is often the argmax another warp's points hold now: each
+// warp prefetches the row of its own argmax into L2 (a lane a 128-byte
+// line, the last lane the row's last element), so that the pick's row
+// read after the block's choice hits L2 more often than device memory
+__device__ __forceinline__ void prefetch_row(const float* row, int N) {
+  const int lane = threadIdx.x & 31;
+  if (lane <= (N + 31) / 32)
+    asm volatile("prefetch.global.L2 [%0];" :: "l"(row + min(32 * lane, N - 1)));
+}
+
+// the lanes of a 32-point chunk (point n >= N past the end) bring their
+// (bv, bk, tie) up to date after the medoids in moved[0, n_moved) moved: a
+// point whose own medoid stayed compares the moved ones only; the points
+// whose own medoid moved are scanned over all K by the whole warp, one
+// after the other (K / 32 loads a lane in flight at once, where a lane
+// scanning its own point would wait K / kScanBatch times).  Warp-uniform
+// control flow.
+__device__ __forceinline__ void reassign_chunk(const float* __restrict__ Db,
+                                               const int* meds, const int* moved,
+                                               const unsigned char* moved_flag,
+                                               int n_moved, int N, int K, int n,
+                                               int& bv, int& bk, bool& tie) {
+  const bool valid = n < N;
+  const unsigned orphans = __ballot_sync(0xffffffffu, valid && moved_flag[bk]);
+  if (valid && !(orphans >> (threadIdx.x & 31) & 1))
+    scan_moved(Db, moved, n_moved, N, n, bv, bk, tie);
+  for (unsigned o = orphans; o; o &= o - 1) {
+    const int src = __ffs(o) - 1;
+    int v, k;
+    bool t;
+    warp_scan_all(Db, meds, N, K, __shfl_sync(0xffffffffu, n, src), v, k, t);
+    if ((threadIdx.x & 31) == src) { bv = v; bk = k; tie = t; }
+  }
+}
+
+// first-index argmax over the CTA of each thread's (ordered value v,
+// index i); every thread gets the index.  slots: [2][kGlobalWarps] in
+// shared memory; parity p alternates from call to call, so one barrier a
+// call suffices (a warp can reach the next call's slots of the same parity
+// only after every warp has passed the barrier in between).  Each warp's
+// own argmax's row of Db is prefetched into L2 meanwhile, when it differs
+// from the one it prefetched last (`fetched`, the same in every lane).
+__device__ __forceinline__ int block_argmax(int v, int i, int2* slots, int p,
+                                            const float* Db, int N, int& fetched) {
+  const int best = __reduce_max_sync(0xffffffffu, v);
+  const int idx = __reduce_min_sync(0xffffffffu, v == best ? i : INT_MAX);
+  if (idx < N && idx != fetched) {
+    prefetch_row(Db + (size_t)idx * N, N);
+    fetched = idx;
+  }
+  int2* mine = slots + p * kGlobalWarps;
+  if ((threadIdx.x & 31) == 0) mine[threadIdx.x >> 5] = make_int2(best, idx);
+  __syncthreads();
+  int2 b = mine[0];
+#pragma unroll
+  for (int w = 1; w < kGlobalWarps; ++w) {
+    const int2 c = mine[w];
+    if (c.x > b.x || (c.x == b.x && c.y < b.y)) b = c;
+  }
+  return b.y;
+}
+
+// the global variant; C = ceil(N / 32) chunks of 32 points
+template <int C>
+__global__ void __launch_bounds__(kGlobalThreads, kGlobalCtasPerSm)
+kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2,
+                       int* __restrict__ meds_out, int* __restrict__ assign_out,
+                       int* __restrict__ steps_out, int N, int K, int iter_limit,
+                       int id_sort) {
+  extern __shared__ __align__(16) int gsm[];
+  int* best = gsm;                                    // [N] ordered values
+  int* assign = best + N;                             // [N] nearest k
+  float* s = reinterpret_cast<float*>(assign + N);    // [N] candidate sums
+  int* meds = reinterpret_cast<int*>(s + N);          // [K]
+  int* moved = meds + K;                              // [K] pack_moved(k, med)
+  unsigned* members = reinterpret_cast<unsigned*>(moved + K);  // [K, C]
+  unsigned char* tie = reinterpret_cast<unsigned char*>(members + K * C);  // [N]
+  unsigned char* dirty = tie + N;                     // [K] member set changed
+  unsigned char* moved_flag = dirty + K;              // [K]
+  __shared__ int2 slots[2 * kGlobalWarps];
+  __shared__ int n_moved;
+
+  const int tid = threadIdx.x, nt = kGlobalThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x;
+  const float* Db = D + (size_t)b * N * N;
+
+  for (int k = tid; k < K; k += nt) { dirty[k] = 1; moved_flag[k] = 0; }
+  if (tid == 0) n_moved = 0;
+
+  // ---- KKZ over the CTA: mindist of points tid + 256 j as ordered ints,
+  // with each point's nearest chosen medoid and tie flag
+  int idx, fetched = -1;
+  {
+    int v = INT_MIN, i = INT_MAX;
+    for (int n = tid; n < N; n += nt) {
+      const int x = ordered(l2[(size_t)b * N + n]);
+      if (x > v) { v = x; i = n; }
+    }
+    idx = block_argmax(v, i, slots, 0, Db, N, fetched);
+  }
+  int md[kKkzPoints], ak[kKkzPoints];
+  unsigned ties = 0;
+#pragma unroll
+  for (int j = 0; j < kKkzPoints; ++j) {
+    const int n = tid + nt * j;
+    md[j] = n < N ? ordered(__ldg(Db + (size_t)idx * N + n)) : INT_MIN;
+    ak[j] = 0;
+  }
+  if (tid == 0) meds[0] = idx;
+  for (int k = 1; k < K; ++k) {
+    int v = INT_MIN, i = INT_MAX;
+#pragma unroll
+    for (int j = 0; j < kKkzPoints; ++j)
+      if (tid + nt * j < N && md[j] > v) { v = md[j]; i = tid + nt * j; }
+    idx = block_argmax(v, i, slots, k & 1, Db, N, fetched);
+    if (tid == 0) meds[k] = idx;
+    const float* row = Db + (size_t)idx * N;
+#pragma unroll
+    for (int j = 0; j < kKkzPoints; ++j) {
+      const int n = tid + nt * j;
+      if (n < N) {
+        const int d = ordered(__ldg(row + n));
+        if (d < md[j]) { md[j] = d; ak[j] = k; ties &= ~(1u << j); }
+        else if (d == md[j]) ties |= 1u << j;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kKkzPoints; ++j) {
+    const int n = tid + nt * j;
+    if (n < N) { best[n] = md[j]; assign[n] = ak[j]; tie[n] = (ties >> j) & 1; }
+  }
+  __syncthreads();
+
+  // ---- Lloyd iterations to the medoid fixed point, three barriers a step
+  int steps = 0;
+  while (steps < iter_limit) {
+    const int nm = n_moved;
+    // the assignment after the last update, and member masks, one warp per
+    // 32-point chunk
+    for (int c = warp; c < C; c += kGlobalWarps) {
+      for (int k = lane; k < K; k += 32) members[k * C + c] = 0u;
+      __syncwarp();
+      const int n = 32 * c + lane;
+      int a = n < N ? assign[n] : -1;
+      if (nm) {
+        int bv = 0, bk = a;
+        bool t = false;
+        if (n < N) { bv = best[n]; t = tie[n]; }
+        reassign_chunk(Db, meds, moved, moved_flag, nm, N, K, n, bv, bk, t);
+        if (n < N) {
+          best[n] = bv;
+          tie[n] = t;
+          if (bk != a) { assign[n] = bk; dirty[a] = 1; dirty[bk] = 1; a = bk; }
+        }
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, a);
+      if (a >= 0 && lane == __ffs(peers) - 1) members[a * C + c] = peers;
+    }
+    __syncthreads();
+    if (tid == 0) n_moved = 0;
+    // each candidate of a changed cluster: its sum over its cluster's
+    // members, ascending, kSumBatch loads at a time
+    for (int n = tid; n < N; n += nt) {
+      const int a = assign[n];
+      if (!dirty[a]) continue;
+      const unsigned* mine = members + a * C;
+      const float* row = Db + (size_t)n * N;
+      float acc = 0.f;
+      int c = 0;
+      unsigned w = mine[0];
+      for (bool more = true; more;) {
+        int m[kSumBatch];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u) {
+          while (!w && c + 1 < C) w = mine[++c];
+          m[u] = w ? 32 * c + __ffs(w) - 1 : -1;
+          w &= w - 1;
+        }
+        float d[kSumBatch];
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u) d[u] = m[u] >= 0 ? __ldg(row + m[u]) : 0.f;
+#pragma unroll
+        for (int u = 0; u < kSumBatch; ++u)
+          if (m[u] >= 0) acc += d[u];
+        more = m[kSumBatch - 1] >= 0;
+      }
+      s[n] = acc;
+    }
+    __syncthreads();
+    // each changed cluster's first-index argmin over its members
+    for (int k = tid; k < K; k += nt) {
+      moved_flag[k] = 0;
+      if (!dirty[k]) continue;     // same members, same sums: same medoid
+      dirty[k] = 0;
+      float bs = INFINITY;
+      int bn = -1;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        for (unsigned w = members[k * C + c]; w; w &= w - 1) {
+          const int m = 32 * c + __ffs(w) - 1;
+          if (s[m] < bs) { bs = s[m]; bn = m; }
+        }
+      const int nmk = bn < 0 ? 0 : bn;   // argmin over all-zero scores is 0
+      if (nmk != meds[k]) {
+        meds[k] = nmk;
+        moved_flag[k] = 1;
+        moved[atomicAdd(&n_moved, 1)] = pack_moved(k, nmk);
+      }
+    }
+    __syncthreads();
+    ++steps;
+    if (!n_moved) break;
+  }
+  // stopped at iter_limit with medoids that moved: bring the assignment up
+  // to date
+  if (n_moved) {
+    for (int c = warp; c < C; c += kGlobalWarps) {
+      const int n = 32 * c + lane;
+      int bv = 0, bk = 0;
+      bool t = false;
+      if (n < N) { bv = best[n]; bk = assign[n]; t = tie[n]; }
+      reassign_chunk(Db, meds, moved, moved_flag, n_moved, N, K, n, bv, bk, t);
+      if (n < N) { assign[n] = bk; tie[n] = t; }
+    }
+    __syncthreads();
+  }
+
+  // ---- sort the ids (stable rank); the last assignment: a point's k by
+  // its rank, or a scan of the sorted medoids where another may tie it
+  int* sorted = moved;                                // [K], moved is done
+  int* rank_of = reinterpret_cast<int*>(s);           // [K <= N], sums done
+  if (id_sort) {
+    for (int k = tid; k < K; k += nt) {
+      const int mk = meds[k];
+      int rank = 0;
+#pragma unroll 8
+      for (int j = 0; j < K; ++j)
+        rank += (meds[j] < mk) || (meds[j] == mk && j < k);
+      sorted[rank] = mk;
+      rank_of[k] = rank;
+    }
+    __syncthreads();
+  }
+  for (int c = warp; c < C; c += kGlobalWarps) {
+    const int n = 32 * c + lane;
+    int out = n < N ? assign[n] : 0;
+    if (id_sort) {
+      const unsigned ties = __ballot_sync(0xffffffffu, n < N && tie[n]);
+      if (n < N && !(ties >> lane & 1)) out = rank_of[out];
+      for (unsigned o = ties; o; o &= o - 1) {
+        const int src = __ffs(o) - 1;
+        int v, k;
+        bool t;
+        warp_scan_all(Db, sorted, N, K, 32 * c + src, v, k, t);
+        if (lane == src) out = k;
+      }
+    }
+    if (n < N) assign_out[(size_t)b * N + n] = out;
+  }
+  for (int k = tid; k < K; k += nt)
+    meds_out[(size_t)b * K + k] = id_sort ? sorted[k] : meds[k];
   if (tid == 0) steps_out[b] = steps;
 }
 
@@ -337,9 +683,8 @@ int cc_kmedoids(const void* D, const void* l2, void* meds, void* assign,
                 void* steps, int B, int N, int K, int iter_limit, int id_sort,
                 void* stream) {
   static const Kernel kernels[kMaxChunks] = {
-      kmedoids_kernel<1, true>, kmedoids_kernel<2, true>, kmedoids_kernel<3, true>,
-      kmedoids_kernel<4, true>, kmedoids_kernel<5, true>, kmedoids_kernel<6, true>,
-      kmedoids_kernel<7, true>, kmedoids_kernel<8, true>};
+      kmedoids_kernel<1>, kmedoids_kernel<2>, kmedoids_kernel<3>, kmedoids_kernel<4>,
+      kmedoids_kernel<5>, kmedoids_kernel<6>, kmedoids_kernel<7>, kmedoids_kernel<8>};
   if (N < 1 || N > 32 * kMaxChunks) return (int)cudaErrorInvalidValue;
   return launch(kernels[n_chunks(N) - 1], kThreads, smem_bytes(N, K), D, l2, meds,
                 assign, steps, B, N, K, iter_limit, id_sort, stream);
@@ -350,14 +695,14 @@ int cc_kmedoids_global(const void* D, const void* l2, void* meds, void* assign,
                        void* steps, int B, int N, int K, int iter_limit,
                        int id_sort, void* stream) {
   static const Kernel kernels[kGlobalMaxChunks] = {
-      kmedoids_kernel<1, false>,  kmedoids_kernel<2, false>,
-      kmedoids_kernel<3, false>,  kmedoids_kernel<4, false>,
-      kmedoids_kernel<5, false>,  kmedoids_kernel<6, false>,
-      kmedoids_kernel<7, false>,  kmedoids_kernel<8, false>,
-      kmedoids_kernel<9, false>,  kmedoids_kernel<10, false>,
-      kmedoids_kernel<11, false>, kmedoids_kernel<12, false>,
-      kmedoids_kernel<13, false>, kmedoids_kernel<14, false>,
-      kmedoids_kernel<15, false>, kmedoids_kernel<16, false>};
+      kmedoids_global_kernel<1>,  kmedoids_global_kernel<2>,
+      kmedoids_global_kernel<3>,  kmedoids_global_kernel<4>,
+      kmedoids_global_kernel<5>,  kmedoids_global_kernel<6>,
+      kmedoids_global_kernel<7>,  kmedoids_global_kernel<8>,
+      kmedoids_global_kernel<9>,  kmedoids_global_kernel<10>,
+      kmedoids_global_kernel<11>, kmedoids_global_kernel<12>,
+      kmedoids_global_kernel<13>, kmedoids_global_kernel<14>,
+      kmedoids_global_kernel<15>, kmedoids_global_kernel<16>};
   if (N < 1 || N > 32 * kGlobalMaxChunks) return (int)cudaErrorInvalidValue;
   return launch(kernels[n_chunks(N) - 1], kGlobalThreads, global_smem_bytes(N, K), D,
                 l2, meds, assign, steps, B, N, K, iter_limit, id_sort, stream);

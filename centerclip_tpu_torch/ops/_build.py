@@ -26,9 +26,9 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNEL_SOURCES = ("attention", "attention_bwd", "kmedoids")
+KERNEL_SOURCES = ("attention", "attention_bwd", "kmedoids", "layernorm")
 # the libraries an inference forward launches (`RetrievalEngine.warmup`)
-FORWARD_SOURCES = ("attention", "kmedoids")
+FORWARD_SOURCES = ("attention", "kmedoids", "layernorm")
 HOST_SOURCES = ("framestore_reader",)
 # opt-in shared memory one Hopper CTA may use (227 KB)
 MAX_SMEM_BYTES = 232_448

@@ -96,6 +96,26 @@ def kmedoids_on_distances(X: torch.Tensor, D: torch.Tensor, l2: torch.Tensor,
     return assign.int(), meds.int()
 
 
+@torch.no_grad()
+def fixed_point_steps(D: torch.Tensor, l2: torch.Tensor, K: int,
+                      iter_limit: int = 100) -> torch.Tensor:
+    """[B] int32: the Lloyd steps each segment takes to its medoid fixed
+    point from KKZ, counted as the kernel counts them (the step that leaves
+    the medoid set unchanged is the last one counted), at most
+    `iter_limit`."""
+    meds = kkz_init(l2, D, K)
+    steps = torch.zeros(D.shape[0], dtype=torch.int32, device=D.device)
+    running = torch.ones(D.shape[0], dtype=torch.bool, device=D.device)
+    for _ in range(iter_limit):
+        new = _update_step(D, _assign_step(D, meds), K)
+        steps += running
+        running &= (new != meds).any(dim=1)
+        meds = new
+        if not bool(running.any()):
+            break
+    return steps
+
+
 def kmedoids_inputs(X: torch.Tensor, distance: str = "euclidean",
                     norm_p: float = 2.0, pre_norm: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

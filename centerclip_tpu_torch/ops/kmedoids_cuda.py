@@ -7,18 +7,21 @@ Replaces the TPU kernel `centerclip_tpu/ops/kmedoids_pallas.py`
 `batch_fast_kmedoids_pallas`).  The kernel, `csrc/kmedoids.cu`, runs one
 CTA per segment for KKZ seeding, every Lloyd step, the id sort and the last
 assignment.  It is latency-bound: the steps are a chain of small dependent
-reductions, which the design keeps short: KKZ in one warp with no block
-barrier, and Lloyd steps of three barriers on member lists built without
-atomics.  The TPU kernel's one-hot matmul is replaced by each candidate's
-sum over its own cluster's members.  The distance matrix is computed
-outside the kernel by `ops/distances.py`, a plain fp32 matmul.
+reductions and reads, which the design keeps short.  The TPU kernel's
+one-hot matmul is replaced by each candidate's sum over its own cluster's
+members.  The distance matrix is computed outside the kernel by
+`ops/distances.py`, a plain fp32 matmul.
 
-Two variants of that one algorithm, picked by `choose_variant` from N:
-SHARED (N <= SHARED_MAX_N) copies the segment's `[N, N]` matrix into shared
-memory once (one bulk asynchronous copy when N is even); GLOBAL (N <=
-GLOBAL_MAX_N, e.g. ViT-B/16's N = 392) reads it from device memory through
-L2, with many small CTAs per SM.  Both give the same bits on the same
-distances.
+Two variants of that one algorithm, picked by `choose_variant` from N, that
+give the same bits on the same distances: SHARED (N <= SHARED_MAX_N)
+copies the segment's `[N, N]` matrix into shared memory once (one bulk
+asynchronous copy when N is even), runs KKZ in one warp with no block
+barrier, and Lloyd steps of three barriers on member lists built without
+atomics; GLOBAL (N <= GLOBAL_MAX_N, e.g. ViT-B/16's N = 392) reads it
+from device memory and so reads only what changed: KKZ over the whole CTA
+also yields the first assignment, a Lloyd step compares each point with
+the medoids that moved only (all K where its own medoid moved), and sums
+run only for clusters whose members changed.
 
 `kmedoids` takes the plain version for CPU tensors only.  A CUDA tensor
 launches the kernel or raises; N above GLOBAL_MAX_N raises.

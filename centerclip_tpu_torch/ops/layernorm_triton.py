@@ -1,6 +1,7 @@
 # coding=utf-8
-"""LayerNorm with fp32 statistics: Triton kernels for the forward and the
-backward, their plain versions, and the autograd Function that joins them.
+"""LayerNorm with fp32 statistics: a CUDA C++ kernel for the forward, a
+Triton kernel for the backward, their plain versions, and the autograd
+Function that joins them.
 
 Replaces the TPU kernels of `centerclip_tpu/ops/layernorm_pallas.py`: the
 forward `_ln_fwd_kernel` / `_ln_fwd_call` (entry `fused_layernorm`) and the
@@ -8,26 +9,31 @@ backward `_ln_bwd_kernel` / `_ln_bwd_call` (its custom VJP).  LayerNorm is
 over the last axis with fp32 mean and variance, fp32 gamma/beta, eps 1e-5,
 output in the input's dtype.
 
-* Forward: one Triton program normalises one row, with `BLOCK_D` the next
-  power of two above D (1024 for 768, 512 for 512).
-* Backward, one launch: a persistent grid of `bwd_launch_plan(...)`
-  programs, as many per SM as fit, each walking a contiguous range of rows
-  in `[ROWS, BLOCK_D]` tiles, software-pipelined so that the next tiles'
-  loads are in flight while this one is reduced.  Per row it recomputes
-  mean and rstd in fp32 and writes dx in x's dtype; the fp32 sums of
-  dy * x_hat and dy stay in registers across its rows and are written
-  once, as one partial row per program.  The partials are reduced inside
-  the same launch by tickets: the last program of each group of
-  `_BWD_GROUP` to finish (an int32 `atomic_add`, acq_rel) sums its group's
-  partial rows in program order, and the last group to finish sums the
-  group rows into dgamma and dbeta, again in order.  No float atomics and
-  no autotuning: the plan is a fixed function of (R, D, dtype) and the
+* Forward (kernel C), `csrc/layernorm.cu`, built by `ops/_build.py` and
+  called through ctypes: a warp normalises a row from registers (warp
+  shuffles, no shared memory, no block barrier), 16 bytes a lane per load
+  and store for rows of a whole number of 512-byte pieces (`fwd_vecs`: D =
+  512 or 768 in bf16 or fp32; a scalar path for any other width or
+  alignment), gamma and beta held in registers across the rows a warp
+  strides over; `fwd_launch_plan` sizes the grid from R and the SM count.
+* Backward (kernel D), one launch: a persistent grid of
+  `bwd_launch_plan(...)` programs, as many per SM as fit, each walking a
+  contiguous range of rows in `[ROWS, BLOCK_D]` tiles, software-pipelined
+  so that the next tiles' loads are in flight while this one is reduced.
+  Per row it recomputes mean and rstd in fp32 and writes dx in x's dtype;
+  the fp32 sums of dy * x_hat and dy stay in registers across its rows and
+  are written once, as one partial row per program.  The partials are
+  reduced inside the same launch by tickets: the last program of each
+  group of `_BWD_GROUP` to finish (an int32 `atomic_add`, acq_rel) sums its
+  group's partial rows in program order, and the last group to finish sums
+  the group rows into dgamma and dbeta, again in order.  No float atomics
+  and no autotuning: the plan is a fixed function of (R, D, dtype) and the
   card's SM count, so two calls on the same inputs return the same bits.
   The ticket counters live in one int32 buffer per device, zero between
   calls (the last taker of each resets it), which assumes that calls on
-  one device run on one stream at a time.  The TPU kernel's
-  accumulator across a sequential grid has no counterpart on a card whose
-  programs run in parallel; the tickets are its replacement.
+  one device run on one stream at a time.  The TPU kernel's accumulator
+  across a sequential grid has no counterpart on a card whose programs run
+  in parallel; the tickets are its replacement.
 
 Both are a few flops per element, so they are bound by reading x (and dy)
 and writing y (or dx) once; each makes a single pass over device memory.
@@ -35,18 +41,28 @@ and writing y (or dx) once; each makes a single pass over device memory.
 `layer_norm` is differentiable through `_LayerNorm`: kernel C forward,
 kernel D backward.  For CPU tensors both sides take their plain versions; a
 CUDA tensor launches the kernels or raises.  `layer_norm.launches` and
-`layer_norm_backward.launches` count launches.  Triton is imported when a
-kernel is first launched, never at import.
+`layer_norm_backward.launches` count launches.  Triton is imported when the
+backward kernel is first launched, never at import.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from . import _build
+
 EPS = 1e-5
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the kernels' dtypes, with the forward's codes (csrc/layernorm.cu)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = tuple(_DTYPE_CODES)
+# forward plan: CTAs of _FWD_WARPS warps (csrc/layernorm.cu kWarps), a warp
+# a row; the vector path holds at most _FWD_MAX_VECS 16-byte vectors a lane
+_FWD_WARPS = 4
+_FWD_MAX_VECS = 8
 # backward plan: a warp spans 32 16-byte loads along a row, a program has
 # at most _BWD_MAX_WARPS warps and a [ROWS, BLOCK_D] tile of about
 # _BWD_THREAD_ELEMS elements per thread (ROWS at most _BWD_MAX_ROWS), an SM
@@ -73,6 +89,34 @@ class BwdPlan(NamedTuple):
     groups: int
     block_d: int
     num_warps: int
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel cuts R rows: `ctas` CTAs of _FWD_WARPS warps,
+    warp w of the W = ctas * _FWD_WARPS taking rows w, w + W, ...; `vecs`
+    16-byte vectors a lane on the vector path, 0 for the scalar path."""
+    ctas: int
+    vecs: int
+
+
+def fwd_vecs(D: int, elem_bytes: int, aligned: bool = True) -> int:
+    """16-byte vectors a lane for rows of width D (`elem_bytes` an
+    element) on the vector path, where a row is a whole number of 512-byte
+    warp-wide pieces, at most _FWD_MAX_VECS (D = 768 or 512 in bf16 or
+    fp32); 0, the scalar path, for any other width or a pointer that is
+    not 16-byte aligned."""
+    vecs, rest = divmod(D * elem_bytes, 512)
+    return vecs if aligned and not rest and vecs <= _FWD_MAX_VECS else 0
+
+
+def fwd_launch_plan(R: int, D: int, elem_bytes: int, n_sm: int,
+                    ctas_per_sm: int, aligned: bool = True) -> FwdPlan:
+    """The forward kernel's grid for R >= 1 rows: a warp a row while R is
+    small (the rows spread over the card), at most the `ctas_per_sm` CTAs
+    an SM holds at once on each of `n_sm` SMs (each warp then streams its
+    rows)."""
+    ctas = max(1, min(-(-R // _FWD_WARPS), n_sm * max(1, ctas_per_sm)))
+    return FwdPlan(ctas=ctas, vecs=fwd_vecs(D, elem_bytes, aligned))
 
 
 def _next_pow2(n: int) -> int:
@@ -139,21 +183,6 @@ def layer_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
 def _kernels():
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def _ln_fwd(X, W, B, Y, D, eps, BLOCK_D: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK_D)
-        valid = cols < D
-        x = tl.load(X + row * D + cols, mask=valid, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=0) / D
-        xc = tl.where(valid, x - mean, 0.0)
-        var = tl.sum(xc * xc, axis=0) / D
-        rstd = 1.0 / tl.sqrt(var + eps)
-        w = tl.load(W + cols, mask=valid, other=0.0)
-        b = tl.load(B + cols, mask=valid, other=0.0)
-        y = xc * rstd * w + b
-        tl.store(Y + row * D + cols, y.to(Y.dtype.element_ty), mask=valid)
 
     @triton.jit
     def _add2(a0, a1, b0, b1):
@@ -236,7 +265,7 @@ def _kernels():
                 tl.store(DWB + cols, dw, mask=valid)
                 tl.store(DWB + D + cols, db, mask=valid)
 
-    return triton, _ln_fwd, _ln_bwd
+    return _ln_bwd
 
 
 def _check_cuda(x: torch.Tensor, params) -> int:
@@ -255,6 +284,41 @@ def _check_cuda(x: torch.Tensor, params) -> int:
     return D
 
 
+def _on(device: torch.device):
+    """The device guard a launch on `device` needs: none when it is the
+    current device already (the common case, and the cheap one)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_entry():
+    lib = _build.load("layernorm")
+    fn = lib.cc_layernorm_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_ctas_per_sm(device: torch.device, code: int, vecs: int) -> int:
+    """The CTAs an SM holds of the forward kernel for dtype `code` and
+    `vecs` (the CUDA occupancy query), memoised: the host path of a call
+    is part of what kernel C costs."""
+    lib, _ = _fwd_entry()
+    fn = lib.cc_layernorm_fwd_ctas_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    with torch.cuda.device(device):
+        n = fn(code, vecs)
+    if n < 1:
+        raise RuntimeError(f"the LayerNorm forward kernel (dtype code {code},"
+                           f" {vecs} vectors a lane) fits no CTA on an SM")
+    return n
+
+
 def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
              eps: float) -> torch.Tensor:
     """Kernel C on a CUDA tensor, the plain version on a CPU tensor."""
@@ -265,11 +329,17 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     R = x.numel() // D if D else 0
     if R == 0:
         return y
-    triton, kernel, _ = _kernels()
-    block = triton.next_power_of_2(D)
-    with torch.cuda.device(x.device):
-        kernel[(R,)](x, weight, bias, y, D, eps, BLOCK_D=block,
-                     num_warps=4 if block <= 1024 else 8)
+    lib, fn = _fwd_entry()
+    code = _DTYPE_CODES[x.dtype]
+    ptrs = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr())
+    aligned = not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
+    vecs = fwd_vecs(D, x.element_size(), aligned)
+    plan = fwd_launch_plan(R, D, x.element_size(), _sm_count(x.device),
+                           _fwd_ctas_per_sm(x.device, code, vecs), aligned)
+    with _on(x.device):
+        err = fn(*ptrs, R, D, code, plan.vecs, plan.ctas, eps,
+                 torch._C._cuda_getCurrentRawStream(x.device.index))
+    _build.check(lib, err, "LayerNorm forward kernel")
     layer_norm.launches += 1
     return y
 
@@ -298,7 +368,7 @@ def layer_norm_backward(x: torch.Tensor, weight: torch.Tensor,
     group_partial = torch.empty((2, plan.groups, D), dtype=torch.float32,
                                 device=x.device)
     dwb = torch.empty((2, D), dtype=torch.float32, device=x.device)
-    _, _, bwd = _kernels()
+    bwd = _kernels()
     with torch.cuda.device(x.device):
         bwd[(plan.programs,)](
             x, weight, dy, dx, partial, group_partial, dwb,
@@ -349,8 +419,13 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = EPS) -> torch.Tensor:
     """LayerNorm over the last axis of a contiguous x of any rank; weight
     and bias are fp32 [D]; the output has x's dtype and shape.
-    Differentiable in x, weight and bias."""
-    return _LayerNorm.apply(x, weight, bias, eps)
+    Differentiable in x, weight and bias; where no gradient can flow (no
+    grad mode, or no input that requires one: serving, encoding) the
+    forward runs without the autograd Function and its host cost."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _LayerNorm.apply(x, weight, bias, eps)
+    return _forward(x, weight, bias, eps)
 
 
 layer_norm.launches = 0

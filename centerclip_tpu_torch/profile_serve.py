@@ -38,9 +38,9 @@ GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
                                     "attention_bwd_dq_kernel",
                                     "attention_bwd_dkv_kernel",
                                     "attention_bwd_kernel")),
-          ("layernorm kernel", ("_ln_fwd",)),
+          ("layernorm kernel", ("ln_fwd",)),
           ("layernorm bwd kernel", ("_ln_bwd",)),
-          ("kmedoids kernel", ("kmedoids_kernel",)),
+          ("kmedoids kernel", ("kmedoids",)),
           ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90")),
           ("optimizer (foreach)", ("multi_tensor_apply",)),
           # torch.linalg.eigh's cuSOLVER Jacobi solver (spectral clustering)

@@ -103,9 +103,9 @@ class RetrievalEngine:
         """Pay the first-call costs before the first query: on the card,
         the forward path's kernel libraries are loaded (nvcc runs here if
         it must); the tokenizer reads its tables; then each query bucket
-        <= max_queries runs the online path once (Triton compiles the
-        LayerNorm kernel, cuBLAS and the caching allocator set up for each
-        shape).  Returns the number of buckets warmed."""
+        <= max_queries runs the online path once (cuBLAS and the caching
+        allocator set up for each shape).  Returns the number of buckets
+        warmed."""
         if self.device.type == "cuda":
             from ..ops import _build
             for name in _build.FORWARD_SOURCES:

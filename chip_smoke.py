@@ -73,8 +73,10 @@
    (12 frames of 224 x 224 at patch 16: L = 197 in blocks 1-6; k-medoids of
    2 x 196 = 392 tokens per segment into K = 160 before block 7, L = 161
    after) on seeded random weights (no ViT-B-16.pt in the repo).  First an
-   encode of 64 seeded clips through `RetrievalEngine` (batches of 32) and
-   one search; then 2 untimed and 3 timed training steps at the recipe's
+   encode of 64 seeded clips through `RetrievalEngine` (batches of 32),
+   timed after a 2-clip warm-up and once more (what the first one paid
+   for first calls at a batch of 32 is the difference), and one search;
+   then 2 untimed and 3 timed training steps at the recipe's
    batch of 128 with `remat` (without it the step does not fit in 80 GB),
    the peak memory printed, and one checkpoint-and-resume step that must
    equal the uninterrupted one.  Counts are zeroed before the encode and
@@ -254,7 +256,7 @@ the global k-medoids variant as rows of their own; every kernel's rows at
 each path's shapes, its launches by path) and, last, one JSON line {"ok":
 true, "device": {...}}; before them, each phase's time.  Any failed check
 exits non-zero before it.  Without a CUDA device it exits non-zero at
-once.
+once.  Timing and bounds come from `centerclip_tpu_torch/kernel_timing.py`.
 """
 from __future__ import annotations
 
@@ -266,14 +268,9 @@ import subprocess
 import sys
 import time
 
-# card data sheets (dense peaks; NVIDIA's published figures):
-# memory bytes/s, bf16 tensor-core flop/s, fp32 (non-tensor) flop/s
-CARD_PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12),
-    "H200": (4.8e12, 989e12, 67e12),
-    "H100": (3.35e12, 989e12, 67e12),          # SXM (80GB HBM3)
-}
+from centerclip_tpu_torch.kernel_timing import (
+    LAYERNORM_FWD_SHAPES, SLEEP_CYCLES, bound, card_peaks, host_us_per_call,
+    kmedoids_bound, layernorm_bound, layernorm_times, time_ms)
 
 # tolerances, stated before any run:
 # bf16 kernel vs plain version: both round fp32 values to bf16, summed in
@@ -467,9 +464,6 @@ IVF_NPROBES, IVF_K, IVF_ADD = (8, 32, 64), 10, 100
 HTTP_REPEATS, ENCODE_REPEATS = 20, 3
 # query batch sizes the serve phase runs last, first unpadded, then padded
 UNWARMED_QUERIES = (5, 33)
-# a launch slower than twice the median and this many ms is printed
-SLOW_LAUNCH_MS = 0.05
-SLEEP_CYCLES = 4_000_000          # ~2 ms at the H100's ~1.98 GHz boost clock
 QUERIES = ["a man is cooking pasta in a kitchen",
            "two dogs are playing in the snow",
            "a woman sings on a stage while people dance",
@@ -478,49 +472,6 @@ QUERIES = ["a man is cooking pasta in a kitchen",
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def card_peaks(name: str):
-    for key, peaks in CARD_PEAKS.items():
-        if key in name:
-            return peaks
-    return CARD_PEAKS["H100"]
-
-
-def bound(bytes_moved: float, ops: float, op_peak: float, mem_rate: float):
-    t_bytes, t_ops = bytes_moved / mem_rate, ops / op_peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def time_ms(torch, fn, flush, iters=10, warmup=3):
-    """Median device time of `fn` in ms by CUDA events.  Before each launch
-    the L2 cache is flushed (the main path's inputs mostly come from device
-    memory) and a sleep kernel holds the card busy while the host enqueues
-    the events and `fn`, so a launch's host overhead is not timed as device
-    time.  (`fn`s that read results back to the host, like the plain
-    k-medoids stop test, are timed with their waits.)  The median, not the
-    mean: a launch the host enqueues only after the sleep has ended (its
-    thread held off the CPU longer than the sleep) times that wait as
-    device time; such a launch is printed."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    med = sorted(times)[iters // 2]
-    if max(times) > 2 * med + SLOW_LAUNCH_MS:
-        print(f"time_ms: launches of {[round(t, 4) for t in times]} ms, "
-              f"median {med:.4f}: a launch waited on the host")
-    return med
 
 
 # the CUDA runtime's cudaGraphNodeType values of the work a call may enqueue
@@ -811,10 +762,13 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     version's `threshold` is not read by the kernel): ids equal on at least
     KMEDOIDS_MIN_SAME of the segments, where they differ a clustering no
     costlier than the plain one's (KMEDOIDS_COST_RTOL), and equal
-    assignments where the ids agree.  Returns the row and (X, D, l2,
-    steps) for timing."""
+    assignments where the ids agree.  The global variant (ViT-B/16's
+    N = 392) is held to the plain version in every segment: the same ids,
+    and each segment's Lloyd steps those the plain steps take to its fixed
+    point.  Returns the row and (X, D, l2, steps, assign) for timing."""
     from centerclip_tpu_torch.ops import kmedoids_cuda
     from centerclip_tpu_torch.ops.kmedoids import (_assign_step, _update_step,
+                                                   fixed_point_steps,
                                                    kmedoids_inputs,
                                                    kmedoids_on_distances)
     X, D, l2 = kmedoids_inputs(points, distance, norm_p, pre_norm)
@@ -837,12 +791,20 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     # still move the plain version's medoid set
     nxt = _update_step(D, _assign_step(D, m2.long()), K).sort(dim=1).values
     short = int((nxt != m2.long()).any(dim=1).sum())
+    steps_differing = int((fixed_point_steps(D, l2, K, iter_limit)
+                           != steps).sum())
+    strict = kmedoids_cuda.choose_variant(X.shape[1]) == kmedoids_cuda.GLOBAL
     print(f"kmedoids [{label}] X {tuple(X.shape)} K={K}: segments with "
           f"other ids {n_diff}/{Bs}, max relative cost gap {cost_rel:.3e} "
           f"(tol {KMEDOIDS_COST_RTOL}), Lloyd steps min/mean/max "
           f"{int(st.min())}/{st.float().mean().item():.2f}/{int(st.max())}, "
-          f"segments the plain version left short of their fixed point "
-          f"{short}/{Bs}")
+          f"segments with other steps than the plain version's to their "
+          f"fixed point {steps_differing}/{Bs}, segments the plain version "
+          f"left short of their fixed point {short}/{Bs}")
+    if strict and (n_diff or steps_differing):
+        fail(f"k-medoids global variant [{label}]: {n_diff} segments with "
+             f"other ids, {steps_differing} with other steps than the plain "
+             f"version")
     if n_diff and cost_rel > KMEDOIDS_COST_RTOL:
         fail(f"k-medoids kernel [{label}] found a costlier clustering than "
              f"its plain version")
@@ -854,8 +816,9 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     row = dict(shape=list(X.shape), max_abs_err=float((m1 != m2).sum()),
                segments_differing=n_diff, max_rel_cost_gap=cost_rel,
                lloyd_steps_mean=st.float().mean().item(),
+               segments_other_steps=steps_differing,
                plain_short_of_fixed_point=short)
-    return row, (X, D, l2, steps)
+    return row, (X, D, l2, steps, a1)
 
 
 def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
@@ -890,13 +853,13 @@ def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
         fail(f"attention [{label}, training] disagrees with its plain "
              f"version")
     del out, fwd_ref
-    f_ms = time_ms(torch, lambda: attention_cuda.fused_attention(
+    f_ms = time_ms(lambda: attention_cuda.fused_attention(
         qkv, H, mask), flush=flush)
-    f_plain_ms = time_ms(torch, lambda: attention_cuda.attention_plain(
+    f_plain_ms = time_ms(lambda: attention_cuda.attention_plain(
         qkv, H, mask), flush=flush)
     qh, kh, vh = (t.reshape(B, L, H, 64).transpose(1, 2)
                   for t in qkv.split(D, dim=-1))
-    f_lib_ms = time_ms(torch, lambda: torch.nn.functional
+    f_lib_ms = time_ms(lambda: torch.nn.functional
                        .scaled_dot_product_attention(
                            qh, kh, vh, is_causal=mask is not None),
                        flush=flush)
@@ -923,9 +886,9 @@ def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
     differing = (dqkv != ref).float().mean().item()
     passes = torch.equal(xg.grad, dqkv)
     del xg, ref
-    ms = time_ms(torch, lambda: attention_cuda.attention_backward(
+    ms = time_ms(lambda: attention_cuda.attention_backward(
         qkv, dout, H, mask), flush=flush)
-    plain_ms = time_ms(torch, lambda: attention_cuda.attention_bwd_plain(
+    plain_ms = time_ms(lambda: attention_cuda.attention_bwd_plain(
         qkv, dout, H, mask), flush=flush)
     q, k, v = (t.reshape(B, L, H, 64).transpose(1, 2).detach()
                .requires_grad_(True) for t in qkv.split(D, dim=-1))
@@ -934,7 +897,7 @@ def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
     do_h = dout.reshape(B, L, H, 64).transpose(1, 2)
     # autograd.grad returns fresh gradients: nothing accumulates into
     # q.grad, k.grad, v.grad from one timed call to the next
-    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+    lib_ms = time_ms(lambda: torch.autograd.grad(
         o, (q, k, v), do_h, retain_graph=True), flush=flush)
     del q, k, v, o
     b_ms, b_by = bound(2 * qkv.numel() * 2 + dout.numel() * 2
@@ -1042,30 +1005,25 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
               and torch.equal(bs.grad, db))
     del xs, ws, bs, out, fwd_ref
     xf, dyf = x.float(), dy.float()
-    f_ms = time_ms(torch, lambda: layernorm_triton.layer_norm(x, w, b),
-                   flush=flush)
-    f_plain_ms = time_ms(torch, lambda: layernorm_triton.layer_norm_plain(
-        x, w, b), flush=flush)
-    f_lib_ms = time_ms(torch, lambda: torch.nn.functional.layer_norm(
-        xf, (D,), w, b, 1e-5), flush=flush)
-    f_b_ms, f_b_by = bound(2 * x.numel() * x.element_size() + 2 * D * 4,
-                           8.0 * R * D, fp32_peak, mem_rate)
+    f_b_ms, f_b_by = layernorm_bound(x, peaks)
     fwd_row = dict(shape=[R, D], dtype=name,
-                   max_abs_err=fwd_err.max().item(), ms=f_ms,
-                   plain_ms=f_plain_ms, library_ms=f_lib_ms, bound_ms=f_b_ms,
-                   bound_by=f_b_by)
+                   max_abs_err=fwd_err.max().item(),
+                   **layernorm_row_times(x, w, b, flush),
+                   bound_ms=f_b_ms, bound_by=f_b_by)
     print(f"layernorm [{label}, training] x ({R}, {D}) {name}: "
           f"max_abs_err {fwd_err.max().item():.3e} (tol {atol} + "
-          f"{rtol}*|ref|) ms {f_ms:.4f} plain {f_plain_ms:.4f} "
-          f"F.layer_norm(fp32) {f_lib_ms:.4f} bound {f_b_ms:.4f} "
+          f"{rtol}*|ref|) ms {fwd_row['ms']:.4f} plain "
+          f"{fwd_row['plain_ms']:.4f} F.layer_norm ({fwd_row['library_params']}"
+          f" gamma/beta) {fwd_row['library_ms']:.4f}, on an fp32 copy "
+          f"{fwd_row['library_fp32_copy_ms']:.4f} bound {f_b_ms:.4f} "
           f"({f_b_by})")
     del fwd_err
-    ms = time_ms(torch, lambda: layernorm_triton.layer_norm_backward(
+    ms = time_ms(lambda: layernorm_triton.layer_norm_backward(
         x, w, dy), flush=flush)
-    plain_ms = time_ms(torch, lambda: layernorm_triton
+    plain_ms = time_ms(lambda: layernorm_triton
                        .layer_norm_bwd_plain(x, w, dy), flush=flush)
     _, mean, rstd = torch.ops.aten.native_layer_norm(xf, [D], w, b, 1e-5)
-    lib_ms = time_ms(torch, lambda: torch.ops.aten
+    lib_ms = time_ms(lambda: torch.ops.aten
                      .native_layer_norm_backward(
                          dyf, xf, [D], mean, rstd, w, b,
                          [True, True, True]), flush=flush)
@@ -1097,6 +1055,16 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
                 bound_by=b_by, device_launches_per_call=len(dev_names)), fwd_row
 
 
+def layernorm_row_times(x, w, b, flush):
+    """`layernorm_times` on x [R, D], which must be one of
+    LAYERNORM_FWD_SHAPES (the shapes `bench_ln_kmedoids.py` times too)."""
+    R, D = x.numel() // x.shape[-1], x.shape[-1]
+    if not any((R, D, x.dtype) == s[1:] for s in LAYERNORM_FWD_SHAPES):
+        fail(f"layernorm x ({R}, {D}) {x.dtype} is not one of "
+             f"LAYERNORM_FWD_SHAPES")
+    return layernorm_times(x, w, b, flush)
+
+
 def kmedoids_case(torch, flush, peaks, label, x, before_frames,
                   after_frames, K, iters):
     """Kernel E held (`hold_kmedoids`) and timed against its plain version
@@ -1114,25 +1082,26 @@ def kmedoids_points_case(torch, flush, peaks, label, points, K, iters):
     on [B, N, Dim] points: the row of the kernel table at their shape."""
     from centerclip_tpu_torch.ops import kmedoids_cuda
     from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
-    mem_rate, _, fp32_peak = peaks
-    row, (X, D, l2, steps) = hold_kmedoids(torch, label, points, K, iters)
-    Bs, N = X.shape[0], X.shape[1]
-    ms = time_ms(torch, lambda: kmedoids_cuda.kmedoids_from_distances(
+    row, (X, D, l2, steps, assign) = hold_kmedoids(torch, label, points, K,
+                                                   iters)
+    N = X.shape[1]
+    ms = time_ms(lambda: kmedoids_cuda.kmedoids_from_distances(
         D, l2, K, iters), flush=flush)
-    plain_ms = time_ms(torch, lambda: kmedoids_on_distances(
+    plain_ms = time_ms(lambda: kmedoids_on_distances(
         X, D, l2, K, iter_limit=iters), flush=flush)
-    st = steps.long()
-    ops = float(Bs * 2 * K * N + (st * (2 * N * K + 2 * N * N)).sum()
-                + Bs * N * K)
-    # outputs: assign [B, N], meds [B, K], steps [B], all int32
-    b_ms, b_by = bound(D.numel() * 4 + l2.numel() * 4 + Bs * N * 4
-                       + Bs * K * 4 + steps.numel() * 4, ops,
-                       fp32_peak, mem_rate)
+    b_ms, b_by = kmedoids_bound(K, assign, steps, peaks)
     variant = kmedoids_cuda.choose_variant(N)
+    split = {}
+    if variant == kmedoids_cuda.GLOBAL:
+        # KKZ, the id sort and the last assignment alone: no Lloyd step
+        split["kkz_ms"] = time_ms(
+            lambda: kmedoids_cuda.kmedoids_from_distances(D, l2, K, 0),
+            flush=flush)
     print(f"kmedoids [{label}] {variant} variant: ms {ms:.4f} plain "
-          f"{plain_ms:.4f} bound {b_ms:.5f} ({b_by})")
+          f"{plain_ms:.4f} bound {b_ms:.5f} ({b_by})"
+          + (f"; with no Lloyd step {split['kkz_ms']:.4f}" if split else ""))
     return dict(row, variant=variant, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, **split)
 
 
 def vitb16_phase(torch, np, dev, flush, peaks, counters):
@@ -1191,10 +1160,17 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     enc_variants = variants()
     hook.remove()
     gallery = index._codes[:N_CLIPS].float() * index._scales[:N_CLIPS]
+    # the same encode again, its shapes seen once: the first one's extra
+    # time is what it paid for first calls at a batch of BATCH clips
+    t0 = time.time()
+    engine.build_index(batches(), ids, quantize="int8")
+    torch.cuda.synchronize()
+    t_again = time.time() - t0
     print(f"vitb16 encode: {N_CLIPS} clips in {t_build:.3f} s = "
           f"{N_CLIPS / t_build:.2f} clips/s (batches of {BATCH}; set-up and "
-          f"warm-up {t_setup:.2f} s); launches {enc_launches}, by variant "
-          f"{enc_variants}")
+          f"warm-up {t_setup:.2f} s), again {t_again:.3f} s = "
+          f"{N_CLIPS / t_again:.2f} clips/s; launches {enc_launches}, by "
+          f"variant {enc_variants}")
     if tuple(gallery.shape) != (N_CLIPS, 512) or \
             not bool(torch.isfinite(gallery).all()):
         fail("the ViT-B/16 gallery is not finite [64, 512]")
@@ -1297,7 +1273,8 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
         step_ms_all=step_ms, losses=losses,
         peak_memory_bytes=peak, resumed_step_equal=True,
         encode_clips=N_CLIPS, encode_s=t_build,
-        encode_clips_per_s=N_CLIPS / t_build)
+        encode_clips_per_s=N_CLIPS / t_build,
+        encode_again_clips_per_s=N_CLIPS / t_again)
     return result, dict(
         launches=launches, variants=train_variants,
         encode_launches=enc_launches, encode_variants=enc_variants,
@@ -2586,10 +2563,10 @@ def serve_phase(torch, np_, dev, counters, root, handoff, flush):
     for b in (1, IVF_QUERIES):
         qb = q[:b]
         search_ms[f"flat_b{b}"] = time_ms(
-            torch, lambda: flat.search_device(qb, IVF_K), flush)
+            lambda: flat.search_device(qb, IVF_K), flush)
         for p in IVF_NPROBES:
             search_ms[f"ivf{p}_b{b}"] = time_ms(
-                torch, lambda: ivf.search_device(qb, IVF_K, nprobe=p), flush)
+                lambda: ivf.search_device(qb, IVF_K, nprobe=p), flush)
     flat_bound = IVF_N * (IVF_D + 4) / card_peaks(
         torch.cuda.get_device_name(0))[0] * 1e3
     new = draw(IVF_ADD)
@@ -3008,9 +2985,9 @@ def towers_phase(torch, np, dev, flush, peaks, counters):
         out = patchify_3d(video, w, FRAMES, bf16)
         err = hold_close(torch, "the 3-D patchify against F.conv3d",
                          out.float(), conv3d().float(), BF16_ATOL, BF16_RTOL)
-        ms = time_ms(torch, lambda: patchify_3d(video, w, FRAMES, bf16),
+        ms = time_ms(lambda: patchify_3d(video, w, FRAMES, bf16),
                      flush=flush)
-        conv_ms = time_ms(torch, conv3d, flush=flush)
+        conv_ms = time_ms(conv3d, flush=flush)
     BT, O = video.shape[0], w.shape[0]
     b_ms, b_by = bound(video.numel() * 4 + w.numel() * 4 + out.numel() * 2,
                        2.0 * BT * out.shape[1] * O * w[0].numel(), bf16_peak,
@@ -4435,7 +4412,7 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32 is not False:
         fail("TF32 matmuls are on")
     peaks = card_peaks(name)
-    mem_rate, bf16_peak, fp32_peak = peaks
+    mem_rate, bf16_peak, _ = peaks
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------------- build
@@ -4473,8 +4450,8 @@ def main() -> int:
             yield {"video": clips[s:min(s + BATCH, hi)],
                    "video_mask": masks[s:min(s + BATCH, hi)]}
 
-    # warm-up on a 2-clip gallery (Triton compiles its kernel and CUDA loads
-    # each kernel module at first launch): not counted, not timed
+    # warm-up on a 2-clip gallery (CUDA loads each kernel module at first
+    # launch): not counted, not timed
     engine.build_index(batches(0, 2), video_ids[:2], quantize="int8")
     engine.search(QUERIES, k=2)
     torch.cuda.synchronize()
@@ -4570,11 +4547,11 @@ def main() -> int:
         ok = bool((err <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all())
         q, k, v = (t.reshape(B, L, H, 64).transpose(1, 2)
                    for t in qkv.split(D, dim=-1))
-        ms = time_ms(torch, lambda: attention_cuda.fused_attention(
+        ms = time_ms(lambda: attention_cuda.fused_attention(
             qkv, H, mask), flush=flush)
-        plain_ms = time_ms(torch, lambda: attention_cuda.attention_plain(
+        plain_ms = time_ms(lambda: attention_cuda.attention_plain(
             qkv, H, mask), flush=flush)
-        lib_ms = time_ms(torch, lambda: torch.nn.functional
+        lib_ms = time_ms(lambda: torch.nn.functional
                          .scaled_dot_product_attention(
                              q, k, v, is_causal=mask is not None),
                          flush=flush)
@@ -4626,34 +4603,49 @@ def main() -> int:
                       else (FP32_ATOL, FP32_RTOL))
         err = (out.float() - ref.float()).abs()
         ok = bool((err <= atol + rtol * ref.float().abs()).all())
-        xf = x.float()
-        ms = time_ms(torch, lambda: layernorm_triton.layer_norm(x, w, b),
-                     flush=flush)
-        plain_ms = time_ms(torch, lambda: layernorm_triton.layer_norm_plain(
-            x, w, b), flush=flush)
-        lib_ms = time_ms(torch, lambda: torch.nn.functional.layer_norm(
-            xf, (D,), w, b, 1e-5), flush=flush)
-        b_ms, b_by = bound(2 * x.numel() * x.element_size() + 2 * D * 4,
-                           8.0 * R * D, fp32_peak, mem_rate)
-        print(f"layernorm [{label}] x ({R}, {D}) {dt}: max_abs_err "
-              f"{err.max().item():.3e} (tol {atol} + {rtol}*|ref|) ms "
-              f"{ms:.4f} plain {plain_ms:.4f} F.layer_norm(fp32) "
-              f"{lib_ms:.4f} bound {b_ms:.4f} ({b_by})")
         if not ok:
             fail(f"layernorm [{label}] disagrees with its plain version")
+        times = layernorm_row_times(x, w, b, flush)
+        b_ms, b_by = layernorm_bound(x, peaks)
+        print(f"layernorm [{label}] x ({R}, {D}) {dt}: max_abs_err "
+              f"{err.max().item():.3e} (tol {atol} + {rtol}*|ref|) ms "
+              f"{times['ms']:.4f} plain {times['plain_ms']:.4f} F.layer_norm "
+              f"({times['library_params']} gamma/beta) "
+              f"{times['library_ms']:.4f}, on an fp32 copy "
+              f"{times['library_fp32_copy_ms']:.4f} bound {b_ms:.4f} "
+              f"({b_by})")
         ln_rows.append(dict(shape=[R, D], dtype=str(dt).split(".")[-1],
-                            max_abs_err=err.max().item(), ms=ms,
-                            plain_ms=plain_ms, library_ms=lib_ms,
+                            max_abs_err=err.max().item(), **times,
                             bound_ms=b_ms, bound_by=b_by))
+    # the host's cost of a call at the search's and a pipeline
+    # microbatch's shapes, where the calls are launch-bound: on inputs
+    # that need no gradient (serving) and through the autograd Function
+    # (training)
+    ln_host = []
+    for R, D in ((len(QUERIES) * 32, 512), (96 * 50, 768)):
+        x = torch.randn((R, D), device=dev).to(torch.bfloat16)
+        w, b = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+        wg, bg = (t.clone().requires_grad_(True) for t in (w, b))
+        us = host_us_per_call(lambda: layernorm_triton.layer_norm(
+            x, w, b))
+        us_grad = host_us_per_call(lambda: layernorm_triton.layer_norm(
+            x, wg, bg))
+        print(f"layernorm x ({R}, {D}) bf16: {us:.2f} host us per call, "
+              f"{us_grad:.2f} through the autograd Function (1000 calls, no "
+              f"synchronisation)")
+        ln_host.append(dict(shape=[R, D], us=us, us_autograd=us_grad))
     a = ln_rows[0]
     results.append(dict(
-        name="layernorm_fwd", route="triton",
-        source="centerclip_tpu_torch/ops/layernorm_triton.py",
+        name="layernorm_fwd", route="cuda",
+        source="centerclip_tpu_torch/csrc/layernorm.cu",
         replaces="centerclip_tpu/ops/layernorm_pallas.py:83",
         counter="layer_norm",
         max_abs_err=max(r["max_abs_err"] for r in ln_rows),
         ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-        bound_by=a["bound_by"], library_ms=a["library_ms"], shapes=ln_rows))
+        bound_by=a["bound_by"], library_ms=a["library_ms"],
+        library_params=a["library_params"],
+        library_fp32_copy_ms=a["library_fp32_copy_ms"],
+        host_us_per_call=ln_host, shapes=ln_rows))
 
     # k-medoids on the tokens the serving phase (first batch) and the first
     # training step clustered; the training tokens also as the 12 -> 4

@@ -166,6 +166,54 @@ def test_layernorm_kernel_matches_plain(cuda, R, D, dtype):
     torch.testing.assert_close(y.float(), ref.float(), **tol)
 
 
+@pytest.mark.parametrize("R,D,dtype,vector", [
+    (1, 768, torch.bfloat16, True), (1, 512, torch.bfloat16, True),
+    (1, 1000, torch.bfloat16, False), (4097, 1000, torch.bfloat16, False),
+    (5000, 768, torch.bfloat16, True), (300, 768, torch.float32, True),
+    (77, 512, torch.float16, True), (9, 100, torch.float32, False)])
+def test_layernorm_cuda_kernel_paths(cuda, R, D, dtype, vector):
+    """Kernel C's vector path (rows of whole 512-byte pieces) and scalar
+    path (any other width), at one row and at many: each call launches the
+    kernel once and matches the plain version."""
+    x = _randn((R, D), dtype, cuda, seed=R + D, scale=3.0) + 1.5
+    w = _randn((D,), torch.float32, cuda, seed=1, scale=0.1) + 1.0
+    b = _randn((D,), torch.float32, cuda, seed=2)
+    assert (layernorm_triton.fwd_vecs(D, x.element_size()) > 0) == vector
+    before = layernorm_triton.layer_norm.launches
+    y = layernorm_triton.layer_norm(x, w, b)
+    torch.cuda.synchronize()
+    assert layernorm_triton.layer_norm.launches == before + 1
+    assert y.device.type == "cuda" and y.dtype == dtype
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(
+        y.float(), layernorm_triton.layer_norm_plain(x, w, b).float(), **tol)
+
+
+def test_layernorm_cuda_kernel_unaligned_rows(cuda):
+    """A contiguous x whose data starts 2 bytes past a 16-byte boundary
+    takes the scalar path, with the same result as an aligned copy."""
+    R, D = 300, 768
+    base = _randn((R * D + 1,), torch.bfloat16, cuda, seed=5, scale=3.0)
+    x = base[1:].view(R, D)
+    assert x.data_ptr() % 16 != 0
+    w = _randn((D,), torch.float32, cuda, seed=1, scale=0.1) + 1.0
+    b = _randn((D,), torch.float32, cuda, seed=2)
+    y = layernorm_triton.layer_norm(x, w, b)
+    torch.testing.assert_close(y.float(), layernorm_triton.layer_norm_plain(
+        x, w, b).float(), **BF16_TOL)
+
+
+def test_layernorm_cuda_kernel_rejects_what_it_cannot_take(cuda):
+    x = _randn((4, 768), torch.bfloat16, cuda)
+    w = torch.ones(768, device=cuda)
+    b = torch.zeros(768, device=cuda)
+    for bad in (dict(x=x.t()), dict(x=x.double()), dict(w=w.half()),
+                dict(b=b[:512]), dict(w=w.cpu())):
+        args = {**dict(x=x, w=w, b=b), **bad}
+        with pytest.raises(ValueError):
+            layernorm_triton.layer_norm(args["x"], args["w"], args["b"])
+
+
 def _cost(D, meds, assign):
     """Sum over points of D[medoid of its cluster, point], in fp64."""
     med_of = torch.gather(meds.long(), 1, assign.long())
@@ -768,6 +816,37 @@ def test_kmedoids_global_variant_equals_shared(cuda, N, K):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+def _line_distances(B, N, seed, device, span=1000):
+    """D [B, N, N] of B segments of N integers on a line (repeats allowed)
+    with both tricks applied: small integers, so every fp32 sum is exact
+    in any order, and distances tie often."""
+    g = np.random.default_rng(seed)
+    p = torch.from_numpy(g.integers(0, span, (B, N)).astype(np.float32))
+    dis = (p[:, :, None] - p[:, None, :]).abs()
+    D = dis - dis.amax(dim=(1, 2), keepdim=True) - 1.0 - torch.eye(N)
+    return p[..., None].to(device), D.to(device), p.abs().to(device)
+
+
+@pytest.mark.parametrize("B,N,K,span", [(64, 392, 160, 1000),
+                                        (192, 392, 160, 300),
+                                        (16, 300, 120, 60)])
+def test_kmedoids_global_variant_equals_plain_ids_and_steps(cuda, B, N, K,
+                                                            span):
+    """Where the plain version's sums are exact too (integer distances),
+    the global variant gives its ids and assignment in every segment, and
+    each segment's Lloyd steps are the plain version's steps to its fixed
+    point."""
+    from centerclip_tpu_torch.ops.kmedoids import (fixed_point_steps,
+                                                   kmedoids_on_distances)
+    X, D, l2 = _line_distances(B, N, N + K + span, cuda, span)
+    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.GLOBAL
+    a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(D, l2, K)
+    a2, m2 = kmedoids_on_distances(X, D, l2, K, iter_limit=100)
+    assert torch.equal(m1, m2)
+    assert torch.equal(a1, a2)
+    assert torch.equal(steps, fixed_point_steps(D, l2, K, 100))
 
 
 def test_kmedoids_kernel_one_step_and_no_sort(cuda):

@@ -1,7 +1,13 @@
 # coding=utf-8
-"""The designs of the LayerNorm backward kernel (D) and the k-medoids
-kernel (E), held on the CPU.
+"""The designs of the LayerNorm kernels (C forward, D backward) and the
+k-medoids kernel (E), held on the CPU.
 
+- C's launch plan: a warp a row, every row covered once, the CTA cap, and
+  which rows take the vector path.
+- C's arithmetic: each lane's fp32 sum of its elements in column order,
+  then the warp's xor tree, fmaf for the squares and the output, emulated
+  here and held against `layer_norm_plain` and the JAX package's
+  `_ln_fwd_call` (interpret mode).
 - D's launch plan: the rows each program takes, and the program cap.
 - D's sums: per-program fp32 partials over the plan's row ranges, summed
   per ticket group and then over the groups, each in program order,
@@ -13,9 +19,11 @@ kernel (E), held on the CPU.
   members in ascending order, and each cluster's first-index argmin,
   emulated here with numpy and held against the port's
   `kmedoids_on_distances` and the JAX package's `kmedoids_from_distances`
-  (interpret mode) on the same distances.  Both kernel variants (D in
-  shared memory, or read from device memory) run it; which one a segment
-  size takes is a pure function of N.
+  (interpret mode) on the same distances.  The shared-memory variant runs
+  it step by step; the global variant (D read from device memory) reaches
+  the same ids, assignment and steps by reading only what changed, which
+  is emulated too.  Which variant a segment size takes is a pure function
+  of N.
 """
 import numpy as np
 import pytest
@@ -24,16 +32,126 @@ import torch
 
 from centerclip_tpu.ops.distances import pairwise_distance as jax_pairwise
 from centerclip_tpu.ops.kmedoids_pallas import kmedoids_from_distances
-from centerclip_tpu.ops.layernorm_pallas import _ln_bwd_call
+from centerclip_tpu.ops.layernorm_pallas import _ln_bwd_call, _ln_fwd_call
+from centerclip_tpu_torch import kernel_timing
 from centerclip_tpu_torch.ops import _build, kmedoids_cuda, layernorm_triton
 from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
 from centerclip_tpu_torch.ops.layernorm_triton import (
-    _BWD_SM_WARPS, bwd_launch_plan, layer_norm_bwd_plain)
+    _BWD_SM_WARPS, _FWD_WARPS, bwd_launch_plan, fwd_launch_plan, fwd_vecs,
+    layer_norm_bwd_plain, layer_norm_plain)
 
 # the H100's SM count
 N_SM = 132
 # chip_smoke.py's tolerance for fp32 sums over rows taken in another order
 SUM_RTOL = 1e-5
+
+
+# -------------------------------------------------------------- C's plan
+@pytest.mark.parametrize("R", [1, 7, 128, 4096, 4800, 76800])
+@pytest.mark.parametrize("D", [512, 768])
+def test_fwd_plan_covers_every_row_once(R, D):
+    ctas_per_sm = 5
+    plan = fwd_launch_plan(R, D, 2, N_SM, ctas_per_sm)
+    W = plan.ctas * _FWD_WARPS
+    assert 1 <= plan.ctas <= N_SM * ctas_per_sm
+    if R <= N_SM * ctas_per_sm * _FWD_WARPS:      # a warp a row
+        assert plan.ctas == -(-R // _FWD_WARPS)
+    # warp w takes rows w, w + W, ... (csrc/layernorm.cu): the warps of one
+    # step read neighbouring rows
+    seen = np.zeros(R, np.int64)
+    for w in range(W):
+        seen[w:R:W] += 1
+    assert (seen == 1).all()
+    assert (plan.ctas - 1) * _FWD_WARPS < R    # no CTA without a row
+
+
+@pytest.mark.parametrize("D,elem,aligned,vecs", [
+    (768, 2, True, 3), (512, 2, True, 2), (768, 4, True, 6), (512, 4, True, 4),
+    (2048, 2, True, 8), (2304, 2, True, 0), (1000, 2, True, 0),
+    (1000, 4, True, 0), (100, 2, True, 0), (768, 2, False, 0),
+    (256, 2, True, 1), (128, 2, True, 0), (1024, 4, True, 8)])
+def test_fwd_vector_path_from_width_and_alignment(D, elem, aligned, vecs):
+    """16-byte vectors a lane on the vector path (a row a whole number of
+    512-byte warp-wide pieces, at most 8); 0 takes the scalar path (any
+    other width, or a pointer not 16-byte aligned)."""
+    assert fwd_vecs(D, elem, aligned) == vecs
+
+
+# -------------------------------------------------------------- C's sums
+def _fma32(a, b, c):
+    """fmaf in float32: the product of two float32 values is exact in
+    float64; one rounding of the sum (double rounding cannot arise here
+    except in ties, far below the tolerances these tests hold)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _emulated_ln_fwd(x, w, b, elem_bytes, eps=1e-5):
+    """Rows as csrc/layernorm.cu normalises them: lane l's fp32 sums (on
+    the vector path each of its 16-byte vectors l, l + 32, ... summed in
+    order, then those sums in order; on the scalar path its columns l,
+    l + 32, ... in order), then the xor tree over the 32 lanes, which
+    leaves every lane the same bits."""
+    R, D = x.shape
+    vecs = fwd_vecs(D, elem_bytes)
+    per = 16 // elem_bytes
+    if vecs:      # lane -> its vectors -> their columns
+        groups = [[[(lane + 32 * v) * per + e for e in range(per)]
+                   for v in range(vecs)] for lane in range(32)]
+    else:         # one group a lane: its columns
+        groups = [[list(range(lane, D, 32))] for lane in range(32)]
+    assert sorted(c for lane in groups for g in lane for c in g) \
+        == list(range(D))
+    lanes = np.arange(32)
+
+    def warp_sum(terms_of, first):
+        part = np.zeros((R, 32), np.float32)
+        for lane in range(32):
+            sums = []
+            for cols in groups[lane]:
+                acc = first(cols[0])
+                for c in cols[1:]:
+                    acc = terms_of(acc, c)
+                sums.append(acc)
+            acc = sums[0]
+            for t in sums[1:]:
+                acc = acc + t
+            part[:, lane] = acc
+        for o in (16, 8, 4, 2, 1):
+            part = part + part[:, lanes ^ o]
+        assert (part == part[:, :1]).all()
+        return part[:, 0]
+    mean = warp_sum(lambda acc, c: acc + x[:, c],
+                    lambda c: x[:, c].copy()) / np.float32(D)
+    d = x - mean[:, None]
+
+    def square(acc, c):
+        return _fma32(d[:, c], d[:, c], acc)
+    var = warp_sum(square, lambda c: square(np.zeros(R, np.float32), c)) \
+        / np.float32(D)
+    rstd = (1.0 / np.sqrt(var.astype(np.float64) + eps)).astype(np.float32)
+    return _fma32(d * rstd[:, None], w[None, :], b[None, :])
+
+
+@pytest.mark.parametrize("R,D,dtype", [
+    (6, 768, torch.bfloat16), (5, 512, torch.bfloat16),
+    (4, 768, torch.float32), (3, 1000, torch.bfloat16),
+    (3, 100, torch.float16)])
+def test_fwd_emulation_matches_plain_and_jax(R, D, dtype):
+    """Vector path (bf16 768 / 512, fp32 768) and scalar path (1000, 100):
+    the emulation's fp32 output within 1e-5 of the plain version's and of
+    the Pallas forward's (interpret mode) on the same fp32 inputs."""
+    g = np.random.default_rng(R * D)
+    x = torch.from_numpy((g.standard_normal((R, D)) * 3 + 1.5).astype(
+        np.float32)).to(dtype).float()
+    w = (g.standard_normal(D) * 0.1 + 1).astype(np.float32)
+    b = g.standard_normal(D).astype(np.float32)
+    out = _emulated_ln_fwd(x.numpy(), w, b, torch.tensor([], dtype=dtype)
+                           .element_size())
+    ref = layer_norm_plain(x, torch.from_numpy(w), torch.from_numpy(b))
+    np.testing.assert_allclose(out, ref.numpy(), rtol=1e-5, atol=1e-5)
+    jref = _ln_fwd_call(jnp.asarray(x.numpy()), jnp.asarray(w),
+                        jnp.asarray(b), layernorm_triton.EPS, True)
+    np.testing.assert_allclose(out, np.asarray(jref), rtol=1e-5, atol=1e-5)
 
 
 # -------------------------------------------------------------- D's plan
@@ -191,6 +309,99 @@ def _emulated_kmedoids(D, l2, K, iter_limit=100, id_sort=True):
     return nearest(meds), meds, steps
 
 
+def _emulated_global_kmedoids(D, l2, K, iter_limit=100, id_sort=True,
+                              seed=0):
+    """One segment as csrc/kmedoids.cu's global variant computes it: KKZ
+    that keeps each point's nearest chosen medoid, a Lloyd assignment that
+    reads only the medoids that moved (a full scan for a point whose own
+    medoid moved), sums and argmins for the clusters whose member set
+    changed only, and the last assignment by rank where no medoid may tie.
+    The kernel lists the moved medoids in the order of its atomics: here
+    in a random order (`seed`), which must not change a bit."""
+    rng = np.random.default_rng(seed)
+    N = D.shape[0]
+    key = _ordered(D)
+    idx = int(np.argmax(_ordered(l2)))
+    meds = [idx]
+    best, assign = key[idx].copy(), np.zeros(N, np.int64)
+    tie = np.zeros(N, bool)
+    for k in range(1, K):
+        idx = int(np.flatnonzero(best == best.max())[0])
+        meds.append(idx)
+        d = key[idx]
+        lt, eq = d < best, d == best
+        best = np.where(lt, d, best)
+        assign = np.where(lt, k, assign)
+        tie = np.where(lt, False, tie | eq)
+    meds = np.array(meds)
+
+    def take(d, k, bv, bk, t):
+        if d < bv:
+            return d, k, False
+        if d == bv:
+            return bv, min(k, bk), True
+        return bv, bk, t
+
+    def scan(order, n):
+        bv, bk, t = np.iinfo(np.int32).max, 0, False
+        for k, m in enumerate(order):
+            bv, bk, t = take(key[m, n], k, bv, bk, t)
+        return bv, bk, t
+
+    def reassign(moved):
+        flags = np.zeros(K, bool)
+        flags[moved] = True
+        changed = set()
+        for n in range(N):
+            bv, bk, t = best[n], assign[n], tie[n]
+            if flags[bk]:
+                bv, bk, t = scan(meds, n)
+            else:
+                for k in moved:
+                    bv, bk, t = take(key[meds[k], n], k, bv, bk, t)
+            if bk != assign[n]:
+                changed |= {assign[n], bk}
+            best[n], assign[n], tie[n] = bv, bk, t
+        return changed
+
+    dirty = np.ones(K, bool)
+    sums = np.zeros(N, np.float32)
+    moved, steps = [], 0
+    while steps < iter_limit:
+        for k in reassign(moved) if moved else ():
+            dirty[k] = True
+        members = [np.flatnonzero(assign == k) for k in range(K)]
+        for n in range(N):
+            if dirty[assign[n]]:
+                acc = np.float32(0)
+                for m in members[assign[n]]:
+                    acc = np.float32(acc + D[n, m])
+                sums[n] = acc
+        moved = []
+        for k in np.flatnonzero(dirty):
+            mem = members[k]
+            nm = int(mem[np.argmin(sums[mem])]) if len(mem) else 0
+            if nm != meds[k]:
+                meds[k] = nm
+                moved.append(k)
+        dirty[:] = False
+        moved = list(rng.permutation(moved))
+        steps += 1
+        if not moved:
+            break
+    if moved:
+        reassign(moved)
+    if not id_sort:
+        return assign.copy(), meds, steps
+    order = np.argsort(meds, kind="stable")
+    rank_of = np.empty(K, np.int64)
+    rank_of[order] = np.arange(K)
+    sorted_meds = meds[order]
+    out = np.array([scan(sorted_meds, n)[1] if tie[n] else rank_of[assign[n]]
+                    for n in range(N)])
+    return out, sorted_meds, steps
+
+
 def _blobs(seed, B, N, Dim, centres=8):
     g = np.random.default_rng(seed)
     out = np.zeros((B, N, Dim), np.float32)
@@ -252,6 +463,99 @@ def test_member_mask_lloyd_first_index_wins_exact_ties(K):
     _check_three(p[..., None].copy(), D, l2, K)
 
 
+def _check_global_design(X, D, l2, K, iter_limit=100, id_sort=True):
+    """The global variant's emulation gives the member-mask emulation's
+    ids, assignment and steps, segment by segment."""
+    for b in range(D.shape[0]):
+        a, m, steps = _emulated_kmedoids(D[b], l2[b], K, iter_limit, id_sort)
+        ga, gm, gsteps = _emulated_global_kmedoids(D[b], l2[b], K, iter_limit,
+                                                   id_sort, seed=b)
+        np.testing.assert_array_equal(gm, m)
+        np.testing.assert_array_equal(ga, a)
+        assert gsteps == steps
+
+
+@pytest.mark.parametrize("N,K", [(98, 49), (392, 160)])
+def test_global_design_matches_member_mask_plain_and_jax(N, K):
+    """At ViT-B/16's N = 392, K = 160 (and a shared-variant size): equal to
+    the member-mask emulation in ids, assignment and steps, and through it
+    to the plain version and the Pallas kernel."""
+    x = _blobs(N + K, 2, N, 16, centres=8 if N < 256 else 60)
+    D = np.asarray(jax_pairwise(jnp.asarray(x), jnp.asarray(x),
+                                all_negative=True, self_nearest=True))
+    l2 = np.linalg.norm(x, axis=-1).astype(np.float32)
+    _check_global_design(x, D, l2, K)
+    _check_three(x, D, l2, K)
+
+
+@pytest.mark.parametrize("K", [5, 16])
+def test_global_design_first_index_wins_exact_ties(K):
+    """The tie-heavy line of `test_member_mask_lloyd_first_index_wins_exact_
+    ties`: every KKZ row and every medoid row ties for some points, so the
+    last assignment must scan the sorted medoids there."""
+    N = 4 * K
+    p = (50 * np.arange(K)[:, None] + np.arange(4)).reshape(-1)
+    p = np.stack([p, np.random.default_rng(K).permutation(p)]).astype(
+        np.float32)
+    dis = np.abs(p[:, :, None] - p[:, None, :])
+    D = (dis - dis.max(axis=(1, 2), keepdims=True) - 1.0
+         - np.eye(N, dtype=np.float32)).astype(np.float32)
+    l2 = np.abs(p).astype(np.float32)
+    _check_global_design(p[..., None], D, l2, K)
+    _check_three(p[..., None].copy(), D, l2, K)
+
+
+@pytest.mark.parametrize("G", [4, 9])
+def test_global_design_points_equidistant_from_two_medoids(G):
+    """G runs of 3 consecutive integers on a line, far apart, K = 2 G, the
+    points' order shuffled per segment: KKZ takes both ends of each run,
+    so the middle point lies exactly as near to two medoids, and a
+    medoid that moves can tie another one.  The first index must win in
+    the order of the medoid list and, after the id sort, in the sorted
+    order."""
+    N, K = 3 * G, 2 * G
+    p = (50 * np.arange(G)[:, None] + np.arange(3)).reshape(-1)
+    g = np.random.default_rng(G)
+    p = np.stack([g.permutation(p) for _ in range(6)]).astype(np.float32)
+    dis = np.abs(p[:, :, None] - p[:, None, :])
+    D = (dis - dis.max(axis=(1, 2), keepdims=True) - 1.0
+         - np.eye(N, dtype=np.float32)).astype(np.float32)
+    l2 = np.abs(p).astype(np.float32)
+    for id_sort in (True, False):
+        _check_global_design(p[..., None], D, l2, K, id_sort=id_sort)
+    _check_three(p[..., None].copy(), D, l2, K)
+
+
+@pytest.mark.parametrize("K", [3, 6])
+def test_global_design_repeated_points(K):
+    """Segments of 14 integers drawn from 0-11 on a line, so points repeat
+    and distances tie everywhere: a medoid that moves can land exactly as
+    near a point as its current one, with a lower index, which must then
+    win."""
+    p = np.random.default_rng(K).integers(0, 12, (48, 14)).astype(
+        np.float32)
+    dis = np.abs(p[:, :, None] - p[:, None, :])
+    D = (dis - dis.max(axis=(1, 2), keepdims=True) - 1.0
+         - np.eye(14, dtype=np.float32)).astype(np.float32)
+    l2 = np.abs(p).astype(np.float32)
+    _check_global_design(p[..., None], D, l2, K)
+    _check_three(p[..., None].copy(), D, l2, K)
+
+
+@pytest.mark.parametrize("iter_limit,id_sort", [(0, True), (1, True),
+                                                (2, False), (100, False)])
+def test_global_design_iteration_limits_and_no_sort(iter_limit, id_sort):
+    """Stopped before the fixed point (the assignment brought up to date
+    after the last update) and without the id sort (each point's first
+    index in the unsorted order)."""
+    N, K = 300, 120
+    x = _blobs(7, 2, N, 16, centres=40)
+    D = np.asarray(jax_pairwise(jnp.asarray(x), jnp.asarray(x),
+                                all_negative=True, self_nearest=True))
+    l2 = np.linalg.norm(x, axis=-1).astype(np.float32)
+    _check_global_design(x, D, l2, K, iter_limit, id_sort)
+
+
 @pytest.mark.parametrize("N,variant", [
     (1, kmedoids_cuda.SHARED), (98, kmedoids_cuda.SHARED),
     (147, kmedoids_cuda.SHARED), (235, kmedoids_cuda.SHARED),
@@ -285,3 +589,48 @@ def test_ordered_keys_keep_the_float_order():
     assert (np.diff(k.astype(np.int64)) >= 0).all()
     assert k[5] == k[6]                     # -0 and +0 are equal floats
     assert (np.diff(k.astype(np.int64))[np.arange(len(v) - 1) != 5] > 0).all()
+
+
+# ------------------------------------------------------------ the bounds
+def test_kmedoids_bound_counts_medoid_rows_and_member_sums():
+    """E's bytes: the K medoid rows of D, each cluster's member entries
+    beyond its medoid's row in a segment that took a Lloyd step, l2 and
+    the int32 outputs; at a memory rate of 1 KB/ms the bound in ms is the
+    byte count over 1000."""
+    assign = torch.tensor([[0, 0, 0, 1, 1, 1], [0, 1, 1, 1, 1, 1]])
+    steps = torch.tensor([1, 0], dtype=torch.int32)
+    B, N, K = 2, 6, 2
+    members = (3 * 2 + 3 * 2) + 0         # segment 1 took no Lloyd step
+    nbytes = 4 * (B * K * N + members + B * N + B * N + B * K + B)
+    ms, by = kernel_timing.kmedoids_bound(K, assign, steps, (1e6, 1.0, 1e30))
+    assert by == "bytes" and ms == pytest.approx(nbytes / 1e3)
+
+
+def test_kmedoids_bound_at_vitb16_training_reads_medoid_rows_not_all_of_d():
+    """At [768, 392, 392], K = 160, the bound is about 0.058 ms (the K rows,
+    251 KB a segment), not the 0.142 ms that reading all of D would take."""
+    B, N, K = 768, 392, 160
+    g = np.random.default_rng(0)
+    assign = torch.from_numpy(g.integers(0, K, (B, N)))
+    steps = torch.from_numpy(g.integers(3, 8, B)).int()
+    ms, by = kernel_timing.kmedoids_bound(
+        K, assign, steps, kernel_timing.card_peaks("NVIDIA H100 80GB HBM3"))
+    assert by == "bytes"
+    assert B * K * N * 4 / 3.35e12 * 1e3 < ms < 0.060
+    assert ms < 0.5 * B * N * N * 4 / 3.35e12 * 1e3
+
+
+@pytest.mark.parametrize("R,D,dtype,elem", [(4800, 768, torch.bfloat16, 2),
+                                            (768, 512, torch.float32, 4)])
+def test_layernorm_bound_reads_x_and_writes_y_once(R, D, dtype, elem):
+    x = torch.zeros((R, D), dtype=dtype)
+    ms, by = kernel_timing.layernorm_bound(x, (1e6, 1.0, 1e30))
+    assert by == "bytes"
+    assert ms == pytest.approx((2 * R * D * elem + 2 * D * 4) / 1e3)
+
+
+def test_layernorm_fwd_shapes_are_distinct():
+    keys = [s[1:] for s in kernel_timing.LAYERNORM_FWD_SHAPES]
+    assert len(set(keys)) == len(keys)
+    assert {s[3] for s in kernel_timing.LAYERNORM_FWD_SHAPES} \
+        == {torch.bfloat16, torch.float32}
