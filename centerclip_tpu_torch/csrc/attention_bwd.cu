@@ -44,7 +44,9 @@
 //   design keeps every [L, L] intermediate on chip.  S and dP of a warp's
 //   rows are held whole in registers, which caps L at 128 (two register
 //   widths, 64 and 128 keys, are compiled).
-// * the long variant (bf16 / fp16, hd % 16 == 0, 128 < L <= 256): the same
+// * the long variant (bf16 / fp16, hd % 16 == 0, L > 128: ViT-B/16's 197
+//   tokens, and 1 + K after its cluster layer, up to 1 + 784 for segments
+//   of 4 frames): the same
 //   arithmetic with no [L, L] row and no whole head held anywhere, in two
 //   launches of 4-warp CTAs that stream 64-row tiles through a cp.async
 //   ring.  attention_bwd_dq_kernel takes (item, 64 query rows): pass 1 over
@@ -60,9 +62,10 @@
 //   and dS^T, then dV += T(P)^T.dO and dK += dS^T.qs, the C tiles becoming
 //   A fragments in registers.  delta is not taken from the rounded forward
 //   output (rowsum(dO * O) would move dS by about 2^-8).  Each kernel needs
-//   64-66 KB of shared memory and at most 168 registers a thread, so 3 CTAs
-//   (12 warps) are resident per SM (a CTA holding a whole (sample, head)
-//   needs ~140 KB at L = 197, one per SM).  S and
+//   64-66 KB of shared memory whatever L (only the statistics scratch, 12
+//   bytes a query row, grows with it) and at most 168 registers a thread,
+//   so 3 CTAs (12 warps) are resident per SM (a CTA holding a whole
+//   (sample, head) needs ~140 KB at L = 197, one per SM).  S and
 //   dP are still computed three times (twice in the first launch, once in
 //   the second): 11 products of 2 L^2 hd flops per head, ~1.0 Tflop for
 //   ViT-B/16's 1536 x 12 heads at L = 197, ~1.0 ms at the H100's dense bf16

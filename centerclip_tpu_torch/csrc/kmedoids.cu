@@ -91,6 +91,21 @@
 //   all SMs together would hold ~33 segments at a time, so a training
 //   step's 768 would run in ~24 waves of the same dependent chain, and an
 //   encode's 192 in ~6.
+// * large (512 < N <= 3136; ViT-B/16 with segments of 3 or 4 frames
+//   clusters N = 588 or 784 tokens, a whole 12-frame clip is N = 2352):
+//   the global variant's kernel with its chunk count read from N at run
+//   time (kmedoids_global_kernel<0>), at most 64 registers a thread (4 CTAs
+//   an SM: a training step's 512 segments of 588 points are resident).
+//   KKZ keeps each point's mindist, nearest chosen medoid and tie flag in
+//   the shared-memory arrays the Lloyd steps keep them in anyway, instead
+//   of in registers (the global variant holds 2 points a thread there,
+//   which is its N = 512 cap); each thread updates its own points after a
+//   pick, kScanBatch row loads in flight.  Everything else is the global
+//   variant's, step for step, so the bits are the same.  Shared memory
+//   grows with N and K (150 KB at N = 2352, K = 392, 194 KB at N = 3136,
+//   K = 392, the member masks the most of it): 3136 = 16 frames of 196
+//   tokens is the largest N at which every K <= 392 fits; past it the
+//   wrapper raises.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <limits.h>
@@ -102,9 +117,13 @@ constexpr int kThreads = 128;          // shared variant
 constexpr int kGlobalThreads = 256;    // global variant
 constexpr int kGlobalWarps = kGlobalThreads / 32;
 constexpr int kGlobalCtasPerSm = 6;    // global: a training step's 768 resident
+// large: a training step's 512 segments of 588 points (or 384 of 784)
+// resident on 132 SMs, with room for KKZ's loads in registers
+constexpr int kLargeCtasPerSm = 4;
 constexpr int kMaxChunks = 8;          // 32-point chunks, shared: N <= 256
 constexpr int kGlobalMaxChunks = 16;   // global: N <= 512
-// points a thread keeps in the global variant's KKZ
+constexpr int kLargeMaxN = 3136;       // large: 16 frames of 196 tokens
+// points a thread keeps in registers in the global variant's KKZ
 constexpr int kKkzPoints = 32 * kGlobalMaxChunks / kGlobalThreads;
 constexpr int kScanBatch = 8;          // loads in flight a thread in a scan
 constexpr int kSumBatch = 4;           // loads in flight in a candidate's sum
@@ -387,12 +406,18 @@ __device__ __forceinline__ void warp_scan_all(const float* __restrict__ Db,
 
 // KKZ's next pick is often the argmax another warp's points hold now: each
 // warp prefetches the row of its own argmax into L2 (a lane a 128-byte
-// line, the last lane the row's last element), so that the pick's row
-// read after the block's choice hits L2 more often than device memory
+// line, the last lane the row's last element; a row of more than 31 lines,
+// kWide, takes every 32nd line a lane), so that the pick's row read after
+// the block's choice hits L2 more often than device memory
+template <bool kWide>
 __device__ __forceinline__ void prefetch_row(const float* row, int N) {
   const int lane = threadIdx.x & 31;
-  if (lane <= (N + 31) / 32)
+  if constexpr (kWide) {
+    for (int l = lane; l <= (N + 31) / 32; l += 32)
+      asm volatile("prefetch.global.L2 [%0];" :: "l"(row + min(32 * l, N - 1)));
+  } else if (lane <= (N + 31) / 32) {
     asm volatile("prefetch.global.L2 [%0];" :: "l"(row + min(32 * lane, N - 1)));
+  }
 }
 
 // the lanes of a 32-point chunk (point n >= N past the end) bring their
@@ -427,12 +452,13 @@ __device__ __forceinline__ void reassign_chunk(const float* __restrict__ Db,
 // only after every warp has passed the barrier in between).  Each warp's
 // own argmax's row of Db is prefetched into L2 meanwhile, when it differs
 // from the one it prefetched last (`fetched`, the same in every lane).
+template <bool kWide>
 __device__ __forceinline__ int block_argmax(int v, int i, int2* slots, int p,
                                             const float* Db, int N, int& fetched) {
   const int best = __reduce_max_sync(0xffffffffu, v);
   const int idx = __reduce_min_sync(0xffffffffu, v == best ? i : INT_MAX);
   if (idx < N && idx != fetched) {
-    prefetch_row(Db + (size_t)idx * N, N);
+    prefetch_row<kWide>(Db + (size_t)idx * N, N);
     fetched = idx;
   }
   int2* mine = slots + p * kGlobalWarps;
@@ -447,21 +473,25 @@ __device__ __forceinline__ int block_argmax(int v, int i, int2* slots, int p,
   return b.y;
 }
 
-// the global variant; C = ceil(N / 32) chunks of 32 points
+// the global variant; C = ceil(N / 32) chunks of 32 points, a compile-time
+// count; C = 0 is the large variant: the count from N at run time, and
+// KKZ's per-point state in shared memory
 template <int C>
-__global__ void __launch_bounds__(kGlobalThreads, kGlobalCtasPerSm)
+__global__ void __launch_bounds__(kGlobalThreads,
+                                  C > 0 ? kGlobalCtasPerSm : kLargeCtasPerSm)
 kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2,
                        int* __restrict__ meds_out, int* __restrict__ assign_out,
                        int* __restrict__ steps_out, int N, int K, int iter_limit,
                        int id_sort) {
+  const int nc = C > 0 ? C : n_chunks(N);
   extern __shared__ __align__(16) int gsm[];
   int* best = gsm;                                    // [N] ordered values
   int* assign = best + N;                             // [N] nearest k
   float* s = reinterpret_cast<float*>(assign + N);    // [N] candidate sums
   int* meds = reinterpret_cast<int*>(s + N);          // [K]
   int* moved = meds + K;                              // [K] pack_moved(k, med)
-  unsigned* members = reinterpret_cast<unsigned*>(moved + K);  // [K, C]
-  unsigned char* tie = reinterpret_cast<unsigned char*>(members + K * C);  // [N]
+  unsigned* members = reinterpret_cast<unsigned*>(moved + K);  // [K, nc]
+  unsigned char* tie = reinterpret_cast<unsigned char*>(members + K * nc);  // [N]
   unsigned char* dirty = tie + N;                     // [K] member set changed
   unsigned char* moved_flag = dirty + K;              // [K]
   __shared__ int2 slots[2 * kGlobalWarps];
@@ -484,39 +514,74 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
       const int x = ordered(l2[(size_t)b * N + n]);
       if (x > v) { v = x; i = n; }
     }
-    idx = block_argmax(v, i, slots, 0, Db, N, fetched);
-  }
-  int md[kKkzPoints], ak[kKkzPoints];
-  unsigned ties = 0;
-#pragma unroll
-  for (int j = 0; j < kKkzPoints; ++j) {
-    const int n = tid + nt * j;
-    md[j] = n < N ? ordered(__ldg(Db + (size_t)idx * N + n)) : INT_MIN;
-    ak[j] = 0;
+    idx = block_argmax<C == 0>(v, i, slots, 0, Db, N, fetched);
   }
   if (tid == 0) meds[0] = idx;
-  for (int k = 1; k < K; ++k) {
-    int v = INT_MIN, i = INT_MAX;
-#pragma unroll
-    for (int j = 0; j < kKkzPoints; ++j)
-      if (tid + nt * j < N && md[j] > v) { v = md[j]; i = tid + nt * j; }
-    idx = block_argmax(v, i, slots, k & 1, Db, N, fetched);
-    if (tid == 0) meds[k] = idx;
-    const float* row = Db + (size_t)idx * N;
+  if constexpr (C > 0) {
+    int md[kKkzPoints], ak[kKkzPoints];
+    unsigned ties = 0;
 #pragma unroll
     for (int j = 0; j < kKkzPoints; ++j) {
       const int n = tid + nt * j;
-      if (n < N) {
-        const int d = ordered(__ldg(row + n));
-        if (d < md[j]) { md[j] = d; ak[j] = k; ties &= ~(1u << j); }
-        else if (d == md[j]) ties |= 1u << j;
+      md[j] = n < N ? ordered(__ldg(Db + (size_t)idx * N + n)) : INT_MIN;
+      ak[j] = 0;
+    }
+    for (int k = 1; k < K; ++k) {
+      int v = INT_MIN, i = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < kKkzPoints; ++j)
+        if (tid + nt * j < N && md[j] > v) { v = md[j]; i = tid + nt * j; }
+      idx = block_argmax<C == 0>(v, i, slots, k & 1, Db, N, fetched);
+      if (tid == 0) meds[k] = idx;
+      const float* row = Db + (size_t)idx * N;
+#pragma unroll
+      for (int j = 0; j < kKkzPoints; ++j) {
+        const int n = tid + nt * j;
+        if (n < N) {
+          const int d = ordered(__ldg(row + n));
+          if (d < md[j]) { md[j] = d; ak[j] = k; ties &= ~(1u << j); }
+          else if (d == md[j]) ties |= 1u << j;
+        }
       }
     }
-  }
 #pragma unroll
-  for (int j = 0; j < kKkzPoints; ++j) {
-    const int n = tid + nt * j;
-    if (n < N) { best[n] = md[j]; assign[n] = ak[j]; tie[n] = (ties >> j) & 1; }
+    for (int j = 0; j < kKkzPoints; ++j) {
+      const int n = tid + nt * j;
+      if (n < N) { best[n] = md[j]; assign[n] = ak[j]; tie[n] = (ties >> j) & 1; }
+    }
+  } else {
+    // the same steps on best, assign and tie in shared memory; a thread
+    // reads and writes only its own points n = tid + nt j, so the one
+    // barrier a step in block_argmax is all they need
+    for (int n = tid; n < N; n += nt) {
+      best[n] = ordered(__ldg(Db + (size_t)idx * N + n));
+      assign[n] = 0;
+      tie[n] = 0;
+    }
+    for (int k = 1; k < K; ++k) {
+      int v = INT_MIN, i = INT_MAX;
+      for (int n = tid; n < N; n += nt)
+        if (best[n] > v) { v = best[n]; i = n; }
+      idx = block_argmax<C == 0>(v, i, slots, k & 1, Db, N, fetched);
+      if (tid == 0) meds[k] = idx;
+      const float* row = Db + (size_t)idx * N;
+      for (int n0 = tid; n0 < N; n0 += nt * kScanBatch) {
+        int d[kScanBatch];
+#pragma unroll
+        for (int u = 0; u < kScanBatch; ++u) {
+          const int n = n0 + nt * u;
+          d[u] = n < N ? ordered(__ldg(row + n)) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < kScanBatch; ++u) {
+          const int n = n0 + nt * u;
+          if (n < N) {
+            if (d[u] < best[n]) { best[n] = d[u]; assign[n] = k; tie[n] = 0; }
+            else if (d[u] == best[n]) tie[n] = 1;
+          }
+        }
+      }
+    }
   }
   __syncthreads();
 
@@ -526,8 +591,8 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
     const int nm = n_moved;
     // the assignment after the last update, and member masks, one warp per
     // 32-point chunk
-    for (int c = warp; c < C; c += kGlobalWarps) {
-      for (int k = lane; k < K; k += 32) members[k * C + c] = 0u;
+    for (int c = warp; c < nc; c += kGlobalWarps) {
+      for (int k = lane; k < K; k += 32) members[k * nc + c] = 0u;
       __syncwarp();
       const int n = 32 * c + lane;
       int a = n < N ? assign[n] : -1;
@@ -543,7 +608,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
         }
       }
       const unsigned peers = __match_any_sync(0xffffffffu, a);
-      if (a >= 0 && lane == __ffs(peers) - 1) members[a * C + c] = peers;
+      if (a >= 0 && lane == __ffs(peers) - 1) members[a * nc + c] = peers;
     }
     __syncthreads();
     if (tid == 0) n_moved = 0;
@@ -552,7 +617,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
     for (int n = tid; n < N; n += nt) {
       const int a = assign[n];
       if (!dirty[a]) continue;
-      const unsigned* mine = members + a * C;
+      const unsigned* mine = members + a * nc;
       const float* row = Db + (size_t)n * N;
       float acc = 0.f;
       int c = 0;
@@ -561,7 +626,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
         int m[kSumBatch];
 #pragma unroll
         for (int u = 0; u < kSumBatch; ++u) {
-          while (!w && c + 1 < C) w = mine[++c];
+          while (!w && c + 1 < nc) w = mine[++c];
           m[u] = w ? 32 * c + __ffs(w) - 1 : -1;
           w &= w - 1;
         }
@@ -584,8 +649,8 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
       float bs = INFINITY;
       int bn = -1;
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        for (unsigned w = members[k * C + c]; w; w &= w - 1) {
+      for (int c = 0; c < nc; ++c)
+        for (unsigned w = members[k * nc + c]; w; w &= w - 1) {
           const int m = 32 * c + __ffs(w) - 1;
           if (s[m] < bs) { bs = s[m]; bn = m; }
         }
@@ -603,7 +668,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
   // stopped at iter_limit with medoids that moved: bring the assignment up
   // to date
   if (n_moved) {
-    for (int c = warp; c < C; c += kGlobalWarps) {
+    for (int c = warp; c < nc; c += kGlobalWarps) {
       const int n = 32 * c + lane;
       int bv = 0, bk = 0;
       bool t = false;
@@ -630,7 +695,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
     }
     __syncthreads();
   }
-  for (int c = warp; c < C; c += kGlobalWarps) {
+  for (int c = warp; c < nc; c += kGlobalWarps) {
     const int n = 32 * c + lane;
     int out = n < N ? assign[n] : 0;
     if (id_sort) {
@@ -678,6 +743,9 @@ size_t cc_kmedoids_smem_bytes(int N, int K) { return smem_bytes(N, K); }
 
 size_t cc_kmedoids_global_smem_bytes(int N, int K) { return global_smem_bytes(N, K); }
 
+// the large variant's layout is the global variant's
+size_t cc_kmedoids_large_smem_bytes(int N, int K) { return global_smem_bytes(N, K); }
+
 // Shared variant: 1 <= N <= 256 and smem_bytes(N, K) within the opt-in limit.
 int cc_kmedoids(const void* D, const void* l2, void* meds, void* assign,
                 void* steps, int B, int N, int K, int iter_limit, int id_sort,
@@ -705,6 +773,17 @@ int cc_kmedoids_global(const void* D, const void* l2, void* meds, void* assign,
       kmedoids_global_kernel<15>, kmedoids_global_kernel<16>};
   if (N < 1 || N > 32 * kGlobalMaxChunks) return (int)cudaErrorInvalidValue;
   return launch(kernels[n_chunks(N) - 1], kGlobalThreads, global_smem_bytes(N, K), D,
+                l2, meds, assign, steps, B, N, K, iter_limit, id_sort, stream);
+}
+
+// Large variant: 1 <= N <= 3136 and global_smem_bytes(N, K) within the
+// opt-in limit; the global variant's steps with its per-point state in
+// shared memory.
+int cc_kmedoids_large(const void* D, const void* l2, void* meds, void* assign,
+                      void* steps, int B, int N, int K, int iter_limit,
+                      int id_sort, void* stream) {
+  if (N < 1 || N > kLargeMaxN) return (int)cudaErrorInvalidValue;
+  return launch(kmedoids_global_kernel<0>, kGlobalThreads, global_smem_bytes(N, K), D,
                 l2, meds, assign, steps, B, N, K, iter_limit, id_sort, stream);
 }
 

@@ -18,14 +18,14 @@ inputs and outputs, not by flops.
 Each source has a "tensor_core" variant (bf16 / fp16 with head_dim % 16 ==
 0, L <= 128: mma.sync from ldmatrix, cp.async loads, one CTA per (sample,
 head); the backward's warps hold their rows of S and dP whole in
-registers), a "tensor_core_long" variant (bf16 / fp16, L > 128; the backward
-up to L = 256: ViT-B/16's 197 and 161 tokens) that splits each (sample,
-head) over CTAs of 64 query rows (the forward and the backward's dQ launch)
-or 64 keys (the backward's dK / dV launch) and streams the other side's
-rows in tiles of 64, and a "cuda_core" variant (fp32: fmaf loops, since
-tensor cores have no exact fp32 product and TF32 is off).  `choose_variant`
-picks one from dtype, head_dim and L before the launch; what none takes
-raises.
+registers), a "tensor_core_long" variant (bf16 / fp16, L > 128: ViT-B/16's
+197 tokens, and 1 + K after its cluster layer, e.g. 161 or 393) that
+splits each (sample, head) over CTAs of 64 query rows (the forward and
+the backward's dQ launch) or 64 keys (the backward's dK / dV launch) and
+streams the other side's rows in tiles of 64, and a "cuda_core" variant
+(fp32: fmaf loops, since tensor cores have no exact fp32 product and TF32
+is off).  `choose_variant` picks one from dtype, head_dim and L before
+the launch; what none takes raises.
 
 `fused_attention` is differentiable through `_FusedAttention`: kernel A
 forward, kernel B backward.  For CPU tensors both sides take their plain
@@ -48,9 +48,8 @@ TENSOR_CORE_LONG = "tensor_core_long"
 VARIANTS = (TENSOR_CORE, TENSOR_CORE_LONG, CUDA_CORE)
 # the tensor-core variants stage a whole (sample, head) and the backward's
 # warps hold their S and dP rows whole in registers; the long variants take
-# the lengths above (the backward up to its own limit)
+# every length above (their shared memory does not grow with L)
 TENSOR_CORE_MAX_L = 128
-LONG_BWD_MAX_L = 256
 _SMEM_FNS = {(False, TENSOR_CORE): "cc_attention_mma_smem_bytes",
              (False, TENSOR_CORE_LONG): "cc_attention_long_smem_bytes",
              (False, CUDA_CORE): "cc_attention_simt_smem_bytes",
@@ -125,8 +124,8 @@ def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
                    backward: bool = False) -> str:
     """The kernel variant a CUDA tensor takes, from its dtype, head_dim and
     sequence length alone: for bf16 / fp16 with head_dim a multiple of 16
-    TENSOR_CORE up to L = TENSOR_CORE_MAX_L and TENSOR_CORE_LONG past it
-    (the backward up to LONG_BWD_MAX_L), CUDA_CORE for fp32.  Raises
+    TENSOR_CORE up to L = TENSOR_CORE_MAX_L and TENSOR_CORE_LONG past it,
+    forward and backward, CUDA_CORE for fp32.  Raises
     ValueError for what no variant takes; whether the tiles fit in shared
     memory is checked at launch from the sources' own sizes."""
     if L < 1 or head_dim < 1:
@@ -139,9 +138,6 @@ def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
     if head_dim % 16:
         raise ValueError(f"the {dtype} kernels need head_dim % 16 == 0; got "
                          f"{head_dim}")
-    if backward and L > LONG_BWD_MAX_L:
-        raise ValueError(f"the {dtype} backward kernels take L <= "
-                         f"{LONG_BWD_MAX_L}; got {L}")
     return TENSOR_CORE_LONG if L > TENSOR_CORE_MAX_L else TENSOR_CORE
 
 

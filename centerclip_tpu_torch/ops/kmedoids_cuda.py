@@ -12,8 +12,8 @@ one-hot matmul is replaced by each candidate's sum over its own cluster's
 members.  The distance matrix is computed outside the kernel by
 `ops/distances.py`, a plain fp32 matmul.
 
-Two variants of that one algorithm, picked by `choose_variant` from N, that
-give the same bits on the same distances: SHARED (N <= SHARED_MAX_N)
+Three variants of that one algorithm, picked by `choose_variant` from N,
+that give the same bits on the same distances: SHARED (N <= SHARED_MAX_N)
 copies the segment's `[N, N]` matrix into shared memory once (one bulk
 asynchronous copy when N is even), runs KKZ in one warp with no block
 barrier, and Lloyd steps of three barriers on member lists built without
@@ -21,10 +21,16 @@ atomics; GLOBAL (N <= GLOBAL_MAX_N, e.g. ViT-B/16's N = 392) reads it
 from device memory and so reads only what changed: KKZ over the whole CTA
 also yields the first assignment, a Lloyd step compares each point with
 the medoids that moved only (all K where its own medoid moved), and sums
-run only for clusters whose members changed.
+run only for clusters whose members changed; LARGE (N <= LARGE_MAX_N,
+e.g. ViT-B/16's N = 588 and 784 with segments of 3 and 4 frames, or a
+whole 12-frame clip's 2352) is GLOBAL's kernel with KKZ's per-point state
+in shared memory instead of registers and its chunk count read at run
+time.
 
 `kmedoids` takes the plain version for CPU tensors only.  A CUDA tensor
-launches the kernel or raises; N above GLOBAL_MAX_N raises.
+launches the kernel or raises: N above LARGE_MAX_N, or a K whose member
+masks do not fit in shared memory (any K <= 392 fits up to LARGE_MAX_N),
+raises ValueError.
 `kmedoids_from_distances.launches` counts launches, and `.variant_launches`
 counts them by variant.
 """
@@ -38,22 +44,34 @@ import torch
 from . import _build
 from .kmedoids import batch_fast_kmedoids, kmedoids_inputs
 
-SHARED, GLOBAL = "shared", "global"
+SHARED, GLOBAL, LARGE = "shared", "global", "large"
+VARIANTS = (SHARED, GLOBAL, LARGE)
 # the largest N whose [N, N] fp32 matrix, sums, assignment, medoids and
 # member masks fit in one CTA's 227 KB of shared memory at any K <= N
 SHARED_MAX_N = 235
-GLOBAL_MAX_N = 512             # 16 chunks of 32 points
+GLOBAL_MAX_N = 512             # 16 chunks of 32 points, 2 a thread
+# 16 frames of 196 ViT-B/16 tokens: the largest N at which the member
+# masks of any K <= 392 (2 x 196) fit in shared memory
+LARGE_MAX_N = 3136
 _ENTRIES = {SHARED: ("cc_kmedoids", "cc_kmedoids_smem_bytes"),
-            GLOBAL: ("cc_kmedoids_global", "cc_kmedoids_global_smem_bytes")}
+            GLOBAL: ("cc_kmedoids_global", "cc_kmedoids_global_smem_bytes"),
+            LARGE: ("cc_kmedoids_large", "cc_kmedoids_large_smem_bytes")}
+# the largest N each variant's entry takes (`variant=` may force one below
+# the range `choose_variant` gives it; the shared one then still needs its
+# shared memory)
+_MAX_N = {SHARED: 256, GLOBAL: GLOBAL_MAX_N, LARGE: LARGE_MAX_N}
 
 
 def choose_variant(N: int) -> str:
     """The kernel variant for N points per segment: SHARED up to
-    SHARED_MAX_N, GLOBAL up to GLOBAL_MAX_N; ValueError past it."""
-    if N < 1 or N > GLOBAL_MAX_N:
+    SHARED_MAX_N, GLOBAL up to GLOBAL_MAX_N, LARGE up to LARGE_MAX_N;
+    ValueError past it."""
+    if N < 1 or N > LARGE_MAX_N:
         raise ValueError(f"the k-medoids kernel takes 1 <= N <= "
-                         f"{GLOBAL_MAX_N}; got N={N}")
-    return SHARED if N <= SHARED_MAX_N else GLOBAL
+                         f"{LARGE_MAX_N}; got N={N}")
+    if N <= SHARED_MAX_N:
+        return SHARED
+    return GLOBAL if N <= GLOBAL_MAX_N else LARGE
 
 
 def kmedoids_from_distances(D: torch.Tensor, l2: torch.Tensor, K: int,
@@ -64,8 +82,8 @@ def kmedoids_from_distances(D: torch.Tensor, l2: torch.Tensor, K: int,
     """Kernel entry on precomputed distances (both tricks applied).
 
     D: [B, N, N] fp32 contiguous CUDA tensor; l2: [B, N] fp32 norms.
-    `variant` (SHARED or GLOBAL) overrides `choose_variant(N)`, to hold the
-    two against each other.  Returns (assign [B, N] int32, meds [B, K]
+    `variant` (SHARED, GLOBAL or LARGE) overrides `choose_variant(N)`, to
+    hold them against each other.  Returns (assign [B, N] int32, meds [B, K]
     int32, steps [B] int32 — the Lloyd steps each segment ran)."""
     if D.device.type != "cuda":
         raise ValueError("kmedoids_from_distances runs on CUDA tensors only; "
@@ -84,7 +102,7 @@ def kmedoids_from_distances(D: torch.Tensor, l2: torch.Tensor, K: int,
         raise ValueError(f"need 1 <= K <= N; got K={K}, N={N}")
     if variant is None:
         variant = choose_variant(N)
-    elif variant not in _ENTRIES or N > GLOBAL_MAX_N:
+    elif variant not in _ENTRIES or N > _MAX_N[variant]:
         raise ValueError(f"no k-medoids variant {variant!r} for N={N}")
     entry, smem_fn = _ENTRIES[variant]
     lib = _build.load("kmedoids")
@@ -116,7 +134,7 @@ def kmedoids_from_distances(D: torch.Tensor, l2: torch.Tensor, K: int,
 def reset_counts() -> None:
     """Zero the kernel's launch count, the total and by variant."""
     kmedoids_from_distances.launches = 0
-    kmedoids_from_distances.variant_launches = {SHARED: 0, GLOBAL: 0}
+    kmedoids_from_distances.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 reset_counts()

@@ -4,6 +4,7 @@
     python -m centerclip_tpu_torch.profile_train [--batch 128] [--steps 1]
         [--preset msrvtt_vitb32_k6] [--remat 0|1] [--stream_scale A]
         [--sim_header meanP|seqTransf|tightTransf] [--cross_logits N]
+        [--cluster_num_blocks K1 ... K12] [--target_frames_blocks T1 ... T12]
     torchrun --nproc_per_node N -m centerclip_tpu_torch.profile_train \
         [--fsdp 0|1] [--tensor_parallel T [--sequence_parallel 1] |
          --pipeline_parallel S [--pipeline_microbatches M]]
@@ -11,7 +12,9 @@
 
 Builds a preset of the JAX package (by default `msrvtt_vitb32_k6`: ViT-B/32,
 kmediods++ 12 -> 6 frames, meanP, bf16 towers, AdamW; `--remat` overrides
-its `remat`, `--sim_header` its header) on seeded random weights (`--stream_scale` multiplies the
+its `remat`, `--sim_header` its header, `--cluster_num_blocks` and
+`--target_frames_blocks` its cluster plan, as the CLI's flags of those
+names do) on seeded random weights (`--stream_scale` multiplies the
 vision residual stream: `scale_vision_stream`) and a
 `Trainer` over it, takes two warm-up steps on one batch of `--batch` seeded
 uint8 clips with seeded token rows (tensors in pinned memory, as the data
@@ -89,6 +92,10 @@ def main(argv=None) -> int:
     ap.add_argument("--stream_scale", type=float, default=1.0)
     ap.add_argument("--sim_header", default=None,
                     choices=("meanP", "seqTransf", "tightTransf"))
+    ap.add_argument("--cluster_num_blocks", type=int, nargs="+",
+                    default=None)
+    ap.add_argument("--target_frames_blocks", type=int, nargs="+",
+                    default=None)
     ap.add_argument("--cross_logits", type=int, default=0)
     ap.add_argument("--cross_chunk", type=int, default=64)
     ap.add_argument("--fsdp", type=int, choices=(0, 1), default=0)
@@ -120,10 +127,15 @@ def main(argv=None) -> int:
         overrides["remat"] = bool(args.remat)
     if args.sim_header is not None:
         overrides["sim_header"] = args.sim_header
+    for name in ("cluster_num_blocks", "target_frames_blocks"):
+        if getattr(args, name) is not None:
+            overrides[name] = tuple(getattr(args, name))
     run = preset(args.preset, **overrides)
     cfg = run.model
     print(f"{args.preset}, batch {args.batch}, remat {cfg.remat}, "
-          f"sim_header {cfg.sim_header}, vision stream scaled by "
+          f"sim_header {cfg.sim_header}, cluster_num_blocks "
+          f"{cfg.cluster.cluster_num_blocks}, target_frames_blocks "
+          f"{cfg.cluster.target_frames_blocks}, vision stream scaled by "
           f"{args.stream_scale}")
     model = CLIP4Clip(cfg, device=dev, seed=0)
     scale_vision_stream(model, args.stream_scale)

@@ -94,6 +94,33 @@
    E at N = 147, K = 49: the first training step's tokens as the 12 -> 4
    presets cluster them.)
 
+7b. Long-segment phase, the fourteenth main path (run after the ViT-B/16
+   phase, on the main phase's fixture): ViT-B/16 at full width with remat
+   on segments of 4 frames (the JAX reference's ActivityNet and DiDeMo
+   schedules, 12 -> 3 segments: N = 784 tokens a segment), through
+   experiment 62's flags with `--pretrained_clip_name ViT-B/16 --remat 1
+   --cluster_num_blocks 196 x 6 160 x 6 --target_frames_blocks 12 x 6
+   3 x 6` (no preset: the JAX package has none for these schedules).
+   (a) 2 compared steps (kernel E held against its plain version on each
+   one's tokens) and 3 timed ones at batch 128, an encode of 64 clips
+   through `RetrievalEngine.build_index`, and `main(argv)` on the fixture
+   (3 steps of 128, then its evaluation of 48 clips); (b) the same flags
+   into K = 392, 2 steps, so that blocks 7-12 attend over L = 393 and
+   kernel B runs past 256 keys in a real step; (c) E's large variant
+   (N > 512) against its plain version at the step's [384, 784, 784],
+   an encode batch's [96, 784, 784], the step's tokens as three-frame
+   segments [512, 588, 588] and as whole clips [8, 2352, 2352], and on
+   spectral embeddings of 2 clips at N = 784 (tokens scaled 2 sigma
+   apart), each with 0 segments of other ids or steps than the plain
+   version's fixed point; A and B on (b)'s recorded qkv [384, 393, 2304]
+   with a seeded output gradient, beside SDPA.  Counts are zeroed before
+   each run and read after it: E must run its large variant only, the
+   vision blocks attention's long variants only, and A and B must launch
+   at L > 256 (counted by length around the wrappers' calls); the
+   `{"long_segments": ...}` line holds (a)'s and (b)'s numbers beside the
+   ViT-B/16 phase's, and the kernels line rows `kmedoids_large`,
+   `attention_fwd_long_past_256` and `attention_bwd_long_past_256`.
+
 8. Serve phase, the fifth main path (run between the main and the ViT-B/16
    phases, on the main phase's fixture and run-1 checkpoint):
    `python -m centerclip_tpu_torch.serve.cli`'s `main(argv)` with
@@ -249,11 +276,14 @@
    and the cards' encode apart) and its refusal of the IVF index.
 
 Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
+`{"long_segments": ...}`, a
 `{"serve": ...}`, a `{"cluster": ...}`, an `{"activity": ...}`, a
 `{"headers": ...}`, a `{"towers": ...}`, a `{"preprocess": ...}`, a
-`{"parallel": ...}` and a `{"kernels": [...]}` JSON line (attention's long forward and backward and
-the global k-medoids variant as rows of their own; every kernel's rows at
-each path's shapes, its launches by path) and, last, one JSON line {"ok":
+`{"parallel": ...}` and a `{"kernels": [...]}` JSON line (attention's long
+forward and backward, the global and large k-medoids variants, and the
+long forward and backward past L = 256 as rows of their own; every
+kernel's rows at each path's shapes, its launches by path) and, last,
+one JSON line {"ok":
 true, "device": {...}}; before them, each phase's time.  Any failed check
 exits non-zero before it.  Without a CUDA device it exits non-zero at
 once.  Timing and bounds come from `centerclip_tpu_torch/kernel_timing.py`.
@@ -411,6 +441,14 @@ VITB16_REMAT = True
 VITB16_REMAT_WHY = ("without it the step at batch 128 does not fit in the "
                     "card's 80 GB: python -m centerclip_tpu_torch.profile_train "
                     "--preset msrvtt_vitb16_k6 --remat 0")
+# the fourteenth main path: ViT-B/16 on segments of 4 frames (the JAX
+# reference's schedules for ActivityNet and DiDeMo, 12 -> 3 segments: N =
+# 4 x 196 = 784 tokens a segment) into K = 160 (scripts/msrvtt.sh's ViT-B/16
+# K), on main's fixture through experiment 62's flags, with remat as
+# msrvtt_vitb16_k6 takes it; leg (b) the same into K = 392, so that blocks
+# 7-12 attend over L = 393 > 256 tokens
+LONG_SEG_FRAMES, LONG_SEG_K, LONG_SEG_WIDE_K = 4, 160, 392
+LONG_SEG_WARMUP_STEPS, LONG_SEG_TIMED_STEPS, LONG_SEG_WIDE_STEPS = 2, 3, 2
 # the sixth main path: the spectral preset, then the other algorithms at
 # experiment 62's block flags; a 2-clip encode of each against the CPU
 CLUSTER_PRESET, CLUSTER_WARMUP_STEPS, CLUSTER_TIMED_STEPS = \
@@ -762,10 +800,11 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     version's `threshold` is not read by the kernel): ids equal on at least
     KMEDOIDS_MIN_SAME of the segments, where they differ a clustering no
     costlier than the plain one's (KMEDOIDS_COST_RTOL), and equal
-    assignments where the ids agree.  The global variant (ViT-B/16's
-    N = 392) is held to the plain version in every segment: the same ids,
-    and each segment's Lloyd steps those the plain steps take to its fixed
-    point.  Returns the row and (X, D, l2, steps, assign) for timing."""
+    assignments where the ids agree.  The global and large variants
+    (ViT-B/16's N = 392, 588, 784) are held to the plain version in every
+    segment: the same ids, and each segment's Lloyd steps those the plain
+    steps take to its fixed point.  Returns the row and (X, D, l2, steps,
+    assign) for timing."""
     from centerclip_tpu_torch.ops import kmedoids_cuda
     from centerclip_tpu_torch.ops.kmedoids import (_assign_step, _update_step,
                                                    fixed_point_steps,
@@ -793,7 +832,8 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     short = int((nxt != m2.long()).any(dim=1).sum())
     steps_differing = int((fixed_point_steps(D, l2, K, iter_limit)
                            != steps).sum())
-    strict = kmedoids_cuda.choose_variant(X.shape[1]) == kmedoids_cuda.GLOBAL
+    strict = kmedoids_cuda.choose_variant(X.shape[1]) in (
+        kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE)
     print(f"kmedoids [{label}] X {tuple(X.shape)} K={K}: segments with "
           f"other ids {n_diff}/{Bs}, max relative cost gap {cost_rel:.3e} "
           f"(tol {KMEDOIDS_COST_RTOL}), Lloyd steps min/mean/max "
@@ -802,7 +842,8 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
           f"fixed point {steps_differing}/{Bs}, segments the plain version "
           f"left short of their fixed point {short}/{Bs}")
     if strict and (n_diff or steps_differing):
-        fail(f"k-medoids global variant [{label}]: {n_diff} segments with "
+        fail(f"k-medoids {kmedoids_cuda.choose_variant(X.shape[1])} "
+             f"variant [{label}]: {n_diff} segments with "
              f"other ids, {steps_differing} with other steps than the plain "
              f"version")
     if n_diff and cost_rel > KMEDOIDS_COST_RTOL:
@@ -821,9 +862,11 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     return row, (X, D, l2, steps, a1)
 
 
-def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
+def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind,
+                       qkv=None):
     """Kernel B against `attention_bwd_plain` on seeded bf16 qkv
-    [B, L, 3 * 64 H] and dO (causal mask if `mask_kind`): within one bf16
+    [B, L, 3 * 64 H] (or the `qkv` given, e.g. one a path recorded) and a
+    seeded dO (causal mask if `mask_kind`): within one bf16
     ulp, the share of differing values printed, the autograd Function's
     gradient the kernel's bit for bit; kernel A's forward held and timed
     (beside SDPA) on the way.  Times the kernel, the plain version and
@@ -832,8 +875,9 @@ def hold_attention_bwd(torch, dev, flush, peaks, label, B, L, H, mask_kind):
     mem_rate, bf16_peak, _ = peaks
     D = 64 * H
     gen = torch.Generator(device=dev).manual_seed(B + L)
-    qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(
-        torch.bfloat16)
+    if qkv is None:
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(
+            torch.bfloat16)
     dout = torch.randn((B, L, D), generator=gen, device=dev).to(
         torch.bfloat16)
     mask = (torch.full((L, L), float("-inf"), device=dev).triu(1)
@@ -1065,16 +1109,23 @@ def layernorm_row_times(x, w, b, flush):
     return layernorm_times(x, w, b, flush)
 
 
+def cluster_segments(x, before_frames, after_frames):
+    """The patch tokens `x` [B * before_frames, 1 + P, width] a cluster
+    layer took, grouped into `after_frames` segments per clip:
+    [after_frames * B, before_frames / after_frames * P, width]."""
+    from centerclip_tpu_torch.ops.cluster_layer import segment_major
+    Bc = x.shape[0] // before_frames
+    return segment_major(
+        x[:, 1:, :].reshape(Bc, before_frames, -1, x.shape[-1]),
+        after_frames, before_frames // after_frames)
+
+
 def kmedoids_case(torch, flush, peaks, label, x, before_frames,
                   after_frames, K, iters):
     """Kernel E held (`hold_kmedoids`) and timed against its plain version
-    on the patch tokens `x` [B * before_frames, 1 + P, width] a cluster
-    layer took, grouped into `after_frames` segments per clip."""
-    from centerclip_tpu_torch.ops.cluster_layer import segment_major
-    Bc = x.shape[0] // before_frames
-    return kmedoids_points_case(torch, flush, peaks, label, segment_major(
-        x[:, 1:, :].reshape(Bc, before_frames, -1, x.shape[-1]),
-        after_frames, before_frames // after_frames), K, iters)
+    on the patch tokens `x` a cluster layer took (`cluster_segments`)."""
+    return kmedoids_points_case(torch, flush, peaks, label, cluster_segments(
+        x, before_frames, after_frames), K, iters)
 
 
 def kmedoids_points_case(torch, flush, peaks, label, points, K, iters):
@@ -1092,7 +1143,7 @@ def kmedoids_points_case(torch, flush, peaks, label, points, K, iters):
     b_ms, b_by = kmedoids_bound(K, assign, steps, peaks)
     variant = kmedoids_cuda.choose_variant(N)
     split = {}
-    if variant == kmedoids_cuda.GLOBAL:
+    if variant in (kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE):
         # KKZ, the id sort and the last assignment alone: no Lloyd step
         split["kkz_ms"] = time_ms(
             lambda: kmedoids_cuda.kmedoids_from_distances(D, l2, K, 0),
@@ -1182,7 +1233,8 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     # through the tensor-core one
     km, fwd = enc_variants["kmedoids"], enc_variants["fused_attention"]
     n_batches = -(-N_CLIPS // BATCH)
-    if not km[kc.GLOBAL] or km[kc.SHARED] or fwd[ac.CUDA_CORE] or \
+    if not km[kc.GLOBAL] or km[kc.SHARED] or km[kc.LARGE] or \
+            fwd[ac.CUDA_CORE] or \
             fwd[ac.TENSOR_CORE_LONG] != 12 * n_batches or \
             not enc_launches["layer_norm"]:
         fail(f"the ViT-B/16 encode ran other kernel variants: {enc_variants}")
@@ -1229,7 +1281,7 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     want_fwd = {ac.TENSOR_CORE_LONG: 12 * per_fwd * steps,
                 ac.TENSOR_CORE: 12 * per_fwd * steps, ac.CUDA_CORE: 0}
     if bwd != want_bwd or fwd != want_fwd or \
-            kmv != {kc.GLOBAL: steps, kc.SHARED: 0}:
+            kmv != {kc.GLOBAL: steps, kc.SHARED: 0, kc.LARGE: 0}:
         fail(f"the ViT-B/16 training steps ran other kernel variants than "
              f"the long attention variants (forward {want_fwd}, backward "
              f"{want_bwd}) and the global k-medoids: {train_variants}")
@@ -1280,6 +1332,343 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
         encode_launches=enc_launches, encode_variants=enc_variants,
         attention_bwd=bwd_rows, attention_fwd=fwd_rows,
         layernorm_bwd=ln_rows, layernorm_fwd=lnf_rows, kmedoids=km_rows)
+
+
+def long_segment_flags(K):
+    """Experiment 62's flags at ViT-B/16 with remat, clustering segments of
+    LONG_SEG_FRAMES frames (N = 196 LONG_SEG_FRAMES tokens) into K before
+    block 7."""
+    return exp62_flags(
+        pretrained_clip_name="ViT-B/16", remat="1",
+        cluster_num_blocks=["196"] * 6 + [str(K)] * 6,
+        target_frames_blocks=["12"] * 6
+        + [str(FRAMES // LONG_SEG_FRAMES)] * 6)
+
+
+def first_inputs_hook(module, store, n):
+    """Keep copies of the first `n` inputs `module` takes in
+    `store["xs"]`."""
+    store["xs"] = []
+
+    def capture(_, args):
+        if len(store["xs"]) < n:
+            store["xs"].append(args[0].detach().clone())
+    return module.register_forward_pre_hook(capture)
+
+
+class _LengthCounting:
+    """Stands in for an attention wrapper: calls it and adds the launches
+    the wrapper counted during the call to `counts[L]`, L the qkv's
+    sequence length.  The wrapper's own counts (`launches`,
+    `variant_launches`), which it updates through its module's name, are
+    read and written through to the wrapper."""
+
+    def __init__(self, fn, counter, counts):
+        for name, value in (("_fn", fn), ("_counter", counter),
+                            ("_counts", counts)):
+            object.__setattr__(self, name, value)
+
+    def __call__(self, qkv, *args, **kw):
+        before = self._counter.launches
+        out = self._fn(qkv, *args, **kw)
+        L = int(qkv.shape[1])
+        self._counts[L] = self._counts.get(L, 0) \
+            + self._counter.launches - before
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+@contextlib.contextmanager
+def attention_launches_by_length(lengths):
+    """Within the block, count kernel A's and B's launches by sequence
+    length in `lengths` ({"fwd": {L: n}, "bwd": {L: n}}), from the
+    wrappers' own counts around each call."""
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    fwd, bwd = ac._forward, ac.attention_backward
+    lengths.update(fwd={}, bwd={})
+    ac._forward = _LengthCounting(fwd, ac.fused_attention, lengths["fwd"])
+    ac.attention_backward = _LengthCounting(bwd, bwd, lengths["bwd"])
+    try:
+        yield lengths
+    finally:
+        ac._forward, ac.attention_backward = fwd, bwd
+
+
+def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
+    """The fourteenth main path: ViT-B/16 at full width on segments of
+    LONG_SEG_FRAMES frames, through the flags both CLIs take (no preset:
+    the JAX package has none for these schedules), with remat.  (a)
+    N = 784 into K = LONG_SEG_K: LONG_SEG_WARMUP_STEPS compared steps
+    (kernel E held to its plain version on each one's tokens) and
+    LONG_SEG_TIMED_STEPS timed ones at batch 128, an encode of 64 clips
+    through `RetrievalEngine.build_index`, and `main` on main's fixture in
+    `root` (3 steps, then its evaluation); (b) the same into
+    LONG_SEG_WIDE_K, LONG_SEG_WIDE_STEPS steps, so that kernel B runs at
+    L = 393 > 256 in a real step; (c) E's large variant against its plain
+    version at the step's [384, 784, 784], an encode batch's
+    [96, 784, 784], three-frame segments' [512, 588, 588], a whole clip's
+    [8, 2352, 2352] and on spectral embeddings of 2 clips at N = 784, and
+    A and B on (b)'s qkv [384, 393, 2304].  Counts are zeroed before each
+    run and read after it; fails unless E ran its large variant only and
+    B launched at L > 256."""
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.main import main as run_main
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    from centerclip_tpu_torch.ops import kmedoids_cuda as kc
+    from centerclip_tpu_torch.ops import spectral
+    from centerclip_tpu_torch.serve import RetrievalEngine
+    from centerclip_tpu_torch.train import Trainer, evaluate
+    fwd_fn, bwd_fn = ac.fused_attention, ac.attention_backward
+
+    def variants():
+        return {"attention_backward": dict(bwd_fn.variant_launches),
+                "fused_attention": dict(fwd_fn.variant_launches),
+                "kmedoids": dict(kc.kmedoids_from_distances.variant_launches)}
+
+    def read_counts():
+        """(launches by kernel, variants) since the counts were zeroed."""
+        return {fn.__name__: fn.launches for fn in counters}, variants()
+
+    def check_counts(label, launches, by_variant, kmedoids_launches,
+                     backward=True):
+        launched(label, launches, [k for k in launches if backward
+                                   or not k.endswith("backward")])
+        kmv = by_variant["kmedoids"]
+        if kmv != {kc.SHARED: 0, kc.GLOBAL: 0, kc.LARGE: kmedoids_launches} \
+                or not kmedoids_launches or by_variant["fused_attention"][
+                    ac.CUDA_CORE]:
+            fail(f"{label}: k-medoids ran {kmv}, not its large variant "
+                 f"alone ({kmedoids_launches} launches), attention "
+                 f"{by_variant}")
+
+    def train(K, warmup, timed, label, seed, hold_steps=0, record=None):
+        run = cli.parse_args(long_segment_flags(K))
+        cfg = run.model
+        spec = next(s for s in cfg.cluster_plan() if s is not None)
+        N = spec.frame_duration * spec.before_cluster_num
+        if (N, spec.cluster_num, cfg.clip_name, cfg.remat) != (
+                196 * LONG_SEG_FRAMES, K, "ViT-B/16", True):
+            fail(f"{label}: the flags give N={N}, K={spec.cluster_num}, "
+                 f"{cfg.clip_name}, remat {cfg.remat}")
+        t0 = time.time()
+        model = CLIP4Clip(cfg, device=dev, seed=0)
+        steps = warmup + timed
+        trainer = Trainer(run, model, total_steps=steps)
+        batch = seeded_batch(np, np.random.default_rng(seed), run.batch_size,
+                             cfg.max_frames, cfg.max_words)
+        t_setup = time.time() - t0
+        xs, lengths, seen = {}, {}, {}
+        hook = first_inputs_hook(cluster_module(model), xs, hold_steps)
+        sites = [site for site in kernel_call_sites()
+                 if site[2] == "attention_fwd"]
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with attention_launches_by_length(lengths), \
+                recording_kernel_inputs(torch, seen,
+                                        lambda: record is not None, sites):
+            med, step_ms, losses, _ = timed_steps(torch, np, trainer, batch,
+                                                  warmup, timed, label)
+        peak = torch.cuda.max_memory_allocated()
+        launches, by_variant = read_counts()
+        hook.remove()
+        B = run.batch_size
+        print(f"{label} training (N={N}, K={K}, batch {B}, remat on, set-up "
+              f"{t_setup:.2f} s): losses {[round(x, 6) for x in losses]}, "
+              f"step times {[round(x, 3) for x in step_ms]} ms; median of "
+              f"the {timed} timed {med:.3f} ms = {B / med * 1e3:.2f} clips/s; "
+              f"peak memory allocated {peak / 2**30:.3f} GiB; launches "
+              f"{launches}, by variant {by_variant}, attention launches by "
+              f"L {lengths}")
+        check_counts(label, launches, by_variant, steps)
+        # per step: 12 vision blocks at L = 197 and 1 + K through the long
+        # variants, 12 text blocks at L = 32 through the L <= 128 ones,
+        # each block's forward twice under remat
+        want_bwd = {ac.TENSOR_CORE_LONG: 12 * steps,
+                    ac.TENSOR_CORE: 12 * steps, ac.CUDA_CORE: 0}
+        want_fwd = {v: 2 * n for v, n in want_bwd.items()}
+        if by_variant["attention_backward"] != want_bwd or \
+                by_variant["fused_attention"] != want_fwd or \
+                lengths["bwd"].get(1 + K) != 6 * steps:
+            fail(f"{label}: attention ran {by_variant}, by L {lengths}")
+        if record is not None:
+            record.update(seen)
+        seen.clear()
+        xs = xs["xs"]
+        held = [hold_kmedoids(torch, f"{label}, step {i + 1}",
+                              cluster_segments(x, spec.before_frames,
+                                               spec.after_frames), K,
+                              cfg.cluster.iter_limit)[0]
+                for i, x in enumerate(xs)]
+        del model, trainer, batch
+        torch.cuda.empty_cache()
+        result = dict(N=N, K=K, batch=B, steps=steps, step_ms=med,
+                      clips_per_s=B / med * 1e3, step_ms_all=step_ms,
+                      losses=losses, peak_memory_bytes=peak,
+                      attention_launches_by_length=lengths, held_steps=held)
+        return run, result, (launches, by_variant), xs
+
+    out, paths = {}, {}
+    # ---- (a) training: compared and timed steps
+    run, out["training"], paths["long_segments_training"], xs = train(
+        LONG_SEG_K, LONG_SEG_WARMUP_STEPS, LONG_SEG_TIMED_STEPS,
+        "long segments", 41, hold_steps=LONG_SEG_WARMUP_STEPS)
+    cfg = run.model
+    train_x = xs[0]
+    del xs
+
+    # ---- (a) encode: 64 clips in batches of 32 and one search
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0).eval()
+    engine = RetrievalEngine(model, device=dev)
+    g = np.random.default_rng(43)
+    clips = g.integers(0, 256, (N_CLIPS, 1, FRAMES, 3, RES, RES),
+                       dtype=np.uint8)
+    masks = np.ones((N_CLIPS, FRAMES), np.int32)
+    ids = [f"longclip{i:03d}" for i in range(N_CLIPS)]
+
+    def batches(hi=N_CLIPS):
+        for s in range(0, hi, BATCH):
+            yield {"video": clips[s:min(s + BATCH, hi)],
+                   "video_mask": masks[s:min(s + BATCH, hi)]}
+    engine.build_index(batches(2), ids[:2])                 # warm-up
+    engine.search(QUERIES, k=2)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    enc_x = {}
+    hook = first_input_hook(cluster_module(model), enc_x)
+    zero_counts(counters)
+    t0 = time.time()
+    index = engine.build_index(batches(), ids)
+    torch.cuda.synchronize()
+    t_enc = time.time() - t0
+    hits = engine.search(QUERIES, k=5)
+    enc_launches, enc_variants = read_counts()
+    hook.remove()
+    gallery = index._codes[:N_CLIPS].float()
+    print(f"long segments encode: {N_CLIPS} clips in {t_enc:.3f} s = "
+          f"{N_CLIPS / t_enc:.2f} clips/s (batches of {BATCH}; set-up and "
+          f"warm-up {t_setup:.2f} s); launches {enc_launches}, by variant "
+          f"{enc_variants}")
+    if tuple(gallery.shape) != (N_CLIPS, 512) or \
+            not bool(torch.isfinite(gallery).all()) or \
+            any(len(row) != 5 or not all(np.isfinite([h["score"]
+                                                      for h in row]))
+                for row in hits):
+        fail("long segments: the gallery is not finite [64, 512] or the "
+             "hits are bad")
+    check_counts("long segments encode", enc_launches, enc_variants,
+                 -(-N_CLIPS // BATCH), backward=False)
+    paths["long_segments_encode"] = (enc_launches, enc_variants)
+    out["encode"] = dict(encode_clips=N_CLIPS, encode_s=t_enc,
+                         encode_clips_per_s=N_CLIPS / t_enc)
+    del engine, index, gallery, model, clips
+    torch.cuda.empty_cache()
+
+    # ---- (a) main on the fixture: 3 steps of 128, then its evaluation
+    evals = []
+    evaluate_fn = evaluate.Evaluator.evaluate
+
+    def recording_evaluate(self, *a, **k):
+        t = time.time()
+        res_ = evaluate_fn(self, *a, **k)
+        evals.append((res_, time.time() - t))
+        return res_
+    out_dir = os.path.join(root, "long_segments")
+    evaluate.Evaluator.evaluate = recording_evaluate
+    try:
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        best_r1 = run_main(main_argv(root, out_dir,
+                                     flags=long_segment_flags(LONG_SEG_K)))
+        torch.cuda.synchronize()
+        t_main = time.time() - t0
+    finally:
+        evaluate.Evaluator.evaluate = evaluate_fn
+    main_launches, main_variants = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "tensorboard", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    losses = [r["train/sim_loss"] for r in scalars]
+    step_s = [r["train/batch_time"] for r in scalars]
+    res1, t_eval = evals[0] if evals else (None, 0.0)
+    print(f"long segments main: {t_main:.2f} s, {len(losses)} steps, losses "
+          f"{losses}, step times {[round(x * 1e3, 3) for x in step_s]} ms; "
+          f"evaluation of {MAIN_VIDEOS} clips {t_eval:.3f} s, R@1 "
+          f"{res1 and res1['R1']}; peak memory {peak / 2**30:.3f} GiB; "
+          f"launches {main_launches}, by variant {main_variants}")
+    if len(losses) != MAIN_VIDEOS * MAIN_CAPTIONS // MAIN_BATCH or \
+            len(losses) > 4 or not np.isfinite(losses).all() or \
+            res1 is None or best_r1 != res1["R1"] or \
+            res1["sim_matrix"].shape != (MAIN_VIDEOS, MAIN_VIDEOS) or \
+            not np.isfinite(res1["sim_matrix"]).all():
+        fail(f"long segments main: {len(losses)} steps, losses {losses}, "
+             f"evaluation {res1 and res1['R1']}")
+    check_counts("long segments main", main_launches, main_variants,
+                 main_variants["kmedoids"][kc.LARGE])
+    paths["long_segments_main"] = (main_launches, main_variants)
+    out["main"] = dict(steps=len(losses), losses=losses,
+                       step_ms_all=[x * 1e3 for x in step_s], run_s=t_main,
+                       eval_s=t_eval, eval_clips=MAIN_VIDEOS, R1=res1["R1"],
+                       peak_memory_bytes=peak)
+    torch.cuda.empty_cache()
+
+    # ---- (b) K = 392: blocks 7-12 at L = 393, kernel B past 256
+    recorded = {}
+    _, out["long_attention"], paths["long_attention_training"], _ = train(
+        LONG_SEG_WIDE_K, 0, LONG_SEG_WIDE_STEPS, "long attention", 42,
+        record=recorded)
+    by_length = out["long_attention"]["attention_launches_by_length"]
+    past = {key: sum(n for L, n in by_length[key].items() if L > 256)
+            for key in ("fwd", "bwd")}
+    if not past["bwd"] or not past["fwd"]:
+        fail(f"long attention: kernels A and B at L > 256 launched {past}")
+
+    # ---- (c) kernels at these shapes
+    K, iters = LONG_SEG_K, cfg.cluster.iter_limit
+    S = FRAMES // LONG_SEG_FRAMES
+    km_rows = [kmedoids_case(torch, flush, peaks, "long segments, step",
+                             train_x, FRAMES, S, K, iters),
+               kmedoids_case(torch, flush, peaks, "long segments, encode "
+                             "batch", enc_x.pop("x"), FRAMES, S, K, iters),
+               kmedoids_case(torch, flush, peaks, "3-frame segments",
+                             train_x, FRAMES, FRAMES // 3, K, iters),
+               kmedoids_case(torch, flush, peaks, "a whole clip",
+                             train_x[:8 * FRAMES], FRAMES, 1, K, iters)]
+    # spectral embeddings of 2 clips' segments, the tokens scaled to lie a
+    # median SPECTRAL_MEDIAN_SIGMAS sigma apart (the seed's lie so far
+    # apart that the heat kernel underflows: W = I)
+    two = cluster_segments(train_x[:2 * FRAMES], FRAMES, S).float()
+    sigma = cfg.cluster.spectral_sigma
+    alpha = SPECTRAL_MEDIAN_SIGMAS * sigma / torch.cdist(two, two).median()
+    Q = spectral.spectral_embedding(two * alpha, K, sigma=sigma)
+    km_rows.append(kmedoids_points_case(torch, flush, peaks,
+                                        "long segments, spectral embedding",
+                                        Q, K, iters))
+    del train_x, two, Q
+    shapes = [r["shape"][:2] for r in km_rows]
+    if shapes != [[384, 784], [96, 784], [512, 588], [8, 2352], [6, 784]] \
+            or any(r["variant"] != kc.LARGE for r in km_rows):
+        fail(f"long segments: E held at {shapes}, "
+             f"{[r['variant'] for r in km_rows]}")
+    qkv = next(args[0] for (_, _), (args, _) in recorded.items()
+               if args[0].shape[1] == 1 + LONG_SEG_WIDE_K)
+    recorded.clear()
+    bwd_row, fwd_row = hold_attention_bwd(
+        torch, dev, flush, peaks, "long attention, blocks 7-12",
+        qkv.shape[0], qkv.shape[1], 12, None, qkv=qkv)
+    del qkv
+    torch.cuda.empty_cache()
+    return out, dict(paths=paths, past_256=past, kmedoids=km_rows,
+                     attention_fwd=[fwd_row], attention_bwd=[bwd_row])
 
 
 class ScalarLog:
@@ -1846,7 +2235,7 @@ def activity_phase(torch, np, dev, flush, peaks, counters):
     for fn_name, n in launches.items():
         if n == 0:
             fail(f"{fn_name} was never launched on the activity path")
-    if km_variants != {kc.SHARED: steps, kc.GLOBAL: 0}:
+    if km_variants != {kc.SHARED: steps, kc.GLOBAL: 0, kc.LARGE: 0}:
         fail(f"activity k-medoids ran other variants: {km_variants}")
     del trainer, batch
     torch.cuda.empty_cache()
@@ -1963,9 +2352,10 @@ def write_msrvtt_fixture(np, root):
     return store
 
 
-def main_argv(root, out_dir, extra=()):
-    """`main`'s argv on the synthetic MSR-VTT in `root` (the .fstore)."""
-    return EXP62_FLAGS + [
+def main_argv(root, out_dir, extra=(), flags=EXP62_FLAGS):
+    """`main`'s argv on the synthetic MSR-VTT in `root` (the .fstore), with
+    experiment 62's flags or `flags`."""
+    return list(flags) + [
         "--train_csv", os.path.join(root, "train.csv"),
         "--val_csv", os.path.join(root, "test.csv"),
         "--data_path", os.path.join(root, "MSRVTT_data.json"),
@@ -2645,18 +3035,24 @@ def serve_phase(torch, np_, dev, counters, root, handoff, flush):
 
 def exp62_flags(**changes):
     """scripts/msrvtt.sh's `common` + experiment 62 flags with `--<flag>
-    <value>` replaced or appended (a value of None removes a switch such
-    as `--loose_type`).  Nothing is written to the output directory: the
-    flags are only parsed."""
+    <value>` replaced or appended (a list of values replaces all of a
+    flag's values, as `--cluster_num_blocks` takes 12; None removes a
+    switch such as `--loose_type`).  Nothing is written to the output
+    directory: the flags are only parsed."""
     flags = EXP62_FLAGS + ["--output_dir", "extra_phases"]
     for flag, value in changes.items():
         name = "--" + flag
+        values = value if isinstance(value, list) else [value]
         if value is None:
             flags.remove(name)
         elif name in flags:
-            flags[flags.index(name) + 1] = value
+            i = flags.index(name) + 1
+            end = i
+            while end < len(flags) and not flags[end].startswith("--"):
+                end += 1
+            flags[i:end] = values
         else:
-            flags += [name, value]
+            flags += [name, *values]
     return flags
 
 
@@ -4795,6 +5191,19 @@ def main() -> int:
         extend_forward_row(kernel, b16[kernel], key="vitb16_shapes")
     phase_done("vitb16")
 
+    # ------- ViT-B/16 on segments of 4 frames (fourteenth path) + report
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    long_seg, ls = long_segments_phase(torch, np, dev, flush, peaks,
+                                       counters, root)
+    del flush
+    long_seg["vitb16_beside"] = {k: vitb16[k] for k in (
+        "step_ms", "peak_memory_bytes", "encode_clips_per_s")}
+    path_counts.update(ls["paths"])
+    for kernel in ("attention_fwd", "attention_bwd", "kmedoids"):
+        extend_forward_row(kernel, ls[kernel], key="long_segment_shapes")
+    torch.cuda.empty_cache()
+    phase_done("long_segments")
+
     # --------------------- cluster algorithms and activity (sixth, seventh)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     cluster, cl = cluster_phase(torch, np, dev, flush, peaks, counters)
@@ -4857,6 +5266,8 @@ def main() -> int:
         by_path = {p: b16[k][fn_name][variant] for p, k in (
             ("vitb16_encode", "encode_variants"),
             ("vitb16_training", "variants"))}
+        by_path.update({p: v[fn_name][variant]
+                        for p, (_, v) in ls["paths"].items()})
         a = rows[0]
         results.append(dict(
             name=row_name, route="cuda", source=base["source"],
@@ -4868,6 +5279,41 @@ def main() -> int:
             **({"occupancy": a["occupancy"]} if "occupancy" in a else {}),
             shapes=rows))
 
+    # E's large variant (N past 512) and A and B past L = 256, rows of
+    # their own: their first shapes' numbers and their launches on the
+    # fourteenth path
+    km_base = next(r for r in results if r["name"] == "kmedoids")
+    rows = ls["kmedoids"]
+    by_path = {p: v["kmedoids"][kmedoids_cuda.LARGE]
+               for p, (_, v) in ls["paths"].items()}
+    a = rows[0]
+    results.append(dict(
+        name="kmedoids_large", route="cuda", source=km_base["source"],
+        replaces=km_base["replaces"], variant=kmedoids_cuda.LARGE,
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=a["ms"],
+        plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+        bound_by=a["bound_by"], library_ms=None, shapes=rows))
+    for row_name, kernel, key in (
+            ("attention_fwd_long_past_256", "attention_fwd", "fwd"),
+            ("attention_bwd_long_past_256", "attention_bwd", "bwd")):
+        base = next(r for r in results if r["name"] == kernel)
+        a = ls[kernel][0]
+        n = ls["past_256"][key]
+        results.append(dict(
+            name=row_name, route="cuda", source=base["source"],
+            replaces=base["replaces"],
+            variant=attention_cuda.TENSOR_CORE_LONG, launches=n,
+            launches_by_path={"long_attention_training": n},
+            max_abs_err=a["max_abs_err"], ms=a["ms"], plain_ms=a["plain_ms"],
+            bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+            library_ms=a["library_ms"],
+            **({"occupancy": a["occupancy"]} if "occupancy" in a else {}),
+            shapes=[a]))
+    if not (results[-3]["launches"] and results[-1]["launches"]):
+        fail("E's large variant or B past L = 256 never launched on the "
+             "fourteenth path")
+
     print(f"total {time.time() - t_start:.1f} s; by phase (s) "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(json.dumps({"training": {**{k: v for k, v in train.items()
@@ -4877,6 +5323,7 @@ def main() -> int:
                                if k not in ("launches", "variants",
                                             "held")}}))
     print(json.dumps({"vitb16": vitb16}))
+    print(json.dumps({"long_segments": long_seg}))
     print(json.dumps({"serve": serve_res}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"activity": activity}))

@@ -48,7 +48,10 @@ BF16_ATOL, BF16_RTOL = 1.6e-2, 1.6e-2
     (torch.bfloat16, 128, 600, False, TENSOR_CORE_LONG),  # no forward limit
     (torch.bfloat16, 64, 129, True, TENSOR_CORE_LONG),    # past 128 keys
     (torch.bfloat16, 64, 197, True, TENSOR_CORE_LONG),    # ViT-B/16 backward
-    (torch.float16, 64, 256, True, TENSOR_CORE_LONG),     # the long limit
+    (torch.float16, 64, 256, True, TENSOR_CORE_LONG),
+    (torch.bfloat16, 64, 257, True, TENSOR_CORE_LONG),    # past 4 key tiles
+    (torch.bfloat16, 64, 393, True, TENSOR_CORE_LONG),    # K = 392 + CLS
+    (torch.float16, 64, 1024, True, TENSOR_CORE_LONG),    # no backward limit
     (torch.float32, 64, 50, False, CUDA_CORE),
     (torch.float32, 40, 197, True, CUDA_CORE),        # fp32: any head_dim
 ])
@@ -57,8 +60,6 @@ def test_choose_variant(dtype, hd, L, backward, expected):
 
 
 @pytest.mark.parametrize("dtype,hd,L,backward", [
-    (torch.bfloat16, 64, 257, True),      # backward beyond 256 keys
-    (torch.float16, 64, 1024, True),
     (torch.bfloat16, 40, 50, False),      # head_dim not a multiple of 16
     (torch.float16, 72, 32, True),
     (torch.float64, 64, 50, False),       # no float64 kernel

@@ -260,9 +260,12 @@ def test_kmedoids_kernel_matches_plain(cuda, B, N, Dim, K, distance,
 
 
 def test_kmedoids_kernel_rejects_large_n(cuda):
-    X = _randn((2, kmedoids_cuda.GLOBAL_MAX_N + 1, 16), torch.float32, cuda)
-    with pytest.raises(ValueError):
+    X = _randn((1, kmedoids_cuda.LARGE_MAX_N + 1, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match=str(kmedoids_cuda.LARGE_MAX_N)):
         kmedoids_cuda.kmedoids(X, 49)
+    X = _randn((1, 2352, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        kmedoids_cuda.kmedoids(X, 2352)        # member masks past 227 KB
 
 
 def test_distances_symmetric_on_card(cuda):
@@ -324,9 +327,12 @@ def test_attention_bwd_kernel_matches_plain(cuda, B, L, H, hd, dtype, causal,
         assert dmask is None
 
 
-# the long variants (L > 128): 64-row tiles, the last one ragged
-LONG_CASES = [(L, dtype, False) for L in (129, 131, 161, 197, 256)
+# the long variants (L > 128): 64-row tiles, the last one ragged; past 4
+# key tiles, 1 + K after a cluster layer of K = 256, 392, 588 and 784
+LONG_CASES = [(L, dtype, False)
+              for L in (129, 131, 161, 197, 256, 257, 393, 589, 785)
               for dtype in (torch.bfloat16, torch.float16)] + [
+    (393, torch.bfloat16, True),
     (161, torch.bfloat16, True),        # a mask, without its gradient
     (197, torch.float16, True)]
 
@@ -390,11 +396,12 @@ def test_attention_long_head_dims(cuda, hd):
     torch.testing.assert_close(dqkv.float(), ref.float(), **BF16_TOL)
 
 
-@pytest.mark.parametrize("B,L", [(1536, 197), (768, 161)])
+@pytest.mark.parametrize("B,L", [(1536, 197), (768, 161), (384, 393)])
 def test_attention_long_vitb16_shapes(cuda, B, L):
     """ViT-B/16's full-width shapes (12 heads of 64, the recipe's batch of
-    128 clips x 12 or 6 frames): both long kernels within one ulp, the
-    backward through the autograd Function to the bit."""
+    128 clips x 12 or 6 frames, or x 3 segments of 4 frames clustered to
+    K = 392): both long kernels within one ulp, the backward through the
+    autograd Function to the bit."""
     H = 12
     qkv = _randn((B, L, 3 * H * 64), torch.bfloat16, cuda, seed=B + L)
     dout = _randn((B, L, H * 64), torch.bfloat16, cuda, seed=B + L + 1)
@@ -436,10 +443,7 @@ def test_attention_function_backward_is_the_kernel(cuda):
 
 
 def test_attention_bwd_rejects_what_it_cannot_take(cuda):
-    qkv = _randn((2, 257, 3 * 768), torch.bfloat16, cuda)
     dout = _randn((2, 257, 768), torch.bfloat16, cuda)
-    with pytest.raises(ValueError):                     # L > 256
-        attention_cuda.attention_backward(qkv, dout, 12)
     with pytest.raises(ValueError):                     # L = 129: no dmask
         attention_cuda.attention_backward(
             _randn((1, 129, 3 * 128), torch.float16, cuda),
@@ -805,6 +809,37 @@ def test_kmedoids_global_variant_matches_plain(cuda, B, N, K):
     assert after[kmedoids_cuda.GLOBAL] == before[kmedoids_cuda.GLOBAL] + 1
 
 
+@pytest.mark.parametrize("B,N,K", [
+    (16, 513, 160),     # the first N past the global variant's
+    (32, 588, 160),     # ViT-B/16, segments of 3 frames
+    (16, 784, 160),     # ViT-B/16, segments of 4 frames
+    (8, 784, 392),
+    (4, 1024, 392),
+    (2, 2352, 160),     # a whole 12-frame ViT-B/16 clip
+    (1, 3136, 392),     # the large variant's limit
+])
+def test_kmedoids_large_variant_matches_plain(cuda, B, N, K):
+    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.LARGE
+    before = dict(kmedoids_cuda.kmedoids_from_distances.variant_launches)
+    X = _blobs(B, N, 64, 60, seed=N + K, device=cuda)
+    _check_kmedoids_on_distances(X, K)
+    after = kmedoids_cuda.kmedoids_from_distances.variant_launches
+    assert after[kmedoids_cuda.LARGE] == before[kmedoids_cuda.LARGE] + 1
+
+
+@pytest.mark.parametrize("N,K", [(257, 100), (392, 160), (512, 200)])
+def test_kmedoids_large_variant_equals_global(cuda, N, K):
+    """Where both run, the large variant gives the global one's bits: the
+    same steps with KKZ's state in shared memory instead of registers."""
+    X = _blobs(48, N, 64, 40, seed=N, device=cuda)
+    _, D, l2 = kmedoids_inputs(X)
+    outs = [kmedoids_cuda.kmedoids_from_distances(D, l2, K, variant=v)
+            for v in (kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("N,K", [(98, 49), (147, 49), (196, 98), (232, 116)])
 def test_kmedoids_global_variant_equals_shared(cuda, N, K):
     """Where both variants run, they give the same bits: the one algorithm
@@ -831,17 +866,21 @@ def _line_distances(B, N, seed, device, span=1000):
 
 @pytest.mark.parametrize("B,N,K,span", [(64, 392, 160, 1000),
                                         (192, 392, 160, 300),
-                                        (16, 300, 120, 60)])
+                                        (16, 300, 120, 60),
+                                        (64, 784, 160, 1000),
+                                        (32, 588, 294, 300),
+                                        (4, 2352, 392, 3000)])
 def test_kmedoids_global_variant_equals_plain_ids_and_steps(cuda, B, N, K,
                                                             span):
     """Where the plain version's sums are exact too (integer distances),
-    the global variant gives its ids and assignment in every segment, and
-    each segment's Lloyd steps are the plain version's steps to its fixed
-    point."""
+    the global variant (the large one past N = 512) gives its ids and
+    assignment in every segment, and each segment's Lloyd steps are the
+    plain version's steps to its fixed point."""
     from centerclip_tpu_torch.ops.kmedoids import (fixed_point_steps,
                                                    kmedoids_on_distances)
     X, D, l2 = _line_distances(B, N, N + K + span, cuda, span)
-    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.GLOBAL
+    assert kmedoids_cuda.choose_variant(N) == (
+        kmedoids_cuda.GLOBAL if N <= 512 else kmedoids_cuda.LARGE)
     a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(D, l2, K)
     a2, m2 = kmedoids_on_distances(X, D, l2, K, iter_limit=100)
     assert torch.equal(m1, m2)

@@ -560,14 +560,17 @@ def test_global_design_iteration_limits_and_no_sort(iter_limit, id_sort):
     (1, kmedoids_cuda.SHARED), (98, kmedoids_cuda.SHARED),
     (147, kmedoids_cuda.SHARED), (235, kmedoids_cuda.SHARED),
     (236, kmedoids_cuda.GLOBAL), (392, kmedoids_cuda.GLOBAL),
-    (512, kmedoids_cuda.GLOBAL)])
+    (512, kmedoids_cuda.GLOBAL), (513, kmedoids_cuda.LARGE),
+    (588, kmedoids_cuda.LARGE), (784, kmedoids_cuda.LARGE),
+    (1024, kmedoids_cuda.LARGE), (2352, kmedoids_cuda.LARGE),
+    (3136, kmedoids_cuda.LARGE)])
 def test_kmedoids_variant_from_n(N, variant):
     assert kmedoids_cuda.choose_variant(N) == variant
 
 
-@pytest.mark.parametrize("N", [0, 513, 1024])
+@pytest.mark.parametrize("N", [0, 3137])
 def test_kmedoids_variant_raises_past_its_range(N):
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="3136"):
         kmedoids_cuda.choose_variant(N)
 
 
