@@ -1,15 +1,17 @@
 # coding=utf-8
-"""Time kernel C (LayerNorm forward) and kernel E's global variant
-(k-medoids, N > SHARED_MAX_N) against an earlier version of each, in turns.
+"""Time kernel C (LayerNorm forward) and kernel E's global, large and
+scratch variants (k-medoids, N > SHARED_MAX_N) against an earlier version
+of each, in turns.
 
     python -m centerclip_tpu_torch.bench_ln_kmedoids --old DIR
 
 DIR holds the `centerclip_tpu_torch/` tree of an earlier commit (`git
 archive <commit> centerclip_tpu_torch | tar -x -C DIR`, unpacked where git
-ignores it): its `ops/layernorm_triton.py` is loaded by path and its
-`csrc/kmedoids.cu` built with nvcc into `build/ab_old/`.  `chip_smoke.py`
-times each kernel alone; this times the two versions of each in turns
-(old, new, new, old) in one process, with `kernel_timing`'s helpers.
+ignores it): that package is imported under another name, and its own
+`ops/_build.py` builds its kernel sources into its own `build/`.
+`chip_smoke.py` times each kernel alone; this times the two versions of
+each in turns (old, new, new, old) in one process, with `kernel_timing`'s
+helpers.
 
 C: at every shape `chip_smoke.py` times it at (`LAYERNORM_FWD_SHAPES`),
 both versions held against `layer_norm_plain` (one bf16 ulp, fp32 1e-5)
@@ -19,18 +21,23 @@ version twice in turns) on inputs that need no gradient (serving,
 encoding) and with gamma and beta that do (training: the autograd
 Function's path).
 
-E global: on the tokens ViT-B/16's cluster layer takes (preset
+E: on the tokens ViT-B/16's cluster layer takes (preset
 msrvtt_vitb16_k6, seeded weights and clips, the vision tower in eval mode):
 an encode batch of 32 clips (D [192, 392, 392]) and the training batch of
-128 (D [768, 392, 392]), K = 160.  The two versions must give the same ids,
-assignment and steps; both timed in full and with iter_limit 0 (KKZ, the
-id sort and the last assignment alone), beside the bound, with the mean
-Lloyd steps.  Prints the card and one JSON line.  Needs a CUDA device.
+128 (D [768, 392, 392]), K = 160, the global variant's; then the same
+tokens with the rows of consecutive segments joined into segments of 784
+(D [384, 784, 784] and [96, 784, 784]), 588 ([512, 588, 588]) and 2352
+tokens (the first 8: [8, 2352, 2352]).  Each version's wrapper picks its
+own variant; where the new one picks the large variant, the scratch
+variant runs on the same inputs too.  All must give the same ids,
+assignment and steps; each timed in full and with iter_limit 0 (KKZ, the
+id sort and the last assignment alone) in turns with the new one, beside
+the bound, with the mean Lloyd steps.  Prints the card and one JSON line.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
 import json
 import os
@@ -43,7 +50,7 @@ import torch
 from .kernel_timing import (LAYERNORM_FWD_SHAPES, card_peaks,
                             host_us_per_call, kmedoids_bound,
                             layernorm_bound, layernorm_times, time_ms)
-from .ops import _build, kmedoids_cuda, layernorm_triton
+from .ops import kmedoids_cuda, layernorm_triton
 
 HOST_SHAPES = ((128, 512), (4800, 768))
 E_PRESET, E_CLIPS, E_FRAMES, E_RES = "msrvtt_vitb16_k6", (32, 128), 12, 224
@@ -58,41 +65,20 @@ def in_turns(f_old, f_new, timer):
 
 
 def load_old(tree: str):
-    """The earlier version's LayerNorm module (loaded by path) and its
-    k-medoids library (built by nvcc)."""
+    """The earlier version's `centerclip_tpu_torch` package, imported from
+    `tree` under another name, so that its modules import its own `_build`
+    (which builds its own kernel sources into its own build directory)."""
+    name = "old_centerclip_tpu_torch"
     pkg = os.path.join(tree, "centerclip_tpu_torch")
     spec = importlib.util.spec_from_file_location(
-        "old_layernorm_triton", os.path.join(pkg, "ops", "layernorm_triton.py"))
-    ln = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ln)
-    out_dir = os.path.join(_build.BUILD_DIR, "ab_old")
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, "libkmedoids.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-                           os.path.join(pkg, "csrc", "kmedoids.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for the old kmedoids.cu:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    return ln, ctypes.CDLL(lib)
-
-
-def old_kmedoids_global(lib, D, l2, K, iter_limit):
-    """The earlier `cc_kmedoids_global` on D [B, N, N], l2 [B, N]."""
-    B, N, _ = D.shape
-    assign = torch.empty((B, N), dtype=torch.int32, device=D.device)
-    meds = torch.empty((B, K), dtype=torch.int32, device=D.device)
-    steps = torch.empty((B,), dtype=torch.int32, device=D.device)
-    fn = lib.cc_kmedoids_global
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    _build.check(lib, fn(D.data_ptr(), l2.data_ptr(), meds.data_ptr(),
-                         assign.data_ptr(), steps.data_ptr(), B, N, K,
-                         iter_limit, 1,
-                         torch.cuda.current_stream().cuda_stream),
-                 "old k-medoids kernel")
-    return assign, meds, steps
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    old = importlib.util.module_from_spec(spec)
+    sys.modules[name] = old
+    spec.loader.exec_module(old)
+    importlib.import_module(f"{name}.ops.layernorm_triton")
+    importlib.import_module(f"{name}.ops.kmedoids_cuda")
+    return old
 
 
 def layernorm_rows(old_ln, flush, dev, peaks):
@@ -173,32 +159,56 @@ def vitb16_points(dev):
     return [seen[n * E_FRAMES // 2] for n in E_CLIPS]
 
 
-def kmedoids_rows(old_lib, flush, dev, peaks):
+def kmedoids_cases(dev):
+    """(points, K, keywords) of the global variant's ViT-B/16 shapes, then
+    the large variant's from the same tokens, consecutive rows joined."""
+    cases = vitb16_points(dev)
+    train, enc = cases[1][0], cases[0][0]
+    W = train.shape[-1]
+    for points, n in ((train, 784), (enc, 784), (train, 588),
+                      (train, 2352)):
+        joined = points.reshape(-1, n, W)
+        cases.append((joined[:8] if n == 2352 else joined, *cases[0][1:]))
+    return cases
+
+
+def kmedoids_rows(old, flush, dev, peaks):
+    """E on each case, the new wrapper against the old one (each picks its
+    own variant), in turns; where the new one takes the large variant, the
+    scratch variant on the same inputs too, in turns with it."""
     from .ops.kmedoids import kmedoids_inputs
+    old_e = old.ops.kmedoids_cuda.kmedoids_from_distances
+    new_e = kmedoids_cuda.kmedoids_from_distances
     rows = []
-    for points, K, kw in vitb16_points(dev):
+    for points, K, kw in kmedoids_cases(dev):
         iters = kw["iter_limit"]
         X, D, l2 = kmedoids_inputs(points, kw["distance"], kw["norm_p"],
                                    kw["pre_norm"])
         B, N = l2.shape
-        if kmedoids_cuda.choose_variant(N) != kmedoids_cuda.GLOBAL:
-            raise SystemExit(f"bench: N={N} is not the global variant's")
-        new_out = kmedoids_cuda.kmedoids_from_distances(D, l2, K, iters)
-        old_out = old_kmedoids_global(old_lib, D, l2, K, iters)
-        if not all(torch.equal(a, b) for a, b in zip(old_out, new_out)):
-            raise SystemExit(f"bench: k-medoids [{B}, {N}, {N}]: the new "
-                             f"global variant's bits differ from the old "
-                             f"one's")
-        row = dict(shape=[B, N, N], K=K, iter_limit=iters, equal_to_old=True,
+        variant = kmedoids_cuda.choose_variant(N, K)
+        new_out = new_e(D, l2, K, iters)
+        others = {"old": lambda limit: old_e(D, l2, K, limit)}
+        if variant == kmedoids_cuda.LARGE:
+            others["scratch"] = lambda limit: new_e(
+                D, l2, K, limit, variant=kmedoids_cuda.SCRATCH)
+        for name, fn in others.items():
+            if not all(torch.equal(a, b)
+                       for a, b in zip(fn(iters), new_out)):
+                raise SystemExit(f"bench: k-medoids [{B}, {N}, {N}]: the "
+                                 f"new {variant} variant's bits differ from "
+                                 f"the {name} one's")
+        row = dict(shape=[B, N, N], variant=variant, K=K, iter_limit=iters,
+                   equal_to=sorted(others),
                    lloyd_steps_mean=new_out[2].float().mean().item(),
                    lloyd_steps_max=int(new_out[2].max()))
         for key, limit in (("", iters), ("kkz_", 0)):
-            o, n, t = in_turns(
-                lambda: old_kmedoids_global(old_lib, D, l2, K, limit),
-                lambda: kmedoids_cuda.kmedoids_from_distances(D, l2, K, limit),
-                lambda f: time_ms(f, flush))
-            row[f"old_{key}ms"], row[f"{key}ms"] = o, n
-            row[f"{key}turns_ms"] = t
+            for name, fn in others.items():
+                o, n, t = in_turns(
+                    lambda: fn(limit), lambda: new_e(D, l2, K, limit),
+                    lambda f: time_ms(f, flush))
+                row[f"{name}_{key}ms"], row[f"{name}_{key}turns_ms"] = o, t
+                if name == "old":
+                    row[f"{key}ms"] = n
         row["bound_ms"], row["bound_by"] = kmedoids_bound(
             K, new_out[0], new_out[2], peaks)
         print(json.dumps(row))
@@ -221,13 +231,14 @@ def main(argv=None) -> int:
     print(smi)
     dev = torch.device("cuda")
     peaks = card_peaks(torch.cuda.get_device_name(0))
-    old_ln, old_lib = load_old(args.old)
+    old = load_old(args.old)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ln_rows, host = layernorm_rows(old_ln, flush, dev, peaks)
-    km_rows = kmedoids_rows(old_lib, flush, dev, peaks)
+    ln_rows, host = layernorm_rows(old.ops.layernorm_triton, flush, dev,
+                                   peaks)
+    km_rows = kmedoids_rows(old, flush, dev, peaks)
     print(json.dumps({"card": smi, "torch": torch.__version__,
                       "layernorm_fwd": ln_rows, "layernorm_host": host,
-                      "kmedoids_global": km_rows}))
+                      "kmedoids": km_rows}))
     return 0
 
 

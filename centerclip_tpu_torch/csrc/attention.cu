@@ -14,7 +14,7 @@
 // (q is scaled and rounded to T first, as `q * scale` does on a T tensor;
 // P is normalised in fp32, then rounded to T).
 //
-// Three variants, chosen by the wrapper from dtype, head_dim and L:
+// Four variants, chosen by the wrapper from dtype, head_dim and L:
 //
 // * attention_fwd_mma_kernel (bf16 / fp16, hd % 16 == 0, L <= 128): tensor
 //   cores.
@@ -54,14 +54,33 @@
 //   [L, L, hd] products (S twice, P.V once) are ~0.75 L flops per byte of
 //   q, k, v and out (148 at L = 197), below the ~295 flop/byte ridge, so
 //   moving those bytes bounds it (PERF.md has its time beside the bound).
-// * attention_fwd_kernel (fp32): CUDA cores, the products as fmaf loops from
-//   shared memory (tensor cores have no exact fp32 product, and TF32 is off
-//   in the port), the fp32 [L, L] scores in shared memory.
+// * attention_fwd_kernel (fp32, short): CUDA cores, the products as fmaf
+//   loops from shared memory (tensor cores have no exact fp32 product, and
+//   TF32 is off in the port), the fp32 [L, L] scores in shared memory:
+//   3 L hd + L^2 floats, which past L = 163 (hd = 64) no CTA can hold.
+// * attention_fwd_f32_long_kernel (fp32, long): the long variant's tiling
+//   in fp32 on CUDA cores.  One CTA of 256 threads takes (item, 64 query
+//   rows) and streams K and V through a two-stage cp.async ring of 64-row
+//   tiles, so its shared memory does not grow with L (102 KB at hd = 64:
+//   2 CTAs an SM).  Pass 1 finds each row's max m and l = sum exp(s - m)
+//   over the key tiles, pass 2 recomputes S, forms P = exp(S - m) / l in
+//   fp32 (expf and a division, as the plain version's softmax) and adds
+//   P.V of each tile, tiles in order.  Every product is fp32 FFMA from
+//   register tiles of 4 x 4 outputs a thread (threads 16 x 16 over the
+//   64 x 64 tile): the products over head channels read both operands'
+//   rows as float4 along the channels, the P.V product P's rows along the
+//   keys and V's along the channels.  Bound on this card: S and P.V are
+//   4 L^2 hd flops a head (6 with S computed twice) against 16 L hd bytes
+//   of q, k, v and out, 0.25 L flops per byte (49 at L = 197), above the
+//   ~20 flop/byte ridge of fp32 FFMA (67 TFLOP/s over 3.35 TB/s): the FFMA
+//   rate bounds it, and the design issues 16 FFMA for every 2 shared loads
+//   of 16 bytes.
 //
 // The TPU kernel's block-diagonal multi-sample batching was a device of the
 // TPU's matrix unit and is not carried over.
 #include <math.h>
 
+#include "f32_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -554,6 +573,122 @@ int launch_long(const void* qkv, const void* mask, void* out, int B, int L, int 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ fp32, long (CUDA cores)
+using cc::f32::kLd;
+using cc::f32::kThreads;
+
+// shared memory (fp32): the CTA's 64 q rows, a ring of two stages of K and
+// V tiles, and P [64 rows][64 keys]: 104 448 bytes at hd = 64
+__host__ __device__ inline size_t f32_long_smem(int hd) {
+  return ((size_t)(1 + 2 * cc::kRing) * kTile * cc::f32::ld_rows(hd) + kTile * kLd) *
+         sizeof(float);
+}
+
+// One CTA per (sample, head, block of 64 query rows), an item's blocks
+// neighbours in launch order (K and V from L2 after the first).  Thread
+// (ty, tx) = (tid / 16, tid % 16) owns query rows ty * 4 + i and, in a
+// 64 x 64 tile of scores, keys tx + 16 j; in O, channels tx * 4 + c + 64 g.
+template <int NG>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_fwd_f32_long_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                              float* __restrict__ out, int L, int H, int hd, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldr = cc::f32::ld_rows(hd), rtile = kTile * ldr;
+  const int n_kt = (L + kTile - 1) / kTile;
+  const int item = blockIdx.x / n_kt, r0 = (blockIdx.x % n_kt) * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float* sq = reinterpret_cast<float*>(smem);
+  float* ring = sq + rtile;                  // stage s: K at ring + 2 s rtile, V next
+  float* sp = ring + 2 * cc::kRing * rtile;  // P [64][kLd]
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const float* base = qkv + (size_t)(item / H) * L * row + (size_t)(item % H) * hd;
+  float* ob = out + (size_t)(item / H) * L * D + (size_t)(item % H) * hd;
+  const bool vec = cc::f32::vec_ok(qkv, hd);
+  const int n_steps = 2 * n_kt;
+
+  auto prefetch = [&](int s) {
+    if (s < n_steps) {
+      float* st = ring + (s % cc::kRing) * 2 * rtile;
+      const int k0 = (s % n_kt) * kTile;
+      cc::f32::load_tile(st, ldr, base + D, row, k0, L, hd, vec);
+      if (s >= n_kt) cc::f32::load_tile(st + rtile, ldr, base + 2 * D, row, k0, L, hd, vec);
+    }
+    cc::cp_async_commit();
+  };
+  cc::f32::load_tile(sq, ldr, base, row, r0, L, hd, vec);
+  prefetch(0);
+
+  float m[4], l[4], o[4][4 * NG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.f;
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    cc::cp_async_wait<0>();                // step s's tiles (and q)
+    if (s == 0) cc::f32::scale_tile(sq, ldr, hd, scale);
+    __syncthreads();
+    prefetch(s + 1);                       // into the stage step s - 1 used
+    const float* sk = ring + (s % cc::kRing) * 2 * rtile;
+    const float* sv = sk + rtile;
+    const int k0 = (s % n_kt) * kTile;
+    float sc[4][4];
+    cc::f32::rows_product(sc, sq, sk, ldr, hd);
+    cc::f32::mask_scores(sc, r0 + ty * 4, k0 + tx, L, mask);
+    if (s < n_kt) {
+      // pass 1: the running max and sum of each row over the key tiles
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float mn = fmaxf(m[i], cc::f32::row_max(
+            fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]))));
+        const float ref = finite_ref(mn);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sum += expf(sc[i][j] - ref);
+        l[i] = l[i] * expf(m[i] - ref) + cc::f32::row_sum(sum);   // 0 * l while m is -inf
+        m[i] = mn;
+      }
+    } else {
+      // pass 2: P = exp(S - m) / l of this tile into shared memory, then
+      // O += P . V
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ref = finite_ref(m[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sp[(ty * 4 + i) * kLd + tx + 16 * j] = expf(sc[i][j] - ref) / l[i];
+      }
+      __syncthreads();
+      cc::f32::keys_product<NG>(o, sp, sv, ldr, hd);
+      if (s == n_steps - 1)
+        cc::f32::store_rows<NG>(o, ob, (size_t)D, r0 + ty * 4, L, hd, 1.f);
+    }
+  }
+}
+
+int launch_f32_long(const float* qkv, const float* mask, float* out, int B, int L, int H,
+                    int hd, float scale, cudaStream_t stream) {
+  if (L < 1 || hd < 1 || hd > 2 * cc::f32::kCols) return (int)cudaErrorInvalidValue;
+  const size_t smem = f32_long_smem(hd);
+  const long long grid = (long long)B * H * ((L + kTile - 1) / kTile);
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (hd <= cc::f32::kCols) {
+    const int err = set_smem((const void*)attention_fwd_f32_long_kernel<1>, smem);
+    if (err) return err;
+    attention_fwd_f32_long_kernel<1><<<(unsigned)grid, kThreads, smem, stream>>>(
+        qkv, mask, out, L, H, hd, scale);
+  } else {
+    const int err = set_smem((const void*)attention_fwd_f32_long_kernel<2>, smem);
+    if (err) return err;
+    attention_fwd_f32_long_kernel<2><<<(unsigned)grid, kThreads, smem, stream>>>(
+        qkv, mask, out, L, H, hd, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -618,6 +753,28 @@ int cc_attention_fwd_simt(const void* qkv, const void* mask, void* out, int B, i
       static_cast<const float*>(qkv), static_cast<const float*>(mask),
       static_cast<float*>(out), L, H, hd, scale);
   return (int)cudaGetLastError();
+}
+
+size_t cc_attention_f32_long_smem_bytes(int L, int hd) {
+  (void)L;
+  return f32_long_smem(hd);
+}
+
+// Registers per thread, shared-memory bytes per CTA and resident CTAs per
+// SM (out[0..2]) of the fp32 long variant's kernel for head_dim hd.
+int cc_attention_fwd_f32_long_occupancy(int hd, int* out) {
+  const void* kernel = hd <= cc::f32::kCols ? (const void*)attention_fwd_f32_long_kernel<1>
+                                            : (const void*)attention_fwd_f32_long_kernel<2>;
+  return cc::occupancy(kernel, f32_long_smem(hd), out, cc::f32::kThreads);
+}
+
+// Long-sequence CUDA-core variant, float32: 1 <= hd <= 128, any L >= 1.
+// mask may be null.
+int cc_attention_fwd_f32_long(const void* qkv, const void* mask, void* out, int B, int L,
+                              int H, int hd, float scale, void* stream) {
+  return launch_f32_long(static_cast<const float*>(qkv), static_cast<const float*>(mask),
+                         static_cast<float*>(out), B, L, H, hd, scale,
+                         static_cast<cudaStream_t>(stream));
 }
 
 const char* cc_error_string(int err) {

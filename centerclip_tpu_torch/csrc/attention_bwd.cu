@@ -18,7 +18,7 @@
 //
 // which is the arithmetic of attention_bwd_plain in ops/attention_cuda.py.
 //
-// Three variants, chosen by the wrapper from dtype, head_dim and L:
+// Four variants, chosen by the wrapper from dtype, head_dim and L:
 //
 // * attention_bwd_mma_kernel (bf16 / fp16, hd % 16 == 0, L <= 128): tensor
 //   cores, one CTA of 4 warps per (sample, head).  qs, k, v and dO rows come
@@ -72,14 +72,27 @@
 //   peak, about the 0.97 ms its bytes take.  Sums run in a fixed order and
 //   nothing is atomic: deterministic.  No mask gradient (only the text
 //   tower has a mask, at L <= 77).
-// * attention_bwd_kernel (fp32): CUDA cores, the products as fmaf loops from
-//   shared memory (no exact fp32 tensor-core product; TF32 is off), P and dS
-//   as fp32 [L, L] tiles in shared memory.
+// * attention_bwd_kernel (fp32, short): CUDA cores, the products as fmaf
+//   loops from shared memory (no exact fp32 tensor-core product; TF32 is
+//   off), P and dS as fp32 [L, L] tiles in shared memory: 5 L hd + 2 L^2
+//   floats, which past L = 108 (hd = 64) no CTA can hold.
+// * the fp32 long variant (attention_bwd_f32_dq_kernel, then
+//   attention_bwd_f32_dkv_kernel): the long variant's two launches and
+//   statistics in fp32, the products fp32 FFMA from register tiles of 4 x 4
+//   outputs a thread (csrc/f32_tile.cuh), dS in fp32, P and dS of one
+//   64 x 64 tile at a time in shared memory.  119-138 KB of shared memory
+//   at hd = 64 whatever L: one CTA of 256 threads an SM.  No mask gradient.
+//   Bound on this card: the five [L, L, hd] products of the backward are
+//   10 L^2 hd flops a head against 28 L hd bytes (q, k, v, dO in, dq, dk,
+//   dv out), 0.36 L flops per byte, above the ~20 flop/byte fp32 ridge:
+//   the FFMA rate bounds it; S and dP are computed three times (9
+//   products).
 //
 // The TPU kernel's sequential-grid accumulation of dmask has no counterpart
 // here: CTAs add their dS into the fp32 [L, L] buffer with atomicAdd.
 #include <math.h>
 
+#include "f32_tile.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -834,6 +847,272 @@ int long_occupancy(int which, int hd, int* out) {
   return cc::occupancy(dkv_kernel<T>(hd), dkv_smem(hd, sizeof(T)), out);
 }
 
+// ------------------------------------------------ fp32, long (CUDA cores)
+// The long variant's two launches in fp32: fp32 FFMA from register tiles
+// of 4 x 4 outputs a thread (csrc/f32_tile.cuh), dS in fp32 (no hi/lo
+// split: the operands are fp32 already), 256 threads a CTA.
+using cc::f32::kLd;
+
+// shared memory (fp32) of the dQ kernel: q and dO of its block, a ring of
+// two stages of K and V tiles, and dS [64][kLd] (121 856 bytes at
+// hd = 64); of the dK / dV kernel: K and V of its tile, a ring of two
+// stages of q, dO and the rows' statistics, and P^T and dS^T (140 800);
+// past 64 channels P^T and dS^T share one tile, in turn (221 696 at
+// hd = 128)
+__host__ __device__ inline int f32_dkv_score_tiles(int hd) {
+  return hd <= cc::f32::kCols ? 2 : 1;
+}
+__host__ __device__ inline size_t f32_dq_smem(int hd) {
+  return ((size_t)(2 + 2 * cc::kRing) * kTile * cc::f32::ld_rows(hd) + kTile * kLd) *
+         sizeof(float);
+}
+__host__ __device__ inline size_t f32_dkv_smem(int hd) {
+  return ((size_t)(2 + 2 * cc::kRing) * kTile * cc::f32::ld_rows(hd)
+          + cc::kRing * 3 * kTile + f32_dkv_score_tiles(hd) * kTile * kLd) * sizeof(float);
+}
+
+// Launch 1: one CTA per (sample, head, block of 64 query rows).  q (scaled
+// in place) and dO are staged once; K and V stream through the ring twice.
+// Pass 1: S = qs.K^T and dP = dO.V^T per key tile and per row the running
+// max m, l = sum exp(s - m) and a = sum exp(s - m) dP (both rescaled when
+// m grows); the row's m (0 for a row all -inf), l and delta = a / l go to
+// `stats` ([3][B*H][64 * key tiles]) for launch 2.  Pass 2: S and dP
+// again, P = exp(S - m) / l, dS = P (dP - delta) into shared memory, and
+// dQ += dS.K; dQ * hd^-0.5 is written after the last tile.
+template <int NG>
+__global__ void __launch_bounds__(cc::f32::kThreads, 1)
+attention_bwd_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                            const float* __restrict__ dout, float* __restrict__ dqkv,
+                            float* __restrict__ stats, int n_items, int L, int H, int hd,
+                            float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldr = cc::f32::ld_rows(hd), rtile = kTile * ldr;
+  const int n_kt = (L + kTile - 1) / kTile, Ls = n_kt * kTile;
+  const int item = blockIdx.x / n_kt, r0 = (blockIdx.x % n_kt) * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sdo = sq + rtile;
+  float* ring = sdo + rtile;                 // stage s: K at ring + 2 s rtile, V next
+  float* sds = ring + 2 * cc::kRing * rtile;  // dS [64][kLd]
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const size_t first = (size_t)(item / H) * L, col = (size_t)(item % H) * hd;
+  const float* base = qkv + first * row + col;
+  const float* dob = dout + first * D + col;
+  const bool vec = cc::f32::vec_ok(qkv, hd) && cc::f32::vec_ok(dout, hd);
+  const int n_steps = 2 * n_kt;
+
+  auto prefetch = [&](int s) {
+    if (s < n_steps) {
+      float* st = ring + (s % cc::kRing) * 2 * rtile;
+      const int k0 = (s % n_kt) * kTile;
+      cc::f32::load_tile(st, ldr, base + D, row, k0, L, hd, vec);
+      cc::f32::load_tile(st + rtile, ldr, base + 2 * D, row, k0, L, hd, vec);
+    }
+    cc::cp_async_commit();
+  };
+  cc::f32::load_tile(sq, ldr, base, row, r0, L, hd, vec);
+  cc::f32::load_tile(sdo, ldr, dob, (size_t)D, r0, L, hd, vec);
+  prefetch(0);
+
+  float m[4], l[4], a[4], delta[4], dq[4][4 * NG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = a[i] = delta[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) dq[i][c] = 0.f;
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    cc::cp_async_wait<0>();                // step s's tiles (and q, dO)
+    if (s == 0) cc::f32::scale_tile(sq, ldr, hd, scale);
+    __syncthreads();
+    prefetch(s + 1);                       // into the stage step s - 1 used
+    const float* sk = ring + (s % cc::kRing) * 2 * rtile;
+    const float* sv = sk + rtile;
+    const int kt = s % n_kt, k0 = kt * kTile;
+    float sc[4][4], dp[4][4];
+    cc::f32::rows_product(sc, sq, sk, ldr, hd);
+    cc::f32::rows_product(dp, sdo, sv, ldr, hd);
+    cc::f32::mask_scores(sc, r0 + ty * 4, k0 + tx, L, mask);
+    if (s < n_kt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float mn = fmaxf(m[i], cc::f32::row_max(
+            fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]))));
+        const float ref = mn == -INFINITY ? 0.f : mn;
+        float ls = 0.f, as = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float x = expf(sc[i][j] - ref);
+          ls += x;
+          as += x * dp[i][j];
+        }
+        const float shrink = expf(m[i] - ref);          // 0 while m is -inf
+        l[i] = l[i] * shrink + cc::f32::row_sum(ls);
+        a[i] = a[i] * shrink + cc::f32::row_sum(as);
+        m[i] = mn;
+      }
+      if (kt == n_kt - 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (m[i] == -INFINITY) m[i] = 0.f;
+          delta[i] = a[i] / l[i];
+          if (tx == 0) {
+            const size_t r = (size_t)item * Ls + r0 + ty * 4 + i;
+            const size_t plane = (size_t)n_items * Ls;
+            stats[r] = m[i];
+            stats[plane + r] = l[i];
+            stats[2 * plane + r] = delta[i];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = expf(sc[i][j] - m[i]) / l[i];
+          sds[(ty * 4 + i) * kLd + tx + 16 * j] = p * (dp[i][j] - delta[i]);
+        }
+      __syncthreads();
+      cc::f32::keys_product<NG>(dq, sds, sk, ldr, hd);
+      if (s == n_steps - 1)
+        cc::f32::store_rows<NG>(dq, dqkv + first * row + col, row, r0 + ty * 4, L, hd,
+                                scale);
+    }
+  }
+}
+
+// Launch 2: one CTA per (sample, head, tile of 64 keys).  K and V of its
+// tile are staged once; q (scaled on arrival, each thread its own
+// elements), dO and the rows' statistics stream through the ring in blocks
+// of 64 queries.  Per block: S^T = K.qs^T and dP^T = V.dO^T, P^T and dS^T
+// from the statistics into shared memory (queries or keys at or past L
+// give 0), then dV += P^T.dO and dK += dS^T.qs.  Every sum runs in a fixed
+// order; nothing is atomic.
+template <int NG>
+__global__ void __launch_bounds__(cc::f32::kThreads, 1)
+attention_bwd_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                             const float* __restrict__ dout, float* __restrict__ dqkv,
+                             const float* __restrict__ stats, int n_items, int L, int H,
+                             int hd, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldr = cc::f32::ld_rows(hd), rtile = kTile * ldr;
+  const int n_kt = (L + kTile - 1) / kTile, Ls = n_kt * kTile;
+  const int item = blockIdx.x / n_kt, j0 = (blockIdx.x % n_kt) * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + rtile;
+  float* ring = sv + rtile;                  // stage s: q at ring + 2 s rtile, dO next
+  float* sst = ring + 2 * cc::kRing * rtile;  // stage s: m, l, delta at sst + 3 s kTile
+  float* sp = sst + cc::kRing * 3 * kTile;    // P^T [64 keys][kLd]
+  float* sds = NG == 1 ? sp + kTile * kLd : sp;  // dS^T (NG 2: after P^T, in its place)
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const size_t first = (size_t)(item / H) * L, col = (size_t)(item % H) * hd;
+  const float* base = qkv + first * row + col;
+  const float* dob = dout + first * D + col;
+  const size_t plane = (size_t)n_items * Ls;
+  const bool vec = cc::f32::vec_ok(qkv, hd) && cc::f32::vec_ok(dout, hd);
+
+  auto prefetch = [&](int s) {
+    if (s < n_kt) {
+      float* st = ring + (s % cc::kRing) * 2 * rtile;
+      const int i0 = s * kTile;
+      cc::f32::load_tile(st, ldr, base, row, i0, L, hd, vec);
+      cc::f32::load_tile(st + rtile, ldr, dob, (size_t)D, i0, L, hd, vec);
+      for (int e = threadIdx.x; e < 3 * kTile; e += cc::f32::kThreads)
+        cc::cp_async4(sst + (s % cc::kRing) * 3 * kTile + e,
+                      stats + (e / kTile) * plane + (size_t)item * Ls + i0 + e % kTile);
+    }
+    cc::cp_async_commit();
+  };
+  cc::f32::load_tile(sk, ldr, base + D, row, j0, L, hd, vec);
+  cc::f32::load_tile(sv, ldr, base + 2 * D, row, j0, L, hd, vec);
+  prefetch(0);
+
+  float dk[4][4 * NG], dv[4][4 * NG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) dk[i][c] = dv[i][c] = 0.f;
+  for (int s = 0; s < n_kt; ++s) {
+    cc::cp_async_wait<0>();                // step s's rows (and K, V)
+    float* sq = ring + (s % cc::kRing) * 2 * rtile;
+    cc::f32::scale_tile(sq, ldr, hd, scale);
+    __syncthreads();
+    prefetch(s + 1);                       // into the stage step s - 1 used
+    const float* sdo = sq + rtile;
+    const float* rm = sst + (s % cc::kRing) * 3 * kTile;
+    const float* rl = rm + kTile;
+    const float* rdelta = rl + kTile;
+    const int i0 = s * kTile;
+    // element (key j0 + ty * 4 + jj, query i0 + tx + 16 q)
+    float st[4][4], dpt[4][4];
+    cc::f32::rows_product(st, sk, sq, ldr, hd);
+    cc::f32::rows_product(dpt, sv, sdo, ldr, hd);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + ty * 4 + jj, il = tx + 16 * q, i = i0 + il;
+        float p = 0.f, ds = 0.f;
+        if (i < L && j < L) {
+          float x = st[jj][q];
+          if (mask != nullptr) x += mask[(size_t)i * L + j];
+          p = expf(x - rm[il]) / rl[il];
+          ds = p * (dpt[jj][q] - rdelta[il]);
+        }
+        sp[(ty * 4 + jj) * kLd + il] = p;
+        dpt[jj][q] = ds;
+        if constexpr (NG == 1) sds[(ty * 4 + jj) * kLd + il] = ds;
+      }
+    __syncthreads();
+    cc::f32::keys_product<NG>(dv, sp, sdo, ldr, hd);
+    if constexpr (NG > 1) {
+      __syncthreads();                     // every P^T row read: dS^T in its place
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sds[(ty * 4 + jj) * kLd + tx + 16 * q] = dpt[jj][q];
+      __syncthreads();
+    }
+    cc::f32::keys_product<NG>(dk, sds, sq, ldr, hd);
+  }
+  float* gb = dqkv + first * row + col;
+  cc::f32::store_rows<NG>(dk, gb + D, row, j0 + ty * 4, L, hd, 1.f);
+  cc::f32::store_rows<NG>(dv, gb + 2 * D, row, j0 + ty * 4, L, hd, 1.f);
+}
+
+template <int NG>
+int launch_f32_long(const float* qkv, const float* mask, const float* dout, float* dqkv,
+                    float* stats, int n_items, int grid, int L, int H, int hd, float scale,
+                    cudaStream_t stream) {
+  size_t smem = f32_dq_smem(hd);
+  int err = set_smem((const void*)attention_bwd_f32_dq_kernel<NG>, smem);
+  if (err) return err;
+  attention_bwd_f32_dq_kernel<NG><<<grid, cc::f32::kThreads, smem, stream>>>(
+      qkv, mask, dout, dqkv, stats, n_items, L, H, hd, scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  smem = f32_dkv_smem(hd);
+  if ((err = set_smem((const void*)attention_bwd_f32_dkv_kernel<NG>, smem))) return err;
+  attention_bwd_f32_dkv_kernel<NG><<<grid, cc::f32::kThreads, smem, stream>>>(
+      qkv, mask, dout, dqkv, stats, n_items, L, H, hd, scale);
+  return (int)cudaGetLastError();
+}
+
+// the fp32 long kernels for this head_dim (64 channels of output a
+// register tile, one or two tiles)
+const void* f32_dq_kernel(int hd) {
+  return hd <= cc::f32::kCols ? (const void*)attention_bwd_f32_dq_kernel<1>
+                              : (const void*)attention_bwd_f32_dq_kernel<2>;
+}
+const void* f32_dkv_kernel(int hd) {
+  return hd <= cc::f32::kCols ? (const void*)attention_bwd_f32_dkv_kernel<1>
+                              : (const void*)attention_bwd_f32_dkv_kernel<2>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -914,6 +1193,41 @@ int cc_attention_bwd_simt(const void* qkv, const void* mask, const void* dout,
       static_cast<const float*>(dout), static_cast<float*>(dqkv),
       static_cast<float*>(dmask), L, H, hd, scale);
   return (int)cudaGetLastError();
+}
+
+// Long-sequence fp32 variant: the larger of its two kernels' needs.
+size_t cc_attention_bwd_f32_long_smem_bytes(int L, int hd) {
+  (void)L;
+  return f32_dq_smem(hd) > f32_dkv_smem(hd) ? f32_dq_smem(hd) : f32_dkv_smem(hd);
+}
+
+// Registers per thread, shared-memory bytes per CTA and resident CTAs per
+// SM (out[0..2]) of the fp32 long variant's dQ (which = 0) or dK / dV
+// (which = 1) kernel for head_dim hd.
+int cc_attention_bwd_f32_long_occupancy(int which, int hd, int* out) {
+  if (which == 0)
+    return cc::occupancy(f32_dq_kernel(hd), f32_dq_smem(hd), out, cc::f32::kThreads);
+  return cc::occupancy(f32_dkv_kernel(hd), f32_dkv_smem(hd), out, cc::f32::kThreads);
+}
+
+// Long-sequence CUDA-core variant, float32: two launches.  1 <= hd <= 128;
+// mask may be null (no mask gradient); stats is fp32 scratch of
+// 3 * B * H * cc_attention_bwd_long_stats_len(L) values.
+int cc_attention_bwd_f32_long(const void* qkv, const void* mask, const void* dout,
+                              void* dqkv, void* stats, int B, int L, int H, int hd,
+                              float scale, void* stream) {
+  if (L < 1 || hd < 1 || hd > 2 * cc::f32::kCols) return (int)cudaErrorInvalidValue;
+  const long long grid = (long long)B * H * ((L + kTile - 1) / kTile);
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const float* q = static_cast<const float*>(qkv);
+  const float* mk = static_cast<const float*>(mask);
+  const float* g = static_cast<const float*>(dout);
+  float* out = static_cast<float*>(dqkv);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd <= cc::f32::kCols)
+    return launch_f32_long<1>(q, mk, g, out, st, B * H, (int)grid, L, H, hd, scale, s);
+  return launch_f32_long<2>(q, mk, g, out, st, B * H, (int)grid, L, H, hd, scale, s);
 }
 
 const char* cc_error_string(int err) {

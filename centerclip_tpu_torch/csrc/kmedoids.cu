@@ -46,8 +46,8 @@
 // D @ onehot(assign) (O(N^2 K) flops per step) was a device of the TPU's
 // matrix unit.
 //
-// Two variants of the one algorithm, chosen by the wrapper from N alone,
-// which give the same bits on the same D:
+// Four variants of the one algorithm, chosen by the wrapper from N (and,
+// past N = 512, K), which give the same bits on the same D:
 //
 // * shared (N <= 235, where D fits in a CTA's shared memory whatever K):
 //   kmedoids_kernel, as above, 128 threads.
@@ -104,8 +104,21 @@
 //   variant's, step for step, so the bits are the same.  Shared memory
 //   grows with N and K (150 KB at N = 2352, K = 392, 194 KB at N = 3136,
 //   K = 392, the member masks the most of it): 3136 = 16 frames of 196
-//   tokens is the largest N at which every K <= 392 fits; past it the
-//   wrapper raises.
+//   tokens is the largest N at which every K <= 392 fits.
+// * scratch (past the large variant: N > 3136, e.g. a ViT-B/16 segment of
+//   20 frames, N = 3920, or a K whose member masks pass a CTA's shared
+//   memory, e.g. K = N = 2352): the large variant's kernel body
+//   (kmedoids_scratch_kernel runs global_body<-1>) with the member masks,
+//   K x ceil(N / 32) words (192 KB at N = 3920, K = 392; 691 KB at
+//   N = K = 2352), in a device-memory scratch of each segment that the
+//   wrapper allocates, and the per-point and per-cluster state (13 N +
+//   10 K bytes: 52 KB at N = 3920, K = 160) in shared memory where it fits
+//   (N + K up to ~17 000), else in the scratch too.  At N = 3920, K = 160
+//   the large layout would fit (131 KB) but hold one CTA an SM; this one
+//   holds 4.  The moved-medoid list keeps k alone (the new medoid is
+//   meds[k]) instead of packing both into 32 bits, so N is not held to 15
+//   bits.  The same steps in the same order: the same bits as the large
+//   variant where both run.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <limits.h>
@@ -126,6 +139,9 @@ constexpr int kLargeMaxN = 3136;       // large: 16 frames of 196 tokens
 // points a thread keeps in registers in the global variant's KKZ
 constexpr int kKkzPoints = 32 * kGlobalMaxChunks / kGlobalThreads;
 constexpr int kScanBatch = 8;          // loads in flight a thread in a scan
+// dynamic shared memory the scratch variant may take beside its static
+// shared memory (block_argmax's slots and the moved count)
+constexpr size_t kScratchMaxSmem = 232448 - 256;
 constexpr int kSumBatch = 4;           // loads in flight in a candidate's sum
 
 // (v, i) beats (bv, bi): strictly better value, or equal value and lower index
@@ -369,8 +385,10 @@ __device__ __forceinline__ void take(int d, int k, int& bv, int& bk, bool& tie) 
 __device__ __forceinline__ int pack_moved(int k, int med) { return k | (med << 16); }
 
 // point n's (bv, bk, tie) over its current medoid and the medoids that
-// moved, moved[0, n_moved) (its own medoid stayed)
-__device__ __forceinline__ void scan_moved(const float* __restrict__ Db,
+// moved, moved[0, n_moved) (its own medoid stayed); kPacked: the entries
+// are pack_moved(k, medoid), else k alone (the medoid is meds[k])
+template <bool kPacked>
+__device__ __forceinline__ void scan_moved(const float* __restrict__ Db, const int* meds,
                                            const int* moved, int n_moved, int N,
                                            int n, int& bv, int& bk, bool& tie) {
   for (int i0 = 0; i0 < n_moved; i0 += kScanBatch) {
@@ -378,8 +396,9 @@ __device__ __forceinline__ void scan_moved(const float* __restrict__ Db,
 #pragma unroll
     for (int u = 0; u < kScanBatch; ++u) {
       const int m = i0 + u < n_moved ? moved[i0 + u] : 0;
-      k[u] = m & 0xffff;
-      d[u] = i0 + u < n_moved ? ordered(__ldg(Db + (size_t)(m >> 16) * N + n)) : 0;
+      k[u] = kPacked ? m & 0xffff : m;
+      const int med = kPacked ? m >> 16 : meds[k[u]];
+      d[u] = i0 + u < n_moved ? ordered(__ldg(Db + (size_t)med * N + n)) : 0;
     }
 #pragma unroll
     for (int u = 0; u < kScanBatch; ++u)
@@ -427,6 +446,7 @@ __device__ __forceinline__ void prefetch_row(const float* row, int N) {
 // after the other (K / 32 loads a lane in flight at once, where a lane
 // scanning its own point would wait K / kScanBatch times).  Warp-uniform
 // control flow.
+template <bool kPacked>
 __device__ __forceinline__ void reassign_chunk(const float* __restrict__ Db,
                                                const int* meds, const int* moved,
                                                const unsigned char* moved_flag,
@@ -435,7 +455,7 @@ __device__ __forceinline__ void reassign_chunk(const float* __restrict__ Db,
   const bool valid = n < N;
   const unsigned orphans = __ballot_sync(0xffffffffu, valid && moved_flag[bk]);
   if (valid && !(orphans >> (threadIdx.x & 31) & 1))
-    scan_moved(Db, moved, n_moved, N, n, bv, bk, tie);
+    scan_moved<kPacked>(Db, meds, moved, n_moved, N, n, bv, bk, tie);
   for (unsigned o = orphans; o; o &= o - 1) {
     const int src = __ffs(o) - 1;
     int v, k;
@@ -473,25 +493,51 @@ __device__ __forceinline__ int block_argmax(int v, int i, int2* slots, int p,
   return b.y;
 }
 
-// the global variant; C = ceil(N / 32) chunks of 32 points, a compile-time
-// count; C = 0 is the large variant: the count from N at run time, and
-// KKZ's per-point state in shared memory
+// the scratch variant's per-point and per-cluster state: best, assign,
+// sums [N]; meds, moved [K]; then bytes: tie [N], dirty [K], moved flags [K]
+__host__ __device__ inline size_t scratch_state_bytes(int N, int K) {
+  return (3 * (size_t)N + 2 * (size_t)K) * 4 + ((size_t)N + 2 * (size_t)K + 3) / 4 * 4;
+}
+__host__ __device__ inline bool scratch_state_shared(int N, int K) {
+  return scratch_state_bytes(N, K) <= kScratchMaxSmem;
+}
+// the scratch a segment takes, in 4-byte words (a multiple of 4): its
+// member masks [K, chunks], then its state where shared memory cannot hold
+// it
+__host__ __device__ inline long long scratch_words(int N, int K) {
+  const long long state =
+      scratch_state_shared(N, K) ? 0 : (long long)scratch_state_bytes(N, K) / 4;
+  const long long w = (long long)K * n_chunks(N) + state;
+  return (w + 3) / 4 * 4;
+}
+
+// The body of the global variant; C = ceil(N / 32) chunks of 32 points, a
+// compile-time count; C = 0 is the large variant: the count from N at run
+// time, and KKZ's per-point state in shared memory; C = -1 is the scratch
+// variant: the large one with its member masks (and, where `state_shared`
+// is 0, its state) in `scratch`, `words` 4-byte words a segment, and the
+// moved list holding k alone
 template <int C>
-__global__ void __launch_bounds__(kGlobalThreads,
-                                  C > 0 ? kGlobalCtasPerSm : kLargeCtasPerSm)
-kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2,
-                       int* __restrict__ meds_out, int* __restrict__ assign_out,
-                       int* __restrict__ steps_out, int N, int K, int iter_limit,
-                       int id_sort) {
+__device__ __forceinline__ void global_body(const float* __restrict__ D,
+                                            const float* __restrict__ l2,
+                                            int* __restrict__ meds_out,
+                                            int* __restrict__ assign_out,
+                                            int* __restrict__ steps_out, int N, int K,
+                                            int iter_limit, int id_sort, int* scratch,
+                                            long long words, int state_shared) {
+  constexpr bool kPacked = C >= 0;
   const int nc = C > 0 ? C : n_chunks(N);
   extern __shared__ __align__(16) int gsm[];
-  int* best = gsm;                                    // [N] ordered values
+  int* seg = C < 0 ? scratch + (size_t)blockIdx.x * words : nullptr;
+  int* best = C < 0 && !state_shared ? seg + (size_t)K * nc : gsm;  // [N] ordered values
   int* assign = best + N;                             // [N] nearest k
   float* s = reinterpret_cast<float*>(assign + N);    // [N] candidate sums
   int* meds = reinterpret_cast<int*>(s + N);          // [K]
-  int* moved = meds + K;                              // [K] pack_moved(k, med)
-  unsigned* members = reinterpret_cast<unsigned*>(moved + K);  // [K, nc]
-  unsigned char* tie = reinterpret_cast<unsigned char*>(members + K * nc);  // [N]
+  int* moved = meds + K;                              // [K] pack_moved(k, med), or k
+  unsigned* members = C < 0 ? reinterpret_cast<unsigned*>(seg)
+                            : reinterpret_cast<unsigned*>(moved + K);  // [K, nc]
+  unsigned char* tie = C < 0 ? reinterpret_cast<unsigned char*>(moved + K)
+                             : reinterpret_cast<unsigned char*>(members + K * nc);  // [N]
   unsigned char* dirty = tie + N;                     // [K] member set changed
   unsigned char* moved_flag = dirty + K;              // [K]
   __shared__ int2 slots[2 * kGlobalWarps];
@@ -514,7 +560,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
       const int x = ordered(l2[(size_t)b * N + n]);
       if (x > v) { v = x; i = n; }
     }
-    idx = block_argmax<C == 0>(v, i, slots, 0, Db, N, fetched);
+    idx = block_argmax<(C <= 0)>(v, i, slots, 0, Db, N, fetched);
   }
   if (tid == 0) meds[0] = idx;
   if constexpr (C > 0) {
@@ -531,7 +577,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
 #pragma unroll
       for (int j = 0; j < kKkzPoints; ++j)
         if (tid + nt * j < N && md[j] > v) { v = md[j]; i = tid + nt * j; }
-      idx = block_argmax<C == 0>(v, i, slots, k & 1, Db, N, fetched);
+      idx = block_argmax<(C <= 0)>(v, i, slots, k & 1, Db, N, fetched);
       if (tid == 0) meds[k] = idx;
       const float* row = Db + (size_t)idx * N;
 #pragma unroll
@@ -562,7 +608,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
       int v = INT_MIN, i = INT_MAX;
       for (int n = tid; n < N; n += nt)
         if (best[n] > v) { v = best[n]; i = n; }
-      idx = block_argmax<C == 0>(v, i, slots, k & 1, Db, N, fetched);
+      idx = block_argmax<(C <= 0)>(v, i, slots, k & 1, Db, N, fetched);
       if (tid == 0) meds[k] = idx;
       const float* row = Db + (size_t)idx * N;
       for (int n0 = tid; n0 < N; n0 += nt * kScanBatch) {
@@ -600,7 +646,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
         int bv = 0, bk = a;
         bool t = false;
         if (n < N) { bv = best[n]; t = tie[n]; }
-        reassign_chunk(Db, meds, moved, moved_flag, nm, N, K, n, bv, bk, t);
+        reassign_chunk<kPacked>(Db, meds, moved, moved_flag, nm, N, K, n, bv, bk, t);
         if (n < N) {
           best[n] = bv;
           tie[n] = t;
@@ -658,7 +704,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
       if (nmk != meds[k]) {
         meds[k] = nmk;
         moved_flag[k] = 1;
-        moved[atomicAdd(&n_moved, 1)] = pack_moved(k, nmk);
+        moved[atomicAdd(&n_moved, 1)] = kPacked ? pack_moved(k, nmk) : k;
       }
     }
     __syncthreads();
@@ -673,7 +719,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
       int bv = 0, bk = 0;
       bool t = false;
       if (n < N) { bv = best[n]; bk = assign[n]; t = tie[n]; }
-      reassign_chunk(Db, meds, moved, moved_flag, n_moved, N, K, n, bv, bk, t);
+      reassign_chunk<kPacked>(Db, meds, moved, moved_flag, n_moved, N, K, n, bv, bk, t);
       if (n < N) { assign[n] = bk; tie[n] = t; }
     }
     __syncthreads();
@@ -714,6 +760,29 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
   for (int k = tid; k < K; k += nt)
     meds_out[(size_t)b * K + k] = id_sort ? sorted[k] : meds[k];
   if (tid == 0) steps_out[b] = steps;
+}
+
+// the global (C > 0) and large (C = 0) variants
+template <int C>
+__global__ void __launch_bounds__(kGlobalThreads,
+                                  C > 0 ? kGlobalCtasPerSm : kLargeCtasPerSm)
+kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2,
+                       int* __restrict__ meds_out, int* __restrict__ assign_out,
+                       int* __restrict__ steps_out, int N, int K, int iter_limit,
+                       int id_sort) {
+  global_body<C>(D, l2, meds_out, assign_out, steps_out, N, K, iter_limit, id_sort,
+                 nullptr, 0, 1);
+}
+
+// the scratch variant
+__global__ void __launch_bounds__(kGlobalThreads, kLargeCtasPerSm)
+kmedoids_scratch_kernel(const float* __restrict__ D, const float* __restrict__ l2,
+                        int* __restrict__ meds_out, int* __restrict__ assign_out,
+                        int* __restrict__ steps_out, int N, int K, int iter_limit,
+                        int id_sort, int* __restrict__ scratch, long long words,
+                        int state_shared) {
+  global_body<-1>(D, l2, meds_out, assign_out, steps_out, N, K, iter_limit, id_sort,
+                  scratch, words, state_shared);
 }
 
 using Kernel = void (*)(const float*, const float*, int*, int*, int*, int, int,
@@ -785,6 +854,37 @@ int cc_kmedoids_large(const void* D, const void* l2, void* meds, void* assign,
   if (N < 1 || N > kLargeMaxN) return (int)cudaErrorInvalidValue;
   return launch(kmedoids_global_kernel<0>, kGlobalThreads, global_smem_bytes(N, K), D,
                 l2, meds, assign, steps, B, N, K, iter_limit, id_sort, stream);
+}
+
+// the scratch variant's dynamic shared memory: its state where that fits,
+// else none
+size_t cc_kmedoids_scratch_smem_bytes(int N, int K) {
+  return scratch_state_shared(N, K) ? scratch_state_bytes(N, K) : 0;
+}
+
+// 4-byte words of device-memory scratch each segment of the scratch
+// variant takes
+long long cc_kmedoids_scratch_words(int N, int K) { return scratch_words(N, K); }
+
+// Scratch variant: N >= 1 with K * ceil(N / 32) < 2^31; `scratch` holds
+// B * cc_kmedoids_scratch_words(N, K) words (no contents needed).
+int cc_kmedoids_scratch(const void* D, const void* l2, void* meds, void* assign,
+                        void* steps, void* scratch, int B, int N, int K, int iter_limit,
+                        int id_sort, void* stream) {
+  if (N < 1 || K < 1 || (long long)K * n_chunks(N) >= 0x80000000LL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = cc_kmedoids_scratch_smem_bytes(N, K);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute((const void*)kmedoids_scratch_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kmedoids_scratch_kernel<<<B, kGlobalThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(D), static_cast<const float*>(l2), static_cast<int*>(meds),
+      static_cast<int*>(assign), static_cast<int*>(steps), N, K, iter_limit, id_sort,
+      static_cast<int*>(scratch), scratch_words(N, K), (int)scratch_state_shared(N, K));
+  return (int)cudaGetLastError();
 }
 
 const char* cc_error_string(int err) {

@@ -337,15 +337,17 @@ __device__ __forceinline__ void mask_tile(float (&s)[kTile / 8][4], int i0, int 
     }
 }
 
-// Occupancy of a kernel launched with 4 warps and `smem` bytes of dynamic
-// shared memory: out[0] registers per thread, out[1] shared-memory bytes
-// per CTA, out[2] resident CTAs per SM.  Returns the cudaError_t.
-inline int occupancy(const void* kernel, size_t smem, int* out) {
+// Occupancy of a kernel launched with `threads` threads (4 warps unless
+// given) and `smem` bytes of dynamic shared memory: out[0] registers per
+// thread, out[1] shared-memory bytes per CTA, out[2] resident CTAs per SM.
+// Returns the cudaError_t.
+inline int occupancy(const void* kernel, size_t smem, int* out, int threads = 128) {
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (!err) err = set_smem(kernel, smem);
   if (!err)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, 128, smem);
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, threads,
+                                                             smem);
   out[0] = attr.numRegs;
   out[1] = (int)smem;
   return err;

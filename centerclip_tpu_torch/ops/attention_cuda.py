@@ -22,10 +22,14 @@ registers), a "tensor_core_long" variant (bf16 / fp16, L > 128: ViT-B/16's
 197 tokens, and 1 + K after its cluster layer, e.g. 161 or 393) that
 splits each (sample, head) over CTAs of 64 query rows (the forward and
 the backward's dQ launch) or 64 keys (the backward's dK / dV launch) and
-streams the other side's rows in tiles of 64, and a "cuda_core" variant
+streams the other side's rows in tiles of 64, a "cuda_core" variant
 (fp32: fmaf loops, since tensor cores have no exact fp32 product and TF32
-is off).  `choose_variant` picks one from dtype, head_dim and L before
-the launch; what none takes raises.
+is off, with the whole [L, L] fp32 scores in shared memory, so short
+sequences only, at any head_dim where they fit) and a "cuda_core_long"
+variant (fp32, the long variant's tiling with fp32 FFMA from register
+tiles, any L, head_dim <= 128).
+`choose_variant` picks one from dtype, head_dim, L and the direction
+before the launch; what none takes raises.
 
 `fused_attention` is differentiable through `_FusedAttention`: kernel A
 forward, kernel B backward.  For CPU tensors both sides take their plain
@@ -44,18 +48,35 @@ from . import _build
 
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
-TENSOR_CORE_LONG = "tensor_core_long"
-VARIANTS = (TENSOR_CORE, TENSOR_CORE_LONG, CUDA_CORE)
+TENSOR_CORE_LONG, CUDA_CORE_LONG = "tensor_core_long", "cuda_core_long"
+VARIANTS = (TENSOR_CORE, TENSOR_CORE_LONG, CUDA_CORE, CUDA_CORE_LONG)
+FP32_VARIANTS = (CUDA_CORE, CUDA_CORE_LONG)
 # the tensor-core variants stage a whole (sample, head) and the backward's
 # warps hold their S and dP rows whole in registers; the long variants take
 # every length above (their shared memory does not grow with L)
 TENSOR_CORE_MAX_L = 128
+# fp32: the lengths (lo, hi] at which the CUDA-core variant is the faster
+# one, a direction each, where its [L, L] scores fit a CTA (to 163 forward
+# and 108 backward at head_dim 64); CUDA_CORE_LONG elsewhere.  Set from an
+# H100's times (chip_smoke.py's threshold rows, 1536 x 12 heads of 64, L =
+# 32-163): the CUDA-core variant's time grows with L^2 and jumps where
+# its scores leave room for one CTA an SM fewer, the long one's steps up
+# with each 64-key tile, so the CUDA-core one wins at short L and again just past
+# the first tile, where the long one's second key tile is mostly empty:
+# forward to L = 40 (a tie there) and from 65 to 72 (measured at 68 and
+# 72; 3 CTAs an SM to L = 72, 2 from 73), backward to 48 and from 65 to 80
+# (measured at 68-80; the long one faster at 50-64 and from 88)
+FP32_SHORT_RANGES = {False: ((0, 40), (64, 72)), True: ((0, 48), (64, 80))}
+# the long fp32 variant's register tiles hold two 64-channel groups
+FP32_LONG_MAX_HEAD_DIM = 128
 _SMEM_FNS = {(False, TENSOR_CORE): "cc_attention_mma_smem_bytes",
              (False, TENSOR_CORE_LONG): "cc_attention_long_smem_bytes",
              (False, CUDA_CORE): "cc_attention_simt_smem_bytes",
+             (False, CUDA_CORE_LONG): "cc_attention_f32_long_smem_bytes",
              (True, TENSOR_CORE): "cc_attention_bwd_mma_smem_bytes",
              (True, TENSOR_CORE_LONG): "cc_attention_bwd_long_smem_bytes",
-             (True, CUDA_CORE): "cc_attention_bwd_simt_smem_bytes"}
+             (True, CUDA_CORE): "cc_attention_bwd_simt_smem_bytes",
+             (True, CUDA_CORE_LONG): "cc_attention_bwd_f32_long_smem_bytes"}
 
 
 def attention_plain(qkv: torch.Tensor, heads: int,
@@ -120,19 +141,43 @@ def attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     return dqkv, (ds.sum(dim=(0, 1)) if mask_grad else None)
 
 
+def fp32_short_smem_bytes(L: int, head_dim: int, backward: bool) -> int:
+    """Shared memory of one CTA of the fp32 CUDA-core variant, as
+    `simt_smem` in csrc/attention.cu (q, k^T, v, then the [L, L] scores at
+    a 16-byte offset) and csrc/attention_bwd.cu (qs, k^T, k, v^T, dO, P and
+    dP / dS) compute it."""
+    if backward:
+        return (5 * L * head_dim + 2 * L * L) * 4
+    return (3 * L * head_dim * 4 + 15) // 16 * 16 + L * L * 4
+
+
 def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
                    backward: bool = False) -> str:
-    """The kernel variant a CUDA tensor takes, from its dtype, head_dim and
-    sequence length alone: for bf16 / fp16 with head_dim a multiple of 16
-    TENSOR_CORE up to L = TENSOR_CORE_MAX_L and TENSOR_CORE_LONG past it,
-    forward and backward, CUDA_CORE for fp32.  Raises
-    ValueError for what no variant takes; whether the tiles fit in shared
-    memory is checked at launch from the sources' own sizes."""
+    """The kernel variant a CUDA tensor takes, from its dtype, head_dim,
+    sequence length and direction alone: for bf16 / fp16 with head_dim a
+    multiple of 16 TENSOR_CORE up to L = TENSOR_CORE_MAX_L and
+    TENSOR_CORE_LONG past it, forward and backward; for fp32 CUDA_CORE in
+    the direction's FP32_SHORT_RANGES, and at head_dim past
+    FP32_LONG_MAX_HEAD_DIM, where its scores (forward) or its scores and
+    dS (backward) fit a CTA's shared memory, CUDA_CORE_LONG elsewhere.
+    Raises ValueError for what no variant takes; whether the tiles fit in
+    shared memory is also checked at launch from the sources' own sizes."""
     if L < 1 or head_dim < 1:
         raise ValueError(f"need L >= 1 and head_dim >= 1; got L={L}, "
                          f"head_dim={head_dim}")
     if dtype == torch.float32:
-        return CUDA_CORE
+        fits = fp32_short_smem_bytes(L, head_dim, backward) \
+            <= _build.MAX_SMEM_BYTES
+        wide = head_dim > FP32_LONG_MAX_HEAD_DIM
+        if fits and (wide or any(lo < L <= hi for lo, hi
+                                 in FP32_SHORT_RANGES[backward])):
+            return CUDA_CORE
+        if wide:
+            raise ValueError(
+                f"fp32 attention at L={L}, head_dim={head_dim}: the "
+                f"CUDA-core variant's scores do not fit a CTA and the long "
+                f"one takes head_dim <= {FP32_LONG_MAX_HEAD_DIM}")
+        return CUDA_CORE_LONG
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {dtype}")
     if head_dim % 16:
@@ -143,7 +188,8 @@ def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
 
 def _check_cuda_inputs(qkv: torch.Tensor, heads: int,
                        attn_mask: Optional[torch.Tensor],
-                       backward: bool) -> Tuple[int, str]:
+                       backward: bool, variant: Optional[str] = None
+                       ) -> Tuple[int, str]:
     """(head_dim, variant) for a CUDA qkv, or ValueError."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % heads:
         raise ValueError(f"qkv must be [B, L, 3*D] with D divisible by "
@@ -152,17 +198,23 @@ def _check_cuda_inputs(qkv: torch.Tensor, heads: int,
         raise ValueError("qkv must be contiguous")
     B, L, _ = qkv.shape
     hd = qkv.shape[-1] // 3 // heads
-    variant = choose_variant(qkv.dtype, hd, L, backward)
+    if variant is None:
+        variant = choose_variant(qkv.dtype, hd, L, backward)
+    elif qkv.dtype != torch.float32 or variant not in FP32_VARIANTS or (
+            variant == CUDA_CORE_LONG and hd > FP32_LONG_MAX_HEAD_DIM):
+        raise ValueError(f"no attention variant {variant!r} for "
+                         f"{qkv.dtype}, head_dim={hd}")
     if attn_mask is not None:
         if attn_mask.device != qkv.device or attn_mask.dtype != torch.float32:
             raise ValueError("attn_mask must be fp32 on the device of qkv")
         if tuple(attn_mask.shape) != (L, L) or not attn_mask.is_contiguous():
             raise ValueError(f"attn_mask must be a contiguous [{L}, {L}] "
                              f"tensor; got {tuple(attn_mask.shape)}")
-    if variant != CUDA_CORE and qkv.data_ptr() % 16:
+    if variant not in FP32_VARIANTS and qkv.data_ptr() % 16:
         raise ValueError("qkv must start at a 16-byte aligned address")
     lib = _build.load("attention_bwd" if backward else "attention")
-    sizes = (L, hd) if variant == CUDA_CORE else (L, hd, qkv.element_size())
+    sizes = (L, hd) if variant in FP32_VARIANTS else (L, hd,
+                                                      qkv.element_size())
     smem = _build.smem_bytes(lib, _SMEM_FNS[(backward, variant)], *sizes)
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(f"L={L}, head_dim={hd} needs {smem} bytes of shared "
@@ -194,25 +246,34 @@ def long_occupancy(dtype: torch.dtype, head_dim: int,
                    backward: bool = False) -> dict:
     """{kernel: {"registers", "smem_bytes", "ctas_per_sm"}} of the long
     variant's kernels (the forward's one, the backward's two) for this dtype
-    and head_dim on the current card (cudaFuncGetAttributes and
+    (fp32: CUDA_CORE_LONG's) and head_dim on the current card
+    (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    code = _DTYPE_CODES[dtype]
+    f32 = dtype == torch.float32
+    code = () if f32 else (_DTYPE_CODES[dtype],)
     if backward:
         lib = _build.load("attention_bwd")
-        kernels = (("attention_bwd_dq_kernel", (0,)),
-                   ("attention_bwd_dkv_kernel", (1,)))
-        name = "cc_attention_bwd_long_occupancy"
+        kernels = (("attention_bwd_f32_dq_kernel" if f32
+                    else "attention_bwd_dq_kernel", (0,)),
+                   ("attention_bwd_f32_dkv_kernel" if f32
+                    else "attention_bwd_dkv_kernel", (1,)))
+        name = "cc_attention_bwd_f32_long_occupancy" if f32 \
+            else "cc_attention_bwd_long_occupancy"
     else:
         lib = _build.load("attention")
-        kernels = (("attention_fwd_long_kernel", ()),)
-        name = "cc_attention_fwd_long_occupancy"
+        kernels = (("attention_fwd_f32_long_kernel" if f32
+                    else "attention_fwd_long_kernel", ()),)
+        name = "cc_attention_fwd_f32_long_occupancy" if f32 \
+            else "cc_attention_fwd_long_occupancy"
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * (len(kernels[0][1]) + 2) + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int] * (len(kernels[0][1]) + 1 + len(code))
+                   + [ctypes.c_void_p])
     out = {}
     for kernel, which in kernels:
         vals = (ctypes.c_int * 3)()
-        _build.check(lib, fn(*which, head_dim, code, ctypes.addressof(vals)),
+        _build.check(lib, fn(*which, head_dim, *code,
+                             ctypes.addressof(vals)),
                      f"occupancy of {kernel}")
         out[kernel] = dict(registers=vals[0], smem_bytes=vals[1],
                            ctas_per_sm=vals[2])
@@ -225,13 +286,17 @@ def _count(fn, variant: str) -> None:
 
 
 def _forward(qkv: torch.Tensor, heads: int,
-             attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Kernel A on a CUDA tensor, the plain version on a CPU tensor."""
+             attn_mask: Optional[torch.Tensor],
+             variant: Optional[str] = None) -> torch.Tensor:
+    """Kernel A on a CUDA tensor, the plain version on a CPU tensor.
+    `variant` (an fp32 one for an fp32 qkv) overrides `choose_variant`, to
+    hold the two fp32 variants against each other where both run."""
     if qkv.device.type == "cpu":
         return attention_plain(qkv, heads, attn_mask)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    hd, variant = _check_cuda_inputs(qkv, heads, attn_mask, backward=False)
+    hd, variant = _check_cuda_inputs(qkv, heads, attn_mask, backward=False,
+                                     variant=variant)
     B, L, D3 = qkv.shape
     out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
     if B == 0:
@@ -240,14 +305,16 @@ def _forward(qkv: torch.Tensor, heads: int,
     mask_ptr = attn_mask.data_ptr() if attn_mask is not None else None
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if variant != CUDA_CORE:
+        if variant not in FP32_VARIANTS:
             name = ("cc_attention_fwd_mma" if variant == TENSOR_CORE
                     else "cc_attention_fwd_long")
             err = _entry(lib, name, 3, 4, True)(
                 qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, heads, hd,
                 _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
         else:
-            err = _entry(lib, "cc_attention_fwd_simt", 3, 4, False)(
+            name = ("cc_attention_fwd_simt" if variant == CUDA_CORE
+                    else "cc_attention_fwd_f32_long")
+            err = _entry(lib, name, 3, 4, False)(
                 qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, heads, hd,
                 float(hd ** -0.5), stream)
     _build.check(lib, err, f"attention kernel ({variant})")
@@ -257,29 +324,31 @@ def _forward(qkv: torch.Tensor, heads: int,
 
 def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                        attn_mask: Optional[torch.Tensor] = None,
-                       mask_grad: bool = False
+                       mask_grad: bool = False, variant: Optional[str] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Gradient of `fused_attention` for the output gradient `dout`
     [B, L, D] (qkv's dtype): (dqkv [B, L, 3*D], dmask [L, L] fp32 or None).
-    Kernel B on CUDA tensors, `attention_bwd_plain` on CPU tensors."""
+    Kernel B on CUDA tensors, `attention_bwd_plain` on CPU tensors.
+    `variant` as in `_forward`."""
     if qkv.device.type == "cpu":
         return attention_bwd_plain(qkv, dout, heads, attn_mask, mask_grad)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    hd, variant = _check_cuda_inputs(qkv, heads, attn_mask, backward=True)
+    hd, variant = _check_cuda_inputs(qkv, heads, attn_mask, backward=True,
+                                     variant=variant)
     B, L, D3 = qkv.shape
     if tuple(dout.shape) != (B, L, D3 // 3) or dout.dtype != qkv.dtype \
             or dout.device != qkv.device or not dout.is_contiguous():
         raise ValueError(f"dout must be a contiguous {qkv.dtype} "
                          f"[{B}, {L}, {D3 // 3}] tensor on {qkv.device}; got "
                          f"{dout.dtype} {tuple(dout.shape)}")
-    if variant != CUDA_CORE and dout.data_ptr() % 16:
+    if variant not in FP32_VARIANTS and dout.data_ptr() % 16:
         raise ValueError("dout must start at a 16-byte aligned address")
     if mask_grad and attn_mask is None:
         raise ValueError("mask_grad needs an attn_mask")
-    if mask_grad and variant == TENSOR_CORE_LONG:
-        raise ValueError(f"the long backward (L > {TENSOR_CORE_MAX_L}) has "
-                         f"no mask gradient")
+    if mask_grad and variant in (TENSOR_CORE_LONG, CUDA_CORE_LONG):
+        raise ValueError(f"the long backward ({variant}) has no mask "
+                         f"gradient")
     dqkv = torch.empty_like(qkv)
     dmask = (torch.zeros((L, L), dtype=torch.float32, device=qkv.device)
              if mask_grad else None)
@@ -296,14 +365,19 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
             err = _entry(lib, "cc_attention_bwd_mma", 5, 4, True)(
                 *ptrs, B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
                 float(hd ** -0.5), stream)
-        elif variant == TENSOR_CORE_LONG:
+        elif variant in (TENSOR_CORE_LONG, CUDA_CORE_LONG):
             # m, l and delta of every query row, from the first launch to
             # the second
             stats = torch.empty((3, B * heads, _stats_len(lib, L)),
                                 dtype=torch.float32, device=qkv.device)
-            err = _entry(lib, "cc_attention_bwd_long", 5, 4, True)(
-                *ptrs[:4], stats.data_ptr(), B, L, heads, hd,
-                _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
+            if variant == TENSOR_CORE_LONG:
+                err = _entry(lib, "cc_attention_bwd_long", 5, 4, True)(
+                    *ptrs[:4], stats.data_ptr(), B, L, heads, hd,
+                    _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
+            else:
+                err = _entry(lib, "cc_attention_bwd_f32_long", 5, 4, False)(
+                    *ptrs[:4], stats.data_ptr(), B, L, heads, hd,
+                    float(hd ** -0.5), stream)
         else:
             err = _entry(lib, "cc_attention_bwd_simt", 5, 4, False)(
                 *ptrs, B, L, heads, hd, float(hd ** -0.5), stream)

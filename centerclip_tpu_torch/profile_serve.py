@@ -33,10 +33,13 @@ from .serve import RetrievalEngine
 
 GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
                                  "attention_fwd_long_kernel",
+                                 "attention_fwd_f32_long_kernel",
                                  "attention_fwd_kernel")),
           ("attention bwd kernel", ("attention_bwd_mma_kernel",
                                     "attention_bwd_dq_kernel",
                                     "attention_bwd_dkv_kernel",
+                                    "attention_bwd_f32_dq_kernel",
+                                    "attention_bwd_f32_dkv_kernel",
                                     "attention_bwd_kernel")),
           ("layernorm kernel", ("ln_fwd",)),
           ("layernorm bwd kernel", ("_ln_bwd",)),

@@ -2,7 +2,8 @@
 """Where the time of a training step goes on the card.
 
     python -m centerclip_tpu_torch.profile_train [--batch 128] [--steps 1]
-        [--preset msrvtt_vitb32_k6] [--remat 0|1] [--stream_scale A]
+        [--preset msrvtt_vitb32_k6] [--remat 0|1] [--precision amp|fp32]
+        [--stream_scale A]
         [--sim_header meanP|seqTransf|tightTransf] [--cross_logits N]
         [--cluster_num_blocks K1 ... K12] [--target_frames_blocks T1 ... T12]
     torchrun --nproc_per_node N -m centerclip_tpu_torch.profile_train \
@@ -12,7 +13,9 @@
 
 Builds a preset of the JAX package (by default `msrvtt_vitb32_k6`: ViT-B/32,
 kmediods++ 12 -> 6 frames, meanP, bf16 towers, AdamW; `--remat` overrides
-its `remat`, `--sim_header` its header, `--cluster_num_blocks` and
+its `remat`, `--precision fp32` its towers' bf16 (as the CLI's flag of
+that name does; `amp`, the default, keeps bf16), `--sim_header` its
+header, `--cluster_num_blocks` and
 `--target_frames_blocks` its cluster plan, as the CLI's flags of those
 names do) on seeded random weights (`--stream_scale` multiplies the
 vision residual stream: `scale_vision_stream`) and a
@@ -89,6 +92,7 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=16)
     ap.add_argument("--preset", default="msrvtt_vitb32_k6")
     ap.add_argument("--remat", type=int, choices=(0, 1), default=None)
+    ap.add_argument("--precision", choices=("amp", "fp32"), default="amp")
     ap.add_argument("--stream_scale", type=float, default=1.0)
     ap.add_argument("--sim_header", default=None,
                     choices=("meanP", "seqTransf", "tightTransf"))
@@ -125,6 +129,8 @@ def main(argv=None) -> int:
                      pipeline_microbatches=args.pipeline_microbatches)
     if args.remat is not None:
         overrides["remat"] = bool(args.remat)
+    if args.precision == "fp32":
+        overrides.update(precision="fp32", compute_dtype="float32")
     if args.sim_header is not None:
         overrides["sim_header"] = args.sim_header
     for name in ("cluster_num_blocks", "target_frames_blocks"):
@@ -133,7 +139,7 @@ def main(argv=None) -> int:
     run = preset(args.preset, **overrides)
     cfg = run.model
     print(f"{args.preset}, batch {args.batch}, remat {cfg.remat}, "
-          f"sim_header {cfg.sim_header}, cluster_num_blocks "
+          f"compute dtype {cfg.compute_dtype}, sim_header {cfg.sim_header}, cluster_num_blocks "
           f"{cfg.cluster.cluster_num_blocks}, target_frames_blocks "
           f"{cfg.cluster.target_frames_blocks}, vision stream scaled by "
           f"{args.stream_scale}")

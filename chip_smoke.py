@@ -121,6 +121,37 @@
    ViT-B/16 phase's, and the kernels line rows `kmedoids_large`,
    `attention_fwd_long_past_256` and `attention_bwd_long_past_256`.
 
+7c. fp32 ViT-B/16 phase, the fifteenth main path (after 7b, on main's
+   fixture): the preset `msrvtt_vitb16_k6` with `--precision fp32` and
+   remat (the towers in float32: kernels A and B on their fp32 variants,
+   the vision blocks' L = 197 and 161 on the long one, the 32-token text
+   tower's on the CUDA-core one).  FP32_WARMUP_STEPS + FP32_TIMED_STEPS
+   training steps at batch 128 (peak memory), an encode of 64 clips and a
+   search, card against CPU in fp32 with the card's medoid ids replayed (a
+   2-clip embedding by cosine, one step on 2 clips by loss and gradient
+   cosines: FP32_VIDEO_MIN_COS, FP32_LOSS_RTOL, FP32_GRAD_MIN_COS),
+   `main(argv)` with experiment 62's flags at ViT-B/16, remat and
+   `--precision fp32` (3 steps, then its evaluation); A and B against their
+   plain versions on the first input of each shape the steps gave them
+   (recorded at the model's call site), at FP32_ATTENTION_CASES beside
+   SDPA in fp32 (1e-5 forward, FP32_BWD_ATOL backward), and both fp32
+   variants' times at FP32_THRESHOLD_CASES (where FP32_SHORT_RANGES come
+   from).  Counts are zeroed before each run and read after it: attention
+   must run its fp32 variants only (24 long forward and 12 long backward
+   launches a step), E its global one; the kernels line rows
+   `attention_fwd_fp32_long`, `attention_bwd_fp32_long`,
+   `attention_fwd_fp32` and `attention_bwd_fp32`.
+7d. 20-frame segments phase, the sixteenth main path: ViT-B/16 with remat
+   on 60 frames (`--max_frames 60`, ActivityNet's) grouped into 3 segments
+   before block 7 (N = 3920 tokens a segment, K = 160), bf16, through
+   experiment 62's flags: an encode of 32 clips (96 segments, D 5.9 GB)
+   and a warm-up and a timed step at batch 16; E held against its plain
+   version on the step's and the encode's tokens (every segment the plain
+   version's ids and steps), then at K = 392, as 12-frame segments at
+   K = N = 2352 ([8, 2352, 2352]) and on a segment cut to N = 3137.  E
+   must run its scratch variant only; the kernels line row
+   `kmedoids_scratch`.
+
 8. Serve phase, the fifth main path (run between the main and the ViT-B/16
    phases, on the main phase's fixture and run-1 checkpoint):
    `python -m centerclip_tpu_torch.serve.cli`'s `main(argv)` with
@@ -276,12 +307,13 @@
    and the cards' encode apart) and its refusal of the IVF index.
 
 Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
-`{"long_segments": ...}`, a
+`{"long_segments": ...}`, an `{"fp32_vitb16": ...}`, a `{"seg20": ...}`, a
 `{"serve": ...}`, a `{"cluster": ...}`, an `{"activity": ...}`, a
 `{"headers": ...}`, a `{"towers": ...}`, a `{"preprocess": ...}`, a
 `{"parallel": ...}` and a `{"kernels": [...]}` JSON line (attention's long
-forward and backward, the global and large k-medoids variants, and the
-long forward and backward past L = 256 as rows of their own; every
+forward and backward, the global, large and scratch k-medoids variants,
+the long forward and backward past L = 256 and attention's fp32 variants
+as rows of their own; every
 kernel's rows at each path's shapes, its launches by path) and, last,
 one JSON line {"ok":
 true, "device": {...}}; before them, each phase's time.  Any failed check
@@ -449,6 +481,49 @@ VITB16_REMAT_WHY = ("without it the step at batch 128 does not fit in the "
 # 7-12 attend over L = 393 > 256 tokens
 LONG_SEG_FRAMES, LONG_SEG_K, LONG_SEG_WIDE_K = 4, 160, 392
 LONG_SEG_WARMUP_STEPS, LONG_SEG_TIMED_STEPS, LONG_SEG_WIDE_STEPS = 2, 3, 2
+# the fifteenth main path: msrvtt_vitb16_k6 with --precision fp32 and
+# remat (the towers in fp32: kernels A and B on their fp32 variants, the
+# vision blocks, L = 197 and 161, on the long one); a warm-up step
+# and FP32_TIMED_STEPS timed ones at the preset's batch of 128 (an fp32
+# step takes seconds: the steps are what is cut)
+FP32_WARMUP_STEPS, FP32_TIMED_STEPS = 1, 2
+# card against CPU, both fp32, the card's medoid ids replayed on the CPU:
+# only the order of fp32 sums differs (cuBLAS and the kernels against
+# oneDNN and the plain versions, ~1e-6 relative a product), so the 2-clip
+# embedding is held by cosine 0.999 and one training step's loss to
+# relative 1e-4 and every large gradient by cosine 0.9999
+FP32_VIDEO_MIN_COS, FP32_LOSS_RTOL, FP32_GRAD_MIN_COS = 0.999, 1e-4, 0.9999
+# kernel B's fp32 outputs: sums of L products in another order than the
+# plain version's (tests/test_torch_gpu.py's fp32 backward tolerance)
+FP32_BWD_ATOL, FP32_BWD_RTOL = 1e-4, 1e-4
+# kernels A and B's fp32 rows beside SDPA in fp32: ViT-B/16's two vision
+# shapes and K = 392's L = 393 (the long variant), ViT-B/32's vision, the
+# fifteenth path's own 32-word text tower and ActivityNet's 77-word one
+# (label, B, L, H, causal); each variant's row in the kernels line takes
+# its first case's times
+FP32_ATTENTION_CASES = (
+    ("ViT-B/16 blocks 1-6", 1536, 197, 12, False),
+    ("ViT-B/16 blocks 7-12", 768, 161, 12, False),
+    ("K = 392, blocks 7-12", 384, 393, 12, False),
+    ("ViT-B/32 vision", 1536, 50, 12, False),
+    ("32-word text (the path's)", 128, 32, 8, True),
+    ("77-word text", 128, 77, 8, True))
+# both fp32 variants at the lengths where both run, at ViT-B/32's vision
+# batch of 1536 x 12 heads and the text tower's 128 x 8 (causal): the
+# times FP32_SHORT_RANGES are set from
+FP32_THRESHOLD_CASES = tuple(
+    [(1536, L, 12, False) for L in (32, 40, 44, 48, 50, 56, 64, 68, 72, 77,
+                                    80, 88, 96, 108, 128, 163)]
+    + [(128, L, 8, True) for L in (32, 77)])
+# the sixteenth main path: ViT-B/16 on segments of 20 frames (60 frames,
+# ActivityNet's --max_frames, grouped into 3 segments before block 7: N =
+# 20 x 196 = 3920 tokens a segment, past the large k-medoids variant's
+# shared memory) into K = 160, bf16, remat; a 32-clip encode (96 segments)
+# and a warm-up and a timed training step at batch 16 (the steps and the
+# batch are what is cut: the widths are ViT-B/16's)
+SEG20_FRAMES, SEG20_SEGMENTS, SEG20_K = 60, 3, 160
+SEG20_ENCODE_CLIPS, SEG20_BATCH = 32, 16
+SEG20_WARMUP_STEPS, SEG20_STEPS = 1, 1
 # the sixth main path: the spectral preset, then the other algorithms at
 # experiment 62's block flags; a 2-clip encode of each against the CPU
 CLUSTER_PRESET, CLUSTER_WARMUP_STEPS, CLUSTER_TIMED_STEPS = \
@@ -569,7 +644,8 @@ def attention_variant_counts(path, backward):
               for fn in (ac.fused_attention, ac.attention_backward)}
     print(f"attention launches by variant during the {path} path: {counts}")
     for name, by in counts.items():
-        if by[ac.CUDA_CORE] or by[ac.TENSOR_CORE_LONG]:
+        if by[ac.CUDA_CORE] or by[ac.CUDA_CORE_LONG] or \
+                by[ac.TENSOR_CORE_LONG]:
             fail(f"{name} launched its CUDA-core or long variant on the "
                  f"{path} path: {by}")
         if (backward or name == "fused_attention") and not by[ac.TENSOR_CORE]:
@@ -832,8 +908,9 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     short = int((nxt != m2.long()).any(dim=1).sum())
     steps_differing = int((fixed_point_steps(D, l2, K, iter_limit)
                            != steps).sum())
-    strict = kmedoids_cuda.choose_variant(X.shape[1]) in (
-        kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE)
+    variant = kmedoids_cuda.choose_variant(X.shape[1], K)
+    strict = variant in (kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE,
+                         kmedoids_cuda.SCRATCH)
     print(f"kmedoids [{label}] X {tuple(X.shape)} K={K}: segments with "
           f"other ids {n_diff}/{Bs}, max relative cost gap {cost_rel:.3e} "
           f"(tol {KMEDOIDS_COST_RTOL}), Lloyd steps min/mean/max "
@@ -842,8 +919,7 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
           f"fixed point {steps_differing}/{Bs}, segments the plain version "
           f"left short of their fixed point {short}/{Bs}")
     if strict and (n_diff or steps_differing):
-        fail(f"k-medoids {kmedoids_cuda.choose_variant(X.shape[1])} "
-             f"variant [{label}]: {n_diff} segments with "
+        fail(f"k-medoids {variant} variant [{label}]: {n_diff} segments with "
              f"other ids, {steps_differing} with other steps than the plain "
              f"version")
     if n_diff and cost_rel > KMEDOIDS_COST_RTOL:
@@ -1141,9 +1217,10 @@ def kmedoids_points_case(torch, flush, peaks, label, points, K, iters):
     plain_ms = time_ms(lambda: kmedoids_on_distances(
         X, D, l2, K, iter_limit=iters), flush=flush)
     b_ms, b_by = kmedoids_bound(K, assign, steps, peaks)
-    variant = kmedoids_cuda.choose_variant(N)
+    variant = kmedoids_cuda.choose_variant(N, K)
     split = {}
-    if variant in (kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE):
+    if variant in (kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE,
+                   kmedoids_cuda.SCRATCH):
         # KKZ, the id sort and the last assignment alone: no Lloyd step
         split["kkz_ms"] = time_ms(
             lambda: kmedoids_cuda.kmedoids_from_distances(D, l2, K, 0),
@@ -1234,7 +1311,7 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     km, fwd = enc_variants["kmedoids"], enc_variants["fused_attention"]
     n_batches = -(-N_CLIPS // BATCH)
     if not km[kc.GLOBAL] or km[kc.SHARED] or km[kc.LARGE] or \
-            fwd[ac.CUDA_CORE] or \
+            km[kc.SCRATCH] or fwd[ac.CUDA_CORE] or fwd[ac.CUDA_CORE_LONG] or \
             fwd[ac.TENSOR_CORE_LONG] != 12 * n_batches or \
             not enc_launches["layer_norm"]:
         fail(f"the ViT-B/16 encode ran other kernel variants: {enc_variants}")
@@ -1277,11 +1354,13 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     fwd = train_variants["fused_attention"]
     per_fwd = 2 if cfg.remat else 1
     want_bwd = {ac.TENSOR_CORE_LONG: 12 * steps, ac.TENSOR_CORE: 12 * steps,
-                ac.CUDA_CORE: 0}
+                ac.CUDA_CORE: 0, ac.CUDA_CORE_LONG: 0}
     want_fwd = {ac.TENSOR_CORE_LONG: 12 * per_fwd * steps,
-                ac.TENSOR_CORE: 12 * per_fwd * steps, ac.CUDA_CORE: 0}
+                ac.TENSOR_CORE: 12 * per_fwd * steps, ac.CUDA_CORE: 0,
+                ac.CUDA_CORE_LONG: 0}
     if bwd != want_bwd or fwd != want_fwd or \
-            kmv != {kc.GLOBAL: steps, kc.SHARED: 0, kc.LARGE: 0}:
+            kmv != {kc.GLOBAL: steps, kc.SHARED: 0, kc.LARGE: 0,
+                    kc.SCRATCH: 0}:
         fail(f"the ViT-B/16 training steps ran other kernel variants than "
              f"the long attention variants (forward {want_fwd}, backward "
              f"{want_bwd}) and the global k-medoids: {train_variants}")
@@ -1399,6 +1478,113 @@ def attention_launches_by_length(lengths):
         ac._forward, ac.attention_backward = fwd, bwd
 
 
+def gallery_encode(torch, np, cfg, dev, counters, seed, prefix, label,
+                   read_counts):
+    """An encode of N_CLIPS seeded clips (12 frames of RES²) of a fresh
+    eval-mode model of `cfg` through `RetrievalEngine.build_index` in
+    batches of BATCH, after a 2-clip warm-up and a search; counts zeroed
+    just before the encode and read by `read_counts` just after it; then a
+    search of QUERIES.  Fails unless the gallery is finite [N_CLIPS, 512]
+    and every query has 5 finite hits.  Returns (the result dict, what
+    `read_counts` gave, the cluster layer's first input of the encode)."""
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.serve import RetrievalEngine
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0).eval()
+    engine = RetrievalEngine(model, device=dev)
+    g = np.random.default_rng(seed)
+    clips = g.integers(0, 256, (N_CLIPS, 1, FRAMES, 3, RES, RES),
+                       dtype=np.uint8)
+    masks = np.ones((N_CLIPS, FRAMES), np.int32)
+    ids = [f"{prefix}{i:03d}" for i in range(N_CLIPS)]
+
+    def batches(hi=N_CLIPS):
+        for s in range(0, hi, BATCH):
+            yield {"video": clips[s:min(s + BATCH, hi)],
+                   "video_mask": masks[s:min(s + BATCH, hi)]}
+    engine.build_index(batches(2), ids[:2])                 # warm-up
+    engine.search(QUERIES, k=2)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    enc_x = {}
+    hook = first_input_hook(cluster_module(model), enc_x)
+    zero_counts(counters)
+    t0 = time.time()
+    index = engine.build_index(batches(), ids)
+    torch.cuda.synchronize()
+    t_enc = time.time() - t0
+    counts = read_counts()
+    hook.remove()
+    hits = engine.search(QUERIES, k=5)
+    gallery = index._codes[:N_CLIPS].float()
+    print(f"{label}: {N_CLIPS} clips in {t_enc:.3f} s = "
+          f"{N_CLIPS / t_enc:.2f} clips/s (batches of {BATCH}; set-up and "
+          f"warm-up {t_setup:.2f} s); counts {counts}")
+    if tuple(gallery.shape) != (N_CLIPS, 512) or \
+            not bool(torch.isfinite(gallery).all()) or \
+            any(len(row) != 5 or not all(np.isfinite([h["score"]
+                                                      for h in row]))
+                for row in hits):
+        fail(f"{label}: the gallery is not finite [64, 512] or the hits are "
+             f"bad")
+    del engine, index, gallery, model, clips
+    torch.cuda.empty_cache()
+    return (dict(encode_clips=N_CLIPS, encode_s=t_enc,
+                 encode_clips_per_s=N_CLIPS / t_enc), counts,
+            enc_x.get("x"))
+
+
+def main_on_fixture(torch, np, counters, root, name, flags, label):
+    """`main(argv)` with `flags` on main's fixture in `root` (its output in
+    `root`/`name`), counts zeroed just before; the caller reads them just
+    after.  Fails unless it trained one epoch of finite losses (an epoch
+    of MAIN_VIDEOS x MAIN_CAPTIONS pairs) and evaluated MAIN_VIDEOS clips.
+    Returns the result dict."""
+    from centerclip_tpu_torch.main import main as run_main
+    from centerclip_tpu_torch.train import evaluate
+    evals = []
+    evaluate_fn = evaluate.Evaluator.evaluate
+
+    def recording_evaluate(self, *a, **k):
+        t = time.time()
+        res_ = evaluate_fn(self, *a, **k)
+        evals.append((res_, time.time() - t))
+        return res_
+    out_dir = os.path.join(root, name)
+    evaluate.Evaluator.evaluate = recording_evaluate
+    try:
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        best_r1 = run_main(main_argv(root, out_dir, flags=flags))
+        torch.cuda.synchronize()
+        t_main = time.time() - t0
+    finally:
+        evaluate.Evaluator.evaluate = evaluate_fn
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "tensorboard", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    losses = [r["train/sim_loss"] for r in scalars]
+    step_s = [r["train/batch_time"] for r in scalars]
+    res1, t_eval = evals[0] if evals else (None, 0.0)
+    print(f"{label}: {t_main:.2f} s, {len(losses)} steps, losses {losses}, "
+          f"step times {[round(x * 1e3, 3) for x in step_s]} ms; evaluation "
+          f"of {MAIN_VIDEOS} clips {t_eval:.3f} s, R@1 "
+          f"{res1 and res1['R1']}; peak memory {peak / 2**30:.3f} GiB")
+    if len(losses) != MAIN_VIDEOS * MAIN_CAPTIONS // MAIN_BATCH or \
+            len(losses) > 4 or not np.isfinite(losses).all() or \
+            res1 is None or best_r1 != res1["R1"] or \
+            res1["sim_matrix"].shape != (MAIN_VIDEOS, MAIN_VIDEOS) or \
+            not np.isfinite(res1["sim_matrix"]).all():
+        fail(f"{label}: {len(losses)} steps, losses {losses}, evaluation "
+             f"{res1 and res1['R1']}")
+    return dict(steps=len(losses), losses=losses,
+                step_ms_all=[x * 1e3 for x in step_s], run_s=t_main,
+                eval_s=t_eval, eval_clips=MAIN_VIDEOS, R1=res1["R1"],
+                peak_memory_bytes=peak)
+
+
 def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     """The fourteenth main path: ViT-B/16 at full width on segments of
     LONG_SEG_FRAMES frames, through the flags both CLIs take (no preset:
@@ -1417,13 +1603,11 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     run and read after it; fails unless E ran its large variant only and
     B launched at L > 256."""
     from centerclip_tpu_torch import cli
-    from centerclip_tpu_torch.main import main as run_main
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
     from centerclip_tpu_torch.ops import attention_cuda as ac
     from centerclip_tpu_torch.ops import kmedoids_cuda as kc
     from centerclip_tpu_torch.ops import spectral
-    from centerclip_tpu_torch.serve import RetrievalEngine
-    from centerclip_tpu_torch.train import Trainer, evaluate
+    from centerclip_tpu_torch.train import Trainer
     fwd_fn, bwd_fn = ac.fused_attention, ac.attention_backward
 
     def variants():
@@ -1440,7 +1624,8 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
         launched(label, launches, [k for k in launches if backward
                                    or not k.endswith("backward")])
         kmv = by_variant["kmedoids"]
-        if kmv != {kc.SHARED: 0, kc.GLOBAL: 0, kc.LARGE: kmedoids_launches} \
+        if kmv != {kc.SHARED: 0, kc.GLOBAL: 0, kc.LARGE: kmedoids_launches,
+                   kc.SCRATCH: 0} \
                 or not kmedoids_launches or by_variant["fused_attention"][
                     ac.CUDA_CORE]:
             fail(f"{label}: k-medoids ran {kmv}, not its large variant "
@@ -1491,7 +1676,8 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
         # variants, 12 text blocks at L = 32 through the L <= 128 ones,
         # each block's forward twice under remat
         want_bwd = {ac.TENSOR_CORE_LONG: 12 * steps,
-                    ac.TENSOR_CORE: 12 * steps, ac.CUDA_CORE: 0}
+                    ac.TENSOR_CORE: 12 * steps, ac.CUDA_CORE: 0,
+                    ac.CUDA_CORE_LONG: 0}
         want_fwd = {v: 2 * n for v, n in want_bwd.items()}
         if by_variant["attention_backward"] != want_bwd or \
                 by_variant["fused_attention"] != want_fwd or \
@@ -1524,101 +1710,23 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     del xs
 
     # ---- (a) encode: 64 clips in batches of 32 and one search
-    t0 = time.time()
-    model = CLIP4Clip(cfg, device=dev, seed=0).eval()
-    engine = RetrievalEngine(model, device=dev)
-    g = np.random.default_rng(43)
-    clips = g.integers(0, 256, (N_CLIPS, 1, FRAMES, 3, RES, RES),
-                       dtype=np.uint8)
-    masks = np.ones((N_CLIPS, FRAMES), np.int32)
-    ids = [f"longclip{i:03d}" for i in range(N_CLIPS)]
-
-    def batches(hi=N_CLIPS):
-        for s in range(0, hi, BATCH):
-            yield {"video": clips[s:min(s + BATCH, hi)],
-                   "video_mask": masks[s:min(s + BATCH, hi)]}
-    engine.build_index(batches(2), ids[:2])                 # warm-up
-    engine.search(QUERIES, k=2)
-    torch.cuda.synchronize()
-    t_setup = time.time() - t0
-    enc_x = {}
-    hook = first_input_hook(cluster_module(model), enc_x)
-    zero_counts(counters)
-    t0 = time.time()
-    index = engine.build_index(batches(), ids)
-    torch.cuda.synchronize()
-    t_enc = time.time() - t0
-    hits = engine.search(QUERIES, k=5)
-    enc_launches, enc_variants = read_counts()
-    hook.remove()
-    gallery = index._codes[:N_CLIPS].float()
-    print(f"long segments encode: {N_CLIPS} clips in {t_enc:.3f} s = "
-          f"{N_CLIPS / t_enc:.2f} clips/s (batches of {BATCH}; set-up and "
-          f"warm-up {t_setup:.2f} s); launches {enc_launches}, by variant "
-          f"{enc_variants}")
-    if tuple(gallery.shape) != (N_CLIPS, 512) or \
-            not bool(torch.isfinite(gallery).all()) or \
-            any(len(row) != 5 or not all(np.isfinite([h["score"]
-                                                      for h in row]))
-                for row in hits):
-        fail("long segments: the gallery is not finite [64, 512] or the "
-             "hits are bad")
+    out["encode"], (enc_launches, enc_variants), enc_x = gallery_encode(
+        torch, np, cfg, dev, counters, 43, "longclip",
+        "long segments encode", read_counts)
     check_counts("long segments encode", enc_launches, enc_variants,
                  -(-N_CLIPS // BATCH), backward=False)
     paths["long_segments_encode"] = (enc_launches, enc_variants)
-    out["encode"] = dict(encode_clips=N_CLIPS, encode_s=t_enc,
-                         encode_clips_per_s=N_CLIPS / t_enc)
-    del engine, index, gallery, model, clips
-    torch.cuda.empty_cache()
 
     # ---- (a) main on the fixture: 3 steps of 128, then its evaluation
-    evals = []
-    evaluate_fn = evaluate.Evaluator.evaluate
-
-    def recording_evaluate(self, *a, **k):
-        t = time.time()
-        res_ = evaluate_fn(self, *a, **k)
-        evals.append((res_, time.time() - t))
-        return res_
-    out_dir = os.path.join(root, "long_segments")
-    evaluate.Evaluator.evaluate = recording_evaluate
-    try:
-        zero_counts(counters)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        best_r1 = run_main(main_argv(root, out_dir,
-                                     flags=long_segment_flags(LONG_SEG_K)))
-        torch.cuda.synchronize()
-        t_main = time.time() - t0
-    finally:
-        evaluate.Evaluator.evaluate = evaluate_fn
+    out["main"] = main_on_fixture(torch, np, counters, root, "long_segments",
+                                  long_segment_flags(LONG_SEG_K),
+                                  "long segments main")
     main_launches, main_variants = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    with open(os.path.join(out_dir, "tensorboard", "scalars.jsonl")) as f:
-        scalars = [json.loads(line) for line in f]
-    losses = [r["train/sim_loss"] for r in scalars]
-    step_s = [r["train/batch_time"] for r in scalars]
-    res1, t_eval = evals[0] if evals else (None, 0.0)
-    print(f"long segments main: {t_main:.2f} s, {len(losses)} steps, losses "
-          f"{losses}, step times {[round(x * 1e3, 3) for x in step_s]} ms; "
-          f"evaluation of {MAIN_VIDEOS} clips {t_eval:.3f} s, R@1 "
-          f"{res1 and res1['R1']}; peak memory {peak / 2**30:.3f} GiB; "
-          f"launches {main_launches}, by variant {main_variants}")
-    if len(losses) != MAIN_VIDEOS * MAIN_CAPTIONS // MAIN_BATCH or \
-            len(losses) > 4 or not np.isfinite(losses).all() or \
-            res1 is None or best_r1 != res1["R1"] or \
-            res1["sim_matrix"].shape != (MAIN_VIDEOS, MAIN_VIDEOS) or \
-            not np.isfinite(res1["sim_matrix"]).all():
-        fail(f"long segments main: {len(losses)} steps, losses {losses}, "
-             f"evaluation {res1 and res1['R1']}")
+    print(f"long segments main: launches {main_launches}, by variant "
+          f"{main_variants}")
     check_counts("long segments main", main_launches, main_variants,
                  main_variants["kmedoids"][kc.LARGE])
     paths["long_segments_main"] = (main_launches, main_variants)
-    out["main"] = dict(steps=len(losses), losses=losses,
-                       step_ms_all=[x * 1e3 for x in step_s], run_s=t_main,
-                       eval_s=t_eval, eval_clips=MAIN_VIDEOS, R1=res1["R1"],
-                       peak_memory_bytes=peak)
     torch.cuda.empty_cache()
 
     # ---- (b) K = 392: blocks 7-12 at L = 393, kernel B past 256
@@ -1638,7 +1746,7 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     km_rows = [kmedoids_case(torch, flush, peaks, "long segments, step",
                              train_x, FRAMES, S, K, iters),
                kmedoids_case(torch, flush, peaks, "long segments, encode "
-                             "batch", enc_x.pop("x"), FRAMES, S, K, iters),
+                             "batch", enc_x, FRAMES, S, K, iters),
                kmedoids_case(torch, flush, peaks, "3-frame segments",
                              train_x, FRAMES, FRAMES // 3, K, iters),
                kmedoids_case(torch, flush, peaks, "a whole clip",
@@ -1653,7 +1761,7 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     km_rows.append(kmedoids_points_case(torch, flush, peaks,
                                         "long segments, spectral embedding",
                                         Q, K, iters))
-    del train_x, two, Q
+    del train_x, two, Q, enc_x
     shapes = [r["shape"][:2] for r in km_rows]
     if shapes != [[384, 784], [96, 784], [512, 588], [8, 2352], [6, 784]] \
             or any(r["variant"] != kc.LARGE for r in km_rows):
@@ -1669,6 +1777,574 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     torch.cuda.empty_cache()
     return out, dict(paths=paths, past_256=past, kmedoids=km_rows,
                      attention_fwd=[fwd_row], attention_bwd=[bwd_row])
+
+
+def fp32_cluster_hooks(model, chosen, replay):
+    """Wrap each cluster module's `_cluster` of `model`: record its outputs
+    call by call into `chosen[i]` (module i), or, with `replay` ([0, 0]
+    counts the segments whose own choice differed, of all), run its own
+    choice and hand back the recorded ones, call by call."""
+    mods = [b.tokencluster_inter
+            for b in model.clip.visual.transformer.resblocks
+            if b.tokencluster_inter is not None]
+    for i, mod in enumerate(mods):
+        own = mod._cluster
+        if replay is None:
+            chosen.setdefault(i, [])
+
+            def record(res_tmp, own=own, i=i):
+                out = own(res_tmp)
+                chosen[i].append(tuple(t.cpu() for t in out))
+                return out
+            mod._cluster = record
+        else:
+            calls = iter(list(chosen[i]))
+
+            def replayed(res_tmp, own=own, calls=calls):
+                mine = own(res_tmp)[1]
+                theirs = next(calls)
+                replay[0] += int((mine != theirs[1]).any(dim=1).sum())
+                replay[1] += mine.shape[0]
+                return theirs
+            mod._cluster = replayed
+
+
+def fp32_cpu_check(torch, np, dev, run, batch):
+    """Card against CPU, both in fp32 from the same seeded weights, the
+    card's medoid ids replayed on the CPU (its own k-medoids still runs,
+    and the segments where it chose otherwise are counted): the 2-clip
+    pooled embedding by cosine (FP32_VIDEO_MIN_COS), then one training
+    step on the 2 clips by loss (FP32_LOSS_RTOL) and the cosine of every
+    trainable gradient of >= TRAIN_GRAD_MIN_NUMEL elements
+    (FP32_GRAD_MIN_COS)."""
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.serve import RetrievalEngine
+    from centerclip_tpu_torch.train import build_optimizer, make_train_step
+    t0 = time.time()
+    small = {k: v[:2] for k, v in batch.items()}
+    two = {k: small[k] for k in ("video", "video_mask")}
+    torch.set_num_threads(os.cpu_count() or 1)
+    card = CLIP4Clip(run.model, device=dev, seed=0)
+    weights = {k: v.cpu().clone() for k, v in card.state_dict().items()}
+
+    def cpu_model():
+        m = CLIP4Clip(run.model, device="cpu", seed=1)
+        m.load_state_dict(weights, strict=True)
+        return m
+
+    def one_step(model):
+        model.train()
+        opt = build_optimizer(run.optim, model, 10,
+                              freeze_layer_num=run.freeze_layer_num)
+        loss = float(make_train_step(model, opt)(small)["loss"])
+        return loss, {n: p.grad.detach().double().cpu().flatten()
+                      for n, p in model.named_parameters()
+                      if p.requires_grad and p.numel() >= TRAIN_GRAD_MIN_NUMEL}
+
+    # the embedding
+    chosen, differing = {}, [0, 0]
+    fp32_cluster_hooks(card, chosen, None)
+    emb_card = RetrievalEngine(card.eval(), device=dev).embed_video_batches(
+        [two])
+    cpu = cpu_model()
+    fp32_cluster_hooks(cpu, chosen, differing)
+    emb_cpu = RetrievalEngine(cpu.eval(), device="cpu").embed_video_batches(
+        [two])
+    cos_emb = cosines(emb_card, emb_cpu)
+    # the training step, from fresh copies of the same weights
+    card = CLIP4Clip(run.model, device=dev, seed=0)
+    card.load_state_dict(weights, strict=True)
+    chosen.clear()
+    fp32_cluster_hooks(card, chosen, None)
+    l_card, g_card = one_step(card)
+    cpu = cpu_model()
+    fp32_cluster_hooks(cpu, chosen, differing)
+    l_cpu, g_cpu = one_step(cpu)
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    cos = sorted(((n, float((g_card[n] @ g_cpu[n])
+                            / (g_card[n].norm() * g_cpu[n].norm())))
+                  for n in g_cpu),
+                 key=lambda kv: (not math.isnan(kv[1]), kv[1]))
+    print(f"fp32 CPU check ({time.time() - t0:.1f} s), the card's medoids "
+          f"replayed (segments where the CPU's own choice differs: "
+          f"{differing[0]}/{differing[1]}): 2-clip embedding cosine "
+          f"{np.round(cos_emb, 7).tolist()} (min {FP32_VIDEO_MIN_COS}); one "
+          f"step on 2 clips: loss card {l_card:.7f} cpu {l_cpu:.7f} "
+          f"(relative gap {rel:.3e}, tol {FP32_LOSS_RTOL}), gradient cosine "
+          f"over {len(cos)} tensors >= {TRAIN_GRAD_MIN_NUMEL} elements: min "
+          f"{cos[0][1]:.7f} (min {FP32_GRAD_MIN_COS}), lowest {cos[:3]}")
+    if cos_emb.min() < FP32_VIDEO_MIN_COS:
+        fail("card and CPU fp32 ViT-B/16 embeddings disagree")
+    if not rel <= FP32_LOSS_RTOL:
+        fail("card and CPU fp32 ViT-B/16 training losses disagree")
+    if not all(c >= FP32_GRAD_MIN_COS for _, c in cos):
+        fail(f"card and CPU fp32 ViT-B/16 gradients disagree: {cos[:3]}")
+    return dict(embedding_min_cos=float(cos_emb.min()), loss_card=l_card,
+                loss_cpu=l_cpu, loss_rel_gap=rel, grad_min_cos=cos[0][1],
+                grad_tensors=len(cos), kmedoids_segments_differing=differing[0],
+                kmedoids_segments=differing[1])
+
+
+def hold_attention_fp32(torch, dev, flush, peaks, label, B, L, H, causal,
+                        qkv=None, mask=None, time_it=True):
+    """Kernels A and B on fp32 qkv [B, L, 3 * 64 H] (seeded, or the `qkv`
+    and `mask` a path recorded) and a seeded dO against `attention_plain`
+    and `attention_bwd_plain` (FP32_ATOL / FP32_RTOL forward, FP32_BWD_ATOL
+    / FP32_BWD_RTOL backward), B's gradient through the autograd Function
+    the kernel's to the bit.  With `time_it`, both timed by CUDA events
+    beside their plain versions and SDPA in fp32 (its backward by
+    `torch.autograd.grad`), with the bound: the fp32 operations (4 L^2 hd
+    a head forward, 10 backward) over the card's fp32 peak, or the bytes
+    over its memory rate.  Returns (A's row, B's row)."""
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    mem_rate, _, fp32_peak = peaks
+    D = 64 * H
+    gen = torch.Generator(device=dev).manual_seed(B + L)
+    if qkv is None:
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev)
+        mask = (torch.full((L, L), float("-inf"), device=dev).triu(1)
+                if causal else None)
+    dout = torch.randn((B, L, D), generator=gen, device=dev)
+    xg = qkv.clone().requires_grad_(True)
+    out = ac.fused_attention(xg, H, mask)
+    out.backward(dout)
+    dqkv, _ = ac.attention_backward(qkv, dout, H, mask)
+    f_err = hold_close(torch, f"attention fp32 [{label}]", out.detach(),
+                       ac.attention_plain(qkv, H, mask), FP32_ATOL, FP32_RTOL)
+    b_err = hold_close(torch, f"attention bwd fp32 [{label}]", dqkv,
+                       ac.attention_bwd_plain(qkv, dout, H, mask)[0],
+                       FP32_BWD_ATOL, FP32_BWD_RTOL)
+    if not torch.equal(xg.grad, dqkv):
+        fail(f"attention bwd fp32 [{label}]: the autograd Function's "
+             f"gradient is not the kernel's")
+    del xg, out
+    rows = []
+    for backward, err in ((False, f_err), (True, b_err)):
+        variant = ac.choose_variant(torch.float32, 64, L, backward)
+        row = dict(shape=list(qkv.shape), variant=variant, max_abs_err=err)
+        if variant == ac.CUDA_CORE_LONG:
+            row["occupancy"] = ac.long_occupancy(torch.float32, 64, backward)
+        rows.append(row)
+    fwd, bwd = rows
+    note = ""
+    if time_it:
+        q, k, v = (t.reshape(B, L, H, 64).transpose(1, 2)
+                   for t in qkv.split(D, dim=-1))
+        mask_bytes = L * L * 4 if mask is not None else 0
+        fwd.update(
+            ms=time_ms(lambda: ac.fused_attention(qkv, H, mask), flush=flush),
+            plain_ms=time_ms(lambda: ac.attention_plain(qkv, H, mask),
+                             flush=flush),
+            library_ms=time_ms(lambda: torch.nn.functional
+                               .scaled_dot_product_attention(
+                                   q, k, v, is_causal=mask is not None),
+                               flush=flush))
+        fwd["bound_ms"], fwd["bound_by"] = bound(
+            qkv.numel() * 4 + B * L * D * 4 + mask_bytes,
+            4.0 * B * H * L * L * 64, fp32_peak, mem_rate)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=mask is not None)
+        do_h = dout.reshape(B, L, H, 64).transpose(1, 2)
+        bwd.update(
+            ms=time_ms(lambda: ac.attention_backward(qkv, dout, H, mask),
+                       flush=flush),
+            plain_ms=time_ms(lambda: ac.attention_bwd_plain(
+                qkv, dout, H, mask), flush=flush),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                o, (qg, kg, vg), do_h, retain_graph=True), flush=flush))
+        bwd["bound_ms"], bwd["bound_by"] = bound(
+            2 * qkv.numel() * 4 + dout.numel() * 4 + mask_bytes,
+            10.0 * B * H * L * L * 64, fp32_peak, mem_rate)
+        del q, k, v, qg, kg, vg, o
+        for row in rows:
+            row["vs_library"] = row["ms"] / row["library_ms"]
+        note = (f"; ms {fwd['ms']:.4f} / {bwd['ms']:.4f}, plain "
+                f"{fwd['plain_ms']:.4f} / {bwd['plain_ms']:.4f}, sdpa fp32 "
+                f"{fwd['library_ms']:.4f} / {bwd['library_ms']:.4f}, bound "
+                f"{fwd['bound_ms']:.4f} ({fwd['bound_by']}) / "
+                f"{bwd['bound_ms']:.4f} ({bwd['bound_by']})")
+    print(f"attention fp32 [{label}] qkv {tuple(qkv.shape)} H={H}"
+          f"{' causal' if mask is not None else ''}: forward {fwd['variant']}"
+          f"{occupancy_note(fwd)}, max_abs_err {f_err:.3e} (tol {FP32_ATOL} + "
+          f"{FP32_RTOL}*|ref|); backward {bwd['variant']}"
+          f"{occupancy_note(bwd)}, max_abs_err {b_err:.3e} (tol "
+          f"{FP32_BWD_ATOL} + {FP32_BWD_RTOL}*|ref|){note}")
+    return fwd, bwd
+
+
+def fp32_threshold_rows(torch, dev, flush):
+    """Both fp32 variants of A and B by CUDA events at FP32_THRESHOLD_CASES,
+    where the short one fits (the times FP32_SHORT_RANGES are set from);
+    rows with the variant `choose_variant` takes."""
+    from centerclip_tpu_torch.ops import _build, attention_cuda as ac
+    rows = []
+    for B, L, H, causal in FP32_THRESHOLD_CASES:
+        gen = torch.Generator(device=dev).manual_seed(L)
+        qkv = torch.randn((B, L, 3 * 64 * H), generator=gen, device=dev)
+        dout = torch.randn((B, L, 64 * H), generator=gen, device=dev)
+        mask = (torch.full((L, L), float("-inf"), device=dev).triu(1)
+                if causal else None)
+        row = dict(shape=list(qkv.shape), causal=causal)
+        for backward, key in ((False, "fwd"), (True, "bwd")):
+            row[f"{key}_variant"] = ac.choose_variant(torch.float32, 64, L,
+                                                      backward)
+            for v in ac.FP32_VARIANTS:
+                if v == ac.CUDA_CORE and ac.fp32_short_smem_bytes(
+                        L, 64, backward) > _build.MAX_SMEM_BYTES:
+                    continue
+                fn = ((lambda v=v: ac.attention_backward(qkv, dout, H, mask,
+                                                         variant=v))
+                      if backward else
+                      (lambda v=v: ac._forward(qkv, H, mask, variant=v)))
+                row[f"{key}_{v}_ms"] = time_ms(fn, flush=flush)
+        print(f"attention fp32 variants at qkv {tuple(qkv.shape)}"
+              f"{' causal' if causal else ''}: {row}")
+        rows.append(row)
+        del qkv, dout
+    return rows
+
+
+def fp32_vitb16_phase(torch, np, dev, flush, peaks, counters, root):
+    """The fifteenth main path: the preset msrvtt_vitb16_k6 with
+    `--precision fp32` and remat (L = 197 in blocks 1-6, 161 after the
+    cluster layer; kernels A and B on their fp32 variants, the vision
+    blocks on the long one).  FP32_WARMUP_STEPS + FP32_TIMED_STEPS
+    training steps at batch 128 (peak memory), an encode of 64 clips and a
+    search, card against CPU (`fp32_cpu_check`), `main(argv)` on main's
+    fixture in `root` with `--precision fp32` (3 steps of 128, then its
+    evaluation of 48 clips); then A and B against their plain versions on
+    the first input of each shape the steps gave them, their rows at
+    FP32_ATTENTION_CASES and both fp32 variants' times at
+    FP32_THRESHOLD_CASES.  Counts are zeroed before each run and read
+    after it: attention must run its fp32 variants only, the vision
+    blocks' on the long one (24 forward and 12 backward launches a step
+    with remat, 12 forward launches an encode batch)."""
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.config import preset
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    from centerclip_tpu_torch.ops import kmedoids_cuda as kc
+    from centerclip_tpu_torch.train import Trainer
+    run = preset(VITB16_PRESET, remat=True, precision="fp32",
+                 compute_dtype="float32")
+    B, cfg = run.batch_size, run.model
+    spec = next(s for s in cfg.cluster_plan() if s is not None)
+    N, K = spec.frame_duration * spec.before_cluster_num, spec.cluster_num
+    text_L = cfg.max_words
+    if (N, K, cfg.compute_dtype) != (392, 160, "float32") or \
+            ac.choose_variant(torch.float32, 64, 161) != ac.CUDA_CORE_LONG \
+            or ac.choose_variant(torch.float32, 64, 161, True) \
+            != ac.CUDA_CORE_LONG:
+        fail(f"fp32 {VITB16_PRESET}: N={N}, K={K}, {cfg.compute_dtype}, or "
+             f"L = 161 is not the long fp32 variant's")
+    text_fwd = ac.choose_variant(torch.float32, 64, text_L)
+    text_bwd = ac.choose_variant(torch.float32, 64, text_L, backward=True)
+
+    def read_counts():
+        """(launches by kernel, attention's by variant, E's by variant)"""
+        return ({fn.__name__: fn.launches for fn in counters},
+                {fn.__name__: dict(fn.variant_launches)
+                 for fn in (ac.fused_attention, ac.attention_backward)},
+                dict(kc.kmedoids_from_distances.variant_launches))
+
+    def check(label, launches, by_variant, km, steps, per_fwd, backward):
+        """steps: training steps (backward) or encode batches"""
+        launched(label, launches, [k for k in launches if backward
+                                   or not k.endswith("backward")])
+        # 12 vision blocks at L = 197 and 161; in a step also 12 text
+        # blocks; no other variant
+        fwd, bwd = {ac.CUDA_CORE_LONG: 12 * per_fwd * steps}, {}
+        if backward:
+            fwd[text_fwd] = fwd.get(text_fwd, 0) + 12 * per_fwd * steps
+            bwd = {ac.CUDA_CORE_LONG: 12 * steps}
+            bwd[text_bwd] = bwd.get(text_bwd, 0) + 12 * steps
+        for fn_name, want in (("fused_attention", fwd),
+                              ("attention_backward", bwd)):
+            want = {v: want.get(v, 0) for v in ac.VARIANTS}
+            if by_variant[fn_name] != want:
+                fail(f"{label}: {fn_name} launched {by_variant[fn_name]}, "
+                     f"not {want}")
+        if km != {kc.SHARED: 0, kc.GLOBAL: km[kc.GLOBAL], kc.LARGE: 0,
+                  kc.SCRATCH: 0} or not km[kc.GLOBAL]:
+            fail(f"{label}: k-medoids ran {km}, not its global variant "
+                 f"alone")
+
+    out, paths = {}, {}
+    # ---- training at batch 128: warm-up and timed steps
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0)
+    steps = FP32_WARMUP_STEPS + FP32_TIMED_STEPS
+    trainer = Trainer(run, model, total_steps=steps)
+    batch = seeded_batch(np, np.random.default_rng(51), B, cfg.max_frames,
+                         cfg.max_words)
+    t_setup = time.time() - t0
+    seen = {}
+    sites = [site for site in kernel_call_sites()
+             if site[2] == "attention_fwd"]
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recording_kernel_inputs(torch, seen, sites=sites):
+        med, step_ms, losses, _ = timed_steps(
+            torch, np, trainer, batch, FP32_WARMUP_STEPS, FP32_TIMED_STEPS,
+            "fp32 ViT-B/16")
+    peak = torch.cuda.max_memory_allocated()
+    launches, by_variant, km = read_counts()
+    print(f"fp32 vitb16 training ({VITB16_PRESET} --precision fp32, batch "
+          f"{B}, remat on, set-up {t_setup:.2f} s): losses "
+          f"{[round(x, 6) for x in losses]}, step times "
+          f"{[round(x, 3) for x in step_ms]} ms; median of the "
+          f"{FP32_TIMED_STEPS} timed {med:.3f} ms = {B / med * 1e3:.2f} "
+          f"clips/s; peak memory allocated {peak / 2**30:.3f} GiB; launches "
+          f"{launches}, by variant {by_variant}, k-medoids {km}")
+    check("fp32 ViT-B/16 training", launches, by_variant, km, steps, 2,
+          True)
+    paths["fp32_vitb16_training"] = (launches, dict(by_variant, kmedoids=km))
+    out["training"] = dict(preset=VITB16_PRESET, precision="fp32", batch=B,
+                           remat=True, steps=steps, step_ms=med,
+                           clips_per_s=B / med * 1e3, step_ms_all=step_ms,
+                           losses=losses, peak_memory_bytes=peak)
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # ---- encode: 64 clips in batches of 32 and one search
+    out["encode"], (launches, by_variant, km), _ = gallery_encode(
+        torch, np, cfg, dev, counters, 52, "fp32clip", "fp32 vitb16 encode",
+        read_counts)
+    check("fp32 ViT-B/16 encode", launches, by_variant, km,
+          -(-N_CLIPS // BATCH), 1, False)
+    paths["fp32_vitb16_encode"] = (launches, dict(by_variant, kmedoids=km))
+
+    # ---- card against CPU
+    out["cpu_check"] = fp32_cpu_check(torch, np, dev, run, batch)
+    del batch
+    torch.cuda.empty_cache()
+
+    # ---- main on the fixture: 3 steps of 128, then its evaluation
+    flags = exp62_flags(pretrained_clip_name="ViT-B/16", remat="1",
+                        precision="fp32",
+                        cluster_num_blocks=["196"] * 6 + ["160"] * 6)
+    parsed = cli.parse_args(flags).model
+    pspec = next(s for s in parsed.cluster_plan() if s is not None)
+    if (parsed.compute_dtype, parsed.clip_name, parsed.remat,
+            pspec.frame_duration * pspec.before_cluster_num,
+            pspec.cluster_num) != ("float32", "ViT-B/16", True, N, K):
+        fail("fp32 main: the flags do not give the preset's model in fp32")
+    out["main"] = main_on_fixture(torch, np, counters, root, "fp32_vitb16",
+                                  flags, "fp32 vitb16 main")
+    launches, by_variant, km = read_counts()
+    print(f"fp32 vitb16 main: launches {launches}, by variant {by_variant}, "
+          f"k-medoids {km}")
+    # the evaluation's forwards run each block once (no remat), its text
+    # tower in batches of its own: held by variant, not by count
+    bf16 = [by[v] for by in by_variant.values() for v in by
+            if v not in ac.FP32_VARIANTS]
+    if any(bf16) or not by_variant["fused_attention"][ac.CUDA_CORE_LONG] \
+            or not by_variant["attention_backward"][ac.CUDA_CORE_LONG] or \
+            km != {kc.SHARED: 0, kc.GLOBAL: km[kc.GLOBAL], kc.LARGE: 0,
+                   kc.SCRATCH: 0} or not km[kc.GLOBAL]:
+        fail(f"fp32 main: attention ran {by_variant}, k-medoids {km}: not "
+             f"the fp32 variants alone, the long one among them, and E's "
+             f"global one")
+    paths["fp32_vitb16_main"] = (launches, dict(by_variant, kmedoids=km))
+    torch.cuda.empty_cache()
+
+    # ---- A and B on the steps' own inputs, then at the rows' shapes
+    held = []
+    for (_, key), (args, _) in seen.items():
+        qkv, H, mask = (list(args) + [None])[:3]
+        held.append(hold_attention_fp32(
+            torch, dev, flush, peaks, f"fp32 step {key[0]}", qkv.shape[0],
+            qkv.shape[1], H, mask is not None, qkv=qkv, mask=mask,
+            time_it=False))
+    seen.clear()
+    if sorted(r["shape"][1] for r, _ in held) != sorted({197, 161, text_L}):
+        fail(f"fp32 steps gave attention {[r['shape'] for r, _ in held]}")
+    rows = [hold_attention_fp32(torch, dev, flush, peaks, *case)
+            for case in FP32_ATTENTION_CASES]
+    torch.cuda.empty_cache()
+    out["thresholds"] = fp32_threshold_rows(torch, dev, flush)
+    torch.cuda.empty_cache()
+    return out, dict(paths=paths,
+                     attention_fwd=[f for f, _ in rows],
+                     attention_bwd=[b for _, b in rows],
+                     held_fwd=[f for f, _ in held],
+                     held_bwd=[b for _, b in held])
+
+
+def seg20_flags():
+    """Experiment 62's flags at ViT-B/16 with remat on SEG20_FRAMES frames,
+    clustered before block 7 into SEG20_SEGMENTS segments of SEG20_K
+    medoids (N = 196 SEG20_FRAMES / SEG20_SEGMENTS tokens a segment), at a
+    batch of SEG20_BATCH."""
+    return exp62_flags(
+        pretrained_clip_name="ViT-B/16", remat="1",
+        max_frames=str(SEG20_FRAMES), batch_size=str(SEG20_BATCH),
+        cluster_num_blocks=["196"] * 6 + [str(SEG20_K)] * 6,
+        target_frames_blocks=[str(SEG20_FRAMES)] * 6
+        + [str(SEG20_SEGMENTS)] * 6)
+
+
+def seg20_phase(torch, np, dev, flush, peaks, counters):
+    """The sixteenth main path: ViT-B/16 at full width with remat on
+    SEG20_FRAMES frames grouped into SEG20_SEGMENTS segments (N = 3920
+    tokens a segment, K = SEG20_K), bf16, through the flags both CLIs
+    take: an encode of SEG20_ENCODE_CLIPS clips (one batch: 96 segments,
+    D 5.9 GB) and a search, and SEG20_WARMUP_STEPS + SEG20_STEPS training
+    steps at batch SEG20_BATCH; kernel E held against its plain version on the step's
+    and the encode's tokens; then E's rows past the large variant: the
+    step's tokens at K = 160 and 392, as 12-frame segments at K = N =
+    2352, and one segment cut to N = 3137.  Counts are zeroed before each
+    run and read after it: E must run its scratch variant only."""
+    from centerclip_tpu_torch import cli
+    from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    from centerclip_tpu_torch.ops import kmedoids_cuda as kc
+    from centerclip_tpu_torch.serve import RetrievalEngine
+    from centerclip_tpu_torch.train import Trainer
+    run = cli.parse_args(seg20_flags())
+    cfg = run.model
+    spec = next(s for s in cfg.cluster_plan() if s is not None)
+    N, K = spec.frame_duration * spec.before_cluster_num, spec.cluster_num
+    if (N, K, cfg.clip_name, cfg.remat, run.batch_size) != (
+            196 * SEG20_FRAMES // SEG20_SEGMENTS, SEG20_K, "ViT-B/16", True,
+            SEG20_BATCH) or kc.choose_variant(N, K) != kc.SCRATCH:
+        fail(f"20-frame segments: the flags give N={N}, K={K}, "
+             f"{cfg.clip_name}, remat {cfg.remat}")
+
+    def read_counts():
+        """(launches by kernel, launches by variant of A, B and E)"""
+        return ({fn.__name__: fn.launches for fn in counters},
+                {"fused_attention": dict(ac.fused_attention.variant_launches),
+                 "attention_backward": dict(
+                     ac.attention_backward.variant_launches),
+                 "kmedoids": dict(kc.kmedoids_from_distances
+                                  .variant_launches)})
+
+    def check(label, launches, by_variant, n, backward):
+        launched(label, launches, [k for k in launches if backward
+                                   or not k.endswith("backward")])
+        km = by_variant["kmedoids"]
+        if km != {kc.SHARED: 0, kc.GLOBAL: 0, kc.LARGE: 0, kc.SCRATCH: n}:
+            fail(f"{label}: k-medoids ran {km}, not its scratch variant "
+                 f"alone {n} times")
+        for fn_name in ("fused_attention", "attention_backward"):
+            if any(by_variant[fn_name][v] for v in ac.FP32_VARIANTS):
+                fail(f"{label}: {fn_name} ran an fp32 variant on a bf16 "
+                     f"path: {by_variant[fn_name]}")
+
+    out, paths = {}, {}
+    # ---- encode: one batch of SEG20_ENCODE_CLIPS clips and a search
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0).eval()
+    engine = RetrievalEngine(model, device=dev)
+    g = np.random.default_rng(60)
+    n = SEG20_ENCODE_CLIPS
+    clips = g.integers(0, 256, (n, 1, SEG20_FRAMES, 3, RES, RES),
+                       dtype=np.uint8)
+    masks = np.ones((n, SEG20_FRAMES), np.int32)
+    ids = [f"seg20clip{i:03d}" for i in range(n)]
+    engine.build_index([{"video": clips[:1], "video_mask": masks[:1]}],
+                       ids[:1])                              # warm-up
+    engine.search(QUERIES, k=1)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    enc_x = {}
+    hook = first_input_hook(cluster_module(model), enc_x)
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    index = engine.build_index([{"video": clips, "video_mask": masks}], ids)
+    torch.cuda.synchronize()
+    t_enc = time.time() - t0
+    launches, by_variant = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hook.remove()
+    hits = engine.search(QUERIES, k=5)
+    gallery = index._codes[:n].float()
+    print(f"20-frame segments encode: {n} clips of {SEG20_FRAMES} frames "
+          f"({n * SEG20_SEGMENTS} segments of N={N}) in {t_enc:.3f} s = "
+          f"{n / t_enc:.2f} clips/s (one batch; set-up and warm-up "
+          f"{t_setup:.2f} s); peak memory {peak / 2**30:.3f} GiB; launches "
+          f"{launches}, by variant {by_variant}")
+    if tuple(gallery.shape) != (n, 512) or \
+            not bool(torch.isfinite(gallery).all()) or \
+            any(len(row) != 5 or not all(np.isfinite([h["score"]
+                                                      for h in row]))
+                for row in hits):
+        fail("20-frame segments: the gallery is not finite or the hits are "
+             "bad")
+    check("20-frame segments encode", launches, by_variant, 1, False)
+    paths["seg20_encode"] = (launches, by_variant)
+    out["encode"] = dict(encode_clips=n, segments=n * SEG20_SEGMENTS, N=N,
+                         K=K, encode_s=t_enc, encode_clips_per_s=n / t_enc,
+                         peak_memory_bytes=peak)
+    del engine, index, gallery, model, clips
+    torch.cuda.empty_cache()
+
+    # ---- training: a warm-up and a timed step at batch SEG20_BATCH
+    t0 = time.time()
+    model = CLIP4Clip(cfg, device=dev, seed=0)
+    steps = SEG20_WARMUP_STEPS + SEG20_STEPS
+    trainer = Trainer(run, model, total_steps=steps)
+    batch = seeded_batch(np, np.random.default_rng(61), SEG20_BATCH,
+                         cfg.max_frames, cfg.max_words)
+    t_setup = time.time() - t0
+    train_x = {}
+    hook = first_input_hook(cluster_module(model), train_x)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    med, step_ms, losses, _ = timed_steps(torch, np, trainer, batch,
+                                          SEG20_WARMUP_STEPS, SEG20_STEPS,
+                                          "20-frame segments")
+    peak = torch.cuda.max_memory_allocated()
+    launches, by_variant = read_counts()
+    hook.remove()
+    print(f"20-frame segments training (N={N}, K={K}, batch {SEG20_BATCH}, "
+          f"remat on, set-up {t_setup:.2f} s): losses {losses}, step times "
+          f"{[round(x, 3) for x in step_ms]} ms; peak memory allocated "
+          f"{peak / 2**30:.3f} GiB; launches {launches}, by variant "
+          f"{by_variant}")
+    check("20-frame segments training", launches, by_variant, steps, True)
+    paths["seg20_training"] = (launches, by_variant)
+    out["training"] = dict(N=N, K=K, batch=SEG20_BATCH, steps=steps,
+                           step_ms=med, step_ms_all=step_ms, losses=losses,
+                           peak_memory_bytes=peak)
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+
+    # ---- E on the path's tokens, then at the rows' shapes
+    iters = cfg.cluster.iter_limit
+    x = train_x.pop("x")
+    points = cluster_segments(x, SEG20_FRAMES, SEG20_SEGMENTS)
+    km_rows = [kmedoids_points_case(torch, flush, peaks,
+                                    "20-frame segments, step", points, K,
+                                    iters),
+               kmedoids_case(torch, flush, peaks, "20-frame segments, encode",
+                             enc_x.pop("x"), SEG20_FRAMES, SEG20_SEGMENTS, K,
+                             iters),
+               kmedoids_points_case(torch, flush, peaks,
+                                    "20-frame segments, K = 392", points,
+                                    392, iters),
+               kmedoids_points_case(
+                   torch, flush, peaks, "12-frame segments, K = N",
+                   cluster_segments(x, SEG20_FRAMES, SEG20_FRAMES // 12)[:8],
+                   12 * 196, iters),
+               kmedoids_points_case(torch, flush, peaks,
+                                    "a segment cut to N = 3137",
+                                    points[:1, :3137].contiguous(), K, iters)]
+    del x, points
+    torch.cuda.empty_cache()
+    shapes = [r["shape"][:2] for r in km_rows]
+    if shapes != [[SEG20_BATCH * SEG20_SEGMENTS, N],
+                  [SEG20_ENCODE_CLIPS * SEG20_SEGMENTS, N],
+                  [SEG20_BATCH * SEG20_SEGMENTS, N], [8, 2352], [1, 3137]] \
+            or any(r["variant"] != kc.SCRATCH for r in km_rows):
+        fail(f"20-frame segments: E held at {shapes}, "
+             f"{[r['variant'] for r in km_rows]}")
+    return out, dict(paths=paths, kmedoids=km_rows)
 
 
 class ScalarLog:
@@ -2235,7 +2911,8 @@ def activity_phase(torch, np, dev, flush, peaks, counters):
     for fn_name, n in launches.items():
         if n == 0:
             fail(f"{fn_name} was never launched on the activity path")
-    if km_variants != {kc.SHARED: steps, kc.GLOBAL: 0, kc.LARGE: 0}:
+    if km_variants != {kc.SHARED: steps, kc.GLOBAL: 0, kc.LARGE: 0,
+                       kc.SCRATCH: 0}:
         fail(f"activity k-medoids ran other variants: {km_variants}")
     del trainer, batch
     torch.cuda.empty_cache()
@@ -5204,6 +5881,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("long_segments")
 
+    # ----------- fp32 ViT-B/16 and 20-frame segments (fifteenth, sixteenth)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    fp32_res, f32 = fp32_vitb16_phase(torch, np, dev, flush, peaks,
+                                      counters, root)
+    path_counts.update(f32["paths"])
+    for kernel, held in (("attention_fwd", "held_fwd"),
+                         ("attention_bwd", "held_bwd")):
+        extend_forward_row(kernel, f32[kernel], key="fp32_shapes")
+        extend_forward_row(kernel, f32[held], key="fp32_step_shapes")
+    torch.cuda.empty_cache()
+    phase_done("fp32_vitb16")
+    seg20, s20 = seg20_phase(torch, np, dev, flush, peaks, counters)
+    del flush
+    path_counts.update(s20["paths"])
+    extend_forward_row("kmedoids", s20["kmedoids"], key="seg20_shapes")
+    torch.cuda.empty_cache()
+    phase_done("seg20")
+
     # --------------------- cluster algorithms and activity (sixth, seventh)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     cluster, cl = cluster_phase(torch, np, dev, flush, peaks, counters)
@@ -5314,6 +6009,43 @@ def main() -> int:
         fail("E's large variant or B past L = 256 never launched on the "
              "fourteenth path")
 
+    # A's and B's fp32 variants (the long one on the fifteenth path, the
+    # short one where a path ran it) and E's scratch variant (the
+    # sixteenth), rows of their own: their first shapes' numbers and their
+    # launches on those paths
+    for row_name, kernel, fn_name, variant, rows, paths, needed in (
+            ("attention_fwd_fp32_long", "attention_fwd", "fused_attention",
+             attention_cuda.CUDA_CORE_LONG, f32["attention_fwd"],
+             f32["paths"], True),
+            ("attention_bwd_fp32_long", "attention_bwd",
+             "attention_backward", attention_cuda.CUDA_CORE_LONG,
+             f32["attention_bwd"], f32["paths"], True),
+            ("attention_fwd_fp32", "attention_fwd", "fused_attention",
+             attention_cuda.CUDA_CORE, f32["attention_fwd"], f32["paths"],
+             False),
+            ("attention_bwd_fp32", "attention_bwd", "attention_backward",
+             attention_cuda.CUDA_CORE, f32["attention_bwd"], f32["paths"],
+             False),
+            ("kmedoids_scratch", "kmedoids", "kmedoids",
+             kmedoids_cuda.SCRATCH, s20["kmedoids"], s20["paths"], True)):
+        rows = [r for r in rows if r["variant"] == variant]
+        by_path = {p: v[fn_name][variant] for p, (_, v) in paths.items()}
+        if not sum(by_path.values()) and not needed:
+            continue
+        if not rows or not sum(by_path.values()):
+            fail(f"{row_name}: no row or no launch on its paths {by_path}")
+        base = next(r for r in results if r["name"] == kernel)
+        a = rows[0]
+        results.append(dict(
+            name=row_name, route="cuda", source=base["source"],
+            replaces=base["replaces"], variant=variant,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=a["ms"],
+            plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+            bound_by=a["bound_by"], library_ms=a.get("library_ms"),
+            **({"occupancy": a["occupancy"]} if "occupancy" in a else {}),
+            shapes=rows))
+
     print(f"total {time.time() - t_start:.1f} s; by phase (s) "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(json.dumps({"training": {**{k: v for k, v in train.items()
@@ -5324,6 +6056,8 @@ def main() -> int:
                                             "held")}}))
     print(json.dumps({"vitb16": vitb16}))
     print(json.dumps({"long_segments": long_seg}))
+    print(json.dumps({"fp32_vitb16": fp32_res}))
+    print(json.dumps({"seg20": seg20}))
     print(json.dumps({"serve": serve_res}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"activity": activity}))

@@ -15,6 +15,13 @@
   dS enters the dQ and dK products as the pair hi = T(dS), lo = T(dS - hi)
   of 16-bit operands with fp32 accumulation (two mma per product), emulated
   here with PyTorch and held against `attention_bwd_plain`.
+- The fp32 long variants' tiling (CUDA_CORE_LONG), emulated in fp32 and
+  held against the plain versions at L = 161, 197 and 393 (1e-5 forward,
+  1e-4 backward, the card's fp32 tolerances): the same passes and sums as
+  the bf16 long variants with no rounding to 16 bits (T = fp32 makes each
+  rounding the identity and the hi/lo pair (dS, 0)); the fp32 variants'
+  shared-memory layouts (the CUDA-core one's [L, L] limits, the long
+  one's independence of L).
 - The build's freshness rule: a library is rebuilt when its source or any
   header the source includes is newer.
 """
@@ -25,7 +32,9 @@ import pytest
 import torch
 
 from centerclip_tpu_torch.ops import _build, attention_cuda
-from centerclip_tpu_torch.ops.attention_cuda import (CUDA_CORE, TENSOR_CORE,
+from centerclip_tpu_torch.ops.attention_cuda import (CUDA_CORE,
+                                                     CUDA_CORE_LONG,
+                                                     TENSOR_CORE,
                                                      TENSOR_CORE_LONG,
                                                      choose_variant)
 
@@ -52,8 +61,25 @@ BF16_ATOL, BF16_RTOL = 1.6e-2, 1.6e-2
     (torch.bfloat16, 64, 257, True, TENSOR_CORE_LONG),    # past 4 key tiles
     (torch.bfloat16, 64, 393, True, TENSOR_CORE_LONG),    # K = 392 + CLS
     (torch.float16, 64, 1024, True, TENSOR_CORE_LONG),    # no backward limit
-    (torch.float32, 64, 50, False, CUDA_CORE),
-    (torch.float32, 40, 197, True, CUDA_CORE),        # fp32: any head_dim
+    (torch.float32, 64, 50, False, CUDA_CORE_LONG),   # fp32 past 40
+    (torch.float32, 40, 197, True, CUDA_CORE_LONG),   # fp32: any head_dim
+    (torch.float32, 64, 32, False, CUDA_CORE),        # the text tower
+    (torch.float32, 64, 32, True, CUDA_CORE),
+    (torch.float32, 64, 40, True, CUDA_CORE),         # FP32_SHORT_RANGES
+    (torch.float32, 64, 64, True, CUDA_CORE_LONG),    # one key tile
+    (torch.float32, 64, 77, True, CUDA_CORE),         # just past one tile
+    (torch.float32, 64, 77, False, CUDA_CORE_LONG),
+    (torch.float32, 64, 96, True, CUDA_CORE_LONG),
+    (torch.float32, 64, 48, True, CUDA_CORE),
+    (torch.float32, 64, 49, True, CUDA_CORE_LONG),
+    (torch.float32, 64, 72, False, CUDA_CORE),
+    (torch.float32, 64, 73, False, CUDA_CORE_LONG),
+    (torch.float32, 64, 41, False, CUDA_CORE_LONG),
+    (torch.float32, 64, 161, True, CUDA_CORE_LONG),   # ViT-B/16 blocks 7-12
+    (torch.float32, 128, 785, True, CUDA_CORE_LONG),  # no length limit
+    (torch.float32, 33, 77, False, CUDA_CORE_LONG),   # any head_dim <= 128
+    (torch.float32, 512, 30, False, CUDA_CORE),       # fits the short one
+    (torch.float32, 192, 64, False, CUDA_CORE),       # past 128, where it fits
 ])
 def test_choose_variant(dtype, hd, L, backward, expected):
     assert choose_variant(dtype, hd, L, backward) == expected
@@ -64,6 +90,8 @@ def test_choose_variant(dtype, hd, L, backward, expected):
     (torch.float16, 72, 32, True),
     (torch.float64, 64, 50, False),       # no float64 kernel
     (torch.bfloat16, 64, 0, False),       # empty sequence
+    (torch.float32, 192, 197, False),     # fp32 long: head_dim <= 128
+    (torch.float32, 512, 40, True),       # short scores do not fit
 ])
 def test_choose_variant_raises(dtype, hd, L, backward):
     with pytest.raises(ValueError):
@@ -227,6 +255,75 @@ def test_long_backward_tiles_cover_every_row_once():
         rows = sorted(i for i0 in tiles for i in range(i0, min(i0 + TILE, L)))
         assert rows == list(range(L))
         assert len(tiles) * TILE >= L > (len(tiles) - 1) * TILE
+
+
+# ---------------------------------------------- the fp32 long variants
+def _fp32_qkv_dout(L, B=2, H=12, hd=64):
+    g = np.random.default_rng(L + 1)
+    qkv = torch.from_numpy(g.standard_normal((B, L, 3 * H * hd)).astype(
+        np.float32))
+    dout = torch.from_numpy(g.standard_normal((B, L, H * hd)).astype(
+        np.float32))
+    return qkv, dout, H
+
+
+@pytest.mark.parametrize("L", [161, 197, 393])
+def test_fp32_long_forward_tiling_keeps_the_plain_forward(L):
+    """CUDA_CORE_LONG's forward (pass 1: m and l over 64-key tiles, pass 2:
+    P = exp(S - m) / l in fp32 and P.V summed tile after tile) on fp32
+    inputs stays within the card's fp32 tolerance of `attention_plain`."""
+    qkv, _, H = _fp32_qkv_dout(L)
+    assert choose_variant(torch.float32, 64, L) == CUDA_CORE_LONG
+    torch.testing.assert_close(_long_fwd_emulated(qkv, H),
+                               attention_cuda.attention_plain(qkv, H),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("L", [161, 197, 393])
+def test_fp32_key_tiled_statistics_keep_the_plain_backward(L):
+    """CUDA_CORE_LONG's backward (m, l and a = sum exp(s - m) dP over
+    64-key tiles, delta = a / l; dQ over key tiles in order; dK and dV
+    per key tile over query blocks in order; dS in fp32) on fp32 inputs
+    stays within the card's fp32 tolerance of `attention_bwd_plain`."""
+    qkv, dout, H = _fp32_qkv_dout(L)
+    assert choose_variant(torch.float32, 64, L, backward=True) \
+        == CUDA_CORE_LONG
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H)
+    torch.testing.assert_close(_long_bwd_emulated(qkv, dout, H), ref,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_fp32_short_variant_limits_and_threshold():
+    """The CUDA-core variant's [L, L] scores fit a CTA to L = 163 forward
+    and 108 backward at head_dim 64 (`fp32_short_smem_bytes`, as
+    csrc/attention.cu and attention_bwd.cu size them); FP32_SHORT_RANGES,
+    set from the card's times, lie under them."""
+    limit = _build.MAX_SMEM_BYTES
+    size = attention_cuda.fp32_short_smem_bytes
+    assert size(163, 64, False) <= limit < size(164, 64, False)
+    assert size(108, 64, True) <= limit < size(109, 64, True)
+    for backward, fits in ((False, 163), (True, 108)):
+        for lo, hi in attention_cuda.FP32_SHORT_RANGES[backward]:
+            assert 0 <= lo < hi <= fits
+
+
+def test_fp32_long_layouts_fit_a_cta_whatever_l():
+    """CUDA_CORE_LONG's shared memory (csrc/f32_tile.cuh strides: head
+    tiles of 64 rows, pad4(hd) + 4 floats apart; score tiles 68 floats
+    apart): the forward's q, two K / V ring stages and P; the dQ kernel's
+    q, dO, two K / V stages and dS; the dK / dV kernel's K, V, two q / dO
+    / statistics stages and P^T and dS^T (one tile for both past 64
+    channels).  No term has L in it, and every head_dim <= 128 fits."""
+    def pad4(x):
+        return (x + 3) // 4 * 4
+
+    def sizes(hd):
+        head, score = 64 * (pad4(hd) + 4), 64 * 68
+        return ((5 * head + score) * 4, (6 * head + score) * 4,
+                (6 * head + 2 * 3 * 64 + (2 if hd <= 64 else 1) * score) * 4)
+    assert sizes(64) == (104_448, 121_856, 140_800)
+    assert all(max(sizes(hd)) <= _build.MAX_SMEM_BYTES
+               for hd in range(1, 129))
 
 
 # --------------------------------------------------------- hi/lo dS operands

@@ -16,7 +16,7 @@ import torch
 
 from centerclip_tpu_torch import config as port_config
 from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
-from centerclip_tpu_torch.ops import attention_cuda, kmedoids_cuda
+from centerclip_tpu_torch.ops import _build, attention_cuda, kmedoids_cuda
 from centerclip_tpu_torch.ops import layernorm_triton
 from centerclip_tpu_torch.ops.distances import pairwise_distance
 from centerclip_tpu_torch.ops.kmedoids import (batch_fast_kmedoids,
@@ -58,6 +58,7 @@ def _causal(L, device):
     (4, 50, 12, 64, torch.float32, False),
     (3, 77, 8, 64, torch.float16, True),
     (2, 197, 12, 64, torch.bfloat16, False),    # ViT-B/16 length
+    (2, 64, 2, 192, torch.float32, False),      # fp32 past head_dim 128
 ])
 def test_attention_kernel_matches_plain(cuda, B, L, H, hd, dtype, causal):
     qkv = _randn((B, L, 3 * H * hd), dtype, cuda, seed=L + H)
@@ -78,9 +79,9 @@ def test_attention_rejects_what_it_cannot_take(cuda):
         attention_cuda.fused_attention(qkv[:, ::2], 12)          # strided
     with pytest.raises(ValueError):
         attention_cuda.fused_attention(qkv, 7)                   # heads
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):                 # fp32 head_dim > 128
         attention_cuda.fused_attention(
-            _randn((1, 400, 3 * 768), torch.float32, cuda), 12)  # smem
+            _randn((1, 400, 3 * 768), torch.float32, cuda), 4)
     with pytest.raises(ValueError):                              # hd % 16
         attention_cuda.fused_attention(
             _randn((2, 50, 3 * 240), torch.bfloat16, cuda), 6)
@@ -260,12 +261,14 @@ def test_kmedoids_kernel_matches_plain(cuda, B, N, Dim, K, distance,
 
 
 def test_kmedoids_kernel_rejects_large_n(cuda):
-    X = _randn((1, kmedoids_cuda.LARGE_MAX_N + 1, 16), torch.float32, cuda)
-    with pytest.raises(ValueError, match=str(kmedoids_cuda.LARGE_MAX_N)):
+    """Past MAX_N the member masks pass 32-bit indices: raised before the
+    distances are computed; and K past N."""
+    X = _randn((1, kmedoids_cuda.MAX_N + 1, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match=str(kmedoids_cuda.MAX_N)):
         kmedoids_cuda.kmedoids(X, 49)
     X = _randn((1, 2352, 16), torch.float32, cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        kmedoids_cuda.kmedoids(X, 2352)        # member masks past 227 KB
+    with pytest.raises(ValueError, match="K <= N"):
+        kmedoids_cuda.kmedoids(X, 2353)
 
 
 def test_distances_symmetric_on_card(cuda):
@@ -302,6 +305,7 @@ def _abs_ds_sum(qkv, dout, H, mask):
     (8, 32, 8, 64, torch.bfloat16, True, True),        # dmask atomics
     (4, 50, 12, 64, torch.float32, False, False),
     (3, 77, 8, 64, torch.float16, True, True),
+    (2, 50, 2, 192, torch.float32, False, False),   # fp32 past head_dim 128
 ])
 def test_attention_bwd_kernel_matches_plain(cuda, B, L, H, hd, dtype, causal,
                                             mask_grad):
@@ -420,11 +424,106 @@ def test_attention_long_vitb16_shapes(cuda, B, L):
 
 def test_attention_long_occupancy(cuda):
     """The long kernels' registers and shared memory leave room for the
-    CTAs per SM their launch bounds aim at (4 for A, 3 for B's two)."""
+    CTAs per SM their launch bounds aim at (4 for A, 3 for B's two; in
+    fp32, 2 for A and 1 for B's two, also at head_dim 128)."""
     fwd = attention_cuda.long_occupancy(torch.bfloat16, 64)
     bwd = attention_cuda.long_occupancy(torch.bfloat16, 64, backward=True)
     assert fwd["attention_fwd_long_kernel"]["ctas_per_sm"] >= 4, fwd
     assert all(v["ctas_per_sm"] >= 3 for v in bwd.values()), bwd
+    fwd = attention_cuda.long_occupancy(torch.float32, 64)
+    assert fwd["attention_fwd_f32_long_kernel"]["ctas_per_sm"] >= 2, fwd
+    for hd in (64, 128):
+        bwd = attention_cuda.long_occupancy(torch.float32, hd, backward=True)
+        assert all(v["ctas_per_sm"] >= 1 for v in bwd.values()), bwd
+
+
+# the fp32 long variant (CUDA_CORE_LONG): the first L both directions
+# take it at, one 64-row tile, past it, ragged tiles, ViT-B/16's L = 161
+# and 197, K = 392's 393, L = 785; a causal mask on some (no mask
+# gradient)
+FP32_LONG_CASES = [(49, False), (64, False), (129, True), (161, False),
+                   (197, False), (197, True), (393, False), (785, True)]
+
+
+@pytest.mark.parametrize("L,causal", FP32_LONG_CASES)
+def test_attention_fp32_long_matches_plain(cuda, L, causal):
+    """Kernels A and B's fp32 long variant within the fp32 tolerances
+    (1e-5 forward, 1e-4 backward) of the plain versions, B twice equal to
+    the bit, each counted under its variant."""
+    B, H = 3, 12
+    qkv = _randn((B, L, 3 * H * 64), torch.float32, cuda, seed=L + 7)
+    dout = _randn((B, L, H * 64), torch.float32, cuda, seed=L + 8)
+    mask = _causal(L, cuda) if causal else None
+    f0 = _variant_counts(attention_cuda.fused_attention)
+    b0 = _variant_counts(attention_cuda.attention_backward)
+    out = attention_cuda.fused_attention(qkv, H, mask)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
+    again, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
+    torch.cuda.synchronize()
+    for fn, before, n in ((attention_cuda.fused_attention, f0, 1),
+                          (attention_cuda.attention_backward, b0, 2)):
+        assert fn.variant_launches[attention_cuda.CUDA_CORE_LONG] == \
+            before[attention_cuda.CUDA_CORE_LONG] + n
+    assert torch.equal(dqkv, again)
+    torch.testing.assert_close(out, attention_cuda.attention_plain(
+        qkv, H, mask), rtol=1e-5, atol=1e-5)
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H, mask)
+    torch.testing.assert_close(dqkv, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("hd", [16, 33, 40, 96, 128])
+def test_attention_fp32_long_head_dims(cuda, hd):
+    """Any head_dim <= 128: 16-byte copies where it is a multiple of 4,
+    4-byte ones else; one or two 64-channel register tiles."""
+    B, L, H = 2, 197, 2
+    qkv = _randn((B, L, 3 * H * hd), torch.float32, cuda, seed=hd)
+    dout = _randn((B, L, H * hd), torch.float32, cuda, seed=hd + 1)
+    assert attention_cuda.choose_variant(torch.float32, hd, L) == \
+        attention_cuda.CUDA_CORE_LONG
+    torch.testing.assert_close(attention_cuda.fused_attention(qkv, H),
+                               attention_cuda.attention_plain(qkv, H),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        attention_cuda.attention_backward(qkv, dout, H)[0],
+        attention_cuda.attention_bwd_plain(qkv, dout, H)[0],
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,L", [(1536, 197), (768, 161), (384, 393)])
+def test_attention_fp32_vitb16_shapes(cuda, B, L):
+    """ViT-B/16's full-width fp32 shapes: both fp32 long kernels within
+    the fp32 tolerances, the backward through the autograd Function to the
+    bit."""
+    H = 12
+    qkv = _randn((B, L, 3 * H * 64), torch.float32, cuda, seed=B + L)
+    dout = _randn((B, L, H * 64), torch.float32, cuda, seed=B + L + 1)
+    x = qkv.clone().requires_grad_(True)
+    out = attention_cuda.fused_attention(x, H)
+    out.backward(dout)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H)
+    assert torch.equal(x.grad, dqkv)
+    torch.testing.assert_close(out.detach(), attention_cuda.attention_plain(
+        qkv, H), rtol=1e-5, atol=1e-5)
+    del out, x
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H)
+    torch.testing.assert_close(dqkv, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("L", [32, 40, 50, 77, 108])
+def test_attention_fp32_variants_agree_where_both_run(cuda, L):
+    """Where the CUDA-core variant fits too, the two fp32 variants agree
+    within the fp32 tolerances (other sums, other orders)."""
+    B, H = 4, 8
+    qkv = _randn((B, L, 3 * H * 64), torch.float32, cuda, seed=L + 3)
+    dout = _randn((B, L, H * 64), torch.float32, cuda, seed=L + 4)
+    mask = _causal(L, cuda)
+    outs = [attention_cuda._forward(qkv, H, mask, variant=v)
+            for v in attention_cuda.FP32_VARIANTS]
+    grads = [attention_cuda.attention_backward(qkv, dout, H, mask,
+                                               variant=v)[0]
+             for v in attention_cuda.FP32_VARIANTS]
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
 
 
 def test_attention_function_backward_is_the_kernel(cuda):
@@ -453,10 +552,10 @@ def test_attention_bwd_rejects_what_it_cannot_take(cuda):
         attention_cuda.attention_backward(
             _randn((1, 50, 3 * 80), torch.bfloat16, cuda),
             _randn((1, 50, 80), torch.bfloat16, cuda), 2)
-    with pytest.raises(ValueError):                     # fp32 shared memory
+    with pytest.raises(ValueError):                     # fp32 head_dim > 128
         attention_cuda.attention_backward(
             _randn((1, 197, 3 * 768), torch.float32, cuda),
-            _randn((1, 197, 768), torch.float32, cuda), 12)
+            _randn((1, 197, 768), torch.float32, cuda), 4)
     small = _randn((2, 50, 3 * 768), torch.bfloat16, cuda)
     with pytest.raises(ValueError):                     # dout shape
         attention_cuda.attention_backward(small, dout, 12)
@@ -838,6 +937,80 @@ def test_kmedoids_large_variant_equals_global(cuda, N, K):
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,N,K", [
+    (2, 3920, 160),     # a 20-frame ViT-B/16 segment
+    (1, 3920, 392),
+    (2, 2352, 2352),    # a 12-frame clip, every token a medoid
+    (1, 3137, 160),     # the first N past the large variant
+    (2, 2352, 1000),    # member masks past the large layout
+])
+def test_kmedoids_scratch_variant_matches_plain(cuda, B, N, K):
+    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.SCRATCH
+    before = dict(kmedoids_cuda.kmedoids_from_distances.variant_launches)
+    X = _blobs(B, N, 64, 60, seed=N + K, device=cuda)
+    _check_kmedoids_on_distances(X, K)
+    after = kmedoids_cuda.kmedoids_from_distances.variant_launches
+    assert after[kmedoids_cuda.SCRATCH] == before[kmedoids_cuda.SCRATCH] + 1
+
+
+@pytest.mark.parametrize("N,K", [(513, 160), (784, 160), (2352, 392),
+                                 (3136, 392)])
+def test_kmedoids_scratch_variant_equals_large(cuda, N, K):
+    """Where both run, the scratch variant gives the large one's bits: the
+    same steps with the member masks in device memory."""
+    X = _blobs(16, N, 64, 60, seed=N + 1, device=cuda)
+    _, D, l2 = kmedoids_inputs(X)
+    outs = [kmedoids_cuda.kmedoids_from_distances(D, l2, K, variant=v)
+            for v in (kmedoids_cuda.LARGE, kmedoids_cuda.SCRATCH)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,N,K,span", [(2, 3920, 160, 3000),
+                                        (2, 3920, 392, 300),
+                                        (2, 2352, 2352, 3000),
+                                        # the state past shared memory too
+                                        (1, 18000, 160, 3000)])
+def test_kmedoids_scratch_variant_equals_plain_ids_and_steps(cuda, B, N, K,
+                                                             span):
+    """On integer distances (every sum exact in any order) the scratch
+    variant gives the plain version's ids and assignment in every
+    segment, and each segment's Lloyd steps are the plain version's steps
+    to its fixed point."""
+    from centerclip_tpu_torch.ops.kmedoids import (fixed_point_steps,
+                                                   kmedoids_on_distances)
+    X, D, l2 = _line_distances(B, N, N + K + span, cuda, span)
+    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.SCRATCH
+    a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(D, l2, K)
+    a2, m2 = kmedoids_on_distances(X, D, l2, K, iter_limit=100)
+    assert torch.equal(m1, m2)
+    assert torch.equal(a1, a2)
+    assert torch.equal(steps, fixed_point_steps(D, l2, K, 100))
+
+
+def test_attention_fp32_short_layout_is_the_sources(cuda):
+    """`fp32_short_smem_bytes`, which `choose_variant` reads, is the
+    sources' own `simt_smem`, forward and backward."""
+    for backward, src, fn in ((False, "attention",
+                               "cc_attention_simt_smem_bytes"),
+                              (True, "attention_bwd",
+                               "cc_attention_bwd_simt_smem_bytes")):
+        lib = _build.load(src)
+        for L, hd in ((32, 64), (40, 512), (77, 33), (108, 64), (163, 64)):
+            assert attention_cuda.fp32_short_smem_bytes(L, hd, backward) \
+                == _build.smem_bytes(lib, fn, L, hd)
+
+
+def test_kmedoids_large_layout_is_the_sources(cuda):
+    """`large_smem_bytes`, which `choose_variant` reads, is the source's
+    own `global_smem_bytes`."""
+    lib = _build.load("kmedoids")
+    for N, K in ((513, 160), (2352, 392), (3136, 392), (2352, 2352)):
+        assert kmedoids_cuda.large_smem_bytes(N, K) == _build.smem_bytes(
+            lib, "cc_kmedoids_large_smem_bytes", N, K)
 
 
 @pytest.mark.parametrize("N,K", [(98, 49), (147, 49), (196, 98), (232, 116)])

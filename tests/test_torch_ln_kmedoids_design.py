@@ -563,15 +563,56 @@ def test_global_design_iteration_limits_and_no_sort(iter_limit, id_sort):
     (512, kmedoids_cuda.GLOBAL), (513, kmedoids_cuda.LARGE),
     (588, kmedoids_cuda.LARGE), (784, kmedoids_cuda.LARGE),
     (1024, kmedoids_cuda.LARGE), (2352, kmedoids_cuda.LARGE),
-    (3136, kmedoids_cuda.LARGE)])
+    (3136, kmedoids_cuda.LARGE), (3137, kmedoids_cuda.SCRATCH),
+    (3920, kmedoids_cuda.SCRATCH), (262_143, kmedoids_cuda.SCRATCH)])
 def test_kmedoids_variant_from_n(N, variant):
     assert kmedoids_cuda.choose_variant(N) == variant
 
 
-@pytest.mark.parametrize("N", [0, 3137])
+@pytest.mark.parametrize("N", [0, 262_144])
 def test_kmedoids_variant_raises_past_its_range(N):
-    with pytest.raises(ValueError, match="3136"):
+    """Past MAX_N (262 143) the member masks of K = N, K ceil(N / 32)
+    words, pass what 32-bit indices address."""
+    with pytest.raises(ValueError, match="262143"):
         kmedoids_cuda.choose_variant(N)
+
+
+@pytest.mark.parametrize("N,K,variant", [
+    (98, 98, kmedoids_cuda.SHARED), (512, 512, kmedoids_cuda.GLOBAL),
+    (784, 784, kmedoids_cuda.LARGE),      # every K fits the large layout
+    (2352, 392, kmedoids_cuda.LARGE),
+    (2352, 1000, kmedoids_cuda.SCRATCH),  # the member masks pass 227 KB
+    (2352, 2352, kmedoids_cuda.SCRATCH),
+    (3136, 392, kmedoids_cuda.LARGE), (3137, 160, kmedoids_cuda.SCRATCH),
+    (3920, 160, kmedoids_cuda.SCRATCH), (3920, 392, kmedoids_cuda.SCRATCH)])
+def test_kmedoids_variant_from_n_and_k(N, K, variant):
+    """Past the global variant, K decides too: LARGE where its shared
+    memory (`large_smem_bytes`) holds K's member masks, SCRATCH else."""
+    assert kmedoids_cuda.choose_variant(N, K) == variant
+    if N > kmedoids_cuda.GLOBAL_MAX_N:
+        fits = kmedoids_cuda.large_smem_bytes(N, K) <= _build.MAX_SMEM_BYTES
+        assert fits == (variant == kmedoids_cuda.LARGE) or N > 3136
+
+
+def test_scratch_variant_layout():
+    """The scratch variant (csrc/kmedoids.cu `scratch_state_bytes`,
+    `scratch_words`): its per-point and per-cluster state, 13 N + 10 K
+    bytes, stays in shared memory up to the limit beside its static 256
+    bytes, its member masks, K ceil(N / 32) words a segment, go to the
+    device-memory scratch (with the state where shared memory cannot hold
+    it), in multiples of 16 bytes."""
+    def state(N, K):
+        return (3 * N + 2 * K) * 4 + (N + 2 * K + 3) // 4 * 4
+
+    def words(N, K):
+        w = K * -(-N // 32) + (0 if state(N, K) <= _build.MAX_SMEM_BYTES
+                               - 256 else state(N, K) // 4)
+        return (w + 3) // 4 * 4
+    assert state(3920, 160) == 52_560 and words(3920, 160) == 160 * 123
+    assert words(2352, 2352) == 2352 * 74           # 691 KB, state shared
+    assert state(17_000, 17_000) > _build.MAX_SMEM_BYTES   # state to scratch
+    assert words(17_000, 17_000) == (17_000 * 532 + state(17_000, 17_000)
+                                     // 4 + 3) // 4 * 4
 
 
 def test_shared_variant_fits_at_any_k():

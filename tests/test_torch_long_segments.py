@@ -322,7 +322,7 @@ def test_large_variant_layout_fits_up_to_its_limit():
     assert smem(n, 392) <= _build.MAX_SMEM_BYTES
     assert smem(2352, 392) < 160_000
     assert smem(784, 160) < 30_000
-    assert smem(2352, 2352) > _build.MAX_SMEM_BYTES   # the wrapper refuses
+    assert smem(2352, 2352) > _build.MAX_SMEM_BYTES   # the scratch variant's
 
 
 # ------------------------------------------------------------ the whole path
