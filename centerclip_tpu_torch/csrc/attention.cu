@@ -54,27 +54,33 @@
 //   [L, L, hd] products (S twice, P.V once) are ~0.75 L flops per byte of
 //   q, k, v and out (148 at L = 197), below the ~295 flop/byte ridge, so
 //   moving those bytes bounds it (PERF.md has its time beside the bound).
-// * attention_fwd_kernel (fp32, short): CUDA cores, the products as fmaf
-//   loops from shared memory (tensor cores have no exact fp32 product, and
-//   TF32 is off in the port), the fp32 [L, L] scores in shared memory:
-//   3 L hd + L^2 floats, which past L = 163 (hd = 64) no CTA can hold.
-// * attention_fwd_f32_long_kernel (fp32, long): the long variant's tiling
-//   in fp32 on CUDA cores.  One CTA of 256 threads takes (item, 64 query
-//   rows) and streams K and V through a two-stage cp.async ring of 64-row
-//   tiles, so its shared memory does not grow with L (102 KB at hd = 64:
-//   2 CTAs an SM).  Pass 1 finds each row's max m and l = sum exp(s - m)
-//   over the key tiles, pass 2 recomputes S, forms P = exp(S - m) / l in
-//   fp32 (expf and a division, as the plain version's softmax) and adds
-//   P.V of each tile, tiles in order.  Every product is fp32 FFMA from
-//   register tiles of 4 x 4 outputs a thread (threads 16 x 16 over the
-//   64 x 64 tile): the products over head channels read both operands'
-//   rows as float4 along the channels, the P.V product P's rows along the
-//   keys and V's along the channels.  Bound on this card: S and P.V are
-//   4 L^2 hd flops a head (6 with S computed twice) against 16 L hd bytes
-//   of q, k, v and out, 0.25 L flops per byte (49 at L = 197), above the
-//   ~20 flop/byte ridge of fp32 FFMA (67 TFLOP/s over 3.35 TB/s): the FFMA
-//   rate bounds it, and the design issues 16 FFMA for every 2 shared loads
-//   of 16 bytes.
+// * attention_fwd_kernel (fp32, short: "cuda_core"): CUDA cores, the
+//   products as fmaf loops from shared memory, the fp32 [L, L] scores in
+//   shared memory: 3 L hd + L^2 floats, which past L = 163 (hd = 64) no CTA
+//   can hold.  Kept for head_dim > 128 and for the lengths where the card
+//   shows it faster (ops/attention_cuda.py, FP32_SHORT_RANGES).
+// * attention_fwd_tf32x3_kernel (fp32, "tf32x3", any L, hd <= 128): the
+//   tensor cores in three TF32 passes (csrc/f32_tile.cuh: x = hi + lo,
+//   hi = tf32(x), lo = tf32(x - hi), a product as lo.hi + hi.lo + hi.hi by
+//   mma.m16n8k8 with fp32 accumulation; only lo.lo, ~2^-22 relative, is
+//   dropped).  One CTA of 4 warps takes (item, 64 query rows) and streams
+//   K and V, alternately, as split 32-row tiles through a two-stage
+//   cp.async ring (52 KB at hd = 64, 122 registers: 4 CTAs an SM; 32-row
+//   stages at 4 CTAs ran faster on the card than 64-row ones at 2, and
+//   only the rows before L, padded to 8, are loaded and split).  One pass
+//   with an online softmax (the running max, O rescaled, 1 / l at the
+//   end), P kept in fp32 registers and split once into the A fragments of
+//   P.V.  Where asked it also writes each row's log-sum-exp for the
+//   backward.  cuBLAS and cuDNN TF32 stay off in the port
+//   (set_fp32_numerics): the split is this kernel's own arithmetic.
+//   Measured on an H100 against the plain version's fp32: at most 0.35 of
+//   the 1e-5 + 1e-5 |ref| tolerance (L = 393), 0.20-0.30 at ViT-B/16's
+//   197; one TF32 pass would miss it 28-100x (CPU emulation,
+//   tests/test_torch_attention_design.py).  Bound on this card: S and
+//   P.V are 4 L^2 hd flops a head against 16 L hd bytes (49 flops a byte
+//   at L = 197); the three passes make 12 L^2 hd TF32 flops, which at
+//   495 TFLOP/s take about what the bytes take at 3.35 TB/s (PERF.md has
+//   its time beside both and SDPA fp32).
 //
 // The TPU kernel's block-diagonal multi-sample batching was a device of the
 // TPU's matrix unit and is not carried over.
@@ -573,120 +579,151 @@ int launch_long(const void* qkv, const void* mask, void* out, int B, int L, int 
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ fp32, long (CUDA cores)
-using cc::f32::kLd;
-using cc::f32::kThreads;
+// --------------------------------- fp32 (tensor cores, three TF32 passes)
+namespace f32 = cc::f32;
+constexpr int kF32Keys = 32;       // keys per ring stage
+constexpr int kF32Ctas = 4;        // CTAs per SM at hd <= 64 (one past 64)
 
-// shared memory (fp32): the CTA's 64 q rows, a ring of two stages of K and
-// V tiles, and P [64 rows][64 keys]: 104 448 bytes at hd = 64
-__host__ __device__ inline size_t f32_long_smem(int hd) {
-  return ((size_t)(1 + 2 * cc::kRing) * kTile * cc::f32::ld_rows(hd) + kTile * kLd) *
-         sizeof(float);
+// shared memory (fp32): the CTA's 64 raw q rows and a ring of two stages,
+// each one kF32Keys-row tile of K or V as its hi and lo halves: 52 224
+// bytes at hd = 64
+__host__ __device__ inline size_t tf32x3_smem(int hd) {
+  return (size_t)(kTile + 2 * cc::kRing * kF32Keys) * f32::ld_rows(hd) * sizeof(float);
 }
 
 // One CTA per (sample, head, block of 64 query rows), an item's blocks
-// neighbours in launch order (K and V from L2 after the first).  Thread
-// (ty, tx) = (tid / 16, tid % 16) owns query rows ty * 4 + i and, in a
-// 64 x 64 tile of scores, keys tx + 16 j; in O, channels tx * 4 + c + 64 g.
-template <int NG>
-__global__ void __launch_bounds__(kThreads, 2)
-attention_fwd_f32_long_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
-                              float* __restrict__ out, int L, int H, int hd, float scale) {
+// neighbours in launch order (K and V from L2 after the first); each warp
+// owns 16 query rows.  The steps alternate a key tile's K (S = qs.K^T and
+// the online softmax: the running max m, l = sum exp(s - m) and O rescaled
+// when m grows, P = exp(S - m) in fp32 registers) and its V (O += P.V), so
+// one ring stage holds one split tile.  A key tile at the end is cut to a
+// multiple of 8 keys.  After the last tile O / l is written and, where
+// `lse` is not null, each row's log-sum-exp m + ln l ([B*H][L], fp32) for
+// the backward.  NG: 64-channel groups of O in registers (1 or 2).
+template <int HD, int NG>
+__global__ void __launch_bounds__(kWarps * 32, NG == 1 ? kF32Ctas : 1)
+attention_fwd_tf32x3_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                            float* __restrict__ out, float* __restrict__ lse, int L, int H,
+                            int hd_arg, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldr = cc::f32::ld_rows(hd), rtile = kTile * ldr;
+  const int hd = HD ? HD : hd_arg;         // HD: a head_dim compiled in, else 0
+  constexpr int KT = kF32Keys;
+  const int hp = f32::pad8(hd), ld = hp + 4, tile = KT * ld;
   const int n_kt = (L + kTile - 1) / kTile;
   const int item = blockIdx.x / n_kt, r0 = (blockIdx.x % n_kt) * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = r0 + warp * 16;           // the warp's first query row
+  const bool active = q0 < L;
   float* sq = reinterpret_cast<float*>(smem);
-  float* ring = sq + rtile;                  // stage s: K at ring + 2 s rtile, V next
-  float* sp = ring + 2 * cc::kRing * rtile;  // P [64][kLd]
+  float* ring = sq + kTile * ld;           // stage s: hi at ring + 2 s tile, lo next
   const int D = H * hd;
   const size_t row = 3 * (size_t)D;
   const float* base = qkv + (size_t)(item / H) * L * row + (size_t)(item % H) * hd;
-  float* ob = out + (size_t)(item / H) * L * D + (size_t)(item % H) * hd;
-  const bool vec = cc::f32::vec_ok(qkv, hd);
-  const int n_steps = 2 * n_kt;
+  const bool vec = f32::vec_ok(qkv, hd);
+  const int n_steps = 2 * ((L + KT - 1) / KT);   // step s: K (s even) or V of key tile s / 2
 
   auto prefetch = [&](int s) {
-    if (s < n_steps) {
-      float* st = ring + (s % cc::kRing) * 2 * rtile;
-      const int k0 = (s % n_kt) * kTile;
-      cc::f32::load_tile(st, ldr, base + D, row, k0, L, hd, vec);
-      if (s >= n_kt) cc::f32::load_tile(st + rtile, ldr, base + 2 * D, row, k0, L, hd, vec);
-    }
+    const int k0 = (s >> 1) * KT;
+    if (s < n_steps)
+      f32::load_tile<KT>(ring + (s % cc::kRing) * 2 * tile, ld, base + (1 + (s & 1)) * D,
+                         row, k0, L, hd, vec, f32::live_rows<KT>(k0, L));
     cc::cp_async_commit();
   };
-  cc::f32::load_tile(sq, ldr, base, row, r0, L, hd, vec);
+  f32::load_tile<kTile>(sq, ld, base, row, r0, L, hd, vec);
   prefetch(0);
 
-  float m[4], l[4], o[4][4 * NG];
+  // per row (two a thread: g and g + 8): the running max and the
+  // quad-local part of l
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[8 * NG][4], p[KT / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) o[i][c] = 0.f;
-  }
+  for (int ct = 0; ct < 8 * NG; ++ct) o[ct][0] = o[ct][1] = o[ct][2] = o[ct][3] = 0.f;
   for (int s = 0; s < n_steps; ++s) {
-    cc::cp_async_wait<0>();                // step s's tiles (and q)
-    if (s == 0) cc::f32::scale_tile(sq, ldr, hd, scale);
+    cc::cp_async_wait<0>();                // step s's tile (and q)
+    if (s == 0) f32::scale_tile<kTile>(sq, ld, hd, scale);
+    float* hi = ring + (s % cc::kRing) * 2 * tile;
+    const int k0 = (s >> 1) * KT;
+    f32::split_tile<KT>(hi, hi + tile, ld, hd, 1.f, f32::live_rows<KT>(k0, L));
     __syncthreads();
     prefetch(s + 1);                       // into the stage step s - 1 used
-    const float* sk = ring + (s % cc::kRing) * 2 * rtile;
-    const float* sv = sk + rtile;
-    const int k0 = (s % n_kt) * kTile;
-    float sc[4][4];
-    cc::f32::rows_product(sc, sq, sk, ldr, hd);
-    cc::f32::mask_scores(sc, r0 + ty * 4, k0 + tx, L, mask);
-    if (s < n_kt) {
-      // pass 1: the running max and sum of each row over the key tiles
+    const int n8 = (min(KT, L - k0) + 7) / 8;       // 8-key tiles before L
+    if (!active) continue;
+    if (!(s & 1)) {
+      if (n8 == KT / 8)
+        f32::rows_product<KT / 8, true>(p, sq + warp * 16 * ld, hi, hi + tile, ld, hp, n8,
+                                        lane);
+      else
+        f32::rows_product<KT / 8, false>(p, sq + warp * 16 * ld, hi, hi + tile, ld, hp, n8,
+                                         lane);
+      if (mask != nullptr || k0 + KT > L) f32::mask_scores(p, q0, k0, L, mask, lane);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float mn = fmaxf(m[i], cc::f32::row_max(
-            fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]))));
-        const float ref = finite_ref(mn);
+      for (int r = 0; r < 2; ++r) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt)
+          if (nt < n8) cm = fmaxf(cm, fmaxf(p[nt][2 * r], p[nt][2 * r + 1]));
+        const float mn = fmaxf(m[r], cc::quad_max(cm));
+        const float nlog = finite_ref(mn) * cc::kLog2e;
+        const float shrink = cc::exp2_scaled(m[r], nlog);      // 0 while m is -inf
         float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sum += expf(sc[i][j] - ref);
-        l[i] = l[i] * expf(m[i] - ref) + cc::f32::row_sum(sum);   // 0 * l while m is -inf
-        m[i] = mn;
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            float& x = p[nt][2 * r + c];
+            x = nt < n8 ? cc::exp2_scaled(x, nlog) : 0.f;
+            sum += x;
+          }
+        l[r] = l[r] * shrink + sum;
+        m[r] = mn;
+#pragma unroll
+        for (int ct = 0; ct < 8 * NG; ++ct) {
+          o[ct][2 * r] *= shrink;
+          o[ct][2 * r + 1] *= shrink;
+        }
       }
     } else {
-      // pass 2: P = exp(S - m) / l of this tile into shared memory, then
-      // O += P . V
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ref = finite_ref(m[i]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sp[(ty * 4 + i) * kLd + tx + 16 * j] = expf(sc[i][j] - ref) / l[i];
-      }
-      __syncthreads();
-      cc::f32::keys_product<NG>(o, sp, sv, ldr, hd);
-      if (s == n_steps - 1)
-        cc::f32::store_rows<NG>(o, ob, (size_t)D, r0 + ty * 4, L, hd, 1.f);
+      if (n8 == KT / 8)
+        f32::cols_product<8 * NG, KT / 8, true>(o, p, hi, hi + tile, ld, hp, n8, lane);
+      else
+        f32::cols_product<8 * NG, KT / 8, false>(o, p, hi, hi + tile, ld, hp, n8, lane);
     }
   }
+  if (!active) return;
+  float inv[2];
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = cc::quad_sum(l[r]);
+    inv[r] = 1.f / sum;
+    const int i = q0 + g + 8 * r;
+    if (lse != nullptr && t == 0 && i < L)
+      lse[(size_t)item * L + i] = finite_ref(m[r]) + logf(sum);
+  }
+  f32::store_rows<8 * NG>(o, out + (size_t)(item / H) * L * D + (size_t)(item % H) * hd,
+                          (size_t)D, q0, L, hd, inv, lane);
 }
 
-int launch_f32_long(const float* qkv, const float* mask, float* out, int B, int L, int H,
-                    int hd, float scale, cudaStream_t stream) {
-  if (L < 1 || hd < 1 || hd > 2 * cc::f32::kCols) return (int)cudaErrorInvalidValue;
-  const size_t smem = f32_long_smem(hd);
+// the kernel for this head_dim: compiled for ViT's 64, else a generic one
+// with one or two 64-channel groups of O
+const void* tf32x3_kernel(int hd) {
+  return hd == 64 ? (const void*)attention_fwd_tf32x3_kernel<64, 1>
+         : hd <= 64 ? (const void*)attention_fwd_tf32x3_kernel<0, 1>
+                    : (const void*)attention_fwd_tf32x3_kernel<0, 2>;
+}
+
+int launch_tf32x3(const float* qkv, const float* mask, float* out, float* lse, int B, int L,
+                  int H, int hd, float scale, cudaStream_t stream) {
+  if (L < 1 || hd < 1 || hd > 128) return (int)cudaErrorInvalidValue;
+  const size_t smem = tf32x3_smem(hd);
   const long long grid = (long long)B * H * ((L + kTile - 1) / kTile);
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if (hd <= cc::f32::kCols) {
-    const int err = set_smem((const void*)attention_fwd_f32_long_kernel<1>, smem);
-    if (err) return err;
-    attention_fwd_f32_long_kernel<1><<<(unsigned)grid, kThreads, smem, stream>>>(
-        qkv, mask, out, L, H, hd, scale);
-  } else {
-    const int err = set_smem((const void*)attention_fwd_f32_long_kernel<2>, smem);
-    if (err) return err;
-    attention_fwd_f32_long_kernel<2><<<(unsigned)grid, kThreads, smem, stream>>>(
-        qkv, mask, out, L, H, hd, scale);
-  }
-  return (int)cudaGetLastError();
+  const void* kernel = tf32x3_kernel(hd);
+  const int err = set_smem(kernel, smem);
+  if (err) return err;
+  void* args[] = {&qkv, &mask, &out, &lse, &L, &H, &hd, &scale};
+  return (int)cudaLaunchKernel(kernel, dim3((unsigned)grid), dim3(kWarps * 32), args, smem,
+                               stream);
 }
 
 }  // namespace
@@ -755,26 +792,25 @@ int cc_attention_fwd_simt(const void* qkv, const void* mask, void* out, int B, i
   return (int)cudaGetLastError();
 }
 
-size_t cc_attention_f32_long_smem_bytes(int L, int hd) {
+size_t cc_attention_tf32x3_smem_bytes(int L, int hd) {
   (void)L;
-  return f32_long_smem(hd);
+  return tf32x3_smem(hd);
 }
 
 // Registers per thread, shared-memory bytes per CTA and resident CTAs per
-// SM (out[0..2]) of the fp32 long variant's kernel for head_dim hd.
-int cc_attention_fwd_f32_long_occupancy(int hd, int* out) {
-  const void* kernel = hd <= cc::f32::kCols ? (const void*)attention_fwd_f32_long_kernel<1>
-                                            : (const void*)attention_fwd_f32_long_kernel<2>;
-  return cc::occupancy(kernel, f32_long_smem(hd), out, cc::f32::kThreads);
+// SM (out[0..2]) of the fp32 tensor-core variant's kernel for head_dim hd.
+int cc_attention_fwd_tf32x3_occupancy(int hd, int* out) {
+  return cc::occupancy(tf32x3_kernel(hd), tf32x3_smem(hd), out);
 }
 
-// Long-sequence CUDA-core variant, float32: 1 <= hd <= 128, any L >= 1.
-// mask may be null.
-int cc_attention_fwd_f32_long(const void* qkv, const void* mask, void* out, int B, int L,
-                              int H, int hd, float scale, void* stream) {
-  return launch_f32_long(static_cast<const float*>(qkv), static_cast<const float*>(mask),
-                         static_cast<float*>(out), B, L, H, hd, scale,
-                         static_cast<cudaStream_t>(stream));
+// fp32 tensor-core variant (three TF32 passes): 1 <= hd <= 128, any L >= 1.
+// mask may be null; lse, where not null, receives each row's log-sum-exp
+// ([B * H][L] fp32) for the backward.
+int cc_attention_fwd_tf32x3(const void* qkv, const void* mask, void* out, void* lse, int B,
+                            int L, int H, int hd, float scale, void* stream) {
+  return launch_tf32x3(static_cast<const float*>(qkv), static_cast<const float*>(mask),
+                       static_cast<float*>(out), static_cast<float*>(lse), B, L, H, hd,
+                       scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* cc_error_string(int err) {

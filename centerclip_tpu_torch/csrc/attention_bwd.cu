@@ -72,21 +72,31 @@
 //   peak, about the 0.97 ms its bytes take.  Sums run in a fixed order and
 //   nothing is atomic: deterministic.  No mask gradient (only the text
 //   tower has a mask, at L <= 77).
-// * attention_bwd_kernel (fp32, short): CUDA cores, the products as fmaf
-//   loops from shared memory (no exact fp32 tensor-core product; TF32 is
-//   off), P and dS as fp32 [L, L] tiles in shared memory: 5 L hd + 2 L^2
-//   floats, which past L = 108 (hd = 64) no CTA can hold.
-// * the fp32 long variant (attention_bwd_f32_dq_kernel, then
-//   attention_bwd_f32_dkv_kernel): the long variant's two launches and
-//   statistics in fp32, the products fp32 FFMA from register tiles of 4 x 4
-//   outputs a thread (csrc/f32_tile.cuh), dS in fp32, P and dS of one
-//   64 x 64 tile at a time in shared memory.  119-138 KB of shared memory
-//   at hd = 64 whatever L: one CTA of 256 threads an SM.  No mask gradient.
-//   Bound on this card: the five [L, L, hd] products of the backward are
-//   10 L^2 hd flops a head against 28 L hd bytes (q, k, v, dO in, dq, dk,
-//   dv out), 0.36 L flops per byte, above the ~20 flop/byte fp32 ridge:
-//   the FFMA rate bounds it; S and dP are computed three times (9
-//   products).
+// * attention_bwd_kernel (fp32, short: "cuda_core"): CUDA cores, the
+//   products as fmaf loops from shared memory, P and dS as fp32 [L, L]
+//   tiles in shared memory: 5 L hd + 2 L^2 floats, which past L = 108
+//   (hd = 64) no CTA can hold.  Kept for head_dim > 128 and for the lengths
+//   where the card shows it faster.  The one fp32 variant with a mask
+//   gradient.
+// * the fp32 tensor-core variant ("tf32x3": attention_bwd_tf32x3_dq_kernel,
+//   then attention_bwd_tf32x3_dkv_kernel; any L, hd <= 128): every product
+//   in three TF32 passes on the tensor cores (csrc/f32_tile.cuh), no
+//   statistics pass.  The forward's tf32x3 kernel hands over each row's
+//   log-sum-exp and its fp32 output O, so P = exp(S - lse) needs no max or
+//   sum, and delta = rowsum(dO * O) (in exact arithmetic rowsum(dP * P);
+//   the bf16 variants cannot take it, their O is rounded).  Launch 1,
+//   (item, 64 query rows): delta, then per stage of 32 keys its V and its
+//   K: S, dP -> P, dS -> dQ (3 products); launch 2, (item, 64 keys),
+//   query rows 16 a step: S^T, dP^T -> P^T, dS^T -> dV, dK (4 products):
+//   7 products where the earlier FFMA design took 9.  70 KB of shared
+//   memory at hd = 64 each and 168 / 166 registers: 3 CTAs an SM (which
+//   the card ran faster than 64-key stages / 32-row steps at 2).  Sums in
+//   a fixed order, no atomics: deterministic.  No mask gradient.
+//   Measured on an H100 against the plain version: at most 0.10 of the
+//   1e-4 + 1e-4 |ref| tolerance (L = 785), 0.02-0.04 at ViT-B/16's 197.
+//   Bound on this card: the five [L, L, hd] products the backward needs
+//   are 10 L^2 hd flops a head, 30 L^2 hd TF32 flops in three passes,
+//   against 28 L hd bytes: the TF32 rate bounds it past L ~ 100.
 //
 // The TPU kernel's sequential-grid accumulation of dmask has no counterpart
 // here: CTAs add their dS into the fp32 [L, L] buffer with atomicAdd.
@@ -847,270 +857,277 @@ int long_occupancy(int which, int hd, int* out) {
   return cc::occupancy(dkv_kernel<T>(hd), dkv_smem(hd, sizeof(T)), out);
 }
 
-// ------------------------------------------------ fp32, long (CUDA cores)
-// The long variant's two launches in fp32: fp32 FFMA from register tiles
-// of 4 x 4 outputs a thread (csrc/f32_tile.cuh), dS in fp32 (no hi/lo
-// split: the operands are fp32 already), 256 threads a CTA.
-using cc::f32::kLd;
+// --------------------------------- fp32 (tensor cores, three TF32 passes)
+// Two launches, as the long variant's, with no statistics pass: the
+// forward (kernel A's tf32x3 variant) hands over each row's log-sum-exp
+// and its output O, and delta = rowsum(dO * O) replaces rowsum(dP * P)
+// (O is fp32 here, so nothing is rounded on the way).  Every product runs
+// on the tensor cores in three TF32 passes (csrc/f32_tile.cuh).
+namespace f32 = cc::f32;
+constexpr int kF32Keys = 32;       // keys per ring stage of the dQ launch
+constexpr int kQRows = 16;         // query rows per step of the dK / dV launch
+constexpr int kDqCtas = 3;         // CTAs per SM at hd <= 64, each launch (one
+constexpr int kDkvCtas = 3;        // past 64: more registers, twice the smem)
 
-// shared memory (fp32) of the dQ kernel: q and dO of its block, a ring of
-// two stages of K and V tiles, and dS [64][kLd] (121 856 bytes at
-// hd = 64); of the dK / dV kernel: K and V of its tile, a ring of two
-// stages of q, dO and the rows' statistics, and P^T and dS^T (140 800);
-// past 64 channels P^T and dS^T share one tile, in turn (221 696 at
-// hd = 128)
-__host__ __device__ inline int f32_dkv_score_tiles(int hd) {
-  return hd <= cc::f32::kCols ? 2 : 1;
+// shared memory (fp32) of the dQ launch: q (scaled) and dO of its 64 rows,
+// raw, and a ring of two stages of one split kF32Keys-row tile (V or K):
+// 69 632 bytes at hd = 64; of the dK / dV launch: K and V of its 64 keys,
+// raw, and a ring of two stages of kQRows query rows' split q and dO with
+// their log-sum-exp and delta: 69 888
+__host__ __device__ inline size_t tf32x3_dq_smem(int hd) {
+  return (size_t)(2 * kTile + 2 * cc::kRing * kF32Keys) * f32::ld_rows(hd) * sizeof(float);
 }
-__host__ __device__ inline size_t f32_dq_smem(int hd) {
-  return ((size_t)(2 + 2 * cc::kRing) * kTile * cc::f32::ld_rows(hd) + kTile * kLd) *
-         sizeof(float);
-}
-__host__ __device__ inline size_t f32_dkv_smem(int hd) {
-  return ((size_t)(2 + 2 * cc::kRing) * kTile * cc::f32::ld_rows(hd)
-          + cc::kRing * 3 * kTile + f32_dkv_score_tiles(hd) * kTile * kLd) * sizeof(float);
+__host__ __device__ inline size_t tf32x3_dkv_smem(int hd) {
+  return ((size_t)(2 * kTile + cc::kRing * 4 * kQRows) * f32::ld_rows(hd)
+          + cc::kRing * 2 * kQRows) * sizeof(float);
 }
 
-// Launch 1: one CTA per (sample, head, block of 64 query rows).  q (scaled
-// in place) and dO are staged once; K and V stream through the ring twice.
-// Pass 1: S = qs.K^T and dP = dO.V^T per key tile and per row the running
-// max m, l = sum exp(s - m) and a = sum exp(s - m) dP (both rescaled when
-// m grows); the row's m (0 for a row all -inf), l and delta = a / l go to
-// `stats` ([3][B*H][64 * key tiles]) for launch 2.  Pass 2: S and dP
-// again, P = exp(S - m) / l, dS = P (dP - delta) into shared memory, and
-// dQ += dS.K; dQ * hd^-0.5 is written after the last tile.
-template <int NG>
-__global__ void __launch_bounds__(cc::f32::kThreads, 1)
-attention_bwd_f32_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
-                            const float* __restrict__ dout, float* __restrict__ dqkv,
-                            float* __restrict__ stats, int n_items, int L, int H, int hd,
-                            float scale) {
+// Launch 1: one CTA per (sample, head, block of 64 query rows), 16 rows a
+// warp.  First each row's delta = rowsum(dO * O) from O staged in the
+// ring's second stage before its first use (two lanes a row, a fixed
+// order; also written to `delta`, [B*H][L], for launch 2).  Then per key tile: its V
+// (dP = dO.V^T, kept in registers), then its K (S = qs.K^T,
+// P = exp(S - lse), dS = P (dP - delta), dQ += dS.K).  3 products a tile.
+template <int HD, int NG>
+__global__ void __launch_bounds__(kWarps * 32, NG == 1 ? kDqCtas : 1)
+attention_bwd_tf32x3_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                               const float* __restrict__ dout, const float* __restrict__ out,
+                               const float* __restrict__ lse, float* __restrict__ dqkv,
+                               float* __restrict__ delta, int L, int H, int hd_arg,
+                               float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int ldr = cc::f32::ld_rows(hd), rtile = kTile * ldr;
-  const int n_kt = (L + kTile - 1) / kTile, Ls = n_kt * kTile;
+  const int hd = HD ? HD : hd_arg;
+  constexpr int KT = kF32Keys;
+  static_assert(2 * KT >= kTile, "the ring's second stage holds O's 64 rows");
+  const int hp = f32::pad8(hd), ld = hp + 4, tile = kTile * ld, ktile = KT * ld;
+  const int n_kt = (L + kTile - 1) / kTile;
   const int item = blockIdx.x / n_kt, r0 = (blockIdx.x % n_kt) * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int q0 = r0 + warp * 16;           // the warp's first query row
+  const bool active = q0 < L;
   float* sq = reinterpret_cast<float*>(smem);
-  float* sdo = sq + rtile;
-  float* ring = sdo + rtile;                 // stage s: K at ring + 2 s rtile, V next
-  float* sds = ring + 2 * cc::kRing * rtile;  // dS [64][kLd]
+  float* sdo = sq + tile;
+  float* ring = sdo + tile;                // stage s: hi at ring + 2 s ktile, lo next
+  const int D = H * hd;
+  const size_t row = 3 * (size_t)D;
+  const size_t first = (size_t)(item / H) * L, col = (size_t)(item % H) * hd;
+  const float* base = qkv + first * row + col;
+  const bool vec = f32::vec_ok(qkv, hd) && f32::vec_ok(dout, hd) && f32::vec_ok(out, hd);
+  const int n_steps = 2 * ((L + KT - 1) / KT);  // step s: V (s even) or K of key tile s / 2
+
+  auto prefetch = [&](int s) {
+    const int k0 = (s >> 1) * KT;
+    if (s < n_steps)
+      f32::load_tile<KT>(ring + (s % cc::kRing) * 2 * ktile, ld, base + (2 - (s & 1)) * D,
+                         row, k0, L, hd, vec, f32::live_rows<KT>(k0, L));
+    cc::cp_async_commit();
+  };
+  f32::load_tile<kTile>(sq, ld, base, row, r0, L, hd, vec);
+  f32::load_tile<kTile>(sdo, ld, dout + first * D + col, (size_t)D, r0, L, hd, vec);
+  // O of the block into the ring's second stage (its 2 KT rows hold 64)
+  f32::load_tile<kTile>(ring + 2 * ktile, ld, out + first * D + col, (size_t)D, r0, L, hd,
+                        vec);
+  prefetch(0);
+
+  // per row (g and g + 8): lse log2 e and delta (0 past L)
+  float ll[2], dl[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + g + 8 * r;
+    ll[r] = i < L ? lse[(size_t)item * L + i] * cc::kLog2e : 0.f;
+  }
+  float dq[8 * NG][4], dp[KT / 8][4], sc[KT / 8][4];
+#pragma unroll
+  for (int ct = 0; ct < 8 * NG; ++ct) dq[ct][0] = dq[ct][1] = dq[ct][2] = dq[ct][3] = 0.f;
+  for (int s = 0; s < n_steps; ++s) {
+    cc::cp_async_wait<0>();                // step s's tile (and q, dO)
+    if (s == 0) f32::scale_tile<kTile>(sq, ld, hd, scale);
+    float* hi = ring + (s % cc::kRing) * 2 * ktile;
+    const int k0 = (s >> 1) * KT;
+    f32::split_tile<KT>(hi, hi + ktile, ld, hd, 1.f, f32::live_rows<KT>(k0, L));
+    __syncthreads();
+    if (s == 0) {
+      // delta of row q0 + lane / 2 over the channels of parity lane % 2,
+      // the two halves added (either order gives the same bits); O is in
+      // the second stage until prefetch(1)
+      const int r = lane >> 1;
+      const float* o_r = ring + 2 * ktile + (warp * 16 + r) * ld;
+      const float* do_r = sdo + (warp * 16 + r) * ld;
+      float sum = 0.f;
+      for (int c = lane & 1; c < hd; c += 2) sum = fmaf(do_r[c], o_r[c], sum);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      dl[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+      dl[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
+      if (!(lane & 1) && q0 + r < L) delta[(size_t)item * L + q0 + r] = sum;
+      __syncthreads();                     // every O row read
+    }
+    prefetch(s + 1);                       // into the stage step s - 1 used
+    if (!active) continue;
+    const int n8 = (min(KT, L - k0) + 7) / 8;       // 8-key tiles before L
+    const bool full = n8 == KT / 8;
+    if (!(s & 1)) {
+      if (full)
+        f32::rows_product<KT / 8, true>(dp, sdo + warp * 16 * ld, hi, hi + ktile, ld, hp, n8,
+                                           lane);
+      else
+        f32::rows_product<KT / 8, false>(dp, sdo + warp * 16 * ld, hi, hi + ktile, ld, hp,
+                                            n8, lane);
+    } else {
+      if (full)
+        f32::rows_product<KT / 8, true>(sc, sq + warp * 16 * ld, hi, hi + ktile, ld, hp, n8,
+                                           lane);
+      else
+        f32::rows_product<KT / 8, false>(sc, sq + warp * 16 * ld, hi, hi + ktile, ld, hp,
+                                            n8, lane);
+      if (mask != nullptr || k0 + KT > L) f32::mask_scores(sc, q0, k0, L, mask, lane);
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr = nt < n8 ? cc::exp2_scaled(sc[nt][e], ll[e >> 1]) : 0.f;
+          sc[nt][e] = pr * (dp[nt][e] - dl[e >> 1]);
+        }
+      if (full)
+        f32::cols_product<8 * NG, KT / 8, true>(dq, sc, hi, hi + ktile, ld, hp, n8, lane);
+      else
+        f32::cols_product<8 * NG, KT / 8, false>(dq, sc, hi, hi + ktile, ld, hp, n8, lane);
+    }
+  }
+  if (!active) return;
+  const float mul[2] = {scale, scale};
+  f32::store_rows<8 * NG>(dq, dqkv + first * row + col, row, q0, L, hd, mul, lane);
+}
+
+// Launch 2: one CTA per (sample, head, tile of 64 keys), 16 keys a warp.
+// K and V of its keys are staged raw once; q (scaled), dO and the rows'
+// log-sum-exp and delta stream through the ring kQRows query rows a step.
+// Per step: S^T = K.qs^T and dP^T = V.dO^T in one loop, P^T =
+// exp(S^T - lse) and dS^T = P^T (dP^T - delta) in registers (queries or
+// keys at or past L give 0), then dV += P^T.dO and dK += dS^T.qs.  4
+// products.  Every sum runs in a fixed order; nothing is atomic.
+template <int HD, int NG>
+__global__ void __launch_bounds__(kWarps * 32, NG == 1 ? kDkvCtas : 1)
+attention_bwd_tf32x3_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                                const float* __restrict__ dout, const float* __restrict__ lse,
+                                const float* __restrict__ delta, float* __restrict__ dqkv,
+                                int L, int H, int hd_arg, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = HD ? HD : hd_arg;
+  const int hp = f32::pad8(hd), ld = hp + 4, qtile = kQRows * ld;
+  const int n_kt = (L + kTile - 1) / kTile, n_steps = (L + kQRows - 1) / kQRows;
+  const int item = blockIdx.x / n_kt, j0 = (blockIdx.x % n_kt) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int jw = j0 + warp * 16;           // the warp's first key
+  const bool active = jw < L;
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + kTile * ld;
+  float* ring = sv + kTile * ld;           // stage s: q hi, q lo, dO hi, dO lo
+  float* sst = ring + cc::kRing * 4 * qtile;   // stage s: lse log2 e, delta at sst + 64 s
   const int D = H * hd;
   const size_t row = 3 * (size_t)D;
   const size_t first = (size_t)(item / H) * L, col = (size_t)(item % H) * hd;
   const float* base = qkv + first * row + col;
   const float* dob = dout + first * D + col;
-  const bool vec = cc::f32::vec_ok(qkv, hd) && cc::f32::vec_ok(dout, hd);
-  const int n_steps = 2 * n_kt;
+  const bool vec = f32::vec_ok(qkv, hd) && f32::vec_ok(dout, hd);
 
   auto prefetch = [&](int s) {
     if (s < n_steps) {
-      float* st = ring + (s % cc::kRing) * 2 * rtile;
-      const int k0 = (s % n_kt) * kTile;
-      cc::f32::load_tile(st, ldr, base + D, row, k0, L, hd, vec);
-      cc::f32::load_tile(st + rtile, ldr, base + 2 * D, row, k0, L, hd, vec);
+      float* stage = ring + (s % cc::kRing) * 4 * qtile;
+      const int i0 = s * kQRows, rows = f32::live_rows<kQRows>(i0, L);
+      f32::load_tile<kQRows>(stage, ld, base, row, i0, L, hd, vec, rows);
+      f32::load_tile<kQRows>(stage + 2 * qtile, ld, dob, (size_t)D, i0, L, hd, vec, rows);
+      const int e = threadIdx.x;           // one statistic a thread
+      if (e < 2 * kQRows) {
+        float* d = sst + (s % cc::kRing) * 2 * kQRows + e;
+        const int i = i0 + e % kQRows;
+        if (i < L)
+          cc::cp_async4(d, (e < kQRows ? lse : delta) + (size_t)item * L + i);
+        else
+          *d = 0.f;
+      }
     }
     cc::cp_async_commit();
   };
-  cc::f32::load_tile(sq, ldr, base, row, r0, L, hd, vec);
-  cc::f32::load_tile(sdo, ldr, dob, (size_t)D, r0, L, hd, vec);
+  f32::load_tile<kTile>(sk, ld, base + D, row, j0, L, hd, vec);
+  f32::load_tile<kTile>(sv, ld, base + 2 * D, row, j0, L, hd, vec);
   prefetch(0);
 
-  float m[4], l[4], a[4], delta[4], dq[4][4 * NG];
+  float dk[8 * NG][4], dv[8 * NG][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = a[i] = delta[i] = 0.f;
+  for (int ct = 0; ct < 8 * NG; ++ct)
 #pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) dq[i][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) dk[ct][e] = dv[ct][e] = 0.f;
   for (int s = 0; s < n_steps; ++s) {
-    cc::cp_async_wait<0>();                // step s's tiles (and q, dO)
-    if (s == 0) cc::f32::scale_tile(sq, ldr, hd, scale);
-    __syncthreads();
-    prefetch(s + 1);                       // into the stage step s - 1 used
-    const float* sk = ring + (s % cc::kRing) * 2 * rtile;
-    const float* sv = sk + rtile;
-    const int kt = s % n_kt, k0 = kt * kTile;
-    float sc[4][4], dp[4][4];
-    cc::f32::rows_product(sc, sq, sk, ldr, hd);
-    cc::f32::rows_product(dp, sdo, sv, ldr, hd);
-    cc::f32::mask_scores(sc, r0 + ty * 4, k0 + tx, L, mask);
-    if (s < n_kt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float mn = fmaxf(m[i], cc::f32::row_max(
-            fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]))));
-        const float ref = mn == -INFINITY ? 0.f : mn;
-        float ls = 0.f, as = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float x = expf(sc[i][j] - ref);
-          ls += x;
-          as += x * dp[i][j];
-        }
-        const float shrink = expf(m[i] - ref);          // 0 while m is -inf
-        l[i] = l[i] * shrink + cc::f32::row_sum(ls);
-        a[i] = a[i] * shrink + cc::f32::row_sum(as);
-        m[i] = mn;
-      }
-      if (kt == n_kt - 1) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (m[i] == -INFINITY) m[i] = 0.f;
-          delta[i] = a[i] / l[i];
-          if (tx == 0) {
-            const size_t r = (size_t)item * Ls + r0 + ty * 4 + i;
-            const size_t plane = (size_t)n_items * Ls;
-            stats[r] = m[i];
-            stats[plane + r] = l[i];
-            stats[2 * plane + r] = delta[i];
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = expf(sc[i][j] - m[i]) / l[i];
-          sds[(ty * 4 + i) * kLd + tx + 16 * j] = p * (dp[i][j] - delta[i]);
-        }
-      __syncthreads();
-      cc::f32::keys_product<NG>(dq, sds, sk, ldr, hd);
-      if (s == n_steps - 1)
-        cc::f32::store_rows<NG>(dq, dqkv + first * row + col, row, r0 + ty * 4, L, hd,
-                                scale);
-    }
-  }
-}
-
-// Launch 2: one CTA per (sample, head, tile of 64 keys).  K and V of its
-// tile are staged once; q (scaled on arrival, each thread its own
-// elements), dO and the rows' statistics stream through the ring in blocks
-// of 64 queries.  Per block: S^T = K.qs^T and dP^T = V.dO^T, P^T and dS^T
-// from the statistics into shared memory (queries or keys at or past L
-// give 0), then dV += P^T.dO and dK += dS^T.qs.  Every sum runs in a fixed
-// order; nothing is atomic.
-template <int NG>
-__global__ void __launch_bounds__(cc::f32::kThreads, 1)
-attention_bwd_f32_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
-                             const float* __restrict__ dout, float* __restrict__ dqkv,
-                             const float* __restrict__ stats, int n_items, int L, int H,
-                             int hd, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldr = cc::f32::ld_rows(hd), rtile = kTile * ldr;
-  const int n_kt = (L + kTile - 1) / kTile, Ls = n_kt * kTile;
-  const int item = blockIdx.x / n_kt, j0 = (blockIdx.x % n_kt) * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float* sk = reinterpret_cast<float*>(smem);
-  float* sv = sk + rtile;
-  float* ring = sv + rtile;                  // stage s: q at ring + 2 s rtile, dO next
-  float* sst = ring + 2 * cc::kRing * rtile;  // stage s: m, l, delta at sst + 3 s kTile
-  float* sp = sst + cc::kRing * 3 * kTile;    // P^T [64 keys][kLd]
-  float* sds = NG == 1 ? sp + kTile * kLd : sp;  // dS^T (NG 2: after P^T, in its place)
-  const int D = H * hd;
-  const size_t row = 3 * (size_t)D;
-  const size_t first = (size_t)(item / H) * L, col = (size_t)(item % H) * hd;
-  const float* base = qkv + first * row + col;
-  const float* dob = dout + first * D + col;
-  const size_t plane = (size_t)n_items * Ls;
-  const bool vec = cc::f32::vec_ok(qkv, hd) && cc::f32::vec_ok(dout, hd);
-
-  auto prefetch = [&](int s) {
-    if (s < n_kt) {
-      float* st = ring + (s % cc::kRing) * 2 * rtile;
-      const int i0 = s * kTile;
-      cc::f32::load_tile(st, ldr, base, row, i0, L, hd, vec);
-      cc::f32::load_tile(st + rtile, ldr, dob, (size_t)D, i0, L, hd, vec);
-      for (int e = threadIdx.x; e < 3 * kTile; e += cc::f32::kThreads)
-        cc::cp_async4(sst + (s % cc::kRing) * 3 * kTile + e,
-                      stats + (e / kTile) * plane + (size_t)item * Ls + i0 + e % kTile);
-    }
-    cc::cp_async_commit();
-  };
-  cc::f32::load_tile(sk, ldr, base + D, row, j0, L, hd, vec);
-  cc::f32::load_tile(sv, ldr, base + 2 * D, row, j0, L, hd, vec);
-  prefetch(0);
-
-  float dk[4][4 * NG], dv[4][4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NG; ++c) dk[i][c] = dv[i][c] = 0.f;
-  for (int s = 0; s < n_kt; ++s) {
     cc::cp_async_wait<0>();                // step s's rows (and K, V)
-    float* sq = ring + (s % cc::kRing) * 2 * rtile;
-    cc::f32::scale_tile(sq, ldr, hd, scale);
+    float* qh = ring + (s % cc::kRing) * 4 * qtile;     // q hi; q lo, dO hi, dO lo next
+    float* rs = sst + (s % cc::kRing) * 2 * kQRows;
+    const int rows = f32::live_rows<kQRows>(s * kQRows, L);
+    f32::split_tile<kQRows>(qh, qh + qtile, ld, hd, scale, rows);
+    f32::split_tile<kQRows>(qh + 2 * qtile, qh + 3 * qtile, ld, hd, 1.f, rows);
+    if (threadIdx.x < kQRows) rs[threadIdx.x] *= cc::kLog2e;   // its own copy
     __syncthreads();
     prefetch(s + 1);                       // into the stage step s - 1 used
-    const float* sdo = sq + rtile;
-    const float* rm = sst + (s % cc::kRing) * 3 * kTile;
-    const float* rl = rm + kTile;
-    const float* rdelta = rl + kTile;
-    const int i0 = s * kTile;
-    // element (key j0 + ty * 4 + jj, query i0 + tx + 16 q)
-    float st[4][4], dpt[4][4];
-    cc::f32::rows_product(st, sk, sq, ldr, hd);
-    cc::f32::rows_product(dpt, sv, sdo, ldr, hd);
+    if (!active) continue;
+    const int i0 = s * kQRows;
+    const int n8 = (min(kQRows, L - i0) + 7) / 8;   // 8-query tiles before L
+    // element (key j = jw + g + 8 (e / 2), query i = i0 + 8 nt + 2 t + e % 2)
+    float st[kQRows / 8][4], dpt[kQRows / 8][4];
+    const bool full = n8 == kQRows / 8;
+    if (full)
+      f32::rows_product2<kQRows / 8, true>(st, sk + warp * 16 * ld, qh, qh + qtile, dpt,
+                                           sv + warp * 16 * ld, qh + 2 * qtile,
+                                           qh + 3 * qtile, ld, hp, n8, lane);
+    else
+      f32::rows_product2<kQRows / 8, false>(st, sk + warp * 16 * ld, qh, qh + qtile, dpt,
+                                            sv + warp * 16 * ld, qh + 2 * qtile,
+                                            qh + 3 * qtile, ld, hp, n8, lane);
+    const bool edge = mask != nullptr || i0 + kQRows > L || j0 + kTile > L;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
+    for (int nt = 0; nt < kQRows / 8; ++nt)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = j0 + ty * 4 + jj, il = tx + 16 * q, i = i0 + il;
+      for (int e = 0; e < 4; ++e) {
+        const int j = jw + g + (e >> 1) * 8;
+        const int il = nt * 8 + 2 * t + (e & 1), i = i0 + il;
         float p = 0.f, ds = 0.f;
-        if (i < L && j < L) {
-          float x = st[jj][q];
+        if (nt < n8 && (!edge || (i < L && j < L))) {
+          float x = st[nt][e];
           if (mask != nullptr) x += mask[(size_t)i * L + j];
-          p = expf(x - rm[il]) / rl[il];
-          ds = p * (dpt[jj][q] - rdelta[il]);
+          p = cc::exp2_scaled(x, rs[il]);
+          ds = p * (dpt[nt][e] - rs[kQRows + il]);
         }
-        sp[(ty * 4 + jj) * kLd + il] = p;
-        dpt[jj][q] = ds;
-        if constexpr (NG == 1) sds[(ty * 4 + jj) * kLd + il] = ds;
+        st[nt][e] = p;
+        dpt[nt][e] = ds;
       }
-    __syncthreads();
-    cc::f32::keys_product<NG>(dv, sp, sdo, ldr, hd);
-    if constexpr (NG > 1) {
-      __syncthreads();                     // every P^T row read: dS^T in its place
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sds[(ty * 4 + jj) * kLd + tx + 16 * q] = dpt[jj][q];
-      __syncthreads();
+    if (full) {
+      f32::cols_product<8 * NG, kQRows / 8, true>(dv, st, qh + 2 * qtile, qh + 3 * qtile, ld,
+                                                  hp, n8, lane);
+      f32::cols_product<8 * NG, kQRows / 8, true>(dk, dpt, qh, qh + qtile, ld, hp, n8, lane);
+    } else {
+      f32::cols_product<8 * NG, kQRows / 8, false>(dv, st, qh + 2 * qtile, qh + 3 * qtile, ld,
+                                                   hp, n8, lane);
+      f32::cols_product<8 * NG, kQRows / 8, false>(dk, dpt, qh, qh + qtile, ld, hp, n8, lane);
     }
-    cc::f32::keys_product<NG>(dk, sds, sq, ldr, hd);
   }
+  if (!active) return;
+  const float one[2] = {1.f, 1.f};
   float* gb = dqkv + first * row + col;
-  cc::f32::store_rows<NG>(dk, gb + D, row, j0 + ty * 4, L, hd, 1.f);
-  cc::f32::store_rows<NG>(dv, gb + 2 * D, row, j0 + ty * 4, L, hd, 1.f);
+  f32::store_rows<8 * NG>(dk, gb + D, row, jw, L, hd, one, lane);
+  f32::store_rows<8 * NG>(dv, gb + 2 * D, row, jw, L, hd, one, lane);
 }
 
-template <int NG>
-int launch_f32_long(const float* qkv, const float* mask, const float* dout, float* dqkv,
-                    float* stats, int n_items, int grid, int L, int H, int hd, float scale,
-                    cudaStream_t stream) {
-  size_t smem = f32_dq_smem(hd);
-  int err = set_smem((const void*)attention_bwd_f32_dq_kernel<NG>, smem);
-  if (err) return err;
-  attention_bwd_f32_dq_kernel<NG><<<grid, cc::f32::kThreads, smem, stream>>>(
-      qkv, mask, dout, dqkv, stats, n_items, L, H, hd, scale);
-  if ((err = (int)cudaGetLastError())) return err;
-  smem = f32_dkv_smem(hd);
-  if ((err = set_smem((const void*)attention_bwd_f32_dkv_kernel<NG>, smem))) return err;
-  attention_bwd_f32_dkv_kernel<NG><<<grid, cc::f32::kThreads, smem, stream>>>(
-      qkv, mask, dout, dqkv, stats, n_items, L, H, hd, scale);
-  return (int)cudaGetLastError();
+// the kernels for this head_dim: compiled for ViT's 64, else generic ones
+// with one or two 64-channel groups of the outputs
+const void* tf32x3_dq_kernel(int hd) {
+  return hd == 64 ? (const void*)attention_bwd_tf32x3_dq_kernel<64, 1>
+         : hd <= 64 ? (const void*)attention_bwd_tf32x3_dq_kernel<0, 1>
+                    : (const void*)attention_bwd_tf32x3_dq_kernel<0, 2>;
 }
-
-// the fp32 long kernels for this head_dim (64 channels of output a
-// register tile, one or two tiles)
-const void* f32_dq_kernel(int hd) {
-  return hd <= cc::f32::kCols ? (const void*)attention_bwd_f32_dq_kernel<1>
-                              : (const void*)attention_bwd_f32_dq_kernel<2>;
-}
-const void* f32_dkv_kernel(int hd) {
-  return hd <= cc::f32::kCols ? (const void*)attention_bwd_f32_dkv_kernel<1>
-                              : (const void*)attention_bwd_f32_dkv_kernel<2>;
+const void* tf32x3_dkv_kernel(int hd) {
+  return hd == 64 ? (const void*)attention_bwd_tf32x3_dkv_kernel<64, 1>
+         : hd <= 64 ? (const void*)attention_bwd_tf32x3_dkv_kernel<0, 1>
+                    : (const void*)attention_bwd_tf32x3_dkv_kernel<0, 2>;
 }
 
 }  // namespace
@@ -1195,39 +1212,44 @@ int cc_attention_bwd_simt(const void* qkv, const void* mask, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// Long-sequence fp32 variant: the larger of its two kernels' needs.
-size_t cc_attention_bwd_f32_long_smem_bytes(int L, int hd) {
+// fp32 tensor-core variant: the larger of its two kernels' needs.
+size_t cc_attention_bwd_tf32x3_smem_bytes(int L, int hd) {
   (void)L;
-  return f32_dq_smem(hd) > f32_dkv_smem(hd) ? f32_dq_smem(hd) : f32_dkv_smem(hd);
+  return tf32x3_dq_smem(hd) > tf32x3_dkv_smem(hd) ? tf32x3_dq_smem(hd) : tf32x3_dkv_smem(hd);
 }
 
 // Registers per thread, shared-memory bytes per CTA and resident CTAs per
-// SM (out[0..2]) of the fp32 long variant's dQ (which = 0) or dK / dV
+// SM (out[0..2]) of the fp32 tensor-core variant's dQ (which = 0) or dK / dV
 // (which = 1) kernel for head_dim hd.
-int cc_attention_bwd_f32_long_occupancy(int which, int hd, int* out) {
-  if (which == 0)
-    return cc::occupancy(f32_dq_kernel(hd), f32_dq_smem(hd), out, cc::f32::kThreads);
-  return cc::occupancy(f32_dkv_kernel(hd), f32_dkv_smem(hd), out, cc::f32::kThreads);
+int cc_attention_bwd_tf32x3_occupancy(int which, int hd, int* out) {
+  if (which == 0) return cc::occupancy(tf32x3_dq_kernel(hd), tf32x3_dq_smem(hd), out);
+  return cc::occupancy(tf32x3_dkv_kernel(hd), tf32x3_dkv_smem(hd), out);
 }
 
-// Long-sequence CUDA-core variant, float32: two launches.  1 <= hd <= 128;
-// mask may be null (no mask gradient); stats is fp32 scratch of
-// 3 * B * H * cc_attention_bwd_long_stats_len(L) values.
-int cc_attention_bwd_f32_long(const void* qkv, const void* mask, const void* dout,
-                              void* dqkv, void* stats, int B, int L, int H, int hd,
-                              float scale, void* stream) {
-  if (L < 1 || hd < 1 || hd > 2 * cc::f32::kCols) return (int)cudaErrorInvalidValue;
+// fp32 tensor-core variant (three TF32 passes): two launches.
+// 1 <= hd <= 128, any L >= 1; mask may be null (no mask gradient).  out and
+// lse are the forward's output [B, L, H * hd] and log-sum-exp [B * H][L]
+// (cc_attention_fwd_tf32x3 on the same qkv and mask); delta is fp32
+// scratch of B * H * L values.
+int cc_attention_bwd_tf32x3(const void* qkv, const void* mask, const void* dout,
+                            const void* out, const void* lse, void* dqkv, void* delta, int B,
+                            int L, int H, int hd, float scale, void* stream) {
+  if (L < 1 || hd < 1 || hd > 128) return (int)cudaErrorInvalidValue;
   const long long grid = (long long)B * H * ((L + kTile - 1) / kTile);
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const float* q = static_cast<const float*>(qkv);
-  const float* mk = static_cast<const float*>(mask);
-  const float* g = static_cast<const float*>(dout);
-  float* out = static_cast<float*>(dqkv);
-  float* st = static_cast<float*>(stats);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= cc::f32::kCols)
-    return launch_f32_long<1>(q, mk, g, out, st, B * H, (int)grid, L, H, hd, scale, s);
-  return launch_f32_long<2>(q, mk, g, out, st, B * H, (int)grid, L, H, hd, scale, s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void* dq_args[] = {&qkv, &mask, &dout, &out, &lse, &dqkv, &delta, &L, &H, &hd, &scale};
+  size_t smem = tf32x3_dq_smem(hd);
+  int err = set_smem(tf32x3_dq_kernel(hd), smem);
+  if (!err)
+    err = (int)cudaLaunchKernel(tf32x3_dq_kernel(hd), dim3((unsigned)grid),
+                                dim3(kWarps * 32), dq_args, smem, st);
+  if (err) return err;
+  void* dkv_args[] = {&qkv, &mask, &dout, &lse, &delta, &dqkv, &L, &H, &hd, &scale};
+  smem = tf32x3_dkv_smem(hd);
+  if ((err = set_smem(tf32x3_dkv_kernel(hd), smem))) return err;
+  return (int)cudaLaunchKernel(tf32x3_dkv_kernel(hd), dim3((unsigned)grid), dim3(kWarps * 32),
+                               dkv_args, smem, st);
 }
 
 const char* cc_error_string(int err) {

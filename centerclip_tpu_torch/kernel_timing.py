@@ -9,8 +9,8 @@ compute the least time the card could take for it.
   between calls.
 * `bound`: the larger of the bytes a function must move over the card's
   memory rate and its operations over the peak rate for their type
-  (`card_peaks`); `layernorm_bound` and `kmedoids_bound` count them for
-  kernels C and E.
+  (`card_peaks`, `tf32_peak`); `layernorm_bound` and `kmedoids_bound`
+  count them for kernels C and E.
 * `layernorm_times`: kernel C's row (its time, the plain version's and
   `F.layer_norm`'s) on one input; `LAYERNORM_FWD_SHAPES`, every input
   shape `chip_smoke.py` times C at, which `bench_ln_kmedoids.py` times too.
@@ -67,6 +67,13 @@ def card_peaks(name: str):
         if key in name:
             return peaks
     return CARD_PEAKS["H100"]
+
+
+def tf32_peak(peaks) -> float:
+    """The TF32 tensor-core flop/s of a card with `card_peaks` `peaks`:
+    half its bf16 rate on Hopper (495 of 989 TFLOP/s dense on the H100
+    SXM)."""
+    return peaks[1] / 2
 
 
 def bound(bytes_moved: float, ops: float, op_peak: float, mem_rate: float):

@@ -23,11 +23,15 @@ registers), a "tensor_core_long" variant (bf16 / fp16, L > 128: ViT-B/16's
 splits each (sample, head) over CTAs of 64 query rows (the forward and
 the backward's dQ launch) or 64 keys (the backward's dK / dV launch) and
 streams the other side's rows in tiles of 64, a "cuda_core" variant
-(fp32: fmaf loops, since tensor cores have no exact fp32 product and TF32
-is off, with the whole [L, L] fp32 scores in shared memory, so short
-sequences only, at any head_dim where they fit) and a "cuda_core_long"
-variant (fp32, the long variant's tiling with fp32 FFMA from register
-tiles, any L, head_dim <= 128).
+(fp32: fmaf loops with the whole [L, L] fp32 scores in shared memory, so
+short sequences only, at any head_dim where they fit) and a "tf32x3"
+variant (fp32 on the tensor cores: every product in three TF32 passes,
+x = hi + lo with hi = tf32(x), lo = tf32(x - hi), lo.hi + hi.lo + hi.hi
+with fp32 accumulation, any L, head_dim <= 128; csrc/f32_tile.cuh).  Its
+forward writes each row's log-sum-exp, which `_FusedAttention` saves with
+the output O for its backward (delta = rowsum(dO * O), no statistics
+pass).  cuBLAS and cuDNN TF32 stay off in the port: the split is the
+kernels' own arithmetic and keeps fp32's tolerances.
 `choose_variant` picks one from dtype, head_dim, L and the direction
 before the launch; what none takes raises.
 
@@ -48,35 +52,32 @@ from . import _build
 
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
-TENSOR_CORE_LONG, CUDA_CORE_LONG = "tensor_core_long", "cuda_core_long"
-VARIANTS = (TENSOR_CORE, TENSOR_CORE_LONG, CUDA_CORE, CUDA_CORE_LONG)
-FP32_VARIANTS = (CUDA_CORE, CUDA_CORE_LONG)
+TENSOR_CORE_LONG, TF32X3 = "tensor_core_long", "tf32x3"
+VARIANTS = (TENSOR_CORE, TENSOR_CORE_LONG, CUDA_CORE, TF32X3)
+FP32_VARIANTS = (CUDA_CORE, TF32X3)
 # the tensor-core variants stage a whole (sample, head) and the backward's
 # warps hold their S and dP rows whole in registers; the long variants take
 # every length above (their shared memory does not grow with L)
 TENSOR_CORE_MAX_L = 128
 # fp32: the lengths (lo, hi] at which the CUDA-core variant is the faster
 # one, a direction each, where its [L, L] scores fit a CTA (to 163 forward
-# and 108 backward at head_dim 64); CUDA_CORE_LONG elsewhere.  Set from an
-# H100's times (chip_smoke.py's threshold rows, 1536 x 12 heads of 64, L =
-# 32-163): the CUDA-core variant's time grows with L^2 and jumps where
-# its scores leave room for one CTA an SM fewer, the long one's steps up
-# with each 64-key tile, so the CUDA-core one wins at short L and again just past
-# the first tile, where the long one's second key tile is mostly empty:
-# forward to L = 40 (a tie there) and from 65 to 72 (measured at 68 and
-# 72; 3 CTAs an SM to L = 72, 2 from 73), backward to 48 and from 65 to 80
-# (measured at 68-80; the long one faster at 50-64 and from 88)
-FP32_SHORT_RANGES = {False: ((0, 40), (64, 72)), True: ((0, 48), (64, 80))}
-# the long fp32 variant's register tiles hold two 64-channel groups
-FP32_LONG_MAX_HEAD_DIM = 128
+# and 108 backward at head_dim 64); TF32X3 elsewhere.  Set from an H100's
+# times (chip_smoke.py's threshold rows, 1536 x 12 heads of 64 at L =
+# 32-163 and the text tower's 128 x 8 causal at 32 and 77): TF32X3 was
+# the faster one at every length, both directions (1.9-7.5x forward,
+# 1.2-4.5x backward), so the CUDA-core variant runs only past head_dim
+# TF32X3_MAX_HEAD_DIM
+FP32_SHORT_RANGES = {False: (), True: ()}
+# the tf32x3 kernels hold one or two 64-channel groups of the outputs
+TF32X3_MAX_HEAD_DIM = 128
 _SMEM_FNS = {(False, TENSOR_CORE): "cc_attention_mma_smem_bytes",
              (False, TENSOR_CORE_LONG): "cc_attention_long_smem_bytes",
              (False, CUDA_CORE): "cc_attention_simt_smem_bytes",
-             (False, CUDA_CORE_LONG): "cc_attention_f32_long_smem_bytes",
+             (False, TF32X3): "cc_attention_tf32x3_smem_bytes",
              (True, TENSOR_CORE): "cc_attention_bwd_mma_smem_bytes",
              (True, TENSOR_CORE_LONG): "cc_attention_bwd_long_smem_bytes",
              (True, CUDA_CORE): "cc_attention_bwd_simt_smem_bytes",
-             (True, CUDA_CORE_LONG): "cc_attention_bwd_f32_long_smem_bytes"}
+             (True, TF32X3): "cc_attention_bwd_tf32x3_smem_bytes"}
 
 
 def attention_plain(qkv: torch.Tensor, heads: int,
@@ -158,8 +159,8 @@ def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
     multiple of 16 TENSOR_CORE up to L = TENSOR_CORE_MAX_L and
     TENSOR_CORE_LONG past it, forward and backward; for fp32 CUDA_CORE in
     the direction's FP32_SHORT_RANGES, and at head_dim past
-    FP32_LONG_MAX_HEAD_DIM, where its scores (forward) or its scores and
-    dS (backward) fit a CTA's shared memory, CUDA_CORE_LONG elsewhere.
+    TF32X3_MAX_HEAD_DIM, where its scores (forward) or its scores and
+    dS (backward) fit a CTA's shared memory, TF32X3 elsewhere.
     Raises ValueError for what no variant takes; whether the tiles fit in
     shared memory is also checked at launch from the sources' own sizes."""
     if L < 1 or head_dim < 1:
@@ -168,16 +169,16 @@ def choose_variant(dtype: torch.dtype, head_dim: int, L: int,
     if dtype == torch.float32:
         fits = fp32_short_smem_bytes(L, head_dim, backward) \
             <= _build.MAX_SMEM_BYTES
-        wide = head_dim > FP32_LONG_MAX_HEAD_DIM
+        wide = head_dim > TF32X3_MAX_HEAD_DIM
         if fits and (wide or any(lo < L <= hi for lo, hi
                                  in FP32_SHORT_RANGES[backward])):
             return CUDA_CORE
         if wide:
             raise ValueError(
                 f"fp32 attention at L={L}, head_dim={head_dim}: the "
-                f"CUDA-core variant's scores do not fit a CTA and the long "
-                f"one takes head_dim <= {FP32_LONG_MAX_HEAD_DIM}")
-        return CUDA_CORE_LONG
+                f"CUDA-core variant's scores do not fit a CTA and the "
+                f"tensor-core one takes head_dim <= {TF32X3_MAX_HEAD_DIM}")
+        return TF32X3
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {dtype}")
     if head_dim % 16:
@@ -201,7 +202,7 @@ def _check_cuda_inputs(qkv: torch.Tensor, heads: int,
     if variant is None:
         variant = choose_variant(qkv.dtype, hd, L, backward)
     elif qkv.dtype != torch.float32 or variant not in FP32_VARIANTS or (
-            variant == CUDA_CORE_LONG and hd > FP32_LONG_MAX_HEAD_DIM):
+            variant == TF32X3 and hd > TF32X3_MAX_HEAD_DIM):
         raise ValueError(f"no attention variant {variant!r} for "
                          f"{qkv.dtype}, head_dim={hd}")
     if attn_mask is not None:
@@ -246,24 +247,24 @@ def long_occupancy(dtype: torch.dtype, head_dim: int,
                    backward: bool = False) -> dict:
     """{kernel: {"registers", "smem_bytes", "ctas_per_sm"}} of the long
     variant's kernels (the forward's one, the backward's two) for this dtype
-    (fp32: CUDA_CORE_LONG's) and head_dim on the current card
+    (fp32: TF32X3's) and head_dim on the current card
     (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     f32 = dtype == torch.float32
     code = () if f32 else (_DTYPE_CODES[dtype],)
     if backward:
         lib = _build.load("attention_bwd")
-        kernels = (("attention_bwd_f32_dq_kernel" if f32
+        kernels = (("attention_bwd_tf32x3_dq_kernel" if f32
                     else "attention_bwd_dq_kernel", (0,)),
-                   ("attention_bwd_f32_dkv_kernel" if f32
+                   ("attention_bwd_tf32x3_dkv_kernel" if f32
                     else "attention_bwd_dkv_kernel", (1,)))
-        name = "cc_attention_bwd_f32_long_occupancy" if f32 \
+        name = "cc_attention_bwd_tf32x3_occupancy" if f32 \
             else "cc_attention_bwd_long_occupancy"
     else:
         lib = _build.load("attention")
-        kernels = (("attention_fwd_f32_long_kernel" if f32
+        kernels = (("attention_fwd_tf32x3_kernel" if f32
                     else "attention_fwd_long_kernel", ()),)
-        name = "cc_attention_fwd_f32_long_occupancy" if f32 \
+        name = "cc_attention_fwd_tf32x3_occupancy" if f32 \
             else "cc_attention_fwd_long_occupancy"
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
@@ -287,20 +288,27 @@ def _count(fn, variant: str) -> None:
 
 def _forward(qkv: torch.Tensor, heads: int,
              attn_mask: Optional[torch.Tensor],
-             variant: Optional[str] = None) -> torch.Tensor:
+             variant: Optional[str] = None, lse_out: bool = False):
     """Kernel A on a CUDA tensor, the plain version on a CPU tensor.
     `variant` (an fp32 one for an fp32 qkv) overrides `choose_variant`, to
-    hold the two fp32 variants against each other where both run."""
+    hold the two fp32 variants against each other where both run.  With
+    `lse_out`, returns (out, lse): lse each row's log-sum-exp [B*H, L]
+    fp32 where the variant is TF32X3 (it writes them beside O), else
+    None."""
     if qkv.device.type == "cpu":
-        return attention_plain(qkv, heads, attn_mask)
+        out = attention_plain(qkv, heads, attn_mask)
+        return (out, None) if lse_out else out
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     hd, variant = _check_cuda_inputs(qkv, heads, attn_mask, backward=False,
                                      variant=variant)
     B, L, D3 = qkv.shape
     out = torch.empty((B, L, D3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((B * heads, L), dtype=torch.float32,
+                       device=qkv.device)
+           if lse_out and variant == TF32X3 else None)
     if B == 0:
-        return out
+        return (out, lse) if lse_out else out
     lib = _build.load("attention")
     mask_ptr = attn_mask.data_ptr() if attn_mask is not None else None
     with torch.cuda.device(qkv.device):
@@ -311,25 +319,33 @@ def _forward(qkv: torch.Tensor, heads: int,
             err = _entry(lib, name, 3, 4, True)(
                 qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, heads, hd,
                 _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
+        elif variant == TF32X3:
+            err = _entry(lib, "cc_attention_fwd_tf32x3", 4, 4, False)(
+                qkv.data_ptr(), mask_ptr, out.data_ptr(),
+                lse.data_ptr() if lse is not None else None, B, L, heads,
+                hd, float(hd ** -0.5), stream)
         else:
-            name = ("cc_attention_fwd_simt" if variant == CUDA_CORE
-                    else "cc_attention_fwd_f32_long")
-            err = _entry(lib, name, 3, 4, False)(
+            err = _entry(lib, "cc_attention_fwd_simt", 3, 4, False)(
                 qkv.data_ptr(), mask_ptr, out.data_ptr(), B, L, heads, hd,
                 float(hd ** -0.5), stream)
     _build.check(lib, err, f"attention kernel ({variant})")
     _count(fused_attention, variant)
-    return out
+    return (out, lse) if lse_out else out
 
 
 def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                        attn_mask: Optional[torch.Tensor] = None,
-                       mask_grad: bool = False, variant: Optional[str] = None
+                       mask_grad: bool = False, variant: Optional[str] = None,
+                       out: Optional[torch.Tensor] = None,
+                       lse: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Gradient of `fused_attention` for the output gradient `dout`
     [B, L, D] (qkv's dtype): (dqkv [B, L, 3*D], dmask [L, L] fp32 or None).
     Kernel B on CUDA tensors, `attention_bwd_plain` on CPU tensors.
-    `variant` as in `_forward`."""
+    `variant` as in `_forward`.  TF32X3 takes the forward's output `out`
+    and log-sum-exp `lse` (`_forward(..., lse_out=True)` on the same qkv
+    and mask); without them it launches kernel A's TF32X3 variant for
+    them first."""
     if qkv.device.type == "cpu":
         return attention_bwd_plain(qkv, dout, heads, attn_mask, mask_grad)
     if qkv.device.type != "cuda":
@@ -346,14 +362,24 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
         raise ValueError("dout must start at a 16-byte aligned address")
     if mask_grad and attn_mask is None:
         raise ValueError("mask_grad needs an attn_mask")
-    if mask_grad and variant in (TENSOR_CORE_LONG, CUDA_CORE_LONG):
-        raise ValueError(f"the long backward ({variant}) has no mask "
-                         f"gradient")
+    if mask_grad and variant in (TENSOR_CORE_LONG, TF32X3):
+        raise ValueError(f"the {variant} backward has no mask gradient")
     dqkv = torch.empty_like(qkv)
     dmask = (torch.zeros((L, L), dtype=torch.float32, device=qkv.device)
              if mask_grad else None)
     if B == 0:
         return dqkv, dmask
+    if variant == TF32X3:
+        if out is None or lse is None:
+            out, lse = _forward(qkv, heads, attn_mask, variant=TF32X3,
+                                lse_out=True)
+        if tuple(out.shape) != tuple(dout.shape) or out.dtype != qkv.dtype \
+                or not out.is_contiguous() or out.device != qkv.device \
+                or tuple(lse.shape) != (B * heads, L) \
+                or lse.dtype != torch.float32 or not lse.is_contiguous() \
+                or lse.device != qkv.device:
+            raise ValueError("out and lse must be the tf32x3 forward's "
+                             "contiguous output and log-sum-exp")
     lib = _build.load("attention_bwd")
     ptrs = (qkv.data_ptr(),
             attn_mask.data_ptr() if attn_mask is not None else None,
@@ -365,19 +391,22 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
             err = _entry(lib, "cc_attention_bwd_mma", 5, 4, True)(
                 *ptrs, B, L, heads, hd, _DTYPE_CODES[qkv.dtype],
                 float(hd ** -0.5), stream)
-        elif variant in (TENSOR_CORE_LONG, CUDA_CORE_LONG):
+        elif variant == TENSOR_CORE_LONG:
             # m, l and delta of every query row, from the first launch to
             # the second
             stats = torch.empty((3, B * heads, _stats_len(lib, L)),
                                 dtype=torch.float32, device=qkv.device)
-            if variant == TENSOR_CORE_LONG:
-                err = _entry(lib, "cc_attention_bwd_long", 5, 4, True)(
-                    *ptrs[:4], stats.data_ptr(), B, L, heads, hd,
-                    _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
-            else:
-                err = _entry(lib, "cc_attention_bwd_f32_long", 5, 4, False)(
-                    *ptrs[:4], stats.data_ptr(), B, L, heads, hd,
-                    float(hd ** -0.5), stream)
+            err = _entry(lib, "cc_attention_bwd_long", 5, 4, True)(
+                *ptrs[:4], stats.data_ptr(), B, L, heads, hd,
+                _DTYPE_CODES[qkv.dtype], float(hd ** -0.5), stream)
+        elif variant == TF32X3:
+            # delta = rowsum(dO * O) of every query row, from the first
+            # launch to the second
+            delta = torch.empty((B * heads, L), dtype=torch.float32,
+                                device=qkv.device)
+            err = _entry(lib, "cc_attention_bwd_tf32x3", 7, 4, False)(
+                *ptrs[:3], out.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
+                delta.data_ptr(), B, L, heads, hd, float(hd ** -0.5), stream)
         else:
             err = _entry(lib, "cc_attention_bwd_simt", 5, 4, False)(
                 *ptrs, B, L, heads, hd, float(hd ** -0.5), stream)
@@ -388,21 +417,31 @@ def attention_backward(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
 
 class _FusedAttention(torch.autograd.Function):
     """Kernel A forward, kernel B backward (plain versions on the CPU).
-    Saves only qkv (and the mask): the backward recomputes P."""
+    Saves qkv (and the mask): the backward recomputes P.  Where a gradient
+    is wanted (`grad`) and both directions take TF32X3 it also saves the
+    output O (the tensor the out-projection saves anyway) and the rows'
+    log-sum-exp [B*H, L]."""
 
     @staticmethod
-    def forward(ctx, qkv, attn_mask, heads):
+    def forward(ctx, qkv, attn_mask, heads, grad):
         ctx.heads = heads
-        ctx.save_for_backward(qkv, attn_mask)
-        return _forward(qkv, heads, attn_mask)
+        out, lse = (_forward(qkv, heads, attn_mask, lse_out=True) if grad
+                    else (_forward(qkv, heads, attn_mask), None))
+        if lse is not None and choose_variant(
+                qkv.dtype, qkv.shape[-1] // 3 // heads, qkv.shape[1],
+                backward=True) == TF32X3:
+            ctx.save_for_backward(qkv, attn_mask, out, lse)
+        else:
+            ctx.save_for_backward(qkv, attn_mask, None, None)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, attn_mask = ctx.saved_tensors
+        qkv, attn_mask, out, lse = ctx.saved_tensors
         dqkv, dmask = attention_backward(
             qkv, dout.contiguous(), ctx.heads, attn_mask,
-            mask_grad=ctx.needs_input_grad[1])
-        return dqkv, dmask, None
+            mask_grad=ctx.needs_input_grad[1], out=out, lse=lse)
+        return dqkv, dmask, None, None
 
 
 def fused_attention(qkv: torch.Tensor, heads: int,
@@ -418,7 +457,10 @@ def fused_attention(qkv: torch.Tensor, heads: int,
     Returns:
         [B, L, D] in qkv's dtype.
     """
-    return _FusedAttention.apply(qkv, attn_mask, heads)
+    grad = torch.is_grad_enabled() and (
+        qkv.requires_grad or (attn_mask is not None
+                              and attn_mask.requires_grad))
+    return _FusedAttention.apply(qkv, attn_mask, heads, grad)
 
 
 def reset_counts() -> None:

@@ -33,13 +33,13 @@ from .serve import RetrievalEngine
 
 GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
                                  "attention_fwd_long_kernel",
-                                 "attention_fwd_f32_long_kernel",
+                                 "attention_fwd_tf32x3_kernel",
                                  "attention_fwd_kernel")),
           ("attention bwd kernel", ("attention_bwd_mma_kernel",
                                     "attention_bwd_dq_kernel",
                                     "attention_bwd_dkv_kernel",
-                                    "attention_bwd_f32_dq_kernel",
-                                    "attention_bwd_f32_dkv_kernel",
+                                    "attention_bwd_tf32x3_dq_kernel",
+                                    "attention_bwd_tf32x3_dkv_kernel",
                                     "attention_bwd_kernel")),
           ("layernorm kernel", ("ln_fwd",)),
           ("layernorm bwd kernel", ("_ln_bwd",)),

@@ -124,8 +124,9 @@
 7c. fp32 ViT-B/16 phase, the fifteenth main path (after 7b, on main's
    fixture): the preset `msrvtt_vitb16_k6` with `--precision fp32` and
    remat (the towers in float32: kernels A and B on their fp32 variants,
-   the vision blocks' L = 197 and 161 on the long one, the 32-token text
-   tower's on the CUDA-core one).  FP32_WARMUP_STEPS + FP32_TIMED_STEPS
+   the vision blocks' L = 197 and 161 on the tensor-core one, tf32x3:
+   three TF32 passes a product; the 32-token text tower's on the one
+   FP32_SHORT_RANGES give it).  FP32_WARMUP_STEPS + FP32_TIMED_STEPS
    training steps at batch 128 (peak memory), an encode of 64 clips and a
    search, card against CPU in fp32 with the card's medoid ids replayed (a
    2-clip embedding by cosine, one step on 2 clips by loss and gradient
@@ -134,13 +135,15 @@
    `--precision fp32` (3 steps, then its evaluation); A and B against their
    plain versions on the first input of each shape the steps gave them
    (recorded at the model's call site), at FP32_ATTENTION_CASES beside
-   SDPA in fp32 (1e-5 forward, FP32_BWD_ATOL backward), and both fp32
-   variants' times at FP32_THRESHOLD_CASES (where FP32_SHORT_RANGES come
-   from).  Counts are zeroed before each run and read after it: attention
-   must run its fp32 variants only (24 long forward and 12 long backward
+   SDPA in fp32 (1e-5 forward, FP32_BWD_ATOL backward) with two bounds
+   (the fp32 operations over the CUDA cores' peak, and the split's: three
+   TF32 passes over the TF32 peak, or the bytes), and both fp32 variants'
+   times at FP32_THRESHOLD_CASES (where FP32_SHORT_RANGES come from).
+   Counts are zeroed before each run and read after it: attention must
+   run its fp32 variants only (24 tf32x3 forward and 12 tf32x3 backward
    launches a step), E its global one; the kernels line rows
-   `attention_fwd_fp32_long`, `attention_bwd_fp32_long`,
-   `attention_fwd_fp32` and `attention_bwd_fp32`.
+   `attention_fwd_fp32_tf32x3`, `attention_bwd_fp32_tf32x3` and, where a
+   path ran it, `attention_fwd_fp32` and `attention_bwd_fp32`.
 7d. 20-frame segments phase, the sixteenth main path: ViT-B/16 with remat
    on 60 frames (`--max_frames 60`, ActivityNet's) grouped into 3 segments
    before block 7 (N = 3920 tokens a segment, K = 160), bf16, through
@@ -332,7 +335,7 @@ import time
 
 from centerclip_tpu_torch.kernel_timing import (
     LAYERNORM_FWD_SHAPES, SLEEP_CYCLES, bound, card_peaks, host_us_per_call,
-    kmedoids_bound, layernorm_bound, layernorm_times, time_ms)
+    kmedoids_bound, layernorm_bound, layernorm_times, tf32_peak, time_ms)
 
 # tolerances, stated before any run:
 # bf16 kernel vs plain version: both round fp32 values to bf16, summed in
@@ -644,7 +647,7 @@ def attention_variant_counts(path, backward):
               for fn in (ac.fused_attention, ac.attention_backward)}
     print(f"attention launches by variant during the {path} path: {counts}")
     for name, by in counts.items():
-        if by[ac.CUDA_CORE] or by[ac.CUDA_CORE_LONG] or \
+        if by[ac.CUDA_CORE] or by[ac.TF32X3] or \
                 by[ac.TENSOR_CORE_LONG]:
             fail(f"{name} launched its CUDA-core or long variant on the "
                  f"{path} path: {by}")
@@ -1311,7 +1314,7 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     km, fwd = enc_variants["kmedoids"], enc_variants["fused_attention"]
     n_batches = -(-N_CLIPS // BATCH)
     if not km[kc.GLOBAL] or km[kc.SHARED] or km[kc.LARGE] or \
-            km[kc.SCRATCH] or fwd[ac.CUDA_CORE] or fwd[ac.CUDA_CORE_LONG] or \
+            km[kc.SCRATCH] or fwd[ac.CUDA_CORE] or fwd[ac.TF32X3] or \
             fwd[ac.TENSOR_CORE_LONG] != 12 * n_batches or \
             not enc_launches["layer_norm"]:
         fail(f"the ViT-B/16 encode ran other kernel variants: {enc_variants}")
@@ -1354,10 +1357,10 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     fwd = train_variants["fused_attention"]
     per_fwd = 2 if cfg.remat else 1
     want_bwd = {ac.TENSOR_CORE_LONG: 12 * steps, ac.TENSOR_CORE: 12 * steps,
-                ac.CUDA_CORE: 0, ac.CUDA_CORE_LONG: 0}
+                ac.CUDA_CORE: 0, ac.TF32X3: 0}
     want_fwd = {ac.TENSOR_CORE_LONG: 12 * per_fwd * steps,
                 ac.TENSOR_CORE: 12 * per_fwd * steps, ac.CUDA_CORE: 0,
-                ac.CUDA_CORE_LONG: 0}
+                ac.TF32X3: 0}
     if bwd != want_bwd or fwd != want_fwd or \
             kmv != {kc.GLOBAL: steps, kc.SHARED: 0, kc.LARGE: 0,
                     kc.SCRATCH: 0}:
@@ -1677,7 +1680,7 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
         # each block's forward twice under remat
         want_bwd = {ac.TENSOR_CORE_LONG: 12 * steps,
                     ac.TENSOR_CORE: 12 * steps, ac.CUDA_CORE: 0,
-                    ac.CUDA_CORE_LONG: 0}
+                    ac.TF32X3: 0}
         want_fwd = {v: 2 * n for v, n in want_bwd.items()}
         if by_variant["attention_backward"] != want_bwd or \
                 by_variant["fused_attention"] != want_fwd or \
@@ -1892,10 +1895,15 @@ def hold_attention_fp32(torch, dev, flush, peaks, label, B, L, H, causal,
     and `attention_bwd_plain` (FP32_ATOL / FP32_RTOL forward, FP32_BWD_ATOL
     / FP32_BWD_RTOL backward), B's gradient through the autograd Function
     the kernel's to the bit.  With `time_it`, both timed by CUDA events
-    beside their plain versions and SDPA in fp32 (its backward by
-    `torch.autograd.grad`), with the bound: the fp32 operations (4 L^2 hd
-    a head forward, 10 backward) over the card's fp32 peak, or the bytes
-    over its memory rate.  Returns (A's row, B's row)."""
+    (A as a training step runs it, with its log-sum-exp; B from A's output
+    and log-sum-exp, as the autograd Function hands them over) beside
+    their plain versions and SDPA in fp32 (its backward by
+    `torch.autograd.grad`), with two bounds: the operations the function
+    needs (4 L^2 hd a head forward, 10 backward) over the card's fp32
+    CUDA-core peak (`bound_ffma_ms`), and, as `bound_ms`, the operations
+    the variant runs (tf32x3: three TF32 passes, over the TF32 peak; the
+    CUDA-core one: over the fp32 peak), each against the bytes over the
+    memory rate.  Returns (A's row, B's row)."""
     from centerclip_tpu_torch.ops import attention_cuda as ac
     mem_rate, _, fp32_peak = peaks
     D = 64 * H
@@ -1922,7 +1930,7 @@ def hold_attention_fp32(torch, dev, flush, peaks, label, B, L, H, causal,
     for backward, err in ((False, f_err), (True, b_err)):
         variant = ac.choose_variant(torch.float32, 64, L, backward)
         row = dict(shape=list(qkv.shape), variant=variant, max_abs_err=err)
-        if variant == ac.CUDA_CORE_LONG:
+        if variant == ac.TF32X3:
             row["occupancy"] = ac.long_occupancy(torch.float32, 64, backward)
         rows.append(row)
     fwd, bwd = rows
@@ -1931,39 +1939,48 @@ def hold_attention_fp32(torch, dev, flush, peaks, label, B, L, H, causal,
         q, k, v = (t.reshape(B, L, H, 64).transpose(1, 2)
                    for t in qkv.split(D, dim=-1))
         mask_bytes = L * L * 4 if mask is not None else 0
+        out, lse = ac._forward(qkv, H, mask, lse_out=True)
         fwd.update(
-            ms=time_ms(lambda: ac.fused_attention(qkv, H, mask), flush=flush),
+            ms=time_ms(lambda: ac._forward(qkv, H, mask, lse_out=True),
+                       flush=flush),
             plain_ms=time_ms(lambda: ac.attention_plain(qkv, H, mask),
                              flush=flush),
             library_ms=time_ms(lambda: torch.nn.functional
                                .scaled_dot_product_attention(
                                    q, k, v, is_causal=mask is not None),
                                flush=flush))
-        fwd["bound_ms"], fwd["bound_by"] = bound(
-            qkv.numel() * 4 + B * L * D * 4 + mask_bytes,
-            4.0 * B * H * L * L * 64, fp32_peak, mem_rate)
+        fwd_bytes = qkv.numel() * 4 + B * L * D * 4 + mask_bytes
+        fwd["bound_ms"], fwd["bound_by"] = fp32_attention_bound(
+            fwd_bytes, 4.0 * B * H * L * L * 64, fwd["variant"], peaks)
+        fwd["bound_ffma_ms"], _ = bound(fwd_bytes, 4.0 * B * H * L * L * 64,
+                                        fp32_peak, mem_rate)
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
         o = torch.nn.functional.scaled_dot_product_attention(
             qg, kg, vg, is_causal=mask is not None)
         do_h = dout.reshape(B, L, H, 64).transpose(1, 2)
         bwd.update(
-            ms=time_ms(lambda: ac.attention_backward(qkv, dout, H, mask),
+            ms=time_ms(lambda: ac.attention_backward(qkv, dout, H, mask,
+                                                     out=out, lse=lse),
                        flush=flush),
             plain_ms=time_ms(lambda: ac.attention_bwd_plain(
                 qkv, dout, H, mask), flush=flush),
             library_ms=time_ms(lambda: torch.autograd.grad(
                 o, (qg, kg, vg), do_h, retain_graph=True), flush=flush))
-        bwd["bound_ms"], bwd["bound_by"] = bound(
-            2 * qkv.numel() * 4 + dout.numel() * 4 + mask_bytes,
-            10.0 * B * H * L * L * 64, fp32_peak, mem_rate)
-        del q, k, v, qg, kg, vg, o
+        bwd_bytes = 2 * qkv.numel() * 4 + dout.numel() * 4 + mask_bytes
+        bwd["bound_ms"], bwd["bound_by"] = fp32_attention_bound(
+            bwd_bytes, 10.0 * B * H * L * L * 64, bwd["variant"], peaks)
+        bwd["bound_ffma_ms"], _ = bound(bwd_bytes, 10.0 * B * H * L * L * 64,
+                                        fp32_peak, mem_rate)
+        del q, k, v, qg, kg, vg, o, out, lse
         for row in rows:
             row["vs_library"] = row["ms"] / row["library_ms"]
         note = (f"; ms {fwd['ms']:.4f} / {bwd['ms']:.4f}, plain "
                 f"{fwd['plain_ms']:.4f} / {bwd['plain_ms']:.4f}, sdpa fp32 "
                 f"{fwd['library_ms']:.4f} / {bwd['library_ms']:.4f}, bound "
                 f"{fwd['bound_ms']:.4f} ({fwd['bound_by']}) / "
-                f"{bwd['bound_ms']:.4f} ({bwd['bound_by']})")
+                f"{bwd['bound_ms']:.4f} ({bwd['bound_by']}), FFMA bound "
+                f"{fwd['bound_ffma_ms']:.4f} / {bwd['bound_ffma_ms']:.4f}, vs "
+                f"sdpa {fwd['vs_library']:.3f} / {bwd['vs_library']:.3f}")
     print(f"attention fp32 [{label}] qkv {tuple(qkv.shape)} H={H}"
           f"{' causal' if mask is not None else ''}: forward {fwd['variant']}"
           f"{occupancy_note(fwd)}, max_abs_err {f_err:.3e} (tol {FP32_ATOL} + "
@@ -1971,6 +1988,49 @@ def hold_attention_fp32(torch, dev, flush, peaks, label, B, L, H, causal,
           f"{occupancy_note(bwd)}, max_abs_err {b_err:.3e} (tol "
           f"{FP32_BWD_ATOL} + {FP32_BWD_RTOL}*|ref|){note}")
     return fwd, bwd
+
+
+def fp32_attention_bound(n_bytes, flops, variant, peaks):
+    """(ms, "bytes" or "operations") of fp32 attention that needs `flops`
+    fp32 operations: tf32x3 runs them three times over (three TF32 passes
+    a product) at the TF32 tensor-core peak, the CUDA-core variant once at
+    the fp32 peak."""
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    mem_rate, _, fp32_peak = peaks
+    if variant == ac.TF32X3:
+        return bound(n_bytes, 3 * flops, tf32_peak(peaks), mem_rate)
+    return bound(n_bytes, flops, fp32_peak, mem_rate)
+
+
+def hold_attention_fp32_cuda_core(torch, dev):
+    """The fp32 CUDA-core variant, which no path runs where tf32x3 takes
+    the head_dim (FP32_SHORT_RANGES are empty), forced on the text
+    tower's causal [128, 32] at 8 heads of 64 and taken past head_dim 128
+    ([4, 40] at 2 heads of 192): A and B against their plain versions
+    within FP32_ATOL / FP32_RTOL and FP32_BWD_ATOL / FP32_BWD_RTOL.
+    Returns the rows' errors."""
+    from centerclip_tpu_torch.ops import attention_cuda as ac
+    rows = []
+    for B, L, H, hd, causal in ((128, 32, 8, 64, True),
+                                (4, 40, 2, 192, False)):
+        gen = torch.Generator(device=dev).manual_seed(L + hd)
+        qkv = torch.randn((B, L, 3 * H * hd), generator=gen, device=dev)
+        dout = torch.randn((B, L, H * hd), generator=gen, device=dev)
+        mask = (torch.full((L, L), float("-inf"), device=dev).triu(1)
+                if causal else None)
+        label = f"fp32 cuda_core [{B}, {L}] hd {hd}"
+        f_err = hold_close(torch, label, ac._forward(
+            qkv, H, mask, variant=ac.CUDA_CORE), ac.attention_plain(
+                qkv, H, mask), FP32_ATOL, FP32_RTOL)
+        b_err = hold_close(torch, label + " bwd", ac.attention_backward(
+            qkv, dout, H, mask, variant=ac.CUDA_CORE)[0],
+            ac.attention_bwd_plain(qkv, dout, H, mask)[0], FP32_BWD_ATOL,
+            FP32_BWD_RTOL)
+        rows.append(dict(shape=list(qkv.shape), causal=causal,
+                         max_abs_err_fwd=f_err, max_abs_err_bwd=b_err))
+        print(f"attention {label}: forward max_abs_err {f_err:.3e}, "
+              f"backward {b_err:.3e}")
+    return rows
 
 
 def fp32_threshold_rows(torch, dev, flush):
@@ -1986,6 +2046,7 @@ def fp32_threshold_rows(torch, dev, flush):
         mask = (torch.full((L, L), float("-inf"), device=dev).triu(1)
                 if causal else None)
         row = dict(shape=list(qkv.shape), causal=causal)
+        out, lse = ac._forward(qkv, H, mask, variant=ac.TF32X3, lse_out=True)
         for backward, key in ((False, "fwd"), (True, "bwd")):
             row[f"{key}_variant"] = ac.choose_variant(torch.float32, 64, L,
                                                       backward)
@@ -1993,15 +2054,18 @@ def fp32_threshold_rows(torch, dev, flush):
                 if v == ac.CUDA_CORE and ac.fp32_short_smem_bytes(
                         L, 64, backward) > _build.MAX_SMEM_BYTES:
                     continue
-                fn = ((lambda v=v: ac.attention_backward(qkv, dout, H, mask,
-                                                         variant=v))
+                # B from tf32x3's output and log-sum-exp, as a training
+                # step hands them over (the CUDA-core one takes neither)
+                fn = ((lambda v=v: ac.attention_backward(
+                          qkv, dout, H, mask, variant=v, out=out, lse=lse))
                       if backward else
-                      (lambda v=v: ac._forward(qkv, H, mask, variant=v)))
+                      (lambda v=v: ac._forward(qkv, H, mask, variant=v,
+                                               lse_out=True)))
                 row[f"{key}_{v}_ms"] = time_ms(fn, flush=flush)
         print(f"attention fp32 variants at qkv {tuple(qkv.shape)}"
               f"{' causal' if causal else ''}: {row}")
         rows.append(row)
-        del qkv, dout
+        del qkv, dout, out, lse
     return rows
 
 
@@ -2009,17 +2073,18 @@ def fp32_vitb16_phase(torch, np, dev, flush, peaks, counters, root):
     """The fifteenth main path: the preset msrvtt_vitb16_k6 with
     `--precision fp32` and remat (L = 197 in blocks 1-6, 161 after the
     cluster layer; kernels A and B on their fp32 variants, the vision
-    blocks on the long one).  FP32_WARMUP_STEPS + FP32_TIMED_STEPS
+    blocks on tf32x3).  FP32_WARMUP_STEPS + FP32_TIMED_STEPS
     training steps at batch 128 (peak memory), an encode of 64 clips and a
     search, card against CPU (`fp32_cpu_check`), `main(argv)` on main's
     fixture in `root` with `--precision fp32` (3 steps of 128, then its
     evaluation of 48 clips); then A and B against their plain versions on
     the first input of each shape the steps gave them, their rows at
-    FP32_ATTENTION_CASES and both fp32 variants' times at
-    FP32_THRESHOLD_CASES.  Counts are zeroed before each run and read
-    after it: attention must run its fp32 variants only, the vision
-    blocks' on the long one (24 forward and 12 backward launches a step
-    with remat, 12 forward launches an encode batch)."""
+    FP32_ATTENTION_CASES, both fp32 variants' times at
+    FP32_THRESHOLD_CASES and the CUDA-core variant held where no path
+    takes it (`hold_attention_fp32_cuda_core`).  Counts are zeroed before
+    each run and read after it: attention must run its fp32 variants only,
+    the vision blocks' on tf32x3 (24 forward and 12 backward launches a
+    step with remat, 12 forward launches an encode batch)."""
     from centerclip_tpu_torch import cli
     from centerclip_tpu_torch.config import preset
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
@@ -2033,11 +2098,11 @@ def fp32_vitb16_phase(torch, np, dev, flush, peaks, counters, root):
     N, K = spec.frame_duration * spec.before_cluster_num, spec.cluster_num
     text_L = cfg.max_words
     if (N, K, cfg.compute_dtype) != (392, 160, "float32") or \
-            ac.choose_variant(torch.float32, 64, 161) != ac.CUDA_CORE_LONG \
+            ac.choose_variant(torch.float32, 64, 161) != ac.TF32X3 \
             or ac.choose_variant(torch.float32, 64, 161, True) \
-            != ac.CUDA_CORE_LONG:
+            != ac.TF32X3:
         fail(f"fp32 {VITB16_PRESET}: N={N}, K={K}, {cfg.compute_dtype}, or "
-             f"L = 161 is not the long fp32 variant's")
+             f"L = 161 is not the tf32x3 variant's")
     text_fwd = ac.choose_variant(torch.float32, 64, text_L)
     text_bwd = ac.choose_variant(torch.float32, 64, text_L, backward=True)
 
@@ -2054,10 +2119,10 @@ def fp32_vitb16_phase(torch, np, dev, flush, peaks, counters, root):
                                    or not k.endswith("backward")])
         # 12 vision blocks at L = 197 and 161; in a step also 12 text
         # blocks; no other variant
-        fwd, bwd = {ac.CUDA_CORE_LONG: 12 * per_fwd * steps}, {}
+        fwd, bwd = {ac.TF32X3: 12 * per_fwd * steps}, {}
         if backward:
             fwd[text_fwd] = fwd.get(text_fwd, 0) + 12 * per_fwd * steps
-            bwd = {ac.CUDA_CORE_LONG: 12 * steps}
+            bwd = {ac.TF32X3: 12 * steps}
             bwd[text_bwd] = bwd.get(text_bwd, 0) + 12 * steps
         for fn_name, want in (("fused_attention", fwd),
                               ("attention_backward", bwd)):
@@ -2140,12 +2205,12 @@ def fp32_vitb16_phase(torch, np, dev, flush, peaks, counters, root):
     # tower in batches of its own: held by variant, not by count
     bf16 = [by[v] for by in by_variant.values() for v in by
             if v not in ac.FP32_VARIANTS]
-    if any(bf16) or not by_variant["fused_attention"][ac.CUDA_CORE_LONG] \
-            or not by_variant["attention_backward"][ac.CUDA_CORE_LONG] or \
+    if any(bf16) or not by_variant["fused_attention"][ac.TF32X3] \
+            or not by_variant["attention_backward"][ac.TF32X3] or \
             km != {kc.SHARED: 0, kc.GLOBAL: km[kc.GLOBAL], kc.LARGE: 0,
                    kc.SCRATCH: 0} or not km[kc.GLOBAL]:
         fail(f"fp32 main: attention ran {by_variant}, k-medoids {km}: not "
-             f"the fp32 variants alone, the long one among them, and E's "
+             f"the fp32 variants alone, tf32x3 among them, and E's "
              f"global one")
     paths["fp32_vitb16_main"] = (launches, dict(by_variant, kmedoids=km))
     torch.cuda.empty_cache()
@@ -2165,6 +2230,7 @@ def fp32_vitb16_phase(torch, np, dev, flush, peaks, counters, root):
             for case in FP32_ATTENTION_CASES]
     torch.cuda.empty_cache()
     out["thresholds"] = fp32_threshold_rows(torch, dev, flush)
+    out["cuda_core_held"] = hold_attention_fp32_cuda_core(torch, dev)
     torch.cuda.empty_cache()
     return out, dict(paths=paths,
                      attention_fwd=[f for f, _ in rows],
@@ -6009,16 +6075,16 @@ def main() -> int:
         fail("E's large variant or B past L = 256 never launched on the "
              "fourteenth path")
 
-    # A's and B's fp32 variants (the long one on the fifteenth path, the
-    # short one where a path ran it) and E's scratch variant (the
+    # A's and B's fp32 variants (tf32x3 on the fifteenth path, the
+    # CUDA-core one where a path ran it) and E's scratch variant (the
     # sixteenth), rows of their own: their first shapes' numbers and their
     # launches on those paths
     for row_name, kernel, fn_name, variant, rows, paths, needed in (
-            ("attention_fwd_fp32_long", "attention_fwd", "fused_attention",
-             attention_cuda.CUDA_CORE_LONG, f32["attention_fwd"],
+            ("attention_fwd_fp32_tf32x3", "attention_fwd", "fused_attention",
+             attention_cuda.TF32X3, f32["attention_fwd"],
              f32["paths"], True),
-            ("attention_bwd_fp32_long", "attention_bwd",
-             "attention_backward", attention_cuda.CUDA_CORE_LONG,
+            ("attention_bwd_fp32_tf32x3", "attention_bwd",
+             "attention_backward", attention_cuda.TF32X3,
              f32["attention_bwd"], f32["paths"], True),
             ("attention_fwd_fp32", "attention_fwd", "fused_attention",
              attention_cuda.CUDA_CORE, f32["attention_fwd"], f32["paths"],
@@ -6044,6 +6110,7 @@ def main() -> int:
             plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
             bound_by=a["bound_by"], library_ms=a.get("library_ms"),
             **({"occupancy": a["occupancy"]} if "occupancy" in a else {}),
+            **{k: a[k] for k in ("bound_ffma_ms", "vs_library") if k in a},
             shapes=rows))
 
     print(f"total {time.time() - t_start:.1f} s; by phase (s) "

@@ -15,27 +15,36 @@
   dS enters the dQ and dK products as the pair hi = T(dS), lo = T(dS - hi)
   of 16-bit operands with fp32 accumulation (two mma per product), emulated
   here with PyTorch and held against `attention_bwd_plain`.
-- The fp32 long variants' tiling (CUDA_CORE_LONG), emulated in fp32 and
-  held against the plain versions at L = 161, 197 and 393 (1e-5 forward,
-  1e-4 backward, the card's fp32 tolerances): the same passes and sums as
-  the bf16 long variants with no rounding to 16 bits (T = fp32 makes each
-  rounding the identity and the hi/lo pair (dS, 0)); the fp32 variants'
-  shared-memory layouts (the CUDA-core one's [L, L] limits, the long
-  one's independence of L).
+- The fp32 tensor-core variant (TF32X3), its arithmetic emulated in fp32:
+  every product in three TF32 passes (x = hi + lo, hi and lo rounded to
+  TF32 by cvt.rna's rule on the bits, lo.hi + hi.lo + hi.hi), the
+  forward's online softmax over 64-key tiles and its log-sum-exp, the
+  backward's P = exp(S - lse), delta = rowsum(dO * O), dQ over key tiles
+  and dK, dV over 32-row query tiles in order; held against the plain
+  versions at L = 32, 50, 77 (causal), 161, 197 and 393 within half the
+  card's fp32 tolerances (1e-5 forward, 1e-4 backward), and at a small
+  width against the JAX package's `fused_mha` (Pallas, interpret mode)
+  and its VJP.  One TF32 pass, what TF32 matmuls would do, fails those
+  tolerances: the lo terms are needed.  The fp32 variants' shared-memory
+  layouts (the CUDA-core one's [L, L] limits, the tf32x3 one's
+  independence of L).
 - The build's freshness rule: a library is rebuilt when its source or any
   header the source includes is newer.
 """
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from centerclip_tpu.ops.attention_pallas import fused_mha
 from centerclip_tpu_torch.ops import _build, attention_cuda
 from centerclip_tpu_torch.ops.attention_cuda import (CUDA_CORE,
-                                                     CUDA_CORE_LONG,
                                                      TENSOR_CORE,
                                                      TENSOR_CORE_LONG,
+                                                     TF32X3,
                                                      choose_variant)
 
 # bf16 tolerance of the card's kernel-vs-plain checks (chip_smoke.py,
@@ -61,23 +70,24 @@ BF16_ATOL, BF16_RTOL = 1.6e-2, 1.6e-2
     (torch.bfloat16, 64, 257, True, TENSOR_CORE_LONG),    # past 4 key tiles
     (torch.bfloat16, 64, 393, True, TENSOR_CORE_LONG),    # K = 392 + CLS
     (torch.float16, 64, 1024, True, TENSOR_CORE_LONG),    # no backward limit
-    (torch.float32, 64, 50, False, CUDA_CORE_LONG),   # fp32 past 40
-    (torch.float32, 40, 197, True, CUDA_CORE_LONG),   # fp32: any head_dim
-    (torch.float32, 64, 32, False, CUDA_CORE),        # the text tower
-    (torch.float32, 64, 32, True, CUDA_CORE),
-    (torch.float32, 64, 40, True, CUDA_CORE),         # FP32_SHORT_RANGES
-    (torch.float32, 64, 64, True, CUDA_CORE_LONG),    # one key tile
-    (torch.float32, 64, 77, True, CUDA_CORE),         # just past one tile
-    (torch.float32, 64, 77, False, CUDA_CORE_LONG),
-    (torch.float32, 64, 96, True, CUDA_CORE_LONG),
-    (torch.float32, 64, 48, True, CUDA_CORE),
-    (torch.float32, 64, 49, True, CUDA_CORE_LONG),
-    (torch.float32, 64, 72, False, CUDA_CORE),
-    (torch.float32, 64, 73, False, CUDA_CORE_LONG),
-    (torch.float32, 64, 41, False, CUDA_CORE_LONG),
-    (torch.float32, 64, 161, True, CUDA_CORE_LONG),   # ViT-B/16 blocks 7-12
-    (torch.float32, 128, 785, True, CUDA_CORE_LONG),  # no length limit
-    (torch.float32, 33, 77, False, CUDA_CORE_LONG),   # any head_dim <= 128
+    (torch.float32, 64, 50, False, TF32X3),   # fp32, head_dim <= 128
+    (torch.float32, 40, 197, True, TF32X3),   # fp32: any head_dim
+    (torch.float32, 64, 32, False, TF32X3),   # the text tower
+    (torch.float32, 64, 32, True, TF32X3),
+    (torch.float32, 64, 1, True, TF32X3),     # any L: no short range
+    (torch.float32, 64, 64, True, TF32X3),    # one key tile
+    (torch.float32, 64, 77, True, TF32X3),    # just past one tile
+    (torch.float32, 64, 77, False, TF32X3),
+    (torch.float32, 64, 96, True, TF32X3),
+    (torch.float32, 64, 48, True, TF32X3),
+    (torch.float32, 64, 49, True, TF32X3),
+    (torch.float32, 64, 72, False, TF32X3),
+    (torch.float32, 64, 73, False, TF32X3),
+    (torch.float32, 64, 41, False, TF32X3),
+    (torch.float32, 64, 161, True, TF32X3),   # ViT-B/16 blocks 7-12
+    (torch.float32, 128, 785, True, TF32X3),  # no length limit
+    (torch.float32, 33, 77, False, TF32X3),   # any head_dim <= 128
+    (torch.float32, 128, 8, False, TF32X3),   # to head_dim 128
     (torch.float32, 512, 30, False, CUDA_CORE),       # fits the short one
     (torch.float32, 192, 64, False, CUDA_CORE),       # past 128, where it fits
 ])
@@ -257,7 +267,112 @@ def test_long_backward_tiles_cover_every_row_once():
         assert len(tiles) * TILE >= L > (len(tiles) - 1) * TILE
 
 
-# ---------------------------------------------- the fp32 long variants
+# ------------------------------------------- the fp32 tensor-core variant
+FP32_ATOL, FP32_RTOL = 1e-5, 1e-5            # the card's: forward
+FP32_BWD_ATOL, FP32_BWD_RTOL = 1e-4, 1e-4    # backward
+# csrc's tf32x3 steps: keys per ring stage of the forward and of the dQ
+# launch, query rows per step of the dK / dV launch
+FWD_KEYS, DQ_KEYS, QROWS = 32, 32, 16
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest on the 10
+    stored mantissa bits, ties away from zero (the 13 low bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm(a, b, passes=3):
+    """a @ b on the tensor cores: three TF32 passes (the two small terms
+    first, as the kernels add them), or one (TF32 alone).  Products of TF32
+    values are exact in fp32, so fp32 matmuls of the halves emulate mma."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    if passes == 1:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32x3_fwd_emulated(qkv, heads, mask=None, passes=3):
+    """TF32X3's forward: q scaled in fp32; per FWD_KEYS-key tile S = qs.K^T
+    (+ mask), the running max m, l = l exp(m - m') + sum exp(S - m') and
+    O = O exp(m - m') + P.V with P = exp(S - m') in fp32; O / l and the
+    rows' log-sum-exp m + ln l.  Returns (out [B, L, D], O [B, H, L, hd],
+    lse [B, H, L, 1])."""
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    hd = D // heads
+    q, k, v = qkv.split(D, dim=-1)
+    qs = _heads(q * hd ** -0.5, B, L, heads, hd)
+    kf, vf = _heads(k, B, L, heads, hd), _heads(v, B, L, heads, hd)
+    m = torch.full((B, heads, L, 1), float("-inf"))
+    l = torch.zeros((B, heads, L, 1))
+    o = torch.zeros((B, heads, L, hd))
+    for j0 in range(0, L, FWD_KEYS):
+        keys = slice(j0, j0 + FWD_KEYS)
+        s = _mm(qs, kf[..., keys, :].transpose(-1, -2), passes)
+        if mask is not None:
+            s = s + mask[:, keys]
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        shrink = torch.exp(m - mn)
+        p = torch.exp(s - mn)
+        l = l * shrink + p.sum(-1, keepdim=True)
+        o = o * shrink + _mm(p, vf[..., keys, :], passes)
+        m = mn
+    o = o / l
+    return o.transpose(1, 2).reshape(B, L, D), o, m + torch.log(l)
+
+
+def _tf32x3_bwd_emulated(qkv, dout, heads, mask=None, passes=3):
+    """TF32X3's backward, from the emulated forward's O and log-sum-exp:
+    delta = rowsum(dO * O); launch 1 per DQ_KEYS-key tile in order:
+    dP = dO.V^T, P = exp(S - lse), dS = P (dP - delta), dQ += dS.K;
+    launch 2 per 64-key tile, over QROWS-row query tiles in order:
+    dV += P^T.dO, dK += dS^T.qs."""
+    B, L, D3 = qkv.shape
+    D = D3 // 3
+    hd = D // heads
+    scale = hd ** -0.5
+    q, k, v = qkv.split(D, dim=-1)
+    qs = _heads(q * scale, B, L, heads, hd)
+    kf, vf = _heads(k, B, L, heads, hd), _heads(v, B, L, heads, hd)
+    do = _heads(dout, B, L, heads, hd)
+    _, o, lse = _tf32x3_fwd_emulated(qkv, heads, mask, passes)
+    delta = (do * o).sum(-1, keepdim=True)
+
+    def p_ds(rows, keys):
+        kt, vt = kf[..., keys, :], vf[..., keys, :]
+        s = _mm(qs[..., rows, :], kt.transpose(-1, -2), passes)
+        if mask is not None:
+            s = s + mask[rows, keys]
+        dp = _mm(do[..., rows, :], vt.transpose(-1, -2), passes)
+        p = torch.exp(s - lse[..., rows, :])
+        return p, p * (dp - delta[..., rows, :])
+
+    dq = torch.zeros((B, heads, L, hd))
+    for j0 in range(0, L, DQ_KEYS):                      # launch 1
+        keys = slice(j0, j0 + DQ_KEYS)
+        _, ds = p_ds(slice(0, L), keys)
+        dq = dq + _mm(ds, kf[..., keys, :], passes)
+    dk, dv = torch.zeros((B, heads, L, hd)), torch.zeros((B, heads, L, hd))
+    for j0 in range(0, L, TILE):                         # launch 2
+        keys = slice(j0, j0 + TILE)
+        for i0 in range(0, L, QROWS):
+            rows = slice(i0, i0 + QROWS)
+            p, ds = p_ds(rows, keys)
+            dv[..., keys, :] += _mm(p.transpose(-1, -2), do[..., rows, :],
+                                    passes)
+            dk[..., keys, :] += _mm(ds.transpose(-1, -2), qs[..., rows, :],
+                                    passes)
+    return torch.cat([g.transpose(1, 2).reshape(B, L, D)
+                      for g in (dq * scale, dk, dv)], dim=-1)
+
+
 def _fp32_qkv_dout(L, B=2, H=12, hd=64):
     g = np.random.default_rng(L + 1)
     qkv = torch.from_numpy(g.standard_normal((B, L, 3 * H * hd)).astype(
@@ -267,30 +382,114 @@ def _fp32_qkv_dout(L, B=2, H=12, hd=64):
     return qkv, dout, H
 
 
-@pytest.mark.parametrize("L", [161, 197, 393])
+def _causal(L):
+    return torch.full((L, L), float("-inf")).triu(1)
+
+
+def _share(out, ref, atol, rtol):
+    """worst error as a share of the tolerance atol + rtol |ref|"""
+    return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+# ViT-B/32's 50 tokens, the text towers' 32 and 77 (causal), ViT-B/16's
+# 197 and 161, K = 392's 393
+FP32_LENGTHS = [32, 50, 77, 161, 197, 393]
+
+
+@pytest.mark.parametrize("L", FP32_LENGTHS)
 def test_fp32_long_forward_tiling_keeps_the_plain_forward(L):
-    """CUDA_CORE_LONG's forward (pass 1: m and l over 64-key tiles, pass 2:
-    P = exp(S - m) / l in fp32 and P.V summed tile after tile) on fp32
-    inputs stays within the card's fp32 tolerance of `attention_plain`."""
+    """TF32X3's forward (three TF32 passes a product, the online softmax
+    over 64-key tiles) on fp32 inputs stays within half the card's fp32
+    tolerance of `attention_plain`, and its log-sum-exp is the rows'."""
     qkv, _, H = _fp32_qkv_dout(L)
-    assert choose_variant(torch.float32, 64, L) == CUDA_CORE_LONG
-    torch.testing.assert_close(_long_fwd_emulated(qkv, H),
-                               attention_cuda.attention_plain(qkv, H),
+    mask = _causal(L) if L == 77 else None
+    assert choose_variant(torch.float32, 64, L) in (TF32X3, CUDA_CORE)
+    out, _, lse = _tf32x3_fwd_emulated(qkv, H, mask)
+    ref = attention_cuda.attention_plain(qkv, H, mask)
+    assert _share(out, ref, FP32_ATOL, FP32_RTOL) <= 0.5
+    D = qkv.shape[-1] // 3
+    s = _heads(qkv[..., :D] * 0.125, 2, L, H, 64) @ \
+        _heads(qkv[..., D:2 * D], 2, L, H, 64).transpose(-1, -2)
+    if mask is not None:
+        s = s + mask
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1, keepdim=True),
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("L", [161, 197, 393])
+@pytest.mark.parametrize("L", FP32_LENGTHS)
 def test_fp32_key_tiled_statistics_keep_the_plain_backward(L):
-    """CUDA_CORE_LONG's backward (m, l and a = sum exp(s - m) dP over
-    64-key tiles, delta = a / l; dQ over key tiles in order; dK and dV
-    per key tile over query blocks in order; dS in fp32) on fp32 inputs
-    stays within the card's fp32 tolerance of `attention_bwd_plain`."""
+    """TF32X3's backward (P from the forward's log-sum-exp, delta =
+    rowsum(dO * O) from its output, three TF32 passes a product, dQ over
+    key tiles, dK and dV over 32-row query tiles) on fp32 inputs stays
+    within half the card's fp32 backward tolerance of
+    `attention_bwd_plain`."""
     qkv, dout, H = _fp32_qkv_dout(L)
+    mask = _causal(L) if L == 77 else None
     assert choose_variant(torch.float32, 64, L, backward=True) \
-        == CUDA_CORE_LONG
-    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H)
-    torch.testing.assert_close(_long_bwd_emulated(qkv, dout, H), ref,
-                               rtol=1e-4, atol=1e-4)
+        in (TF32X3, CUDA_CORE)
+    ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H, mask)
+    out = _tf32x3_bwd_emulated(qkv, dout, H, mask)
+    assert _share(out, ref, FP32_BWD_ATOL, FP32_BWD_RTOL) <= 0.5
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_fp32_single_tf32_pass_misses_the_tolerances(backward):
+    """One TF32 pass a product (no lo terms: what TF32 matmuls do) misses
+    the card's fp32 tolerances at ViT-B/16's L = 197, where the three
+    passes stay within half of them: the lo terms are what keeps fp32."""
+    qkv, dout, H = _fp32_qkv_dout(197)
+    if backward:
+        ref, _ = attention_cuda.attention_bwd_plain(qkv, dout, H)
+        shares = [_share(_tf32x3_bwd_emulated(qkv, dout, H, passes=n), ref,
+                         FP32_BWD_ATOL, FP32_BWD_RTOL) for n in (3, 1)]
+    else:
+        ref = attention_cuda.attention_plain(qkv, H)
+        shares = [_share(_tf32x3_fwd_emulated(qkv, H, passes=n)[0], ref,
+                         FP32_ATOL, FP32_RTOL) for n in (3, 1)]
+    assert shares[0] <= 0.5 < 1.0 < shares[1], shares
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """_tf32 rounds to nearest with ties away from zero on 10 mantissa
+    bits, and x - hi of any fp32 x is exact, so hi + lo leaves ~2^-22."""
+    one = 1.0 + 2.0 ** -11                 # ties: away from zero
+    x = torch.tensor([1.0, one, -one, 1.0 + 2.0 ** -12, 3.0 + 2.0 ** -10,
+                      3.0 + 2.0 ** -9])
+    assert _tf32(x).tolist() == [1.0, 1.0 + 2.0 ** -10, -1.0 - 2.0 ** -10,
+                                 1.0, 3.0 + 2.0 ** -9, 3.0 + 2.0 ** -9]
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4096).astype(np.float32))
+    hi, lo = _split(y)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
+    assert ((hi + lo - y).abs() <= y.abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp32_tf32x3_matches_jax_fused_mha(causal):
+    """At a small width (2 heads of 16, L = 77) the emulated TF32X3 forward
+    and backward against the JAX package's `fused_mha` (Pallas, interpret
+    mode) and its custom VJP, within the card's fp32 tolerances."""
+    B, L, H, hd = 2, 77, 2, 16
+    D = H * hd
+    g = np.random.default_rng(77 + causal)
+    qkv = g.standard_normal((B, L, 3 * D)).astype(np.float32)
+    dout = g.standard_normal((B, L, D)).astype(np.float32)
+    mask = np.triu(np.full((L, L), -np.inf, np.float32), 1) if causal \
+        else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    q, k, v = (jnp.asarray(x) for x in np.split(qkv, 3, axis=-1))
+    ref, vjp = jax.vjp(lambda q, k, v: fused_mha(
+        q, k, v, jmask, heads=H, group=2, interpret=True), q, k, v)
+    dref = np.concatenate([np.asarray(x) for x in vjp(jnp.asarray(dout))],
+                          axis=-1)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    out = _tf32x3_fwd_emulated(torch.from_numpy(qkv), H, tmask)[0]
+    dqkv = _tf32x3_bwd_emulated(torch.from_numpy(qkv),
+                                torch.from_numpy(dout), H, tmask)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=FP32_RTOL, atol=FP32_ATOL)
+    np.testing.assert_allclose(dqkv.numpy(), dref, rtol=FP32_BWD_RTOL,
+                               atol=FP32_BWD_ATOL)
 
 
 def test_fp32_short_variant_limits_and_threshold():
@@ -308,22 +507,27 @@ def test_fp32_short_variant_limits_and_threshold():
 
 
 def test_fp32_long_layouts_fit_a_cta_whatever_l():
-    """CUDA_CORE_LONG's shared memory (csrc/f32_tile.cuh strides: head
-    tiles of 64 rows, pad4(hd) + 4 floats apart; score tiles 68 floats
-    apart): the forward's q, two K / V ring stages and P; the dQ kernel's
-    q, dO, two K / V stages and dS; the dK / dV kernel's K, V, two q / dO
-    / statistics stages and P^T and dS^T (one tile for both past 64
-    channels).  No term has L in it, and every head_dim <= 128 fits."""
-    def pad4(x):
-        return (x + 3) // 4 * 4
+    """TF32X3's shared memory (csrc/f32_tile.cuh strides: head tiles
+    pad8(hd) + 4 floats apart): the forward's 64 raw q rows and two ring
+    stages of a split (hi, lo) FWD_KEYS-row tile; the dQ launch's raw q
+    and dO and two such stages of DQ_KEYS rows; the dK / dV launch's raw
+    K and V of 64 keys and two stages of QROWS query rows' split q and dO
+    with 2 x QROWS statistics.  No term has L in it, every head_dim <= 128
+    fits, and at ViT's 64 the CTAs the kernels' launch bounds aim at (4
+    forward, 3 each backward launch) share an SM."""
+    def pad8(x):
+        return (x + 7) // 8 * 8
 
     def sizes(hd):
-        head, score = 64 * (pad4(hd) + 4), 64 * 68
-        return ((5 * head + score) * 4, (6 * head + score) * 4,
-                (6 * head + 2 * 3 * 64 + (2 if hd <= 64 else 1) * score) * 4)
-    assert sizes(64) == (104_448, 121_856, 140_800)
+        row = pad8(hd) + 4
+        return ((64 + 2 * 2 * FWD_KEYS) * row * 4,
+                (2 * 64 + 2 * 2 * DQ_KEYS) * row * 4,
+                ((2 * 64 + 2 * 4 * QROWS) * row + 2 * 2 * QROWS) * 4)
+    assert sizes(64) == (52_224, 69_632, 69_888)
     assert all(max(sizes(hd)) <= _build.MAX_SMEM_BYTES
                for hd in range(1, 129))
+    for size, ctas in zip(sizes(64), (4, 3, 3)):      # 1 KB reserved a CTA
+        assert ctas * (size + 1024) <= 228 * 1024
 
 
 # --------------------------------------------------------- hi/lo dS operands

@@ -213,9 +213,10 @@ def test_features_match_jax_in_fp32(fp32_vitb16):
 def test_attention_inputs_take_the_fp32_variants(fp32_vitb16):
     """The qkv a training step hands to kernel A (at the model's call
     site) is fp32 at L = 197 (block 1), 161 (block 2, after the cluster
-    layer) and 12 (text); on a CUDA tensor the vision blocks' take
-    CUDA_CORE_LONG both ways (past both CUDA-core limits at ViT-B/16's
-    full width too), the text tower's the CUDA-core variant."""
+    layer) and 12 (text); on a CUDA tensor each takes TF32X3, the fp32
+    tensor-core variant, both ways (the CUDA-core one, slower at every
+    length the card was timed at, runs only past head_dim 128), at this
+    narrow width and at ViT-B/16's."""
     _, params, run, batch, ids = fp32_vitb16
     model = port_model(params, run.model)
     seen = []
@@ -236,5 +237,4 @@ def test_attention_inputs_take_the_fp32_variants(fp32_vitb16):
             for backward in (False, True):
                 variant = attention_cuda.choose_variant(dtype, width_hd, L,
                                                         backward)
-                assert variant == (attention_cuda.CUDA_CORE if L == CTX
-                                   else attention_cuda.CUDA_CORE_LONG)
+                assert variant == attention_cuda.TF32X3

@@ -425,45 +425,50 @@ def test_attention_long_vitb16_shapes(cuda, B, L):
 def test_attention_long_occupancy(cuda):
     """The long kernels' registers and shared memory leave room for the
     CTAs per SM their launch bounds aim at (4 for A, 3 for B's two; in
-    fp32, 2 for A and 1 for B's two, also at head_dim 128)."""
+    fp32, tf32x3's, 4 for A and 3 for B's two at head_dim 64, 1 at 128)."""
     fwd = attention_cuda.long_occupancy(torch.bfloat16, 64)
     bwd = attention_cuda.long_occupancy(torch.bfloat16, 64, backward=True)
     assert fwd["attention_fwd_long_kernel"]["ctas_per_sm"] >= 4, fwd
     assert all(v["ctas_per_sm"] >= 3 for v in bwd.values()), bwd
     fwd = attention_cuda.long_occupancy(torch.float32, 64)
-    assert fwd["attention_fwd_f32_long_kernel"]["ctas_per_sm"] >= 2, fwd
-    for hd in (64, 128):
+    assert fwd["attention_fwd_tf32x3_kernel"]["ctas_per_sm"] >= 4, fwd
+    for hd, ctas in ((64, 3), (128, 1)):
         bwd = attention_cuda.long_occupancy(torch.float32, hd, backward=True)
-        assert all(v["ctas_per_sm"] >= 1 for v in bwd.values()), bwd
+        assert set(bwd) == {"attention_bwd_tf32x3_dq_kernel",
+                            "attention_bwd_tf32x3_dkv_kernel"}, bwd
+        assert all(v["ctas_per_sm"] >= ctas for v in bwd.values()), bwd
 
 
-# the fp32 long variant (CUDA_CORE_LONG): the first L both directions
-# take it at, one 64-row tile, past it, ragged tiles, ViT-B/16's L = 161
-# and 197, K = 392's 393, L = 785; a causal mask on some (no mask
-# gradient)
-FP32_LONG_CASES = [(49, False), (64, False), (129, True), (161, False),
+# the fp32 tensor-core variant (TF32X3): one 64-row tile and less, past
+# it, ragged tiles and tails of 1-7 keys, ViT-B/16's L = 161 and 197,
+# K = 392's 393, L = 785; a causal mask on some (no mask gradient)
+FP32_LONG_CASES = [(1, False), (8, True), (32, True), (49, False),
+                   (64, False), (77, True), (129, True), (161, False),
                    (197, False), (197, True), (393, False), (785, True)]
 
 
 @pytest.mark.parametrize("L,causal", FP32_LONG_CASES)
 def test_attention_fp32_long_matches_plain(cuda, L, causal):
-    """Kernels A and B's fp32 long variant within the fp32 tolerances
-    (1e-5 forward, 1e-4 backward) of the plain versions, B twice equal to
-    the bit, each counted under its variant."""
+    """Kernels A and B's tf32x3 variant within the fp32 tolerances (1e-5
+    forward, 1e-4 backward) of the plain versions, B twice equal to the
+    bit (called alone, it launches A for O and the log-sum-exp first),
+    each counted under its variant."""
     B, H = 3, 12
+    x3 = attention_cuda.TF32X3
     qkv = _randn((B, L, 3 * H * 64), torch.float32, cuda, seed=L + 7)
     dout = _randn((B, L, H * 64), torch.float32, cuda, seed=L + 8)
     mask = _causal(L, cuda) if causal else None
     f0 = _variant_counts(attention_cuda.fused_attention)
     b0 = _variant_counts(attention_cuda.attention_backward)
-    out = attention_cuda.fused_attention(qkv, H, mask)
-    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
-    again, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
+    out = attention_cuda._forward(qkv, H, mask, variant=x3)
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H, mask,
+                                                variant=x3)
+    again, _ = attention_cuda.attention_backward(qkv, dout, H, mask,
+                                                 variant=x3)
     torch.cuda.synchronize()
-    for fn, before, n in ((attention_cuda.fused_attention, f0, 1),
+    for fn, before, n in ((attention_cuda.fused_attention, f0, 3),
                           (attention_cuda.attention_backward, b0, 2)):
-        assert fn.variant_launches[attention_cuda.CUDA_CORE_LONG] == \
-            before[attention_cuda.CUDA_CORE_LONG] + n
+        assert fn.variant_launches[x3] == before[x3] + n
     assert torch.equal(dqkv, again)
     torch.testing.assert_close(out, attention_cuda.attention_plain(
         qkv, H, mask), rtol=1e-5, atol=1e-5)
@@ -471,22 +476,60 @@ def test_attention_fp32_long_matches_plain(cuda, L, causal):
     torch.testing.assert_close(dqkv, ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("hd", [16, 33, 40, 96, 128])
+@pytest.mark.parametrize("hd", [16, 32, 33, 40, 96, 128])
 def test_attention_fp32_long_head_dims(cuda, hd):
     """Any head_dim <= 128: 16-byte copies where it is a multiple of 4,
-    4-byte ones else; one or two 64-channel register tiles."""
+    4-byte ones else; channels padded to 8; one or two 64-channel groups
+    of the outputs in registers; a causal mask."""
     B, L, H = 2, 197, 2
+    x3 = attention_cuda.TF32X3
     qkv = _randn((B, L, 3 * H * hd), torch.float32, cuda, seed=hd)
     dout = _randn((B, L, H * hd), torch.float32, cuda, seed=hd + 1)
-    assert attention_cuda.choose_variant(torch.float32, hd, L) == \
-        attention_cuda.CUDA_CORE_LONG
-    torch.testing.assert_close(attention_cuda.fused_attention(qkv, H),
-                               attention_cuda.attention_plain(qkv, H),
-                               rtol=1e-5, atol=1e-5)
+    mask = _causal(L, cuda)
+    assert attention_cuda.choose_variant(torch.float32, hd, L) == x3
     torch.testing.assert_close(
-        attention_cuda.attention_backward(qkv, dout, H)[0],
-        attention_cuda.attention_bwd_plain(qkv, dout, H)[0],
+        attention_cuda._forward(qkv, H, mask, variant=x3),
+        attention_cuda.attention_plain(qkv, H, mask), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        attention_cuda.attention_backward(qkv, dout, H, mask,
+                                          variant=x3)[0],
+        attention_cuda.attention_bwd_plain(qkv, dout, H, mask)[0],
         rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("L,causal", [(77, True), (197, False)])
+def test_attention_tf32x3_function_saves_the_forward_statistics(cuda, L,
+                                                                causal):
+    """Through the autograd Function, B takes A's output and log-sum-exp
+    (no second A launch) and gives the bits of B called alone; the
+    log-sum-exp is the rows' within the fp32 tolerance; under no_grad the
+    Function's output is the same."""
+    B, H = 4, 12
+    x3 = attention_cuda.TF32X3
+    qkv = _randn((B, L, 3 * H * 64), torch.float32, cuda, seed=L)
+    dout = _randn((B, L, H * 64), torch.float32, cuda, seed=L + 1)
+    mask = _causal(L, cuda) if causal else None
+    assert attention_cuda.choose_variant(torch.float32, 64, L) == x3
+    assert attention_cuda.choose_variant(torch.float32, 64, L, True) == x3
+    x = qkv.clone().requires_grad_(True)
+    f0 = _variant_counts(attention_cuda.fused_attention)
+    out = attention_cuda.fused_attention(x, H, mask)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert _variant_counts(attention_cuda.fused_attention)[x3] == f0[x3] + 1
+    dqkv, _ = attention_cuda.attention_backward(qkv, dout, H, mask)
+    assert torch.equal(x.grad, dqkv)
+    o2, lse = attention_cuda._forward(qkv, H, mask, lse_out=True)
+    assert torch.equal(o2, out.detach())
+    q, k = (t.reshape(B, L, H, 64).transpose(1, 2)
+            for t in qkv.split(H * 64, dim=-1)[:2])
+    s = (q * 0.125) @ k.transpose(-1, -2)
+    if mask is not None:
+        s = s + mask
+    torch.testing.assert_close(lse.reshape(B, H, L), torch.logsumexp(s, -1),
+                               rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        assert torch.equal(attention_cuda.fused_attention(x, H, mask), o2)
 
 
 @pytest.mark.parametrize("B,L", [(1536, 197), (768, 161), (384, 393)])
@@ -989,6 +1032,20 @@ def test_kmedoids_scratch_variant_equals_plain_ids_and_steps(cuda, B, N, K,
     assert torch.equal(m1, m2)
     assert torch.equal(a1, a2)
     assert torch.equal(steps, fixed_point_steps(D, l2, K, 100))
+
+
+def test_attention_tf32x3_layout_is_the_sources(cuda):
+    """The tf32x3 kernels' shared memory, as the sources size it, is the
+    layout tests/test_torch_attention_design.py holds (52 224 bytes
+    forward, 69 888 backward at head_dim 64) and does not grow with L."""
+    fwd, bwd = _build.load("attention"), _build.load("attention_bwd")
+    for L in (1, 197, 785):
+        assert _build.smem_bytes(fwd, "cc_attention_tf32x3_smem_bytes", L,
+                                 64) == 52_224
+        assert _build.smem_bytes(bwd, "cc_attention_bwd_tf32x3_smem_bytes",
+                                 L, 64) == 69_888
+    assert _build.smem_bytes(bwd, "cc_attention_bwd_tf32x3_smem_bytes", 197,
+                             128) <= _build.MAX_SMEM_BYTES
 
 
 def test_attention_fp32_short_layout_is_the_sources(cuda):
