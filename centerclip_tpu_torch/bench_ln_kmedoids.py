@@ -1,7 +1,7 @@
 # coding=utf-8
-"""Time kernel C (LayerNorm forward) and kernel E's global, large and
-scratch variants (k-medoids, N > SHARED_MAX_N) against an earlier version
-of each, in turns.
+"""Time kernel C (LayerNorm forward) and kernel E's global and cluster
+variants (k-medoids, N > SHARED_MAX_N) against an earlier version of
+each, in turns.
 
     python -m centerclip_tpu_torch.bench_ln_kmedoids --old DIR
 
@@ -27,13 +27,17 @@ an encode batch of 32 clips (D [192, 392, 392]) and the training batch of
 128 (D [768, 392, 392]), K = 160, the global variant's; then the same
 tokens with the rows of consecutive segments joined into segments of 784
 (D [384, 784, 784] and [96, 784, 784]), 588 ([512, 588, 588]) and 2352
-tokens (the first 8: [8, 2352, 2352]).  Each version's wrapper picks its
-own variant; where the new one picks the large variant, the scratch
-variant runs on the same inputs too.  All must give the same ids,
-assignment and steps; each timed in full and with iter_limit 0 (KKZ, the
-id sort and the last assignment alone) in turns with the new one, beside
-the bound, with the mean Lloyd steps.  Prints the card and one JSON line.
-Needs a CUDA device.
+tokens (the first 8: [8, 2352, 2352]); then the sixteenth path's tokens
+(60 frames in 3 segments of 3920: an encode batch of 32 clips, D
+[96, 3920, 3920], and a training batch of 16, [48, 3920, 3920]) at K = 160
+and 392, and joined into 12-frame segments at K = N = 2352 ([8, 2352,
+2352]).  Each version's wrapper picks its own variant (the parent's
+large or scratch one against the cluster one past N = 512).  Both must
+give the same ids, assignment and steps; each timed in full and with iter_limit 0 (KKZ, the id sort and the
+last assignment alone) in turns with the new one, beside both bounds
+(`kmedoids_bound`, `kmedoids_sector_bound`), with the cluster size and the
+mean Lloyd steps.  Prints the card and one JSON line.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -49,11 +53,14 @@ import torch
 
 from .kernel_timing import (LAYERNORM_FWD_SHAPES, card_peaks,
                             host_us_per_call, kmedoids_bound,
-                            layernorm_bound, layernorm_times, time_ms)
+                            kmedoids_sector_bound, layernorm_bound,
+                            layernorm_times, time_ms)
 from .ops import kmedoids_cuda, layernorm_triton
 
 HOST_SHAPES = ((128, 512), (4800, 768))
 E_PRESET, E_CLIPS, E_FRAMES, E_RES = "msrvtt_vitb16_k6", (32, 128), 12, 224
+# the sixteenth path's clips: an encode batch and a training batch
+SEG20_FRAMES, SEG20_SEGMENTS, SEG20_CLIPS = 60, 3, (32, 16)
 BF16_ATOL, BF16_RTOL = 1.6e-2, 1.6e-2
 FP32_ATOL, FP32_RTOL = 1e-5, 1e-5
 
@@ -129,14 +136,25 @@ def layernorm_rows(old_ln, flush, dev, peaks):
     return rows, host
 
 
-def vitb16_points(dev):
-    """{clips: the [S, 392, 768] points the cluster layer clustered}, K and
-    the iteration limit, from one eval forward of each batch size."""
+def vitb16_points(dev, frames=E_FRAMES, clips=E_CLIPS, segments=None):
+    """[[S, N, 768] points the cluster layer clustered, K, keywords] of one
+    eval forward of each batch size in `clips`, at preset msrvtt_vitb16_k6
+    on `frames` frames (with `segments`: clustered before block 7 in that
+    many segments of 196 frames / segments tokens, K = 160, as the
+    sixteenth path's flags do)."""
+    import dataclasses
     from .config import preset
     from .models.clip4clip import CLIP4Clip
     from .ops import cluster_layer
     from .serve import RetrievalEngine
     cfg = preset(E_PRESET).model
+    if segments is not None:
+        cfg = dataclasses.replace(cfg, max_frames=frames, cluster=dataclasses
+                                  .replace(cfg.cluster,
+                                           cluster_num_blocks=(196,) * 6
+                                           + (160,) * 6,
+                                           target_frames_blocks=(frames,) * 6
+                                           + (segments,) * 6))
     model = CLIP4Clip(cfg, device=dev, seed=0).eval()
     engine = RetrievalEngine(model, device=dev)
     seen, real = {}, cluster_layer.kmedoids
@@ -147,21 +165,25 @@ def vitb16_points(dev):
     cluster_layer.kmedoids = record
     try:
         g = np.random.default_rng(16)
-        for n in E_CLIPS:
-            clips = g.integers(0, 256, (n, 1, E_FRAMES, 3, E_RES, E_RES),
+        for n in clips:
+            video = g.integers(0, 256, (n, 1, frames, 3, E_RES, E_RES),
                                dtype=np.uint8)
-            engine.embed_video_batches([{"video": clips, "video_mask":
-                                         np.ones((n, E_FRAMES), np.int32)}])
+            engine.embed_video_batches([{"video": video, "video_mask":
+                                         np.ones((n, frames), np.int32)}])
     finally:
         cluster_layer.kmedoids = real
     del engine, model
     torch.cuda.empty_cache()
-    return [seen[n * E_FRAMES // 2] for n in E_CLIPS]
+    per_clip = frames // 2 if segments is None else segments
+    return [seen[n * per_clip] for n in clips]
 
 
 def kmedoids_cases(dev):
     """(points, K, keywords) of the global variant's ViT-B/16 shapes, then
-    the large variant's from the same tokens, consecutive rows joined."""
+    the cluster variant's from the same tokens, consecutive rows joined;
+    then the sixteenth path's tokens (60 frames in 3 segments of 3920):
+    an encode batch of 32 clips and a training batch of 16, at K = 160 and
+    392, and 12-frame segments of them at K = N = 2352."""
     cases = vitb16_points(dev)
     train, enc = cases[1][0], cases[0][0]
     W = train.shape[-1]
@@ -169,36 +191,43 @@ def kmedoids_cases(dev):
                       (train, 2352)):
         joined = points.reshape(-1, n, W)
         cases.append((joined[:8] if n == 2352 else joined, *cases[0][1:]))
+    enc20, train20 = vitb16_points(dev, SEG20_FRAMES, SEG20_CLIPS,
+                                   SEG20_SEGMENTS)
+    K, kw = train20[1:]
+    cases += [train20, enc20, (train20[0], 392, kw),
+              (train20[0].reshape(-1, 2352, W)[:8], 2352, kw)]
     return cases
 
 
 def kmedoids_rows(old, flush, dev, peaks):
     """E on each case, the new wrapper against the old one (each picks its
-    own variant), in turns; where the new one takes the large variant, the
-    scratch variant on the same inputs too, in turns with it."""
+    own variant), in turns.  Each row: both variants, the cluster size,
+    the Lloyd steps and both bounds (4-byte entries and 32-byte
+    sectors)."""
     from .ops.kmedoids import kmedoids_inputs
+    kc = kmedoids_cuda
     old_e = old.ops.kmedoids_cuda.kmedoids_from_distances
-    new_e = kmedoids_cuda.kmedoids_from_distances
+    new_e = kc.kmedoids_from_distances
     rows = []
     for points, K, kw in kmedoids_cases(dev):
         iters = kw["iter_limit"]
         X, D, l2 = kmedoids_inputs(points, kw["distance"], kw["norm_p"],
                                    kw["pre_norm"])
         B, N = l2.shape
-        variant = kmedoids_cuda.choose_variant(N, K)
+        variant = kc.choose_variant(N, K)
+        cs = kc.device_cluster_size(dev, B, N, K) \
+            if variant == kc.CLUSTER else None
         new_out = new_e(D, l2, K, iters)
         others = {"old": lambda limit: old_e(D, l2, K, limit)}
-        if variant == kmedoids_cuda.LARGE:
-            others["scratch"] = lambda limit: new_e(
-                D, l2, K, limit, variant=kmedoids_cuda.SCRATCH)
         for name, fn in others.items():
             if not all(torch.equal(a, b)
                        for a, b in zip(fn(iters), new_out)):
-                raise SystemExit(f"bench: k-medoids [{B}, {N}, {N}]: the "
-                                 f"new {variant} variant's bits differ from "
-                                 f"the {name} one's")
-        row = dict(shape=[B, N, N], variant=variant, K=K, iter_limit=iters,
-                   equal_to=sorted(others),
+                raise SystemExit(f"bench: k-medoids [{B}, {N}, {N}] K={K}: "
+                                 f"the new {variant} variant's bits differ "
+                                 f"from the {name} one's")
+        row = dict(shape=[B, N, N], variant=variant, cluster_size=cs, K=K,
+                   old_variant=old.ops.kmedoids_cuda.choose_variant(N, K),
+                   iter_limit=iters, equal_to=sorted(others),
                    lloyd_steps_mean=new_out[2].float().mean().item(),
                    lloyd_steps_max=int(new_out[2].max()))
         for key, limit in (("", iters), ("kkz_", 0)):
@@ -211,9 +240,12 @@ def kmedoids_rows(old, flush, dev, peaks):
                     row[f"{key}ms"] = n
         row["bound_ms"], row["bound_by"] = kmedoids_bound(
             K, new_out[0], new_out[2], peaks)
-        print(json.dumps(row))
+        row["sector_bound_ms"], row["sector_bound_by"] = \
+            kmedoids_sector_bound(K, new_out[0], new_out[2], peaks)
+        print(json.dumps(row), flush=True)
         rows.append(row)
         del X, D, l2
+        torch.cuda.empty_cache()
     return rows
 
 

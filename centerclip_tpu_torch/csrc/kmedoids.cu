@@ -47,7 +47,8 @@
 // matrix unit.
 //
 // Four variants of the one algorithm, chosen by the wrapper from N (and,
-// past N = 512, K), which give the same bits on the same D:
+// past N = 512, K and the number of segments), which give the same bits on
+// the same D:
 //
 // * shared (N <= 235, where D fits in a CTA's shared memory whatever K):
 //   kmedoids_kernel, as above, 128 threads.
@@ -86,39 +87,71 @@
 //     medoids only where one may.
 //   8 warps a CTA and at most 40 registers a thread, so that 6 CTAs share
 //   an SM and all 768 segments of a training step are resident at once
-//   (15 KB of shared memory each at N = 392, K = 160).  A cluster of 4
-//   CTAs holding a segment's D in distributed shared memory was not built:
-//   all SMs together would hold ~33 segments at a time, so a training
-//   step's 768 would run in ~24 waves of the same dependent chain, and an
-//   encode's 192 in ~6.
-// * large (512 < N <= 3136; ViT-B/16 with segments of 3 or 4 frames
-//   clusters N = 588 or 784 tokens, a whole 12-frame clip is N = 2352):
-//   the global variant's kernel with its chunk count read from N at run
-//   time (kmedoids_global_kernel<0>), at most 64 registers a thread (4 CTAs
-//   an SM: a training step's 512 segments of 588 points are resident).
-//   KKZ keeps each point's mindist, nearest chosen medoid and tie flag in
-//   the shared-memory arrays the Lloyd steps keep them in anyway, instead
-//   of in registers (the global variant holds 2 points a thread there,
-//   which is its N = 512 cap); each thread updates its own points after a
-//   pick, kScanBatch row loads in flight.  Everything else is the global
-//   variant's, step for step, so the bits are the same.  Shared memory
-//   grows with N and K (150 KB at N = 2352, K = 392, 194 KB at N = 3136,
-//   K = 392, the member masks the most of it): 3136 = 16 frames of 196
-//   tokens is the largest N at which every K <= 392 fits.
-// * scratch (past the large variant: N > 3136, e.g. a ViT-B/16 segment of
-//   20 frames, N = 3920, or a K whose member masks pass a CTA's shared
-//   memory, e.g. K = N = 2352): the large variant's kernel body
-//   (kmedoids_scratch_kernel runs global_body<-1>) with the member masks,
-//   K x ceil(N / 32) words (192 KB at N = 3920, K = 392; 691 KB at
-//   N = K = 2352), in a device-memory scratch of each segment that the
-//   wrapper allocates, and the per-point and per-cluster state (13 N +
-//   10 K bytes: 52 KB at N = 3920, K = 160) in shared memory where it fits
-//   (N + K up to ~17 000), else in the scratch too.  At N = 3920, K = 160
-//   the large layout would fit (131 KB) but hold one CTA an SM; this one
-//   holds 4.  The moved-medoid list keeps k alone (the new medoid is
-//   meds[k]) instead of packing both into 32 bits, so N is not held to 15
-//   bits.  The same steps in the same order: the same bits as the large
-//   variant where both run.
+//   (15 KB of shared memory each at N = 392, K = 160).  A segment spread
+//   over a cluster of CTAs (the cluster variant's design, below) does not
+//   pay here: a training step's 768 segments already fill the card, and
+//   an encode's 192 use 8 warps on each of 132 SMs.
+// * scratch (past what a cluster of 16 CTAs holds, e.g. N = K = 3920 or
+//   N past ~26 000 at K = 392): kmedoids_scratch_kernel, global_body<-1>:
+//   the global variant's steps with the chunk count read from N at run
+//   time, KKZ's per-point state (mindist, nearest chosen medoid, tie flag)
+//   in the shared-memory arrays the Lloyd steps keep it in (each thread
+//   updates its own points after a pick, kScanBatch row loads in flight),
+//   and the member masks, K x ceil(N / 32) words, in a device-memory
+//   scratch of each segment that the wrapper allocates; the per-point and
+//   per-cluster state (13 N + 10 K bytes) in shared memory where it fits
+//   (N + K up to ~17 000), else in the scratch too.  The moved-medoid list
+//   keeps k alone (the new medoid is meds[k]) instead of packing both into
+//   32 bits, so N is not held to 15 bits.  4 CTAs an SM.  An earlier
+//   "large" variant ran this body with the masks in shared memory (N <=
+//   3136); the cluster variant took its shapes and was faster at every
+//   one.
+// * cluster (past N = 512 wherever a cluster of at most 16 CTAs holds the
+//   segment: ViT-B/16's segments of 3, 4 and 20 frames, N = 588, 784 and
+//   3920, whole 12-frame clips, N = 2352, at any K up to N there):
+//   kmedoids_cluster_kernel, one segment on a thread-block cluster of Cs
+//   CTAs of 8 warps, Cs chosen by the wrapper (1, 2, 4, 8 or 16; past 8 a
+//   non-portable cluster size): the largest at which the card holds all B
+//   segments' clusters at once, so that a 20-frame training step's 48
+//   segments of 3920 take 8 CTAs each and a 4-frame step's 384 segments of
+//   784 take one.  The one-CTA variants ran 48, 96 or 8 CTAs of 8 warps at
+//   ViT-B/16's 20-frame and whole-clip shapes on 132 SMs: their chains of
+//   dependent reads used a fraction of the card's memory parallelism.  CTA
+//   r owns the 32-point chunks [r nc / Cs, (r + 1) nc / Cs): their points'
+//   (best, assign, tie) and those chunks' columns of the member masks.
+//   Every CTA keeps the K-long lists (meds, moved, moved flags) and
+//   computes them from the same data, so they agree without copies.
+//   - KKZ: each warp's first-index argmax of its CTA's own points goes to
+//     its slot in every CTA (distributed shared memory), one cluster
+//     barrier a pick, and every warp reduces the slots in order; each CTA
+//     reads its own columns of the picked row, and prefetches the row of
+//     its own argmax into L2 when it changes (Cs candidates a pick; on one
+//     CTA each warp's, as the global variant does).
+//   - A Lloyd step, three cluster barriers.  Each CTA brings its own
+//     points up to date: a point whose medoid stayed compares the moved
+//     ones, and the orphans (points whose medoid moved) go to a list that
+//     the warps take kPointBatch at a time, one lane a medoid over all K
+//     (the result is the lexicographic (value, k) minimum: the order of
+//     the orphans and of the moved medoids does not change it); it builds
+//     its own chunks' member masks and each cluster's own member count,
+//     with a flag for a changed member set.  Barrier.  Every CTA pulls
+//     every CTA's count words, scans the dirty clusters' sizes into their
+//     member lists' offsets and their blocks of 32 candidates, and writes
+//     its own members into every CTA's lists at offset + members in lower
+//     CTAs + rank among its own (the popcounts of its mask words below
+//     them): each list ascends.  Barrier.  The blocks, by the warps of the
+//     whole cluster in turn: a lane a candidate, kItemBatch loads of its
+//     row at the members in flight, then the adds in ascending member
+//     order (never a tree), and the block's first-index argmin into its
+//     slot in every CTA.  Barrier.  Each CTA folds each dirty cluster's
+//     block minima in order into its new medoid.
+//   The same sums in the same order and the same first-index choices: the
+//   same bits as the scratch variant at every Cs.  Shared memory
+//   a CTA: the member lists (N words) and the own mask columns (K
+//   ceil(nc / Cs) words) are the most of it (39 KB at N = 3920, K = 160 on
+//   8 CTAs, 143 KB at K = N = 2352 on 16); past that (e.g. N = K = 3920)
+//   the scratch variant runs.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <limits.h>
@@ -126,16 +159,16 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 128;          // shared variant
 constexpr int kGlobalThreads = 256;    // global variant
 constexpr int kGlobalWarps = kGlobalThreads / 32;
 constexpr int kGlobalCtasPerSm = 6;    // global: a training step's 768 resident
-// large: a training step's 512 segments of 588 points (or 384 of 784)
-// resident on 132 SMs, with room for KKZ's loads in registers
-constexpr int kLargeCtasPerSm = 4;
+// scratch: 4 CTAs an SM, with room for KKZ's loads in registers
+constexpr int kScratchCtasPerSm = 4;
 constexpr int kMaxChunks = 8;          // 32-point chunks, shared: N <= 256
 constexpr int kGlobalMaxChunks = 16;   // global: N <= 512
-constexpr int kLargeMaxN = 3136;       // large: 16 frames of 196 tokens
 // points a thread keeps in registers in the global variant's KKZ
 constexpr int kKkzPoints = 32 * kGlobalMaxChunks / kGlobalThreads;
 constexpr int kScanBatch = 8;          // loads in flight a thread in a scan
@@ -143,6 +176,15 @@ constexpr int kScanBatch = 8;          // loads in flight a thread in a scan
 // shared memory (block_argmax's slots and the moved count)
 constexpr size_t kScratchMaxSmem = 232448 - 256;
 constexpr int kSumBatch = 4;           // loads in flight in a candidate's sum
+// the cluster variant: 256 threads a CTA, up to 16 CTAs a segment (past 8
+// a non-portable cluster size), 4 CTAs an SM at most (64 registers a thread)
+constexpr int kClusterThreads = 256;
+constexpr int kClusterWarps = kClusterThreads / 32;
+constexpr int kMaxClusterCtas = 16;
+constexpr int kClusterCtasPerSm = 4;
+constexpr int kItemBatch = 16;         // loads in flight a lane in a block's sums
+constexpr int kPointBatch = 4;         // points a warp scans over all K at once
+constexpr unsigned kDirty = 1u << 31;  // a cluster's count word: member set changed
 
 // (v, i) beats (bv, bi): strictly better value, or equal value and lower index
 __device__ __forceinline__ bool beats(float v, int i, float bv, int bi, bool is_max) {
@@ -512,9 +554,9 @@ __host__ __device__ inline long long scratch_words(int N, int K) {
 }
 
 // The body of the global variant; C = ceil(N / 32) chunks of 32 points, a
-// compile-time count; C = 0 is the large variant: the count from N at run
-// time, and KKZ's per-point state in shared memory; C = -1 is the scratch
-// variant: the large one with its member masks (and, where `state_shared`
+// compile-time count; C = -1 is the scratch variant: the count from N at
+// run time, KKZ's per-point state in shared memory, and its member masks
+// (and, where `state_shared`
 // is 0, its state) in `scratch`, `words` 4-byte words a segment, and the
 // moved list holding k alone
 template <int C>
@@ -762,10 +804,9 @@ __device__ __forceinline__ void global_body(const float* __restrict__ D,
   if (tid == 0) steps_out[b] = steps;
 }
 
-// the global (C > 0) and large (C = 0) variants
+// the global variant
 template <int C>
-__global__ void __launch_bounds__(kGlobalThreads,
-                                  C > 0 ? kGlobalCtasPerSm : kLargeCtasPerSm)
+__global__ void __launch_bounds__(kGlobalThreads, kGlobalCtasPerSm)
 kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2,
                        int* __restrict__ meds_out, int* __restrict__ assign_out,
                        int* __restrict__ steps_out, int N, int K, int iter_limit,
@@ -775,7 +816,7 @@ kmedoids_global_kernel(const float* __restrict__ D, const float* __restrict__ l2
 }
 
 // the scratch variant
-__global__ void __launch_bounds__(kGlobalThreads, kLargeCtasPerSm)
+__global__ void __launch_bounds__(kGlobalThreads, kScratchCtasPerSm)
 kmedoids_scratch_kernel(const float* __restrict__ D, const float* __restrict__ l2,
                         int* __restrict__ meds_out, int* __restrict__ assign_out,
                         int* __restrict__ steps_out, int N, int K, int iter_limit,
@@ -783,6 +824,429 @@ kmedoids_scratch_kernel(const float* __restrict__ D, const float* __restrict__ l
                         int state_shared) {
   global_body<-1>(D, l2, meds_out, assign_out, steps_out, N, K, iter_limit, id_sort,
                   scratch, words, state_shared);
+}
+
+// ---- the cluster variant: one segment on a thread-block cluster of Cs CTAs
+
+// own 32-point chunks a CTA holds at most, of ceil(N / 32) split over Cs
+__host__ __device__ inline int cluster_chunks(int N, int Cs) {
+  return (n_chunks(N) + Cs - 1) / Cs;
+}
+
+// the cluster variant's dynamic shared memory, P = 32 cluster_chunks points
+// a CTA: the blocks' minima [ceil(N / 32) + K] (8 bytes: a dirty cluster
+// of m members has ceil(m / 32) blocks of candidates, so all of them
+// together at most N / 32 + K); best, assign, point list [P]; member masks
+// [K, cluster_chunks]; member lists [N]; meds, moved, counts, sizes, prefix,
+// offsets [K], block starts [K + 1]; then bytes: tie [P], moved flags [K]
+__host__ __device__ inline size_t cluster_smem_bytes(int N, int K, int Cs) {
+  const size_t ncr = cluster_chunks(N, Cs), P = 32 * ncr;
+  return 8 * ((size_t)n_chunks(N) + K)
+         + 4 * (3 * P + (size_t)K * ncr + N + 7 * (size_t)K + 1)
+         + (P + K + 3) / 4 * 4;
+}
+
+// The cluster's first-index argmax of each thread's (ordered value v,
+// index i); every thread of every CTA gets the index.  Each warp's argmax
+// goes to its slot in every CTA's `slots` (Cs x 8 of them, one parity of
+// two: a CTA writes a parity again only after the barrier of the call in
+// between, which every CTA passes after reading it), one cluster barrier
+// (a block barrier where the cluster is one CTA), then every warp reduces
+// the slots in order.  The next pick is often one of the candidates: on
+// one CTA each warp prefetches the row of its own argmax into L2 when it
+// differs from the one it prefetched last (`fetched`, the same in every
+// lane), as `block_argmax` does; on more, each CTA the row of its own
+// argmax (Cs candidates a pick: 8 Cs rows of prefetches a pick cost the
+// 20-frame segments more than they saved).
+__device__ __forceinline__ int cluster_argmax(cg::cluster_group& cluster, int v, int i,
+                                              int2* slots, int rank, int Cs,
+                                              const float* Db, int N, int& fetched) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wv = __reduce_max_sync(0xffffffffu, v);
+  const int wi = __reduce_min_sync(0xffffffffu, v == wv ? i : INT_MAX);
+  if (Cs == 1) {
+    if (wi < N && wi != fetched) {
+      prefetch_row<true>(Db + (size_t)wi * N, N);
+      fetched = wi;
+    }
+    if (lane == 0) slots[warp] = make_int2(wv, wi);
+    __syncthreads();
+  } else {
+    if (lane < Cs)
+      *cluster.map_shared_rank(slots + rank * kClusterWarps + warp, lane) = make_int2(wv, wi);
+    cluster.sync();
+  }
+  int bv = INT_MIN, bi = INT_MAX;
+  for (int s = lane; s < Cs * kClusterWarps; s += 32) {
+    const int2 c = slots[s];
+    if (c.x > bv || (c.x == bv && c.y < bi)) { bv = c.x; bi = c.y; }
+  }
+  const int gv = __reduce_max_sync(0xffffffffu, bv);
+  const int gi = __reduce_min_sync(0xffffffffu, bv == gv ? bi : INT_MAX);
+  if (Cs > 1) {
+    // this CTA's own argmax
+    const int2 c = lane < kClusterWarps ? slots[rank * kClusterWarps + lane]
+                                        : make_int2(INT_MIN, INT_MAX);
+    const int ov = __reduce_max_sync(0xffffffffu, c.x);
+    const int oi = __reduce_min_sync(0xffffffffu, c.x == ov ? c.y : INT_MAX);
+    if (oi < N && oi != fetched) {
+      if (oi != gi) {
+        const float* row = Db + (size_t)oi * N;
+        for (int l = threadIdx.x; l <= (N + 31) / 32; l += kClusterThreads)
+          asm volatile("prefetch.global.L2 [%0];" :: "l"(row + min(32 * l, N - 1)));
+      }
+      fetched = oi;
+    }
+  }
+  return gi;
+}
+
+// the warp together: (value, first k, tie) of the nearest of the K medoids
+// meds[] for kPointBatch points n[] at once, lane l taking k = l, l + 32,
+// ... (kPointBatch loads in flight a step); every lane gets them
+__device__ __forceinline__ void warp_scan_points(const float* __restrict__ Db,
+                                                 const int* meds, int N, int K,
+                                                 const int (&n)[kPointBatch],
+                                                 int (&bv)[kPointBatch],
+                                                 int (&bk)[kPointBatch],
+                                                 bool (&tie)[kPointBatch]) {
+  const int lane = threadIdx.x & 31;
+  int v[kPointBatch], kk[kPointBatch];
+  bool t[kPointBatch];
+#pragma unroll
+  for (int u = 0; u < kPointBatch; ++u) { v[u] = INT_MAX; kk[u] = INT_MAX; t[u] = false; }
+#pragma unroll 2
+  for (int k = lane; k < K; k += 32) {
+    const float* row = Db + (size_t)meds[k] * N;
+    int d[kPointBatch];
+#pragma unroll
+    for (int u = 0; u < kPointBatch; ++u) d[u] = ordered(__ldg(row + n[u]));
+#pragma unroll
+    for (int u = 0; u < kPointBatch; ++u) take(d[u], k, v[u], kk[u], t[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < kPointBatch; ++u) {
+    bv[u] = __reduce_min_sync(0xffffffffu, v[u]);
+    const unsigned at_min = __ballot_sync(0xffffffffu, v[u] == bv[u]);
+    bk[u] = __reduce_min_sync(0xffffffffu, v[u] == bv[u] ? kk[u] : INT_MAX);
+    tie[u] = __popc(at_min) > 1 || __any_sync(0xffffffffu, v[u] == bv[u] && t[u]);
+  }
+}
+
+// One segment (b = blockIdx.x / Cs) on a cluster of Cs CTAs.  CTA `rank`
+// owns the 32-point chunks [rank nc / Cs, (rank + 1) nc / Cs): their
+// points' (best, assign, tie) and those chunks' columns of the member
+// masks.  Every CTA keeps the K-long lists (meds, moved, moved flags) and
+// computes them from the same data, so they stay equal without copies.
+__global__ void __launch_bounds__(kClusterThreads, kClusterCtasPerSm)
+kmedoids_cluster_kernel(const float* __restrict__ D, const float* __restrict__ l2,
+                        int* __restrict__ meds_out, int* __restrict__ assign_out,
+                        int* __restrict__ steps_out, int N, int K, int iter_limit,
+                        int id_sort) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int Cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / Cs;
+  const int nc = n_chunks(N), ncr = cluster_chunks(N, Cs), P = 32 * ncr;
+  const int c0 = rank * nc / Cs, nlc = (rank + 1) * nc / Cs - c0;
+  const int p0 = 32 * c0, np = min(32 * (c0 + nlc), N) - p0;   // own points
+  extern __shared__ __align__(16) int2 csm[];
+  int2* block_min = csm;                           // [nc + K] a block's (sum, candidate) minimum
+  int* best = reinterpret_cast<int*>(block_min + nc + K);  // [P] ordered nearest value
+  int* assign = best + P;                          // [P] nearest k
+  int* plist = assign + P;                         // [P] own points to scan over all K
+  unsigned* members = reinterpret_cast<unsigned*>(plist + P);  // [K, ncr] own columns
+  int* list = reinterpret_cast<int*>(members + (size_t)K * ncr);  // [N] member lists
+  int* meds = list + N;                            // [K]
+  int* moved = meds + K;                           // [K] k of each moved medoid
+  unsigned* cd = reinterpret_cast<unsigned*>(moved + K);  // [K] own members | kDirty
+  int* size = reinterpret_cast<int*>(cd + K);      // [K] members of a dirty cluster, else -1
+  int* pre = size + K;                             // [K] its members in lower CTAs
+  int* off = pre + K;                              // [K] its member list's offset
+  int* item_start = off + K;                       // [K + 1] its first block of 32 candidates
+  unsigned char* tie = reinterpret_cast<unsigned char*>(item_start + K + 1);  // [P]
+  unsigned char* moved_flag = tie + P;             // [K]
+  __shared__ int2 slots[2][kMaxClusterCtas * kClusterWarps];
+  __shared__ int2 scan_part[kClusterWarps];
+  __shared__ int n_moved, n_plist;
+
+  constexpr int nt = kClusterThreads;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* Db = D + (size_t)b * N * N;
+
+  for (int k = tid; k < K; k += nt) { moved_flag[k] = 0; cd[k] = kDirty; }
+  if (tid == 0) { n_moved = 0; n_plist = 0; }
+  cluster.sync();                    // every CTA has started: its shared memory may be written
+
+  // ---- KKZ over the cluster: mindist, nearest chosen medoid and tie flag
+  // of the own points j = tid + 256 i (a thread reads and writes only its
+  // own, so the cluster barrier a pick is all they need)
+  int idx, fetched = -1;
+  {
+    int v = INT_MIN, i = INT_MAX;
+    for (int j = tid; j < np; j += nt) {
+      const int x = ordered(l2[(size_t)b * N + p0 + j]);
+      if (x > v) { v = x; i = p0 + j; }
+    }
+    idx = cluster_argmax(cluster, v, i, slots[0], rank, Cs, Db, N, fetched);
+  }
+  if (tid == 0) meds[0] = idx;
+  for (int j = tid; j < np; j += nt) {
+    best[j] = ordered(__ldg(Db + (size_t)idx * N + p0 + j));
+    assign[j] = 0;
+    tie[j] = 0;
+  }
+  for (int k = 1; k < K; ++k) {
+    int v = INT_MIN, i = INT_MAX;
+    for (int j = tid; j < np; j += nt)
+      if (best[j] > v) { v = best[j]; i = p0 + j; }
+    idx = cluster_argmax(cluster, v, i, slots[k & 1], rank, Cs, Db, N, fetched);
+    if (tid == 0) meds[k] = idx;
+    const float* row = Db + (size_t)idx * N + p0;
+    for (int j0 = tid; j0 < np; j0 += nt * kScanBatch) {
+      int d[kScanBatch];
+#pragma unroll
+      for (int u = 0; u < kScanBatch; ++u) {
+        const int j = j0 + nt * u;
+        d[u] = j < np ? ordered(__ldg(row + j)) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanBatch; ++u) {
+        const int j = j0 + nt * u;
+        if (j < np) {
+          if (d[u] < best[j]) { best[j] = d[u]; assign[j] = k; tie[j] = 0; }
+          else if (d[u] == best[j]) tie[j] = 1;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the own points' (best, assign, tie) after the medoids moved[0, nm)
+  // moved: a point whose own medoid stayed compares the moved ones only;
+  // the points whose own medoid moved go to plist, and the warps take them
+  // kPointBatch at a time, over all K.  With `mark`, a changed assignment
+  // flags both clusters' member sets as changed.
+  auto reassign = [&](int nm, bool mark) {
+    for (int j = tid; j < np; j += nt) {
+      const int a = assign[j];
+      if (moved_flag[a]) { plist[atomicAdd(&n_plist, 1)] = j; continue; }
+      int bv = best[j], bk = a;
+      bool t = tie[j];
+      scan_moved<false>(Db, meds, moved, nm, N, p0 + j, bv, bk, t);
+      best[j] = bv;
+      tie[j] = t;
+      if (bk != a) {
+        assign[j] = bk;
+        if (mark) { atomicOr(cd + a, kDirty); atomicOr(cd + bk, kDirty); }
+      }
+    }
+    __syncthreads();
+    const int no = n_plist;
+    for (int o0 = warp * kPointBatch; o0 < no; o0 += kClusterWarps * kPointBatch) {
+      int n[kPointBatch], bv[kPointBatch], bk[kPointBatch];
+      bool t[kPointBatch];
+#pragma unroll
+      for (int u = 0; u < kPointBatch; ++u) n[u] = p0 + plist[min(o0 + u, no - 1)];
+      warp_scan_points(Db, meds, N, K, n, bv, bk, t);
+#pragma unroll
+      for (int u = 0; u < kPointBatch; ++u)
+        if (lane == u && o0 + u < no) {
+          const int j = n[u] - p0, a = assign[j];
+          best[j] = bv[u];
+          tie[j] = t[u];
+          if (bk[u] != a) {
+            assign[j] = bk[u];
+            if (mark) { atomicOr(cd + a, kDirty); atomicOr(cd + bk[u], kDirty); }
+          }
+        }
+    }
+    __syncthreads();
+  };
+
+  // ---- Lloyd iterations to the medoid fixed point, three cluster
+  // barriers a step
+  int steps = 0;
+  while (steps < iter_limit) {
+    const int nm = n_moved;
+    if (nm) reassign(nm, true);
+    // the own chunks' member masks and each cluster's own member count
+    for (int lc = warp; lc < nlc; lc += kClusterWarps) {
+      for (int k = lane; k < K; k += 32) members[k * ncr + lc] = 0u;
+      __syncwarp();
+      const int j = 32 * lc + lane;
+      const int a = j < np ? assign[j] : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, a);
+      if (a >= 0 && lane == __ffs(peers) - 1) {
+        members[a * ncr + lc] = peers;
+        atomicAdd(cd + a, (unsigned)__popc(peers));
+      }
+    }
+    cluster.sync();
+    if (tid == 0) n_moved = 0;       // read by every thread before the barrier
+    // every CTA's count words: each dirty cluster's size, its members in
+    // lower CTAs, then (a scan over the threads' contiguous k ranges) its
+    // member list's offset and its first block of 32 candidates
+    {
+      const int per = (K + nt - 1) / nt;
+      const int k0 = min(K, tid * per), k1 = min(K, k0 + per);
+      int len = 0, items = 0;
+      for (int k = k0; k < k1; ++k) {
+        unsigned x[kMaxClusterCtas];   // all loads in flight (ranks past Cs read the last)
+#pragma unroll
+        for (int r = 0; r < kMaxClusterCtas; ++r)
+          x[r] = *cluster.map_shared_rank(cd + k, min(r, Cs - 1));
+#pragma unroll
+        for (int r = 0; r < kMaxClusterCtas; ++r)
+          if (r >= Cs) x[r] = 0u;
+        unsigned tot = 0, below = 0, dirty = 0;
+#pragma unroll
+        for (int r = 0; r < kMaxClusterCtas; ++r) {
+          dirty |= x[r];
+          tot += x[r] & ~kDirty;
+          if (r < rank) below += x[r] & ~kDirty;
+        }
+        const int m = dirty & kDirty ? (int)tot : -1;
+        size[k] = m;
+        pre[k] = (int)below;
+        if (m > 0) { len += m; items += (m + 31) / 32; }
+      }
+      int a = len, c = items;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, a, d), y = __shfl_up_sync(0xffffffffu, c, d);
+        if (lane >= d) { a += x; c += y; }
+      }
+      if (lane == 31) scan_part[warp] = make_int2(a, c);
+      __syncthreads();
+      a -= len;
+      c -= items;
+      for (int w = 0; w < warp; ++w) { a += scan_part[w].x; c += scan_part[w].y; }
+      for (int k = k0; k < k1; ++k) {
+        off[k] = a;
+        item_start[k] = c;
+        const int m = size[k];
+        if (m > 0) { a += m; c += (m + 31) / 32; }
+      }
+      if (tid == nt - 1) item_start[K] = c;
+    }
+    __syncthreads();
+    // the own members of each dirty cluster into every CTA's member list,
+    // at their rank in ascending order
+    for (int j = tid; j < np; j += nt) {
+      const int a = assign[j];
+      if (size[a] <= 0) continue;
+      const unsigned* mask = members + (size_t)a * ncr;
+      const int lc = j >> 5;
+      int pos = off[a] + pre[a] + __popc(mask[lc] & ((1u << (j & 31)) - 1));
+      for (int c = 0; c < lc; ++c) pos += __popc(mask[c]);
+      for (int r = 0; r < Cs; ++r) *cluster.map_shared_rank(list + pos, r) = p0 + j;
+    }
+    cluster.sync();
+    // each block of 32 candidates of a dirty cluster, by the warps of the
+    // whole cluster in turn: a lane a candidate, its sum over the members in
+    // ascending order (kItemBatch loads in flight, then the adds in order),
+    // the block's first-index argmin into its slot in every CTA
+    {
+      const int n_items = item_start[K];
+      for (int it = rank * kClusterWarps + warp; it < n_items; it += Cs * kClusterWarps) {
+        int lo = 0, hi = K - 1;      // the last k whose blocks start at or before it
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (item_start[mid] <= it) lo = mid; else hi = mid - 1;
+        }
+        const int m = size[lo];
+        const int* mem = list + off[lo];
+        const int jc = 32 * (it - item_start[lo]) + lane;
+        const int cand = jc < m ? mem[jc] : -1;
+        const float* row = Db + (size_t)max(cand, 0) * N;
+        float acc = 0.f;
+        for (int j0 = 0; j0 < m; j0 += kItemBatch) {
+          float d[kItemBatch];
+#pragma unroll
+          for (int u = 0; u < kItemBatch; ++u)
+            d[u] = cand >= 0 && j0 + u < m ? __ldg(row + mem[j0 + u]) : 0.f;
+#pragma unroll
+          for (int u = 0; u < kItemBatch; ++u)
+            if (j0 + u < m) acc += d[u];
+        }
+        const int v = cand >= 0 ? ordered(acc) : INT_MAX;
+        const int bv = __reduce_min_sync(0xffffffffu, v);
+        const int bn = __reduce_min_sync(0xffffffffu, cand >= 0 && v == bv ? cand : INT_MAX);
+        if (lane < Cs) *cluster.map_shared_rank(block_min + it, lane) = make_int2(bv, bn);
+      }
+    }
+    cluster.sync();
+    // each dirty cluster's new medoid, the first-index argmin over its
+    // blocks' minima in order (an empty cluster's is 0), the same in every
+    // CTA
+    for (int k = tid; k < K; k += nt) {
+      moved_flag[k] = 0;
+      cd[k] = 0;                     // every CTA read it before the last barrier but one
+      const int m = size[k];
+      if (m < 0) continue;
+      int2 least = make_int2(INT_MAX, 0);
+      for (int it = item_start[k]; it < item_start[k + 1]; ++it) {
+        const int2 c = block_min[it];
+        if (c.x < least.x || (c.x == least.x && c.y < least.y)) least = c;
+      }
+      const int nmk = m ? least.y : 0;
+      if (nmk != meds[k]) {
+        meds[k] = nmk;
+        moved_flag[k] = 1;
+        moved[atomicAdd(&n_moved, 1)] = k;
+      }
+    }
+    if (tid == 0) n_plist = 0;
+    __syncthreads();
+    ++steps;
+    if (!n_moved) break;
+  }
+  // stopped at iter_limit with medoids that moved: bring the assignment up
+  // to date
+  if (n_moved) reassign(n_moved, false);
+
+  // ---- sort the ids (stable rank); the last assignment: a point's k by
+  // its rank, or a scan of the sorted medoids where another may tie it
+  int* sorted = moved;                               // [K], moved is done
+  int* rank_of = pre;                                // [K]
+  if (id_sort) {
+    for (int k = tid; k < K; k += nt) {
+      const int mk = meds[k];
+      int r = 0;
+#pragma unroll 8
+      for (int j = 0; j < K; ++j) r += (meds[j] < mk) || (meds[j] == mk && j < k);
+      sorted[r] = mk;
+      rank_of[k] = r;
+    }
+  }
+  if (tid == 0) n_plist = 0;
+  __syncthreads();
+  for (int j = tid; j < np; j += nt) {
+    int out = assign[j];
+    if (id_sort) {
+      if (tie[j]) { plist[atomicAdd(&n_plist, 1)] = j; continue; }
+      out = rank_of[out];
+    }
+    assign_out[(size_t)b * N + p0 + j] = out;
+  }
+  __syncthreads();
+  if (id_sort) {
+    const int no = n_plist;
+    for (int o0 = warp * kPointBatch; o0 < no; o0 += kClusterWarps * kPointBatch) {
+      int n[kPointBatch], bv[kPointBatch], bk[kPointBatch];
+      bool t[kPointBatch];
+#pragma unroll
+      for (int u = 0; u < kPointBatch; ++u) n[u] = p0 + plist[min(o0 + u, no - 1)];
+      warp_scan_points(Db, sorted, N, K, n, bv, bk, t);
+#pragma unroll
+      for (int u = 0; u < kPointBatch; ++u)
+        if (lane == u && o0 + u < no) assign_out[(size_t)b * N + n[u]] = bk[u];
+    }
+  }
+  if (rank == 0) {
+    for (int k = tid; k < K; k += nt) meds_out[(size_t)b * K + k] = id_sort ? sorted[k] : meds[k];
+    if (tid == 0) steps_out[b] = steps;
+  }
 }
 
 using Kernel = void (*)(const float*, const float*, int*, int*, int*, int, int,
@@ -812,8 +1276,6 @@ size_t cc_kmedoids_smem_bytes(int N, int K) { return smem_bytes(N, K); }
 
 size_t cc_kmedoids_global_smem_bytes(int N, int K) { return global_smem_bytes(N, K); }
 
-// the large variant's layout is the global variant's
-size_t cc_kmedoids_large_smem_bytes(int N, int K) { return global_smem_bytes(N, K); }
 
 // Shared variant: 1 <= N <= 256 and smem_bytes(N, K) within the opt-in limit.
 int cc_kmedoids(const void* D, const void* l2, void* meds, void* assign,
@@ -845,17 +1307,6 @@ int cc_kmedoids_global(const void* D, const void* l2, void* meds, void* assign,
                 l2, meds, assign, steps, B, N, K, iter_limit, id_sort, stream);
 }
 
-// Large variant: 1 <= N <= 3136 and global_smem_bytes(N, K) within the
-// opt-in limit; the global variant's steps with its per-point state in
-// shared memory.
-int cc_kmedoids_large(const void* D, const void* l2, void* meds, void* assign,
-                      void* steps, int B, int N, int K, int iter_limit,
-                      int id_sort, void* stream) {
-  if (N < 1 || N > kLargeMaxN) return (int)cudaErrorInvalidValue;
-  return launch(kmedoids_global_kernel<0>, kGlobalThreads, global_smem_bytes(N, K), D,
-                l2, meds, assign, steps, B, N, K, iter_limit, id_sort, stream);
-}
-
 // the scratch variant's dynamic shared memory: its state where that fits,
 // else none
 size_t cc_kmedoids_scratch_smem_bytes(int N, int K) {
@@ -884,6 +1335,71 @@ int cc_kmedoids_scratch(const void* D, const void* l2, void* meds, void* assign,
       static_cast<const float*>(D), static_cast<const float*>(l2), static_cast<int*>(meds),
       static_cast<int*>(assign), static_cast<int*>(steps), N, K, iter_limit, id_sort,
       static_cast<int*>(scratch), scratch_words(N, K), (int)scratch_state_shared(N, K));
+  return (int)cudaGetLastError();
+}
+
+// the cluster variant's dynamic shared memory a CTA at Cs CTAs a segment
+size_t cc_kmedoids_cluster_smem_bytes(int N, int K, int Cs) {
+  return cluster_smem_bytes(N, K, Cs);
+}
+
+// the cluster variant's launch configuration: B segments of Cs CTAs each
+static cudaError_t cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                                  int B, int N, int K, int Cs, void* stream) {
+  const size_t smem = cluster_smem_bytes(N, K, Cs);
+  cudaError_t e = cudaFuncSetAttribute((const void*)kmedoids_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && Cs > 8)
+    e = cudaFuncSetAttribute((const void*)kmedoids_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(B * Cs);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return e;
+}
+
+static bool cluster_args_ok(int N, int K, int Cs) {
+  return N >= 1 && K >= 1 && K <= N && Cs >= 1 && Cs <= kMaxClusterCtas && Cs <= n_chunks(N);
+}
+
+// clusters of Cs CTAs of the cluster variant the card holds at once at
+// (N, K) (cudaOccupancyMaxActiveClusters), or a negative CUDA error
+int cc_kmedoids_cluster_max_active(int N, int K, int Cs) {
+  if (!cluster_args_ok(N, K, Cs)) return -(int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config(cfg, attr, 1, N, K, Cs, nullptr);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveClusters(&n, (const void*)kmedoids_cluster_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Cluster variant: 1 <= Cs <= min(16, ceil(N / 32)) CTAs a segment, K <= N
+// and cluster_smem_bytes(N, K, Cs) within the opt-in limit; a launch the
+// card refuses (e.g. a cluster it cannot hold) returns its error.
+int cc_kmedoids_cluster(const void* D, const void* l2, void* meds, void* assign,
+                        void* steps, int B, int N, int K, int iter_limit, int id_sort,
+                        int Cs, void* stream) {
+  if (!cluster_args_ok(N, K, Cs)) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config(cfg, attr, B, N, K, Cs, stream);
+  if (e != cudaSuccess) return (int)e;
+  if (Cs == 1) cfg.numAttrs = 0;     // one CTA a segment: a plain launch
+  e = cudaLaunchKernelEx(&cfg, kmedoids_cluster_kernel, static_cast<const float*>(D),
+                         static_cast<const float*>(l2), static_cast<int*>(meds),
+                         static_cast<int*>(assign), static_cast<int*>(steps), N, K,
+                         iter_limit, id_sort);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -161,28 +161,71 @@ def layernorm_bound(x, peaks):
                  fp32_peak, mem_rate)
 
 
-def kmedoids_bound(K, assign, steps, peaks):
-    """`bound` of kernel E on B segments of N points into K clusters, from
-    the run's output (`assign` [B, N], the cluster of each point, and
-    `steps` [B], the Lloyd steps of each segment).  Bytes, what this run's
-    data needs: l2 [B, N] read once; of D [B, N, N] the K medoid rows
-    (KKZ's distances to each pick, and the assignment's) and, in a segment
-    that took a Lloyd step, the entries among each cluster's members that
-    the medoid update sums, beyond the medoid's own row; the outputs
-    (assign [B, N], meds [B, K], steps [B], int32) written once.
-    Operations (fp32): KKZ's 2 a point a pick, each Lloyd step's 2 a point
-    a medoid and 2 an entry of the final clusters' member sums, and the
-    last assignment's 1 a point a medoid."""
-    mem_rate, _, fp32_peak = peaks
+def _kmedoids_work(K, assign, steps):
+    """Kernel E's work on this run's data that its two bounds share, from
+    `assign` [B, N] and `steps` [B]: (the bytes of all but the member sums
+    — of D the K medoid rows (KKZ's distances to each pick, and the
+    assignment's), l2 [B, N] read once, the outputs (assign [B, N], meds
+    [B, K], steps [B], int32) written once —; the fp32 operations — KKZ's
+    2 a point a pick, each Lloyd step's 2 a point a medoid and 2 an entry
+    of the final clusters' member sums, and the last assignment's 1 a
+    point a medoid —; the sum of each segment's squared cluster sizes
+    [B]; whether each segment took a Lloyd step [B])."""
     B, N = assign.shape
     counts = torch.zeros((B, K), dtype=torch.float64, device=assign.device)
     counts.scatter_add_(1, assign.long(), torch.ones_like(counts[:, :1])
                         .expand(B, N).contiguous())
     sq = (counts * counts).sum(1)
-    st = steps.double()
-    members = float(((st > 0).double() * (sq - N)).sum())
-    bytes_moved = 4.0 * (B * K * N + members + B * N
-                         + B * N + B * K + B)
+    st = steps.double().to(assign.device)
+    bytes_moved = 4.0 * (B * K * N + B * N + B * N + B * K + B)
     ops = float(B * 2 * K * N + (st * (2 * N * K + 2 * sq)).sum()
                 + B * N * K)
-    return bound(bytes_moved, ops, fp32_peak, mem_rate)
+    return bytes_moved, ops, sq, st > 0
+
+
+def kmedoids_bound(K, assign, steps, peaks):
+    """`bound` of kernel E on B segments of N points into K clusters, from
+    the run's output (`assign` [B, N], the cluster of each point, and
+    `steps` [B], the Lloyd steps of each segment).  Bytes, what this run's
+    data needs: `_kmedoids_work`'s, and in a segment that took a Lloyd
+    step the entries among each cluster's members that the medoid update
+    sums, beyond the medoid's own row, 4 bytes each.  Operations as
+    `_kmedoids_work` counts them."""
+    mem_rate, _, fp32_peak = peaks
+    N = assign.shape[1]
+    bytes_moved, ops, sq, took = _kmedoids_work(K, assign, steps)
+    members = float((took.double() * (sq - N)).sum())
+    return bound(bytes_moved + 4.0 * members, ops, fp32_peak, mem_rate)
+
+
+def kmedoids_sector_bound(K, assign, steps, peaks):
+    """`kmedoids_bound` with the member sums counted in the 32-byte sectors
+    they touch, since a scattered read of one fp32 entry moves a whole
+    sector: of D [B, N, N] (segment b's row n starts at element (b N + n) N
+    of a sector-aligned tensor), in a segment that took a Lloyd step, for
+    each cluster, each member row's distinct sectors over the cluster's
+    member columns, less one member row a cluster (the medoid's, read
+    among the K rows: the one with the fewest sectors is taken off); the
+    rest as `_kmedoids_work` counts it."""
+    mem_rate, _, fp32_peak = peaks
+    B, N = assign.shape
+    dev = assign.device
+    a = assign.long()
+    bytes_moved, ops, _, took = _kmedoids_work(K, assign, steps)
+    cols = torch.arange(N, device=dev)
+    residue = ((torch.arange(B, device=dev)[:, None] * N + cols) * N) % 8
+    span = N // 8 + 2                     # sectors a cluster's key spans
+    seg_k = torch.arange(B, device=dev)[:, None] * K + a
+    sectors = 0
+    fewest = torch.full((B, K), 2 ** 62, dtype=torch.int64, device=dev)
+    for r in range(8):
+        # distinct sectors (r + m) // 8 over each cluster's members m
+        keys = torch.unique(seg_k * span + (r + cols) // 8)
+        S = torch.bincount(keys // span, minlength=B * K).view(B, K)
+        rows = (residue == r) & took[:, None]
+        sectors += int(S.gather(1, a)[rows].sum())
+        has = torch.zeros((B, K), dtype=torch.int64, device=dev).scatter_add_(
+            1, a, rows.long()) > 0
+        fewest = torch.where(has, torch.minimum(fewest, S), fewest)
+    sectors -= int(fewest[fewest < 2 ** 62].sum())
+    return bound(bytes_moved + 32.0 * sectors, ops, fp32_peak, mem_rate)

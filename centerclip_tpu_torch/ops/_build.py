@@ -162,11 +162,17 @@ def smem_bytes(lib: ctypes.CDLL, fn_name: str, *args: int) -> int:
     return fn(*args)
 
 
+def error_string(lib: ctypes.CDLL, err: int) -> str:
+    """CUDA's name for error `err`, from the kernel library's
+    `cc_error_string`."""
+    fn = lib.cc_error_string
+    fn.restype = ctypes.c_char_p
+    fn.argtypes = [ctypes.c_int]
+    return fn(err).decode()
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if err != 0:
-        fn = lib.cc_error_string
-        fn.restype = ctypes.c_char_p
-        fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what}: CUDA error {err} "
-                           f"({fn(err).decode()}) at launch")
+                           f"({error_string(lib, err)}) at launch")

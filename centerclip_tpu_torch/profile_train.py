@@ -6,6 +6,7 @@
         [--stream_scale A]
         [--sim_header meanP|seqTransf|tightTransf] [--cross_logits N]
         [--cluster_num_blocks K1 ... K12] [--target_frames_blocks T1 ... T12]
+        [--max_frames F]
     torchrun --nproc_per_node N -m centerclip_tpu_torch.profile_train \
         [--fsdp 0|1] [--tensor_parallel T [--sequence_parallel 1] |
          --pipeline_parallel S [--pipeline_microbatches M]]
@@ -16,8 +17,10 @@ kmediods++ 12 -> 6 frames, meanP, bf16 towers, AdamW; `--remat` overrides
 its `remat`, `--precision fp32` its towers' bf16 (as the CLI's flag of
 that name does; `amp`, the default, keeps bf16), `--sim_header` its
 header, `--cluster_num_blocks` and
-`--target_frames_blocks` its cluster plan, as the CLI's flags of those
-names do) on seeded random weights (`--stream_scale` multiplies the
+`--target_frames_blocks` its cluster plan and `--max_frames` its frames a
+clip, as the CLI's flags of those names do; e.g. chip_smoke.py's sixteenth
+path: `--preset msrvtt_vitb16_k6 --remat 1 --batch 16 --max_frames 60
+--cluster_num_blocks 196 x 6 160 x 6 --target_frames_blocks 60 x 6 3 x 6`) on seeded random weights (`--stream_scale` multiplies the
 vision residual stream: `scale_vision_stream`) and a
 `Trainer` over it, takes two warm-up steps on one batch of `--batch` seeded
 uint8 clips with seeded token rows (tensors in pinned memory, as the data
@@ -100,6 +103,7 @@ def main(argv=None) -> int:
                     default=None)
     ap.add_argument("--target_frames_blocks", type=int, nargs="+",
                     default=None)
+    ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument("--cross_logits", type=int, default=0)
     ap.add_argument("--cross_chunk", type=int, default=64)
     ap.add_argument("--fsdp", type=int, choices=(0, 1), default=0)
@@ -136,9 +140,12 @@ def main(argv=None) -> int:
     for name in ("cluster_num_blocks", "target_frames_blocks"):
         if getattr(args, name) is not None:
             overrides[name] = tuple(getattr(args, name))
+    if args.max_frames is not None:
+        overrides["max_frames"] = args.max_frames
     run = preset(args.preset, **overrides)
     cfg = run.model
-    print(f"{args.preset}, batch {args.batch}, remat {cfg.remat}, "
+    print(f"{args.preset}, batch {args.batch}, {cfg.max_frames} frames, "
+          f"remat {cfg.remat}, "
           f"compute dtype {cfg.compute_dtype}, sim_header {cfg.sim_header}, cluster_num_blocks "
           f"{cfg.cluster.cluster_num_blocks}, target_frames_blocks "
           f"{cfg.cluster.target_frames_blocks}, vision stream scaled by "

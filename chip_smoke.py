@@ -106,20 +106,22 @@
    through `RetrievalEngine.build_index`, and `main(argv)` on the fixture
    (3 steps of 128, then its evaluation of 48 clips); (b) the same flags
    into K = 392, 2 steps, so that blocks 7-12 attend over L = 393 and
-   kernel B runs past 256 keys in a real step; (c) E's large variant
-   (N > 512) against its plain version at the step's [384, 784, 784],
+   kernel B runs past 256 keys in a real step; (c) E's cluster variant
+   (N > 512: a thread-block cluster a segment, its CTAs a segment printed)
+   against its plain version at the step's [384, 784, 784],
    an encode batch's [96, 784, 784], the step's tokens as three-frame
    segments [512, 588, 588] and as whole clips [8, 2352, 2352], and on
    spectral embeddings of 2 clips at N = 784 (tokens scaled 2 sigma
    apart), each with 0 segments of other ids or steps than the plain
    version's fixed point; A and B on (b)'s recorded qkv [384, 393, 2304]
    with a seeded output gradient, beside SDPA.  Counts are zeroed before
-   each run and read after it: E must run its large variant only, the
+   each run and read after it: E must run its cluster variant only, the
    vision blocks attention's long variants only, and A and B must launch
    at L > 256 (counted by length around the wrappers' calls); the
    `{"long_segments": ...}` line holds (a)'s and (b)'s numbers beside the
-   ViT-B/16 phase's, and the kernels line rows `kmedoids_large`,
-   `attention_fwd_long_past_256` and `attention_bwd_long_past_256`.
+   ViT-B/16 phase's, and the kernels line rows `kmedoids_cluster` (its
+   launches on this path and the sixteenth), `attention_fwd_long_past_256`
+   and `attention_bwd_long_past_256`.
 
 7c. fp32 ViT-B/16 phase, the fifteenth main path (after 7b, on main's
    fixture): the preset `msrvtt_vitb16_k6` with `--precision fp32` and
@@ -151,9 +153,10 @@
    and a warm-up and a timed step at batch 16; E held against its plain
    version on the step's and the encode's tokens (every segment the plain
    version's ids and steps), then at K = 392, as 12-frame segments at
-   K = N = 2352 ([8, 2352, 2352]) and on a segment cut to N = 3137.  E
-   must run its scratch variant only; the kernels line row
-   `kmedoids_scratch`.
+   K = N = 2352 ([8, 2352, 2352]) and on a segment cut to N = 3137, and
+   the scratch variant, which no path runs any more, on the step's
+   tokens.  E must run its cluster variant only; the kernels line rows
+   `kmedoids_cluster` and `kmedoids_scratch`.
 
 8. Serve phase, the fifth main path (run between the main and the ViT-B/16
    phases, on the main phase's fixture and run-1 checkpoint):
@@ -335,7 +338,8 @@ import time
 
 from centerclip_tpu_torch.kernel_timing import (
     LAYERNORM_FWD_SHAPES, SLEEP_CYCLES, bound, card_peaks, host_us_per_call,
-    kmedoids_bound, layernorm_bound, layernorm_times, tf32_peak, time_ms)
+    kmedoids_bound, kmedoids_sector_bound, layernorm_bound, layernorm_times,
+    tf32_peak, time_ms)
 
 # tolerances, stated before any run:
 # bf16 kernel vs plain version: both round fp32 values to bf16, summed in
@@ -873,16 +877,18 @@ def hold_close(torch, label, out, ref, atol, rtol):
 
 
 def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
-                  distance="euclidean", norm_p=2.0, pre_norm=False, **_):
+                  distance="euclidean", norm_p=2.0, pre_norm=False,
+                  variant=None, **_):
     """The k-medoids kernel against its plain version on [B, N, Dim]
     points (the keywords of `ops.kmedoids_cuda.kmedoids`; the plain
     version's `threshold` is not read by the kernel): ids equal on at least
     KMEDOIDS_MIN_SAME of the segments, where they differ a clustering no
     costlier than the plain one's (KMEDOIDS_COST_RTOL), and equal
-    assignments where the ids agree.  The global and large variants
-    (ViT-B/16's N = 392, 588, 784) are held to the plain version in every
-    segment: the same ids, and each segment's Lloyd steps those the plain
-    steps take to its fixed point.  Returns the row and (X, D, l2, steps,
+    assignments where the ids agree.  The global, cluster and scratch
+    variants (ViT-B/16's N = 392 and past) are held to the plain
+    version in every segment: the same ids, and each segment's Lloyd steps
+    those the plain steps take to its fixed point.  `variant` forces one
+    (the router's by default).  Returns the row and (X, D, l2, steps,
     assign) for timing."""
     from centerclip_tpu_torch.ops import kmedoids_cuda
     from centerclip_tpu_torch.ops.kmedoids import (_assign_step, _update_step,
@@ -891,7 +897,7 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
                                                    kmedoids_on_distances)
     X, D, l2 = kmedoids_inputs(points, distance, norm_p, pre_norm)
     a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(
-        D, l2, K, iter_limit, id_sort)
+        D, l2, K, iter_limit, id_sort, variant=variant)
     a2, m2 = kmedoids_on_distances(X, D, l2, K, iter_limit=iter_limit,
                                    id_sort=id_sort)
     torch.cuda.synchronize()
@@ -911,9 +917,8 @@ def hold_kmedoids(torch, label, points, K, iter_limit, id_sort=True,
     short = int((nxt != m2.long()).any(dim=1).sum())
     steps_differing = int((fixed_point_steps(D, l2, K, iter_limit)
                            != steps).sum())
-    variant = kmedoids_cuda.choose_variant(X.shape[1], K)
-    strict = variant in (kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE,
-                         kmedoids_cuda.SCRATCH)
+    variant = variant or kmedoids_cuda.choose_variant(X.shape[1], K)
+    strict = variant != kmedoids_cuda.SHARED
     print(f"kmedoids [{label}] X {tuple(X.shape)} K={K}: segments with "
           f"other ids {n_diff}/{Bs}, max relative cost gap {cost_rel:.3e} "
           f"(tol {KMEDOIDS_COST_RTOL}), Lloyd steps min/mean/max "
@@ -1200,39 +1205,49 @@ def cluster_segments(x, before_frames, after_frames):
 
 
 def kmedoids_case(torch, flush, peaks, label, x, before_frames,
-                  after_frames, K, iters):
+                  after_frames, K, iters, variant=None):
     """Kernel E held (`hold_kmedoids`) and timed against its plain version
     on the patch tokens `x` a cluster layer took (`cluster_segments`)."""
     return kmedoids_points_case(torch, flush, peaks, label, cluster_segments(
-        x, before_frames, after_frames), K, iters)
+        x, before_frames, after_frames), K, iters, variant)
 
 
-def kmedoids_points_case(torch, flush, peaks, label, points, K, iters):
+def kmedoids_points_case(torch, flush, peaks, label, points, K, iters,
+                         variant=None):
     """Kernel E held (`hold_kmedoids`) and timed against its plain version
-    on [B, N, Dim] points: the row of the kernel table at their shape."""
+    on [B, N, Dim] points (the router's variant, or `variant`): the row of
+    the kernel table at their shape, with the cluster variant's CTAs a
+    segment, the Lloyd steps and both bounds (4-byte entries and 32-byte
+    sectors)."""
     from centerclip_tpu_torch.ops import kmedoids_cuda
     from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
     row, (X, D, l2, steps, assign) = hold_kmedoids(torch, label, points, K,
-                                                   iters)
-    N = X.shape[1]
+                                                   iters, variant=variant)
+    B, N = X.shape[:2]
+    variant = variant or kmedoids_cuda.choose_variant(N, K)
+    cs = kmedoids_cuda.device_cluster_size(X.device, B, N, K) \
+        if variant == kmedoids_cuda.CLUSTER else None
     ms = time_ms(lambda: kmedoids_cuda.kmedoids_from_distances(
-        D, l2, K, iters), flush=flush)
+        D, l2, K, iters, variant=variant), flush=flush)
     plain_ms = time_ms(lambda: kmedoids_on_distances(
         X, D, l2, K, iter_limit=iters), flush=flush)
     b_ms, b_by = kmedoids_bound(K, assign, steps, peaks)
-    variant = kmedoids_cuda.choose_variant(N, K)
+    s_ms, s_by = kmedoids_sector_bound(K, assign, steps, peaks)
     split = {}
-    if variant in (kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE,
-                   kmedoids_cuda.SCRATCH):
+    if variant != kmedoids_cuda.SHARED:
         # KKZ, the id sort and the last assignment alone: no Lloyd step
         split["kkz_ms"] = time_ms(
-            lambda: kmedoids_cuda.kmedoids_from_distances(D, l2, K, 0),
-            flush=flush)
-    print(f"kmedoids [{label}] {variant} variant: ms {ms:.4f} plain "
-          f"{plain_ms:.4f} bound {b_ms:.5f} ({b_by})"
+            lambda: kmedoids_cuda.kmedoids_from_distances(
+                D, l2, K, 0, variant=variant), flush=flush)
+    print(f"kmedoids [{label}] {variant} variant"
+          + (f" on {cs} CTAs a segment" if cs else "")
+          + f", Lloyd steps mean {row['lloyd_steps_mean']:.2f}: ms "
+          f"{ms:.4f} plain {plain_ms:.4f} bound {b_ms:.5f} ({b_by}), by "
+          f"sectors {s_ms:.5f} ({s_by})"
           + (f"; with no Lloyd step {split['kkz_ms']:.4f}" if split else ""))
-    return dict(row, variant=variant, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, **split)
+    return dict(row, variant=variant, cluster_size=cs, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                sector_bound_ms=s_ms, sector_bound_by=s_by, **split)
 
 
 def vitb16_phase(torch, np, dev, flush, peaks, counters):
@@ -1313,7 +1328,7 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     # through the tensor-core one
     km, fwd = enc_variants["kmedoids"], enc_variants["fused_attention"]
     n_batches = -(-N_CLIPS // BATCH)
-    if not km[kc.GLOBAL] or km[kc.SHARED] or km[kc.LARGE] or \
+    if not km[kc.GLOBAL] or km[kc.SHARED] or km[kc.CLUSTER] or \
             km[kc.SCRATCH] or fwd[ac.CUDA_CORE] or fwd[ac.TF32X3] or \
             fwd[ac.TENSOR_CORE_LONG] != 12 * n_batches or \
             not enc_launches["layer_norm"]:
@@ -1362,7 +1377,7 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
                 ac.TENSOR_CORE: 12 * per_fwd * steps, ac.CUDA_CORE: 0,
                 ac.TF32X3: 0}
     if bwd != want_bwd or fwd != want_fwd or \
-            kmv != {kc.GLOBAL: steps, kc.SHARED: 0, kc.LARGE: 0,
+            kmv != {kc.GLOBAL: steps, kc.SHARED: 0, kc.CLUSTER: 0,
                     kc.SCRATCH: 0}:
         fail(f"the ViT-B/16 training steps ran other kernel variants than "
              f"the long attention variants (forward {want_fwd}, backward "
@@ -1598,12 +1613,12 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     through `RetrievalEngine.build_index`, and `main` on main's fixture in
     `root` (3 steps, then its evaluation); (b) the same into
     LONG_SEG_WIDE_K, LONG_SEG_WIDE_STEPS steps, so that kernel B runs at
-    L = 393 > 256 in a real step; (c) E's large variant against its plain
+    L = 393 > 256 in a real step; (c) E's cluster variant against its plain
     version at the step's [384, 784, 784], an encode batch's
     [96, 784, 784], three-frame segments' [512, 588, 588], a whole clip's
     [8, 2352, 2352] and on spectral embeddings of 2 clips at N = 784, and
     A and B on (b)'s qkv [384, 393, 2304].  Counts are zeroed before each
-    run and read after it; fails unless E ran its large variant only and
+    run and read after it; fails unless E ran its cluster variant only and
     B launched at L > 256."""
     from centerclip_tpu_torch import cli
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
@@ -1627,11 +1642,11 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
         launched(label, launches, [k for k in launches if backward
                                    or not k.endswith("backward")])
         kmv = by_variant["kmedoids"]
-        if kmv != {kc.SHARED: 0, kc.GLOBAL: 0, kc.LARGE: kmedoids_launches,
-                   kc.SCRATCH: 0} \
+        if kmv != {kc.SHARED: 0, kc.GLOBAL: 0,
+                   kc.CLUSTER: kmedoids_launches, kc.SCRATCH: 0} \
                 or not kmedoids_launches or by_variant["fused_attention"][
                     ac.CUDA_CORE]:
-            fail(f"{label}: k-medoids ran {kmv}, not its large variant "
+            fail(f"{label}: k-medoids ran {kmv}, not its cluster variant "
                  f"alone ({kmedoids_launches} launches), attention "
                  f"{by_variant}")
 
@@ -1728,7 +1743,7 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     print(f"long segments main: launches {main_launches}, by variant "
           f"{main_variants}")
     check_counts("long segments main", main_launches, main_variants,
-                 main_variants["kmedoids"][kc.LARGE])
+                 main_variants["kmedoids"][kc.CLUSTER])
     paths["long_segments_main"] = (main_launches, main_variants)
     torch.cuda.empty_cache()
 
@@ -1767,7 +1782,7 @@ def long_segments_phase(torch, np, dev, flush, peaks, counters, root):
     del train_x, two, Q, enc_x
     shapes = [r["shape"][:2] for r in km_rows]
     if shapes != [[384, 784], [96, 784], [512, 588], [8, 2352], [6, 784]] \
-            or any(r["variant"] != kc.LARGE for r in km_rows):
+            or any(r["variant"] != kc.CLUSTER for r in km_rows):
         fail(f"long segments: E held at {shapes}, "
              f"{[r['variant'] for r in km_rows]}")
     qkv = next(args[0] for (_, _), (args, _) in recorded.items()
@@ -2130,7 +2145,7 @@ def fp32_vitb16_phase(torch, np, dev, flush, peaks, counters, root):
             if by_variant[fn_name] != want:
                 fail(f"{label}: {fn_name} launched {by_variant[fn_name]}, "
                      f"not {want}")
-        if km != {kc.SHARED: 0, kc.GLOBAL: km[kc.GLOBAL], kc.LARGE: 0,
+        if km != {kc.SHARED: 0, kc.GLOBAL: km[kc.GLOBAL], kc.CLUSTER: 0,
                   kc.SCRATCH: 0} or not km[kc.GLOBAL]:
             fail(f"{label}: k-medoids ran {km}, not its global variant "
                  f"alone")
@@ -2207,7 +2222,7 @@ def fp32_vitb16_phase(torch, np, dev, flush, peaks, counters, root):
             if v not in ac.FP32_VARIANTS]
     if any(bf16) or not by_variant["fused_attention"][ac.TF32X3] \
             or not by_variant["attention_backward"][ac.TF32X3] or \
-            km != {kc.SHARED: 0, kc.GLOBAL: km[kc.GLOBAL], kc.LARGE: 0,
+            km != {kc.SHARED: 0, kc.GLOBAL: km[kc.GLOBAL], kc.CLUSTER: 0,
                    kc.SCRATCH: 0} or not km[kc.GLOBAL]:
         fail(f"fp32 main: attention ran {by_variant}, k-medoids {km}: not "
              f"the fp32 variants alone, tf32x3 among them, and E's "
@@ -2259,10 +2274,11 @@ def seg20_phase(torch, np, dev, flush, peaks, counters):
     take: an encode of SEG20_ENCODE_CLIPS clips (one batch: 96 segments,
     D 5.9 GB) and a search, and SEG20_WARMUP_STEPS + SEG20_STEPS training
     steps at batch SEG20_BATCH; kernel E held against its plain version on the step's
-    and the encode's tokens; then E's rows past the large variant: the
+    and the encode's tokens; then E's rows past N = 3136: the
     step's tokens at K = 160 and 392, as 12-frame segments at K = N =
     2352, and one segment cut to N = 3137.  Counts are zeroed before each
-    run and read after it: E must run its scratch variant only."""
+    run and read after it: E must run its cluster variant only.  Last the
+    scratch variant, which no path runs, on the step's tokens."""
     from centerclip_tpu_torch import cli
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
     from centerclip_tpu_torch.ops import attention_cuda as ac
@@ -2275,7 +2291,7 @@ def seg20_phase(torch, np, dev, flush, peaks, counters):
     N, K = spec.frame_duration * spec.before_cluster_num, spec.cluster_num
     if (N, K, cfg.clip_name, cfg.remat, run.batch_size) != (
             196 * SEG20_FRAMES // SEG20_SEGMENTS, SEG20_K, "ViT-B/16", True,
-            SEG20_BATCH) or kc.choose_variant(N, K) != kc.SCRATCH:
+            SEG20_BATCH) or kc.choose_variant(N, K) != kc.CLUSTER:
         fail(f"20-frame segments: the flags give N={N}, K={K}, "
              f"{cfg.clip_name}, remat {cfg.remat}")
 
@@ -2292,8 +2308,8 @@ def seg20_phase(torch, np, dev, flush, peaks, counters):
         launched(label, launches, [k for k in launches if backward
                                    or not k.endswith("backward")])
         km = by_variant["kmedoids"]
-        if km != {kc.SHARED: 0, kc.GLOBAL: 0, kc.LARGE: 0, kc.SCRATCH: n}:
-            fail(f"{label}: k-medoids ran {km}, not its scratch variant "
+        if km != {kc.SHARED: 0, kc.GLOBAL: 0, kc.CLUSTER: n, kc.SCRATCH: 0}:
+            fail(f"{label}: k-medoids ran {km}, not its cluster variant "
                  f"alone {n} times")
         for fn_name in ("fused_attention", "attention_backward"):
             if any(by_variant[fn_name][v] for v in ac.FP32_VARIANTS):
@@ -2400,14 +2416,22 @@ def seg20_phase(torch, np, dev, flush, peaks, counters):
                    12 * 196, iters),
                kmedoids_points_case(torch, flush, peaks,
                                     "a segment cut to N = 3137",
-                                    points[:1, :3137].contiguous(), K, iters)]
+                                    points[:1, :3137].contiguous(), K, iters),
+               # the scratch variant, which no path runs since the cluster
+               # one, held and timed on the step's tokens
+               kmedoids_points_case(torch, flush, peaks,
+                                    "20-frame segments, step, scratch "
+                                    "variant", points, K, iters,
+                                    variant=kc.SCRATCH)]
     del x, points
     torch.cuda.empty_cache()
     shapes = [r["shape"][:2] for r in km_rows]
     if shapes != [[SEG20_BATCH * SEG20_SEGMENTS, N],
                   [SEG20_ENCODE_CLIPS * SEG20_SEGMENTS, N],
-                  [SEG20_BATCH * SEG20_SEGMENTS, N], [8, 2352], [1, 3137]] \
-            or any(r["variant"] != kc.SCRATCH for r in km_rows):
+                  [SEG20_BATCH * SEG20_SEGMENTS, N], [8, 2352], [1, 3137],
+                  [SEG20_BATCH * SEG20_SEGMENTS, N]] \
+            or [r["variant"] for r in km_rows] != [kc.CLUSTER] * 5 + [
+                kc.SCRATCH]:
         fail(f"20-frame segments: E held at {shapes}, "
              f"{[r['variant'] for r in km_rows]}")
     return out, dict(paths=paths, kmedoids=km_rows)
@@ -2977,7 +3001,7 @@ def activity_phase(torch, np, dev, flush, peaks, counters):
     for fn_name, n in launches.items():
         if n == 0:
             fail(f"{fn_name} was never launched on the activity path")
-    if km_variants != {kc.SHARED: steps, kc.GLOBAL: 0, kc.LARGE: 0,
+    if km_variants != {kc.SHARED: steps, kc.GLOBAL: 0, kc.CLUSTER: 0,
                        kc.SCRATCH: 0}:
         fail(f"activity k-medoids ran other variants: {km_variants}")
     del trainer, batch
@@ -6040,21 +6064,31 @@ def main() -> int:
             **({"occupancy": a["occupancy"]} if "occupancy" in a else {}),
             shapes=rows))
 
-    # E's large variant (N past 512) and A and B past L = 256, rows of
-    # their own: their first shapes' numbers and their launches on the
-    # fourteenth path
+    # E's cluster variant (N past 512: the fourteenth and sixteenth paths)
+    # and A and B past L = 256, rows of their own: their first shapes'
+    # numbers and their launches on those paths; E's scratch variant,
+    # which no path runs since the cluster one, a row of its own too: held
+    # and timed at one shape
     km_base = next(r for r in results if r["name"] == "kmedoids")
-    rows = ls["kmedoids"]
-    by_path = {p: v["kmedoids"][kmedoids_cuda.LARGE]
-               for p, (_, v) in ls["paths"].items()}
-    a = rows[0]
-    results.append(dict(
-        name="kmedoids_large", route="cuda", source=km_base["source"],
-        replaces=km_base["replaces"], variant=kmedoids_cuda.LARGE,
-        launches=sum(by_path.values()), launches_by_path=by_path,
-        max_abs_err=max(r["max_abs_err"] for r in rows), ms=a["ms"],
-        plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-        bound_by=a["bound_by"], library_ms=None, shapes=rows))
+    e_paths = dict(ls["paths"], **s20["paths"])
+    for row_name, variant in (("kmedoids_cluster", kmedoids_cuda.CLUSTER),
+                              ("kmedoids_scratch", kmedoids_cuda.SCRATCH)):
+        rows = [r for r in ls["kmedoids"] + s20["kmedoids"]
+                if r["variant"] == variant]
+        by_path = {p: v["kmedoids"][variant] for p, (_, v) in e_paths.items()}
+        a = rows[0]
+        results.append(dict(
+            name=row_name, route="cuda", source=km_base["source"],
+            replaces=km_base["replaces"], variant=variant,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=a["ms"],
+            plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+            bound_by=a["bound_by"], sector_bound_ms=a["sector_bound_ms"],
+            cluster_size=a["cluster_size"], library_ms=None, shapes=rows))
+    if not results[-2]["launches"] or results[-1]["launches"]:
+        fail(f"E on the fourteenth and sixteenth paths: "
+             f"{[(r['name'], r['launches_by_path']) for r in results[-2:]]}"
+             f", not its cluster variant alone")
     for row_name, kernel, key in (
             ("attention_fwd_long_past_256", "attention_fwd", "fwd"),
             ("attention_bwd_long_past_256", "attention_bwd", "bwd")):
@@ -6071,14 +6105,12 @@ def main() -> int:
             library_ms=a["library_ms"],
             **({"occupancy": a["occupancy"]} if "occupancy" in a else {}),
             shapes=[a]))
-    if not (results[-3]["launches"] and results[-1]["launches"]):
-        fail("E's large variant or B past L = 256 never launched on the "
-             "fourteenth path")
+    if not (results[-2]["launches"] and results[-1]["launches"]):
+        fail("A or B past L = 256 never launched on the fourteenth path")
 
     # A's and B's fp32 variants (tf32x3 on the fifteenth path, the
-    # CUDA-core one where a path ran it) and E's scratch variant (the
-    # sixteenth), rows of their own: their first shapes' numbers and their
-    # launches on those paths
+    # CUDA-core one where a path ran it), rows of their own: their first
+    # shapes' numbers and their launches on those paths
     for row_name, kernel, fn_name, variant, rows, paths, needed in (
             ("attention_fwd_fp32_tf32x3", "attention_fwd", "fused_attention",
              attention_cuda.TF32X3, f32["attention_fwd"],
@@ -6091,9 +6123,7 @@ def main() -> int:
              False),
             ("attention_bwd_fp32", "attention_bwd", "attention_backward",
              attention_cuda.CUDA_CORE, f32["attention_bwd"], f32["paths"],
-             False),
-            ("kmedoids_scratch", "kmedoids", "kmedoids",
-             kmedoids_cuda.SCRATCH, s20["kmedoids"], s20["paths"], True)):
+             False)):
         rows = [r for r in rows if r["variant"] == variant]
         by_path = {p: v[fn_name][variant] for p, (_, v) in paths.items()}
         if not sum(by_path.values()) and not needed:

@@ -898,16 +898,18 @@ def test_layernorm_bwd_many_calls_in_a_row(cuda):
 
 
 # ----------------------------------------------------------- k-medoids design
-def _check_kmedoids_on_distances(X, K, iter_limit=100, id_sort=True):
-    """The kernel against `kmedoids_on_distances` on the same distances:
-    ids equal on >= 95 % of the segments, and where a fp32 summation-order
-    tie picked another medoid, the costs equal to 1e-6; assignments equal
-    wherever the medoids are."""
+def _check_kmedoids_on_distances(X, K, iter_limit=100, id_sort=True,
+                                 variant=None):
+    """The kernel (the router's variant, or `variant`) against
+    `kmedoids_on_distances` on the same distances: ids equal on >= 95 % of
+    the segments, and where a fp32 summation-order tie picked another
+    medoid, the costs equal to 1e-6; assignments equal wherever the
+    medoids are."""
     from centerclip_tpu_torch.ops.kmedoids import kmedoids_on_distances
     Xf, D, l2 = kmedoids_inputs(X)
     before = kmedoids_cuda.kmedoids_from_distances.launches
     a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(
-        D, l2, K, iter_limit=iter_limit, id_sort=id_sort)
+        D, l2, K, iter_limit=iter_limit, id_sort=id_sort, variant=variant)
     torch.cuda.synchronize()
     assert kmedoids_cuda.kmedoids_from_distances.launches == before + 1
     assert bool((steps >= 1).all()) and bool((steps <= iter_limit).all())
@@ -951,65 +953,39 @@ def test_kmedoids_global_variant_matches_plain(cuda, B, N, K):
     assert after[kmedoids_cuda.GLOBAL] == before[kmedoids_cuda.GLOBAL] + 1
 
 
-@pytest.mark.parametrize("B,N,K", [
-    (16, 513, 160),     # the first N past the global variant's
-    (32, 588, 160),     # ViT-B/16, segments of 3 frames
-    (16, 784, 160),     # ViT-B/16, segments of 4 frames
-    (8, 784, 392),
-    (4, 1024, 392),
-    (2, 2352, 160),     # a whole 12-frame ViT-B/16 clip
-    (1, 3136, 392),     # the large variant's limit
-])
-def test_kmedoids_large_variant_matches_plain(cuda, B, N, K):
-    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.LARGE
-    before = dict(kmedoids_cuda.kmedoids_from_distances.variant_launches)
-    X = _blobs(B, N, 64, 60, seed=N + K, device=cuda)
-    _check_kmedoids_on_distances(X, K)
-    after = kmedoids_cuda.kmedoids_from_distances.variant_launches
-    assert after[kmedoids_cuda.LARGE] == before[kmedoids_cuda.LARGE] + 1
-
-
 @pytest.mark.parametrize("N,K", [(257, 100), (392, 160), (512, 200)])
-def test_kmedoids_large_variant_equals_global(cuda, N, K):
-    """Where both run, the large variant gives the global one's bits: the
-    same steps with KKZ's state in shared memory instead of registers."""
+def test_kmedoids_cluster_variant_equals_global(cuda, N, K):
+    """Where both run, the cluster variant (forced below its range, on 1,
+    2 and 8 CTAs a segment) gives the global one's bits: the same steps on
+    a cluster of CTAs."""
     X = _blobs(48, N, 64, 40, seed=N, device=cuda)
     _, D, l2 = kmedoids_inputs(X)
-    outs = [kmedoids_cuda.kmedoids_from_distances(D, l2, K, variant=v)
-            for v in (kmedoids_cuda.GLOBAL, kmedoids_cuda.LARGE)]
-    torch.cuda.synchronize()
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
+    ref = kmedoids_cuda.kmedoids_from_distances(
+        D, l2, K, variant=kmedoids_cuda.GLOBAL)
+    for cs in (1, 2, 8):
+        got = kmedoids_cuda.kmedoids_from_distances(
+            D, l2, K, variant=kmedoids_cuda.CLUSTER, cluster=cs)
+        torch.cuda.synchronize()
+        for a, b in zip(ref, got):
+            assert torch.equal(a, b), cs
 
 
 @pytest.mark.parametrize("B,N,K", [
     (2, 3920, 160),     # a 20-frame ViT-B/16 segment
     (1, 3920, 392),
     (2, 2352, 2352),    # a 12-frame clip, every token a medoid
-    (1, 3137, 160),     # the first N past the large variant
-    (2, 2352, 1000),    # member masks past the large layout
+    (1, 3137, 160),     # past 16 frames of 196 tokens
+    (2, 2352, 1000),    # member masks past a CTA
 ])
 def test_kmedoids_scratch_variant_matches_plain(cuda, B, N, K):
-    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.SCRATCH
+    """The scratch variant, forced (the router gives these N and K the
+    cluster variant)."""
+    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.CLUSTER
     before = dict(kmedoids_cuda.kmedoids_from_distances.variant_launches)
     X = _blobs(B, N, 64, 60, seed=N + K, device=cuda)
-    _check_kmedoids_on_distances(X, K)
+    _check_kmedoids_on_distances(X, K, variant=kmedoids_cuda.SCRATCH)
     after = kmedoids_cuda.kmedoids_from_distances.variant_launches
     assert after[kmedoids_cuda.SCRATCH] == before[kmedoids_cuda.SCRATCH] + 1
-
-
-@pytest.mark.parametrize("N,K", [(513, 160), (784, 160), (2352, 392),
-                                 (3136, 392)])
-def test_kmedoids_scratch_variant_equals_large(cuda, N, K):
-    """Where both run, the scratch variant gives the large one's bits: the
-    same steps with the member masks in device memory."""
-    X = _blobs(16, N, 64, 60, seed=N + 1, device=cuda)
-    _, D, l2 = kmedoids_inputs(X)
-    outs = [kmedoids_cuda.kmedoids_from_distances(D, l2, K, variant=v)
-            for v in (kmedoids_cuda.LARGE, kmedoids_cuda.SCRATCH)]
-    torch.cuda.synchronize()
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B,N,K,span", [(2, 3920, 160, 3000),
@@ -1020,18 +996,121 @@ def test_kmedoids_scratch_variant_equals_large(cuda, N, K):
 def test_kmedoids_scratch_variant_equals_plain_ids_and_steps(cuda, B, N, K,
                                                              span):
     """On integer distances (every sum exact in any order) the scratch
-    variant gives the plain version's ids and assignment in every
-    segment, and each segment's Lloyd steps are the plain version's steps
-    to its fixed point."""
+    variant and the variant the router gives (the cluster one at these N
+    and K) give the plain version's ids and assignment in every segment,
+    and each segment's Lloyd steps are the plain version's steps to its
+    fixed point."""
     from centerclip_tpu_torch.ops.kmedoids import (fixed_point_steps,
                                                    kmedoids_on_distances)
     X, D, l2 = _line_distances(B, N, N + K + span, cuda, span)
-    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.SCRATCH
-    a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(D, l2, K)
+    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.CLUSTER
     a2, m2 = kmedoids_on_distances(X, D, l2, K, iter_limit=100)
-    assert torch.equal(m1, m2)
-    assert torch.equal(a1, a2)
-    assert torch.equal(steps, fixed_point_steps(D, l2, K, 100))
+    want = fixed_point_steps(D, l2, K, 100)
+    for variant in (None, kmedoids_cuda.SCRATCH):
+        a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(
+            D, l2, K, variant=variant)
+        assert torch.equal(m1, m2), variant
+        assert torch.equal(a1, a2), variant
+        assert torch.equal(steps, want), variant
+
+
+@pytest.mark.parametrize("B,N,K", [
+    (16, 513, 160),     # the first N past the global variant's
+    (32, 588, 160),     # ViT-B/16, segments of 3 frames
+    (16, 784, 160),     # ViT-B/16, segments of 4 frames
+    (8, 784, 392),
+    (2, 2352, 160),     # a whole 12-frame ViT-B/16 clip
+    (2, 2352, 2352),    # every token a medoid
+    (1, 3137, 160),     # past 16 frames of 196 tokens
+    (2, 3920, 160),     # a 20-frame ViT-B/16 segment
+    (1, 3920, 392),
+])
+def test_kmedoids_cluster_variant_matches_plain(cuda, B, N, K):
+    """The router's variant past N = 512, on clusters of the size it
+    picks."""
+    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.CLUSTER
+    before = dict(kmedoids_cuda.kmedoids_from_distances.variant_launches)
+    X = _blobs(B, N, 64, 60, seed=N + K + 1, device=cuda)
+    _check_kmedoids_on_distances(X, K)
+    after = kmedoids_cuda.kmedoids_from_distances.variant_launches
+    assert after[kmedoids_cuda.CLUSTER] == before[kmedoids_cuda.CLUSTER] + 1
+
+
+@pytest.mark.parametrize("B,N,K,data", [
+    (16, 784, 160, "blobs"), (8, 588, 294, "blobs"),
+    (4, 2352, 160, "blobs"), (2, 2352, 2352, "blobs"),
+    (2, 3137, 160, "blobs"), (2, 3920, 160, "blobs"),
+    (2, 3920, 392, "blobs"), (8, 784, 160, "line"),
+    (2, 3920, 160, "line"), (2, 2352, 2352, "line")])
+def test_kmedoids_cluster_variant_equals_scratch(cuda, B, N, K, data):
+    """At every cluster size that holds the segment (1, 2, 4, 8, 16 CTAs),
+    the cluster variant gives the bits of the scratch variant (whose steps
+    the large variant these N took before it ran too): ids, assignment and
+    each segment's Lloyd steps, in full, after one step and with no step,
+    sorted or not; two runs give the same bits."""
+    if data == "blobs":
+        X = _blobs(B, N, 64, 60, seed=N + K, device=cuda)
+        _, D, l2 = kmedoids_inputs(X)
+    else:
+        _, D, l2 = _line_distances(B, N, N + K, cuda, 300)
+    parent = kmedoids_cuda.SCRATCH
+    sizes = [cs for cs in kmedoids_cuda.CLUSTER_SIZES
+             if kmedoids_cuda.cluster_fits(N, K, cs)]
+    assert sizes[-1] == 16 and len(sizes) >= (2 if K == N else 4)
+    for iter_limit, id_sort in ((100, True), (1, True), (0, True),
+                                (100, False)):
+        ref = kmedoids_cuda.kmedoids_from_distances(
+            D, l2, K, iter_limit, id_sort, variant=parent)
+        for cs in sizes:
+            for run in range(2 if iter_limit == 100 and id_sort else 1):
+                got = kmedoids_cuda.kmedoids_from_distances(
+                    D, l2, K, iter_limit, id_sort,
+                    variant=kmedoids_cuda.CLUSTER, cluster=cs)
+                torch.cuda.synchronize()
+                for a, b in zip(ref, got):
+                    assert torch.equal(a, b), (iter_limit, id_sort, cs, run)
+
+
+def test_kmedoids_cluster_layout_is_the_sources(cuda):
+    """`cluster_smem_bytes`, which `cluster_fits` and the router read, is
+    the source's own, and its static shared memory is within
+    CLUSTER_STATIC_SMEM (nvcc reports 2176 bytes)."""
+    lib = _build.load("kmedoids")
+    for N, K, cs in ((513, 160, 16), (784, 160, 1), (2352, 2352, 16),
+                     (3920, 160, 8), (3920, 392, 2), (18000, 160, 16)):
+        assert kmedoids_cuda.cluster_smem_bytes(N, K, cs) == \
+            _build.smem_bytes(lib, "cc_kmedoids_cluster_smem_bytes", N, K,
+                              cs)
+    assert 2176 <= kmedoids_cuda.CLUSTER_STATIC_SMEM
+
+
+def test_kmedoids_cluster_sizes_are_resident(cuda):
+    """The card holds a cluster of every size that fits at ViT-B/16's
+    shapes, and the size the router picks keeps the path's segments
+    resident at once where the card can (8 CTAs for the 20-frame step's
+    48 segments of 3920, K = 160)."""
+    dev = torch.device("cuda")
+    for B, N, K in ((48, 3920, 160), (96, 3920, 160), (8, 2352, 160),
+                    (384, 784, 160), (512, 588, 160), (8, 2352, 2352)):
+        res = kmedoids_cuda.resident_clusters(dev, N, K)
+        assert all(n > 0 for n in res.values()), (N, K, res)
+        cs = kmedoids_cuda.device_cluster_size(dev, B, N, K)
+        assert B <= res[cs], (B, N, K, cs, res)
+    assert kmedoids_cuda.device_cluster_size(dev, 48, 3920, 160) == 8
+
+
+def test_kmedoids_cluster_variant_rejects_what_it_cannot_take(cuda):
+    X = _blobs(2, 600, 16, 10, seed=1, device=cuda)
+    _, D, l2 = kmedoids_inputs(X)
+    for cs in (3, 32):                  # not a size; past 16 CTAs
+        with pytest.raises(ValueError, match="CTAs"):
+            kmedoids_cuda.kmedoids_from_distances(
+                D, l2, 6, variant=kmedoids_cuda.CLUSTER, cluster=cs)
+    X = _blobs(1, 3920, 16, 10, seed=1, device=cuda)
+    _, D, l2 = kmedoids_inputs(X)
+    with pytest.raises(ValueError, match="CTAs"):   # K = 392 on one CTA
+        kmedoids_cuda.kmedoids_from_distances(
+            D, l2, 392, variant=kmedoids_cuda.CLUSTER, cluster=1)
 
 
 def test_attention_tf32x3_layout_is_the_sources(cuda):
@@ -1059,15 +1138,6 @@ def test_attention_fp32_short_layout_is_the_sources(cuda):
         for L, hd in ((32, 64), (40, 512), (77, 33), (108, 64), (163, 64)):
             assert attention_cuda.fp32_short_smem_bytes(L, hd, backward) \
                 == _build.smem_bytes(lib, fn, L, hd)
-
-
-def test_kmedoids_large_layout_is_the_sources(cuda):
-    """`large_smem_bytes`, which `choose_variant` reads, is the source's
-    own `global_smem_bytes`."""
-    lib = _build.load("kmedoids")
-    for N, K in ((513, 160), (2352, 392), (3136, 392), (2352, 2352)):
-        assert kmedoids_cuda.large_smem_bytes(N, K) == _build.smem_bytes(
-            lib, "cc_kmedoids_large_smem_bytes", N, K)
 
 
 @pytest.mark.parametrize("N,K", [(98, 49), (147, 49), (196, 98), (232, 116)])
@@ -1103,14 +1173,14 @@ def _line_distances(B, N, seed, device, span=1000):
 def test_kmedoids_global_variant_equals_plain_ids_and_steps(cuda, B, N, K,
                                                             span):
     """Where the plain version's sums are exact too (integer distances),
-    the global variant (the large one past N = 512) gives its ids and
+    the global variant (the cluster one past N = 512) gives its ids and
     assignment in every segment, and each segment's Lloyd steps are the
     plain version's steps to its fixed point."""
     from centerclip_tpu_torch.ops.kmedoids import (fixed_point_steps,
                                                    kmedoids_on_distances)
     X, D, l2 = _line_distances(B, N, N + K + span, cuda, span)
     assert kmedoids_cuda.choose_variant(N) == (
-        kmedoids_cuda.GLOBAL if N <= 512 else kmedoids_cuda.LARGE)
+        kmedoids_cuda.GLOBAL if N <= 512 else kmedoids_cuda.CLUSTER)
     a1, m1, steps = kmedoids_cuda.kmedoids_from_distances(D, l2, K)
     a2, m2 = kmedoids_on_distances(X, D, l2, K, iter_limit=100)
     assert torch.equal(m1, m2)

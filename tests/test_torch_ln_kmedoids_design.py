@@ -23,8 +23,12 @@ k-medoids kernel (E), held on the CPU.
   it step by step; the global variant (D read from device memory) reaches
   the same ids, assignment and steps by reading only what changed, which
   is emulated too.  Which variant a segment size takes is a pure function
-  of N.
+  of N and K, and the cluster variant's CTAs a segment one of B, N, K and
+  the clusters the card holds at once; its layout and E's two bounds (4-byte
+  entries, 32-byte sectors) are held too.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -560,12 +564,18 @@ def test_global_design_iteration_limits_and_no_sort(iter_limit, id_sort):
     (1, kmedoids_cuda.SHARED), (98, kmedoids_cuda.SHARED),
     (147, kmedoids_cuda.SHARED), (235, kmedoids_cuda.SHARED),
     (236, kmedoids_cuda.GLOBAL), (392, kmedoids_cuda.GLOBAL),
-    (512, kmedoids_cuda.GLOBAL), (513, kmedoids_cuda.LARGE),
-    (588, kmedoids_cuda.LARGE), (784, kmedoids_cuda.LARGE),
-    (1024, kmedoids_cuda.LARGE), (2352, kmedoids_cuda.LARGE),
-    (3136, kmedoids_cuda.LARGE), (3137, kmedoids_cuda.SCRATCH),
-    (3920, kmedoids_cuda.SCRATCH), (262_143, kmedoids_cuda.SCRATCH)])
+    (512, kmedoids_cuda.GLOBAL), (513, kmedoids_cuda.CLUSTER),
+    (588, kmedoids_cuda.CLUSTER), (784, kmedoids_cuda.CLUSTER),
+    (1024, kmedoids_cuda.CLUSTER), (2352, kmedoids_cuda.CLUSTER),
+    (3136, kmedoids_cuda.CLUSTER), (3137, kmedoids_cuda.CLUSTER),
+    (3920, kmedoids_cuda.CLUSTER), (18_000, kmedoids_cuda.CLUSTER),
+    (26_463, kmedoids_cuda.CLUSTER), (26_464, kmedoids_cuda.SCRATCH),
+    (262_143, kmedoids_cuda.SCRATCH)])
 def test_kmedoids_variant_from_n(N, variant):
+    """Past the global variant, the cluster variant wherever a cluster of
+    at most 16 CTAs holds the segment at K = 392 (up to N = 26 463: its
+    member lists, N words, are the most of it), the scratch one past
+    that."""
     assert kmedoids_cuda.choose_variant(N) == variant
 
 
@@ -579,19 +589,184 @@ def test_kmedoids_variant_raises_past_its_range(N):
 
 @pytest.mark.parametrize("N,K,variant", [
     (98, 98, kmedoids_cuda.SHARED), (512, 512, kmedoids_cuda.GLOBAL),
-    (784, 784, kmedoids_cuda.LARGE),      # every K fits the large layout
-    (2352, 392, kmedoids_cuda.LARGE),
-    (2352, 1000, kmedoids_cuda.SCRATCH),  # the member masks pass 227 KB
-    (2352, 2352, kmedoids_cuda.SCRATCH),
-    (3136, 392, kmedoids_cuda.LARGE), (3137, 160, kmedoids_cuda.SCRATCH),
-    (3920, 160, kmedoids_cuda.SCRATCH), (3920, 392, kmedoids_cuda.SCRATCH)])
+    (784, 784, kmedoids_cuda.CLUSTER),
+    (2352, 392, kmedoids_cuda.CLUSTER),
+    (2352, 1000, kmedoids_cuda.CLUSTER),
+    (2352, 2352, kmedoids_cuda.CLUSTER),  # 16 CTAs hold every K at 2352
+    (3136, 392, kmedoids_cuda.CLUSTER), (3137, 160, kmedoids_cuda.CLUSTER),
+    (3281, 3281, kmedoids_cuda.CLUSTER),
+    (3282, 3282, kmedoids_cuda.SCRATCH),  # blocks' minima and K lists
+    (3920, 160, kmedoids_cuda.CLUSTER), (3920, 392, kmedoids_cuda.CLUSTER),
+    (3920, 3920, kmedoids_cuda.SCRATCH),
+    (35_363, 160, kmedoids_cuda.CLUSTER),
+    (35_364, 160, kmedoids_cuda.SCRATCH)])
 def test_kmedoids_variant_from_n_and_k(N, K, variant):
-    """Past the global variant, K decides too: LARGE where its shared
-    memory (`large_smem_bytes`) holds K's member masks, SCRATCH else."""
+    """Past the global variant, K decides too: CLUSTER where a cluster of
+    at most 16 CTAs holds the segment (`cluster_fits`), SCRATCH else."""
     assert kmedoids_cuda.choose_variant(N, K) == variant
     if N > kmedoids_cuda.GLOBAL_MAX_N:
-        fits = kmedoids_cuda.large_smem_bytes(N, K) <= _build.MAX_SMEM_BYTES
-        assert fits == (variant == kmedoids_cuda.LARGE) or N > 3136
+        fits = any(kmedoids_cuda.cluster_fits(N, K, cs)
+                   for cs in kmedoids_cuda.CLUSTER_SIZES)
+        assert fits == (variant == kmedoids_cuda.CLUSTER)
+
+
+def _cluster_smem(N, K, cs):
+    """csrc/kmedoids.cu `cluster_smem_bytes`, counted array by array: P =
+    32 ceil(ceil(N / 32) / cs) own points at most."""
+    chunks = -(-(-(-N // 32)) // cs)
+    P = 32 * chunks
+    arrays = {"blocks' minima": 8 * (-(-N // 32) + K), "best": 4 * P, "assign": 4 * P, "plist": 4 * P,
+              "members": 4 * K * chunks, "lists": 4 * N,
+              "meds, moved, counts, sizes, below, offsets": 6 * 4 * K,
+              "block starts": 4 * (K + 1),
+              "tie, moved flags": (P + K + 3) // 4 * 4}
+    return sum(arrays.values())
+
+
+@pytest.mark.parametrize("N,K,cs,nbytes", [
+    (3920, 160, 8, 39_484),       # a 20-frame segment, 8 CTAs
+    (3920, 392, 8, 62_916),
+    (3920, 160, 4, 55_324),
+    (2352, 2352, 16, 146_148),    # K = N at a 12-frame clip
+    (2352, 160, 16, 21_204),
+    (784, 160, 1, 35_660),        # one CTA a segment
+    (588, 160, 1, 28_492),
+    (18_000, 160, 16, 120_444)])
+def test_cluster_variant_layout(N, K, cs, nbytes):
+    """The cluster variant's shared memory a CTA (`cluster_smem_bytes`,
+    csrc/kmedoids.cu's own; tests/test_torch_gpu.py holds it against the
+    source's): the own points' state, the own chunks' member masks, every
+    cluster's member lists and the K lists; at 8 CTAs the masks of a
+    20-frame segment's 392 clusters are 25 KB a CTA."""
+    assert kmedoids_cuda.cluster_smem_bytes(N, K, cs) == _cluster_smem(
+        N, K, cs) == nbytes
+    assert kmedoids_cuda.cluster_fits(N, K, cs)
+    assert 4 * 392 * -(-123 // 8) == 25_088
+
+
+def test_cluster_variant_fits_up_to_its_limit():
+    """A cluster holds a segment where each CTA owns a chunk and its shared
+    memory with the static 2304 bytes fits the 227 KB a CTA may opt into;
+    N = K = 3920 fits no cluster (the scratch variant's), one CTA cannot
+    hold a 20-frame segment at K = 392, and 17 CTAs are never taken."""
+    limit = _build.MAX_SMEM_BYTES - kmedoids_cuda.CLUSTER_STATIC_SMEM
+    for N, K, cs in ((3920, 392, 2), (2352, 2352, 16), (26_463, 392, 16)):
+        assert kmedoids_cuda.cluster_smem_bytes(N, K, cs) <= limit
+    assert not kmedoids_cuda.cluster_fits(3920, 392, 1)
+    assert not any(kmedoids_cuda.cluster_fits(3920, 3920, cs)
+                   for cs in kmedoids_cuda.CLUSTER_SIZES)
+    assert not kmedoids_cuda.cluster_fits(600, 6, 32)   # 19 chunks
+    assert not kmedoids_cuda.cluster_fits(513, 160, 32)
+    assert kmedoids_cuda.cluster_fits(513, 160, 16)
+    assert max(kmedoids_cuda.CLUSTER_SIZES) == 16
+
+
+# clusters of each size the H100 (NVIDIA H100 80GB HBM3) holds at once,
+# `cudaOccupancyMaxActiveClusters` as `cc_kmedoids_cluster_max_active` read
+# it: it packs clusters into the card's groups of SMs, so 16 CTAs of one
+# an SM fit 7 times, not 132 / 16
+H100_RESIDENT = {
+    (3920, 160): {1: 132, 2: 132, 4: 92, 8: 62, 16: 28},
+    (3920, 392): {2: 66, 4: 62, 8: 45, 16: 28},
+    (2352, 160): {1: 264, 2: 264, 4: 124, 8: 62, 16: 28},
+    (2352, 2352): {8: 15, 16: 7},
+    (784, 160): {1: 528, 2: 264, 4: 124, 8: 62, 16: 28},
+}
+
+
+@pytest.mark.parametrize("B,N,K,cs", [
+    (48, 3920, 160, 8),           # the 20-frame training step
+    (96, 3920, 160, 2),           # the 20-frame encode batch: 4 fit 92
+    (48, 3920, 392, 4),
+    (8, 2352, 160, 16),           # 8 whole 12-frame clips
+    (8, 2352, 2352, 8),           # K = N: 16 CTAs of one an SM fit 7 times
+    (384, 784, 160, 1),           # 4-frame segments: the step fills the card
+    (96, 784, 160, 4),
+    (6, 784, 160, 16),
+    (1000, 784, 160, 1)])         # past one wave: the most CTAs resident
+def test_cluster_size_from_the_cards_clusters(B, N, K, cs):
+    """CTAs a segment: the largest size whose clusters all stay resident
+    at once on the card, else the size with the most CTAs resident."""
+    assert kmedoids_cuda.cluster_size(B, N, K, H100_RESIDENT[N, K]) == cs
+
+
+@pytest.mark.parametrize("B,N,K,cs", [
+    (28, 3920, 160, 16), (63, 3920, 160, 4),
+    (768, 3920, 160, 8),          # past one wave at every size
+    (1, 3920, 392, 16), (46, 3920, 392, 4),
+    (67, 3920, 392, 16),          # past one wave: 16 x 28 CTAs resident
+    (1, 2352, 2352, 16), (16, 2352, 2352, 8),
+    (264, 2352, 160, 2),
+    (529, 784, 160, 1)])          # 1 and 2 tie at 528 CTAs: the smaller
+def test_cluster_size_at_the_edges_of_the_cards_clusters(B, N, K, cs):
+    """Either side of each size's resident clusters on the H100: one
+    segment more than a size holds at once takes the next smaller size,
+    and past one wave the most CTAs resident decide."""
+    assert kmedoids_cuda.cluster_size(B, N, K, H100_RESIDENT[N, K]) == cs
+
+
+def test_cluster_size_none_where_no_cluster_holds_it():
+    """0 where no size holds the segment or the card holds none of those
+    that do; a size the card holds no cluster of is passed over."""
+    assert kmedoids_cuda.cluster_size(1, 3920, 3920, {}) == 0
+    assert kmedoids_cuda.cluster_size(8, 2352, 2352, {8: 0, 16: 0}) == 0
+    assert kmedoids_cuda.cluster_size(
+        48, 3920, 160, {**H100_RESIDENT[3920, 160], 8: 0}) == 4
+
+
+class _FakeClusterLib:
+    """The two entries of the kernel library that `resident_clusters`
+    calls, answering `answers[cs]` for a cluster of cs CTAs."""
+
+    def __init__(self, answers):
+        lib = self
+
+        def max_active(N, K, cs):
+            lib.asked.append(cs)
+            return answers[cs]
+
+        def error_string(err):
+            return b"invalid value" if err == 1 else b"other"
+
+        self.asked = []
+        self.cc_kmedoids_cluster_max_active = _Entry(max_active)
+        self.cc_error_string = _Entry(error_string)
+
+
+class _Entry:
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+@pytest.mark.parametrize("answers,raises", [
+    ({1: 132, 2: 132, 4: 92, 8: 62, 16: 28}, False),
+    ({1: 132, 2: 132, 4: 92, 8: 62, 16: 0}, False),   # a real zero
+    ({1: 132, 2: 132, 4: 92, 8: 62, 16: -1}, True)])  # a failed query
+def test_resident_clusters_raises_where_the_query_fails(monkeypatch, answers,
+                                                        raises):
+    """The card's counts are kept as they come, a zero included; an error
+    from `cudaOccupancyMaxActiveClusters` (a negative answer) raises with
+    CUDA's name for it and never routes to a smaller cluster."""
+    lib = _FakeClusterLib(answers)
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(kmedoids_cuda, "_RESIDENT", {})
+    dev = torch.device("cuda", 0)
+    if raises:
+        with pytest.raises(RuntimeError, match=r"16 CTAs.*CUDA error 1 "
+                                               r"\(invalid value\)"):
+            kmedoids_cuda.resident_clusters(dev, 3920, 160)
+        assert kmedoids_cuda._RESIDENT == {}
+        return
+    assert kmedoids_cuda.resident_clusters(dev, 3920, 160) == answers
+    assert kmedoids_cuda.resident_clusters(dev, 3920, 160) == answers
+    assert lib.asked == [1, 2, 4, 8, 16]            # asked once, then cached
+    assert kmedoids_cuda.cluster_size(
+        48, 3920, 160, kmedoids_cuda.resident_clusters(dev, 3920, 160)) == 8
 
 
 def test_scratch_variant_layout():
@@ -662,6 +837,47 @@ def test_kmedoids_bound_at_vitb16_training_reads_medoid_rows_not_all_of_d():
     assert by == "bytes"
     assert B * K * N * 4 / 3.35e12 * 1e3 < ms < 0.060
     assert ms < 0.5 * B * N * N * 4 / 3.35e12 * 1e3
+
+
+@pytest.mark.parametrize("assign,K,sectors", [
+    ([0] * 8 + [1] * 8, 2, 2 * (8 - 1)),      # each row's members: 1 sector
+    ([n % 2 for n in range(16)], 2, 2 * 2 * (8 - 1)),   # 2 sectors a row
+    ([0] * 12, 1, 12 * 2 - 2),                # rows of 12 entries: unaligned
+])
+def test_kmedoids_sector_bound_counts_touched_sectors(assign, K, sectors):
+    """E's second bound: each member row's distinct 32-byte sectors over
+    its cluster's member columns (row n of N = 12 entries starts at element
+    12 n, at 0 or 4 within a sector), less one member row a cluster; the
+    medoid rows, l2 and the outputs as bytes.  Where members are
+    contiguous and rows aligned (the first case) it is the 4-byte bound."""
+    a = torch.tensor([assign])
+    B, N = a.shape
+    steps = torch.tensor([1], dtype=torch.int32)
+    nbytes = 4 * (B * K * N + 2 * B * N + B * K + B) + 32 * sectors
+    peaks = (1e6, 1.0, 1e30)
+    ms, by = kernel_timing.kmedoids_sector_bound(K, a, steps, peaks)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 1e3)
+    plain, _ = kernel_timing.kmedoids_bound(K, a, steps, peaks)
+    assert (ms == pytest.approx(plain)) == (sectors == 14)
+    # a segment that took no Lloyd step reads its medoid rows only
+    ms0, _ = kernel_timing.kmedoids_sector_bound(
+        K, a, torch.tensor([0], dtype=torch.int32), peaks)
+    assert ms0 == pytest.approx((nbytes - 32 * sectors) / 1e3)
+
+
+def test_kmedoids_sector_bound_at_least_the_byte_bound():
+    """On scattered clusters (random assignment, [48, 3920], K = 160) each
+    gathered entry moves its own sector: the sector bound is above the
+    4-byte one, and at most 8 x its member part."""
+    g = np.random.default_rng(0)
+    a = torch.from_numpy(g.integers(0, 160, (48, 3920)))
+    steps = torch.from_numpy(g.integers(3, 8, 48)).int()
+    peaks = kernel_timing.card_peaks("NVIDIA H100 80GB HBM3")
+    ms, _ = kernel_timing.kmedoids_sector_bound(160, a, steps, peaks)
+    plain, _ = kernel_timing.kmedoids_bound(160, a, steps, peaks)
+    rows = 4 * (48 * 160 * 3920 + 2 * 48 * 3920 + 48 * 160 + 48) \
+        / peaks[0] * 1e3
+    assert plain < ms <= rows + 8 * (plain - rows)
 
 
 @pytest.mark.parametrize("R,D,dtype,elem", [(4800, 768, torch.bfloat16, 2),

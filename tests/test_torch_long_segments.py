@@ -3,8 +3,9 @@
 segment) and a whole 12-frame clip (N = 2352), on the CPU, against the JAX
 package.
 
-- Kernel E's large variant (N > 512), emulated here with numpy step for
-  step as `csrc/kmedoids.cu`'s `kmedoids_global_kernel<0>` computes it:
+- Kernel E's one-CTA steps past N = 512 (`global_body`, which the
+  scratch variant runs, as an earlier "large" variant did), emulated here with
+  numpy step for step as `csrc/kmedoids.cu` computes them:
   KKZ with each point's mindist, nearest chosen medoid and tie flag (the
   kernel keeps them in shared memory), each step's pick by the kernel's
   reduction tree (a thread's points, a warp's lanes, the CTA's warps);
@@ -19,6 +20,14 @@ package.
   point.  Inputs: blobs, an unplanted Gaussian (at K = N / 2 too, where
   two-member clusters tie exactly), and the exact-tie, equidistant,
   repeated-point and iteration-limit cases.
+- Kernel E's cluster variant (`kmedoids_cluster_kernel`, the router's past
+  N = 512), emulated on clusters of 1, 2, 8 and 16 CTAs: each CTA's chunk
+  range, KKZ's pick by each CTA's warps' slots then the cluster's, the
+  orphans and moved medoids visited in shuffled orders, the member lists
+  each CTA assembles from the counts and mask words, and each block of 32
+  candidates' sums as loads then a fold in member order; its ids,
+  assignment and steps equal the one-CTA emulation's, the plain version's
+  and JAX's on the same inputs.
 - The whole path: the narrow ViT-B/16 of tests/test_torch_vitb16.py with 4
   frames as one segment (N = 784) at K = 160 and at K = 392 (blocks 3-4
   then attend over L = 393 > 256): the loss and every gradient against
@@ -112,8 +121,9 @@ def _scan_all(key, order):
 
 
 def emulated_large_kmedoids(D, l2, K, iter_limit=100, id_sort=True):
-    """One segment as `kmedoids_global_kernel<0>` computes it: (assign [N],
-    medoids [K], Lloyd steps)."""
+    """One segment as `global_body` computes it on one CTA (the scratch
+    variant, and the earlier large one): (assign [N], medoids [K], Lloyd
+    steps)."""
     N = D.shape[0]
     key = _ordered(D)
     # ---- KKZ: best, assign, tie per point, as the kernel's shared arrays
@@ -180,6 +190,185 @@ def emulated_large_kmedoids(D, l2, K, iter_limit=100, id_sort=True):
             sorted_meds, steps)
 
 
+# ------------------------------------------- E's cluster variant, emulated
+def cta_ranges(N, cs):
+    """The own points [p0, p1) of each CTA of a cluster of `cs`: CTA r owns
+    the 32-point chunks [r nc / cs, (r + 1) nc / cs), nc = ceil(N / 32)."""
+    nc = -(-N // 32)
+    return [(32 * (r * nc // cs), min(32 * ((r + 1) * nc // cs), N))
+            for r in range(cs)]
+
+
+def _warp_slots(v, p0, p1):
+    """One CTA's 8 warps' (largest value, lowest index holding it) of its
+    own points' values v[p0:p1], thread t holding p0 + t + 256 i in
+    ascending order (a strictly larger value replaces)."""
+    n = p1 - p0
+    grid = np.full((max(1, -(-n // THREADS)), THREADS), INT_MIN, np.int64)
+    grid.reshape(-1)[:n] = v[p0:p1]
+    tv = grid.max(axis=0)
+    ti = np.where(tv > INT_MIN, grid.argmax(axis=0) * THREADS
+                  + np.arange(THREADS) + p0, INT_MAX)
+    wv = tv.reshape(WARPS, 32).max(axis=1)
+    wi = np.where(tv.reshape(WARPS, 32) == wv[:, None],
+                  ti.reshape(WARPS, 32), INT_MAX).min(axis=1)
+    return list(zip(wv.tolist(), wi.tolist()))
+
+
+def _cluster_pick(v, ranges):
+    """`cluster_argmax`: every CTA's warp slots, slot rank x 8 + warp; each
+    lane of a warp takes the slots lane, lane + 32, ... in order (a larger
+    value, or an equal one at a lower index, replaces), then the lanes
+    agree (the largest value, then the lowest index holding it)."""
+    slots = [s for p0, p1 in ranges for s in _warp_slots(v, p0, p1)]
+    lanes = []
+    for lane in range(32):
+        bv, bi = INT_MIN, INT_MAX
+        for sv, si in slots[lane::32]:
+            if sv > bv or (sv == bv and si < bi):
+                bv, bi = sv, si
+        lanes.append((bv, bi))
+    top = max(lv for lv, _ in lanes)
+    return min(li for lv, li in lanes if lv == top)
+
+
+def _take_in_order(vals, ks, bv, bk, tie):
+    """The kernel's `take` of the candidates (vals[i], ks[i]) one after
+    another, in the order given, into each point's (bv, bk, tie)."""
+    for d, k in zip(vals, ks):
+        lt, eq = d < bv, d == bv
+        bk = np.where(lt, k, np.where(eq, np.minimum(bk, k), bk))
+        tie = np.where(lt, False, tie | eq)
+        bv = np.where(lt, d, bv)
+    return bv, bk, tie
+
+
+def _member_lists(assign, dirty, K, ranges):
+    """Every CTA's member lists after a step's assignment, as the kernel
+    builds them: each CTA's own-chunk member masks and counts; each dirty
+    cluster's size, its members in lower CTAs and (scans over k) its list's
+    offset and its first block of 32 candidates; each own member of a dirty
+    cluster at offset + members in lower CTAs + its rank among the CTA's own
+    members (the popcounts of its mask words below it).  Returns (size,
+    offsets, block starts, lists)."""
+    N = len(assign)
+    counts = np.zeros((len(ranges), K), np.int64)
+    for r, (p0, p1) in enumerate(ranges):
+        counts[r] = np.bincount(assign[p0:p1], minlength=K)
+    size = np.where(dirty, counts.sum(0), -1)
+    lens = np.maximum(size, 0)
+    blocks = -(-lens // 32)
+    off, start = np.cumsum(lens) - lens, np.cumsum(blocks) - blocks
+    below = np.cumsum(counts, axis=0) - counts
+    lists = np.full(N, -1, np.int64)
+    for r, (p0, p1) in enumerate(ranges):
+        j = np.arange(p1 - p0)
+        chunk, lane = j // 32, j % 32
+        masks = np.zeros((K, -(-(p1 - p0) // 32)), np.uint32)
+        np.bitwise_or.at(masks, (assign[p0:p1], chunk),
+                         (np.uint32(1) << lane.astype(np.uint32)))
+        words = np.bitwise_count(masks).astype(np.int64)
+        before = np.cumsum(words, axis=1) - words      # words below a chunk
+        a = assign[p0:p1]
+        rank = before[a, chunk] + np.bitwise_count(
+            masks[a, chunk] & ((np.uint32(1) << lane.astype(np.uint32))
+                               - np.uint32(1))).astype(np.int64)
+        mine = size[a] > 0
+        lists[(off[a] + below[r, a] + rank)[mine]] = (p0 + j)[mine]
+    return size, off, start, lists
+
+
+def emulated_cluster_kmedoids(D, l2, K, cs, iter_limit=100, id_sort=True,
+                              seed=0):
+    """One segment as `kmedoids_cluster_kernel` computes it on a cluster of
+    `cs` CTAs: (assign [N], medoids [K], Lloyd steps).  The orders the
+    kernel leaves to its warps (each CTA's moved-medoid list, which
+    orphans a warp scans, which blocks of candidates a warp sums) are drawn
+    from `seed`."""
+    rng = np.random.default_rng(seed)
+    N = D.shape[0]
+    key = _ordered(D)
+    ranges = cta_ranges(N, cs)
+    # ---- KKZ: each CTA its own points' best, assign and tie; the pick by
+    # the cluster's tree
+    idx = _cluster_pick(_ordered(l2), ranges)
+    meds = [idx]
+    best, assign = key[idx].copy(), np.zeros(N, np.int64)
+    tie = np.zeros(N, bool)
+    for k in range(1, K):
+        idx = _cluster_pick(best, ranges)
+        meds.append(idx)
+        d = key[idx]
+        lt, eq = d < best, d == best
+        best = np.where(lt, d, best)
+        assign = np.where(lt, k, assign)
+        tie = np.where(lt, False, tie | eq)
+    meds = np.array(meds)
+
+    def reassign(moved):
+        """Each CTA's own points after `moved` moved; returns the clusters
+        whose member set changed."""
+        nonlocal best, assign, tie
+        dirty = set()
+        for p0, p1 in ranges:
+            own = np.arange(p0, p1)
+            orphan = np.isin(assign[own], moved)
+            stay = own[~orphan]
+            order = rng.permutation(np.array(moved))
+            bv, bk, t = _take_in_order(key[meds[order]][:, stay], order,
+                                       best[stay], assign[stay], tie[stay])
+            dirty |= set(assign[stay][bk != assign[stay]].tolist())
+            dirty |= set(bk[bk != assign[stay]].tolist())
+            best[stay], assign[stay], tie[stay] = bv, bk, t
+            for j in rng.permutation(own[orphan]):     # any warp, any order
+                col = key[meds, j]
+                lo = col.min()
+                k = int(np.argmax(col == lo))
+                if k != assign[j]:
+                    dirty |= {int(assign[j]), k}
+                best[j], assign[j], tie[j] = lo, k, (col == lo).sum() > 1
+        return dirty
+
+    dirty = np.ones(K, bool)
+    moved, steps = [], 0
+    while steps < iter_limit:
+        if moved:
+            for k in reassign(moved):
+                dirty[k] = True
+        size, off, start, lists = _member_lists(assign, dirty, K, ranges)
+        least = {}
+        for it in rng.permutation(int(start[-1] + -(-max(size[-1], 0) // 32))):
+            k = int(np.searchsorted(start, it, side="right") - 1)
+            mem = lists[off[k]:off[k] + size[k]]
+            cand = mem[32 * (it - start[k]):32 * (it - start[k] + 1)]
+            loads = D[np.ix_(cand, mem)]
+            # each lane's adds in ascending member order
+            sums = np.add.accumulate(loads, axis=1, dtype=np.float32)[:, -1]
+            o = _ordered(sums)
+            block = (int(o.min()), int(cand[o == o.min()].min()))
+            least[k] = min(least.get(k, block), block)
+        moved = []
+        for k in np.flatnonzero(dirty):
+            nm = least[k][1] if size[k] else 0
+            if nm != meds[k]:
+                meds[k] = nm
+                moved.append(int(k))
+        dirty[:] = False
+        steps += 1
+        if not moved:
+            break
+    if moved:
+        reassign(moved)
+    if not id_sort:
+        return assign, meds, steps
+    order = np.argsort(meds, kind="stable")
+    rank_of = np.empty(K, np.int64)
+    rank_of[order] = np.arange(K)
+    sorted_meds = meds[order]
+    return (np.where(tie, _scan_all(key, sorted_meds)[1], rank_of[assign]),
+            sorted_meds, steps)
+
+
 def jax_on_distances(X, D, K, iter_limit=100, id_sort=True):
     """The JAX package's `batch_fast_kmedoids` (its route at N past the
     Pallas kernel's VMEM) with the distances D in place of the ones it
@@ -195,11 +384,13 @@ def jax_on_distances(X, D, K, iter_limit=100, id_sort=True):
                                                       jnp.asarray(D)))
 
 
-def check_three(X, D, K, iter_limit=100, id_sort=True):
+def check_three(X, D, K, iter_limit=100, id_sort=True, sizes=()):
     """Emulation, the port's plain version and JAX's route agree on the
     same distances: ids and assignment in every segment, and the emulated
     steps are the plain version's steps to each segment's fixed point
-    (when it reached one)."""
+    (when it reached one).  With `sizes`, the cluster variant's emulation
+    on clusters of each of those CTA counts gives the large variant's
+    emulation's ids, assignment and steps too."""
     ja, jm, l2 = jax_on_distances(X, D, K, iter_limit, id_sort)
     Xt, Dt, lt = (torch.from_numpy(np.array(a, np.float32))
                   for a in (X, D, l2))
@@ -214,6 +405,13 @@ def check_three(X, D, K, iter_limit=100, id_sort=True):
         np.testing.assert_array_equal(a, pa[b].numpy())
         np.testing.assert_array_equal(a, ja[b])
         assert steps == want_steps[b]
+        for cs in sizes:
+            ca, cm, csteps = emulated_cluster_kmedoids(D[b], l2[b], K, cs,
+                                                       iter_limit, id_sort,
+                                                       seed=cs + b)
+            np.testing.assert_array_equal(cm, m, err_msg=f"{cs} CTAs")
+            np.testing.assert_array_equal(ca, a, err_msg=f"{cs} CTAs")
+            assert csteps == steps, cs
 
 
 def _distances(x):
@@ -309,20 +507,97 @@ def test_large_variant_iteration_limits(iter_limit):
     check_three(x, _distances(x), 160, iter_limit=iter_limit)
 
 
-def test_large_variant_layout_fits_up_to_its_limit():
-    """The large variant's shared memory (`global_smem_bytes`: best,
-    assignment, sums, two K lists, K x ceil(N / 32) member masks and N + 2K
-    bytes) fits the 227 KB a CTA may opt into for every K <= 392 up to
-    LARGE_MAX_N = 16 x 196, and at ViT-B/16's shapes."""
-    def smem(N, K):
-        return ((3 * N + 2 * K + K * -(-N // 32)) * 4
-                + (N + 2 * K + 3) // 4 * 4)
-    n = kmedoids_cuda.LARGE_MAX_N
-    assert n == 16 * 196
-    assert smem(n, 392) <= _build.MAX_SMEM_BYTES
-    assert smem(2352, 392) < 160_000
-    assert smem(784, 160) < 30_000
-    assert smem(2352, 2352) > _build.MAX_SMEM_BYTES   # the scratch variant's
+# E's cluster variant (csrc/kmedoids.cu `kmedoids_cluster_kernel`): its
+# emulation on clusters of these CTA counts against the large variant's
+# emulation, the plain version and JAX's
+CLUSTER_SIZES = (1, 2, 8, 16)
+
+
+@pytest.mark.parametrize("N,K,data", [
+    (784, 160, "blobs"),          # segments of 4 frames
+    (784, 392, "gaussian"),       # the most medoids the path takes
+    (2352, 160, "blobs"),         # a whole 12-frame clip
+])
+def test_cluster_design_matches_large_plain_and_jax(N, K, data):
+    if data == "blobs":
+        x = _blobs(N + K + 1, 1, N, 16, centres=60)
+    else:
+        x = np.random.default_rng(N + K + 1).standard_normal(
+            (1, N, 16)).astype(np.float32)
+    check_three(x, _distances(x), K, sizes=CLUSTER_SIZES)
+
+
+def test_cluster_design_first_index_wins_exact_ties():
+    """test_large_variant_first_index_wins_exact_ties's 160 groups of 4
+    consecutive integers, on clusters of 1-16 CTAs: the tied medoids'
+    lower index wins whichever CTA holds it."""
+    K = 160
+    p = (50 * np.arange(K)[:, None] + np.arange(4)).reshape(-1)
+    p = np.stack([p, np.random.default_rng(K).permutation(p)])
+    X, D = _line(p.astype(np.float32))
+    check_three(X, D, K, sizes=CLUSTER_SIZES)
+
+
+@pytest.mark.parametrize("id_sort", [True, False])
+def test_cluster_design_points_equidistant_from_two_medoids(id_sort):
+    G = 180
+    p = (50 * np.arange(G)[:, None] + np.arange(3)).reshape(-1)
+    g = np.random.default_rng(G)
+    X, D = _line(np.stack([g.permutation(p)]).astype(np.float32))
+    check_three(X, D, 2 * G, id_sort=id_sort, sizes=CLUSTER_SIZES)
+
+
+@pytest.mark.parametrize("K", [6, 160])
+def test_cluster_design_repeated_points(K):
+    """Integers drawn from a short span on a line, N = 784: points repeat,
+    distances tie everywhere, the orphans of a step are many."""
+    span = 200 if K == 160 else 12
+    p = np.random.default_rng(K + 1).integers(0, span, (1, 784))
+    X, D = _line(p.astype(np.float32))
+    check_three(X, D, K, sizes=CLUSTER_SIZES)
+
+
+@pytest.mark.parametrize("iter_limit", [0, 1, 2])
+def test_cluster_design_iteration_limits(iter_limit):
+    x = _blobs(10, 1, 784, 16, centres=60)
+    check_three(x, _distances(x), 160, iter_limit=iter_limit,
+                sizes=CLUSTER_SIZES)
+
+
+def test_cluster_design_member_lists_ascend():
+    """Every CTA's member lists, assembled from each CTA's own counts, the
+    counts of the CTAs below it and the popcounts of its mask words, are
+    each dirty cluster's members in ascending order, at every size."""
+    g = np.random.default_rng(0)
+    N, K = 3137, 160
+    assign = g.integers(0, K, N)
+    dirty = g.random(K) < 0.5
+    for cs in CLUSTER_SIZES:
+        size, off, start, lists = _member_lists(assign, dirty, K,
+                                                cta_ranges(N, cs))
+        for k in range(K):
+            mem = np.flatnonzero(assign == k)
+            if dirty[k]:
+                assert size[k] == len(mem)
+                np.testing.assert_array_equal(
+                    lists[off[k]:off[k] + size[k]], mem)
+            else:
+                assert size[k] == -1
+        assert start[-1] == sum(-(-len(np.flatnonzero(assign == k)) // 32)
+                                for k in range(K - 1) if dirty[k])
+
+
+def test_cta_ranges_split_the_chunks():
+    """CTA r owns the chunks [r nc / cs, (r + 1) nc / cs): together every
+    point once, in order, at most ceil(nc / cs) chunks each."""
+    for N in (513, 784, 2352, 3137, 3920):
+        for cs in CLUSTER_SIZES:
+            ranges = cta_ranges(N, cs)
+            assert ranges[0][0] == 0 and ranges[-1][1] == N
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            most = 32 * -(-(-(-N // 32)) // cs)
+            assert max(p1 - p0 for p0, p1 in ranges) <= most
+            assert min(p1 - p0 for p0, p1 in ranges) > 0
 
 
 # ------------------------------------------------------------ the whole path
@@ -483,7 +758,7 @@ def test_clis_parse_the_path_flags_to_the_same_plan(segments, K):
     """`--target_frames_blocks 12 x 6, S x 6` with `--cluster_num_blocks
     196 x 6, K x 6` at ViT-B/16: the same config from both CLIs, and a
     plan that clusters 12 / S frames of 196 tokens into K before block 7,
-    whose N the kernel takes with its large variant."""
+    whose N the kernel takes with its cluster variant."""
     argv = COMMON + ["--cluster_num_blocks", *["196"] * 6, *[str(K)] * 6,
                      "--target_frames_blocks", *["12"] * 6,
                      *[str(segments)] * 6]
@@ -497,5 +772,5 @@ def test_clis_parse_the_path_flags_to_the_same_plan(segments, K):
     N = spec.frame_duration * spec.before_cluster_num
     assert (N, spec.cluster_num, spec.after_frames) == \
         (196 * 12 // segments, K, segments)
-    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.LARGE
+    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.CLUSTER
     assert a.model.remat and a.model.clip_name == "ViT-B/16"

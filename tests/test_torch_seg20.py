@@ -11,13 +11,15 @@ package.
   segments.py is its emulation too.  It is held against the port's plain
   `kmedoids_on_distances` and JAX's `batch_fast_kmedoids` on the same
   distances at these N and K: ids, assignment, and the kernel's steps to
-  each segment's fixed point.
+  each segment's fixed point.  So is the emulation of the cluster variant
+  (`kmedoids_cluster_kernel`, which the router now gives these N and K)
+  on clusters of 1, 2, 8 and 16 CTAs.
 - The port's cluster layer against JAX's at N = 3920 (narrow width 16,
   tokens on a line at integer positions, so both packages' distances and
   sums are exact and equal: the same medoids, the same gathered tokens).
 - The CLIs: both packages parse the path's flags (60 frames, 3 segments,
-  K = 160 at ViT-B/16) to the same config, whose N only the scratch
-  variant takes.
+  K = 160 at ViT-B/16) to the same config, whose N the cluster variant
+  takes on clusters of 8 CTAs at a training step's 48 segments.
 """
 import dataclasses
 
@@ -34,8 +36,8 @@ from centerclip_tpu.ops import cluster_layer as jax_cluster
 from centerclip_tpu_torch import cli
 from centerclip_tpu_torch.config import BlockClusterSpec, ClusterConfig
 from centerclip_tpu_torch.ops import cluster_layer, kmedoids_cuda
-from tests.test_torch_long_segments import (COMMON, _blobs, _distances,
-                                            _line, check_three)
+from tests.test_torch_long_segments import (CLUSTER_SIZES, COMMON, _blobs,
+                                            _distances, _line, check_three)
 
 
 @pytest.mark.parametrize("N,K,data", [
@@ -45,13 +47,17 @@ from tests.test_torch_long_segments import (COMMON, _blobs, _distances,
     (2352, 2352, "blobs"),        # a 12-frame clip, every token a medoid
 ])
 def test_scratch_variant_matches_plain_and_jax(N, K, data):
-    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.SCRATCH
+    """The scratch variant's steps (the large variant's emulation) and the
+    cluster variant's on clusters of 1, 2, 8 and 16 CTAs, against the plain
+    version and JAX's; the router now gives these N and K the cluster
+    variant."""
+    assert kmedoids_cuda.choose_variant(N, K) == kmedoids_cuda.CLUSTER
     if data == "blobs":
         x = _blobs(N + K, 1, N, 16, centres=60)
     else:
         x = np.random.default_rng(N + K).standard_normal(
             (1, N, 16)).astype(np.float32)
-    check_three(x, _distances(x), K)
+    check_three(x, _distances(x), K, sizes=CLUSTER_SIZES)
 
 
 def test_scratch_variant_repeated_points_at_n3920():
@@ -59,7 +65,7 @@ def test_scratch_variant_repeated_points_at_n3920():
     and distances tie everywhere; every sum is exact."""
     p = np.random.default_rng(3920).integers(0, 300, (1, 3920))
     X, D = _line(p.astype(np.float32))
-    check_three(X, D, 160)
+    check_three(X, D, 160, sizes=CLUSTER_SIZES)
 
 
 def test_cluster_layer_matches_jax_at_n3920():
@@ -98,8 +104,8 @@ def test_clis_parse_the_20_frame_flags_to_the_same_plan():
     """`--max_frames 60 --target_frames_blocks 60 x 6, 3 x 6` with
     `--cluster_num_blocks 196 x 6, 160 x 6` at ViT-B/16 (chip_smoke.py's
     sixteenth path): the same config from both CLIs, a plan that clusters
-    20 frames of 196 tokens into 160 before block 7, and an N only the
-    scratch variant takes."""
+    20 frames of 196 tokens into 160 before block 7, and an N the cluster
+    variant takes, 8 CTAs a segment at a training step's 48 segments."""
     argv = [a if a != "12" else "60" for a in COMMON] + [
         "--cluster_num_blocks", *["196"] * 6, *["160"] * 6,
         "--target_frames_blocks", *["60"] * 6, *["3"] * 6]
@@ -109,5 +115,9 @@ def test_clis_parse_the_20_frame_flags_to_the_same_plan():
     N = spec.frame_duration * spec.before_cluster_num
     assert (a.model.max_frames, N, spec.cluster_num, spec.after_frames) == \
         (60, 3920, 160, 3)
-    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.SCRATCH
-    assert kmedoids_cuda.choose_variant(N, 160) == kmedoids_cuda.SCRATCH
+    assert kmedoids_cuda.choose_variant(N) == kmedoids_cuda.CLUSTER
+    assert kmedoids_cuda.choose_variant(N, 160) == kmedoids_cuda.CLUSTER
+    # the H100's resident clusters at N = 3920, K = 160 (see
+    # test_torch_ln_kmedoids_design.py's H100_RESIDENT)
+    h100 = {1: 132, 2: 132, 4: 92, 8: 62, 16: 28}
+    assert kmedoids_cuda.cluster_size(48, N, 160, h100) == 8
