@@ -1,0 +1,58 @@
+"""A tiny cell for the CPU tests: the recipe's structure (k-medoids
+before a middle block, meanP, AdamW, the .fstore loader) at widths the
+CPU runs in seconds, under an arch name registered with the program."""
+from __future__ import annotations
+
+ARCH = dict(embed_dim=32, image_resolution=32, vision_layers=4,
+            vision_width=64, vision_heads=2, vision_patch_size=8,
+            context_length=77, vocab_size=49408, transformer_width=32,
+            transformer_heads=2, transformer_layers=2)
+NAME = "tiny-bench"
+
+
+def register() -> None:
+    from centerclip_tpu_torch.config import CLIP_ARCHS, CLIP_DEFAULT_PARAMS
+    CLIP_ARCHS[NAME] = {k: v for k, v in ARCH.items()}
+    CLIP_DEFAULT_PARAMS[NAME] = CLIP_DEFAULT_PARAMS["ViT-B/32"]
+
+
+def config(remat: bool = False) -> dict:
+    flags = ["--datatype", "msrvtt", "--max_words", "16", "--max_frames", "4",
+             "--batch_size", "8", "--batch_size_val", "8", "--epochs", "5",
+             "--optim", "AdamW", "--lr", "2e-3", "--coef_lr", "1e-3",
+             "--wd", "0.2", "--warmup_proportion", "0.1", "--loose_type",
+             "--sim_header", "meanP", "--expand_msrvtt_sentences",
+             "--num_thread_reader", "2", "--cluster_inter", "1",
+             "--cluster_algo", "kmediods++", "--pretrained_clip_name", NAME,
+             "--cluster_num_blocks", "16", "16", "12", "12",
+             "--target_frames_blocks", "4", "4", "2", "2"]
+    if remat:
+        flags += ["--remat", "1"]
+    return {"name": "tiny", "flags": flags, "arch": dict(ARCH),
+            "optim": dict(lr=2e-3, coef_lr=1e-3, weight_decay=0.2,
+                          beta1=0.9, beta2=0.98, eps=1e-6,
+                          warmup_proportion=0.1, clip_grad_norm=1.0,
+                          end_lr=1e-8),
+            "freeze_layer_num": 0}
+
+
+TRAIN = {"kind": "train", "dataset": "tiny_16x4", "videos": 16,
+         "captions_per_clip": 4, "warmup_steps": 1, "trace_steps": 2,
+         "reference_chunk": 4}
+ENCODE = {"kind": "encode", "clips": 16, "warmup_batches": 1,
+          "reference_chunk": 4}
+
+
+def cell(kind: str, limits: dict = None):
+    """A Cell of the manifest's first cell of `kind`, with the tiny
+    configuration and traffic."""
+    import json
+    import os
+    from portbench.harness import ROOT, Cell
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        m = json.load(f)
+    name = next(w["name"] for w in m["workloads"]
+                if w["traffic"] == kind)
+    return Cell(name, manifest=m, config=config(),
+                traffic=TRAIN if kind == "train" else ENCODE,
+                limits=limits if limits is not None else {})
