@@ -9,7 +9,10 @@ samples ahead of the training step, and fixed-shape numpy collation.  With
 `pin_memory` (PyTorch DataLoader's idiom) the producer thread hands out
 each batch's arrays as tensors in pinned host memory, so the trainer's
 `non_blocking=True` copy to the card is asynchronous: the port's
-counterpart of JAX's asynchronously dispatched `device_put`.
+counterpart of JAX's asynchronously dispatched `device_put`.  The
+consumer's wait for each batch is a `data.wait` span (`ready`: the batch was
+there when asked; `depth`: the threaded queue's batches), the worker's
+gather or decode a `data.gather` span (`utils/spans.py`).
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
+
+from ..utils.spans import span
 
 
 def collate(samples) -> Dict[str, np.ndarray]:
@@ -44,6 +49,13 @@ def pin_batch(batch) -> Dict[str, torch.Tensor]:
         t = torch.as_tensor(value)
         out[key] = t if t.is_pinned() else t.pin_memory()
     return out
+
+
+def _wait(fut):
+    """The batch of a gather under way, in a `data.wait` span whose
+    `ready` says whether the gather had finished when asked."""
+    with span("data.wait", ready=fut.done()):
+        return fut.result()
 
 
 class BatchLoader:
@@ -145,6 +157,11 @@ class BatchLoader:
         batch = collate(samples)
         return pin_batch(batch) if self.pin_memory else batch
 
+    def _gather(self, chunk):
+        """The batched fast path's whole-batch gather, on its worker."""
+        with span("data.gather"):
+            return self.dataset.get_batch(chunk, pin_memory=self.pin_memory)
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if hasattr(self.dataset, "get_batch"):
             # batched fast path (FrameStoreClipDataset): whole-batch native
@@ -154,13 +171,12 @@ class BatchLoader:
             with ThreadPoolExecutor(max_workers=1) as pool:
                 fut = None
                 for chunk in self._batches_of_indices():
-                    nxt = pool.submit(self.dataset.get_batch, chunk,
-                                      pin_memory=self.pin_memory)
+                    nxt = pool.submit(self._gather, chunk)
                     if fut is not None:
-                        yield fut.result()
+                        yield _wait(fut)
                     fut = nxt
                 if fut is not None:
-                    yield fut.result()
+                    yield _wait(fut)
             return
         if self.num_threads <= 0:
             for chunk in self._batches_of_indices():
@@ -192,9 +208,10 @@ class BatchLoader:
             try:
                 with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
                     for chunk in self._batches_of_indices():
-                        samples = list(pool.map(
-                            lambda i: self.dataset[int(i)], chunk))
-                        if not put(self._collate(samples)):
+                        with span("data.gather"):
+                            batch = self._collate(list(pool.map(
+                                lambda i: self.dataset[int(i)], chunk)))
+                        if not put(batch):
                             return
                 put(done)
             except Exception as e:            # handed to the consumer
@@ -204,7 +221,9 @@ class BatchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("data.wait", ready=not q.empty(),
+                          depth=q.qsize()):
+                    item = q.get()
                 if item is done:
                     break
                 if isinstance(item, Exception):

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from ..config import BlockClusterSpec, ClusterConfig
+from ..utils.spans import span
 from .kmedoids_cuda import kmedoids
 from .shift import temporal_shift_wo_cls, token_shift
 from . import spectral
@@ -142,7 +143,15 @@ class TokenClusterInter(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B*T, 1+P, D] -> the reduced tokens.  `generator` draws
         `sparse_sampling`'s random columns (training); without one its
-        uniform columns are taken.  The other algorithms draw nothing."""
+        uniform columns are taken.  The other algorithms draw nothing.
+        Runs in a `cluster` span (`utils/spans.py`) of its B*S segments."""
+        spec = self.spec
+        with span("cluster", algo=spec.algo, segments=x.shape[0]
+                  // spec.before_frames * spec.after_frames):
+            return self._reduce(x, generator)
+
+    def _reduce(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
         spec = self.spec
         Bt, num_tokens, width = x.shape
         T, S, dur = spec.before_frames, spec.after_frames, spec.frame_duration

@@ -40,6 +40,7 @@ import torch
 from .. import resolve_device
 from ..models.clip4clip import CLIP4Clip
 from ..models.tokenizer import SimpleTokenizer, tokenize_batch
+from ..utils.spans import span
 from .index import (QUERY_BUCKETS, VideoIndex, _next_bucket,
                     check_single_device)
 
@@ -203,32 +204,38 @@ class RetrievalEngine:
         largest batch so far (sticky bucket), a multiple of the card
         count; with N cards, card i encodes rows [i b / N, (i + 1) b / N)
         of the padded batch of b.  Results stay on the first card and are
-        read back once, at the end."""
+        read back once, at the end.  Each batch runs in an `encode.batch`
+        span holding its `encode.h2d` and `encode.forward` spans a card,
+        the read-back in `encode.readback` (`utils/spans.py`)."""
         chunks = []
         target = 0
         n_dev = len(self.devices)
         for batch in batches:
             vmask = torch.as_tensor(batch["video_mask"])
-            video = torch.as_tensor(batch["video"])
             n = vmask.shape[0]
-            target = max(target, -(-_next_bucket(n) // n_dev) * n_dev)
-            if video.dim() == 6:
-                video = video.reshape(-1, *video.shape[-3:])
-            frames = video.shape[0] // n
-            rows = target // n_dev
-            for i, dev in enumerate(self.devices):
-                lo, hi = min(i * rows, n), min((i + 1) * rows, n)
-                if hi == lo and i:
-                    break           # the rest of the parts are padding
-                v = _pad_rows(video[lo * frames:hi * frames].to(
-                    dev, non_blocking=True), rows * frames)
-                m = _pad_rows(vmask[lo:hi].to(dev, non_blocking=True), rows)
-                with _on(dev):
-                    out = self._embed_video(v, m, i)[:hi - lo]
-                chunks.append(out.to(self.device, non_blocking=True))
+            with span("encode.batch", rows=n):
+                video = torch.as_tensor(batch["video"])
+                target = max(target, -(-_next_bucket(n) // n_dev) * n_dev)
+                if video.dim() == 6:
+                    video = video.reshape(-1, *video.shape[-3:])
+                frames = video.shape[0] // n
+                rows = target // n_dev
+                for i, dev in enumerate(self.devices):
+                    lo, hi = min(i * rows, n), min((i + 1) * rows, n)
+                    if hi == lo and i:
+                        break       # the rest of the parts are padding
+                    with span("encode.h2d"):
+                        v = _pad_rows(video[lo * frames:hi * frames].to(
+                            dev, non_blocking=True), rows * frames)
+                        m = _pad_rows(vmask[lo:hi].to(dev, non_blocking=True),
+                                      rows)
+                    with _on(dev), span("encode.forward"):
+                        out = self._embed_video(v, m, i)[:hi - lo]
+                    chunks.append(out.to(self.device, non_blocking=True))
         if not chunks:
             raise ValueError("no video batches")
-        return torch.cat(chunks).cpu().numpy()
+        with span("encode.readback"):
+            return torch.cat(chunks).cpu().numpy()
 
     def build_index(self, batches: Iterable[Dict[str, np.ndarray]],
                     video_ids: Sequence[str], quantize: str = "float32",

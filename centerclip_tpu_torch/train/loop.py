@@ -35,6 +35,10 @@ gradients (`parallel/pipeline.py`), so the clipping sees the gradients
 after the pipe sum.  Gradient accumulation reduces the gradients on its
 last micro-batch only.  The logged losses are the means over the ranks.
 A process count other than the world size raises.
+
+Each optimizer step runs in a `train.step` span holding `train.h2d`,
+`train.forward`, `train.backward` and `train.update` (`utils/spans.py`;
+recorded when the recorder is on, as over `--profile_dir`'s steps).
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from ..parallel.mesh import (block_heads, create_mesh, gradient_sync,
                              reduce_replicated_grads,
                              reduce_sequence_parallel_grads, shard_batch,
                              shard_params, unwrap, world_size)
+from ..utils import spans
 from .optim import GroupedAdam, build_optimizer, current_lr, set_trainable
 from .state import TrainState
 
@@ -100,18 +105,25 @@ def make_train_step(model: torch.nn.Module, optimizer: GroupedAdam,
 
     def _grad(batch: Batch, generator, sync: bool = True) -> torch.Tensor:
         with gradient_sync(model, sync):
-            out = model(**batch_to_device(batch, device), training=True,
-                        generator=generator)
-            out["loss"].backward()
+            with spans.span("train.h2d"):
+                inputs = batch_to_device(batch, device)
+            with spans.span("train.forward"):
+                out = model(**inputs, training=True, generator=generator)
+            # the card's copy of the batch goes before the backward, whose
+            # peak memory it would raise
+            del inputs
+            with spans.span("train.backward"):
+                out["loss"].backward()
         return torch.stack([out[k].detach() for k in LOSS_KEYS])
 
     def _apply(losses: torch.Tensor) -> Dict[str, torch.Tensor]:
-        reduce_replicated_grads(model)
-        reduce_sequence_parallel_grads(model)
-        optimizer.step()
-        clamp_logit_scale(net)
-        if world > 1:
-            losses = psum(losses) / world
+        with spans.span("train.update"):
+            reduce_replicated_grads(model)
+            reduce_sequence_parallel_grads(model)
+            optimizer.step()
+            clamp_logit_scale(net)
+            if world > 1:
+                losses = psum(losses) / world
         return dict(zip(LOSS_KEYS, losses.unbind()))
 
     def single_step(batch: Batch, generator: Optional[torch.Generator] = None
@@ -188,21 +200,28 @@ class Trainer:
 
     def _start_profiler(self):
         """torch.profiler over epoch 0's first `profile_steps` batches
-        (the JAX package's `jax.profiler` trace, train/loop.py:161-169)."""
+        (the JAX package's `jax.profiler` trace, train/loop.py:161-169),
+        with the program's spans recorded over them."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.model.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.start()
+        spans.on()
         return prof
 
     def _stop_profiler(self, prof) -> None:
+        """Stop the profiler and write its trace, with the spans recorded
+        meanwhile as `user_annotation` events on the trace's clock, to
+        `<profile_dir>/trace.json`."""
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)
         prof.stop()
+        spans.off()
         os.makedirs(self.cfg.profile_dir, exist_ok=True)
         path = os.path.join(self.cfg.profile_dir, "trace.json")
         prof.export_chrome_trace(path)
+        spans.write_into_chrome_trace(path, spans.take())
         logger.info("profiler trace of %d steps written to %s",
                     self.cfg.profile_steps, path)
 
@@ -229,27 +248,27 @@ class Trainer:
                 micro.append(batch)
                 if len(micro) < self.accum:
                     continue
-                logs = self._step_fn(micro, self._generator())
-                micro = []
-            else:
+                batch, micro = micro, []
+            gstep = self.state.global_step + 1
+            with spans.span("train.step", step=gstep):
                 logs = self._step_fn(batch, self._generator())
-            self.state.global_step += 1
-            gstep = self.state.global_step
-            loss_log.append(logs["loss"])
-            display = gstep % n_display == 0
-            if display:
-                scalars = {
-                    "train/sim_loss": float(logs["sim_loss"]),
-                    "train/cluster_loss": float(logs["cluster_loss"]),
-                    "train/scale": float(self.model.clip.logit_scale.detach()),
-                    "train/lr": current_lr(self.cfg.optim, gstep,
-                                           self.total_steps)}
-            batch_time = time.time() - end
-            end = time.time()
-            if display:
-                self._log(epoch, gstep, {**scalars,
-                                         "train/data_time": data_time,
-                                         "train/batch_time": batch_time})
+                self.state.global_step = gstep
+                loss_log.append(logs["loss"])
+                display = gstep % n_display == 0
+                if display:
+                    scalars = {
+                        "train/sim_loss": float(logs["sim_loss"]),
+                        "train/cluster_loss": float(logs["cluster_loss"]),
+                        "train/scale": float(
+                            self.model.clip.logit_scale.detach()),
+                        "train/lr": current_lr(self.cfg.optim, gstep,
+                                               self.total_steps)}
+                batch_time = time.time() - end
+                end = time.time()
+                if display:
+                    self._log(epoch, gstep, {**scalars,
+                                             "train/data_time": data_time,
+                                             "train/batch_time": batch_time})
         if prof is not None:
             self._stop_profiler(prof)
         if micro:

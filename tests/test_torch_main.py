@@ -420,7 +420,16 @@ def test_main_matches_jax_main_from_one_init_checkpoint(msrvtt_root,
             h.pop(k)
     assert ph == jh
     with open(tmp_path / "prof" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    # the program's spans over the profiled step, on the trace's clock
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    forward = [e for e in events if e.get("name") == "train.forward"]
+    assert ops and len(forward) == 1
+    assert forward[0]["cat"] == "user_annotation"
+    f0, f1 = forward[0]["ts"], forward[0]["ts"] + forward[0]["dur"]
+    assert min(e["ts"] for e in ops) <= f0 < f1 <= \
+        max(e["ts"] + e["dur"] for e in ops)
+    assert any(f0 <= e["ts"] <= f1 for e in ops)   # the forward's operators
 
     # eval-only reload of the port's checkpoint: the same metrics
     argv = _argv(msrvtt_root, tmp_path / "port_eval",
