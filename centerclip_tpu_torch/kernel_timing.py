@@ -14,6 +14,9 @@ compute the least time the card could take for it.
 * `layernorm_times`: kernel C's row (its time, the plain version's and
   `F.layer_norm`'s) on one input; `LAYERNORM_FWD_SHAPES`, every input
   shape `chip_smoke.py` times C at, which `bench_ln_kmedoids.py` times too.
+* `quick_gelu_times`: kernel F's rows, forward and backward, beside the
+  eager composition and F's byte bound; `QUICK_GELU_SHAPES`, the shapes
+  `chip_smoke.py` times it at.
 
 Needs a CUDA device to run; importing it needs only torch.
 """
@@ -58,6 +61,17 @@ LAYERNORM_FWD_SHAPES = (
     ("PP vision blocks 7-12", 2400, 768, torch.bfloat16),
     ("PP text", 256, 512, torch.bfloat16),
     ("PP gloo vision blocks 7-12", 1200, 768, torch.bfloat16),
+)
+
+# (label, rows, width) of kernel F's bf16 inputs in `chip_smoke.py`: the
+# MLP's c_fc outputs of ViT-B/16 and ViT-B/32 at batch 128 and the text
+# tower's
+QUICK_GELU_SHAPES = (
+    ("ViT-B/16 blocks 1-6", 302592, 3072),
+    ("ViT-B/16 blocks 7-12", 123648, 3072),
+    ("ViT-B/32 blocks 1-6", 76800, 3072),
+    ("ViT-B/32 blocks 7-12", 38400, 3072),
+    ("text", 4096, 2048),
 )
 
 
@@ -229,3 +243,41 @@ def kmedoids_sector_bound(K, assign, steps, peaks):
         fewest = torch.where(has, torch.minimum(fewest, S), fewest)
     sectors -= int(fewest[fewest < 2 ** 62].sum())
     return bound(bytes_moved + 32.0 * sectors, ops, fp32_peak, mem_rate)
+
+
+def quick_gelu_bound(x, peaks, backward: bool):
+    """`bound` of kernel F on x: forward x read and y written (2 tensor-
+    sizes), backward x and dy read and dx written (3); about 20 fp32
+    operations an element forward, 30 backward (the exponential counted
+    as a few)."""
+    mem_rate, _, fp32_peak = peaks
+    n = x.numel()
+    return bound((3 if backward else 2) * n * x.element_size(),
+                 (30.0 if backward else 20.0) * n, fp32_peak, mem_rate)
+
+
+def quick_gelu_times(x, dy, flush, peaks):
+    """Kernel F's two rows on x and the output gradient dy, by `time_ms`:
+    forward (F, and the eager composition `quick_gelu_plain`: three
+    kernels) and backward (F; eager autograd's five kernels from the
+    graph it kept, sigmoid's output among it; and `quick_gelu_bwd_plain`,
+    which recomputes the sigmoid), each with its byte bound and F's share
+    of it."""
+    from .ops import quick_gelu as qg
+    xe = x.detach().requires_grad_()
+    ye = qg.quick_gelu_plain(xe)
+    rows = {}
+    for key, fn, eager, plain in (
+            ("forward", lambda: qg.quick_gelu_forward(x),
+             lambda: qg.quick_gelu_plain(x), None),
+            ("backward", lambda: qg.quick_gelu_backward(x, dy),
+             lambda: torch.autograd.grad(ye, xe, dy, retain_graph=True),
+             lambda: qg.quick_gelu_bwd_plain(x, dy))):
+        b_ms, by = quick_gelu_bound(x, peaks, key == "backward")
+        ms = time_ms(fn, flush)
+        rows[key] = dict(ms=ms, eager_ms=time_ms(eager, flush),
+                         plain_ms=None if plain is None
+                         else time_ms(plain, flush),
+                         bound_ms=b_ms, bound_by=by,
+                         of_bound=round(100 * b_ms / ms, 1))
+    return rows

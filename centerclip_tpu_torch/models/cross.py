@@ -30,8 +30,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .layers import LayerNormF32, ResidualAttentionBlock, _lecun_normal_, \
-    quick_gelu
+from ..ops.quick_gelu import quick_gelu_op
+from .layers import LayerNormF32, ResidualAttentionBlock, _lecun_normal_
 
 # the additive mask value of a padded key (module_cross.py:205-210)
 MASKED = -1000000.0
@@ -145,4 +145,4 @@ class CrossModel(nn.Module):
         pooled = self.pooler.ln_pool(x[:, 0].contiguous())
         dense = self.pooler.dense
         pooled = nn.functional.linear(pooled.float(), dense.weight, dense.bias)
-        return x, quick_gelu(pooled)
+        return x, quick_gelu_op(pooled)

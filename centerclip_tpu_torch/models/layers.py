@@ -6,8 +6,8 @@ Numerics follow the JAX package: parameters are fp32; a linear layer casts
 its input, weight and bias to the activation dtype (the JAX `Dense(dtype=...,
 param_dtype=float32)`); LayerNorm computes in fp32 and returns the input's
 dtype; attention logits and softmax are fp32.  Layout is [batch, tokens,
-dim] throughout.  LayerNorm and the attention core go through the port's
-kernel wrappers, which use their plain versions on CPU tensors.
+dim] throughout.  LayerNorm, the attention core and QuickGELU go through
+the port's kernel wrappers, which use their plain versions on CPU tensors.
 
 `fused` selects the attention core, as the JAX package's `fused` flag does
 (`models/layers.py:58-116` there): the CLIP towers' blocks are built with
@@ -40,12 +40,9 @@ from torch import nn
 
 from ..ops.attention_cuda import attention_plain, fused_attention
 from ..ops.layernorm_triton import EPS, layer_norm
+from ..ops.quick_gelu import quick_gelu_op
 from ..parallel.collectives import (copy_to_model, gather_tokens,
                                     reduce_from_model, reduce_scatter_tokens)
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
@@ -127,7 +124,9 @@ class MultiHeadAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    """c_fc -> QuickGELU -> c_proj (reference: clip.py:207-211)."""
+    """c_fc -> QuickGELU -> c_proj (reference: clip.py:207-211).  QuickGELU
+    is kernel F (`ops/quick_gelu.py`) on the card, elementwise over the
+    `[.., 4 * width / tp]` c_fc output whatever the block's parallelism."""
 
     def __init__(self, width: int, dtype: torch.dtype):
         super().__init__()
@@ -143,7 +142,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 reduce: Optional[Callable] = None) -> torch.Tensor:
-        return row_parallel(quick_gelu(linear(x, self.c_fc, self.dtype)),
+        return row_parallel(quick_gelu_op(linear(x, self.c_fc, self.dtype)),
                             self.c_proj, self.dtype, reduce)
 
 

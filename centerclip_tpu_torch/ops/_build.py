@@ -26,9 +26,10 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNEL_SOURCES = ("attention", "attention_bwd", "kmedoids", "layernorm")
+KERNEL_SOURCES = ("attention", "attention_bwd", "kmedoids", "layernorm",
+                  "quick_gelu")
 # the libraries an inference forward launches (`RetrievalEngine.warmup`)
-FORWARD_SOURCES = ("attention", "kmedoids", "layernorm")
+FORWARD_SOURCES = ("attention", "kmedoids", "layernorm", "quick_gelu")
 HOST_SOURCES = ("framestore_reader",)
 # opt-in shared memory one Hopper CTA may use (227 KB)
 MAX_SMEM_BYTES = 232_448

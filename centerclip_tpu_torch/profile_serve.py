@@ -44,6 +44,7 @@ GROUPS = (("attention kernel", ("attention_fwd_mma_kernel",
           ("layernorm kernel", ("ln_fwd",)),
           ("layernorm bwd kernel", ("_ln_bwd",)),
           ("kmedoids kernel", ("kmedoids",)),
+          ("quick_gelu kernel", ("qgelu_elementwise",)),
           ("matmul (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "sm90")),
           ("optimizer (foreach)", ("multi_tensor_apply",)),
           # torch.linalg.eigh's cuSOLVER Jacobi solver (spectral clustering)

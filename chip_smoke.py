@@ -13,18 +13,19 @@
    bf16 towers) on seeded random weights; `RetrievalEngine.build_index` over
    64 seeded uint8 clips [12, 3, 224, 224] in batches of 32 (int8 index),
    then `search` with 4 text queries (k = 5).  Every kernel's launch count
-   is zeroed just before this phase and must have moved just after it; the
+   is zeroed just before this phase; after it exactly the forward kernels'
+   (A, C, E and F's forward) must have moved; the
    attention forward must have run its tensor-core variant only (its fp32
    CUDA-core variant's count must not move).
 3. Training phase, the second main path: the JAX package's preset
    `msrvtt_vitb32_k6` (the same model; AdamW lr 2e-3, coef_lr 1e-3, wd 0.2,
    warmup 0.1, freeze_layer_num 0) at its batch of 128 seeded clips with
    128 seeded token rows of 32; 2 untimed and 5 timed steps through
-   `Trainer.train_epoch` (forward, symmetric InfoNCE, backward through the
-   five kernels, clip, update, logit-scale clamp).  The counts of all five
-   kernels are zeroed just before the steps and must have moved after them,
-   the attention forward and backward through their tensor-core variants
-   only.
+   `Trainer.train_epoch` (forward, symmetric InfoNCE, backward through
+   kernels A-F, clip, update, logit-scale clamp).  The counts of kernels
+   A-F are zeroed just before the steps and must have moved after them (F's
+   by exactly 24 a step each way), the attention forward and backward
+   through their tensor-core variants only.
    Then a checkpoint is saved and resumed into a fresh model and optimizer,
    one more step from each must give equal parameters, and
    `Evaluator.evaluate` runs on 64 of the clips with their texts.
@@ -57,7 +58,7 @@
    preprocess/compress_video.py's output: 48 videos of 36 seeded uint8
    frames of 224 x 298 (12 s at 3 fps), as .npy files and one .fstore,
    train.csv / test.csv and 8 captions per video.  Run 1 trains 3 steps of
-   128 through the pinned loader and all five kernels (counts zeroed just
+   128 through the pinned loader and kernels A-F (counts zeroed just
    before, read just after; attention on its tensor-core variants only)
    and evaluates the 48 clips in one ragged batch; run 2 reloads its
    ckpt.pth.tar with `--do_train 0 --do_eval 1 --init_model` and must give
@@ -195,7 +196,7 @@
    2 sigma apart (at the seed's scale the heat kernel underflows off the
    diagonal: W = I, L_sym = 0; the phase fails on such tokens), encodes 64
    clips through `RetrievalEngine` and trains 2 + 3 steps at batch 128
-   with the `eigh` solver (all five kernels must launch), then 1 + 3 with
+   with the `eigh` solver (kernels A-F must launch), then 1 + 3 with
    the `subspace` solver; the spectral clustering and its eigensolve are
    timed by CUDA events inside the same calls, in those steps and alone at
    L_sym [768, 98, 98] (a training step's) and [192, 98, 98] (an encode
@@ -249,7 +250,7 @@
    unwrapped (before the process group exists), then under DDP
    (`--data_parallel 1`) and FSDP (`--fsdp 1`) from the same init on the
    same batches; losses, step-1 gradients and parameters must equal the
-   unwrapped ones to the bit, all five kernels must launch (counts zeroed
+   unwrapped ones to the bit, kernels A-F must launch (counts zeroed
    before, read after each) and kernel D only on the default stream with
    its tickets zero after; then PARALLEL_TIMED timed steps each (median
    and peak memory); then `main` with `--data_parallel 1 --fsdp 1` (rank
@@ -320,7 +321,10 @@ Prints a `{"training": ...}`, a `{"main": ...}`, a `{"vitb16": ...}`, a
 forward and backward, the global, large and scratch k-medoids variants,
 the long forward and backward past L = 256 and attention's fp32 variants
 as rows of their own; every
-kernel's rows at each path's shapes, its launches by path) and, last,
+kernel's rows at each path's shapes, its launches by path; last QuickGELU's
+kernel F, held to the eager composition to the bit and timed both ways
+at QUICK_GELU_SHAPES and QUICK_GELU_OTHER_DTYPES beside its byte bound
+and the eager ops, with its launches on the serving and training paths) and, last,
 one JSON line {"ok":
 true, "device": {...}}; before them, each phase's time.  Any failed check
 exits non-zero before it.  Without a CUDA device it exits non-zero at
@@ -337,9 +341,9 @@ import sys
 import time
 
 from centerclip_tpu_torch.kernel_timing import (
-    LAYERNORM_FWD_SHAPES, SLEEP_CYCLES, bound, card_peaks, host_us_per_call,
-    kmedoids_bound, kmedoids_sector_bound, layernorm_bound, layernorm_times,
-    tf32_peak, time_ms)
+    LAYERNORM_FWD_SHAPES, QUICK_GELU_SHAPES, SLEEP_CYCLES, bound, card_peaks,
+    host_us_per_call, kmedoids_bound, kmedoids_sector_bound, layernorm_bound,
+    layernorm_times, quick_gelu_times, tf32_peak, time_ms)
 
 # tolerances, stated before any run:
 # bf16 kernel vs plain version: both round fp32 values to bf16, summed in
@@ -741,6 +745,9 @@ def training_phase(torch, np, dev, counters):
     for fn_name, n in launches.items():
         if n == 0:
             fail(f"{fn_name} was never launched on the training path")
+    check_quick_gelu_launches("the training path", launches,
+                              TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS,
+                              2 if cfg.remat else 1)
 
     # checkpoint, resume into a fresh model and optimizer, one more step each
     resumed_step(torch, run, model, trainer, batch, total_steps, "training")
@@ -1183,6 +1190,57 @@ def hold_layernorm_bwd(torch, dev, flush, peaks, label, R, D, dtype=None):
                 bound_by=b_by, device_launches_per_call=len(dev_names)), fwd_row
 
 
+# kernel F's extra rows beyond QUICK_GELU_SHAPES (bf16): (label, rows, width,
+# dtype) -- fp32 ViT-B/16 (`--precision fp32`) and fp16
+QUICK_GELU_OTHER_DTYPES = (("fp32 ViT-B/16 blocks 7-12", 123648, 3072, "float32"),
+                           ("fp16 ViT-B/32 blocks 7-12", 38400, 3072, "float16"))
+
+
+def hold_quick_gelu(torch, dev, flush, peaks):
+    """Kernel F at the MLP's c_fc output shapes (QUICK_GELU_SHAPES in bf16,
+    QUICK_GELU_OTHER_DTYPES): its output and x's gradient through
+    `quick_gelu_op` equal the eager composition's to the bit, then both
+    directions timed beside their byte bound and the eager ops
+    (`quick_gelu_times`).  Returns the rows."""
+    from centerclip_tpu_torch.ops import quick_gelu as qg
+    cases = [(label, R, D, torch.bfloat16) for label, R, D in
+             QUICK_GELU_SHAPES] + [(label, R, D, getattr(torch, dt)) for
+                                   label, R, D, dt in QUICK_GELU_OTHER_DTYPES]
+    rows = []
+    for label, R, D, dtype in cases:
+        gen = torch.Generator(device=dev).manual_seed(R + D)
+        x = (torch.randn((R, D), generator=gen, device=dev) * 4).to(dtype)
+        dy = torch.randn((R, D), generator=gen, device=dev).to(dtype)
+        xe = x.clone().requires_grad_()
+        ye = qg.quick_gelu_plain(xe)
+        ye.backward(dy)
+        xk = x.clone().requires_grad_()
+        yk = qg.quick_gelu_op(xk)
+        yk.backward(dy)
+        torch.cuda.synchronize()
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        same = (torch.equal(yk.detach().view(bits), ye.detach().view(bits)),
+                torch.equal(xk.grad.view(bits), xe.grad.view(bits)))
+        if not all(same):
+            fail(f"quick_gelu [{label}, {dtype}]: kernel F's output / "
+                 f"gradient equal to the eager composition's: {same}")
+        del xe, ye, xk, yk
+        row = dict(label=label, shape=[R, D],
+                   dtype=str(dtype).split(".")[-1], bits_equal=True,
+                   **quick_gelu_times(x, dy, flush, peaks))
+        print(f"kernel F [{label}] {row['dtype']}: forward "
+              f"{row['forward']['ms']:.4f} ms ({row['forward']['of_bound']} "
+              f"% of bound; eager {row['forward']['eager_ms']:.4f}), "
+              f"backward {row['backward']['ms']:.4f} ms "
+              f"({row['backward']['of_bound']} %; eager "
+              f"{row['backward']['eager_ms']:.4f}, plain "
+              f"{row['backward']['plain_ms']:.4f})")
+        rows.append(row)
+        del x, dy
+        torch.cuda.empty_cache()
+    return rows
+
+
 def layernorm_row_times(x, w, b, flush):
     """`layernorm_times` on x [R, D], which must be one of
     LAYERNORM_FWD_SHAPES (the shapes `bench_ln_kmedoids.py` times too)."""
@@ -1331,7 +1389,9 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     if not km[kc.GLOBAL] or km[kc.SHARED] or km[kc.CLUSTER] or \
             km[kc.SCRATCH] or fwd[ac.CUDA_CORE] or fwd[ac.TF32X3] or \
             fwd[ac.TENSOR_CORE_LONG] != 12 * n_batches or \
-            not enc_launches["layer_norm"]:
+            not enc_launches["layer_norm"] or \
+            not enc_launches["quick_gelu_forward"] or \
+            enc_launches["quick_gelu_backward"]:
         fail(f"the ViT-B/16 encode ran other kernel variants: {enc_variants}")
     del engine, index, gallery, model
     torch.cuda.empty_cache()
@@ -1385,6 +1445,8 @@ def vitb16_phase(torch, np, dev, flush, peaks, counters):
     for fn_name, n in launches.items():
         if n == 0:
             fail(f"{fn_name} was never launched on the ViT-B/16 path")
+    check_quick_gelu_launches("the ViT-B/16 training steps", launches,
+                              steps, per_fwd)
 
     resumed_step(torch, run, model, trainer, batch, steps + 1, "vitb16")
     del trainer, model, batch
@@ -3654,7 +3716,7 @@ def serve_phase(torch, np_, dev, counters, root, handoff, flush):
           f"{ivf48_err:.3e} (tol {tol48:.3e})")
     print(f"launches during the serve CLI path: {launches}")
     for fn_name in ("fused_attention", "layer_norm",
-                    "kmedoids_from_distances"):
+                    "kmedoids_from_distances", "quick_gelu_forward"):
         if launches[fn_name] == 0:
             fail(f"{fn_name} was never launched on the serve CLI path")
     if len(pinned) != 3 or not all(pinned):
@@ -3845,7 +3907,7 @@ def train_steps_of(torch, np, counters, flags, warmup, timed, label,
                    seed):
     """Build experiment 62's model with `flags` changed, take `warmup` +
     `timed` Trainer steps at batch 128 on a seeded batch, counts zeroed
-    before them; fails unless all five kernels launched (attention on its
+    before them; fails unless kernels A-F launched (attention on its
     tensor-core variants).  Returns (run, model, trainer, batch, result
     dict, path counts)."""
     from centerclip_tpu_torch import cli
@@ -3993,7 +4055,8 @@ def headers_phase(torch, np, dev, flush, peaks, counters):
                                "the seqTransf encode",
                                ("layernorm_fwd",))["layernorm_fwd"]
     launched("seqTransf encode", paths["seqTransf_encode"][0],
-             ("fused_attention", "layer_norm", "kmedoids_from_distances"))
+             ("fused_attention", "layer_norm", "kmedoids_from_distances",
+              "quick_gelu_forward"))
     result["seqTransf"] = dict(res, **enc)
     del model, engine, batch
     torch.cuda.empty_cache()
@@ -4085,7 +4148,8 @@ def headers_phase(torch, np, dev, flush, peaks, counters):
         fail("the 1000 x 1000 tightTransf logits are not finite")
     if block_err > CROSS_BLOCK_ATOL:
         fail("a chunked tightTransf block differs from the unchunked one")
-    launched("tightTransf 1k x 1k logits", counts_1k, ("layer_norm",))
+    launched("tightTransf 1k x 1k logits", counts_1k,
+             ("layer_norm", "quick_gelu_forward"))
     res.update(logits_1k_s=t_1k, logits_1k_pairs_per_s=n * n / t_1k,
                logits_1k_tflop=flop / 1e12,
                logits_1k_peak_memory_bytes=peak_1k,
@@ -4108,7 +4172,7 @@ def headers_phase(torch, np, dev, flush, peaks, counters):
 def towers_phase(torch, np, dev, flush, peaks, counters):
     """The ninth main path: the other towers.  `--linear_patch 3d` at
     experiment 62's flags: TOWERS_WARMUP_STEPS + TOWERS_TIMED_STEPS
-    training steps at batch 128 (all five kernels), the patchify alone
+    training steps at batch 128 (kernels A-F), the patchify alone
     (CUDA events: the port's matmul beside `F.conv3d` on the same inputs,
     and its bound), a 2-clip encode card vs CPU.  RN50 (cluster
     off, as the JAX package's tests/test_resnet.py): an encode of 64 clips
@@ -4183,7 +4247,7 @@ def towers_phase(torch, np, dev, flush, peaks, counters):
     enc, paths["rn50_encode"], engine = encode_and_search(
         torch, np, dev, counters, model, 81, "RN50")
     launched("RN50 encode", paths["rn50_encode"][0],
-             ("fused_attention", "layer_norm"))
+             ("fused_attention", "layer_norm", "quick_gelu_forward"))
     two = seeded_batch(np, np.random.default_rng(82), 2, FRAMES, 32)
     enc.update(set_up_s=t_setup, video_cos_min=card_vs_cpu(
         torch, np, model, two, "RN50"))
@@ -4269,13 +4333,25 @@ def preprocess_phase(torch, np, dev, flush, peaks, counters, root):
 
 
 def kernel_counters():
-    """The five kernels' wrappers, each counting its launches."""
+    """Kernels A-F's wrappers, each counting its launches."""
     from centerclip_tpu_torch.ops import (attention_cuda, kmedoids_cuda,
-                                          layernorm_triton)
+                                          layernorm_triton, quick_gelu)
     return (attention_cuda.fused_attention,
             attention_cuda.attention_backward, layernorm_triton.layer_norm,
             layernorm_triton.layer_norm_backward,
-            kmedoids_cuda.kmedoids_from_distances)
+            kmedoids_cuda.kmedoids_from_distances,
+            quick_gelu.quick_gelu_forward, quick_gelu.quick_gelu_backward)
+
+
+def check_quick_gelu_launches(label, launches, steps, per_fwd):
+    """Fail unless kernel F launched once a block each way in each of
+    `steps` training steps of a CLIP with 12 vision and 12 text blocks
+    (the forward `per_fwd` times a step: 2 under remat)."""
+    want = {"quick_gelu_forward": 24 * per_fwd * steps,
+            "quick_gelu_backward": 24 * steps}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{label}: kernel F launched {got}, not {want}")
 
 
 def first_batches(loader, n):
@@ -5626,7 +5702,7 @@ def main() -> int:
 
     counters = kernel_counters()
     serving_kernels = ("fused_attention", "layer_norm",
-                       "kmedoids_from_distances")
+                       "kmedoids_from_distances", "quick_gelu_forward")
     zero_counts(counters)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -5650,9 +5726,7 @@ def main() -> int:
           f"the counted run, {t_steady * 1e3:.2f} ms per query batch over "
           f"{SEARCH_REPEATS} more (host clock, tokenising included)")
     print(f"launches during the serving phase: {launches}")
-    for fn_name in serving_kernels:
-        if launches[fn_name] == 0:
-            fail(f"{fn_name} was never launched on the serving path")
+    launched("the serving path", launches, serving_kernels)
     gallery = index._codes[:N_CLIPS].float() * index._scales[:N_CLIPS]
     if tuple(gallery.shape) != (N_CLIPS, 512) or \
             not bool(torch.isfinite(gallery).all()):
@@ -5893,6 +5967,20 @@ def main() -> int:
         bound_by=a["bound_by"], library_ms=a["library_ms"],
         device_launches_per_call=max(r["device_launches_per_call"]
                                      for r in lnb_rows), shapes=lnb_rows))
+    # QuickGELU (kernel F): its forward's launches by path, as the other
+    # kernels' (`counter`), its backward's beside them
+    qg_rows = hold_quick_gelu(torch, dev, flush, peaks)
+    a = qg_rows[0]
+    results.append(dict(
+        name="quick_gelu", route="cuda",
+        source="centerclip_tpu_torch/csrc/quick_gelu.cu",
+        replaces="none: XLA fuses centerclip_tpu/models/layers.py:22",
+        counter="quick_gelu_forward",
+        ms=a["forward"]["ms"], backward_ms=a["backward"]["ms"],
+        bound_ms=a["forward"]["bound_ms"],
+        backward_bound_ms=a["backward"]["bound_ms"], bound_by="bytes",
+        library_ms=a["forward"]["eager_ms"],
+        backward_library_ms=a["backward"]["eager_ms"], shapes=qg_rows))
     del flush
     torch.cuda.empty_cache()
     phase_done("kernels")
@@ -6037,6 +6125,10 @@ def main() -> int:
         extend_forward_row(kernel, act[kernel], key="activity_shapes")
     for row in results:
         row.update(path_launches(row.pop("counter")))
+    qg_bwd = path_launches("quick_gelu_backward")
+    next(r for r in results if r["name"] == "quick_gelu").update(
+        backward_launches=qg_bwd["launches"],
+        backward_launches_by_path=qg_bwd["launches_by_path"])
     # the variants for ViT-B/16's shapes, as rows of their own: their first
     # shapes' numbers, and their launches on the ViT-B/16 path
     for row_name, kernel, fn_name, variant in (

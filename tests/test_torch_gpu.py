@@ -1720,3 +1720,146 @@ def test_rn50_encodes_on_the_card_like_the_cpu(cuda):
     assert out.shape == (1, 2, 1024) and bool(torch.isfinite(out).all())
     cos = torch.nn.functional.cosine_similarity(out.cpu()[0], ref[0])
     assert float(cos.min()) >= 0.9999, cos
+
+
+# ------------------------------------------------------- QuickGELU (kernel F)
+def _bits(t):
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _qgelu_input(n, dtype, device, seed):
+    """n seeded values (normal, scale 4) with the edges of the dtype's
+    range and both zeros first: where the sigmoid saturates, underflows or
+    its argument overflows."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, generator=g, device=device) * 4
+    big = torch.finfo(dtype).max
+    edge = torch.tensor([0.0, -0.0, 1e-30, -1e-30, 20.0, -20.0, 90.0, -90.0,
+                         1e4, -1e4, big, -big], device=device)
+    x[:min(n, edge.numel())] = edge[:n]
+    return x.to(dtype)
+
+
+def _qgelu_eager_vs_kernel(x, dy):
+    """F's output and x's gradient through `quick_gelu_op` against the eager
+    composition's, to the bit; one launch each way."""
+    from centerclip_tpu_torch.ops.quick_gelu import (quick_gelu_backward,
+                                                     quick_gelu_forward,
+                                                     quick_gelu_op,
+                                                     quick_gelu_plain)
+    xe = x.detach().clone().requires_grad_()
+    ye = quick_gelu_plain(xe)
+    ye.backward(dy)
+    ye, ge = ye.detach(), xe.grad
+    del xe
+    xk = x.detach().clone().requires_grad_()
+    f0, b0 = quick_gelu_forward.launches, quick_gelu_backward.launches
+    yk = quick_gelu_op(xk)
+    yk.backward(dy)
+    torch.cuda.synchronize()
+    assert quick_gelu_forward.launches == f0 + 1
+    assert quick_gelu_backward.launches == b0 + 1
+    assert torch.equal(_bits(yk.detach()), _bits(ye))
+    assert torch.equal(_bits(xk.grad), _bits(ge))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((302592, 3072), torch.bfloat16),     # ViT-B/16 blocks 1-6
+    ((123648, 3072), torch.bfloat16),     # ViT-B/16 blocks 7-12
+    ((76800, 3072), torch.bfloat16),      # ViT-B/32 blocks 1-6
+    ((38400, 3072), torch.bfloat16),      # ViT-B/32 blocks 7-12
+    ((4096, 2048), torch.bfloat16),       # text tower
+    ((38400, 3072), torch.float16),
+    ((38400, 3072), torch.float32),
+    ((768, 512), torch.float32),          # seqTransf header rows
+    ((3, 1001), torch.bfloat16),          # ragged: 3003 = 375 x 8 + 3
+    ((5,), torch.bfloat16),               # less than one vector
+    ((1000003,), torch.float32),          # ragged: 3 past 4-element vectors
+    ((7, 13), torch.float16),
+])
+def test_quick_gelu_kernel_equals_eager_bits(cuda, shape, dtype):
+    n = int(np.prod(shape))
+    x = _qgelu_input(n, dtype, cuda, seed=n % 1000).view(shape)
+    dy = _qgelu_input(n, dtype, cuda, seed=n % 1000 + 1).view(shape)
+    _qgelu_eager_vs_kernel(x, dy)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_quick_gelu_kernel_on_a_misaligned_view(cuda, dtype):
+    """A contiguous view one element into its storage (not 16-byte
+    aligned) takes the scalar kernels, with the same bits."""
+    n = 4099
+    x = _qgelu_input(n + 1, dtype, cuda, seed=3)[1:]
+    dy = _qgelu_input(n + 1, dtype, cuda, seed=4)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 and dy.data_ptr() % 16
+    _qgelu_eager_vs_kernel(x, dy)
+    # x aligned, dy not: the backward's scalar kernel
+    _qgelu_eager_vs_kernel(x.clone(), dy)
+
+
+def test_quick_gelu_kernel_rejects_what_it_cannot_take(cuda):
+    from centerclip_tpu_torch.ops import quick_gelu
+    x = torch.ones(4, 8, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        quick_gelu.quick_gelu_op(x)
+    x = torch.ones(4, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        quick_gelu.quick_gelu_op(x[:, ::2])                      # strided
+    with pytest.raises(ValueError):
+        quick_gelu.quick_gelu_backward(x, torch.ones(4, 8, device=cuda))
+
+
+def test_quick_gelu_in_a_vitb32_training_step(cuda):
+    """One training step of the ViT-B/32 preset at 4 clips launches F 24
+    times each way (12 vision and 12 text blocks, no remat), and nothing
+    else of the model computes QuickGELU."""
+    from centerclip_tpu_torch.ops.quick_gelu import (quick_gelu_backward,
+                                                     quick_gelu_forward)
+    from centerclip_tpu_torch.train import Trainer
+    run = port_config.preset("msrvtt_vitb32_k6", batch_size=4)
+    assert not run.model.remat and run.freeze_layer_num == 0
+    model = CLIP4Clip(run.model, device=cuda, seed=0)
+    g = np.random.default_rng(0)
+    ids = g.integers(1, 49406, (4, 32))
+    ids[:, -1] = 49407
+    batch = {"input_ids": ids, "attention_mask": np.ones((4, 32), np.int32),
+             "video": g.integers(0, 256, (4, 1, 12, 3, 224, 224),
+                                 dtype=np.uint8),
+             "video_mask": np.ones((4, 12), np.int32)}
+    f0, b0 = quick_gelu_forward.launches, quick_gelu_backward.launches
+    loss, gstep = Trainer(run, model, total_steps=4).train_epoch(
+        0, [batch], n_display=1)
+    torch.cuda.synchronize()
+    assert gstep == 1 and np.isfinite(loss)
+    assert quick_gelu_forward.launches - f0 == 24
+    assert quick_gelu_backward.launches - b0 == 24
+
+
+def test_quick_gelu_block_saves_one_tensor_fewer(cuda, monkeypatch):
+    """A ViT-B/32 block on 32 clips' blocks-7-12 tokens ([32, 50, 768]
+    bf16) keeps one [1600, 3072] tensor fewer for its backward than with
+    the eager composition: sigmoid's output."""
+    from centerclip_tpu_torch.models import layers
+    from centerclip_tpu_torch.ops.quick_gelu import quick_gelu_plain
+    block = layers.ResidualAttentionBlock(768, 12, torch.bfloat16).to(cuda)
+    x = _randn((32, 50, 768), torch.bfloat16, cuda).requires_grad_()
+    fused = _saved_bytes(lambda: block(x))
+    monkeypatch.setattr(layers, "quick_gelu_op", quick_gelu_plain)
+    eager = _saved_bytes(lambda: block(x))
+    assert eager - fused == 32 * 50 * 3072 * 2
+
+
+def _saved_bytes(fn):
+    """The bytes of the distinct storages autograd keeps for fn's
+    backward."""
+    seen = {}
+
+    def pack(t):
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = s.nbytes()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    del out
+    return sum(seen.values())
