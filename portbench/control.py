@@ -4,21 +4,26 @@ program's numbers on many seeds, and on the first `CONTROL_SEEDS` of them
 the control's (the reference computed one precision below the program's
 bf16: fp8 matmul operands; for training also with fp8 in the vision
 tower alone) and, for training, the fault of half the batch left out,
-each against the fp32 reference, at the cell's own size.  Run on the
-chip; the benchmark's own runs never run it.
+each against the fp32 reference, at the cell's own size.  A multi-rank
+cell (`train_ddp`) runs on its ranks as a run does (`ddp.py`), the
+reference at the global batch on rank 0's card, and adds the fault of
+the exchange between the cards left out (`no_allreduce`: each card
+steps on its own rows).  Run on the chip; the benchmark's own runs never
+run it.
 
     python3 portbench/control.py --workload <cell> --seeds 1 2 ...
 
 One JSON line a reading: {workload, seed, reading: program | control |
-control_vision | half_batch, correct, checks: {number: {value, limit}},
-norms}: a training reading's leaf norms (losses, first gradient, change)
-of the program, the reference and the control or fault, from which any
-other statistic of the leaves can be worked out again.  A training
-cell's program reading is its three first steps (the window's own
-trainer and feed, no window); an encode cell's is one pass of the engine
-over the gallery.
+control_vision | half_batch | no_allreduce, correct, checks: {number:
+{value, limit}}, norms}: a training reading's leaf norms (losses, first
+gradient, change) of the program, the reference and the control or
+fault, from which any other statistic of the leaves can be worked out
+again.  A training cell's program reading is its three first steps (the
+window's own trainer and feed, no window); an encode cell's is one pass
+of the engine over the gallery.
 """
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -29,11 +34,68 @@ os.environ["TRITON_CACHE_DIR"] = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".cache", "triton")
 
 CONTROL_SEEDS = 3
+# a rank's seconds a seed, at most, for the timeout of a multi-rank call
+SEED_S = 300
 
 
-def readings(cell, seed, controls: bool, device):
+@contextlib.contextmanager
+def no_allreduce():
+    """The fault of the exchange between the cards left out: the DDP
+    wrapper that a `Trainer` built meanwhile hands each rank's gradient
+    back as it is (a comm hook that reduces nothing), so that each card
+    steps on its own rows."""
+    import torch
+    import centerclip_tpu_torch.train.loop as loop
+    wrap = loop.shard_params
+
+    def hook(state, bucket):
+        fut = torch.futures.Future()
+        fut.set_result(bucket.buffer())
+        return fut
+
+    def shard_params(model, mesh, **kw):
+        module = wrap(model, mesh, **kw)
+        module.register_comm_hook(None, hook)
+        return module
+    loop.shard_params = shard_params
+    try:
+        yield
+    finally:
+        loop.shard_params = wrap
+
+
+def rank_readings(cell, seed, controls: bool, device, ranks):
+    """A multi-rank cell's readings (rank 0 yields them; the other ranks
+    take part in the program's runs)."""
+    from portbench import compare, kinds
+    setup = kinds.RankSetUp(cell, seed, device, ranks)
+    ref = None
+    if setup.close() is not None:
+        ref = setup.reference()
+        yield "program", setup.numbers(ref), \
+            {"program": setup.prog, "reference": ref}
+    if not controls:
+        return
+    with no_allreduce():
+        fault = kinds.RankSetUp(cell, seed, device, ranks)
+    if fault.close() is None:
+        return
+    yield "no_allreduce", fault.numbers(ref), {"no_allreduce": fault.prog}
+    for name, precision in (("control", "fp8"),
+                            ("control_vision", "fp8_vision")):
+        ctl = setup.reference(precision)
+        yield name, compare.train_numbers(ctl, ref), {name: ctl}
+    half = setup.reference(rows=slice(0, setup.cfg.batch_size // 2))
+    yield "half_batch", compare.train_numbers(half, ref), \
+        {"half_batch": half}
+
+
+def readings(cell, seed, controls: bool, device, ranks=None):
     from portbench import compare, kinds, synth, weights
     from portbench.harness import free, load_weights
+    if ranks is not None:
+        yield from rank_readings(cell, seed, controls, device, ranks)
+        return
     if cell.traffic["kind"] == "train":
         setup = kinds.TrainSetUp(cell, seed, device)
         setup.close()
@@ -73,15 +135,36 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--parent", type=int, help="(set for each rank)")
     args = ap.parse_args(argv)
     cell = Cell(args.workload)
-    for i, seed in enumerate(args.seeds):
-        for reading, numbers, norms in readings(cell, seed,
-                                                i < CONTROL_SEEDS, "cuda"):
-            correct, checks = judge(numbers, cell.limits)
-            print(json.dumps({"workload": args.workload, "seed": seed,
-                              "reading": reading, "correct": correct,
-                              "checks": checks, "norms": norms}), flush=True)
+    ranks = device = None
+    if cell.ranks > 1:
+        from portbench import ddp
+        if args.parent is None:
+            ddp.ensure_data(cell)
+            ddp.launch(cell.ranks, os.path.abspath(__file__),
+                       ["--workload", args.workload, "--seeds",
+                        *map(str, args.seeds)],
+                       timeout=SEED_S * len(args.seeds), stdout=None)
+            return 0
+        ddp.die_with(args.parent)
+        from centerclip_tpu_torch.parallel.mesh import init_distributed
+        device = init_distributed()
+        ranks = ddp.Ranks()
+    try:
+        for i, seed in enumerate(args.seeds):
+            for reading, numbers, norms in readings(
+                    cell, seed, i < CONTROL_SEEDS, device or "cuda", ranks):
+                correct, checks = judge(numbers, cell.limits)
+                print(json.dumps({"workload": args.workload, "seed": seed,
+                                  "reading": reading, "correct": correct,
+                                  "checks": checks, "norms": norms}),
+                      flush=True)
+    finally:
+        if ranks is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return 0
 
 

@@ -3,8 +3,10 @@
 A cell names a configuration (`configs/<name>.json`: the recipe's flags
 for the program's CLI, the towers' widths, the optimizer as the recipe
 states it) and a traffic mix (`traffic/<name>.json`, whose `kind` picks
-the runner in `kinds.py`: `train` or `encode`).  Its limits for `correct` are in
-`limits/<cell>.json`; each per-layer metric is read by
+the runner in `kinds.py`: `train`, `encode` or `train_ddp`; its `flags`
+follow the configuration's, and its `ranks`, where it has them, are the
+processes the cell runs in, one a card: `ddp.py`).  Its limits for
+`correct` are in `limits/<cell>.json`; each per-layer metric is read by
 `metrics/<metric>.py`.  So a later cell or metric is a new file, and
 nothing here changes.
 
@@ -64,6 +66,10 @@ class Cell:
             _load(lim) if os.path.exists(lim) else {})
         self.shapes = shapes(self.config)
         self.chips = self.workload["chips"]
+        self.ranks = self.traffic.get("ranks", 1)
+        if self.ranks > 1 and self.ranks != self.chips:
+            raise ValueError(f"{name}: {self.ranks} ranks on {self.chips} "
+                             f"chips; a rank runs on each card")
 
     def end_to_end(self) -> List[dict]:
         return [m for m in self.manifest["end_to_end"]
@@ -77,9 +83,11 @@ class Cell:
 
     def run_config(self, seed: int, paths: Optional[dict] = None):
         """The program's RunConfig, parsed by its own CLI from the
-        configuration's flags, with the data paths and the seed."""
+        configuration's flags and the traffic's, with the data paths and
+        the seed."""
         from centerclip_tpu_torch.cli import parse_args
-        argv = list(self.config["flags"]) + [
+        argv = list(self.config["flags"]) + list(
+            self.traffic.get("flags", ())) + [
             "--output_dir", os.path.join(CACHE, "out", self.name),
             "--seed", str(seed)]
         for key, path in (paths or {}).items():
@@ -141,10 +149,14 @@ class Window:
     """The measured or traced region: the card synchronised at both ends,
     the program's launch counters read at both ends, and when tracing a
     `torch.profiler` trace of the card's activity around it (the
-    window's ends and the harness's spans in wall-clock ns)."""
+    window's ends and the harness's spans in wall-clock ns).  `meet`, where
+    given, is called at both ends once the card is synchronised: the
+    barrier at which the ranks of a multi-rank cell start and end the
+    window together."""
 
-    def __init__(self, device, trace: bool, path: str):
+    def __init__(self, device, trace: bool, path: str, meet=None):
         self.device, self.trace, self.path = device, trace, path
+        self.meet = meet
         self.prof = None
         self.spans: List[tuple] = []
 
@@ -157,6 +169,8 @@ class Window:
                 acts = [torch.profiler.ProfilerActivity.CUDA]
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.__enter__()
+        if self.meet is not None:
+            self.meet()
         self.counts0 = counters()
         self.t0_ns = time.time_ns()
         self.t0 = time.perf_counter()
@@ -164,6 +178,8 @@ class Window:
 
     def __exit__(self, *exc):
         sync(self.device)
+        if self.meet is not None and exc[0] is None:
+            self.meet()
         self.t1 = time.perf_counter()
         self.t1_ns = time.time_ns()
         self.counts = {k: v - self.counts0[k] for k, v in counters().items()}
@@ -257,12 +273,20 @@ def judge(numbers: Dict[str, float], limits: Dict[str, float]):
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
-        start: float) -> dict:
-    """One run of `cell`; returns the result's dict (without the check of
-    loaded modules)."""
+        start: float):
+    """One run of `cell` in this process; returns the result's dict
+    (without the check of loaded modules) and the set-up's phases."""
     from .kinds import KINDS
     kind = KINDS[cell.traffic["kind"]]
-    out = kind(cell, seed, seconds, trace, device, start)
+    return outcome(cell, kind(cell, seed, seconds, trace, device, start),
+                   trace, device)
+
+
+def outcome(cell: Cell, out: dict, trace: bool, device):
+    """The result's dict and the set-up's phases from a runner's `out`:
+    the numbers judged by the cell's limits, the device, and the cell's
+    end-to-end metrics, or with `trace` its per-layer ones (`busy_s` is the
+    runner's mean over its cards where it gives one, else the trace's)."""
     numbers = out.pop("numbers")
     correct, checks = judge(numbers, cell.limits)
     import torch
@@ -276,7 +300,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if trace:
         from .work.peaks import card_peaks
         ctx["peaks"] = card_peaks(info["kind"])
-        info["busy_s"] = ctx["trace"].busy_s()
+        info["busy_s"] = (ctx["busy_s"] if "busy_s" in ctx
+                          else ctx["trace"].busy_s())
         info["window_s"] = ctx["trace"].window_s
         metrics = read_metrics(cell, ctx)
     else:
@@ -316,9 +341,19 @@ def main(argv=None, start: Optional[float] = None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    res, phases = run(cell, args.seed, args.seconds, bool(args.trace),
-                      "cuda", start)
-    bad = forbidden_modules()
+    loaded = []
+    if cell.ranks > 1:
+        from . import ddp
+        try:
+            res, phases, loaded = ddp.run(cell, args.seed, args.seconds,
+                                          bool(args.trace), start)
+        except ddp.RanksFailed as e:
+            print(f"portbench: {e}", file=sys.stderr)
+            return 1
+    else:
+        res, phases = run(cell, args.seed, args.seconds, bool(args.trace),
+                          "cuda", start)
+    bad = sorted(set(loaded) | set(forbidden_modules()))
     if bad:
         print(f"portbench: the run loaded {bad}", file=sys.stderr)
         return 3

@@ -17,6 +17,19 @@ window over its seconds.
 one pass a call, vectors read back to the host; passes repeat until
 `--seconds` have passed (traced: one pass).  `encode_clips_per_s` is the
 clips of all passes over the window's seconds.
+
+`train_ddp`: the same training on each of the traffic's `ranks`, one
+process a card (`ddp.py` starts them; the traffic's `flags` name the data
+extent), as `torchrun` runs the program: its own process group, loader
+shard, DDP wrapper and global-batch loss.  Set-up, the first three steps
+and the warm-up are the `train` runner's on every rank; rank 0 times the
+warm-up and sends every rank the window's step count, ceil(`--seconds`
+over its step time) (traced: `trace_steps`).  The ranks start and end the
+window at a barrier once their cards are synchronised; rank 0's clock
+times it.  Then each rank frees the program's state and sends rank 0 its
+kept batches and readings; rank 0 follows the global batches with the
+reference on its card.  `ddp_train_clips_per_s` is the global batch's
+clips of all steps over rank 0's window seconds.
 """
 from __future__ import annotations
 
@@ -26,8 +39,8 @@ import time
 from typing import List
 
 from . import compare, synth, weights
-from .harness import (_NOSPAN, CACHE, Window, free, load_weights,
-                      peak_bytes)
+from .harness import (_NOSPAN, CACHE, Window, forbidden_modules, free,
+                      load_weights, peak_bytes, sync)
 
 
 class Phases:
@@ -153,10 +166,17 @@ class TrainSetUp:
     def close(self):
         """Free the program's state; the kept batches stay, held to the
         data set (`data_rows_wrong`)."""
+        self.release()
+        self.check_rows()
+
+    def release(self):
+        """Free the program's state; the kept batches stay."""
         self.kept = self.feed.kept
         self.feed.close()
         del self.trainer, self.model, self.loader, self.feed
         free(self.device)
+
+    def check_rows(self):
         t = self.cell.traffic
         self.data_rows_wrong = synth.wrong_rows(
             self.kept, self.data, t["videos"], t["captions_per_clip"],
@@ -215,6 +235,92 @@ def run_train(cell, seed, seconds, trace, device, start) -> dict:
             "attempted": steps,
             "failed": 0 if math.isfinite(mean_loss) else steps,
             "peak": peak, "ctx": ctx, "phases": setup.phases.done}
+
+
+class RankSetUp(TrainSetUp):
+    """`TrainSetUp` on one rank of a multi-rank cell (`ranks`: a
+    `ddp.Ranks`).  At `close` each rank sends rank 0 its kept batches, its
+    shards of the first three global batches, with `info`; rank 0 joins
+    them rank by rank, as the program's all-gather orders the global
+    batch, and holds the joined batches to the data set: `data_rows_wrong`,
+    and `data_rows_repeated`, the rows that another rank's shard, or its
+    own, already held."""
+
+    def __init__(self, cell, seed, device, ranks):
+        self.ranks = ranks
+        super().__init__(cell, seed, device)
+
+    def close(self, info: dict = None):
+        """Rank 0: every rank's `info` in rank order; else None."""
+        self.release()
+        got = self.ranks.gather({"kept": self.kept, **(info or {})})
+        if got is None:
+            return None
+        self.kept = [synth.join_rows([g["kept"][i] for g in got])
+                     for i in range(len(self.kept))]
+        self.check_rows()
+        self.data_rows_repeated = synth.repeated_rows(self.kept)
+        return got
+
+    def numbers(self, ref: dict) -> dict:
+        return {**super().numbers(ref),
+                "data_rows_repeated": self.data_rows_repeated}
+
+
+def run_train_ddp(cell, seed, seconds, trace, device, start) -> dict:
+    """One rank's run (module docstring); None on all ranks but 0."""
+    import torch
+    from .ddp import Ranks
+    ranks = Ranks()
+    setup = RankSetUp(cell, seed, device, ranks)
+    t, cfg, feed = cell.traffic, setup.cfg, setup.feed
+    sync(device)
+    t0 = time.perf_counter()
+    setup.trainer.train_epoch(0, feed.take(t["warmup_steps"]),
+                             n_display=cfg.n_display)
+    sync(device)
+    step_s = (time.perf_counter() - t0) / t["warmup_steps"]
+    steps = t["trace_steps"] if trace else ranks.broadcast(
+        math.ceil(seconds / step_s) if ranks.rank == 0 else None)
+    setup.phases.mark("warm-up")
+    waits0 = len(feed.waits)
+    path = os.path.join(CACHE, "trace", f"{cell.name}.{ranks.rank}.json")
+    with Window(device, trace, path, meet=ranks.barrier) as win:
+        setup_s = time.time() - start
+        feed.window = win
+        mean_loss, _ = setup.trainer.train_epoch(
+            feed.epoch, feed.until(steps=steps), n_display=cfg.n_display)
+    done = len(feed.waits) - waits0
+    waits = feed.waits[waits0:]
+    peak = (torch.cuda.max_memory_allocated(device)
+            if torch.device(device).type == "cuda" else 0)
+    tr = win.read() if trace else None
+    got = setup.close({"steps": done, "peak": peak,
+                       "finite": math.isfinite(mean_loss),
+                       "busy_s": tr.busy_s() if trace else None,
+                       "loaded": forbidden_modules()})
+    if got is None:
+        return None
+    if {g["steps"] for g in got} != {done}:
+        raise RuntimeError(f"the ranks took {[g['steps'] for g in got]} "
+                           "steps in the window")
+    ref = setup.reference()
+    peak = max(g["peak"] for g in got)
+    ctx = {"shapes": cell.shapes, "batch": cfg.batch_size, "units": done,
+           "training": True, "remat": cfg.model.remat,
+           "frozen_stem": cfg.freeze_layer_num >= 0, "counts": win.counts,
+           "data_wait_s": waits, "chips": cell.chips, "device": device}
+    if trace:
+        ctx["trace"] = tr
+        ctx["busy_s"] = sum(g["busy_s"] for g in got) / len(got)
+    return {"numbers": setup.numbers(ref),
+            "e2e": {"ddp_train_clips_per_s": done * cfg.batch_size
+                    / win.seconds,
+                    "train_peak_gib": peak / 2 ** 30, "setup_s": setup_s},
+            "attempted": done,
+            "failed": 0 if all(g["finite"] for g in got) else done,
+            "peak": peak, "ctx": ctx, "phases": setup.phases.done,
+            "loaded": sorted({m for g in got for m in g["loaded"]})}
 
 
 def encode_reference(cell, seed, gallery, device, precision="fp32"):
@@ -280,4 +386,5 @@ def run_encode(cell, seed, seconds, trace, device, start) -> dict:
             "phases": phases.done}
 
 
-KINDS = {"train": run_train, "encode": run_encode}
+KINDS = {"train": run_train, "encode": run_encode,
+         "train_ddp": run_train_ddp}

@@ -7,9 +7,10 @@
 Cells: `vitb32_k6.train` (ViT-B/32 training at batch 128 from the
 `.fstore` loader), `vitb16_k6.train` (ViT-B/16 with remat) and
 `vitb16_k6.encode` (a 1,024-clip gallery in batches of 128), each on one
-card.  Run from the root of a checkout on a machine with the cell's CUDA
-devices; the first run of a checkout builds the port's kernels and writes
-the training data under `portbench/.cache/`.  The last line of standard
+card, and `vitb16_k6.train_ddp4` (ViT-B/16 under DDP, a process on each of
+four cards: `ddp.py`).  Run from the root of a checkout on a machine with
+the cell's CUDA devices; the first run of a checkout builds the port's
+kernels and writes the training data under `portbench/.cache/`.  The last line of standard
 output is the result's JSON; the numbers that decide `correct` are the
 last lines of standard error.  See `harness.py`.
 """

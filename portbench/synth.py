@@ -13,8 +13,9 @@ set is the same in every run and every checkout, and a run's seed picks
 the order in which it is read (and the weights).  Beside them it keeps
 each clip's SHA-1 as made here, by which `wrong_rows` holds the batches
 that the program's data layer handed out to the clips and captions made
-here.  `gallery` makes the encode cell's clips from the run's seed in
-pinned host memory.
+here; `repeated_rows` finds a row that the batches hold twice (a shard read
+by two ranks).  `gallery` makes the encode cell's clips from the run's
+seed in pinned host memory.
 """
 from __future__ import annotations
 
@@ -138,6 +139,31 @@ def wrong_rows(batches: Sequence[dict], root: str, videos: int,
                     tuple(int(t) for t in ids[i]) not in want[v]:
                 wrong += 1
     return wrong
+
+
+def join_rows(parts: Sequence[dict]) -> dict:
+    """One batch of the parts' rows, part after part (each key joined on
+    its first axis)."""
+    return {k: (torch.cat([torch.as_tensor(p[k]) for p in parts])
+                if isinstance(parts[0][k], torch.Tensor)
+                else np.concatenate([np.asarray(p[k]) for p in parts]))
+            for k in parts[0]}
+
+
+def repeated_rows(batches: Sequence[dict]) -> int:
+    """The rows of `batches` whose frames and token ids are those of a
+    row before them: within an epoch the data layer hands out each pair
+    once, so a repeat is a shard read twice."""
+    seen, repeats = set(), 0
+    for b in batches:
+        video = torch.as_tensor(b["video"])
+        video = video.reshape(video.shape[0], -1, *video.shape[-3:])
+        ids = np.asarray(b["input_ids"])
+        for i in range(video.shape[0]):
+            key = (_sha1(video[i]), ids[i].tobytes())
+            repeats += key in seen
+            seen.add(key)
+    return repeats
 
 
 def gallery(n: int, frames: int, size: int, batch: int, seed: int,
