@@ -29,7 +29,29 @@ the reference's three steps from the same weights on the same batches):
   and the remat recompute are the vision tower's;
 * `data_rows_wrong` (from `synth.wrong_rows`, not here): the rows of the
   three batches whose frames are not a clip of the data set, or whose
-  caption is not one of that clip's; limit 0.
+  caption is not one of that clip's; limit 0;
+* `pre_cluster_update_gap_median`, where the plan clusters spectrally: the
+  median of the change's gaps over the leaves of the vision blocks before
+  the first cluster layer.  Spectral clustering's k-medoids starts at the
+  embedding row of largest norm, and the rows are normalised to norm
+  1 - 1e-6 / |row|, so rounding picks the start: the bf16 and fp32 streams
+  keep other medoids in every segment (PERF.md, the look), and every leaf
+  whose gradient passes the tokens after the cluster layer carries that.
+  The blocks before it see the same tokens on both sides; their median
+  leaf's change is what the fp8 control fails;
+* `identity_segments`, where the plan clusters spectrally: the segments
+  of step 1's batch whose heat-kernel affinity at the first cluster layer
+  has no entry off the diagonal above 1e-6 in the reference
+  (`reference/spectral.py`), where spectral clustering has nothing to
+  work on; limit 0;
+* `cluster_cost_excess`, where the plan clusters spectrally: the
+  program's medoid ids of step 1's first cluster layer scored in the
+  reference's fp32 spectral embedding of the same segments, their
+  k-medoids cost over that of the reference's own ids, less 1.  It reads
+  the layer itself (affinity, KNN graph, L_sym, the eigensolve, the
+  k-medoids on the embedding), not which of two near-equal medoid sets
+  rounding drew: a solve at the wrong end of the spectrum, a graph
+  without its KNN cut, or medoids drawn at random cost more.
 
 Encode: `vec_gap`, the largest distance between a gallery vector that a
 pass of the window produced and the reference's vector of that clip
@@ -39,7 +61,7 @@ from __future__ import annotations
 
 import math
 from statistics import median
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -68,9 +90,26 @@ def vision_leaf(name: str) -> bool:
     return name.startswith("clip.visual.")
 
 
-def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
+def vision_block(name: str) -> int:
+    """The index of a vision block's leaf, else -1."""
+    parts = name.split(".")
+    if name.startswith("clip.visual.transformer.resblocks."):
+        return int(parts[4])
+    return -1
+
+
+def spectral_before(shapes) -> Optional[int]:
+    """The block before which the plan first clusters spectrally, or
+    None."""
+    return next((p.block for p in shapes.plan
+                 if p is not None and p.algo == "spectral"), None)
+
+
+def train_numbers(prog: dict, ref: dict,
+                  before: Optional[int] = None) -> Dict[str, float]:
     """prog and ref: {losses: [...], grad: {leaf: norm}, change: {leaf:
-    norm}}."""
+    norm}}; `before`: the first spectral cluster layer's block
+    (`spectral_before`), which adds `pre_cluster_update_gap_median`."""
     losses = [abs(p - r) / abs(r) for p, r in zip(prog["losses"],
                                                    ref["losses"])]
     if len(prog["losses"]) != len(ref["losses"]) or not losses:
@@ -79,6 +118,11 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
     floor = median(g.values()) if g else 0.0
     moved = [k for k in g if g[k] >= MOVED * floor]
     text = [k for k in g if text_leaf(k)]
+    extra = {}
+    if before is not None:
+        extra["pre_cluster_update_gap_median"] = median(_gaps(
+            prog["change"], ref["change"],
+            [k for k in moved if 0 <= vision_block(k) < before]))
     return {"loss_gap": max(losses),
             "grad_gap": max(_gaps(prog["grad"], g, list(g))),
             "update_gap": max(_gaps(prog["change"], ref["change"], moved)),
@@ -88,7 +132,15 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, float]:
                                                 if text_leaf(k)])),
             "vision_update_gap_median": median(_gaps(
                 prog["change"], ref["change"], [k for k in moved
-                                                if vision_leaf(k)]))}
+                                                if vision_leaf(k)])),
+            **extra}
+
+
+def cluster_numbers(layer: dict) -> Dict[str, float]:
+    """The spectral cluster layer's numbers from `TrainSetUp.cluster_layer`'s
+    readings."""
+    return {"identity_segments": layer["identity_segments"],
+            "cluster_cost_excess": layer["cost_excess"]}
 
 
 def encode_numbers(passes: Sequence[np.ndarray],

@@ -14,13 +14,29 @@ run it.
     python3 portbench/control.py --workload <cell> --seeds 1 2 ...
 
 One JSON line a reading: {workload, seed, reading: program | control |
-control_vision | half_batch | no_allreduce, correct, checks: {number:
-{value, limit}}, norms}: a training reading's leaf norms (losses, first
-gradient, change) of the program, the reference and the control or
+control_vision | half_batch | no_allreduce | unscaled | random_medoids |
+top_spectrum | no_knn | bf16_solve, correct, checks:
+{number: {value, limit}}, norms}: a training reading's leaf norms (losses,
+first gradient, change) of the program, the reference and the control or
 fault, from which any other statistic of the leaves can be worked out
 again.  A training cell's program reading is its three first steps (the
 window's own trainer and feed, no window); an encode cell's is one pass
 of the engine over the gallery.
+
+Where the plan clusters spectrally, the program reading's `norms` carry
+`spectral`, the first cluster layer of step 1 judged in the reference
+(`TrainSetUp.cluster_layer`): `cost_excess`, of the first step's segments
+the share whose medoid ids the program and the reference agree on
+(`agreement`), those whose K-th and (K+1)-th eigenvalues lie under 1e-5
+apart in the reference (`near_ties`), `identity_segments`, and the median
+over segments of the median distance between a segment's tokens in sigma
+(`median_sigmas`).  The controls' `cluster_cost_excess` scores the
+reference's own ids at their precision.  On the first seeds the faults of
+`solve_fault`, planted in the program, are read by the cluster layer's
+numbers alone (readings `random_medoids`, `top_spectrum`, `no_knn`,
+`bf16_solve`).  Where the configuration scales the vision stream
+(`stream_scale`), the fault `unscaled` runs it at 1, where the heat
+kernel underflows (W = I).
 """
 import argparse
 import contextlib
@@ -68,6 +84,7 @@ def rank_readings(cell, seed, controls: bool, device, ranks):
     """A multi-rank cell's readings (rank 0 yields them; the other ranks
     take part in the program's runs)."""
     from portbench import compare, kinds
+    before = compare.spectral_before(cell.shapes)
     setup = kinds.RankSetUp(cell, seed, device, ranks)
     ref = None
     if setup.close() is not None:
@@ -84,31 +101,111 @@ def rank_readings(cell, seed, controls: bool, device, ranks):
     for name, precision in (("control", "fp8"),
                             ("control_vision", "fp8_vision")):
         ctl = setup.reference(precision)
-        yield name, compare.train_numbers(ctl, ref), {name: ctl}
+        yield name, compare.train_numbers(ctl, ref, before), {name: ctl}
     half = setup.reference(rows=slice(0, setup.cfg.batch_size // 2))
-    yield "half_batch", compare.train_numbers(half, ref), \
+    yield "half_batch", compare.train_numbers(half, ref, before), \
         {"half_batch": half}
+
+
+@contextlib.contextmanager
+def solve_fault(name: str):
+    """A fault planted in the program's spectral cluster layer
+    (`centerclip_tpu_torch.ops.spectral`), for `cluster_cost_excess`:
+
+    * `random_medoids`: each segment's medoids drawn at random;
+    * `top_spectrum`: the eigenvectors of the K largest eigenvalues of
+      L_sym in place of the K smallest;
+    * `no_knn`: the heat-kernel graph without its KNN cut;
+    * `bf16_solve`: L_sym rounded to bfloat16 before the eigensolve."""
+    import torch
+    import centerclip_tpu_torch.ops.spectral as sp
+    saved = {k: getattr(sp, k) for k in ("batch_spectral_clustering",
+                                          "eigenpairs",
+                                          "construct_affinity")}
+    call, solve, graph = (saved["batch_spectral_clustering"],
+                          saved["eigenpairs"], saved["construct_affinity"])
+
+    def random_medoids(X, K, **kw):
+        assign, _ = call(X, K, **kw)
+        g = torch.Generator(device=X.device).manual_seed(0)
+        pick = torch.rand(X.shape[:2], generator=g, device=X.device)
+        ids = pick.argsort(dim=-1)[:, :K].sort(dim=-1).values
+        return assign, ids.to(torch.int32)
+
+    def top_spectrum(L, K, solver="eigh"):
+        lam, Q = solve(L, K, solver)
+        return lam.flip(-1), Q.flip(-1)
+
+    def no_knn(x, y, **kw):
+        return graph(x, y, **dict(kw, mode="HeatKernel"))
+
+    def bf16_solve(L, K, solver="eigh"):
+        return solve(L.bfloat16().float(), K, solver)
+    name_of = {"random_medoids": ("batch_spectral_clustering",
+                                  random_medoids),
+               "top_spectrum": ("eigenpairs", top_spectrum),
+               "no_knn": ("construct_affinity", no_knn),
+               "bf16_solve": ("eigenpairs", bf16_solve)}
+    attr, fn = name_of[name]
+    setattr(sp, attr, fn)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(sp, k, v)
+
+
+SOLVE_FAULTS = ("random_medoids", "top_spectrum", "no_knn", "bf16_solve")
 
 
 def readings(cell, seed, controls: bool, device, ranks=None):
     from portbench import compare, kinds, synth, weights
-    from portbench.harness import free, load_weights
+    from portbench.harness import Cell, free, load_weights
     if ranks is not None:
         yield from rank_readings(cell, seed, controls, device, ranks)
         return
     if cell.traffic["kind"] == "train":
+        before = compare.spectral_before(cell.shapes)
         setup = kinds.TrainSetUp(cell, seed, device)
         setup.close()
         ref = setup.reference()
-        yield "program", setup.numbers(ref), \
-            {"program": setup.prog, "reference": ref}
+        numbers = setup.numbers(ref)
+        extra = ({"spectral": setup.cluster_layer()}
+                 if before is not None else {})
+        yield "program", numbers, \
+            {"program": setup.prog, "reference": ref, **extra}
+        if controls and before is not None:
+            for name in SOLVE_FAULTS:
+                with solve_fault(name):
+                    fault = kinds.TrainSetUp(cell, seed, device)
+                fault.close()
+                layer = fault.cluster_layer()
+                yield name, compare.cluster_numbers(layer), \
+                    {"spectral": layer}
+                del fault
+                free(device)
+        if controls and cell.shapes.stream_scale != 1.0:
+            flat = Cell(cell.name, manifest=cell.manifest,
+                        config=dict(cell.config, stream_scale=1.0),
+                        traffic=cell.traffic, limits=cell.limits)
+            fault = kinds.TrainSetUp(flat, seed, device)
+            fault.close()
+            yield "unscaled", fault.numbers(fault.reference()), \
+                {"unscaled": fault.prog}
+            del fault
+            free(device)
         if controls:
             for name, precision in (("control", "fp8"),
                                     ("control_vision", "fp8_vision")):
                 ctl = setup.reference(precision)
-                yield name, compare.train_numbers(ctl, ref), {name: ctl}
+                got = compare.train_numbers(ctl, ref, before)
+                layer = {}
+                if before is not None:
+                    layer = setup.cluster_layer(precision)
+                    got.update(compare.cluster_numbers(layer))
+                yield name, got, {name: ctl, "spectral": layer}
             half = setup.reference(rows=slice(0, setup.cfg.batch_size // 2))
-            yield "half_batch", compare.train_numbers(half, ref), \
+            yield "half_batch", compare.train_numbers(half, ref, before), \
                 {"half_batch": half}
         return
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip

@@ -33,6 +33,7 @@ clips of all steps over rank 0's window seconds.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -114,12 +115,32 @@ class Feed:
         self._it.close()
 
 
+@contextlib.contextmanager
+def first_spectral_ids(into: list):
+    """The medoid ids of the program's first spectral clustering call
+    ([S*B, K], segment-major), appended to `into` on the host."""
+    import centerclip_tpu_torch.ops.spectral as sp
+    call = sp.batch_spectral_clustering
+
+    def record(*a, **kw):
+        out = call(*a, **kw)
+        if not into:
+            into.append(out[1].long().cpu())
+        return out
+    sp.batch_spectral_clustering = record
+    try:
+        yield
+    finally:
+        sp.batch_spectral_clustering = call
+
+
 class TrainSetUp:
     """Set-up of a training cell: the data, the program's model with the
     benchmark's weights, one `Trainer`, the loader's feed, and the first
     three steps with the program's numbers read between them (`prog`:
     each step's loss, step 1's clipped gradient from Adam's first moment,
-    each leaf's change after step 3)."""
+    each leaf's change after step 3; where the plan clusters spectrally,
+    `ids`: step 1's medoid ids of the first cluster layer, clip-major)."""
 
     def __init__(self, cell, seed, device):
         from centerclip_tpu_torch.data.registry import DATALOADER_DICT
@@ -150,7 +171,17 @@ class TrainSetUp:
         opt = self.trainer.optimizer
         log = LossLog()
         self.trainer.metric_writer = log
-        self.trainer.train_epoch(0, self.feed.take(1), n_display=1)
+        self.before = compare.spectral_before(s)
+        ids = []
+        with (first_spectral_ids(ids) if self.before is not None
+              else contextlib.nullcontext()):
+            self.trainer.train_epoch(0, self.feed.take(1), n_display=1)
+        self.ids = None
+        if ids:
+            S = next(p for p in s.plan if p is not None).frames_out
+            self.ids = ids[0].reshape(S, -1, ids[0].shape[-1]).transpose(
+                0, 1).reshape(ids[0].shape)
+        self.layer = {}
         beta1 = opt.cfg.beta1
         self.prog = {"grad": part_norms(
             (n, m / (1.0 - beta1)) for n, m in zip(opt.names, opt.exp_avg))}
@@ -184,8 +215,40 @@ class TrainSetUp:
 
     def numbers(self, ref: dict) -> dict:
         """The program's numbers against the reference's steps `ref`."""
-        return {**compare.train_numbers(self.prog, ref),
-                "data_rows_wrong": self.data_rows_wrong}
+        spectral = ({} if self.before is None else
+                    compare.cluster_numbers(self.cluster_layer()))
+        return {**compare.train_numbers(self.prog, ref, self.before),
+                **spectral, "data_rows_wrong": self.data_rows_wrong}
+
+    def cluster_layer(self, precision: str = None) -> dict:
+        """The first spectral cluster layer of step 1's batch, judged in
+        the fp32 reference (`reference/spectral.layer_readings`): the
+        program's medoid ids, or with `precision` the reference's own
+        ids at that precision."""
+        if precision in self.layer:
+            return self.layer[precision]
+        import torch
+        from .reference import model as M
+        from .reference import spectral
+        from .reference.train import _batch_to
+        M.strict_fp32()
+        s, chunk = self.cell.shapes, self.cell.traffic["reference_chunk"]
+        W0 = weights.make(s, self.seed, self.device)
+        video = _batch_to(self.kept[0], self.device)[1]
+        X, spec = spectral.first_tokens(W0, s, video, chunk)
+        ids = self.ids
+        if precision is not None:
+            other, _ = spectral.first_tokens(W0, s, video, chunk,
+                                             M.Numerics(precision))
+            ids = spectral.medoids(other, spec, s.iter_limit, M.kmedoids)
+            del other
+        if ids is None:                 # never clustered: reads inf
+            ids = torch.empty((0, spec.k), dtype=torch.long)
+        self.layer[precision] = out = spectral.layer_readings(
+            X, spec, ids, s.iter_limit, M.kmedoids)
+        del W0, X, video
+        free(self.device)
+        return out
 
     def reference(self, precision="fp32", rows=None) -> dict:
         """The reference's three steps from the same weights on the kept

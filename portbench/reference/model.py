@@ -1,4 +1,5 @@
-"""CLIP4Clip with meanP and kmediods++ token clustering, in plain PyTorch.
+"""CLIP4Clip with meanP and kmediods++ or spectral token clustering, in plain
+PyTorch.
 
 Written from the published descriptions (CLIP, Radford et al. 2021; CLIP4Clip
 meanP; CenterCLIP's multi-segment k-medoids, Zhao et al. 2022), on a flat
@@ -9,7 +10,9 @@ no kernel, cache or batching of the program's:
   patches and projected, CLS and positions added, `ln_pre`; before each
   block that the cluster plan names, each segment's dur x P patch tokens
   are clustered by k-medoids (KKZ seeds, Lloyd steps to the fixed point,
-  medoid ids sorted) and replaced by their K medoids, the segment's CLS by
+  medoid ids sorted), or with the plan's `spectral` by k-medoids on their
+  spectral embedding (`spectral.py`), and replaced by their K medoids, the
+  segment's CLS by
   the mean of its frames' CLS; pre-LN blocks (softmax attention, MLP with
   QuickGELU); `ln_post` on CLS, projection;
 * text: token and position embeddings, causal blocks, `ln_final`, the EOT
@@ -38,6 +41,8 @@ from typing import Dict, Optional
 
 import torch
 from torch.nn import functional as F
+
+from . import spectral
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -182,32 +187,39 @@ def kmedoids(X: torch.Tensor, K: int, iter_limit: int = 100) -> torch.Tensor:
     return meds.sort(dim=1).values
 
 
+def segments(x, spec, clips: int) -> torch.Tensor:
+    """x [clips*T, 1+P, D] -> the patch tokens of each segment, clip-major,
+    [clips*S, dur*P, D]."""
+    return x[:, 1:].reshape(clips * spec.frames_out, -1, x.shape[2])
+
+
 def cluster(x, spec, clips: int, iter_limit: int,
             medoids: Optional[list] = None, replay: bool = False):
     """x [clips*T, 1+P, D] -> [clips*S, 1+K, D].  With `replay` the medoid
     ids are taken from the front of `medoids` (a recomputation of the same
-    forward); else they are computed, and appended to `medoids` if given."""
+    forward); else they are computed by the plan's algorithm, and appended
+    to `medoids` if given."""
     S, dur, K = spec.frames_out, spec.dur, spec.k
     P, D = x.shape[1] - 1, x.shape[2]
     cls = x[:, 0].reshape(clips, S, dur, D).mean(dim=2)
-    tok = x[:, 1:].reshape(clips * S, dur * P, D)
+    tok = segments(x, spec, clips)
     if replay:
         meds = medoids.pop(0)
+    elif spec.algo == "spectral":
+        meds = spectral.medoids(tok.detach(), spec, iter_limit, kmedoids)
     else:
         meds = kmedoids(tok.detach(), K, iter_limit)
-        if medoids is not None:
-            medoids.append(meds)
+    if not replay and medoids is not None:
+        medoids.append(meds)
     picked = torch.gather(tok, 1, meds[..., None].expand(-1, -1, D))
     return torch.cat([cls.reshape(clips * S, 1, D), picked], dim=1)
 
 
 # ------------------------------------------------------------------- towers
-def frame_features(W: Dict[str, torch.Tensor], s, video: torch.Tensor,
-                   num: Numerics, medoids: Optional[list] = None,
-                   replay: bool = False) -> torch.Tensor:
-    """[n, T, 3, H, W] uint8 -> [n, T_final, E] fp32 CLS features.
-    `medoids` collects the medoid ids of each cluster layer in order, or
-    with `replay` hands them back (from a copy of the list)."""
+def stem(W: Dict[str, torch.Tensor], s, video: torch.Tensor,
+         num: Numerics) -> torch.Tensor:
+    """[n, T, 3, H, W] uint8 -> the tokens entering the first vision block,
+    [n*T, 1+P, D]."""
     n, T = video.shape[:2]
     P, Wd = s.patch, s.width
     g = s.resolution // P
@@ -220,8 +232,18 @@ def frame_features(W: Dict[str, torch.Tensor], s, video: torch.Tensor,
                W["clip.visual.conv1.weight"].reshape(Wd, -1).t())
     cls = W["clip.visual.class_embedding"].expand(n * T, 1, Wd)
     x = torch.cat([cls, x], dim=1) + W["clip.visual.positional_embedding"]
-    x = layer_norm(x, W["clip.visual.ln_pre.weight"],
-                   W["clip.visual.ln_pre.bias"])
+    return layer_norm(x, W["clip.visual.ln_pre.weight"],
+                      W["clip.visual.ln_pre.bias"])
+
+
+def frame_features(W: Dict[str, torch.Tensor], s, video: torch.Tensor,
+                   num: Numerics, medoids: Optional[list] = None,
+                   replay: bool = False) -> torch.Tensor:
+    """[n, T, 3, H, W] uint8 -> [n, T_final, E] fp32 CLS features.
+    `medoids` collects the medoid ids of each cluster layer in order, or
+    with `replay` hands them back (from a copy of the list)."""
+    n = video.shape[0]
+    x = stem(W, s, video, num)
     ids = list(medoids) if replay else medoids
     for i, spec in enumerate(s.plan):
         if spec is not None:

@@ -6,7 +6,10 @@ the comparison.  Medoids are pinned on both sides, and the limits are
 set for this tiny cell from its own sound runs over seven seeds (loss
 0.0006-0.0072; gradient, worst leaf 0.012-0.033, text median
 0.0017-0.0094; change, worst 0.007-0.025, text median 0.0013-0.0042,
-vision median 0.0008-0.0035)."""
+vision median 0.0008-0.0035; with spectral clustering the blocks before
+the cluster layer's median change 0.0006-0.0030, seven seeds; the cluster
+layer's cost excess 0 with pinned medoids, -0.013 to 0.006 on three
+seeds without)."""
 import time
 
 import numpy as np
@@ -18,33 +21,42 @@ from portbench.tests import tiny
 LIMITS = {"loss_gap": 0.03, "grad_gap": 0.1, "text_grad_gap_median": 0.03,
           "update_gap": 0.08, "text_update_gap_median": 0.015,
           "vision_update_gap_median": 0.008, "data_rows_wrong": 0,
-          "vec_gap": 0.03}
+          "vec_gap": 0.03, "pre_cluster_update_gap_median": 0.008,
+          "identity_segments": 0, "cluster_cost_excess": 0.1}
+# k-medoids, and spectral clustering with the tokens ~3 sigma apart
+CONFIGS = pytest.mark.parametrize("config", [
+    {}, {"algo": "spectral", "stream_scale": 0.5}], ids=["kmedoids",
+                                                         "spectral"])
 
 
-def run(kind, seed=7):
-    cell = tiny.cell(kind, limits=LIMITS)
+def run(kind, seed=7, **config):
+    cell = tiny.cell(kind, limits=LIMITS, **config)
     return harness.run(cell, seed=seed, seconds=0.2, trace=False,
                        device="cpu", start=time.time())[0]
 
 
+@CONFIGS
 @pytest.mark.parametrize("kind", ["train", "encode"])
-def test_a_sound_run_is_correct(tiny_env, pinned_medoids, kind):
-    assert run(kind)["correct"]
+def test_a_sound_run_is_correct(tiny_env, pinned_medoids, kind, config):
+    assert run(kind, **config)["correct"]
 
 
+@CONFIGS
 def test_a_step_that_returns_its_state_unchanged(tiny_env, pinned_medoids,
-                                                 monkeypatch):
+                                                 monkeypatch, config):
     from centerclip_tpu_torch.train.optim import GroupedAdam
 
     def step(self):
         self.step_count += 1
     monkeypatch.setattr(GroupedAdam, "step", step)
-    res = run("train")
+    res = run("train", **config)
     assert not res["correct"]
     assert res["checks"]["update_gap"]["value"] == pytest.approx(1.0)
 
 
-def test_half_the_batch_left_out(tiny_env, pinned_medoids, monkeypatch):
+@CONFIGS
+def test_half_the_batch_left_out(tiny_env, pinned_medoids, monkeypatch,
+                                 config):
     from centerclip_tpu_torch.models.clip4clip import CLIP4Clip
     forward = CLIP4Clip.forward
 
@@ -54,7 +66,7 @@ def test_half_the_batch_left_out(tiny_env, pinned_medoids, monkeypatch):
         return forward(self, input_ids[:n], attention_mask[:n], video[:n],
                        video_mask[:n], training, generator)
     monkeypatch.setattr(CLIP4Clip, "forward", half)
-    res = run("train")
+    res = run("train", **config)
     assert not res["correct"]
     assert res["checks"]["loss_gap"]["value"] > LIMITS["loss_gap"]
 
@@ -97,3 +109,15 @@ def test_an_answer_altered_or_left_out(tiny_env, pinned_medoids,
     res = run("encode")
     assert not res["correct"]
     assert res["checks"]["vec_gap"]["value"] > LIMITS["vec_gap"]
+
+
+def test_medoids_drawn_at_random_in_the_cluster_layer(tiny_env):
+    """Spectral clustering's answer altered where it is produced: each
+    segment's medoids drawn at random (`control.solve_fault`), unpinned,
+    on tokens ~3 sigma apart."""
+    from portbench import control
+    with control.solve_fault("random_medoids"):
+        res = run("train", algo="spectral", stream_scale=0.5)
+    assert not res["correct"]
+    assert res["checks"]["cluster_cost_excess"]["value"] > \
+        LIMITS["cluster_cost_excess"]

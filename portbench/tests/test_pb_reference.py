@@ -40,19 +40,26 @@ def test_caption_ids_equal_the_programs_tokenizer():
         [vocab.caption(c, 32) for c in caps]
 
 
-def run(kind, precision, seed):
-    cell = tiny.cell(kind)
+def run(kind, precision, seed, **config):
+    cell = tiny.cell(kind, **config)
     cell.config["flags"] += ["--precision", precision]
     return harness.run(cell, seed=seed, seconds=0.2, trace=False,
                        device="cpu", start=time.time())[0]
 
 
-@pytest.mark.parametrize("seed", [1, 2 ** 33 + 5])
-def test_fp32_program_equals_the_reference(tiny_env, pinned_medoids, seed):
+@pytest.mark.parametrize("seed,config", [
+    (1, {}), (2 ** 33 + 5, {}),
+    (3, {"algo": "spectral", "stream_scale": 0.5})])
+def test_fp32_program_equals_the_reference(tiny_env, pinned_medoids, seed,
+                                           config):
     """The program in fp32 (`--precision fp32`) and the reference agree to
-    rounding on three training steps and on the gallery vectors."""
-    checks = run("train", "fp32", seed)["checks"]
+    rounding on three training steps and on the gallery vectors (with
+    spectral clustering, its eigensolve run on both sides, the medoids
+    pinned)."""
+    checks = run("train", "fp32", seed, **config)["checks"]
     assert checks["loss_gap"]["value"] < 1e-5
     assert checks["grad_gap"]["value"] < 1e-5
     assert checks["update_gap"]["value"] < 1e-3
-    assert run("encode", "fp32", seed)["checks"]["vec_gap"]["value"] < 1e-5
+    assert checks.get("identity_segments", {"value": 0})["value"] == 0
+    assert run("encode", "fp32", seed, **config)["checks"]["vec_gap"][
+        "value"] < 1e-5

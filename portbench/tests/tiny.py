@@ -16,19 +16,25 @@ def register() -> None:
     CLIP_DEFAULT_PARAMS[NAME] = CLIP_DEFAULT_PARAMS["ViT-B/32"]
 
 
-def config(remat: bool = False) -> dict:
+def config(remat: bool = False, algo: str = "kmediods++",
+           stream_scale: float = None) -> dict:
+    """The tiny configuration; `algo` "spectral" clusters by spectral KNN
+    (k = 10, sigma 2), and `stream_scale` is the weights' (`weights.py`)."""
     flags = ["--datatype", "msrvtt", "--max_words", "16", "--max_frames", "4",
              "--batch_size", "8", "--batch_size_val", "8", "--epochs", "5",
              "--optim", "AdamW", "--lr", "2e-3", "--coef_lr", "1e-3",
              "--wd", "0.2", "--warmup_proportion", "0.1", "--loose_type",
              "--sim_header", "meanP", "--expand_msrvtt_sentences",
              "--num_thread_reader", "2", "--cluster_inter", "1",
-             "--cluster_algo", "kmediods++", "--pretrained_clip_name", NAME,
+             "--cluster_algo", algo, "--pretrained_clip_name", NAME,
              "--cluster_num_blocks", "16", "16", "12", "12",
              "--target_frames_blocks", "4", "4", "2", "2"]
     if remat:
         flags += ["--remat", "1"]
-    return {"name": "tiny", "flags": flags, "arch": dict(ARCH),
+    if algo == "spectral":
+        flags += ["--spectral_graph", "KNN"]
+    extra = {} if stream_scale is None else {"stream_scale": stream_scale}
+    return {"name": "tiny", "flags": flags, "arch": dict(ARCH), **extra,
             "optim": dict(lr=2e-3, coef_lr=1e-3, weight_decay=0.2,
                           beta1=0.9, beta2=0.98, eps=1e-6,
                           warmup_proportion=0.1, clip_grad_norm=1.0,
@@ -48,9 +54,9 @@ TRAFFIC = {"train": ("train", TRAIN), "encode": ("encode", ENCODE),
            "train_ddp": ("train_ddp4", TRAIN_DDP)}
 
 
-def cell(kind: str, limits: dict = None):
+def cell(kind: str, limits: dict = None, **config_kw):
     """A Cell of the manifest's first cell of `kind`, with the tiny
-    configuration and traffic."""
+    configuration (`config`'s keywords) and traffic."""
     import json
     import os
     from portbench.harness import ROOT, Cell
@@ -59,16 +65,19 @@ def cell(kind: str, limits: dict = None):
     traffic, tiny = TRAFFIC[kind]
     name = next(w["name"] for w in m["workloads"]
                 if w["traffic"] == traffic)
-    return Cell(name, manifest=m, config=config(), traffic=dict(tiny),
+    return Cell(name, manifest=m, config=config(**config_kw),
+                traffic=dict(tiny),
                 limits=limits if limits is not None else {})
 
 
 def pin_medoids(setattr=setattr) -> None:
     """The first K tokens of every segment as its medoids, in the program
-    and in the reference: a flip of a near tie between two medoids, which
-    the bf16 and fp32 streams can make, cannot then hide the rest."""
+    and in the reference (k-medoids on the tokens, or on the spectral
+    embedding): a flip of a near tie between two medoids, which the bf16
+    and fp32 streams can make, cannot then hide the rest."""
     import torch
     import centerclip_tpu_torch.ops.cluster_layer as cluster_layer
+    import centerclip_tpu_torch.ops.spectral as spectral
     import portbench.reference.model as ref
 
     def port(X, K, **kw):
@@ -78,5 +87,6 @@ def pin_medoids(setattr=setattr) -> None:
                 ids.expand(B, K).contiguous())
 
     setattr(cluster_layer, "kmedoids", port)
+    setattr(spectral, "kmedoids", port)
     setattr(ref, "kmedoids", lambda X, K, iter_limit=100:
             torch.arange(K, device=X.device).expand(X.shape[0], K))

@@ -12,6 +12,15 @@ width^-1/2.  Where CLIP starts at 0 or 1 (biases, LayerNorm), the weights
 here are 0 or 1 plus noise of 0.02, so that every leaf's gradient is
 exercised.  The logit scale is ln(1 / 0.07).  The same seed gives the
 same weights on the same device.
+
+A configuration's `stream_scale` (alpha, 1 where absent) then multiplies
+the leaves that write the vision residual stream (`stream_leaves`: ln_pre's
+weight and bias, each vision block's attention and MLP output projections
+with their biases).  Every block reads the stream through a LayerNorm and
+ln_post normalises it, so the tower's function is unchanged but for
+LayerNorm's eps; what changes is the scale of the tokens that spectral
+clustering's heat kernel exp(-d^2 / 2 sigma^2) reads, which underflows off
+the diagonal for tokens as far apart as CLIP's initialisation puts them.
 """
 from __future__ import annotations
 
@@ -56,6 +65,16 @@ def schema(s: Shapes) -> List[Tuple[str, tuple]]:
     return out
 
 
+def stream_leaves(s: Shapes) -> List[str]:
+    """The leaves that `stream_scale` multiplies."""
+    out = ["clip.visual.ln_pre.weight", "clip.visual.ln_pre.bias"]
+    for i in range(s.layers):
+        p = f"clip.visual.transformer.resblocks.{i}."
+        out += [p + "attn.out_proj.weight", p + "attn.out_proj.bias",
+                p + "mlp.c_proj.weight", p + "mlp.c_proj.bias"]
+    return out
+
+
 def _scale(name: str, shape: tuple, s: Shapes) -> Tuple[float, float]:
     """(mean, std) of a leaf."""
     text = not name.startswith("clip.visual.")
@@ -95,4 +114,7 @@ def make(s: Shapes, seed: int, device) -> Dict[str, torch.Tensor]:
         off += n
     out["clip.logit_scale"] = torch.full((), math.log(1 / 0.07),
                                          device=device)
+    if s.stream_scale != 1.0:
+        for name in stream_leaves(s):
+            out[name].mul_(s.stream_scale)
     return out

@@ -4,7 +4,10 @@ shapes (`plan.Shapes`) alone.
 * `model_flops`: the algorithm's matmul operations a clip: the patch
   embedding, each vision block's QKV, Q.K^T, P.V, output projection and
   MLP at the tokens the cluster plan leaves it, the clustering distances
-  (one [N, N] Gram matrix a segment), ln_post's projection, the text tower
+  (one [N, N] Gram matrix a segment over the tokens; spectral clustering
+  adds k-medoids' over the K-wide embedding, and its eigensolve, an
+  iterative method with no least work, is not counted), ln_post's
+  projection, the text tower
   (causal attention counted on the pairs it needs), and the similarity
   matrix's share.  A training step counts three times the forward (the
   backward twice) for everything that has a gradient; the patch embedding
@@ -37,6 +40,9 @@ def vision_flops(s: Shapes) -> Dict[str, float]:
                  for frames, tokens in s.stream())
     dist = sum(spec.frames_out * 2.0 * spec.n * spec.n * s.width
                for spec in s.plan if spec is not None)
+    dist += sum(spec.frames_out * 2.0 * spec.n * spec.n * spec.k
+                for spec in s.plan
+                if spec is not None and spec.algo == "spectral")
     head = 2.0 * s.width * s.embed * s.final_frames
     return {"patch": patch, "blocks": blocks, "distances": dist,
             "head": head}
